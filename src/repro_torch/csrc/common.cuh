@@ -1,0 +1,52 @@
+// Shared by the conv kernels of this directory: the C entry that names a
+// CUDA error for the Python wrappers, and the elementwise tail fused into
+// every kernel, y = act(scale * acc + bias), in the order of
+// repro_torch.core.spec.Epilogue.apply -- scale, then bias, then the
+// activation -- applied to the fp32 accumulator in registers before the
+// one store of each output element.
+#pragma once
+
+#include <cuda_runtime.h>
+
+enum EpilogueAct { ACT_NONE = 0, ACT_RELU = 1, ACT_LEAKY_RELU = 2, ACT_TANH = 3 };
+
+struct EpilogueArgs {
+  const float* bias;  // per output channel, or nullptr
+  int act;            // EpilogueAct
+  float slope;        // leaky_relu negative slope
+  int has_scale;
+  float scale;
+};
+
+__device__ __forceinline__ float apply_epilogue(float v, int c,
+                                                const EpilogueArgs& ep) {
+  if (ep.has_scale) v *= ep.scale;
+  if (ep.bias != nullptr) v += ep.bias[c];
+  switch (ep.act) {
+    // `v < 0 ? 0 : v` rather than fmaxf: a NaN stays NaN, as in
+    // torch.clamp_min, so the serving engine's NaN guard still sees it.
+    case ACT_RELU: v = v < 0.0f ? 0.0f : v; break;
+    case ACT_LEAKY_RELU: v = v > 0.0f ? v : ep.slope * v; break;
+    case ACT_TANH: v = tanhf(v); break;
+    default: break;
+  }
+  return v;
+}
+
+static inline EpilogueArgs make_epilogue(const void* bias, int act,
+                                         float slope, int has_scale,
+                                         float scale) {
+  EpilogueArgs ep;
+  ep.bias = static_cast<const float*>(bias);
+  ep.act = act;
+  ep.slope = slope;
+  ep.has_scale = has_scale;
+  ep.scale = scale;
+  return ep;
+}
+
+// Each shared library carries its own copy: the wrappers name a failed
+// launch's error without linking the CUDA runtime into Python.
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

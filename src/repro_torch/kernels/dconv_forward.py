@@ -1,0 +1,78 @@
+"""Zero-free direct / dilated (atrous) forward convolution: the CUDA kernel
+`csrc/dconv_forward.cu` and its plain PyTorch version (port of
+`repro/kernels/dconv_forward.py`).
+
+    y[b,i,j,co] = ep( sum_{kx,ky,ci} x[b, i*S+kx*D-P, j*S+ky*D-P, ci]
+                                     * W[kx,ky,ci,co] )
+
+over the K*K real taps; the D-dilated filter never exists.  The plain
+version repeats the reference's arithmetic -- pad once, one strided window
+per tap, one matmul per tap into an fp32 accumulator, then the epilogue --
+and is what the CPU tests run and what the card's kernel is held against.
+Public entry: `kernels/ops.py::dconv_forward`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.spec import ConvSpec, Epilogue
+from repro_torch.kernels import build
+from repro_torch.kernels.tap_gather import gather_tap, pad_to_tap_windows
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                ctypes.c_void_p])
+
+
+def _out_size(spec: ConvSpec, x: torch.Tensor) -> tuple[int, int]:
+    oh, ow = spec.out_size((x.shape[1], x.shape[2]))
+    if oh < 1 or ow < 1:
+        raise ValueError(
+            f"input {tuple(x.shape[1:3])} too small for effective filter "
+            f"{spec.dilated_filter_shape} at padding {spec.padding}")
+    return oh, ow
+
+
+def dconv_forward_plain(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
+                        bias=None, epilogue: Epilogue | None = None
+                        ) -> torch.Tensor:
+    """x (B,Nh,Nw,Cin), w (Kh,Kw,Cin,Cout) -> y (B,Oh,Ow,Cout)."""
+    oh, ow = _out_size(spec, x)
+    (sh, sw), (ph, pw), (dh, dw) = spec.stride, spec.padding, spec.dilation
+    kh, kw = spec.filter_shape
+    xp = F.pad(x, (0, 0, pw, pw, ph, ph))
+    xp = pad_to_tap_windows(xp, stride=(sh, sw), dilation=(dh, dw),
+                            k=(kh, kw), out_size=(oh, ow))
+    acc = None
+    for kx in range(kh):
+        for ky in range(kw):
+            tap = gather_tap(xp, kx, ky, sh=sh, sw=sw, dh=dh, dw=dw,
+                             oh=oh, ow=ow)              # (B, oh, ow, Cin)
+            prod = torch.matmul(tap, w[kx, ky])
+            acc = prod if acc is None else acc + prod
+    return acc if epilogue is None else epilogue.apply(acc, bias)
+
+
+def dconv_forward_cuda(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
+                       bias=None, epilogue: Epilogue | None = None
+                       ) -> torch.Tensor:
+    """Launch the kernel on the current stream.  fp32, contiguous, one
+    device -- the wrapper in `kernels/ops.py` checks all three."""
+    oh, ow = _out_size(spec, x)
+    B, nh, nw, cin = x.shape
+    kh, kw, _, cout = w.shape
+    y = torch.empty((B, oh, ow, cout), dtype=torch.float32, device=x.device)
+    fn = build.kernel_function("dconv_forward", "dconv_forward_f32",
+                               _ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(),
+                 None if bias is None else bias.data_ptr(), y.data_ptr(),
+                 B, nh, nw, cin, kh, kw, cout, oh, ow,
+                 *spec.stride, *spec.padding, *spec.dilation,
+                 *build.epilogue_args(epilogue),
+                 torch.cuda.current_stream().cuda_stream)
+    build.check_launch("dconv_forward", err)
+    return y

@@ -1,0 +1,196 @@
+"""The port's kernel modules on the CPU against `repro`.
+
+On CPU tensors every wrapper of `repro_torch.kernels.ops` runs its
+kernel's plain PyTorch version.  Those are held against `repro`'s own
+kernels in interpret mode at tiny geometries, and against `repro`'s
+`xla_zero_free` backend on the stride x dilation x ragged x B>1 grid,
+bias fills and non-exact n_out included.  Inputs come from numpy seeds;
+fp32 at rtol = atol = 1e-4 (DESIGN.md Sec. 2.3).  The kernels themselves
+are held against these plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
+"""
+from __future__ import annotations
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_cases import EP_KW, FWD_GRID, TCONV_GRID, tconv_case
+from conftest import assert_allclose
+from repro.core import spec as jspec
+from repro.kernels import ops as jops
+from repro.kernels import tiling as jtiling
+from repro_torch.core import spec as tspec
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import tiling as ttiling
+
+
+def _eps(kw):
+    if kw is None:
+        return None, None
+    return tspec.Epilogue(**kw), jspec.Epilogue(**kw)
+
+@functools.lru_cache(maxsize=None)
+def _tconv_xla_zero_free(i):
+    """`repro`'s xla_zero_free transposed conv of TCONV_GRID[i], under
+    each epilogue of EP_KW; computed once for both strategies."""
+    spec, n_out, dy, w, bias = tconv_case(TCONV_GRID[i], 0)
+    js = jspec.ConvSpec.make(stride=spec.stride, padding=spec.padding,
+                             filter_shape=spec.filter_shape,
+                             dilation=spec.dilation)
+    base = jspec.resolve_backend("xla_zero_free")
+    plain = base.input_grad(jnp.asarray(dy), jnp.asarray(w), js, n_out)
+    out = []
+    for kw in EP_KW:
+        je = None if kw is None else jspec.Epilogue(**kw)
+        out.append(np.asarray(plain if je is None else je.apply(
+            plain, jnp.asarray(bias) if je.bias else None)))
+    return out
+
+
+@pytest.mark.parametrize("strategy", ["phase", "implicit_gemm"])
+@pytest.mark.parametrize("i", range(len(TCONV_GRID)))
+def test_tconv_plain_matches_xla_zero_free(i, strategy):
+    spec, n_out, dy, w, bias = tconv_case(TCONV_GRID[i], 0)
+    for kw, want in zip(EP_KW, _tconv_xla_zero_free(i)):
+        te = None if kw is None else tspec.Epilogue(**kw)
+        b = bias if kw is not None and te.bias else None
+        got = tops.tconv_phase(
+            torch.tensor(dy), torch.tensor(w), stride=spec.stride,
+            padding=spec.padding, n_out=n_out, dilation=spec.dilation,
+            bias=None if b is None else torch.tensor(b), epilogue=te,
+            strategy=strategy)
+        assert_allclose(got, want, err_msg=f"{TCONV_GRID[i]} {kw}")
+
+
+@pytest.mark.parametrize("geom", FWD_GRID)
+def test_dconv_forward_plain_matches_xla_zero_free(geom):
+    s, d, k, p = geom
+    spec = tspec.ConvSpec.make(stride=s, padding=p, filter_shape=k,
+                               dilation=d)
+    js = jspec.ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 11, 9, 3)).astype(np.float32)
+    w = rng.standard_normal(spec.filter_shape + (3, 5)).astype(np.float32)
+    bias = rng.standard_normal(5).astype(np.float32)
+    base = jspec.resolve_backend("xla_zero_free")
+    for kw in EP_KW:
+        te, je = _eps(kw)
+        b = bias if kw is not None and te.bias else None
+        got = tops.dconv_forward(torch.tensor(x), torch.tensor(w), stride=s,
+                                 padding=p, dilation=d,
+                                 bias=None if b is None else torch.tensor(b),
+                                 epilogue=te)
+        want = base.forward(jnp.asarray(x), jnp.asarray(w), js) \
+            if je is None else base.forward_ep(
+                jnp.asarray(x), jnp.asarray(w),
+                None if b is None else jnp.asarray(b), js, je)
+        assert_allclose(got, want, err_msg=f"{geom} {kw}")
+
+
+@pytest.mark.parametrize("strategy", ["phase", "implicit_gemm"])
+def test_tconv_plain_matches_pallas_interpret(strategy):
+    """The plain versions against `repro`'s Pallas kernels themselves
+    (interpret mode on the CPU), one tiny generator-like geometry."""
+    rng = np.random.default_rng(3)
+    dy = rng.standard_normal((2, 3, 3, 4)).astype(np.float32)
+    w = rng.standard_normal((4, 4, 3, 4)).astype(np.float32)
+    bias = rng.standard_normal(3).astype(np.float32)
+    te, je = _eps(dict(activation="relu", bias=True))
+    kw = dict(stride=(2, 2), padding=(1, 1), n_out=(7, 7), dilation=(1, 1),
+              strategy=strategy)
+    want = jops.tconv_phase(jnp.asarray(dy), jnp.asarray(w),
+                            bias=jnp.asarray(bias), epilogue=je, **kw)
+    got = tops.tconv_phase(torch.tensor(dy), torch.tensor(w),
+                           bias=torch.tensor(bias), epilogue=te, **kw)
+    assert_allclose(got, want)
+
+
+def test_dconv_forward_plain_matches_pallas_interpret():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 6, 6, 3)).astype(np.float32)
+    w = rng.standard_normal((3, 3, 3, 4)).astype(np.float32)
+    bias = rng.standard_normal(4).astype(np.float32)
+    te, je = _eps(dict(activation="relu", bias=True))
+    kw = dict(stride=(1, 1), padding=(2, 2), dilation=(2, 2))
+    want = jops.dconv_forward(jnp.asarray(x), jnp.asarray(w),
+                              bias=jnp.asarray(bias), epilogue=je, **kw)
+    got = tops.dconv_forward(torch.tensor(x), torch.tensor(w),
+                             bias=torch.tensor(bias), epilogue=te, **kw)
+    assert_allclose(got, want)
+
+
+GEN_LAYERS = [("t1", 4, 8, 64, 128), ("t2", 8, 16, 32, 64),
+              ("t3", 16, 32, 3, 32)]
+
+
+@pytest.mark.parametrize("batch", [4, 64])
+@pytest.mark.parametrize("layer", GEN_LAYERS, ids=[g[0] for g in GEN_LAYERS])
+def test_plan_strategy_agrees_with_repro_compiled(layer, batch):
+    """The port's rule gives `repro`'s compiled-mode race decision on the
+    generator's layers: t1, t2 -> phase; t3 -> implicit_gemm."""
+    _, n_in, n_out, cin, cout = layer
+    kw = dict(x_shape=(batch, n_out, n_out, cin),
+              dy_shape=(batch, n_in, n_in, cout))
+    ep_kw = dict(activation="tanh" if cin == 3 else "relu")
+    want, _ = jtiling.plan_strategy(
+        "input_grad", jspec.ConvSpec.make(stride=2, padding=1,
+                                          filter_shape=4),
+        interpret=False, epilogue=jspec.Epilogue(**ep_kw), **kw)
+    got = ttiling.plan_strategy(
+        "input_grad", tspec.ConvSpec.make(stride=2, padding=1,
+                                          filter_shape=4),
+        epilogue=tspec.Epilogue(**ep_kw), **kw)
+    assert got == want == ("implicit_gemm" if cin == 3 else "phase")
+
+
+def test_plan_strategy_pins_and_refusals():
+    spec = tspec.ConvSpec.make(stride=2, padding=1, filter_shape=4)
+    kw = dict(x_shape=(4, 8, 8, 64), dy_shape=(4, 4, 4, 128))
+    assert ttiling.plan_strategy("input_grad", spec, strategy="implicit_gemm",
+                                 **kw) == "implicit_gemm"
+    assert ttiling.plan_strategy("input_grad", spec, strategy="auto",
+                                 **kw) == "phase"
+    # only the standalone input gradient has an implicit-GEMM kernel
+    assert ttiling.plan_strategy("forward", spec, strategy="implicit_gemm",
+                                 **kw) == "phase"
+    with pytest.raises(ValueError, match="unknown strategy"):
+        ttiling.plan_strategy("input_grad", spec, strategy="fastest", **kw)
+
+
+def test_wrappers_refuse_other_dtypes_and_devices():
+    x = torch.zeros((1, 6, 6, 3), dtype=torch.float64)
+    w = torch.zeros((3, 3, 3, 4), dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        tops.dconv_forward(x, w, stride=1, padding=1, dilation=1)
+    with pytest.raises(TypeError, match="float32"):
+        tops.tconv_phase(torch.zeros((1, 3, 3, 4), dtype=torch.bfloat16),
+                         torch.zeros((4, 4, 3, 4), dtype=torch.bfloat16),
+                         stride=2, padding=1, n_out=(6, 6))
+    with pytest.raises(ValueError, match="bias"):
+        tops.dconv_forward(x.float(), w.float(), stride=1, padding=1,
+                           dilation=1, epilogue=tspec.Epilogue(bias=True))
+    with pytest.raises(ValueError, match="too small"):
+        tops.dconv_forward(torch.zeros((1, 2, 2, 3)),
+                           torch.zeros((3, 3, 3, 4)), stride=1, padding=0,
+                           dilation=2)
+
+
+def test_plain_path_counts_no_launch():
+    rng = np.random.default_rng(9)
+    dy = torch.tensor(rng.standard_normal((1, 3, 3, 4)).astype(np.float32))
+    w = torch.tensor(rng.standard_normal((4, 4, 8, 4)).astype(np.float32))
+    tops.reset_launches()
+    pinned = tops.tconv_implicit_gemm(dy, w, stride=2, padding=1,
+                                      n_out=(6, 6))
+    assert torch.equal(pinned, tops.tconv_phase(
+        dy, w, stride=2, padding=1, n_out=(6, 6), strategy="implicit_gemm"))
+    assert_allclose(pinned, tops.tconv_phase(dy, w, stride=2, padding=1,
+                                             n_out=(6, 6)))   # rule: phase
+    tops.dconv_forward(torch.zeros((1, 6, 6, 3)), torch.zeros((3, 3, 3, 4)),
+                       stride=1, padding=1, dilation=1)
+    assert tops.LAUNCHES == {"dconv_forward": 0, "tconv_phase": 0,
+                             "tconv_implicit_gemm": 0}
