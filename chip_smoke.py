@@ -10,24 +10,35 @@ of JAX and nothing of the JAX package `repro`.
 
 Phases (any failed check raises and ends the run non-zero):
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. build the three CUDA kernels of src/repro_torch/csrc (one nvcc per
+  2. build the six CUDA kernels of src/repro_torch/csrc (one nvcc per
      source, all at once);
-  3. each kernel at the serving path's shapes (slot batch 4, and batch
-     64) and at a ragged geometry with a bias and a non-exact n_out:
+  3. each kernel at its main paths' shapes and at ragged geometries
+     (S > K, S = D, ragged channels, a bias, a scale, a non-exact n_out):
      held against its plain PyTorch version on the card, and at the
-     path's shapes against the library call; kernel, plain and library
+     paths' shapes against the library call; kernel, plain and library
      timed with CUDA events;
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
      launch counts against the launches the path makes, and no fault,
-     fallback or NaN allowed.
+     fallback or NaN allowed;
+  5. train: 5 `gan_sgd_step`s and 5 `sgd_step`s at the models' published
+     widths on ConvDataset batches of 64, each step's loss and every
+     parameter held against the same steps through the plain versions on
+     the CPU, step 1 repeated on the card bit for bit, the launches of
+     every step against STEP_LAUNCHES, and no NaN.
 
-Tolerance: atol = rtol = 1e-4 everywhere.  Kernel, plain version and
-library all compute in fp32; they differ only in the order of their
-sums, which moves fp32 results by a few ulps of the largest partial sum.
-TF32 is turned off for cuDNN and for torch.matmul, so no side rounds its
-inputs to 10 bits.
+Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
+and the library.  Kernel, plain version and library all compute in fp32;
+they differ only in the order of their sums, which moves fp32 results by
+a few ulps of the largest partial sum.  A backward case draws its
+cotangent at scale 1/sqrt(B*Oh*Ow), so each filter-gradient sum over
+B*Oh*Ow products is of order 1, as it is in training; unscaled, a sum of
+16384 unit products would put its rounding near the tolerance itself.
+Training: atol = rtol = 1e-3 after every step -- dW sums up to 16384 fp32
+products in another order than the plain matmul, and five steps carry
+the difference on.  TF32 is turned off for cuDNN and for torch.matmul,
+so no side rounds its inputs to 10 bits.
 """
 from __future__ import annotations
 
@@ -48,6 +59,26 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 peak outside the tensor cores
 SLOT_BATCH = 4
 N_REQUESTS = 32
+TRAIN_TOL = 1e-3
+TRAIN_BATCH = 64
+TRAIN_STEPS = 5
+LR = 0.05
+
+# Kernel launches of one training step, by wrapper of
+# repro_torch.kernels.ops: the kernels `repro`'s same step runs as
+# pallas_calls (tests/test_torch_train.py pins both).  The GAN step runs
+# the generator twice (G loss and D loss) and the discriminator three
+# times (fake in both losses, real in the D loss); the D loss takes no
+# generator gradient.
+STEP_LAUNCHES = {
+    "gan_sgd_step": {"tconv_phase": 4, "tconv_implicit_gemm": 2,
+                     "dconv_forward": 9, "conv_backward": 9,
+                     "tconv_backward": 3},
+    "gen_sgd_step": {"tconv_phase": 2, "tconv_implicit_gemm": 1,
+                     "dconv_forward": 3, "conv_backward": 3,
+                     "tconv_backward": 3},
+    "sgd_step": {"dconv_forward": 3, "conv_backward": 3},
+}
 
 
 def card_line() -> str:
@@ -124,11 +155,16 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.spec import ConvSpec, Epilogue
+    from repro_torch.data.pipeline import ConvDataset
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.dconv_backward import (conv_backward_plain,
+                                                    tconv_backward_plain)
+    from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
     from repro_torch.kernels.dconv_forward import dconv_forward_plain
     from repro_torch.kernels.implicit_gemm import tconv_implicit_gemm_plain
     from repro_torch.kernels.tconv_phase import tconv_fused_plain
-    from repro_torch.models import gan, vision
+    from repro_torch.models import cnn, gan, vision
+    from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.serve.conv_engine import ConvRequest, ConvServeEngine
 
     dev = torch.device("cuda")
@@ -153,25 +189,42 @@ def main() -> int:
     def rand(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
+    def cotangent(B, hw, c):
+        """A cotangent at scale 1/sqrt(B*Oh*Ow): each dW sum is O(1)."""
+        return rand(B, *hw, c) / math.sqrt(B * hw[0] * hw[1])
+
+    def output(ep, *shape):
+        """A forward output the epilogue could give (tanh's in (-1, 1))."""
+        act = Epilogue(activation=ep.activation, slope=ep.slope)
+        return act.apply(rand(*shape)) if ep.needs_y else None
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    def hwio(w_oihw):
+        return w_oihw.permute(2, 3, 1, 0)
+
     relu, tanh = Epilogue(activation="relu"), Epilogue(activation="tanh")
+    leaky = Epilogue(activation="leaky_relu", slope=0.2)
     ragged_ep = Epilogue(activation="leaky_relu", slope=0.2, bias=True,
                          scale=0.5)
 
-    def fwd_case(name, B, hw, cin, cout, k, s, p, d, ep, path):
+    def fwd_case(name, B, hw, cin, cout, k, s, p, d, ep, path, timed=False):
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
         x, w = rand(B, *hw, cin), rand(*spec.filter_shape, cin, cout)
         bias = rand(cout) if ep.bias else None
         w_lib = w.permute(3, 2, 0, 1).contiguous()   # one-time layout
         oh_ow = spec.out_size(hw)
         return dict(kernel="dconv_forward", case=name, path=path,
+                    timed=path or timed,
                     run=lambda: ops.dconv_forward(
                         x, w, stride=s, padding=p, dilation=d, bias=bias,
                         epilogue=ep),
                     plain=lambda: dconv_forward_plain(x, w, spec, bias=bias,
                                                       epilogue=ep),
                     lib=lambda: ep.apply(F.conv2d(
-                        x.permute(0, 3, 1, 2), w_lib, bias=None,
-                        stride=spec.stride, padding=spec.padding,
+                        nchw(x), w_lib, bias=None, stride=spec.stride,
+                        padding=spec.padding,
                         dilation=spec.dilation).permute(0, 2, 3, 1), bias),
                     macs=useful_macs(spec, B, oh_ow, hw, cin, cout),
                     nbytes=4 * (x.numel() + w.numel()
@@ -179,7 +232,7 @@ def main() -> int:
                                 + B * oh_ow[0] * oh_ow[1] * cout))
 
     def tconv_case(kernel, name, B, in_hw, n_out, cin, cout, k, s, p, d, ep,
-                   path):
+                   path, timed=False):
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
         assert spec.out_size(n_out) == tuple(in_hw), (name, n_out)
         dy, w = rand(B, *in_hw, cout), rand(*spec.filter_shape, cin, cout)
@@ -191,14 +244,14 @@ def main() -> int:
             else tconv_fused_plain
         exact = spec.input_size(in_hw)
         out_pad = tuple(n_out[a] - exact[a] for a in range(2))
-        return dict(kernel=kernel, case=name, path=path,
+        return dict(kernel=kernel, case=name, path=path, timed=path or timed,
                     run=lambda: ops.tconv_phase(
                         dy, w, stride=s, padding=p, n_out=n_out, dilation=d,
                         bias=bias, epilogue=ep, strategy=strategy),
                     plain=lambda: plain(dy, w, spec, n_out=n_out, bias=bias,
                                         epilogue=ep),
                     lib=lambda: ep.apply(F.conv_transpose2d(
-                        dy.permute(0, 3, 1, 2), w_lib, stride=spec.stride,
+                        nchw(dy), w_lib, stride=spec.stride,
                         padding=spec.padding, output_padding=out_pad,
                         dilation=spec.dilation).permute(0, 2, 3, 1), bias),
                     macs=useful_macs(spec, B, in_hw, n_out, cin, cout),
@@ -206,22 +259,127 @@ def main() -> int:
                                 + (cin if bias is not None else 0)
                                 + B * n_out[0] * n_out[1] * cin))
 
+    def backward_case(name, B, hw, cin, cout, k, s, p, d, ep, path):
+        """conv_backward: (dx, dW[, db]) of y = ep(conv(x, w))."""
+        spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
+        oh_ow = spec.out_size(hw)
+        x, w = rand(B, *hw, cin), rand(*spec.filter_shape, cin, cout)
+        dy, y = cotangent(B, oh_ow, cout), output(ep, B, *oh_ow, cout)
+        w_lib = w.permute(3, 2, 0, 1).contiguous()   # one-time layout
+        geo = dict(stride=spec.stride, padding=spec.padding,
+                   dilation=spec.dilation)
+
+        def lib():
+            m = ep.mask_cotangent(y, dy) if y is not None else dy
+            g = nchw(m if ep.scale is None else m * ep.scale)
+            dx = torch.nn.grad.conv2d_input((B, cin, *hw), w_lib, g, **geo)
+            dw = torch.nn.grad.conv2d_weight(nchw(x), w_lib.shape, g, **geo)
+            return (dx.permute(0, 2, 3, 1), hwio(dw)) + \
+                ((m.sum(dim=(0, 1, 2)),) if ep.bias else ())
+
+        macs = useful_macs(spec, B, oh_ow, hw, cin, cout)
+        return dict(kernel="conv_backward", case=name, path=path, timed=path,
+                    run=lambda: ops.conv_backward(x, dy, w, n_out=hw, y=y,
+                                                  epilogue=ep, **geo),
+                    plain=lambda: conv_backward_plain(
+                        x, dy, w, spec, n_out=hw, y=y, epilogue=ep),
+                    lib=lib, macs=2 * macs,
+                    nbytes=4 * (2 * x.numel() + 2 * w.numel() + dy.numel()
+                                + (y.numel() if y is not None else 0)
+                                + (cout if ep.bias else 0)))
+
+    def ct_backward_case(name, B, hw, cin, cout, k, s, p, d, ep, path):
+        """tconv_backward: (ddy, dW[, db]) of z = ep(tconv(dy, w)), the
+        cotangent g and z on the (B, *hw, cin) side."""
+        spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
+        oh_ow = spec.out_size(hw)
+        g, z = rand(B, *hw, cin), output(ep, B, *hw, cin)
+        dy, w = cotangent(B, oh_ow, cout), rand(*spec.filter_shape, cin, cout)
+        w_lib = w.permute(3, 2, 0, 1).contiguous()   # one-time layout
+        geo = dict(stride=spec.stride, padding=spec.padding,
+                   dilation=spec.dilation)
+
+        def lib():
+            m = ep.mask_cotangent(z, g) if z is not None else g
+            gs = nchw(m if ep.scale is None else m * ep.scale)
+            ddy = F.conv2d(gs, w_lib, **geo)
+            dw = torch.nn.grad.conv2d_weight(gs, w_lib.shape, nchw(dy), **geo)
+            return (ddy.permute(0, 2, 3, 1), hwio(dw)) + \
+                ((m.sum(dim=(0, 1, 2)),) if ep.bias else ())
+
+        macs = useful_macs(spec, B, oh_ow, hw, cin, cout)
+        return dict(kernel="tconv_backward", case=name, path=path,
+                    timed=path,
+                    run=lambda: ops.tconv_backward(g, dy, w, z=z, epilogue=ep,
+                                                   **geo),
+                    plain=lambda: tconv_backward_plain(g, dy, w, spec, z=z,
+                                                       epilogue=ep),
+                    lib=lib, macs=2 * macs,
+                    nbytes=4 * (g.numel() + (z.numel() if z is not None
+                                             else 0)
+                                + 2 * dy.numel() + 2 * w.numel()
+                                + (cin if ep.bias else 0)))
+
+    def filter_grad_case(name, B, hw, cin, cout, k, s, p, d, path):
+        spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
+        oh_ow = spec.out_size(hw)
+        x, dy = rand(B, *hw, cin), cotangent(B, oh_ow, cout)
+        w_shape = (cout, cin, *spec.filter_shape)
+        geo = dict(stride=spec.stride, padding=spec.padding,
+                   dilation=spec.dilation)
+        return dict(kernel="dconv_filter_grad", case=name, path=path,
+                    timed=path,
+                    run=lambda: ops.dconv_filter_grad(
+                        x, dy, k=spec.filter_shape, **geo),
+                    plain=lambda: dconv_filter_grad_plain(x, dy, spec),
+                    lib=lambda: hwio(torch.nn.grad.conv2d_weight(
+                        nchw(x), w_shape, nchw(dy), **geo)),
+                    macs=useful_macs(spec, B, oh_ow, hw, cin, cout),
+                    nbytes=4 * (x.numel() + dy.numel()
+                                + math.prod(w_shape)))
+
+    B = TRAIN_BATCH
+    # The direct convs of the training path: discriminator c1-c3 (K = 4,
+    # leaky_relu) and CNN layers 1-3 (K = 3, relu), all S = 2, P = 1.
+    direct = [("disc_c1", (32, 32), 3, 32, 4, leaky),
+              ("disc_c2", (16, 16), 32, 64, 4, leaky),
+              ("disc_c3", (8, 8), 64, 128, 4, leaky),
+              ("cnn_l1", (32, 32), 3, 32, 3, relu),
+              ("cnn_l2", (16, 16), 32, 64, 3, relu),
+              ("cnn_l3", (8, 8), 64, 128, 3, relu)]
+    # The generator's transposed convs t1-t3 as (g side, Cin, Cout, ep).
+    gen_layers = [("gan_t1", (8, 8), 64, 128, relu),
+                  ("gan_t2", (16, 16), 32, 64, relu),
+                  ("gan_t3", (32, 32), 3, 32, tanh)]
     cases = []
-    for B in (SLOT_BATCH, 64):
-        path = B == SLOT_BATCH
+    for Bs in (SLOT_BATCH, 64):
+        path = Bs == SLOT_BATCH
         for r in (1, 2, 4):   # ASPP branches: 3x3, S=1, P=D=r, 3 -> 16
-            cases.append(fwd_case(f"aspp_rate{r}_B{B}", B, (128, 128), 3, 16,
-                                  3, 1, r, r, relu, path))
+            cases.append(fwd_case(f"aspp_rate{r}_B{Bs}", Bs, (128, 128), 3,
+                                  16, 3, 1, r, r, relu, path, timed=True))
         # Generator layers t1, t2 (phase) and t3 (implicit GEMM).
-        cases.append(tconv_case("tconv_phase", f"gan_t1_B{B}", B, (4, 4),
-                                (8, 8), 64, 128, 4, 2, 1, 1, relu, path))
-        cases.append(tconv_case("tconv_phase", f"gan_t2_B{B}", B, (8, 8),
-                                (16, 16), 32, 64, 4, 2, 1, 1, relu, path))
-        cases.append(tconv_case("tconv_implicit_gemm", f"gan_t3_B{B}", B,
+        cases.append(tconv_case("tconv_phase", f"gan_t1_B{Bs}", Bs, (4, 4),
+                                (8, 8), 64, 128, 4, 2, 1, 1, relu, path,
+                                timed=True))
+        cases.append(tconv_case("tconv_phase", f"gan_t2_B{Bs}", Bs, (8, 8),
+                                (16, 16), 32, 64, 4, 2, 1, 1, relu, path,
+                                timed=True))
+        cases.append(tconv_case("tconv_implicit_gemm", f"gan_t3_B{Bs}", Bs,
                                 (16, 16), (32, 32), 3, 32, 4, 2, 1, 1, tanh,
-                                path))
+                                path, timed=True))
+    for name, hw, cin, cout, k, ep in direct:
+        cases.append(fwd_case(f"{name}_B{B}", B, hw, cin, cout, k, 2, 1, 1,
+                              ep, False, timed=True))
+        cases.append(backward_case(f"{name}_B{B}", B, hw, cin, cout, k, 2, 1,
+                                   1, ep, True))
+        cases.append(filter_grad_case(f"{name}_B{B}", B, hw, cin, cout, k, 2,
+                                      1, 1, True))
+    for name, hw, cin, cout, ep in gen_layers:
+        cases.append(ct_backward_case(f"{name}_B{B}", B, hw, cin, cout, 4, 2,
+                                      1, 1, ep, True))
     # Ragged geometries: bias fills, non-exact n_out, residues no tap
-    # reaches (S=3 > K=2), stride and dilation sharing a factor.
+    # reaches (S=3 > K=2), stride and dilation sharing a factor, channels
+    # that are not a multiple of the 32-lane reduction tile.
     cases.append(fwd_case("ragged_fwd", 3, (37, 29), 5, 7, (3, 2), (2, 1),
                           (1, 2), (2, 3), ragged_ep, False))
     for kernel in ("tconv_phase", "tconv_implicit_gemm"):
@@ -230,26 +388,49 @@ def main() -> int:
                                 False))
         cases.append(tconv_case(kernel, "ragged_s2d2", 2, (6, 5), (14, 14),
                                 4, 6, 3, 2, 1, (2, 3), ragged_ep, False))
+    ragged = [("ragged_s3k2", 3, (14, 12), 5, 7, (2, 3), (3, 2), (1, 1), 1),
+              ("ragged_s2d2", 2, (14, 14), 4, 6, 3, 2, 1, (2, 3)),
+              ("ragged_channels", 2, (9, 9), 130, 37, 3, 2, 1, 1)]
+    for name, Bs, hw, cin, cout, k, s, p, d in ragged:
+        cases.append(backward_case(name, Bs, hw, cin, cout, k, s, p, d,
+                                   ragged_ep, False))
+        cases.append(ct_backward_case(name, Bs, hw, cin, cout, k, s, p, d,
+                                      ragged_ep, False))
+        cases.append(filter_grad_case(name, Bs, hw, cin, cout, k, s, p, d,
+                                      False))
+
+    def as_tuple(out):
+        """The outputs a call gave (a backward's db is None without a
+        bias)."""
+        return tuple(t for t in out if t is not None) \
+            if isinstance(out, tuple) else (out,)
+
+    def max_err(got, want, what):
+        got, want = as_tuple(got), as_tuple(want)
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} outputs, expected "
+                                 f"{len(want)}")
+        err = 0.0
+        for a, b in zip(got, want):
+            if a.shape != b.shape or not torch.allclose(a, b, atol=TOL,
+                                                        rtol=TOL):
+                raise AssertionError(
+                    f"{what}: shape {tuple(a.shape)} vs {tuple(b.shape)}, "
+                    f"max |err| {(a - b).abs().max().item():.3e}")
+            err = max(err, (a - b).abs().max().item())
+        return err
 
     timer = DeviceTimer()
     kernels = {}
     for c in cases:
         got = c["run"]()
         torch.cuda.synchronize()
-        plain = c["plain"]()
-        err = (got - plain).abs().max().item()
-        if not (got.shape == plain.shape
-                and torch.allclose(got, plain, atol=TOL, rtol=TOL)):
-            raise AssertionError(f"{c['kernel']} {c['case']}: max |err| "
-                                 f"{err:.3e} against the plain version")
+        what = f"{c['kernel']} {c['case']}"
+        err = max_err(got, c["plain"](), what + " against the plain version")
         row = dict(kernel=c["kernel"], case=c["case"], max_abs_err=err)
-        if c["path"] or c["case"].endswith("_B64"):
+        if c["timed"]:
             lib = c["lib"]
-            lib_out = lib()
-            lib_err = (got - lib_out).abs().max().item()
-            if not torch.allclose(got, lib_out, atol=TOL, rtol=TOL):
-                raise AssertionError(f"{c['kernel']} {c['case']}: max |err| "
-                                     f"{lib_err:.3e} against the library")
+            lib_err = max_err(got, lib(), what + " against the library")
             b_ms, b_by = bound_ms(c["nbytes"], c["macs"])
             row.update(lib_err=lib_err, ms=timer(c["run"]),
                        plain_ms=timer(c["plain"]), library_ms=timer(lib),
@@ -261,12 +442,12 @@ def main() -> int:
             library_ms=0.0, bound_ms=0.0, by={"bytes": 0.0,
                                                "operations": 0.0}))
         k["max_abs_err"] = max(k["max_abs_err"], err)
-        if c["path"]:   # one served slot batch: sum over its launches
+        if c["path"]:   # one launch at each of its path shapes, summed
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 k[key] += row[key]
             k["by"][row["bound_by"]] += row["bound_ms"]
-    print("kernels: all three agree with their plain versions within "
-          f"{TOL:g} at every case")
+    print(f"kernels: all {len(kernels)} agree with their plain versions "
+          f"and the library within {TOL:g} at every case")
 
     # -- phase 4: serve at the published widths --------------------------------
     gen = torch.Generator().manual_seed(1234)
@@ -289,12 +470,13 @@ def main() -> int:
     res = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    serve_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     batches = -(-N_REQUESTS // SLOT_BATCH)
     expect = {"tconv_phase": 2 * batches, "tconv_implicit_gemm": batches,
               "dconv_forward": 3 * batches}
-    if launches != expect:
-        raise AssertionError(f"launches {launches}, expected {expect}")
+    if serve_launches != expect:
+        raise AssertionError(f"serve launches {serve_launches}, expected "
+                             f"{expect}")
     h = eng.health()
     bad = {k: h[k] for k in ("kernel_faults", "fallbacks", "failures",
                              "nan_events", "sheds", "deadline_misses")
@@ -323,27 +505,113 @@ def main() -> int:
           f"{N_REQUESTS} aspp 128x128x3 -> 4 classes), slot batch "
           f"{SLOT_BATCH}, ladder ('cuda',): all equal the plain versions "
           f"within {TOL:g}")
-    print("launches " + json.dumps(launches))
+    print("serve launches " + json.dumps(serve_launches))
     print("health " + json.dumps({
         k: h[k] for k in ("submitted", "completed", "launches", "p50_us",
                           "p99_us", "kernel_faults", "fallbacks",
                           "failures", "nan_events")}
         | {"requests_per_s": len(res) / wall, "card": card}))
 
+    # -- phase 5: train at the published widths --------------------------------
+    def gan_step(state, b):
+        new, g_loss, d_loss = gan.gan_sgd_step(state, b["z"], b["real"],
+                                               lr=LR, backend="cuda")
+        return new, (g_loss, d_loss)
+
+    def cnn_step(params, b):
+        new, loss = cnn.sgd_step(params, b["x"], b["labels"], lr=LR,
+                                 backend="cuda")
+        return new, (loss,)
+
+    gen = torch.Generator().manual_seed(2024)
+    models = [
+        ("gan_sgd_step", gan_step,
+         gan.gan_init(gen, z_dim=64, base=64, ch=3, device=dev),
+         ConvDataset(kind="gan", batch=B, image=32, z_dim=64, seed=0)),
+        ("sgd_step", cnn_step, cnn.simple_cnn_init(gen, device=dev),
+         ConvDataset(kind="cnn", batch=B, image=32, seed=0)),
+    ]
+    train_launches = {}
+    for step_name, step, state, ds in models:
+        cpu_state = tree_map(lambda t: t.to(cpu), state)
+        step_ms, worst = [], 0.0
+        for i in range(TRAIN_STEPS):
+            batch = ds.batch_at(i)
+            on_cpu = {k: torch.from_numpy(v) for k, v in batch.items()}
+            on_dev = {k: v.to(dev) for k, v in on_cpu.items()}
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            ops.reset_launches()
+            start.record()
+            new, losses = step(state, on_dev)
+            end.record()
+            end.synchronize()
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            if launches != STEP_LAUNCHES[step_name]:
+                raise AssertionError(f"{step_name} step {i + 1}: launches "
+                                     f"{launches}, expected "
+                                     f"{STEP_LAUNCHES[step_name]}")
+            for name, n in launches.items():
+                train_launches[name] = train_launches.get(name, 0) + n
+            step_ms.append(start.elapsed_time(end))
+            if i == 0:   # the same step from the same state, bit for bit
+                again, again_losses = step(state, on_dev)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves((new, losses)),
+                        tree_leaves((again, again_losses)))):
+                    raise AssertionError(f"{step_name}: step 1 repeated on "
+                                         f"the card is not bit-identical")
+            cpu_new, cpu_losses = step(cpu_state, on_cpu)
+            got = [t.to(cpu) for t in tree_leaves((new, losses))]
+            want = tree_leaves((cpu_new, cpu_losses))
+            for a, b in zip(got, want):
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"{step_name} step {i + 1}: a "
+                                         f"non-finite value on the card")
+                if a.shape != b.shape or not torch.allclose(
+                        a, b, atol=TRAIN_TOL, rtol=TRAIN_TOL):
+                    raise AssertionError(
+                        f"{step_name} step {i + 1}: max |err| "
+                        f"{(a - b).abs().max().item():.3e} against the plain "
+                        f"versions on the CPU")
+                worst = max(worst, (a - b).abs().max().item())
+            state, cpu_state = new, cpu_new
+            print(f"train {step_name} step {i + 1}: losses "
+                  f"{[round(float(v), 6) for v in losses]}, "
+                  f"{step_ms[-1]:.3f} ms")
+        steady = sum(step_ms[1:]) / (len(step_ms) - 1)
+        print("train " + json.dumps({
+            "step": step_name, "batch": B, "steps": TRAIN_STEPS,
+            "ms_per_step": steady, "images_per_s": B / steady * 1e3,
+            "first_step_ms": step_ms[0], "max_abs_err_vs_cpu": worst,
+            "launches_per_step": STEP_LAUNCHES[step_name], "card": card}))
+    print(f"train: {TRAIN_STEPS} gan_sgd_step + {TRAIN_STEPS} sgd_step at "
+          f"batch {B} equal the plain versions on the CPU within "
+          f"{TRAIN_TOL:g} after every step; step 1 repeats bit for bit")
+    print("train launches " + json.dumps(train_launches))
+
+    sources = {"dconv_forward": ("dconv_forward.cu",
+                                 "src/repro/kernels/dconv_forward.py:104"),
+               "tconv_phase": ("tconv_phase.cu",
+                               "src/repro/kernels/tconv_phase.py:263"),
+               "tconv_implicit_gemm": (
+                   "implicit_gemm.cu", "src/repro/kernels/implicit_gemm.py:147"),
+               "conv_backward": ("conv_backward.cu",
+                                 "src/repro/kernels/dconv_backward.py:254"),
+               "tconv_backward": ("tconv_backward.cu",
+                                  "src/repro/kernels/dconv_backward.py:518"),
+               "dconv_filter_grad": (
+                   "dconv_filtergrad.cu",
+                   "src/repro/kernels/dconv_filtergrad.py:114")}
     rows = []
-    for name in ("dconv_forward", "tconv_phase", "tconv_implicit_gemm"):
+    for name, (source, replaces) in sources.items():
         k = kernels[name]
-        source = {"dconv_forward": "dconv_forward.cu",
-                  "tconv_phase": "tconv_phase.cu",
-                  "tconv_implicit_gemm": "implicit_gemm.cu"}[name]
-        replaces = {
-            "dconv_forward": "src/repro/kernels/dconv_forward.py:104",
-            "tconv_phase": "src/repro/kernels/tconv_phase.py:263",
-            "tconv_implicit_gemm": "src/repro/kernels/implicit_gemm.py:147",
-        }[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{source}",
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": serve_launches.get(name, 0)
+                     + train_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),

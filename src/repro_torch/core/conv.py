@@ -1,5 +1,5 @@
-"""EcoFlow conv entry points, dispatched through the conv backend registry
-(port of the forward half of `repro/core/conv.py`).
+"""EcoFlow conv entry points with zero-free gradients, dispatched through
+the conv backend registry (port of `repro/core/conv.py`).
 
 `ecoflow_conv` is a direct conv, `ecoflow_dilated_conv` the dilated
 (atrous) forward conv and `ecoflow_conv_transpose` the zero-free
@@ -8,12 +8,15 @@ form (`bias=` / `epilogue=`).  `backend` names an implementation from
 `repro_torch.core.spec`: "torch_zero_free" (default), "cuda" (the
 hand-written kernels) or "reference".
 
-This slice serves inference only on the `cuda` backend: its backward
-kernels come with the training slice, together with the
-`torch.autograd.Function`s that route gradients through them, so an
-input that requires grad raises there.  The `reference` and
-`torch_zero_free` backends are plain PyTorch ops and differentiate
-through autograd.
+Each form is a `torch.autograd.Function` -- the port of `repro`'s
+`jax.custom_vjp`s -- whose backward is the backend's own: `backward` /
+`backward_ep` give (dx, dW[, db]) of a direct conv, `ct_backward` /
+`ct_backward_ep` give (ddy, dW[, db]) of a transposed conv.  On the
+`cuda` backend each of those is ONE fused kernel launch; the other
+backends compose the same math.  The Functions save what `repro` saves:
+(x, w) or (dy, w), plus the forward output when the epilogue's
+activation needs it for its mask (act' is read from the output), and
+nothing is modified in place after it is saved.
 """
 from __future__ import annotations
 
@@ -21,8 +24,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.spec import ConvBackend, ConvSpec, Epilogue, \
-    resolve_backend
+from repro_torch.core.spec import ConvSpec, Epilogue, resolve_backend
 
 
 def _normalize_epilogue(epilogue, bias):
@@ -39,31 +41,93 @@ def _normalize_epilogue(epilogue, bias):
     return None if epilogue.is_identity else epilogue
 
 
-def _inference_backend(backend, *tensors) -> ConvBackend:
-    be = resolve_backend(backend)
-    if be.name == "cuda" and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the cuda backend serves inference only until the training "
-            "slice: run under torch.no_grad(), or use the reference or "
-            "torch_zero_free backend to differentiate")
-    return be
+class _ConvPlain(torch.autograd.Function):
+    """y = conv(x, w); both gradients from the backend's `backward`."""
+
+    @staticmethod
+    def forward(ctx, x, w, spec: ConvSpec, be):
+        ctx.spec, ctx.be = spec, be
+        ctx.save_for_backward(x, w)
+        return be.forward(x, w, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = ctx.be.backward(x, g, w, ctx.spec, (x.shape[1], x.shape[2]))
+        return dx, dw, None, None
+
+
+class _ConvEp(torch.autograd.Function):
+    """y = ep(conv(x, w), b); (dx, dW, db) from the backend's
+    `backward_ep`, which masks the cotangent with act'(y)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, spec: ConvSpec, be, ep: Epilogue):
+        y = be.forward_ep(x, w, b, spec, ep)
+        ctx.spec, ctx.be, ctx.ep = spec, be, ep
+        ctx.save_for_backward(x, w, y if ep.needs_y else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        dx, dw, db = ctx.be.backward_ep(x, y, g, w, ctx.spec,
+                                        (x.shape[1], x.shape[2]), ctx.ep)
+        return dx, dw, db, None, None, None
+
+
+class _ConvTranspose(torch.autograd.Function):
+    """z = tconv(dy, w); the cotangent g sits in the input role of both
+    of its gradients, (conv(g, w), filter_grad(g, dy)), from the
+    backend's `ct_backward`."""
+
+    @staticmethod
+    def forward(ctx, dy, w, spec: ConvSpec, n_out, be):
+        ctx.spec, ctx.be = spec, be
+        ctx.save_for_backward(dy, w)
+        return be.input_grad(dy, w, spec, n_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        dy, w = ctx.saved_tensors
+        ddy, dw = ctx.be.ct_backward(g, dy, w, ctx.spec)
+        return ddy, dw, None, None, None
+
+
+class _ConvTransposeEp(torch.autograd.Function):
+    """z = ep(tconv(dy, w), b); (ddy, dW, db) from the backend's
+    `ct_backward_ep`, which masks g with act'(z)."""
+
+    @staticmethod
+    def forward(ctx, dy, w, b, spec: ConvSpec, n_out, be, ep: Epilogue):
+        z = be.input_grad_ep(dy, w, b, spec, n_out, ep)
+        ctx.spec, ctx.be, ctx.ep = spec, be, ep
+        ctx.save_for_backward(dy, w, z if ep.needs_y else None)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        dy, w, z = ctx.saved_tensors
+        ddy, dw, db = ctx.be.ct_backward_ep(g, z, dy, w, ctx.spec, ctx.ep)
+        return ddy, dw, db, None, None, None, None
 
 
 def ecoflow_conv(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,
                  backend=None, dilation=1, *, bias=None,
                  epilogue: Epilogue | None = None) -> torch.Tensor:
-    """Direct conv (NHWC x HWIO -> NHWC).  `dilation` > 1 makes it a
-    dilated/atrous conv.  `bias` ((Cout,)) and/or `epilogue` fuse the
-    layer tail act(scale * conv + bias) into the conv launch on the cuda
-    backend; the other backends compose the identical math."""
+    """Direct conv (NHWC x HWIO -> NHWC) with zero-free gradients.
+    `dilation` > 1 makes it a dilated/atrous conv.  `bias` ((Cout,))
+    and/or `epilogue` fuse the layer tail act(scale * conv + bias) into
+    the conv launch on the cuda backend, and its VJP masks the cotangent
+    with act'(y) inside the one backward launch that also gives db; the
+    other backends compose the identical math."""
     spec = ConvSpec.make(stride=stride, padding=padding,
                          filter_shape=tuple(w.shape[:2]), dilation=dilation)
     ep = _normalize_epilogue(epilogue, bias)
-    be = _inference_backend(backend, x, w, bias)
+    be = resolve_backend(backend)
     if ep is None:
-        return be.forward(x, w, spec)
-    return be.forward_ep(x, w, bias if ep.bias else None, spec, ep)
+        return _ConvPlain.apply(x, w, spec, be)
+    return _ConvEp.apply(x, w, bias if ep.bias else None, spec, be, ep)
 
 
 def ecoflow_dilated_conv(x: torch.Tensor, w: torch.Tensor, stride=1,
@@ -98,8 +162,8 @@ def ecoflow_conv_transpose(dy: torch.Tensor, w: torch.Tensor, stride=1,
             f"dilation={spec.dilation}: a forward conv over n_out yields "
             f"{spec.out_size(n_out)}")
     ep = _normalize_epilogue(epilogue, bias)
-    be = _inference_backend(backend, dy, w, bias)
+    be = resolve_backend(backend)
     if ep is None:
-        return be.input_grad(dy, w, spec, n_out)
-    return be.input_grad_ep(dy, w, bias if ep.bias else None, spec, n_out,
-                            ep)
+        return _ConvTranspose.apply(dy, w, spec, n_out, be)
+    return _ConvTransposeEp.apply(dy, w, bias if ep.bias else None, spec,
+                                  n_out, be, ep)

@@ -24,6 +24,12 @@ import torch.nn.functional as F
 from repro_torch.core.spec import ConvSpec, _pair
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """Accumulation type: fp32, or the input's own type when wider (fp64
+    for gradcheck)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def direct_conv(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0, *,
                 dilation=1) -> torch.Tensor:
     """Plain direct (forward) convolution, NHWC x HWIO -> NHWC, through
@@ -140,13 +146,14 @@ def dilated_forward_zero_free(x: torch.Tensor, w: torch.Tensor, *, stride=1,
             f"input {(Nh, Nw)} too small for effective filter "
             f"{spec.dilated_filter_shape} at padding {(ph, pw)}")
     xp = F.pad(x, (0, 0, pw, pw, ph, ph))
-    acc = x.new_zeros((B, Oh, Ow, Cout), dtype=torch.float32)
-    w32 = w.float()
+    acc_t = _acc_dtype(x)
+    acc = x.new_zeros((B, Oh, Ow, Cout), dtype=acc_t)
+    w32 = w.to(acc_t)
     for kx in range(Kh):
         for ky in range(Kw):
             xs = _tap_slice(xp, kx, ky, stride=(sh, sw),
                             dilation=(dh, dw), out_size=(Oh, Ow))
-            acc = acc + torch.matmul(xs.float(), w32[kx, ky])
+            acc = acc + torch.matmul(xs.to(acc_t), w32[kx, ky])
     return acc.to(x.dtype)
 
 
@@ -163,9 +170,10 @@ def _dilated_transposed_zero_free(dy: torch.Tensor, w: torch.Tensor, *,
     Nh, Nw = n_out
     Fh = sh * (Oh - 1) + dh * (Kh - 1) + 1   # full (pre-slice) extent
     Fw = sw * (Ow - 1) + dw * (Kw - 1) + 1
-    dy32 = dy.float()
-    w32 = w.float()
-    dx_full = dy.new_zeros((B, Fh, Fw, Cin), dtype=torch.float32)
+    acc_t = _acc_dtype(dy)
+    dy32 = dy.to(acc_t)
+    w32 = w.to(acc_t)
+    dx_full = dy.new_zeros((B, Fh, Fw, Cin), dtype=acc_t)
     for kx in range(Kh):
         for ky in range(Kw):
             contrib = torch.matmul(dy32, w32[kx, ky].T)
@@ -197,13 +205,14 @@ def dilated_conv_filter_grad_zero_free(x: torch.Tensor, dy: torch.Tensor, *,
         raise ValueError("filter size k=(Kh,Kw) is required")
     Kh, Kw = _pair(k)
     xp = F.pad(x, (0, 0, pw, pw, ph, ph))
-    dy2 = dy.float().reshape(-1, Cout)
+    acc_t = _acc_dtype(x)
+    dy2 = dy.to(acc_t).reshape(-1, Cout)
     taps = []
     for kx in range(Kh):
         for ky in range(Kw):
             xs = _tap_slice(xp, kx, ky, stride=(sh, sw),
                             dilation=(dh, dw), out_size=(Oh, Ow))
-            taps.append(xs.float().reshape(-1, Cin).T @ dy2)
+            taps.append(xs.to(acc_t).reshape(-1, Cin).T @ dy2)
     return torch.stack(taps).reshape(Kh, Kw, Cin, Cout).to(x.dtype)
 
 

@@ -9,14 +9,14 @@ a name:
   * ``torch_zero_free`` -- the EcoFlow phase/tap decomposition in dense
                            PyTorch ops (port of ``xla_zero_free``).
   * ``cuda``            -- the hand-written CUDA kernels of
-                           `kernels/ops.py`.  On CPU tensors each kernel
-                           wrapper runs its plain PyTorch version.  The
-                           backward slots belong to the training slice:
-                           they raise on a CUDA tensor.
+                           `kernels/ops.py`, forward and backward slots
+                           alike: each fused backward slot is one kernel
+                           launch.  On CPU tensors each kernel wrapper
+                           runs its plain PyTorch version.
 
 `fallback_backend`, `dispatch_backend` and `sharded_backend` of `repro`
-are multi-device or ladder code the single-card serving path does not
-use; `core/conv.py` calls `resolve_backend` directly.
+are multi-device or ladder code the single-card serving and training
+paths do not use; `core/conv.py` calls `resolve_backend` directly.
 """
 from __future__ import annotations
 
@@ -425,8 +425,8 @@ def _ensure_default_backends() -> None:
             x, dy, stride=spec.stride, padding=spec.padding,
             k=spec.filter_shape, dilation=spec.dilation)
 
-    tzf = register_backend(ConvBackend("torch_zero_free", _tzf_forward,
-                                       _tzf_input_grad, _tzf_filter_grad))
+    register_backend(ConvBackend("torch_zero_free", _tzf_forward,
+                                 _tzf_input_grad, _tzf_filter_grad))
 
     # -- cuda: the hand-written kernels --------------------------------------
     def _cuda_forward(x, w, spec: ConvSpec):
@@ -460,24 +460,42 @@ def _ensure_default_backends() -> None:
                                 dilation=spec.dilation,
                                 bias=bias, epilogue=ep)
 
-    def _training_slot(method: str) -> Callable:
-        """A backward slot of the training slice: its kernels are not
-        ported yet, so a CUDA tensor raises; CPU tensors take the
-        torch_zero_free composition (the plain versions)."""
-        def slot(*args):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
-                raise NotImplementedError("training slice")
-            return getattr(tzf, method)(*args)
-        return slot
+    def _cuda_filter_grad(x, dy, spec: ConvSpec):
+        return kops.dconv_filter_grad(x, dy, stride=spec.stride,
+                                      padding=spec.padding,
+                                      k=spec.filter_shape,
+                                      dilation=spec.dilation)
+
+    # The fused dual-gradient backwards: ONE launch per conv VJP, (dx, dW)
+    # from one kernel that reads dy once; with an epilogue the same launch
+    # masks the cotangent with act'(y) and gives db.
+    def _cuda_backward(x, dy, w, spec: ConvSpec, n_out):
+        return kops.conv_backward(x, dy, w, stride=spec.stride,
+                                  padding=spec.padding, n_out=_pair(n_out),
+                                  dilation=spec.dilation)
+
+    def _cuda_ct_backward(g, dy, w, spec: ConvSpec):
+        return kops.tconv_backward(g, dy, w, stride=spec.stride,
+                                   padding=spec.padding,
+                                   dilation=spec.dilation)
+
+    def _cuda_backward_ep(x, y, dy, w, spec: ConvSpec, n_out, ep: Epilogue):
+        return kops.conv_backward(x, dy, w, stride=spec.stride,
+                                  padding=spec.padding, n_out=_pair(n_out),
+                                  dilation=spec.dilation, y=y, epilogue=ep)
+
+    def _cuda_ct_backward_ep(g, z, dy, w, spec: ConvSpec, ep: Epilogue):
+        return kops.tconv_backward(g, dy, w, stride=spec.stride,
+                                   padding=spec.padding,
+                                   dilation=spec.dilation, z=z, epilogue=ep)
 
     register_backend(ConvBackend(
-        "cuda", _cuda_forward, _cuda_input_grad,
-        _training_slot("filter_grad"),
-        fused_backward=_training_slot("backward"),
-        fused_ct_backward=_training_slot("ct_backward"),
+        "cuda", _cuda_forward, _cuda_input_grad, _cuda_filter_grad,
+        fused_backward=_cuda_backward,
+        fused_ct_backward=_cuda_ct_backward,
         fused_forward_ep=_cuda_forward_ep,
         fused_input_grad_ep=_cuda_input_grad_ep,
-        fused_backward_ep=_training_slot("backward_ep"),
-        fused_ct_backward_ep=_training_slot("ct_backward_ep")))
+        fused_backward_ep=_cuda_backward_ep,
+        fused_ct_backward_ep=_cuda_ct_backward_ep))
 
     _DEFAULTS_REGISTERED = True

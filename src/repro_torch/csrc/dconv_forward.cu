@@ -21,38 +21,20 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "conv_body.cuh"
 
+// The element body (tap and channel loops, padding predicate) is
+// conv_body.cuh::direct_conv_element, shared with the ddy role of
+// tconv_backward.cu.
 __global__ void dconv_forward_kernel(const float* __restrict__ x,
                                      const float* __restrict__ w,
-                                     float* __restrict__ y, int B, int Nh,
-                                     int Nw, int Cin, int Kh, int Kw,
-                                     int Cout, int Oh, int Ow, int sh,
-                                     int sw, int ph, int pw, int dh, int dw,
+                                     float* __restrict__ y, ConvGeom g,
                                      EpilogueArgs ep) {
-  const long long total = (long long)B * Oh * Ow * Cout;
+  const long long total = (long long)g.B * g.Oh * g.Ow * g.Cout;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const int co = (int)(idx % Cout);
-  long long t = idx / Cout;
-  const int j = (int)(t % Ow);
-  t /= Ow;
-  const int i = (int)(t % Oh);
-  const int b = (int)(t / Oh);
-
-  float acc = 0.0f;
-  for (int kx = 0; kx < Kh; ++kx) {
-    const int h = i * sh + kx * dh - ph;
-    if (h < 0 || h >= Nh) continue;  // padding row: contributes zero
-    for (int ky = 0; ky < Kw; ++ky) {
-      const int c = j * sw + ky * dw - pw;
-      if (c < 0 || c >= Nw) continue;
-      const float* xp = x + (((long long)b * Nh + h) * Nw + c) * Cin;
-      const float* wp = w + (long long)(kx * Kw + ky) * Cin * Cout + co;
-      for (int ci = 0; ci < Cin; ++ci)
-        acc = fmaf(xp[ci], wp[(long long)ci * Cout], acc);
-    }
-  }
-  y[idx] = apply_epilogue(acc, co, ep);
+  y[idx] = apply_epilogue(direct_conv_element(Plain{x}, w, g, idx),
+                          (int)(idx % g.Cout), ep);
 }
 
 // x (B,Nh,Nw,Cin), w (Kh,Kw,Cin,Cout), bias (Cout,) or null ->
@@ -65,14 +47,15 @@ extern "C" int dconv_forward_f32(const void* x, const void* w,
                                  int pw, int dh, int dw, int act,
                                  float slope, int has_scale, float scale,
                                  void* stream) {
+  const ConvGeom g = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw,
+                               ph, pw, dh, dw);
   const long long total = (long long)B * Oh * Ow * Cout;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   if (blocks > 0) {
     dconv_forward_kernel<<<(unsigned)blocks, threads, 0,
                            (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)w, (float*)y, B, Nh, Nw, Cin, Kh, Kw,
-        Cout, Oh, Ow, sh, sw, ph, pw, dh, dw,
+        (const float*)x, (const float*)w, (float*)y, g,
         make_epilogue(bias, act, slope, has_scale, scale));
   }
   return (int)cudaGetLastError();

@@ -34,57 +34,24 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "conv_body.cuh"
 
+// The element body (slot -> tap map, bounds, Cout loop) is
+// conv_body.cuh::phase_element, shared with the dx role of
+// conv_backward.cu.
 __global__ void tconv_phase_kernel(const float* __restrict__ dy,
                                    const float* __restrict__ w,
-                                   float* __restrict__ dx, int Oh, int Ow,
-                                   int Cout, int Kh, int Kw, int Cin, int Nh,
-                                   int Nw, int sh, int sw, int ph, int pw,
-                                   int dh, int dw, int per_h, int per_w,
-                                   int step_h, int step_w, int KP, int KQ,
-                                   int TPh, int TPw, int Mh, int Mw,
-                                   EpilogueArgs ep) {
-  const int p = blockIdx.y / sw, q = blockIdx.y % sw;  // residue class
+                                   float* __restrict__ dx, ConvGeom g,
+                                   PhaseGeom t, EpilogueArgs ep) {
+  const int p = blockIdx.y / g.sw, q = blockIdx.y % g.sw;  // residue class
   const int b = blockIdx.z;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)Mh * Mw * Cin) return;
-  const int ci = (int)(e % Cin);
-  const int n = (int)((e / Cin) % Mw);
-  const int m = (int)(e / ((long long)Cin * Mw));
-  const int y = m * sh + p - ph;  // dx position of phase element (m, n)
-  const int x = n * sw + q - pw;
-  if (y < 0 || y >= Nh || x < 0 || x >= Nw) return;
-
-  // Tap phase whose residue is (p, q); -1 when no tap reaches it.
-  int a = -1, c = -1;
-  for (int t = 0; t < TPh; ++t)
-    if ((t * dh) % sh == p) a = t;
-  for (int t = 0; t < TPw; ++t)
-    if ((t * dw) % sw == q) c = t;
-
-  float acc = 0.0f;
-  if (a >= 0 && c >= 0) {
-    const int base_h = (a * dh) / sh, base_w = (c * dw) / sw;
-    for (int uf = 0; uf < KP; ++uf) {
-      const int u = KP - 1 - uf;  // flipped slot: tap kx = a + u*period
-      const int kx = a + u * per_h;
-      if (kx >= Kh) continue;     // padding slot of a ragged phase
-      const int i = m - base_h - u * step_h;
-      if (i < 0 || i >= Oh) continue;
-      for (int vf = 0; vf < KQ; ++vf) {
-        const int v = KQ - 1 - vf;
-        const int ky = c + v * per_w;
-        if (ky >= Kw) continue;
-        const int j = n - base_w - v * step_w;
-        if (j < 0 || j >= Ow) continue;
-        const float* dyp = dy + (((long long)b * Oh + i) * Ow + j) * Cout;
-        const float* wp = w + ((long long)(kx * Kw + ky) * Cin + ci) * Cout;
-        for (int co = 0; co < Cout; ++co) acc = fmaf(dyp[co], wp[co], acc);
-      }
-    }
-  }
-  dx[(((long long)b * Nh + y) * Nw + x) * Cin + ci] =
-      apply_epilogue(acc, ci, ep);
+  if (e >= (long long)t.Mh * t.Mw * g.Cin) return;
+  long long out;
+  int ci;
+  float acc;
+  if (phase_element(Plain{dy}, w, g, t, b, p, q, e, &out, &ci, &acc))
+    dx[out] = apply_epilogue(acc, ci, ep);
 }
 
 // dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout), bias (Cin,) or null ->
@@ -99,18 +66,17 @@ extern "C" int tconv_phase_f32(const void* dy, const void* w,
                                int step_h, int step_w, int KP, int KQ,
                                int TPh, int TPw, int act, float slope,
                                int has_scale, float scale, void* stream) {
-  // Phase-plane rows m with y = m*S + p - P < Nh, for the widest class.
-  const int Mh = (Nh + ph + sh - 1) / sh;
-  const int Mw = (Nw + pw + sw - 1) / sw;
-  const long long per_class = (long long)Mh * Mw * Cin;
+  const ConvGeom g = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw,
+                               ph, pw, dh, dw);
+  const PhaseGeom t = make_phase_geom(g, per_h, per_w, step_h, step_w, KP,
+                                      KQ, TPh, TPw);
+  const long long per_class = (long long)t.Mh * t.Mw * Cin;
   const int threads = 256;
   const long long tiles = (per_class + threads - 1) / threads;
   if (tiles > 0 && B > 0) {
     dim3 grid((unsigned)tiles, (unsigned)(sh * sw), (unsigned)B);
     tconv_phase_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)dy, (const float*)w, (float*)dx, Oh, Ow, Cout, Kh, Kw,
-        Cin, Nh, Nw, sh, sw, ph, pw, dh, dw, per_h, per_w, step_h, step_w,
-        KP, KQ, TPh, TPw, Mh, Mw,
+        (const float*)dy, (const float*)w, (float*)dx, g, t,
         make_epilogue(bias, act, slope, has_scale, scale));
   }
   return (int)cudaGetLastError();

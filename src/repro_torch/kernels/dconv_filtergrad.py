@@ -1,0 +1,66 @@
+"""Zero-free filter gradient of a direct / dilated conv: the CUDA kernel
+`csrc/dconv_filtergrad.cu` and its plain PyTorch version (port of
+`repro/kernels/dconv_filtergrad.py`).
+
+    dW[kx,ky,ci,co] = sum_{b,i,j} x[b, i*S+kx*D-P, j*S+ky*D-P, ci]
+                                  * dy[b,i,j,co]
+
+over the K*K real taps; the D-dilated filter never exists.  The plain
+version repeats `_fg_kernel`'s arithmetic: pad x once, one strided tap
+gather per (kx, ky), one (Cin x B*Oh*Ow) @ (B*Oh*Ow x Cout) matmul per
+tap.  The kernel is the dW role of the two fused backwards
+(`csrc/conv_body.cuh::filter_grad_tile`) launched alone.
+Public entry: `kernels/ops.py::dconv_filter_grad`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.spec import ConvSpec
+from repro_torch.kernels import build
+from repro_torch.kernels.tap_gather import gather_tap, pad_to_tap_windows
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+
+
+def dconv_filter_grad_plain(x: torch.Tensor, dy: torch.Tensor,
+                            spec: ConvSpec) -> torch.Tensor:
+    """x (B,Nh,Nw,Cin), dy (B,Oh,Ow,Cout) -> dW (Kh,Kw,Cin,Cout)."""
+    B, _, _, cin = x.shape
+    _, oh, ow, cout = dy.shape
+    (sh, sw), (ph, pw), (dh, dw) = spec.stride, spec.padding, spec.dilation
+    kh, kw = spec.filter_shape
+    xp = F.pad(x, (0, 0, pw, pw, ph, ph))
+    xp = pad_to_tap_windows(xp, stride=(sh, sw), dilation=(dh, dw),
+                            k=(kh, kw), out_size=(oh, ow))
+    rhs = dy.reshape(B * oh * ow, cout)
+    taps = []
+    for kx in range(kh):
+        for ky in range(kw):
+            tap = gather_tap(xp, kx, ky, sh=sh, sw=sw, dh=dh, dw=dw,
+                             oh=oh, ow=ow)              # (B, oh, ow, Cin)
+            taps.append(torch.matmul(tap.reshape(B * oh * ow, cin).t(), rhs))
+    return torch.stack(taps).reshape(kh, kw, cin, cout)
+
+
+def dconv_filter_grad_cuda(x: torch.Tensor, dy: torch.Tensor,
+                           spec: ConvSpec) -> torch.Tensor:
+    """Launch the kernel on the current stream.  fp32, contiguous, one
+    device -- the wrapper in `kernels/ops.py` checks all three."""
+    B, nh, nw, cin = x.shape
+    _, oh, ow, cout = dy.shape
+    kh, kw = spec.filter_shape
+    dw = torch.empty((kh, kw, cin, cout), dtype=torch.float32,
+                     device=x.device)
+    fn = build.kernel_function("dconv_filtergrad", "dconv_filter_grad_f32",
+                               _ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                 B, nh, nw, cin, oh, ow, cout, kh, kw,
+                 *spec.stride, *spec.padding, *spec.dilation,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check_launch("dconv_filtergrad", err)
+    return dw

@@ -10,6 +10,9 @@ nothing.  There is no fallback: a launch that fails raises.
   tconv_phase          -> csrc/tconv_phase.cu or, when the strategy
                           planner picks it, csrc/implicit_gemm.cu
   tconv_implicit_gemm  -> tconv_phase with the implicit-GEMM strategy
+  conv_backward        -> csrc/conv_backward.cu   (dx, dW, db of a conv)
+  tconv_backward       -> csrc/tconv_backward.cu  (ddy, dW, db of a tconv)
+  dconv_filter_grad    -> csrc/dconv_filtergrad.cu
 """
 from __future__ import annotations
 
@@ -17,6 +20,12 @@ import torch
 
 from repro_torch.core.spec import ConvSpec, Epilogue, _pair
 from repro_torch.kernels import tiling
+from repro_torch.kernels.dconv_backward import (conv_backward_cuda,
+                                                conv_backward_plain,
+                                                tconv_backward_cuda,
+                                                tconv_backward_plain)
+from repro_torch.kernels.dconv_filtergrad import (dconv_filter_grad_cuda,
+                                                  dconv_filter_grad_plain)
 from repro_torch.kernels.dconv_forward import (dconv_forward_cuda,
                                                dconv_forward_plain)
 from repro_torch.kernels.implicit_gemm import (tconv_implicit_gemm_cuda,
@@ -25,7 +34,8 @@ from repro_torch.kernels.tconv_phase import (tconv_fused_cuda,
                                              tconv_fused_plain)
 
 # Kernel launches per wrapper since the last reset.
-LAUNCHES = {"dconv_forward": 0, "tconv_phase": 0, "tconv_implicit_gemm": 0}
+LAUNCHES = {"dconv_forward": 0, "tconv_phase": 0, "tconv_implicit_gemm": 0,
+            "conv_backward": 0, "tconv_backward": 0, "dconv_filter_grad": 0}
 
 
 def reset_launches() -> None:
@@ -50,6 +60,39 @@ def _on_cuda(*tensors) -> bool:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type == "cuda"
+
+
+def _check_channels(x_like, dy_like, w) -> None:
+    """The kernels index w by the channels of their operands: refuse a
+    filter that does not fit them."""
+    if w.dim() != 4 or x_like.dim() != 4 or dy_like.dim() != 4 or \
+            w.shape[2] != x_like.shape[3] or w.shape[3] != dy_like.shape[3]:
+        raise ValueError(f"filter {tuple(w.shape)} does not map "
+                         f"{tuple(x_like.shape)} to {tuple(dy_like.shape)}")
+
+
+def _check_out_size(spec: ConvSpec, x_like, dy_like) -> None:
+    if spec.out_size((x_like.shape[1], x_like.shape[2])) != \
+            (dy_like.shape[1], dy_like.shape[2]):
+        raise ValueError(
+            f"dy spatial {tuple(dy_like.shape[1:3])} inconsistent with "
+            f"{tuple(x_like.shape[1:3])} for stride={spec.stride}, "
+            f"padding={spec.padding}, filter={spec.filter_shape}, "
+            f"dilation={spec.dilation}: forward yields "
+            f"{spec.out_size((x_like.shape[1], x_like.shape[2]))}")
+
+
+def _backward_epilogue(epilogue, out, name):
+    """The epilogue a backward takes (an identity one is none at all) and
+    the forward output it masks with, or None when nothing is masked."""
+    if epilogue is not None and epilogue.is_identity:
+        epilogue = None
+    if epilogue is None or not epilogue.needs_y:
+        return epilogue, None
+    if out is None:
+        raise ValueError(f"epilogue has an activation but no forward "
+                         f"output residual {name} was given")
+    return epilogue, out
 
 
 def _epilogue_operands(bias, epilogue):
@@ -118,3 +161,75 @@ def tconv_implicit_gemm(dy: torch.Tensor, w: torch.Tensor, *, stride,
     return tconv_phase(dy, w, stride=stride, padding=padding, n_out=n_out,
                        dilation=dilation, bias=bias, epilogue=epilogue,
                        strategy="implicit_gemm")
+
+
+def conv_backward(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, *,
+                  stride, padding, n_out, dilation=(1, 1), y=None,
+                  epilogue: Epilogue | None = None):
+    """Fused dual-gradient backward of a direct conv, ONE launch:
+    x (B,Nh,Nw,Cin), dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout) ->
+    (dx (B,*n_out,Cin), dW (Kh,Kw,Cin,Cout)).  With `epilogue` this is
+    the VJP of the epilogue-fused forward (`y` its output): act'(y) masks
+    dy as it is loaded, and the return is (dx, dW, db|None)."""
+    spec = ConvSpec.make(stride=stride, padding=padding,
+                         filter_shape=(w.shape[0], w.shape[1]),
+                         dilation=dilation)
+    n_out = _pair(n_out)
+    epilogue, y = _backward_epilogue(epilogue, y, "y")
+    _check_channels(x, dy, w)
+    _check_out_size(spec, x, dy)
+    if y is not None and y.shape != dy.shape:
+        raise ValueError(f"y {tuple(y.shape)} is not shaped like dy "
+                         f"{tuple(dy.shape)}")
+    if not _on_cuda(x, dy, w, y):
+        dx, dw, db = conv_backward_plain(x, dy, w, spec, n_out=n_out, y=y,
+                                         epilogue=epilogue)
+    else:
+        dx, dw, db = conv_backward_cuda(
+            x.contiguous(), dy.contiguous(), w.contiguous(), spec,
+            n_out=n_out, y=None if y is None else y.contiguous(),
+            epilogue=epilogue)
+        LAUNCHES["conv_backward"] += 1
+    return (dx, dw) if epilogue is None else (dx, dw, db)
+
+
+def tconv_backward(g: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, *,
+                   stride, padding, dilation=(1, 1), z=None,
+                   epilogue: Epilogue | None = None):
+    """Fused backward of the transposed conv z = tconv(dy, w), ONE launch:
+    g (B,Nh,Nw,Cin) cotangent of z, dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout)
+    -> (ddy (B,Oh,Ow,Cout), dW (Kh,Kw,Cin,Cout)).  With `epilogue` (`z`
+    its output) act'(z) masks g as it is loaded, and the return is
+    (ddy, dW, db|None) with db over Cin."""
+    spec = ConvSpec.make(stride=stride, padding=padding,
+                         filter_shape=(w.shape[0], w.shape[1]),
+                         dilation=dilation)
+    epilogue, z = _backward_epilogue(epilogue, z, "z")
+    _check_channels(g, dy, w)
+    _check_out_size(spec, g, dy)
+    if z is not None and z.shape != g.shape:
+        raise ValueError(f"z {tuple(z.shape)} is not shaped like g "
+                         f"{tuple(g.shape)}")
+    if not _on_cuda(g, dy, w, z):
+        ddy, dw, db = tconv_backward_plain(g, dy, w, spec, z=z,
+                                           epilogue=epilogue)
+    else:
+        ddy, dw, db = tconv_backward_cuda(
+            g.contiguous(), dy.contiguous(), w.contiguous(), spec,
+            z=None if z is None else z.contiguous(), epilogue=epilogue)
+        LAUNCHES["tconv_backward"] += 1
+    return (ddy, dw) if epilogue is None else (ddy, dw, db)
+
+
+def dconv_filter_grad(x: torch.Tensor, dy: torch.Tensor, *, stride, padding,
+                      k, dilation=(1, 1)) -> torch.Tensor:
+    """Zero-free filter gradient: x (B,Nh,Nw,Cin), dy (B,Oh,Ow,Cout) ->
+    dW (Kh,Kw,Cin,Cout), k = (Kh, Kw)."""
+    spec = ConvSpec.make(stride=stride, padding=padding, filter_shape=k,
+                         dilation=dilation)
+    _check_out_size(spec, x, dy)
+    if not _on_cuda(x, dy):
+        return dconv_filter_grad_plain(x, dy, spec)
+    dw = dconv_filter_grad_cuda(x.contiguous(), dy.contiguous(), spec)
+    LAUNCHES["dconv_filter_grad"] += 1
+    return dw

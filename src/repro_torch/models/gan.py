@@ -1,22 +1,29 @@
-"""DCGAN-style generator, the serving half of `repro/models/gan.py`.
+"""DCGAN-style generator and discriminator (port of
+`repro/models/gan.py`), the paper's GAN evaluation domain.
 
 The generator upsamples with `ecoflow_conv_transpose`: the paper's
-zero-free transposed-conv dataflow is its forward pass.  Each layer's
-relu/tanh tail rides in the transposed conv's epilogue slot.  The
-discriminator and the training steps come with the training slice.
+zero-free transposed-conv dataflow is its forward pass.  The
+discriminator downsamples with strided `ecoflow_conv`, whose backward is
+zero-free.  Each layer's relu / tanh / leaky_relu tail rides in the
+conv's epilogue slot.  The training steps are functional, as in `repro`:
+state in, new state and losses out.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.conv import ecoflow_conv_transpose
+from repro_torch.core.conv import ecoflow_conv, ecoflow_conv_transpose
 from repro_torch.core.spec import ConvSpec, Epilogue
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import (sgd_grads, sgd_update,
+                                       tree_all_finite, trunc_normal)
 
 _RELU = Epilogue(activation="relu")
 _TANH = Epilogue(activation="tanh")
+_LEAKY = Epilogue(activation="leaky_relu", slope=0.2)
 
 # The upsampling ladder: (param name, tconv-input spatial size, output
 # spatial size, fused epilogue).  `generator_apply` and
@@ -27,14 +34,6 @@ GENERATOR_LAYERS = (("t1", (4, 4), (8, 8), _RELU),
                     ("t3", (16, 16), (32, 32), _TANH))
 
 
-def _trunc_normal(generator: torch.Generator, shape, scale: float):
-    """`scale` * truncated standard normal on [-2, 2], drawn on the CPU
-    from `generator`."""
-    t = torch.empty(shape, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return scale * t
-
-
 def generator_init(generator: torch.Generator, *, z_dim=64, base=64,
                    out_ch=3, device=None) -> dict:
     """Random generator params, `repro`'s shapes and scales.  Conv filters
@@ -43,11 +42,11 @@ def generator_init(generator: torch.Generator, *, z_dim=64, base=64,
     dev = resolve_device(device)
 
     def w(k, cin, cout):
-        return _trunc_normal(generator, (k, k, cin, cout),
+        return trunc_normal(generator, (k, k, cin, cout),
                              1.0 / math.sqrt(k * k * cin))
 
     params = {
-        "proj": _trunc_normal(generator, (z_dim, 4 * 4 * base * 2),
+        "proj": trunc_normal(generator, (z_dim, 4 * 4 * base * 2),
                               1.0 / math.sqrt(z_dim)),
         "t1": w(4, base, base * 2),      # 4x4 -> 8x8
         "t2": w(4, base // 2, base),     # 8x8 -> 16x16
@@ -56,14 +55,22 @@ def generator_init(generator: torch.Generator, *, z_dim=64, base=64,
     return {k: v.to(dev) for k, v in params.items()}
 
 
-def generator_apply(params: dict, z: torch.Tensor, *,
-                    backend=None) -> torch.Tensor:
-    """z (B, z_dim) -> images (B, 32, 32, out_ch) in [-1, 1]."""
+def generator_apply(params: dict, z: torch.Tensor, *, backend=None,
+                    fuse_epilogue=True) -> torch.Tensor:
+    """z (B, z_dim) -> images (B, 32, 32, out_ch) in [-1, 1].
+    `fuse_epilogue` requests each layer's relu/tanh tail through the
+    transposed conv's epilogue slot; False keeps separate activation ops
+    for A/B comparison."""
     B = z.shape[0]
     x = torch.relu(torch.matmul(z, params["proj"]).reshape(B, 4, 4, -1))
     for name, _, out_hw, ep in GENERATOR_LAYERS:
-        x = ecoflow_conv_transpose(x, params[name], 2, 1, n_out=out_hw,
-                                   backend=backend, epilogue=ep)
+        if fuse_epilogue:
+            x = ecoflow_conv_transpose(x, params[name], 2, 1, n_out=out_hw,
+                                       backend=backend, epilogue=ep)
+        else:
+            x = ecoflow_conv_transpose(x, params[name], 2, 1, n_out=out_hw,
+                                       backend=backend)
+            x = torch.tanh(x) if ep.activation == "tanh" else torch.relu(x)
     return x
 
 
@@ -81,3 +88,122 @@ def generator_plan_requests(params: dict, batch: int) -> list:
                         (batch, out_hw[0], out_hw[1], int(w.shape[2])),
                         (batch, in_hw[0], in_hw[1], int(w.shape[3])), ep))
     return entries
+
+
+def discriminator_init(generator: torch.Generator, *, in_ch=3, base=64,
+                       device=None) -> dict:
+    """Random discriminator params, `repro`'s shapes and scales."""
+    dev = resolve_device(device)
+
+    def w(k, cin, cout):
+        return trunc_normal(generator, (k, k, cin, cout),
+                            1.0 / math.sqrt(k * k * cin))
+
+    params = {
+        "c1": w(4, in_ch, base // 2),
+        "c2": w(4, base // 2, base),
+        "c3": w(4, base, base * 2),
+        "head": trunc_normal(generator, (4 * 4 * base * 2, 1),
+                             1.0 / math.sqrt(4 * 4 * base * 2)),
+    }
+    return {k: v.to(dev) for k, v in params.items()}
+
+
+def discriminator_apply(params: dict, x: torch.Tensor, *, backend=None,
+                        fuse_epilogue=True) -> torch.Tensor:
+    """images (B, 32, 32, C) -> logits (B, 1): three K=4, S=2, P=1 convs
+    (32 -> 16 -> 8 -> 4) with leaky_relu(0.2), then a linear head."""
+    for name in ("c1", "c2", "c3"):
+        if fuse_epilogue:   # leaky_relu(0.2) fused into each conv launch
+            x = ecoflow_conv(x, params[name], 2, 1, backend, epilogue=_LEAKY)
+        else:
+            x = F.leaky_relu(ecoflow_conv(x, params[name], 2, 1, backend),
+                             0.2)
+    return torch.matmul(x.reshape(x.shape[0], -1), params["head"])
+
+
+def gan_losses(g_params: dict, d_params: dict, z: torch.Tensor,
+               real: torch.Tensor, *, backend=None, fuse_epilogue=True):
+    """Non-saturating GAN losses (g_loss, d_loss)."""
+    fake = generator_apply(g_params, z, backend=backend,
+                           fuse_epilogue=fuse_epilogue)
+    d_fake = discriminator_apply(d_params, fake, backend=backend,
+                                 fuse_epilogue=fuse_epilogue)
+    d_real = discriminator_apply(d_params, real, backend=backend,
+                                 fuse_epilogue=fuse_epilogue)
+    d_loss = F.softplus(-d_real).mean() + F.softplus(d_fake).mean()
+    return F.softplus(-d_fake).mean(), d_loss
+
+
+def _g_loss(g_params, d_params, z, backend, fuse_epilogue):
+    fake = generator_apply(g_params, z, backend=backend,
+                           fuse_epilogue=fuse_epilogue)
+    d_fake = discriminator_apply(d_params, fake, backend=backend,
+                                 fuse_epilogue=fuse_epilogue)
+    return F.softplus(-d_fake).mean()
+
+
+def gen_sgd_step(g_params: dict, d_params: dict, z: torch.Tensor, *,
+                 lr=0.05, backend=None, fuse_epilogue=True):
+    """One generator SGD step against a frozen discriminator:
+    (new_g_params, g_loss) for the non-saturating loss."""
+    loss, grads = sgd_grads(
+        lambda gp: _g_loss(gp, d_params, z, backend, fuse_epilogue),
+        g_params)
+    return sgd_update(g_params, grads, lr), loss
+
+
+def gan_init(generator: torch.Generator, *, z_dim=64, base=64, ch=3,
+             device=None) -> dict:
+    """The full GAN training state: {"g": ..., "d": ...}."""
+    return {"g": generator_init(generator, z_dim=z_dim, base=base,
+                                out_ch=ch, device=device),
+            "d": discriminator_init(generator, in_ch=ch, base=base,
+                                    device=device)}
+
+
+def gan_sgd_step(state: dict, z: torch.Tensor, real: torch.Tensor, *,
+                 lr=0.05, backend=None, fuse_epilogue=True):
+    """One simultaneous GAN step on the {"g", "d"} state:
+    (new_state, g_loss, d_loss).  Both gradients evaluate against the
+    PRE-step opposite network, so the update is a pure function of
+    (state, z, real).  In the D loss the generator's params are
+    constants, as `jax.value_and_grad` over the D params makes them: its
+    forward runs on tensors that need no grad, so it launches its
+    forward kernels and records no backward."""
+    g_params, d_params = state["g"], state["d"]
+    g_loss, g_grads = sgd_grads(
+        lambda gp: _g_loss(gp, d_params, z, backend, fuse_epilogue),
+        g_params)
+
+    def d_loss_fn(dp):
+        fake = generator_apply(g_params, z, backend=backend,
+                               fuse_epilogue=fuse_epilogue)
+        d_fake = discriminator_apply(dp, fake, backend=backend,
+                                     fuse_epilogue=fuse_epilogue)
+        d_real = discriminator_apply(dp, real, backend=backend,
+                                     fuse_epilogue=fuse_epilogue)
+        return F.softplus(-d_real).mean() + F.softplus(d_fake).mean()
+
+    d_loss, d_grads = sgd_grads(d_loss_fn, d_params)
+    return ({"g": sgd_update(g_params, g_grads, lr),
+             "d": sgd_update(d_params, d_grads, lr)}, g_loss, d_loss)
+
+
+def guarded_gen_sgd_step(g_params: dict, d_params: dict, z: torch.Tensor,
+                         *, lr=0.05, backend=None, fuse_epilogue=True):
+    """`gen_sgd_step` + the all-finite flag:
+    (new_g_params, g_loss, all_finite)."""
+    new, loss = gen_sgd_step(g_params, d_params, z, lr=lr, backend=backend,
+                             fuse_epilogue=fuse_epilogue)
+    return new, loss, tree_all_finite(new, loss)
+
+
+def guarded_gan_sgd_step(state: dict, z: torch.Tensor, real: torch.Tensor,
+                         *, lr=0.05, backend=None, fuse_epilogue=True):
+    """`gan_sgd_step` + the all-finite flag:
+    (new_state, g_loss, d_loss, all_finite)."""
+    new, g_loss, d_loss = gan_sgd_step(state, z, real, lr=lr,
+                                       backend=backend,
+                                       fuse_epilogue=fuse_epilogue)
+    return new, g_loss, d_loss, tree_all_finite(new, g_loss, d_loss)

@@ -29,6 +29,47 @@ FWD_GRID = [
 ]
 
 
+# (name, B, N, K, S, P, D, Ci, Co): the parity grid of the fused
+# backwards, `test_backward_fused.BACKWARD_GRID` (the card's tests import
+# no JAX, so they read this copy; test_torch_backward.py pins the two
+# equal).
+BACKWARD_GRID = [
+    ("s1",            2, 8,  3, 1, 1, 1, 3,  4),
+    ("s2",            2, 9,  3, 2, 0, 1, 4,  4),
+    ("s2_pad",        2, 9,  3, 2, 1, 1, 3,  5),
+    ("s2_ragged",     2, 9,  3, 2, 1, 1, 29, 21),
+    ("s3_k4",         1, 13, 4, 3, 0, 1, 2,  5),
+    ("s4_klt_s",      1, 12, 2, 4, 0, 1, 5,  5),   # K < S: empty phases
+    ("s2_nonexact",   2, 10, 3, 2, 0, 1, 3,  4),   # tail rows ignored
+    ("s1_d2_atrous",  2, 11, 3, 1, 2, 2, 3,  3),
+    ("s2_d2",         2, 14, 3, 2, 1, 2, 3,  2),   # gcd(S, D) = 2
+    ("s3_d2_coprime", 1, 14, 3, 3, 0, 2, 2,  3),
+    ("ragged_cin_gt_tile", 1, 7, 3, 2, 1, 1, 130, 3),
+]
+
+
+def backward_case(geom, seed):
+    """Seeded numpy operands of one BACKWARD_GRID conv: x (B,N,N,Ci), w,
+    dy and a forward output y (B,O,O,Co), a cotangent g and output z
+    (B,N,N,Ci) of its transposed conv, and biases over Co and Ci."""
+    _, B, N, K, S, P, D, Ci, Co = geom
+    O = (N + 2 * P - (D * (K - 1) + 1)) // S + 1
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return dict(spec=(S, P, K, D), n=(N, N), x=r(B, N, N, Ci),
+                w=r(K, K, Ci, Co), dy=r(B, O, O, Co), y=r(B, O, O, Co),
+                g=r(B, N, N, Ci), z=r(B, N, N, Ci), b_out=r(Co), b_in=r(Ci))
+
+
+def epilogue_output(kw, y):
+    """A forward output the epilogue could give: tanh's lies in (-1, 1)."""
+    return np.tanh(y) if kw is not None and kw["activation"] == "tanh" \
+        else y
+
+
 def tconv_case(geom, seed):
     """A seeded (dy, w, bias) for one TCONV_GRID geometry, with n_out the
     exact fit plus the slack."""

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each held against its plain PyTorch
-version, plus the wrappers' launch counts and refusals.
+version, plus the wrappers' launch counts and refusals, the backward
+kernels' determinism and the training steps' launches per step.
 
 These tests need a CUDA card and skip without one.  They import no JAX
 (the card's machine has none), so they run there with
@@ -7,21 +8,31 @@ These tests need a CUDA card and skip without one.  They import no JAX
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Tolerance: atol = rtol = 1e-4; kernel and plain version both sum in fp32
-and differ only in summation order.
+and differ only in summation order.  Repeated launches of a backward
+kernel on the same inputs must agree bit for bit.
 """
 from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_cases import EP_KW, FWD_GRID, TCONV_GRID, tconv_case
-from repro_torch.core.conv import ecoflow_conv_transpose
+from _torch_cases import (BACKWARD_GRID, EP_KW, FWD_GRID, TCONV_GRID,
+                          backward_case, tconv_case)
+from repro_torch.core.conv import ecoflow_conv, ecoflow_conv_transpose
 from repro_torch.core.spec import ConvSpec, Epilogue, resolve_backend
+from repro_torch.data.pipeline import ConvDataset
 from repro_torch.kernels import ops
+from repro_torch.kernels.dconv_backward import (conv_backward_plain,
+                                                tconv_backward_plain)
+from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
 from repro_torch.kernels.dconv_forward import dconv_forward_plain
 from repro_torch.kernels.implicit_gemm import tconv_implicit_gemm_plain
 from repro_torch.kernels.tconv_phase import tconv_fused_plain
+from repro_torch.models import cnn, gan
 
 pytestmark = pytest.mark.gpu
 
@@ -87,7 +98,8 @@ def test_each_wrapper_counts_its_launches(cuda):
                       _rand(gen, 3, 3, 3, 4, device=cuda), stride=1,
                       padding=2, dilation=2)
     assert ops.LAUNCHES == {"dconv_forward": 1, "tconv_phase": 1,
-                            "tconv_implicit_gemm": 1}
+                            "tconv_implicit_gemm": 1, "conv_backward": 0,
+                            "tconv_backward": 0, "dconv_filter_grad": 0}
     ops.dconv_forward(_rand(gen, 1, 8, 8, 3, device="cpu"),
                       _rand(gen, 3, 3, 3, 4, device="cpu"), stride=1,
                       padding=2, dilation=2)              # plain: no launch
@@ -105,17 +117,177 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 def test_cuda_backend_training_slots_raise(cuda):
+    """The name is kept from the serving slice, when these slots raised on
+    the card: each backward slot now launches its kernel, and gradients
+    flow through the autograd Functions on the cuda backend."""
     be = resolve_backend("cuda")
     spec = ConvSpec.make(stride=2, padding=1, filter_shape=4)
+    gen = torch.Generator().manual_seed(6)
+    x = _rand(gen, 2, 8, 8, 3, device=cuda)
+    dy = _rand(gen, 2, 4, 4, 5, device=cuda)
+    w = _rand(gen, 4, 4, 3, 5, device=cuda)
+    ops.reset_launches()
+    torch.testing.assert_close(be.filter_grad(x, dy, spec),
+                               dconv_filter_grad_plain(x, dy, spec),
+                               atol=TOL, rtol=TOL)
+    dx, dw = be.backward(x, dy, w, spec, (8, 8))
+    want = conv_backward_plain(x, dy, w, spec, n_out=(8, 8))
+    torch.testing.assert_close((dx, dw), want[:2], atol=TOL, rtol=TOL)
+    wg = w.clone().requires_grad_()
+    dyg = dy.clone().requires_grad_()
+    z = ecoflow_conv_transpose(dyg, wg, 2, 1, backend="cuda",
+                               epilogue=Epilogue(activation="relu"))
+    z.sum().backward()
+    y = ecoflow_conv(x, wg, 2, 1, "cuda",
+                     epilogue=Epilogue(activation="leaky_relu", slope=0.2))
+    y.sum().backward()
+    assert dyg.grad is not None and wg.grad is not None
+    assert ops.LAUNCHES["dconv_filter_grad"] == 1
+    assert ops.LAUNCHES["conv_backward"] == 2
+    assert ops.LAUNCHES["tconv_backward"] == 1
+
+
+def _cuda_case(geom, seed, cuda):
+    c = backward_case(geom, seed)
+    return {k: torch.tensor(v).to(cuda) if isinstance(v, np.ndarray) else v
+            for k, v in c.items()}
+
+
+def _spec(c):
+    s, p, k, d = c["spec"]
+    return ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
+
+
+def _assert_same_outputs(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, b, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("geom", BACKWARD_GRID, ids=lambda g: g[0])
+def test_conv_backward_kernel_matches_plain(cuda, geom):
+    c = _cuda_case(geom, 11, cuda)
+    spec = _spec(c)
+    for kw in EP_KW:
+        ep = None if kw is None else Epilogue(**kw)
+        y = torch.tanh(c["y"]) if kw is not None and \
+            kw["activation"] == "tanh" else c["y"]
+        got = ops.conv_backward(c["x"], c["dy"], c["w"], stride=spec.stride,
+                                padding=spec.padding, n_out=c["n"],
+                                dilation=spec.dilation, y=y, epilogue=ep)
+        want = conv_backward_plain(c["x"], c["dy"], c["w"], spec,
+                                   n_out=c["n"], y=y, epilogue=ep)
+        _assert_same_outputs(got, want if ep is not None else want[:2])
+
+
+@pytest.mark.parametrize("geom", BACKWARD_GRID, ids=lambda g: g[0])
+def test_tconv_backward_kernel_matches_plain(cuda, geom):
+    c = _cuda_case(geom, 12, cuda)
+    spec = _spec(c)
+    for kw in EP_KW:
+        ep = None if kw is None else Epilogue(**kw)
+        z = torch.tanh(c["z"]) if kw is not None and \
+            kw["activation"] == "tanh" else c["z"]
+        got = ops.tconv_backward(c["g"], c["dy"], c["w"],
+                                 stride=spec.stride, padding=spec.padding,
+                                 dilation=spec.dilation, z=z, epilogue=ep)
+        want = tconv_backward_plain(c["g"], c["dy"], c["w"], spec, z=z,
+                                    epilogue=ep)
+        _assert_same_outputs(got, want if ep is not None else want[:2])
+
+
+@pytest.mark.parametrize("geom", BACKWARD_GRID, ids=lambda g: g[0])
+def test_filter_grad_kernel_matches_plain(cuda, geom):
+    c = _cuda_case(geom, 13, cuda)
+    spec = _spec(c)
+    got = ops.dconv_filter_grad(c["x"], c["dy"], stride=spec.stride,
+                                padding=spec.padding, k=spec.filter_shape,
+                                dilation=spec.dilation)
+    torch.testing.assert_close(got, dconv_filter_grad_plain(c["x"], c["dy"],
+                                                            spec),
+                               atol=TOL, rtol=TOL)
+
+
+def test_backward_kernels_are_bit_identical_over_runs(cuda):
+    """dW and db sum in a fixed order: no atomics, the same bits."""
+    gen = torch.Generator().manual_seed(14)
+    ep = Epilogue(activation="leaky_relu", slope=0.2, bias=True, scale=0.5)
+    x = _rand(gen, 16, 32, 32, 3, device=cuda)
+    w = _rand(gen, 4, 4, 3, 32, device=cuda)
+    dy = _rand(gen, 16, 16, 16, 32, device=cuda)
+    y = _rand(gen, 16, 16, 16, 32, device=cuda)
+    geo = dict(stride=2, padding=1)
+    runs = [ops.conv_backward(x, dy, w, n_out=(32, 32), y=y, epilogue=ep,
+                              **geo) for _ in range(2)]
+    runs += [ops.tconv_backward(x, dy, w, z=torch.tanh(x),
+                                epilogue=Epilogue(activation="tanh",
+                                                  bias=True), **geo)
+             for _ in range(2)]
+    runs += [(ops.dconv_filter_grad(x, dy, k=4, **geo),) for _ in range(2)]
+    for a, b in zip(runs[::2], runs[1::2]):
+        for ta, tb in zip(a, b):
+            assert torch.equal(ta, tb)
+
+
+def _step_launches():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.STEP_LAUNCHES
+
+
+@pytest.mark.parametrize("step", ["gan_sgd_step", "gen_sgd_step",
+                                  "sgd_step"])
+def test_training_step_launches_per_step(cuda, step):
+    """At the models' published widths (batch 8) each step launches each
+    kernel as often as chip_smoke.py's table (held to `repro`'s
+    pallas_call counts on the CPU) says, and no other kernel."""
+    gen = torch.Generator().manual_seed(15)
+    b = ConvDataset(kind="gan", batch=8, z_dim=64, seed=0).batch_at(0)
+    z = torch.tensor(b["z"]).to(cuda)
+    real = torch.tensor(b["real"]).to(cuda)
+    ops.reset_launches()
+    if step == "sgd_step":
+        p = cnn.simple_cnn_init(gen, device=cuda)
+        c = ConvDataset(kind="cnn", batch=8, image=32).batch_at(0)
+        ops.reset_launches()
+        cnn.sgd_step(p, torch.tensor(c["x"]).to(cuda),
+                     torch.tensor(c["labels"]).to(cuda), backend="cuda")
+    else:
+        st = gan.gan_init(gen, device=cuda)
+        ops.reset_launches()
+        if step == "gen_sgd_step":
+            gan.gen_sgd_step(st["g"], st["d"], z, backend="cuda")
+        else:
+            gan.gan_sgd_step(st, z, real, backend="cuda")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == \
+        _step_launches()[step]
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((1, 8, 8, 3), device=cuda)
     dy = torch.zeros((1, 4, 4, 5), device=cuda)
     w = torch.zeros((4, 4, 3, 5), device=cuda)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        be.filter_grad(x, dy, spec)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        be.backward(x, dy, w, spec, (8, 8))
-    with pytest.raises(NotImplementedError):
-        ecoflow_conv_transpose(dy, w.requires_grad_(), 2, 1, backend="cuda")
+    geo = dict(stride=2, padding=1)
+    with pytest.raises(TypeError):
+        ops.conv_backward(x.double(), dy.double(), w.double(), n_out=(8, 8),
+                          **geo)
+    with pytest.raises(TypeError):
+        ops.tconv_backward(x.half(), dy.half(), w.half(), **geo)
+    with pytest.raises(ValueError, match="one device"):
+        ops.conv_backward(x, dy.cpu(), w, n_out=(8, 8), **geo)
+    with pytest.raises(ValueError, match="one device"):
+        ops.tconv_backward(x, dy, w.cpu(), **geo)
+    with pytest.raises(ValueError, match="one device"):
+        ops.dconv_filter_grad(x.cpu(), dy, k=4, **geo)
+    with pytest.raises(ValueError, match="one device"):
+        ops.conv_backward(x, dy, w, n_out=(8, 8), y=dy.cpu(),
+                          epilogue=Epilogue(activation="relu"), **geo)
 
 
 def test_engine_on_the_card_has_no_plain_rung(cuda):

@@ -190,7 +190,46 @@ def test_plain_path_counts_no_launch():
         dy, w, stride=2, padding=1, n_out=(6, 6), strategy="implicit_gemm"))
     assert_allclose(pinned, tops.tconv_phase(dy, w, stride=2, padding=1,
                                              n_out=(6, 6)))   # rule: phase
-    tops.dconv_forward(torch.zeros((1, 6, 6, 3)), torch.zeros((3, 3, 3, 4)),
-                       stride=1, padding=1, dilation=1)
+    x, w3 = torch.zeros((1, 6, 6, 3)), torch.zeros((3, 3, 3, 4))
+    y = tops.dconv_forward(x, w3, stride=1, padding=1, dilation=1)
+    tops.conv_backward(x, y, w3, stride=1, padding=1, n_out=(6, 6))
+    tops.tconv_backward(x, y, w3, stride=1, padding=1)
+    tops.dconv_filter_grad(x, y, stride=1, padding=1, k=3)
     assert tops.LAUNCHES == {"dconv_forward": 0, "tconv_phase": 0,
-                             "tconv_implicit_gemm": 0}
+                             "tconv_implicit_gemm": 0, "conv_backward": 0,
+                             "tconv_backward": 0, "dconv_filter_grad": 0}
+
+
+_C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
+            "float": "c_float"}
+
+
+@pytest.mark.parametrize("module,source,symbol,argtypes", [
+    ("dconv_forward", "dconv_forward", "dconv_forward_f32", "_ARGTYPES"),
+    ("tconv_phase", "tconv_phase", "tconv_phase_f32", "_ARGTYPES"),
+    ("implicit_gemm", "implicit_gemm", "tconv_implicit_gemm_f32",
+     "_ARGTYPES"),
+    ("dconv_backward", "conv_backward", "conv_backward_f32",
+     "_BWD_ARGTYPES"),
+    ("dconv_backward", "tconv_backward", "tconv_backward_f32",
+     "_CT_ARGTYPES"),
+    ("dconv_filtergrad", "dconv_filtergrad", "dconv_filter_grad_f32",
+     "_ARGTYPES"),
+])
+def test_c_entries_take_the_wrappers_argtypes(module, source, symbol,
+                                              argtypes):
+    """ctypes passes what `argtypes` says: each C entry's parameter list
+    (no compiler here to check it) must match it type for type."""
+    import importlib
+    import re
+
+    from repro_torch.kernels import build
+    text = (build.CSRC / f"{source}.cu").read_text()
+    sig = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", text,
+                    re.S).group(1)
+    params = [" ".join(p.split()[:-1]) for p in sig.replace("\n", " ")
+              .split(",")]
+    want = [_C_TYPES[p] for p in params]
+    got = [t.__name__ for t in getattr(importlib.import_module(
+        f"repro_torch.kernels.{module}"), argtypes)]
+    assert got == want

@@ -340,17 +340,25 @@ def test_warmup_plans_and_runs_the_primary_rung(gan_np, aspp_np):
 
 
 def test_cuda_backend_is_inference_only():
+    """The name is kept from the serving slice, when the cuda backend
+    refused inputs that require grad; gradients now flow through it (one
+    fused backward launch per conv on the card, the plain versions here)
+    and agree with the oracle backend's."""
     from repro_torch.core.conv import ecoflow_conv_transpose
-    dy = torch.zeros((1, 4, 4, 5))
-    w = torch.zeros((4, 4, 3, 5), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="inference"):
-        ecoflow_conv_transpose(dy, w, 2, 1, backend="cuda")
+    dy = torch.randn((1, 4, 4, 5), generator=torch.Generator().manual_seed(0))
+    grads = {}
+    for backend in ("cuda", "torch_zero_free"):
+        w = torch.linspace(-1, 1, 4 * 4 * 3 * 5).reshape(4, 4, 3, 5) \
+            .requires_grad_()
+        d = dy.clone().requires_grad_()
+        y = ecoflow_conv_transpose(d, w, 2, 1, backend=backend)
+        y.square().sum().backward()
+        grads[backend] = (d.grad, w.grad)
+    for a, b in zip(grads["cuda"], grads["torch_zero_free"]):
+        assert a is not None
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     with torch.no_grad():
         assert ecoflow_conv_transpose(dy, w, 2, 1, backend="cuda").shape \
             == (1, 8, 8, 3)
-    # the oracle backends differentiate through autograd
-    y = ecoflow_conv_transpose(dy, w, 2, 1, backend="torch_zero_free")
-    y.sum().backward()
-    assert w.grad is not None
     with pytest.raises(ValueError, match="inconsistent"):
         ecoflow_conv_transpose(dy, w, 2, 1, n_out=(12, 12), backend="cuda")
