@@ -10,13 +10,15 @@ of JAX and nothing of the JAX package `repro`.
 
 Phases (any failed check raises and ends the run non-zero):
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. build the six CUDA kernels of src/repro_torch/csrc (one nvcc per
+  2. build the seven CUDA kernels of src/repro_torch/csrc (one nvcc per
      source, all at once);
   3. each kernel at its main paths' shapes and at ragged geometries
-     (S > K, S = D, ragged channels, a bias, a scale, a non-exact n_out):
-     held against its plain PyTorch version on the card, and at the
-     paths' shapes against the library call; kernel, plain and library
-     timed with CUDA events;
+     (S > K, S = D, ragged channels, a bias, a scale, a non-exact n_out;
+     for attention `test_kernels.ATTN_SWEEP`'s ragged, non-causal, MQA
+     and Sq < Sk cases and MQA at head_dim 256, in fp32 and bf16): held
+     against its plain PyTorch version on the card, and at the paths'
+     shapes against the library call; kernel, plain and library timed
+     with CUDA events;
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
@@ -26,19 +28,38 @@ Phases (any failed check raises and ends the run non-zero):
      widths on ConvDataset batches of 64, each step's loss and every
      parameter held against the same steps through the plain versions on
      the CPU, step 1 repeated on the card bit for bit, the launches of
-     every step against STEP_LAUNCHES, and no NaN.
+     every step against STEP_LAUNCHES, and no NaN;
+  6. LM serving: (a) qwen3-0.6b at full width but 2 layers in fp32,
+     params from a numpy seed: prefill of 4 prompts of 64-200 tokens and
+     8 teacher-forced decode steps on the card, held after each call
+     (logits and the whole KV cache) against the same calls through the
+     plain versions on the CPU; (b) the whole qwen3-0.6b (28 layers,
+     bf16) serving 12 requests (prompts of 128-1024 tokens, 8-32 new
+     tokens each, so slots refill mid-flight) through
+     ServeEngine(batch=4, max_len=2048): one flash-attention launch per
+     layer per prefill and per decode step, no NaN in any logits, every
+     request answered, and the same tokens from a second run; then a
+     torch.profiler trace of 4 decode steps: the device's busy time, the
+     flash-attention kernel's part of it, against the step's wall time.
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
 and the library.  Kernel, plain version and library all compute in fp32;
 they differ only in the order of their sums, which moves fp32 results by
-a few ulps of the largest partial sum.  A backward case draws its
+a few ulps of the largest partial sum.  Flash attention in bf16: kernel
+and plain version compute the same fp32 values from the same bf16
+inputs and round once, so they may differ by one bf16 ulp: rtol = 2^-7,
+atol = 1e-4.  The library rounds its probabilities to bf16 as well, so
+it is held at atol = rtol = 5e-2.  A backward case draws its
 cotangent at scale 1/sqrt(B*Oh*Ow), so each filter-gradient sum over
 B*Oh*Ow products is of order 1, as it is in training; unscaled, a sum of
 16384 unit products would put its rounding near the tolerance itself.
 Training: atol = rtol = 1e-3 after every step -- dW sums up to 16384 fp32
 products in another order than the plain matmul, and five steps carry
-the difference on.  TF32 is turned off for cuDNN and for torch.matmul,
-so no side rounds its inputs to 10 bits.
+the difference on.  LM parity: atol = rtol = 1e-3 on logits and cache
+after every call (fp32 matmuls over d_model 1024 and d_ff 3072 in
+another order than the CPU's, carried through 2 layers and 8 steps).
+TF32 is turned off for cuDNN and for torch.matmul, so no side rounds its
+inputs to 10 bits.
 """
 from __future__ import annotations
 
@@ -57,12 +78,26 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 peak outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 SLOT_BATCH = 4
 N_REQUESTS = 32
 TRAIN_TOL = 1e-3
 TRAIN_BATCH = 64
 TRAIN_STEPS = 5
 LR = 0.05
+# (atol, rtol) of flash attention against its plain version and against
+# the library, by dtype.
+ATTN_TOL = {torch.float32: (TOL, TOL), torch.bfloat16: (1e-4, 2.0 ** -7)}
+ATTN_LIB_TOL = {torch.float32: (TOL, TOL), torch.bfloat16: (5e-2, 5e-2)}
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH = 4
+LM_MAX_LEN = 2048
+LM_REQUESTS = 12
+PARITY_LAYERS = 2
+PARITY_DECODES = 8
+PARITY_TOL = 1e-3
+PROFILE_CACHED = 512      # positions in the cache when decode is traced
+PROFILE_STEPS = 4
 
 # Kernel launches of one training step, by wrapper of
 # repro_torch.kernels.ops: the kernels `repro`'s same step runs as
@@ -142,10 +177,67 @@ def useful_macs(spec, batch, small_hw, large_hw, cin, cout) -> int:
         for a in range(2))
 
 
-def bound_ms(nbytes: int, macs: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, macs: int,
+             flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * macs / FP32_FLOPS_PER_S * 1e3
+    t_ops = 2 * macs / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs attention computes for one head: with the causal
+    mask bottom-right aligned, query i sees min(Sk, Sk - Sq + i + 1)
+    keys."""
+    if not causal:
+        return Sq * Sk
+    return sum(min(Sk, Sk - Sq + i + 1) for i in range(Sq))
+
+
+def decode_profile(lm, params, dev) -> dict:
+    """Where a decode step's time goes: a torch.profiler trace of
+    PROFILE_STEPS decode steps at slot batch LM_BATCH over PROFILE_CACHED
+    cached positions.  Per step: the device's busy time (all kernels), of
+    which the flash-attention kernel's (this repo's own symbol), against
+    the step's wall time under the profiler, which adds host time of its
+    own; "not measured" if the trace holds no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = np.random.default_rng(2).integers(
+        1, lm.cfg.vocab, (LM_BATCH, PROFILE_CACHED)).astype(np.int32)
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, torch.from_numpy(prompt).to(dev),
+                                   LM_MAX_LEN)
+        logits, cache = lm.decode_step(
+            params, cache, torch.argmax(logits[:, 0], dim=-1)[:, None])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                logits, cache = lm.decode_step(
+                    params, cache, torch.argmax(logits[:, 0], dim=-1)[:, None])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"steps": PROFILE_STEPS, "batch": LM_BATCH,
+           "cached_positions": PROFILE_CACHED,
+           "wall_ms_per_step_under_profiler": wall_ms}
+    if not kernels:
+        return out | {"device_busy_ms_per_step": "not measured"}
+
+    def ms_per_step(events):
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3 \
+            / PROFILE_STEPS
+
+    busy = ms_per_step(kernels)
+    attention = ms_per_step(e for e in kernels
+                            if "flash_attention_kernel<" in e.name)
+    return out | {"device_busy_ms_per_step": busy,
+                  "attention_ms_per_step": attention,
+                  "other_device_ms_per_step": busy - attention,
+                  "device_idle_share": 1.0 - busy / wall_ms,
+                  "kernels_per_step": len(kernels) / PROFILE_STEPS}
 
 
 def main() -> int:
@@ -156,7 +248,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.spec import ConvSpec, Epilogue
     from repro_torch.data.pipeline import ConvDataset
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.attention import flash_attention_plain
     from repro_torch.kernels.dconv_backward import (conv_backward_plain,
                                                     tconv_backward_plain)
     from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
@@ -165,7 +259,9 @@ def main() -> int:
     from repro_torch.kernels.tconv_phase import tconv_fused_plain
     from repro_torch.models import cnn, gan, vision
     from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.lm import LM
     from repro_torch.serve.conv_engine import ConvRequest, ConvServeEngine
+    from repro_torch.serve.engine import Request, ServeEngine
 
     dev = torch.device("cuda")
     card = card_line()
@@ -399,21 +495,89 @@ def main() -> int:
         cases.append(filter_grad_case(name, Bs, hw, cin, cout, k, s, p, d,
                                       False))
 
+    def attention_case(name, B, Sq, Sk, Hq, Hk, D, causal, dtype, path,
+                       timed=False, cache_len=0):
+        """flash_attention on (B,Sq,Hq,D) queries.  With `cache_len`, k and
+        v are the live prefix [:, :Sk] of (B, cache_len, Hk, D) buffers,
+        as a decode step passes its KV cache."""
+        q = rand(B, Sq, Hq, D).to(dtype)
+        if cache_len:
+            k = rand(B, cache_len, Hk, D).to(dtype)[:, :Sk]
+            v = rand(B, cache_len, Hk, D).to(dtype)[:, :Sk]
+        else:
+            k, v = rand(B, Sk, Hk, D).to(dtype), rand(B, Sk, Hk, D).to(dtype)
+        timed = path or timed
+        # The library's causal mask is top-left aligned: it computes this
+        # function at Sq = Sk, or with no mask where every key is visible.
+        assert not timed or not causal or Sq in (1, Sk), name
+        pairs = B * Hq * visible_pairs(Sq, Sk, causal)
+        return dict(kernel="flash_attention", case=name, path=path,
+                    timed=timed, tol=ATTN_TOL[dtype],
+                    lib_tol=ATTN_LIB_TOL[dtype],
+                    flops_per_s=BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                    else FP32_FLOPS_PER_S,
+                    run=lambda: ops.flash_attention(q, k, v, causal=causal),
+                    plain=lambda: flash_attention_plain(q, k, v,
+                                                        causal=causal),
+                    lib=lambda: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), is_causal=causal and Sq == Sk,
+                        enable_gqa=True).transpose(1, 2),
+                    macs=2 * D * pairs,       # 4 D operations per pair
+                    nbytes=q.element_size() * (2 * q.numel()
+                                               + 2 * B * Sk * Hk * D))
+
+    # The serving path's attentions (qwen3-0.6b: Hq 16, Hk 8, head_dim
+    # 128, bf16, slot batch 4): prefill at the served lengths, and decode
+    # over the live prefix of a max_len 2048 cache.
+    for S in (128, 256, 512, 1024):
+        cases.append(attention_case(f"prefill_S{S}_bf16", LM_BATCH, S, S, 16,
+                                    8, 128, True, torch.bfloat16, True))
+        cases.append(attention_case(f"decode_len{S}_bf16", LM_BATCH, 1, S + 1,
+                                    16, 8, 128, True, torch.bfloat16, True,
+                                    cache_len=LM_MAX_LEN))
+    # The parity run's dtype, and MQA at head_dim 256.
+    cases.append(attention_case("prefill_S1024_fp32", LM_BATCH, 1024, 1024,
+                                16, 8, 128, True, torch.float32, False,
+                                timed=True))
+    cases.append(attention_case("decode_len1024_fp32", LM_BATCH, 1, 1025, 16,
+                                8, 128, True, torch.float32, False,
+                                timed=True, cache_len=LM_MAX_LEN))
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        cases.append(attention_case(f"mqa_d256_{tag}", 2, 300, 300, 8, 1, 256,
+                                    True, dtype, False, timed=True))
+        # tests/test_kernels.py::ATTN_SWEEP (the Pallas block sizes bq, bk
+        # do not apply): ragged, non-causal, MQA, Sq < Sk, Sq = 1.
+        for geom in ((2, 64, 64, 4, 2, 32, True),
+                     (1, 128, 128, 8, 8, 64, True),
+                     (2, 48, 96, 4, 1, 32, True),
+                     (1, 33, 70, 8, 2, 16, False),
+                     (1, 1, 40, 4, 4, 32, True),
+                     (2, 70, 70, 2, 2, 128, True)):
+            name = "sweep_B{}_Sq{}_Sk{}_H{}x{}_D{}_{}".format(
+                *geom[:6], "causal" if geom[6] else "full")
+            cases.append(attention_case(f"{name}_{tag}", *geom, dtype,
+                                        False))
+
     def as_tuple(out):
         """The outputs a call gave (a backward's db is None without a
         bias)."""
         return tuple(t for t in out if t is not None) \
             if isinstance(out, tuple) else (out,)
 
-    def max_err(got, want, what):
+    def max_err(got, want, what, tol=TOL):
+        """Largest |got - want|; raises unless every pair is allclose at
+        `tol` (one number for atol and rtol, or a pair (atol, rtol))."""
+        atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
         got, want = as_tuple(got), as_tuple(want)
         if len(got) != len(want):
             raise AssertionError(f"{what}: {len(got)} outputs, expected "
                                  f"{len(want)}")
         err = 0.0
         for a, b in zip(got, want):
-            if a.shape != b.shape or not torch.allclose(a, b, atol=TOL,
-                                                        rtol=TOL):
+            a, b = a.float(), b.float()
+            if a.shape != b.shape or not torch.allclose(a, b, atol=atol,
+                                                        rtol=rtol):
                 raise AssertionError(
                     f"{what}: shape {tuple(a.shape)} vs {tuple(b.shape)}, "
                     f"max |err| {(a - b).abs().max().item():.3e}")
@@ -426,12 +590,16 @@ def main() -> int:
         got = c["run"]()
         torch.cuda.synchronize()
         what = f"{c['kernel']} {c['case']}"
-        err = max_err(got, c["plain"](), what + " against the plain version")
+        tol = c.get("tol", TOL)
+        err = max_err(got, c["plain"](), what + " against the plain version",
+                      tol)
         row = dict(kernel=c["kernel"], case=c["case"], max_abs_err=err)
         if c["timed"]:
             lib = c["lib"]
-            lib_err = max_err(got, lib(), what + " against the library")
-            b_ms, b_by = bound_ms(c["nbytes"], c["macs"])
+            lib_err = max_err(got, lib(), what + " against the library",
+                              c.get("lib_tol", tol))
+            b_ms, b_by = bound_ms(c["nbytes"], c["macs"],
+                                  c.get("flops_per_s", FP32_FLOPS_PER_S))
             row.update(lib_err=lib_err, ms=timer(c["run"]),
                        plain_ms=timer(c["plain"]), library_ms=timer(lib),
                        bound_ms=b_ms, bound_by=b_by, macs=c["macs"],
@@ -447,7 +615,10 @@ def main() -> int:
                 k[key] += row[key]
             k["by"][row["bound_by"]] += row["bound_ms"]
     print(f"kernels: all {len(kernels)} agree with their plain versions "
-          f"and the library within {TOL:g} at every case")
+          f"and the library within {TOL:g} at every case (flash attention "
+          f"in bf16, (atol, rtol): {ATTN_TOL[torch.bfloat16]} against the "
+          f"plain version, {ATTN_LIB_TOL[torch.bfloat16]} against the "
+          f"library)")
 
     # -- phase 4: serve at the published widths --------------------------------
     gen = torch.Generator().manual_seed(1234)
@@ -591,6 +762,174 @@ def main() -> int:
           f"{TRAIN_TOL:g} after every step; step 1 repeats bit for bit")
     print("train launches " + json.dumps(train_launches))
 
+    # -- phase 6: LM serving ---------------------------------------------------
+    full = get_config(LM_ARCH)
+
+    # (a) 2 layers at full width in fp32: the card against the CPU.
+    pcfg = full.scaled(n_layers=PARITY_LAYERS, dtype="float32")
+    plm = LM(pcfg)
+    rng = np.random.default_rng(13)
+
+    def draw(t):
+        """N(0, 1) scaled as LM.init scales it (the embedding by 1, a
+        stacked (layer, fan-in, fan-out) weight by 1/sqrt(fan-in)); the
+        norm scales by 0.1, so that 1 + scale is not 1."""
+        if t.shape == (pcfg.vocab, pcfg.d_model):
+            scale = 1.0
+        elif t.dim() == 3:
+            scale = 1.0 / math.sqrt(t.shape[1])
+        else:
+            scale = 0.1
+        return torch.from_numpy(
+            (scale * rng.standard_normal(t.shape)).astype(np.float32))
+
+    cpu_params = tree_map(draw, plm.init(torch.Generator().manual_seed(0),
+                                         device="cpu"))
+    dev_params = tree_map(lambda t: t.to(dev), cpu_params)
+    lens = rng.integers(64, 201, LM_BATCH)
+    toks = np.zeros((LM_BATCH, int(lens.max())), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, toks.shape[1] - n:] = rng.integers(1, pcfg.vocab, n)
+    forced = rng.integers(1, pcfg.vocab, (PARITY_DECODES, LM_BATCH, 1))
+    max_len = toks.shape[1] + PARITY_DECODES
+
+    def hold(got, want, what):
+        got = got.to(cpu)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"lm parity {what}: a non-finite value")
+        if got.shape != want.shape or not torch.allclose(
+                got, want, atol=PARITY_TOL, rtol=PARITY_TOL):
+            raise AssertionError(f"lm parity {what}: max |err| "
+                                 f"{(got - want).abs().max().item():.3e} "
+                                 f"against the plain versions on the CPU")
+        return (got - want).abs().max().item()
+
+    worst = 0.0
+    ops.reset_launches()
+    with torch.no_grad():
+        out = plm.prefill(dev_params, torch.from_numpy(toks).to(dev), max_len)
+        want = plm.prefill(cpu_params, torch.from_numpy(toks), max_len)
+        for step in range(PARITY_DECODES + 1):
+            what = "prefill" if step == 0 else f"decode {step}"
+            worst = max(worst, hold(out[0], want[0], what + " logits"),
+                        hold(out[1]["k"], want[1]["k"], what + " cache k"),
+                        hold(out[1]["v"], want[1]["v"], what + " cache v"))
+            if out[1]["len"] != want[1]["len"]:
+                raise AssertionError(f"lm parity {what}: cache len")
+            if step < PARITY_DECODES:
+                tok = torch.from_numpy(forced[step].astype(np.int32))
+                out = plm.decode_step(dev_params, out[1], tok.to(dev))
+                want = plm.decode_step(cpu_params, want[1], tok)
+    parity_launches = ops.LAUNCHES["flash_attention"]
+    if parity_launches != PARITY_LAYERS * (1 + PARITY_DECODES):
+        raise AssertionError(f"lm parity: {parity_launches} flash_attention "
+                             f"launches, expected one per layer per call")
+    print("lm parity " + json.dumps({
+        "arch": LM_ARCH, "n_layers": PARITY_LAYERS, "dtype": "float32",
+        "prompt_lens": lens.tolist(), "decode_steps": PARITY_DECODES,
+        "max_abs_err_vs_cpu": worst, "tol": PARITY_TOL}))
+    del cpu_params, dev_params, out, want
+
+    # (b) the whole model in bf16 through the serving engine.
+    lm = LM(full)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator().manual_seed(1), device=dev)
+    init_s = time.perf_counter() - t0
+
+    def lm_requests():
+        rng = np.random.default_rng(0)
+        return [Request(uid=i,
+                        prompt=rng.integers(1, full.vocab,
+                                            rng.integers(128, 1025)
+                                            ).astype(np.int32),
+                        max_new_tokens=int(rng.integers(8, 33)))
+                for i in range(LM_REQUESTS)]
+
+    def instrumented_engine():
+        """A fresh engine whose prefill and decode calls record CUDA
+        events and a finiteness flag of their logits."""
+        eng = ServeEngine(full, params, batch=LM_BATCH, max_len=LM_MAX_LEN,
+                          device=dev)
+        eng.calls = []
+
+        def wrap(kind, fn):
+            def call(*args):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                logits, cache = fn(*args)
+                end.record()
+                eng.calls.append((kind, start, end,
+                                  torch.isfinite(logits).all()))
+                return logits, cache
+            return call
+
+        eng._prefill = wrap("prefill", eng._prefill)
+        eng._decode = wrap("decode", eng._decode)
+        return eng
+
+    warm = instrumented_engine()        # one-time costs (cuBLAS, kernels)
+    warm.generate([Request(uid=0, prompt=np.arange(1, 200, dtype=np.int32),
+                           max_new_tokens=3)])
+    runs = []
+    for run in range(2):
+        eng, reqs = instrumented_engine(), lm_requests()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        calls = eng.stats["prefills"] + eng.stats["decode_steps"]
+        if launches != {"flash_attention": full.n_layers * calls}:
+            raise AssertionError(f"lm serve run {run + 1}: launches "
+                                 f"{launches}, expected "
+                                 f"{full.n_layers} x {calls} flash_attention")
+        if not all(bool(ok) for *_, ok in eng.calls):
+            raise AssertionError(f"lm serve run {run + 1}: NaN or inf in the "
+                                 f"logits")
+        if sorted(res) != list(range(LM_REQUESTS)) or any(
+                len(res[r.uid]) != r.max_new_tokens for r in reqs):
+            raise AssertionError(f"lm serve run {run + 1}: not every request "
+                                 f"was answered in full")
+        runs.append(dict(res=res, wall=wall, launches=launches,
+                         stats=dict(eng.stats), calls=eng.calls, reqs=reqs,
+                         peak=torch.cuda.max_memory_allocated()))
+    if runs[1]["res"] != runs[0]["res"] or runs[1]["stats"] != \
+            runs[0]["stats"]:
+        raise AssertionError("lm serve: a second run gave other tokens")
+    first = runs[0]
+    lm_launches = first["launches"]
+    ms = {kind: [s.elapsed_time(e) for k, s, e, _ in first["calls"]
+                 if k == kind] for kind in ("prefill", "decode")}
+    generated = sum(len(v) for v in first["res"].values())
+    decode_ms = sorted(ms["decode"])
+    print("lm serve " + json.dumps({
+        "arch": LM_ARCH, "n_layers": full.n_layers, "dtype": full.dtype,
+        "batch": LM_BATCH, "max_len": LM_MAX_LEN, "requests": LM_REQUESTS,
+        "prompt_tokens": int(sum(len(r.prompt) for r in first["reqs"])),
+        "generated_tokens": generated, "stats": first["stats"],
+        "launches": lm_launches, "wall_s": [r["wall"] for r in runs],
+        "requests_per_s": LM_REQUESTS / first["wall"],
+        "generated_tokens_per_s": generated / first["wall"],
+        "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),
+        "ms_per_decode_step": sum(ms["decode"]) / len(ms["decode"]),
+        "prefill_ms": ms["prefill"],
+        "decode_ms_min_median_max": [decode_ms[0],
+                                     decode_ms[len(decode_ms) // 2],
+                                     decode_ms[-1]],
+        "peak_memory_gb": first["peak"] / 1e9, "init_s": init_s,
+        "card": card}))
+    print("lm decode profile " + json.dumps(
+        decode_profile(lm, params, dev) | {"card": card}))
+    print(f"lm: {PARITY_LAYERS}-layer {LM_ARCH} fp32 equals the CPU within "
+          f"{PARITY_TOL:g} over prefill and {PARITY_DECODES} decode steps; "
+          f"{LM_REQUESTS} requests served twice with the same tokens, "
+          f"{full.n_layers} flash_attention launches per prefill and per "
+          f"decode step, no NaN")
+
     sources = {"dconv_forward": ("dconv_forward.cu",
                                  "src/repro/kernels/dconv_forward.py:104"),
                "tconv_phase": ("tconv_phase.cu",
@@ -603,7 +942,9 @@ def main() -> int:
                                   "src/repro/kernels/dconv_backward.py:518"),
                "dconv_filter_grad": (
                    "dconv_filtergrad.cu",
-                   "src/repro/kernels/dconv_filtergrad.py:114")}
+                   "src/repro/kernels/dconv_filtergrad.py:114"),
+               "flash_attention": ("flash_attention.cu",
+                                   "src/repro/kernels/attention.py:83")}
     rows = []
     for name, (source, replaces) in sources.items():
         k = kernels[name]
@@ -611,7 +952,8 @@ def main() -> int:
                      "source": f"src/repro_torch/csrc/{source}",
                      "replaces": replaces,
                      "launches": serve_launches.get(name, 0)
-                     + train_launches.get(name, 0),
+                     + train_launches.get(name, 0)
+                     + lm_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),

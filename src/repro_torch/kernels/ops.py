@@ -1,10 +1,12 @@
-"""Public wrappers around the conv kernels (port of the conv wrappers of
-`repro/kernels/ops.py`); they are the `cuda` conv backend.
+"""Public wrappers around the kernels (port of `repro/kernels/ops.py`); the
+conv wrappers are the `cuda` conv backend, `flash_attention` is the LM's
+attention.
 
-Each wrapper takes fp32 tensors on one device.  On a CUDA tensor it
-launches its hand-written kernel and adds one to its entry of `LAUNCHES`;
-on a CPU tensor it runs the kernel's plain PyTorch version and counts
-nothing.  There is no fallback: a launch that fails raises.
+Each conv wrapper takes fp32 tensors on one device; `flash_attention`
+takes fp32 or bf16.  On a CUDA tensor a wrapper launches its hand-written
+kernel and adds one to its entry of `LAUNCHES`; on a CPU tensor it runs
+the kernel's plain PyTorch version and counts nothing.  There is no
+fallback: a launch that fails raises.
 
   dconv_forward        -> csrc/dconv_forward.cu
   tconv_phase          -> csrc/tconv_phase.cu or, when the strategy
@@ -13,6 +15,7 @@ nothing.  There is no fallback: a launch that fails raises.
   conv_backward        -> csrc/conv_backward.cu   (dx, dW, db of a conv)
   tconv_backward       -> csrc/tconv_backward.cu  (ddy, dW, db of a tconv)
   dconv_filter_grad    -> csrc/dconv_filtergrad.cu
+  flash_attention      -> csrc/flash_attention.cu
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import torch
 
 from repro_torch.core.spec import ConvSpec, Epilogue, _pair
 from repro_torch.kernels import tiling
+from repro_torch.kernels.attention import (HEAD_DIMS, flash_attention_cuda,
+                                           flash_attention_plain)
 from repro_torch.kernels.dconv_backward import (conv_backward_cuda,
                                                 conv_backward_plain,
                                                 tconv_backward_cuda,
@@ -35,7 +40,8 @@ from repro_torch.kernels.tconv_phase import (tconv_fused_cuda,
 
 # Kernel launches per wrapper since the last reset.
 LAUNCHES = {"dconv_forward": 0, "tconv_phase": 0, "tconv_implicit_gemm": 0,
-            "conv_backward": 0, "tconv_backward": 0, "dconv_filter_grad": 0}
+            "conv_backward": 0, "tconv_backward": 0, "dconv_filter_grad": 0,
+            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -233,3 +239,48 @@ def dconv_filter_grad(x: torch.Tensor, dy: torch.Tensor, *, stride, padding,
     dw = dconv_filter_grad_cuda(x.contiguous(), dy.contiguous(), spec)
     LAUNCHES["dconv_filter_grad"] += 1
     return dw
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int | None = None,
+                    blk_k: int = 128) -> torch.Tensor:
+    """Blockwise causal GQA attention: q (B,Sq,Hq,D), k/v (B,Sk,Hk,D),
+    Hq % Hk == 0 -> (B,Sq,Hq,D) in q's dtype (fp32 or bf16, the same for
+    all three).  With `causal`, key j is visible to query i iff
+    j <= q_offset + i; `q_offset` defaults to Sk - Sq.  k and v may be
+    strided views (the live prefix of a KV cache): the kernel reads them
+    in place.  `blk_k` is the plain version's kv block on the CPU; the
+    kernel has its own."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
+            q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"expected q (B,Sq,Hq,D) and k, v (B,Sk,Hk,D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    dtypes = {q.dtype, k.dtype, v.dtype}
+    if len(dtypes) != 1 or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention takes float32 or bfloat16, one "
+                        f"dtype for q, k and v; got {dtypes}")
+    devices = {q.device, k.device, v.device}
+    if len(devices) != 1:
+        raise ValueError(f"operands must share one device, got {devices}")
+    _, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    if Hk == 0 or Hq % Hk:
+        raise ValueError(f"{Hq} query heads are not a multiple of {Hk} kv "
+                         f"heads")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} is not one of {HEAD_DIMS}")
+    if Sk == 0:
+        raise ValueError("no keys: Sk must be at least 1")
+    off = Sk - Sq if q_offset is None else int(q_offset)
+    if causal and off < 0:
+        raise ValueError(f"causal attention needs q_offset >= 0 (every query "
+                         f"sees key 0), got {off}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, q_offset=off,
+                                     blk_k=blk_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,15 +1,25 @@
-"""Parameter-tree helpers shared by the conv models (port of
-`repro/models/layers.py::tree_all_finite`, with the two tree walks the
-functional training steps need in place of `jax.tree_util`).
+"""Shared layers (port of `repro/models/layers.py`): the parameter-tree
+helpers the conv models' functional training steps need, and the dense
+transformer's layers -- norms, rope, GQA attention (prefill and decode
+over a KV cache), MLPs, embeddings.
 
-A tree is nested dicts, lists and tuples with tensors at the leaves,
-as the models' params are.
+A tree is nested dicts, lists and tuples with tensors at the leaves, as
+the models' params are.  The transformer layers take params as dicts of
+tensors (fp32) and compute in the input's dtype, as `repro` does.  On a
+CUDA tensor attention runs `ops.flash_attention`, the hand-written
+kernel; on a CPU tensor, the plain PyTorch mirror of `repro`'s code.
 """
 from __future__ import annotations
 
-from typing import Callable
+import math
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.attention import NEG_INF
+from repro_torch.models.config import ModelConfig
 
 
 def tree_leaves(tree) -> list:
@@ -67,3 +77,183 @@ def sgd_grads(loss_fn: Callable, params):
 def sgd_update(params, grads, lr):
     """p - lr * g over the tree, detached."""
     return tree_map(lambda p, g: (p - lr * g).detach(), params, grads)
+
+
+# ---------------------------------------------------------------------------
+# The dense transformer's layers
+# ---------------------------------------------------------------------------
+
+def _init(generator: torch.Generator, shape, scale=None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    return trunc_normal(generator, shape, scale)
+
+
+def rmsnorm_init(d):
+    return {"scale": torch.zeros((d,), dtype=torch.float32)}
+
+
+def rmsnorm(params, x, eps=1e-6):
+    """The sum of squares in fp32; x keeps its dtype, scaled by
+    rsqrt(mean + eps) * (1 + scale)."""
+    xf = x.float()
+    var = (xf * xf).sum(dim=-1, keepdim=True) / x.shape[-1]
+    scale = torch.rsqrt(var + eps) * (1.0 + params["scale"])
+    return x * scale.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x (B,S,H,D), positions (B,S) -> x rotated by split halves."""
+    d = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device) / d)
+    ang = positions[..., None].float() * freqs           # (B,S,D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def attention_init(generator: torch.Generator, cfg: ModelConfig):
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    p = {
+        "wq": _init(generator, (d, qd)),
+        "wk": _init(generator, (d, kvd)),
+        "wv": _init(generator, (d, kvd)),
+        "wo": _init(generator, (qd, d), scale=1.0 / math.sqrt(qd)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((qd,), dtype=torch.float32)
+        p["bk"] = torch.zeros((kvd,), dtype=torch.float32)
+        p["bv"] = torch.zeros((kvd,), dtype=torch.float32)
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(cfg.head_dim)
+        p["k_norm"] = rmsnorm_init(cfg.head_dim)
+    return p
+
+
+def _qkv(params, x, cfg: ModelConfig, positions):
+    B, S, _ = x.shape
+    dt = x.dtype
+    q = x @ params["wq"].to(dt)
+    k = x @ params["wk"].to(dt)
+    v = x @ params["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def flash_attention(q, k, v, *, causal: bool = True, chunk: int = 1024,
+                    q_offset: int = 0):
+    """Online-softmax attention that never materializes S x S scores.
+
+    q (B,Sq,Hq,D), k/v (B,Sk,Hk,D) with Hq % Hk == 0.  `q_offset` is the
+    absolute position of q[0] relative to k[0].  On the card: one launch
+    of the flash-attention kernel.  On the CPU: the recurrence over kv
+    chunks of `chunk` keys."""
+    return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               blk_k=chunk)
+
+
+def attention_block(params, x, cfg: ModelConfig, positions):
+    """Training / prefill attention.  Returns (out, (k, v)) for caching."""
+    q, k, v = _qkv(params, x, cfg, positions)
+    out = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    B, S, _, _ = out.shape
+    out = out.reshape(B, S, cfg.q_dim) @ params["wo"].to(x.dtype)
+    return out, (k, v)
+
+
+def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
+                     cache_len: int):
+    """Decode against a KV cache: x (B,S,D) are the tokens at positions
+    cache_len .. cache_len + S - 1; cache_k/v (B,Smax,Hk,D).
+
+    Writes the new k and v into cache_k / cache_v IN PLACE (at
+    cache_len) and returns (out, cache_k, cache_v).  On the card the
+    attention is one kernel launch over the live prefix
+    cache[:, :cache_len + S], a strided view of the cache, with q_offset
+    = cache_len; on the CPU, `repro`'s masked softmax over the whole
+    cache (the query rounded to the cache's dtype before the scores, the
+    probabilities before the values)."""
+    B, S, _ = x.shape
+    Smax = cache_k.shape[1]
+    if cache_len + S > Smax:
+        raise ValueError(f"cache of {Smax} positions cannot take positions "
+                         f"{cache_len}..{cache_len + S - 1}")
+    positions = (cache_len + torch.arange(S, device=x.device))[None, :]
+    positions = positions.expand(B, S)
+    q, k, v = _qkv(params, x, cfg, positions)
+    cache_k[:, cache_len:cache_len + S] = k.to(cache_k.dtype)
+    cache_v[:, cache_len:cache_len + S] = v.to(cache_v.dtype)
+    if x.device.type == "cuda":
+        out = ops.flash_attention(q.to(cache_k.dtype),
+                                  cache_k[:, :cache_len + S],
+                                  cache_v[:, :cache_len + S], causal=True,
+                                  q_offset=cache_len)
+    else:
+        g = cfg.n_heads // cfg.n_kv_heads
+        qf = (q.float() * cfg.head_dim ** -0.5).to(cache_k.dtype)
+        qf = qf.reshape(B, S, cfg.n_kv_heads, g, cfg.head_dim)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf.float(), cache_k.float())
+        k_pos = torch.arange(Smax, device=x.device)[None, :]
+        q_pos = (cache_len + torch.arange(S, device=x.device))[:, None]
+        s = torch.where((k_pos <= q_pos)[None, :, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bqhgk,bkhd->bqhgd", p.to(cache_v.dtype).float(),
+                           cache_v.float())
+    out = out.reshape(B, S, cfg.q_dim).to(x.dtype)
+    return out @ params["wo"].to(x.dtype), cache_k, cache_v
+
+
+def mlp_init(generator: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act == "gelu":
+        return {"wi": _init(generator, (d, f)), "wo": _init(generator, (f, d))}
+    return {"wi": _init(generator, (d, f)), "wg": _init(generator, (d, f)),
+            "wo": _init(generator, (f, d))}
+
+
+def _gelu(t):
+    """`jax.nn.gelu`'s default, the tanh approximation."""
+    return F.gelu(t, approximate="tanh")
+
+
+def mlp_block(params, x, cfg: ModelConfig):
+    dt = x.dtype
+    if cfg.act == "gelu":
+        h = _gelu(x @ params["wi"].to(dt))
+    else:
+        gate_fn = F.silu if cfg.act == "swiglu" else _gelu
+        h = gate_fn(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
+    return h @ params["wo"].to(dt)
+
+
+def embedding_init(generator: torch.Generator, cfg: ModelConfig):
+    p = {"tok": _init(generator, (cfg.vocab, cfg.d_model), scale=1.0)}
+    if not cfg.tie_embeddings:
+        p["head"] = _init(generator, (cfg.d_model, cfg.vocab))
+    return p
+
+
+def embed(params, tokens, cfg: ModelConfig):
+    """The rows of `tokens`, cast after the gather (the same values as
+    `repro`'s cast table, without casting the whole table)."""
+    return params["tok"][tokens.long()].to(cfg.compute_dtype)
+
+
+def logits_head(params, x, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return (x @ params["tok"].t().to(x.dtype)).float()
+    return (x @ params["head"].to(x.dtype)).float()

@@ -1,4 +1,5 @@
-"""Geometry grids shared by the port's CPU parity tests."""
+"""Geometry grids and seeded operands shared by the port's CPU parity
+tests and its card-side tests."""
 from __future__ import annotations
 
 import numpy as np
@@ -83,3 +84,25 @@ def tconv_case(geom, seed):
     w = rng.standard_normal(spec.filter_shape + (cin, cout)).astype(np.float32)
     bias = rng.standard_normal(cin).astype(np.float32)
     return spec, n_out, dy, w, bias
+
+
+# (B, Sq, Sk, Hq, Hk, D, causal, bq, bk): the flash-attention sweep,
+# `test_kernels.ATTN_SWEEP` (the card's tests import no JAX, so they read
+# this copy; test_torch_attention.py pins the two equal).  bq and bk are
+# the Pallas kernel's block sizes; the port's kernel has its own.
+ATTN_SWEEP = [
+    (2, 64, 64, 4, 2, 32, True, 32, 32),
+    (1, 128, 128, 8, 8, 64, True, 64, 32),
+    (2, 48, 96, 4, 1, 32, True, 16, 32),    # MQA, decode-style suffix
+    (1, 33, 70, 8, 2, 16, False, 32, 32),   # ragged, non-causal
+    (1, 1, 40, 4, 4, 32, True, 8, 16),      # single-token decode
+    (2, 70, 70, 2, 2, 128, True, 32, 64),   # head_dim 128
+]
+
+
+def attention_case(B, Sq, Sk, Hq, Hk, D, seed):
+    """Seeded numpy q (B,Sq,Hq,D), k and v (B,Sk,Hk,D)."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, Sq, Hq, D), (B, Sk, Hk, D),
+                               (B, Sk, Hk, D)))

@@ -8,8 +8,10 @@ These tests need a CUDA card and skip without one.  They import no JAX
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Tolerance: atol = rtol = 1e-4; kernel and plain version both sum in fp32
-and differ only in summation order.  Repeated launches of a backward
-kernel on the same inputs must agree bit for bit.
+and differ only in summation order.  Flash attention in bf16: both sides
+compute the same fp32 values from the same bf16 inputs and round once, so
+they may differ by one bf16 ulp: rtol = 2^-7, atol = 1e-4.  Repeated launches of a backward
+kernel or of flash attention on the same inputs must agree bit for bit.
 """
 from __future__ import annotations
 
@@ -20,12 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (BACKWARD_GRID, EP_KW, FWD_GRID, TCONV_GRID,
-                          backward_case, tconv_case)
+from _torch_cases import (ATTN_SWEEP, BACKWARD_GRID, EP_KW, FWD_GRID,
+                          TCONV_GRID, attention_case, backward_case,
+                          tconv_case)
 from repro_torch.core.conv import ecoflow_conv, ecoflow_conv_transpose
 from repro_torch.core.spec import ConvSpec, Epilogue, resolve_backend
 from repro_torch.data.pipeline import ConvDataset
 from repro_torch.kernels import ops
+from repro_torch.kernels.attention import flash_attention_plain
 from repro_torch.kernels.dconv_backward import (conv_backward_plain,
                                                 tconv_backward_plain)
 from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
@@ -33,6 +37,8 @@ from repro_torch.kernels.dconv_forward import dconv_forward_plain
 from repro_torch.kernels.implicit_gemm import tconv_implicit_gemm_plain
 from repro_torch.kernels.tconv_phase import tconv_fused_plain
 from repro_torch.models import cnn, gan
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import LM
 
 pytestmark = pytest.mark.gpu
 
@@ -99,7 +105,8 @@ def test_each_wrapper_counts_its_launches(cuda):
                       padding=2, dilation=2)
     assert ops.LAUNCHES == {"dconv_forward": 1, "tconv_phase": 1,
                             "tconv_implicit_gemm": 1, "conv_backward": 0,
-                            "tconv_backward": 0, "dconv_filter_grad": 0}
+                            "tconv_backward": 0, "dconv_filter_grad": 0,
+                            "flash_attention": 0}
     ops.dconv_forward(_rand(gen, 1, 8, 8, 3, device="cpu"),
                       _rand(gen, 3, 3, 3, 4, device="cpu"), stride=1,
                       padding=2, dilation=2)              # plain: no launch
@@ -295,3 +302,89 @@ def test_engine_on_the_card_has_no_plain_rung(cuda):
     assert ConvServeEngine(device=cuda).ladder == ("cuda",)
     with pytest.raises(ValueError, match="kernels alone"):
         ConvServeEngine(device=cuda, ladder=DEFAULT_LADDER)
+
+
+# (atol, rtol) of flash attention against its plain version.
+ATTN_TOL = {torch.float32: (TOL, TOL), torch.bfloat16: (1e-4, 2.0 ** -7)}
+
+
+def _attention_operands(case, dtype, device, seed):
+    B, Sq, Sk, Hq, Hk, D = case
+    return tuple(torch.tensor(a).to(device=device, dtype=dtype)
+                 for a in attention_case(B, Sq, Sk, Hq, Hk, D, seed))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hk,D,causal,bq,bk", ATTN_SWEEP + [
+    (2, 300, 300, 8, 1, 256, True, 0, 0),     # MQA, head_dim 256
+    (1, 40, 40, 2, 1, 16, True, 0, 0)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, Hq, Hk,
+                                              D, causal, bq, bk):
+    q, k, v = _attention_operands((B, Sq, Sk, Hq, Hk, D), dtype, cuda, 12)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal)
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_reads_a_strided_cache_view(cuda, dtype):
+    """Decode: one query per sequence over the live prefix of a
+    (B, Smax, Hk, D) cache, a view whose batch stride is Smax * Hk * D."""
+    B, Smax, Hq, Hk, D, length = 3, 96, 8, 2, 128, 70
+    q, ck, cv = _attention_operands((B, 1, Smax, Hq, Hk, D), dtype, cuda, 13)
+    k, v = ck[:, :length + 1], cv[:, :length + 1]
+    assert not k.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=length)
+    want = flash_attention_plain(q, k.contiguous(), v.contiguous(),
+                                 causal=True, q_offset=length)
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_flash_attention_refuses_an_operand_it_cannot_read_in_place(cuda):
+    """The wrapper raises instead of copying an operand the kernel cannot
+    read in place: no silent copy of a KV cache."""
+    q = torch.zeros((1, 4, 4, 32), device=cuda)
+    kv = torch.zeros((1, 4, 2, 32), device=cuda)
+    shifted = torch.zeros(kv.numel() + 1, device=cuda)[1:].view(kv.shape)
+    d_strided = torch.zeros((1, 4, 32, 2), device=cuda).transpose(2, 3)
+    ops.reset_launches()
+    for k in (shifted, d_strided):
+        with pytest.raises(ValueError, match="in place"):
+            ops.flash_attention(q, k, kv)
+    assert ops.LAUNCHES["flash_attention"] == 0
+
+
+def test_flash_attention_refuses_mixed_devices(cuda):
+    q = torch.zeros((1, 4, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        ops.flash_attention(q, q.cpu(), q)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+
+
+def test_lm_launches_one_attention_kernel_per_layer(cuda):
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=3, d_model=64,
+                      d_ff=128, vocab=97, n_heads=4, n_kv_heads=2,
+                      head_dim=16, qk_norm=True)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(16), device=cuda)
+    toks = torch.randint(0, 97, (2, 9), generator=torch.Generator()
+                         .manual_seed(16)).to(cuda)
+    ops.reset_launches()
+    logits, cache = lm.prefill(params, toks, 16)
+    assert ops.LAUNCHES["flash_attention"] == 3
+    logits, cache = lm.decode_step(params, cache, toks[:, :1])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 6
+    assert bool(torch.isfinite(logits).all())
+    assert {k for k, n in ops.LAUNCHES.items() if n} == {"flash_attention"}

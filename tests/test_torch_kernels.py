@@ -11,6 +11,7 @@ tests/test_torch_cuda.py and chip_smoke.py.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import jax.numpy as jnp
@@ -197,11 +198,12 @@ def test_plain_path_counts_no_launch():
     tops.dconv_filter_grad(x, y, stride=1, padding=1, k=3)
     assert tops.LAUNCHES == {"dconv_forward": 0, "tconv_phase": 0,
                              "tconv_implicit_gemm": 0, "conv_backward": 0,
-                             "tconv_backward": 0, "dconv_filter_grad": 0}
+                             "tconv_backward": 0, "dconv_filter_grad": 0,
+                             "flash_attention": 0}
 
 
 _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
-            "float": "c_float"}
+            "float": "c_float", "int64_t": ctypes.c_int64.__name__}
 
 
 @pytest.mark.parametrize("module,source,symbol,argtypes", [
@@ -215,6 +217,8 @@ _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
      "_CT_ARGTYPES"),
     ("dconv_filtergrad", "dconv_filtergrad", "dconv_filter_grad_f32",
      "_ARGTYPES"),
+    ("attention", "flash_attention", "flash_attention_f32", "_ARGTYPES"),
+    ("attention", "flash_attention", "flash_attention_bf16", "_ARGTYPES"),
 ])
 def test_c_entries_take_the_wrappers_argtypes(module, source, symbol,
                                               argtypes):
