@@ -11,14 +11,16 @@ of JAX and nothing of the JAX package `repro`.
 Phases (any failed check raises and ends the run non-zero):
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build the seven CUDA kernels of src/repro_torch/csrc (one nvcc per
-     source, all at once);
+     source, all at once), with each kernel's registers and spills;
   3. each kernel at its main paths' shapes and at ragged geometries
      (S > K, S = D, ragged channels, a bias, a scale, a non-exact n_out;
      for attention `test_kernels.ATTN_SWEEP`'s ragged, non-causal, MQA
-     and Sq < Sk cases and MQA at head_dim 256, in fp32 and bf16): held
-     against its plain PyTorch version on the card, and at the paths'
-     shapes against the library call; kernel, plain and library timed
-     with CUDA events;
+     and Sq < Sk cases, MQA at head_dim 256, Sq and Sk about the 64-row
+     and 64-key tiles at every head_dim, and decode lengths 1-1025 over a
+     strided cache, in fp32 and bf16, each case printed with the kernel
+     form it ran on, reruns bit-identical): held against its plain
+     PyTorch version on the card, and at the paths' shapes against the
+     library call; kernel, plain and library timed with CUDA events;
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
@@ -37,10 +39,11 @@ Phases (any failed check raises and ends the run non-zero):
      bf16) serving 12 requests (prompts of 128-1024 tokens, 8-32 new
      tokens each, so slots refill mid-flight) through
      ServeEngine(batch=4, max_len=2048): one flash-attention launch per
-     layer per prefill and per decode step, no NaN in any logits, every
-     request answered, and the same tokens from a second run; then a
-     torch.profiler trace of 4 decode steps: the device's busy time, the
-     flash-attention kernel's part of it, against the step's wall time.
+     layer per prefill and per decode step -- every prefill on the wgmma
+     form, every decode step on the split form -- no NaN in any logits,
+     every request answered, and the same tokens from a second run; then
+     a torch.profiler trace of 4 decode steps: the device's busy time, the
+     flash-attention kernels' part of it, against the step's wall time.
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
 and the library.  Kernel, plain version and library all compute in fp32;
@@ -48,11 +51,13 @@ they differ only in the order of their sums, which moves fp32 results by
 a few ulps of the largest partial sum.  Flash attention in bf16: kernel
 and plain version compute the same fp32 values from the same bf16
 inputs and round once, so they may differ by one bf16 ulp: rtol = 2^-7,
-atol = 1e-4.  The library rounds its probabilities to bf16 as well, so
-it is held at atol = rtol = 5e-2.  A backward case draws its
-cotangent at scale 1/sqrt(B*Oh*Ow), so each filter-gradient sum over
-B*Oh*Ow products is of order 1, as it is in training; unscaled, a sum of
-16384 unit products would put its rounding near the tolerance itself.
+atol = 1e-4 (the wgmma form keeps P to ~16 bits as two bf16 terms, so
+its P.V stays in that class).  The library rounds its probabilities to
+bf16 as well, so it is held at atol = rtol = 5e-2.  A backward case
+draws its cotangent at scale 1/sqrt(B*Oh*Ow), so each filter-gradient
+sum over B*Oh*Ow products is of order 1, as it is in training;
+unscaled, a sum of 16384 unit products would put its rounding near the
+tolerance itself.
 Training: atol = rtol = 1e-3 after every step -- dW sums up to 16384 fp32
 products in another order than the plain matmul, and five steps carry
 the difference on.  LM parity: atol = rtol = 1e-3 on logits and cache
@@ -65,6 +70,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +104,7 @@ PARITY_DECODES = 8
 PARITY_TOL = 1e-3
 PROFILE_CACHED = 512      # positions in the cache when decode is traced
 PROFILE_STEPS = 4
+ATTN_FORMS = ("tile", "wgmma", "split")   # csrc/flash_attention.cu's kernels
 
 # Kernel launches of one training step, by wrapper of
 # repro_torch.kernels.ops: the kernels `repro`'s same step runs as
@@ -193,13 +200,41 @@ def visible_pairs(Sq: int, Sk: int, causal: bool) -> int:
     return sum(min(Sk, Sk - Sq + i + 1) for i in range(Sq))
 
 
+def ptxas_usage(log: str) -> list[tuple[str, str, str]]:
+    """(kernel<template arguments>, registers, spills) of every entry
+    function in an `nvcc -Xptxas=-v` log."""
+    rows, label, spills = [], "?", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '_ZN(\w+)'", line)
+        if entry:
+            rest, name = entry.group(1), "?"
+            while rest[:1].isdigit():     # <length><name> ... of the path
+                n = re.match(r"\d+", rest).group()
+                name, rest = rest[len(n):len(n) + int(n)], rest[len(n)
+                                                               + int(n):]
+            args = re.match(r"I(\w*?)E+v", rest)
+            args = args.group(1) if args else ""
+            args = args.replace("13__nv_bfloat16", "bf16,")
+            args = re.sub(r"^f", "fp32,", args)
+            args = re.sub(r"Li(\d+)E?", r"\1,", args).strip(",")
+            label, spills = f"{name}<{args}>", ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            rows.append((label, used.group(1), spills))
+    return rows
+
+
 def decode_profile(lm, params, dev) -> dict:
     """Where a decode step's time goes: a torch.profiler trace of
     PROFILE_STEPS decode steps at slot batch LM_BATCH over PROFILE_CACHED
     cached positions.  Per step: the device's busy time (all kernels), of
     which the flash-attention kernel's (this repo's own symbol), against
     the step's wall time under the profiler, which adds host time of its
-    own; "not measured" if the trace holds no kernel."""
+    own; "not measured" if the trace holds no kernel.  Attention is every
+    kernel of `csrc/flash_attention.cu` (one symbol per form), summed and
+    by form."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -231,10 +266,13 @@ def decode_profile(lm, params, dev) -> dict:
             / PROFILE_STEPS
 
     busy = ms_per_step(kernels)
-    attention = ms_per_step(e for e in kernels
-                            if "flash_attention_kernel<" in e.name)
+    by_form = {form: ms_per_step(e for e in kernels
+                                 if f"flash_attention_{form}_kernel<" in e.name)
+               for form in ATTN_FORMS}
+    attention = sum(by_form.values())
     return out | {"device_busy_ms_per_step": busy,
                   "attention_ms_per_step": attention,
+                  "attention_ms_per_step_by_form": by_form,
                   "other_device_ms_per_step": busy - attention,
                   "device_idle_share": 1.0 - busy / wall_ms,
                   "kernels_per_step": len(kernels) / PROFILE_STEPS}
@@ -251,6 +289,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.kernels.attention import plan as attn_plan
     from repro_torch.kernels.dconv_backward import (conv_backward_plain,
                                                     tconv_backward_plain)
     from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
@@ -275,9 +314,8 @@ def main() -> int:
     logs = build.build()
     print(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for label, regs, spills in ptxas_usage(log):
+            print(f"  {name}: {label}: {regs} registers, {spills}")
 
     # -- phase 3: each kernel against its plain version and the library -------
     gen = torch.Generator().manual_seed(0)
@@ -511,8 +549,11 @@ def main() -> int:
         # function at Sq = Sk, or with no mask where every key is visible.
         assert not timed or not causal or Sq in (1, Sk), name
         pairs = B * Hq * visible_pairs(Sq, Sk, causal)
+        form = attn_plan(dtype, B, Sq, Sk, Hq, Hk, D)
         return dict(kernel="flash_attention", case=name, path=path,
-                    timed=timed, tol=ATTN_TOL[dtype],
+                    form=form.form if form.splits == 1
+                    else f"{form.form} x{form.splits}",
+                    rerun=True, timed=timed, tol=ATTN_TOL[dtype],
                     lib_tol=ATTN_LIB_TOL[dtype],
                     flops_per_s=BF16_FLOPS_PER_S if dtype == torch.bfloat16
                     else FP32_FLOPS_PER_S,
@@ -558,6 +599,20 @@ def main() -> int:
                 *geom[:6], "causal" if geom[6] else "full")
             cases.append(attention_case(f"{name}_{tag}", *geom, dtype,
                                         False))
+        # The forms' edges: Sq and Sk at the 64-row / 64-key tiles, every
+        # head_dim, causal with q_offset > 0 and full; decode lengths about
+        # the split form's tiles over a strided cache view.
+        for D in (16, 32, 64, 128, 256):
+            for Sq, Sk, causal in ((63, 63, True), (64, 64, True),
+                                   (65, 130, True), (65, 65, False)):
+                cases.append(attention_case(
+                    f"edge_Sq{Sq}_Sk{Sk}_D{D}_"
+                    f"{'causal' if causal else 'full'}_{tag}", 1, Sq, Sk, 4,
+                    2, D, causal, dtype, False))
+        for length in (1, 31, 32, 33, 64, 65, 1025):
+            cases.append(attention_case(f"decode_len{length}_cache_{tag}", 2,
+                                        1, length, 16, 8, 128, True, dtype,
+                                        False, cache_len=LM_MAX_LEN))
 
     def as_tuple(out):
         """The outputs a call gave (a backward's db is None without a
@@ -594,6 +649,10 @@ def main() -> int:
         err = max_err(got, c["plain"](), what + " against the plain version",
                       tol)
         row = dict(kernel=c["kernel"], case=c["case"], max_abs_err=err)
+        if "form" in c:
+            row["form"] = c["form"]
+        if c.get("rerun") and not torch.equal(got, c["run"]()):
+            raise AssertionError(f"{what}: a rerun is not bit-identical")
         if c["timed"]:
             lib = c["lib"]
             lib_err = max_err(got, lib(), what + " against the library",
@@ -824,6 +883,12 @@ def main() -> int:
     if parity_launches != PARITY_LAYERS * (1 + PARITY_DECODES):
         raise AssertionError(f"lm parity: {parity_launches} flash_attention "
                              f"launches, expected one per layer per call")
+    # fp32: the prefill on the tile form, every decode on the split form.
+    parity_forms = {"tile": PARITY_LAYERS, "wgmma": 0,
+                    "split": PARITY_LAYERS * PARITY_DECODES}
+    if ops.FLASH_FORMS != parity_forms:
+        raise AssertionError(f"lm parity: flash_attention forms "
+                             f"{ops.FLASH_FORMS}, expected {parity_forms}")
     print("lm parity " + json.dumps({
         "arch": LM_ARCH, "n_layers": PARITY_LAYERS, "dtype": "float32",
         "prompt_lens": lens.tolist(), "decode_steps": PARITY_DECODES,
@@ -887,6 +952,15 @@ def main() -> int:
             raise AssertionError(f"lm serve run {run + 1}: launches "
                                  f"{launches}, expected "
                                  f"{full.n_layers} x {calls} flash_attention")
+        # Every prefill on the tensor-core form, every decode step on the
+        # split-kv form.
+        forms = {"tile": 0,
+                 "wgmma": full.n_layers * eng.stats["prefills"],
+                 "split": full.n_layers * eng.stats["decode_steps"]}
+        if ops.FLASH_FORMS != forms:
+            raise AssertionError(f"lm serve run {run + 1}: flash_attention "
+                                 f"forms {ops.FLASH_FORMS}, expected {forms}")
+        forms_run = dict(ops.FLASH_FORMS)
         if not all(bool(ok) for *_, ok in eng.calls):
             raise AssertionError(f"lm serve run {run + 1}: NaN or inf in the "
                                  f"logits")
@@ -895,6 +969,7 @@ def main() -> int:
             raise AssertionError(f"lm serve run {run + 1}: not every request "
                                  f"was answered in full")
         runs.append(dict(res=res, wall=wall, launches=launches,
+                         forms=forms_run,
                          stats=dict(eng.stats), calls=eng.calls, reqs=reqs,
                          peak=torch.cuda.max_memory_allocated()))
     if runs[1]["res"] != runs[0]["res"] or runs[1]["stats"] != \
@@ -911,7 +986,8 @@ def main() -> int:
         "batch": LM_BATCH, "max_len": LM_MAX_LEN, "requests": LM_REQUESTS,
         "prompt_tokens": int(sum(len(r.prompt) for r in first["reqs"])),
         "generated_tokens": generated, "stats": first["stats"],
-        "launches": lm_launches, "wall_s": [r["wall"] for r in runs],
+        "launches": lm_launches, "flash_attention_forms": first["forms"],
+        "wall_s": [r["wall"] for r in runs],
         "requests_per_s": LM_REQUESTS / first["wall"],
         "generated_tokens_per_s": generated / first["wall"],
         "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),

@@ -1,62 +1,99 @@
 // Blockwise (flash) causal GQA attention, fp32 or bf16 in, fp32 inside:
 //   out[b,i,h] = softmax_j(scale * q[b,i,h] . k[b,j,h/g]) v[b,j,h/g]
 // q (B,Sq,Hq,D), k/v (B,Sk,Hk,D) with any (batch, sequence, head)
-// strides and a unit stride along D; g = Hq / Hk; scale = D**-0.5 on q in
-// fp32.  Key j is visible to query i iff j < Sk and, when causal,
-// j <= q_offset + i.  Masked scores are -1e30; the output is
-// acc / max(l, 1e-30) in q's type.
+// strides and a unit stride along D; g = Hq / Hk; scale = D**-0.5.  Key j
+// is visible to query i iff j < Sk and, when causal, j <= q_offset + i.
+// Masked scores are -1e30; the output is acc / max(l, 1e-30) in q's type.
 //
 // Replaces repro/kernels/attention.py::flash_attention_pallas (body
 // _flash_kernel), whose grid (B, Hq, q block, kv block) carried the
 // running max m, normalizer l and accumulator in VMEM scratch across the
-// SEQUENTIAL kv axis and skipped kv blocks past the diagonal.
+// SEQUENTIAL kv axis and skipped kv blocks past the diagonal.  CUDA blocks
+// run in no order, so the kv axis becomes a loop inside a CTA, m, l and
+// acc in registers.  No atomics anywhere: every output is a fixed
+// sequence of operations, so reruns are bit-identical.
 //
-// Design.  CUDA blocks run in no order, so the kv axis becomes a loop:
-// one CTA owns (b, h, 16 query rows) and walks the kv blocks from block 0
-// upward, with m, l and acc in registers.  The order matters: m starts at
-// -1e30, and block 0 holds a live key for every query row (key 0; the
-// wrapper refuses a causal q_offset < 0), so no row ever adds exp(0)
-// terms for a block it cannot see.  The loop stops at
-// min(Sk, q_offset + last row + 1): the causal block skip, with no loop
-// over masked blocks.  Ragged edges are predicates on the loads (zeros
-// past Sk, masked) and on the stores: nothing is padded or copied.  A
-// decode step passes the live prefix of its KV cache as a strided view.
-// No atomics: each output is one warp's fixed sequence of operations, so
-// reruns are bit-identical.
+// The order argument.  m starts at -1e30 and a CTA walks its keys from
+// the lowest up.  A row's first kv block holds key 0, which every row
+// sees (the wrapper refuses a causal q_offset < 0), so no row adds
+// exp(0) terms for a block it cannot see.  The split form's later splits
+// break this, so its masked keys add p = 0 explicitly and a partial that
+// sees no key is weighed by exp(-1e30 - M) = 0 in the combine.
 //
-// Each warp holds 4 query rows.  Per kv block of 32 keys, the K and V
-// rows are staged in shared memory as fp32 (K rows padded to D + 1
-// floats, so lane j reading key j at a fixed d hits bank (j + d) % 32);
-// lane j computes the scores of key j against the warp's 4 rows, a
-// butterfly max / sum gives every lane the same m and l, and for
-// acc += p v lane t owns dims t, t + 32, ...  All arithmetic is fp32
-// SIMT FMAs: rounding p to bf16 for a tensor-core MMA would leave the
-// fp32 tolerance class.
+// Three forms; kernels/attention.py::plan picks one per call from the
+// shapes.  "Rows" are the (query, head of the GQA group) pairs of one kv
+// head, Sq * g.
 //
-// Bound.  Decode (Sq = 1) reads the whole live cache once per query head
-// and does 4 D flops per key: bytes.  Prefill does 4 D flops per visible
-// (query, key) pair over q, k and v read once: operations.  This simple
-// form uses no tensor cores, stages each K/V block once per 16 query rows
-// (prefill re-reads K/V through L2 Sq / 16 times) and, at Sq = 1, keeps
-// one warp of four busy; tensor cores (wgmma, TMA), K/V tiles shared by
-// the query heads of a GQA group and a split-kv decode are later work.
+// 1. tile (fp32, head_dim 16 / 32, and bf16 rows that fill no 64-row
+//    tile): one CTA per (b, h, 16 query rows), 4 rows per warp; per kv
+//    block of 32 keys the K and V rows are staged in shared memory as
+//    fp32 (K rows padded to D + 1 floats, conflict-free), lane j scores
+//    key j, a butterfly max / sum gives every lane the same m and l, and
+//    lane t owns dims t, t + 32, ... of acc.  fp32 SIMT FMAs: TF32 would
+//    leave the fp32 class, and in fp32 this form already beats SDPA.
+//    Bound: operations (4 D flops per visible pair).
+//
+// 2. wgmma (bf16 prefill, head_dim 64 / 128 / 256): a CTA owns (b, kv
+//    head, 64 rows) -- the g query heads of a group share every K/V tile,
+//    so K/V cross device memory once per group and row tile.  Warps 0-3
+//    are one consumer warpgroup, warp 4 the producer: one thread issues
+//    TMA loads of 64-key K and V tiles (128-byte swizzle, 64-column
+//    panels) into a ring of 2 stages under full / empty mbarriers; the
+//    tensor map comes from cuTensorMapEncodeTiled reached through
+//    cudaGetDriverEntryPoint, so the library needs no -lcuda.  Rows past
+//    Sk arrive as zeros and are masked.  The consumers load q into the
+//    same swizzled layout by hand and issue
+//      S = Q K^T   wgmma m64n64k16, A and B K-major from shared memory;
+//    S is scaled by D**-0.5 log2(e) in fp32 after the product (the bf16
+//    products are exact in fp32), masked where a tile is not visible
+//    whole, and the online softmax runs in base 2 (exp2f) on the
+//    accumulator fragment (each row lives in one quad: two shuffles).
+//      O += P V    wgmma m64nDk16, P from registers, V MN-major (the
+//                  transpose bit) from shared memory.
+//    Numerics, the trap: the reference keeps P in fp32, and one bf16 P
+//    would leave the one-bf16-ulp class the kernel is held to.  So P is
+//    split, p_hi = bf16(p), p_lo = bf16(p - p_hi), and both products go
+//    into the same fp32 accumulator: p_hi + p_lo keeps ~16 mantissa bits
+//    (relative error near 2^-17) for 1.5x the MMA work, and the bound
+//    stays far below the kernel's time.  The accumulator fragment of S
+//    is the A-operand fragment of P, element for element, so the repack
+//    is a conversion in registers.  Bound: operations.  160 threads: two
+//    CTAs share an SM at D <= 128 (at most 204 registers a thread), one
+//    at D = 256 (255), so the producer needs no setmaxnreg to hand its
+//    registers over, and the other CTA's softmax fills the tensor cores'
+//    idle time.  The causal block skip is kept, and the row tiles with
+//    the most kv blocks start first.
+//
+// 3. split (rows <= 8: the engine's decode, Sq = 1; fp32 and bf16): a
+//    thread-block cluster of `splits` CTAs per (b, kv head), each over a
+//    slice of whole 64-key tiles of the live cache, with 16-byte
+//    cp.async loads (double-buffered where two stages fit) and the fp32
+//    SIMT math of form 1 for all rows of its kv head; each of its two
+//    warps takes 32 keys of a tile.  The (split, warp) partials (m, l,
+//    acc) go to shared memory, and after a cluster barrier each row is
+//    combined from distributed shared memory in the fixed order (split,
+//    warp) -- one launch, no scratch, no atomics, nothing encoded on the
+//    host: a decode step's time is the host's.  Bound: bytes (the live
+//    cache read once).
+#include <cooperative_groups.h>
+#include <cuda.h>           // CUtensorMap and its enums; no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRows = 4;                  // query rows per warp
-constexpr int kBlockQ = kWarps * kRows;   // query rows per CTA
-constexpr int kBlockK = 32;               // keys per kv block: one per lane
-constexpr int kThreads = kWarps * 32;
+namespace cg = cooperative_groups;
+
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+
+enum Form { FORM_TILE = 0, FORM_WGMMA = 1, FORM_SPLIT = 2 };
 
 struct AttnArgs {
   int64_t B, Sq, Sk, Hq, Hk, q_offset;
@@ -80,6 +117,7 @@ struct Vec<float> {
     out[3] = v.w;
   }
   __device__ __forceinline__ static float store(float x) { return x; }
+  __device__ __forceinline__ static float to_float(float x) { return x; }
 };
 
 template <>
@@ -99,6 +137,9 @@ struct Vec<__nv_bfloat16> {
   // Round to nearest even, as torch's .to(torch.bfloat16).
   __device__ __forceinline__ static __nv_bfloat16 store(float x) {
     return __float2bfloat16(x);
+  }
+  __device__ __forceinline__ static float to_float(__nv_bfloat16 x) {
+    return __bfloat162float(x);
   }
 };
 
@@ -120,16 +161,29 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBlockQ * D + kBlockK * (D + 1) + kBlockK * D);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// ---------------------------------------------------------------------------
+// Form 1: tile.
+
+constexpr int kWarps = 4;
+constexpr int kRows = 4;                  // query rows per warp
+constexpr int kBlockQ = kWarps * kRows;   // query rows per CTA
+constexpr int kBlockK = 32;               // keys per kv block: one per lane
+constexpr int kThreads = kWarps * 32;
+
+template <int D>
+constexpr size_t tile_smem_bytes() {
+  return sizeof(float) * (kBlockQ * D + kBlockK * (D + 1) + kBlockK * D);
+}
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           AttnArgs a) {
+    flash_attention_tile_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v, T* __restrict__ o,
+                                AttnArgs a) {
   constexpr int N = Vec<T>::N;
   constexpr int VPR = D / N;              // 16-byte vectors per row
   constexpr int KS = D + 1;               // padded K row
@@ -267,25 +321,745 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const AttnArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_attention_kernel<T, D>;
-  // The shared-memory limit is a per-device attribute of the function:
-  // set it once per device, not at every launch (a decode step launches
-  // once per layer, and its time is the host's).
-  static std::atomic<uint64_t> limit_set{0};
+
+// ---------------------------------------------------------------------------
+// Form 3: split.
+
+constexpr int kSplitWarps = 2;
+constexpr int kSplitThreads = kSplitWarps * 32;
+constexpr int kSplitTile = kSplitWarps * 32;   // keys per kv tile
+constexpr int kMaxSplits = 8;                  // the portable cluster size
+constexpr size_t kSplitStagesBudget = 160 * 1024;
+
+template <typename T, int D, int R>
+struct SplitLayout {
+  static constexpr int KP = D + 16 / (int)sizeof(T);  // padded K row
+  static constexpr size_t kStage = sizeof(T) * kSplitTile * (KP + D);
+  static constexpr int kStages = 2 * kStage <= kSplitStagesBudget ? 2 : 1;
+  static constexpr size_t kQ = sizeof(float) * R * D;
+  static constexpr size_t kParts = sizeof(float) * kSplitWarps * R * (D + 2);
+  static constexpr size_t kSmem = kQ + kStages * kStage + kParts;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  // src-size 0 fills the 16 bytes with zeros.
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// R: the rows a CTA can hold (2 or 8); the rows of this call, Sq * g,
+// are at most R.  Grid (splits, B * Hk), cluster (splits, 1, 1).
+template <typename T, int D, int R>
+__global__ void __launch_bounds__(kSplitThreads)
+    flash_attention_split_kernel(const T* __restrict__ q,
+                                 const T* __restrict__ k,
+                                 const T* __restrict__ v, T* __restrict__ o,
+                                 AttnArgs a, int splits) {
+  using L = SplitLayout<T, D, R>;
+  constexpr int N = Vec<T>::N;
+  constexpr int VPR = D / N;              // 16-byte vectors per row
+  constexpr int ACC = (D + 31) / 32;      // output dims per lane
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  float* qs = reinterpret_cast<float*>(split_smem);               // [R][D]
+  T* stages = reinterpret_cast<T*>(split_smem + L::kQ);
+  float* part_m = reinterpret_cast<float*>(split_smem + L::kQ +
+                                           L::kStages * L::kStage);
+  float* part_l = part_m + kSplitWarps * R;                     // [2][R]
+  float* part_acc = part_l + kSplitWarps * R;                   // [2][R][D]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.block_rank();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t b = blockIdx.y / a.Hk, hk = blockIdx.y % a.Hk;
+  const int64_t g = a.Hq / a.Hk;
+  const int rows = (int)(a.Sq * g);
+  const T* kp = k + b * a.k_b + hk * a.k_h;
+  const T* vp = v + b * a.v_b + hk * a.v_h;
+
+  // Row r is query r / g of head hk * g + r % g.
+  for (int i = threadIdx.x; i < R * VPR; i += kSplitThreads) {
+    const int r = i / VPR, c = (i % VPR) * N;
+    float buf[N];
+    if (r < rows) {
+      Vec<T>::load(q + b * a.q_b + (r / g) * a.q_s + (hk * g + r % g) * a.q_h
+                       + c, buf);
+#pragma unroll
+      for (int e = 0; e < N; ++e) buf[e] *= a.scale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e) buf[e] = 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) qs[r * D + c + e] = buf[e];
+  }
+
+  const int64_t kv_end = a.causal ? min64(a.Sk, a.q_offset + a.Sq) : a.Sk;
+  const int64_t tiles = (a.Sk + kSplitTile - 1) / kSplitTile;
+  const int64_t chunk = (tiles + splits - 1) / splits * kSplitTile;
+  const int64_t k_begin = split * chunk;
+  const int64_t k_stop = min64(k_begin + chunk, kv_end);
+  const int n_tiles = k_stop > k_begin
+                          ? (int)((k_stop - k_begin + kSplitTile - 1) /
+                                  kSplitTile)
+                          : 0;
+
+  auto load_tile = [&](int t, int stage) {
+    const int64_t kv0 = k_begin + (int64_t)t * kSplitTile;
+    T* ks = stages + stage * (L::kStage / sizeof(T));
+    T* vs = ks + kSplitTile * L::KP;
+    for (int i = threadIdx.x; i < kSplitTile * VPR; i += kSplitThreads) {
+      const int j = i / VPR, c = (i % VPR) * N;
+      const bool valid = kv0 + j < k_stop;
+      const int64_t key = valid ? kv0 + j : 0;
+      cp_async16(ks + j * L::KP + c, kp + key * a.k_s + c, valid);
+      cp_async16(vs + j * D + c, vp + key * a.v_s + c, valid);
+    }
+    cp_async_commit();
+  };
+
+  float m[R], l[R], acc[R][ACC];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[r][i] = 0.0f;
+  }
+
+  if (n_tiles > 0) load_tile(0, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    if (L::kStages == 2 && t + 1 < n_tiles) {
+      load_tile(t + 1, (t + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* ks = stages + (L::kStages == 2 ? (t & 1) : 0) *
+                               (L::kStage / sizeof(T)) +
+                  warp * 32 * L::KP;
+    const T* vs = stages + (L::kStages == 2 ? (t & 1) : 0) *
+                               (L::kStage / sizeof(T)) +
+                  kSplitTile * L::KP + warp * 32 * D;
+    const int64_t key = k_begin + (int64_t)t * kSplitTile + warp * 32 + lane;
+
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.0f;
+    const T* krow = ks + lane * L::KP;
+#pragma unroll 2
+    for (int d = 0; d < D; d += N) {
+      float kv[N];
+      Vec<T>::load(krow + d, kv);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int e = 0; e < N; e += 4) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qs + r * D + d + e);
+          s[r] = fmaf(qv.x, kv[e], s[r]);
+          s[r] = fmaf(qv.y, kv[e + 1], s[r]);
+          s[r] = fmaf(qv.z, kv[e + 2], s[r]);
+          s[r] = fmaf(qv.w, kv[e + 3], s[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool live = r < rows && key < k_stop &&
+                        (!a.causal || key <= a.q_offset + r / g);
+      const float sr = live ? s[r] : kNegInf;
+      const float m_new = fmaxf(m[r], warp_max(sr));
+      const float p = live ? expf(sr - m_new) : 0.0f;
+      const float corr = expf(m[r] - m_new);
+      l[r] = l[r] * corr + warp_sum(p);
+      m[r] = m_new;
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) acc[r][i] *= corr;
+      s[r] = p;
+    }
+#pragma unroll 4
+    for (int j = 0; j < 32; ++j) {
+      float pj[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) pj[r] = __shfl_sync(kFull, s[r], j);
+      const T* vrow = vs + j * D;
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) {
+          const float vv = Vec<T>::to_float(vrow[d]);
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r][i] = fmaf(pj[r], vv, acc[r][i]);
+        }
+      }
+    }
+    __syncthreads();
+    if (L::kStages == 1 && t + 1 < n_tiles) load_tile(t + 1, 0);
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (lane == 0) {
+      part_m[warp * R + r] = m[r];
+      part_l[warp * R + r] = l[r];
+    }
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) part_acc[(warp * R + r) * D + d] = acc[r][i];
+    }
+  }
+  cluster.sync();
+
+  // Warp w of split s combines rows s * 2 + w, + 2 * splits, ... over
+  // every (split, warp) partial, in that order.
+  for (int r = split * kSplitWarps + warp; r < rows;
+       r += splits * kSplitWarps) {
+    float M = kNegInf;
+    for (int s = 0; s < splits; ++s) {
+      const float* pm = cluster.map_shared_rank(part_m, s);
+#pragma unroll
+      for (int w = 0; w < kSplitWarps; ++w) M = fmaxf(M, pm[w * R + r]);
+    }
+    float lsum = 0.0f, out[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) out[i] = 0.0f;
+    for (int s = 0; s < splits; ++s) {
+      const float* pm = cluster.map_shared_rank(part_m, s);
+      const float* pl = cluster.map_shared_rank(part_l, s);
+      const float* pa = cluster.map_shared_rank(part_acc, s);
+#pragma unroll
+      for (int w = 0; w < kSplitWarps; ++w) {
+        const float wgt = expf(pm[w * R + r] - M);
+        lsum = fmaf(wgt, pl[w * R + r], lsum);
+#pragma unroll
+        for (int i = 0; i < ACC; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) out[i] = fmaf(wgt, pa[(w * R + r) * D + d], out[i]);
+        }
+      }
+    }
+    const float l_safe = fmaxf(lsum, 1e-30f);
+    T* orow = o + b * a.o_b + (r / g) * a.o_s + (hk * g + r % g) * a.o_h;
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) orow[d] = Vec<T>::store(out[i] / l_safe);
+    }
+  }
+  // No CTA leaves while another may still read its shared memory.
+  cluster.sync();
+}
+
+// ---------------------------------------------------------------------------
+// Form 2: wgmma.
+
+constexpr int kWgKeys = 64;                     // keys per kv tile
+constexpr int kPanelBytes = 64 * 128;           // 64 rows of 64 bf16
+
+// One consumer warpgroup (64 rows) and one producer warp per CTA, a ring
+// of 2 K/V stages; two CTAs share an SM at D <= 128.  (Two consumer
+// warpgroups of 64 rows sharing each K/V tile, with 2 or 4 stages, halve
+// the K/V traffic but measured no faster on the H100: PERF.md.)
+template <int D>
+struct WgLayout {
+  static constexpr int kStages = 2;
+  static constexpr int kConsumers = 128;
+  static constexpr int kThreads = kConsumers + 32;
+  static constexpr int kRows = 64;                     // rows per CTA
+  static constexpr int kTile = D / 64 * kPanelBytes;   // Q, K or V tile
+  static constexpr int kStage = 2 * kTile;             // K, then V
+  static constexpr int kBars = kTile + kStages * kStage;
+  // 1024 bytes of slack to align the swizzled panels.
+  static constexpr size_t kSmem = 1024 + kBars + 2 * kStages * 8;
+};
+
+// S (64 x 64, fp32) (+)= A . B^T, A and B K-major bf16 in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// acc (64 x 64, fp32) += A . B, A (64 x 16 bf16) in registers, B
+// (16 x 64) MN-major bf16 in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc (64 x 128, fp32) += A . B, A (64 x 16 bf16) in registers, B
+// (16 x 128) MN-major bf16 in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc (64 x 256, fp32) += A . B, A (64 x 16 bf16) in registers, B
+// (16 x 256) MN-major bf16 in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins registers an asynchronous wgmma reads or writes to this point of
+// the program: the compiler neither moves their uses across it nor reuses
+// them early.
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle (panels 1024-byte
+// aligned).  K-major (Q, K): 8-row groups 1024 bytes apart (SBO), LBO
+// unused; a k16 step inside a 128-byte row adds 32 bytes to the start.
+// MN-major (V): the next 64 columns a panel away (LBO), the next 8 keys
+// 1024 bytes (SBO); a k16 step is 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t smem_desc(const void* p,
+                                              uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo_bytes >> 4) << 16) |
+         ((uint64_t)(sbo_bytes >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Returns once the phase of parity `parity` has completed.  A wait that
+// never ends (a fault in the pipeline) traps, so that the launch fails
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as p_hi = bf16(x), p_lo = bf16(x - p_hi), x0 in the low half.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float* acc, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 64) wgmma_rs_n64(acc, a, db);
+  else if constexpr (D == 128) wgmma_rs_n128(acc, a, db);
+  else wgmma_rs_n256(acc, a, db);
+}
+
+// Grid (row tiles, Hk, B); row r of tile t is query (64 t + r) / g of
+// head hk * g + (64 t + r) % g.
+template <int D>
+__global__ void __launch_bounds__(WgLayout<D>::kThreads, D <= 128 ? 2 : 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 const __nv_bfloat16* __restrict__ q,
+                                 __nv_bfloat16* __restrict__ o, AttnArgs a) {
+  using L = WgLayout<D>;
+  constexpr int NACC = D / 2;   // O accumulator registers per thread
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  unsigned char* base =
+      wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* qs = base;
+  unsigned char* kv = base + L::kTile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + L::kStages;
+
+  // The tiles with the most kv blocks start first.
+  const int64_t tile = gridDim.x - 1 - blockIdx.x;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int64_t g = a.Hq / a.Hk;
+  const int64_t rows = a.Sq * g;
+  const int64_t row0 = tile * L::kRows;
+  const int64_t i_last = min64(a.Sq - 1, (row0 + L::kRows - 1) / g);
+  const int64_t kv_end =
+      a.causal ? min64(a.Sk, a.q_offset + i_last + 1) : a.Sk;
+  const int n_tiles = (int)((kv_end + kWgKeys - 1) / kWgKeys);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], L::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= L::kConsumers) {
+    // The producer: one thread keeps the ring of K/V stages full.
+    if (threadIdx.x == L::kConsumers) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % L::kStages;
+        if (t >= L::kStages)
+          mbar_wait(&empty[s], ((t / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::kStage);
+        unsigned char* ks = kv + s * L::kStage;
+#pragma unroll
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load(ks + p * kPanelBytes, &tm_k, &full[s], 64 * p, hk,
+                   t * kWgKeys, b);
+          tma_load(ks + L::kTile + p * kPanelBytes, &tm_v, &full[s], 64 * p,
+                   hk, t * kWgKeys, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup.  q rows into the swizzled panels: chunk c of
+  // row r (16 bytes) lands at chunk c ^ (r % 8), as TMA lays out K and V.
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int idx = tid; idx < 64 * (D / 8); idx += 128) {
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const int64_t row = row0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < rows)
+      val = *reinterpret_cast<const uint4*>(
+          q + b * a.q_b + (row / g) * a.q_s + (hk * g + row % g) * a.q_h + c);
+    *reinterpret_cast<uint4*>(qs + (c / 64) * kPanelBytes + r * 128 +
+                              ((((c % 64) / 8) ^ (r & 7)) * 16)) = val;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+  // This thread's fragment rows: ra and ra + 8; its columns: cq, cq + 1
+  // of every 8.
+  const int ra = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  int64_t qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qpos[h] = a.q_offset + (row0 + ra + 8 * h) / g;
+  const float scale2 = a.scale * 1.4426950408889634f;   // log2(e)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+  float S[32];
+  uint32_t hi[16], lo[16];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % L::kStages;
+    mbar_wait(&full[s], (t / L::kStages) & 1);
+    const unsigned char* ks = kv + s * L::kStage;
+    const unsigned char* vs = ks + L::kTile;
+
+    // S = Q K^T.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) S[i] = 0.0f;
+    pin<32>(S);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      wgmma_ss_n64(S, smem_desc(qs + off, 16, 1024),
+                   smem_desc(ks + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    pin<32>(S);
+
+    // Scale, mask and the online softmax, in base 2: s2 = s * scale *
+    // log2(e), p = 2^(s2 - m2).  S[i] is row ra + 8 ((i / 2) % 2), key
+    // kv0 + 8 (i / 4) + cq + i % 2.  A tile every row of the CTA sees
+    // whole needs no mask; elsewhere row h sees the keys below
+    // lim[h].  A masked score is -1e30, and its p = 2^(-1e30 - m2) is 0:
+    // m2 is finite from the first tile on, which holds key 0.
+    const int64_t kv0 = (int64_t)t * kWgKeys;
+    float mx[2] = {m[0], m[1]};
+    if (kv0 + kWgKeys <= a.Sk &&
+        (!a.causal || kv0 + kWgKeys - 1 <= a.q_offset + row0 / g)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        S[i] *= scale2;
+        mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], S[i]);
+      }
+    } else {
+      int lim[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t end = a.causal ? min64(a.Sk, qpos[h] + 1) : a.Sk;
+        lim[h] = (int)min64(kWgKeys, end > kv0 ? end - kv0 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i / 2) & 1;
+        S[i] = 8 * (i / 4) + cq + (i & 1) < lim[h] ? S[i] * scale2 : kNegInf;
+        mx[h] = fmaxf(mx[h], S[i]);
+      }
+    }
+    float corr[2], rsum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      corr[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) & 1;
+      S[i] = exp2f(S[i] - m[h]);
+      rsum[h] += S[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rsum[h] += __shfl_xor_sync(kFull, rsum[h], 1);
+      rsum[h] += __shfl_xor_sync(kFull, rsum[h], 2);
+      l[h] = l[h] * corr[h] + rsum[h];
+    }
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] *= corr[(i / 2) & 1];
+
+    // P as two bf16 A operands: the S fragment of keys 16 kk .. 16 kk + 15
+    // is the A fragment of that k16 step, element for element.
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      split_pair(S[2 * i], S[2 * i + 1], hi[i], lo[i]);
+    pin<16>(hi);
+    pin<16>(lo);
+    pin<NACC>(acc);
+
+    // O += P_hi V + P_lo V.
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(acc, hi + 4 * kk,
+                  smem_desc(vs + kk * 2048, kPanelBytes, 1024));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(acc, lo + 4 * kk,
+                  smem_desc(vs + kk * 2048, kPanelBytes, 1024));
+    wg_commit();
+    wg_wait_all();
+    pin<NACC>(acc);
+    pin<16>(hi);
+    pin<16>(lo);
+    mbar_arrive(&empty[s]);
+  }
+
+  // acc[4 j + 2 h + e] is row ra + 8 h, column 8 j + cq + e.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t row = row0 + ra + 8 * h;
+    if (row >= rows) continue;
+    const float l_safe = fmaxf(l[h], 1e-30f);
+    __nv_bfloat16* orow =
+        o + b * a.o_b + (row / g) * a.o_s + (hk * g + row % g) * a.o_h + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] / l_safe,
+                                acc[4 * j + 2 * h + 1] / l_safe);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launches.
+
+// The dynamic shared-memory limit is a per-device attribute of the
+// function: set it once per device, not at every launch (a decode step
+// launches once per layer, and its time is the host's).
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t smem, std::atomic<uint64_t>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(limit_set.load(std::memory_order_relaxed) & bit)) {
+  if (!(done.load(std::memory_order_relaxed) & bit)) {
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    limit_set.fetch_or(bit, std::memory_order_relaxed);
+    done.fetch_or(bit, std::memory_order_relaxed);
   }
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o,
+                        const AttnArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = tile_smem_bytes<D>();
+  auto kern = flash_attention_tile_kernel<T, D>;
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = allow_smem(kern, smem, done);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((a.Sq + kBlockQ - 1) / kBlockQ),
                   (unsigned)a.Hq, (unsigned)a.B);
   kern<<<grid, kThreads, smem, stream>>>(
@@ -294,20 +1068,157 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <typename T, int D, int R>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
+                         void* o, const AttnArgs& a, int splits,
+                         cudaStream_t stream) {
+  constexpr size_t smem = SplitLayout<T, D, R>::kSmem;
+  auto kern = flash_attention_split_kernel<T, D, R>;
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = allow_smem(kern, smem, done);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)splits, (unsigned)(a.B * a.Hk), 1);
+  cfg.blockDim = dim3(kSplitThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
+                           static_cast<const T*>(k),
+                           static_cast<const T*>(v), static_cast<T*>(o), a,
+                           splits);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// links no libcuda; null if the driver does not offer it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// K or V (B, Sk, Hk, D) bf16 as the 4-d tensor (D, Hk, Sk, B) with boxes
+// of 64 x 1 x 64 x 1 (a 64-column panel of 64 keys), 128-byte swizzle;
+// reads past Sk fill zeros.  The stride of an axis of extent 1 is never
+// followed, so it gets a legal value.
+cudaError_t kv_map(CUtensorMap* map, const void* base, const AttnArgs& a,
+                   int64_t D, int64_t s_b, int64_t s_s, int64_t s_h) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const int64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)a.Hk,
+                              (cuuint64_t)a.Sk, (cuuint64_t)a.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)((a.Hk > 1 ? s_h : D) * e),
+                                 (cuuint64_t)((a.Sk > 1 ? s_s : D) * e),
+                                 (cuuint64_t)((a.B > 1 ? s_b : D) * e)};
+  const cuuint32_t box[4] = {64, 1, kWgKeys, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, const AttnArgs& a, cudaStream_t stream) {
+  CUtensorMap tm_k, tm_v;
+  cudaError_t err = kv_map(&tm_k, k, a, D, a.k_b, a.k_s, a.k_h);
+  if (err == cudaSuccess) err = kv_map(&tm_v, v, a, D, a.v_b, a.v_s, a.v_h);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = WgLayout<D>::kSmem;
+  auto kern = flash_attention_wgmma_kernel<D>;
+  static std::atomic<uint64_t> done{0};
+  err = allow_smem(kern, smem, done);
+  if (err != cudaSuccess) return err;
+  const int64_t rows = a.Sq * (a.Hq / a.Hk);
+  const dim3 grid((unsigned)((rows + WgLayout<D>::kRows - 1) /
+                             WgLayout<D>::kRows),
+                  (unsigned)a.Hk, (unsigned)a.B);
+  kern<<<grid, WgLayout<D>::kThreads, smem, stream>>>(
+      tm_k, tm_v, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(o), a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_split_rows(const void* q, const void* k, const void* v,
+                              void* o, const AttnArgs& a, int splits,
+                              cudaStream_t stream) {
+  return a.Sq * (a.Hq / a.Hk) <= 2
+             ? launch_split<T, D, 2>(q, k, v, o, a, splits, stream)
+             : launch_split<T, D, 8>(q, k, v, o, a, splits, stream);
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             int64_t D, const AttnArgs& a, void* stream) {
+             int64_t D, const AttnArgs& a, int64_t form, int64_t splits,
+             void* stream) {
   if (a.B > 65535 || a.Hq > 65535 || a.Hk < 1 || a.Hq % a.Hk != 0 ||
       a.Sk < 1 || (a.causal && a.q_offset < 0))
     return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Sq == 0 || a.Hq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (form == FORM_SPLIT) {
+    if (a.Sq * (a.Hq / a.Hk) > 8 || splits < 1 || splits > kMaxSplits ||
+        a.B * a.Hk > 65535)
+      return (int)cudaErrorInvalidValue;
+    const int n = (int)splits;
+    switch (D) {
+      case 16: return (int)launch_split_rows<T, 16>(q, k, v, o, a, n, st);
+      case 32: return (int)launch_split_rows<T, 32>(q, k, v, o, a, n, st);
+      case 64: return (int)launch_split_rows<T, 64>(q, k, v, o, a, n, st);
+      case 128: return (int)launch_split_rows<T, 128>(q, k, v, o, a, n, st);
+      case 256: return (int)launch_split_rows<T, 256>(q, k, v, o, a, n, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (form == FORM_WGMMA) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      switch (D) {
+        case 64: return (int)launch_wgmma<64>(q, k, v, o, a, st);
+        case 128: return (int)launch_wgmma<128>(q, k, v, o, a, st);
+        case 256: return (int)launch_wgmma<256>(q, k, v, o, a, st);
+        default: break;
+      }
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (form != FORM_TILE) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return (int)launch<T, 16>(q, k, v, o, a, st);
-    case 32: return (int)launch<T, 32>(q, k, v, o, a, st);
-    case 64: return (int)launch<T, 64>(q, k, v, o, a, st);
-    case 128: return (int)launch<T, 128>(q, k, v, o, a, st);
-    case 256: return (int)launch<T, 256>(q, k, v, o, a, st);
+    case 16: return (int)launch_tile<T, 16>(q, k, v, o, a, st);
+    case 32: return (int)launch_tile<T, 32>(q, k, v, o, a, st);
+    case 64: return (int)launch_tile<T, 64>(q, k, v, o, a, st);
+    case 128: return (int)launch_tile<T, 128>(q, k, v, o, a, st);
+    case 256: return (int)launch_tile<T, 256>(q, k, v, o, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -325,8 +1236,10 @@ AttnArgs make_args(int64_t B, int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hk,
 }  // namespace
 
 // q (B,Sq,Hq,D), k/v (B,Sk,Hk,D) -> o (B,Sq,Hq,D), fp32; strides in
-// elements, unit along D, 16-byte aligned.  Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for a shape it does not take).
+// elements, unit along D, 16-byte aligned.  `form` is 0 tile, 1 wgmma
+// (bf16 only), 2 split (with `splits` CTAs per (b, kv head), 1..8).
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// a shape or form it does not take).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int64_t B,
                                    int64_t Sq, int64_t Sk, int64_t Hq,
@@ -336,11 +1249,12 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int64_t k_b, int64_t k_s, int64_t k_h,
                                    int64_t v_b, int64_t v_s, int64_t v_h,
                                    int64_t o_b, int64_t o_s, int64_t o_h,
+                                   int64_t form, int64_t splits,
                                    void* stream) {
   const AttnArgs a = make_args(B, Sq, Sk, Hq, Hk, causal, q_offset, scale,
                                q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h,
                                o_b, o_s, o_h);
-  return dispatch<float>(q, k, v, o, D, a, stream);
+  return dispatch<float>(q, k, v, o, D, a, form, splits, stream);
 }
 
 // The same with bf16 q, k, v and o.
@@ -353,9 +1267,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int64_t k_b, int64_t k_s, int64_t k_h,
                                     int64_t v_b, int64_t v_s, int64_t v_h,
                                     int64_t o_b, int64_t o_s, int64_t o_h,
+                                    int64_t form, int64_t splits,
                                     void* stream) {
   const AttnArgs a = make_args(B, Sq, Sk, Hq, Hk, causal, q_offset, scale,
                                q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h,
                                o_b, o_s, o_h);
-  return dispatch<__nv_bfloat16>(q, k, v, o, D, a, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, o, D, a, form, splits, stream);
 }

@@ -11,10 +11,26 @@ Both versions run the same online-softmax recurrence over kv blocks:
 running max m (initially -1e30), normalizer l and an fp32 accumulator,
 masked scores -1e30, output acc / max(l, 1e-30) in q's dtype.
 Public entry: `kernels/ops.py::flash_attention`.
+
+The kernel has three forms, and `plan` picks one per call from the
+shapes alone:
+  * "split": at most SPLIT_MAX_ROWS (query, head-of-group) rows per kv
+    head -- the engine's decode step, Sq = 1 -- in fp32 or bf16.  A
+    thread-block cluster of `splits` CTAs per (batch, kv head), each
+    over a slice of the keys; the partial (m, l, acc) are combined in
+    the cluster in a fixed order (`split_kv_plain` is that arithmetic).
+  * "wgmma": bf16 with a head_dim of WGMMA_DIMS and at least one
+    64-row tile of (query, head-of-group) rows -- prefill.  Tensor-core
+    products, P split into two bf16 terms, p_hi = bf16(p) and p_lo =
+    bf16(p - p_hi), so that P.V keeps ~16 bits of P as the fp32 P of
+    this plain version does.
+  * "tile": everything else (fp32 prefill, head_dim 16 or 32): fp32
+    SIMT, one CTA per (b, h, 16 query rows).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,11 +40,49 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernel's instantiations
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
+FORMS = ("tile", "wgmma", "split")      # the C entry's form codes, in order
+WGMMA_DIMS = (64, 128, 256)
+WGMMA_ROWS = 64          # rows of one wgmma tile
+SPLIT_MAX_ROWS = 8       # rows a split-form CTA holds
+SPLIT_TILE = 64          # keys per kv tile of the split form
+SPLIT_WARP_KEYS = 32     # keys of a tile each of its two warps takes
+MAX_SPLITS = 8           # the portable thread-block cluster size
+SM_COUNT = 132           # H100 SXM
 
 # q, k, v, out; B, Sq, Sk, Hq, Hk, D, causal, q_offset; scale; the
-# (batch, sequence, head) strides of q, k, v and out; the stream.
+# (batch, sequence, head) strides of q, k, v and out; form, splits; the
+# stream.
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8 + [ctypes.c_float]
-             + [ctypes.c_int64] * 12 + [ctypes.c_void_p])
+             + [ctypes.c_int64] * 14 + [ctypes.c_void_p])
+
+
+class AttentionPlan(NamedTuple):
+    form: str       # one of FORMS
+    splits: int     # CTAs per (batch, kv head) of the split form, else 1
+
+
+def plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, Hq: int, Hk: int,
+         D: int) -> AttentionPlan:
+    """The kernel form for these shapes.  Rows are the (query, head of a
+    GQA group) pairs of one kv head, Sq * Hq / Hk.
+
+    Split-kv when a kv head has at most SPLIT_MAX_ROWS rows: `splits`
+    CTAs per (b, kv head), enough for two per SM (2 * SM_COUNT in all)
+    but at most MAX_SPLITS (one cluster) and at most one per SPLIT_TILE
+    keys; then as few as give each split the same number of tiles, so
+    that no split is empty.  Otherwise the tensor-core form for bf16 at
+    a head_dim of WGMMA_DIMS with a whole 64-row tile, and the SIMT tile
+    form for the rest."""
+    rows = Sq * (Hq // Hk)
+    if rows <= SPLIT_MAX_ROWS:
+        tiles = -(-Sk // SPLIT_TILE)
+        want = -(-2 * SM_COUNT // (B * Hk))
+        splits = max(1, min(MAX_SPLITS, want, tiles))
+        per = -(-tiles // splits)
+        return AttentionPlan("split", -(-tiles // per))
+    if dtype == torch.bfloat16 and D in WGMMA_DIMS and rows >= WGMMA_ROWS:
+        return AttentionPlan("wgmma", 1)
+    return AttentionPlan("tile", 1)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,6 +122,69 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def split_kv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, q_offset: int | None = None,
+                   splits: int = 1) -> torch.Tensor:
+    """The split form's arithmetic on whole tensors.  Split s takes the
+    keys [s * chunk, (s + 1) * chunk), chunk a whole number of SPLIT_TILE
+    tiles; warp w of its CTA the keys whose place in their tile lies in
+    [32 w, 32 w + 32).  Each (split, warp) runs the recurrence over its
+    32-key blocks alone -- a masked key adds p = 0, and a partial that
+    sees no key keeps m = -1e30, l = 0 -- and the partials are combined
+    in the order (split, warp): with M = max m_p and w_p = exp(m_p - M),
+        out = sum w_p acc_p / max(sum w_p l_p, 1e-30).
+    Split 0 holds key 0, which every row sees, so M is finite and an
+    empty partial weighs exp(-1e30 - M) = 0."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hk, _ = k.shape
+    g = Hq // Hk
+    off = Sk - Sq if q_offset is None else q_offset
+    qf = (q.float() * D ** -0.5).reshape(B, Sq, Hk, g, D)
+    q_pos = off + torch.arange(Sq, device=q.device)
+    kv_end = min(Sk, off + Sq) if causal else Sk
+    tiles = -(-Sk // SPLIT_TILE)
+    chunk = -(-tiles // splits) * SPLIT_TILE
+    shape = (B, Sq, Hk, g)
+    parts = []
+    for s in range(splits):
+        for w in range(SPLIT_TILE // SPLIT_WARP_KEYS):
+            m = torch.full(shape, NEG_INF, device=q.device)
+            l = torch.zeros(shape, device=q.device)
+            acc = torch.zeros(shape + (D,), device=q.device)
+            for t0 in range(s * chunk, min((s + 1) * chunk, kv_end),
+                            SPLIT_TILE):
+                kv0 = t0 + w * SPLIT_WARP_KEYS
+                if kv0 >= kv_end:
+                    break
+                kb = k[:, kv0:kv0 + SPLIT_WARP_KEYS].float()
+                vb = v[:, kv0:kv0 + SPLIT_WARP_KEYS].float()
+                k_pos = kv0 + torch.arange(kb.shape[1], device=q.device)
+                live = k_pos[None, :] < kv_end
+                if causal:
+                    live = live & (k_pos[None, :] <= q_pos[:, None])
+                live = live[None, :, None, None, :]
+                s_blk = torch.einsum("bqhgd,bkhd->bqhgk", qf, kb)
+                s_blk = torch.where(live, s_blk, NEG_INF)
+                m_new = torch.maximum(m, s_blk.amax(dim=-1))
+                p = torch.where(live, torch.exp(s_blk - m_new[..., None]),
+                                0.0)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bqhgk,bkhd->bqhgd", p, vb)
+                m = m_new
+            parts.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_sum = torch.zeros(shape, device=q.device)
+    acc_sum = torch.zeros(shape + (D,), device=q.device)
+    for m, l, acc in parts:
+        wgt = torch.exp(m - M)
+        l_sum = l_sum + wgt * l
+        acc_sum = acc_sum + wgt[..., None] * acc
+    out = acc_sum / torch.clamp_min(l_sum, 1e-30)[..., None]
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
 def check_operand(name: str, t: torch.Tensor) -> None:
     """The kernel reads 16 bytes at a time along D from any (batch,
     sequence, head) strides, so a view such as the live prefix of a KV
@@ -91,10 +208,11 @@ def check_operand(name: str, t: torch.Tensor) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, q_offset: int) -> torch.Tensor:
-    """Launch the kernel on the current stream.  One device, one dtype
-    (fp32 or bf16), a head_dim of HEAD_DIMS -- the wrapper in
-    `kernels/ops.py` checks all three."""
+                         *, causal: bool, q_offset: int,
+                         form: AttentionPlan) -> torch.Tensor:
+    """Launch the kernel's `form` (from `plan`) on the current stream.
+    One device, one dtype (fp32 or bf16), a head_dim of HEAD_DIMS -- the
+    wrapper in `kernels/ops.py` checks all three."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_operand(name, t)
     B, Sq, Hq, D = q.shape
@@ -106,6 +224,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Sk, Hq, Hk, D, int(causal), q_offset, D ** -0.5,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], torch.cuda.current_stream().cuda_stream)
+                 *out.stride()[:3], FORMS.index(form.form), form.splits,
+                 torch.cuda.current_stream().cuda_stream)
     build.check_launch("flash_attention", err)
     return out

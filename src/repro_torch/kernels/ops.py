@@ -15,7 +15,8 @@ fallback: a launch that fails raises.
   conv_backward        -> csrc/conv_backward.cu   (dx, dW, db of a conv)
   tconv_backward       -> csrc/tconv_backward.cu  (ddy, dW, db of a tconv)
   dconv_filter_grad    -> csrc/dconv_filtergrad.cu
-  flash_attention      -> csrc/flash_attention.cu
+  flash_attention      -> csrc/flash_attention.cu, in the form
+                          `attention.plan` picks (counted in FLASH_FORMS)
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ import torch
 
 from repro_torch.core.spec import ConvSpec, Epilogue, _pair
 from repro_torch.kernels import tiling
-from repro_torch.kernels.attention import (HEAD_DIMS, flash_attention_cuda,
-                                           flash_attention_plain)
+from repro_torch.kernels.attention import (FORMS, HEAD_DIMS,
+                                           flash_attention_cuda,
+                                           flash_attention_plain, plan)
 from repro_torch.kernels.dconv_backward import (conv_backward_cuda,
                                                 conv_backward_plain,
                                                 tconv_backward_cuda,
@@ -42,11 +44,14 @@ from repro_torch.kernels.tconv_phase import (tconv_fused_cuda,
 LAUNCHES = {"dconv_forward": 0, "tconv_phase": 0, "tconv_implicit_gemm": 0,
             "conv_backward": 0, "tconv_backward": 0, "dconv_filter_grad": 0,
             "flash_attention": 0}
+# flash_attention's launches by kernel form (they sum to its LAUNCHES).
+FLASH_FORMS = dict.fromkeys(FORMS, 0)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FLASH_FORMS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cuda(*tensors) -> bool:
@@ -281,6 +286,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      blk_k=blk_k)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+    form = plan(q.dtype, q.shape[0], Sq, Sk, Hq, Hk, D)
+    out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
+                               form=form)
     LAUNCHES["flash_attention"] += 1
+    FLASH_FORMS[form.form] += 1
     return out

@@ -10,8 +10,10 @@ These tests need a CUDA card and skip without one.  They import no JAX
 Tolerance: atol = rtol = 1e-4; kernel and plain version both sum in fp32
 and differ only in summation order.  Flash attention in bf16: both sides
 compute the same fp32 values from the same bf16 inputs and round once, so
-they may differ by one bf16 ulp: rtol = 2^-7, atol = 1e-4.  Repeated launches of a backward
-kernel or of flash attention on the same inputs must agree bit for bit.
+they may differ by one bf16 ulp: rtol = 2^-7, atol = 1e-4 (the wgmma
+form splits P into two bf16 terms to stay in that class).  Repeated
+launches of a backward kernel or of flash attention on the same inputs
+must agree bit for bit.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.core.conv import ecoflow_conv, ecoflow_conv_transpose
 from repro_torch.core.spec import ConvSpec, Epilogue, resolve_backend
 from repro_torch.data.pipeline import ConvDataset
 from repro_torch.kernels import ops
-from repro_torch.kernels.attention import flash_attention_plain
+from repro_torch.kernels.attention import flash_attention_plain, plan
 from repro_torch.kernels.dconv_backward import (conv_backward_plain,
                                                 tconv_backward_plain)
 from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
@@ -388,3 +390,87 @@ def test_lm_launches_one_attention_kernel_per_layer(cuda):
     assert ops.LAUNCHES["flash_attention"] == 6
     assert bool(torch.isfinite(logits).all())
     assert {k for k, n in ops.LAUNCHES.items() if n} == {"flash_attention"}
+
+
+# (Sq, Sk, causal) at the forms' edges: one query (the split form), rows
+# about the 64-row tile and keys about the 64-key tile, a long cache.
+ATTN_EDGES = [(1, 1, True), (1, 63, True), (1, 64, True), (1, 65, True),
+              (1, 1024, True), (63, 63, True), (64, 64, True),
+              (65, 65, False), (65, 300, True), (300, 300, True),
+              (64, 1024, False), (1024, 1024, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("Sq,Sk,causal", ATTN_EDGES)
+def test_flash_attention_forms_at_tile_edges(cuda, dtype, D, Sq, Sk, causal):
+    """Each form against the plain version at the tile edges, every
+    head_dim; GQA g = 2.  Reruns are bit-identical."""
+    q, k, v = _attention_operands((2, Sq, Sk, 4, 2, D), dtype, cuda, Sk)
+    form = plan(dtype, 2, Sq, Sk, 4, 2, D).form
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.FLASH_FORMS == {f: int(f == form) for f in ops.FLASH_FORMS}
+    want = flash_attention_plain(q, k, v, causal=causal)
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("Sq,Sk,D", [(1, 300, 256), (1, 1024, 128),
+                                     (65, 65, 64), (300, 300, 256),
+                                     (64, 1024, 128)])
+def test_flash_attention_forms_mqa_g8(cuda, dtype, Sq, Sk, D):
+    """MQA with eight query heads per kv head: 8 rows per kv head at
+    Sq = 1 (the split form's most), 512 per 64 queries (wgmma)."""
+    q, k, v = _attention_operands((2, Sq, Sk, 8, 1, D), dtype, cuda, 17)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("Sq", [1, 2, 65, 200])
+def test_flash_attention_forms_with_a_q_offset(cuda, dtype, Sq):
+    """Queries at positions 100.. over 600 keys: the keys past a row's
+    position are masked in every form, and the split form's later
+    splits see no key at all."""
+    q, k, v = _attention_operands((2, Sq, 600, 4, 2, 128), dtype, cuda, 19)
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=100)
+    want = flash_attention_plain(q, k, v, causal=True, q_offset=100)
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True,
+                                                q_offset=100))
+
+
+def test_engine_prefills_on_wgmma_and_decodes_on_split(cuda):
+    """A bf16 LM (head_dim 64) through ServeEngine: every prefill
+    attention runs on the tensor-core form and every decode attention on
+    the split-kv form, one launch per layer per call."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=128,
+                      d_ff=256, vocab=97, n_heads=4, n_kv_heads=2,
+                      head_dim=64, qk_norm=True)
+    params = LM(cfg).init(torch.Generator().manual_seed(18), device=cuda)
+    rng = np.random.default_rng(18)
+    reqs = [Request(uid=i, prompt=rng.integers(1, 97, n).astype(np.int32),
+                    max_new_tokens=m)
+            for i, (n, m) in enumerate(((40, 5), (90, 3), (33, 6)))]
+    eng = ServeEngine(cfg, params, batch=2, max_len=128, device=cuda)
+    ops.reset_launches()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    prefills, decodes = eng.stats["prefills"], eng.stats["decode_steps"]
+    assert prefills >= 2 and decodes >= 1
+    assert ops.FLASH_FORMS == {"tile": 0, "wgmma": 2 * prefills,
+                               "split": 2 * decodes}
+    assert ops.LAUNCHES["flash_attention"] == 2 * (prefills + decodes)
