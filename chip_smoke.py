@@ -18,9 +18,12 @@ Phases (any failed check raises and ends the run non-zero):
      and Sq < Sk cases, MQA at head_dim 256, Sq and Sk about the 64-row
      and 64-key tiles at every head_dim, and decode lengths 1-1025 over a
      strided cache, in fp32 and bf16, each case printed with the kernel
-     form it ran on, reruns bit-identical): held against its plain
-     PyTorch version on the card, and at the paths' shapes against the
-     library call; kernel, plain and library timed with CUDA events;
+     form it ran on, reruns bit-identical; for the conv backwards and the
+     filter gradient the plan's edges -- a position count the dW split
+     does not divide, Cin = 3 at B = 16 -- each case printed with its
+     plan's tiles and dW split, reruns bit-identical): held against its
+     plain PyTorch version on the card, and at the paths' shapes against
+     the library call; kernel, plain and library timed with CUDA events;
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
@@ -30,7 +33,9 @@ Phases (any failed check raises and ends the run non-zero):
      widths on ConvDataset batches of 64, each step's loss and every
      parameter held against the same steps through the plain versions on
      the CPU, step 1 repeated on the card bit for bit, the launches of
-     every step against STEP_LAUNCHES, and no NaN;
+     every step against STEP_LAUNCHES, and no NaN; then a torch.profiler
+     trace of 2 more steps of each: device-busy ms per step by conv
+     kernel, and the device's idle share;
   6. LM serving: (a) qwen3-0.6b at full width but 2 layers in fp32,
      params from a numpy seed: prefill of 4 prompts of 64-200 tokens and
      8 teacher-forced decode steps on the card, held after each call
@@ -104,6 +109,14 @@ PARITY_DECODES = 8
 PARITY_TOL = 1e-3
 PROFILE_CACHED = 512      # positions in the cache when decode is traced
 PROFILE_STEPS = 4
+PROFILE_TRAIN_STEPS = 2   # training steps traced per model
+# The conv wrappers' kernel symbols (csrc/*.cu), to sort a trace by.
+CONV_SYMBOLS = {"dconv_forward": "dconv_forward_kernel",
+                "tconv_phase": "tconv_phase_kernel",
+                "tconv_implicit_gemm": "tconv_implicit_gemm_kernel",
+                "conv_backward": "conv_backward_kernel",
+                "tconv_backward": "tconv_backward_kernel",
+                "dconv_filter_grad": "dconv_filter_grad_kernel"}
 ATTN_FORMS = ("tile", "wgmma", "split")   # csrc/flash_attention.cu's kernels
 
 # Kernel launches of one training step, by wrapper of
@@ -205,7 +218,7 @@ def ptxas_usage(log: str) -> list[tuple[str, str, str]]:
     function in an `nvcc -Xptxas=-v` log."""
     rows, label, spills = [], "?", ""
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '_ZN(\w+)'", line)
+        entry = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
         if entry:
             rest, name = entry.group(1), "?"
             while rest[:1].isdigit():     # <length><name> ... of the path
@@ -214,6 +227,10 @@ def ptxas_usage(log: str) -> list[tuple[str, str, str]]:
                                                                + int(n):]
             args = re.match(r"I(\w*?)E+v", rest)
             args = args.group(1) if args else ""
+            if "Tile" in args:    # Tile<BM, BN, TM, TN> of each role
+                nums = re.findall(r"Li(\d+)E", args)
+                args = ",".join("x".join(nums[i:i + 2])
+                                for i in range(0, len(nums), 4))
             args = args.replace("13__nv_bfloat16", "bf16,")
             args = re.sub(r"^f", "fp32,", args)
             args = re.sub(r"Li(\d+)E?", r"\1,", args).strip(",")
@@ -278,6 +295,45 @@ def decode_profile(lm, params, dev) -> dict:
                   "kernels_per_step": len(kernels) / PROFILE_STEPS}
 
 
+def train_profile(step, state, batches) -> dict:
+    """Where a training step's time goes: a torch.profiler trace of
+    len(batches) steps from `state`.  Per step: the device's busy time
+    (all kernels), by conv kernel (CONV_SYMBOLS) and the rest (autograd's
+    elementwise ops, the loss, the SGD update), the device's idle share
+    against the step's wall time under the profiler, which adds host time
+    of its own; "not measured" if the trace holds no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"steps": len(batches), "wall_ms_per_step_under_profiler": wall_ms}
+    if not kernels:
+        return out | {"device_busy_ms_per_step": "not measured"}
+
+    def ms_per_step(events):
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3 \
+            / len(batches)
+
+    busy = ms_per_step(kernels)
+    by_kernel = {name: ms_per_step(
+        e for e in kernels if re.search(rf"(?<![A-Za-z_]){sym}\b", e.name))
+        for name, sym in CONV_SYMBOLS.items()}
+    by_kernel = {k: v for k, v in by_kernel.items() if v}
+    return out | {"device_busy_ms_per_step": busy,
+                  "conv_kernel_ms_per_step": by_kernel,
+                  "other_device_ms_per_step": busy - sum(by_kernel.values()),
+                  "device_idle_share": 1.0 - busy / wall_ms,
+                  "kernels_per_step": len(kernels) / len(batches)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -290,6 +346,8 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.attention import flash_attention_plain
     from repro_torch.kernels.attention import plan as attn_plan
+    from repro_torch.kernels.dconv_backward import TILES as BWD_TILES
+    from repro_torch.kernels.dconv_backward import plan as backward_plan
     from repro_torch.kernels.dconv_backward import (conv_backward_plain,
                                                     tconv_backward_plain)
     from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
@@ -393,6 +451,17 @@ def main() -> int:
                                 + (cin if bias is not None else 0)
                                 + B * n_out[0] * n_out[1] * cin))
 
+    def plan_name(op, spec, B, hw, oh_ow, cin, cout, bias=False):
+        """The tiles and splits `dconv_backward.plan` gives a launch: each
+        role's tile (BM x BN), tiles and CTAs per tile."""
+        p = backward_plan(op, spec, B, hw, oh_ow, cin, cout, n_out=hw,
+                          bias=bias)
+        dw = "dW {}x{} {} x{} (chunk {})".format(
+            *BWD_TILES[p.dw_tile], p.dw_tiles, p.dw_splits, p.chunk)
+        return dw if p.tile < 0 else "{} {}x{} {} x{}, {}".format(
+            "dx" if op == "conv_backward" else "ddy", *BWD_TILES[p.tile],
+            p.tiles, p.splits, dw)
+
     def backward_case(name, B, hw, cin, cout, k, s, p, d, ep, path):
         """conv_backward: (dx, dW[, db]) of y = ep(conv(x, w))."""
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
@@ -413,6 +482,8 @@ def main() -> int:
 
         macs = useful_macs(spec, B, oh_ow, hw, cin, cout)
         return dict(kernel="conv_backward", case=name, path=path, timed=path,
+                    rerun=True, form=plan_name("conv_backward", spec, B, hw,
+                                               oh_ow, cin, cout, ep.bias),
                     run=lambda: ops.conv_backward(x, dy, w, n_out=hw, y=y,
                                                   epilogue=ep, **geo),
                     plain=lambda: conv_backward_plain(
@@ -443,7 +514,9 @@ def main() -> int:
 
         macs = useful_macs(spec, B, oh_ow, hw, cin, cout)
         return dict(kernel="tconv_backward", case=name, path=path,
-                    timed=path,
+                    timed=path, rerun=True,
+                    form=plan_name("tconv_backward", spec, B, hw, oh_ow, cin,
+                                   cout, ep.bias),
                     run=lambda: ops.tconv_backward(g, dy, w, z=z, epilogue=ep,
                                                    **geo),
                     plain=lambda: tconv_backward_plain(g, dy, w, spec, z=z,
@@ -462,7 +535,9 @@ def main() -> int:
         geo = dict(stride=spec.stride, padding=spec.padding,
                    dilation=spec.dilation)
         return dict(kernel="dconv_filter_grad", case=name, path=path,
-                    timed=path,
+                    timed=path, rerun=True,
+                    form=plan_name("filter_grad", spec, B, hw, oh_ow, cin,
+                                   cout),
                     run=lambda: ops.dconv_filter_grad(
                         x, dy, k=spec.filter_shape, **geo),
                     plain=lambda: dconv_filter_grad_plain(x, dy, spec),
@@ -522,9 +597,13 @@ def main() -> int:
                                 False))
         cases.append(tconv_case(kernel, "ragged_s2d2", 2, (6, 5), (14, 14),
                                 4, 6, 3, 2, 1, (2, 3), ragged_ep, False))
+    # The backward plan's edges: 1183 positions, which the dW split count
+    # does not divide, and Cin = 3 at B = 16 (ragged_channels is the third).
     ragged = [("ragged_s3k2", 3, (14, 12), 5, 7, (2, 3), (3, 2), (1, 1), 1),
               ("ragged_s2d2", 2, (14, 14), 4, 6, 3, 2, 1, (2, 3)),
-              ("ragged_channels", 2, (9, 9), 130, 37, 3, 2, 1, 1)]
+              ("ragged_channels", 2, (9, 9), 130, 37, 3, 2, 1, 1),
+              ("positions_1183", 7, (26, 26), 8, 16, 3, 2, 1, 1),
+              ("cin3_b16", 16, (32, 32), 3, 32, 4, 2, 1, 1)]
     for name, Bs, hw, cin, cout, k, s, p, d in ragged:
         cases.append(backward_case(name, Bs, hw, cin, cout, k, s, p, d,
                                    ragged_ep, False))
@@ -651,7 +730,9 @@ def main() -> int:
         row = dict(kernel=c["kernel"], case=c["case"], max_abs_err=err)
         if "form" in c:
             row["form"] = c["form"]
-        if c.get("rerun") and not torch.equal(got, c["run"]()):
+        if c.get("rerun") and not all(
+                torch.equal(a, b)
+                for a, b in zip(as_tuple(got), as_tuple(c["run"]()))):
             raise AssertionError(f"{what}: a rerun is not bit-identical")
         if c["timed"]:
             lib = c["lib"]
@@ -761,7 +842,7 @@ def main() -> int:
         ("sgd_step", cnn_step, cnn.simple_cnn_init(gen, device=dev),
          ConvDataset(kind="cnn", batch=B, image=32, seed=0)),
     ]
-    train_launches = {}
+    train_launches, trained = {}, []
     for step_name, step, state, ds in models:
         cpu_state = tree_map(lambda t: t.to(cpu), state)
         step_ms, worst = [], 0.0
@@ -816,10 +897,18 @@ def main() -> int:
             "ms_per_step": steady, "images_per_s": B / steady * 1e3,
             "first_step_ms": step_ms[0], "max_abs_err_vs_cpu": worst,
             "launches_per_step": STEP_LAUNCHES[step_name], "card": card}))
+        trained.append((step_name, step, state, ds))
     print(f"train: {TRAIN_STEPS} gan_sgd_step + {TRAIN_STEPS} sgd_step at "
           f"batch {B} equal the plain versions on the CPU within "
           f"{TRAIN_TOL:g} after every step; step 1 repeats bit for bit")
     print("train launches " + json.dumps(train_launches))
+    for step_name, step, state, ds in trained:
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in ds.batch_at(TRAIN_STEPS + i).items()}
+                   for i in range(PROFILE_TRAIN_STEPS)]
+        print("train profile " + json.dumps(
+            {"step": step_name, "batch": B}
+            | train_profile(step, state, batches) | {"card": card}))
 
     # -- phase 6: LM serving ---------------------------------------------------
     full = get_config(LM_ARCH)

@@ -13,94 +13,138 @@
 //
 // Design.  The Pallas grid kept dW and db stationary in VMEM across its
 // sequential (b, phase, co, tap) axes.  CUDA blocks run in no order, so
-// this is one grid of CTA roles, chosen by blockIdx.x ranges:
-//   [0, n_dw)            dW: conv_body.cuh::filter_grad_tile, 32 output
-//                        channels of one (tap, ci) per CTA, the sum over
-//                        (b, i, j) split over 8 warps in a fixed loop and
-//                        added by a fixed shared-memory tree;
-//   [n_dw, n_dw + n_db)  db: channel_sum_tile, the same reduction shape;
-//   the rest             dx: one element per thread,
-//                        conv_body.cuh::phase_element (tconv_phase.cu's
-//                        body), each CTA inside one residue class.
-// The long reduction CTAs come first, so the many short dx CTAs fill the
-// SMs around them.  The mask is applied as dy is loaded (the `Masked`
-// reader), never stored: dy and y are read, m is not written.  No
-// atomics anywhere, so the same inputs give the same bits.
+// this is one grid of CTA roles (conv_body.cuh::RoleGrid):
+//   dW  dw_tile, a tiled implicit GEMM (Kh*Kw*Cin) x Cout over the
+//       B*Oh*Ow positions, each tile's positions split over `dw_splits`
+//       CTAs;
+//   db  channel_sum over the same positions, split the same way;
+//   dx  dx_tile, one tile of a residue class's implicit GEMM (positions x
+//       Cin over the class's taps x Cout), its reduction split over
+//       `splits` CTAs when the tiles alone would not fill the card.
+// The long reduction CTAs come first, so the many short dx tiles fill the
+// SMs around them.  The splits of a tile write their partials to a
+// workspace the wrapper allocates (torch.empty) and count themselves on
+// an integer ticket; the last one adds the partials in split order and
+// sets the ticket back to 0 (split_finish): no atomics on any output, the
+// same inputs give the same bits.  The host's plan
+// (kernels/dconv_backward.py::plan) picks each role's tile and splits.
+// The mask is applied as dy is loaded (the `Masked` reader), on its way
+// to shared memory, never stored: dy and y are read, m is not written.
 //
 // Bound.  At the training path's shapes (B = 64, K = 4 or 3, S = 2) the
-// unique bytes (x, dy, y, dx) and the useful MACs of the two products
-// give bounds of a few microseconds each; this simple form re-reads dy
-// through L2 once per (tap, ci) for dW and runs one dependent fp32 FMA
-// chain per thread, so latency, not either bound, limits it.
+// unique bytes (x, dy, y, W, dx, dW) and the useful MACs of the two
+// products give bounds of 2-7 microseconds.  The tiles reuse each
+// operand element from registers TM or TN times and from shared memory
+// BN or BM times; what is left is the gathers' index arithmetic, the
+// re-reads of dy by the taps of one class (through L1 / L2), the split
+// partials' round trip through L2, and, at Cin = 3, one dW tile whose
+// 16384-position sum only the split spreads over the card.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 #include "conv_body.cuh"
 
-__global__ void __launch_bounds__(kRoleThreads) conv_backward_kernel(
-    Masked cot, Masked mask_only, const float* __restrict__ x,
-    const float* __restrict__ w, float* __restrict__ dx,
-    float* __restrict__ dw, float* __restrict__ db, ConvGeom gx,
-    ConvGeom gdx, PhaseGeom t, int n_dw, int n_db, int dx_tiles) {
-  int blk = blockIdx.x;
-  if (blk < n_dw) {
-    filter_grad_tile(Plain{x}, cot, dw, gx, blk);
-    return;
-  }
-  blk -= n_dw;
-  if (blk < n_db) {
-    channel_sum_tile(mask_only, db, gx.B * gx.Oh * gx.Ow, gx.Cout, blk);
-    return;
-  }
-  blk -= n_db;
-  const int classes = gdx.sh * gdx.sw;
-  const int tile = blk % dx_tiles;
-  const int cls = (blk / dx_tiles) % classes;
-  const int b = blk / (dx_tiles * classes);
-  const long long e = (long long)tile * blockDim.x + threadIdx.x;
-  if (e >= (long long)t.Mh * t.Mw * gdx.Cin) return;
-  long long out;
-  int ci;
-  float acc;
-  if (phase_element(cot, w, gdx, t, b, cls / gdx.sw, cls % gdx.sw, e, &out,
-                    &ci, &acc))
-    dx[out] = acc;
+struct BwdArgs {
+  Masked cot;        // scale * dy * act'(y)
+  Masked mask_only;  // dy * act'(y)
+  const float* x;
+  const float* w;
+  float* dx;
+  float* dw;
+  float* db;
+  ConvGeom gx, gdx;  // the x frame and the dx frame (n_out)
+  PhaseGeom t;
+  GeomDiv fd;        // of gx; dx uses its Cout, which gdx shares
+  RoleGrid grid;
+};
+
+template <class TD, class TW>
+__global__ void __launch_bounds__(kGemmThreads)
+    conv_backward_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  int tile;
+  Split sp;
+  const int role = role_of<TW::BM * TW::BN, TD::BM * TD::BN>(a.grid, &tile,
+                                                             &sp);
+  if (role == 0)
+    dw_tile<TW>(Plain{a.x}, a.cot, a.dw, a.gx, a.fd, tile, sp, smem);
+  else if (role == 1)
+    channel_sum(a.mask_only, a.db, a.gx.B * a.gx.Oh * a.gx.Ow, a.gx.Cout,
+                tile, sp, smem);
+  else
+    dx_tile<TD>(a.cot, a.w, a.dx, a.gdx, a.t, a.fd, tile, sp, smem);
 }
 
 // x (B,Nh_x,Nw_x,Cin), dy and y (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout) ->
 // dx (B,Nh,Nw,Cin), dw (Kh,Kw,Cin,Cout), db (Cout,); all fp32,
 // contiguous.  y == nullptr means no activation; db == nullptr means no
 // bias (its role is not launched).  (Nh, Nw) is the dx frame, n_out; the
-// tap-phase bookkeeping comes from ConvSpec on the host.  Returns
-// cudaGetLastError() after the launch.
+// tap-phase bookkeeping comes from ConvSpec on the host; the tiles (ids),
+// splits and dW chunk from the plan, with a workspace of ws_floats floats
+// and n_tickets ints that are 0 (and are 0 again after the launch).
+// Returns the launch's CUDA error (cudaErrorInvalidValue for a plan, a
+// workspace or a size it cannot take).
 extern "C" int conv_backward_f32(
     const void* x, const void* dy, const void* y, const void* w, void* dx,
     void* dw, void* db, int B, int Nh_x, int Nw_x, int Cin, int Oh, int Ow,
     int Cout, int Kh, int Kw, int Nh, int Nw, int sh, int sw, int ph, int pw,
     int dil_h, int dil_w, int per_h, int per_w, int step_h, int step_w,
     int KP, int KQ, int TPh, int TPw, int act, float slope, int has_scale,
-    float scale, void* stream) {
-  const ConvGeom gx = make_geom(B, Nh_x, Nw_x, Cin, Oh, Ow, Cout, Kh, Kw, sh,
-                                sw, ph, pw, dil_h, dil_w);
-  const ConvGeom gdx = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh,
-                                 sw, ph, pw, dil_h, dil_w);
-  const PhaseGeom t = make_phase_geom(gdx, per_h, per_w, step_h, step_w, KP,
-                                      KQ, TPh, TPw);
-  const float s = has_scale ? scale : 1.0f;
-  const Masked cot = make_masked(dy, y, act, slope, s);
-  const Masked mask_only = make_masked(dy, y, act, slope, 1.0f);
+    float scale, int tile, int splits, int dw_tile, int dw_splits,
+    int chunk, void* ws, int64_t ws_floats, void* tickets, int n_tickets,
+    void* stream) {
+  BwdArgs a;
+  a.gx = make_geom(B, Nh_x, Nw_x, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw,
+                   dil_h, dil_w);
+  a.gdx = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw,
+                    dil_h, dil_w);
+  a.t = make_phase_geom(a.gdx, per_h, per_w, step_h, step_w, KP, KQ, TPh,
+                        TPw);
+  a.fd = make_geom_div(a.gx);
+  const long long positions = (long long)B * Oh * Ow;
+  if (!gather_tile_ok(tile) || !dw_tile_ok(dw_tile) || Cin < 1 || Cout < 1 ||
+      !fits_int((long long)B * Nh_x * Nw_x * Cin) ||
+      !fits_int((long long)B * Nh * Nw * Cin) ||
+      !fits_int(positions * Cout) || !fits_int((long long)Kh * Kw * Cin * Cout))
+    return (int)cudaErrorInvalidValue;
+  a.cot = make_masked(dy, y, act, slope, has_scale ? scale : 1.0f);
+  a.mask_only = make_masked(dy, y, act, slope, 1.0f);
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
+  a.dx = static_cast<float*>(dx);
+  a.dw = static_cast<float*>(dw);
+  a.db = static_cast<float*>(db);
+  int bm, bn;
+  tile_extent(dw_tile, &bm, &bn);
   const long long n_dw =
-      (long long)Kh * Kw * Cin * ((Cout + kLanes - 1) / kLanes);
-  const long long n_db = db != nullptr ? (Cout + kLanes - 1) / kLanes : 0;
-  const long long per_class = (long long)t.Mh * t.Mw * Cin;
-  const long long dx_tiles = (per_class + kRoleThreads - 1) / kRoleThreads;
-  const long long blocks = n_dw + n_db + (long long)B * sh * sw * dx_tiles;
-  if (blocks > 0) {
-    conv_backward_kernel<<<(unsigned)blocks, kRoleThreads, 0,
-                           (cudaStream_t)stream>>>(
-        cot, mask_only, (const float*)x, (const float*)w, (float*)dx,
-        (float*)dw, (float*)db, gx, gdx, t, (int)n_dw, (int)n_db,
-        (int)dx_tiles);
-  }
-  return (int)cudaGetLastError();
+      (long long)((Kh * Kw * Cin + bm - 1) / bm) * ((Cout + bn - 1) / bn);
+  const int ct = Cout < kGemmThreads ? Cout : kGemmThreads;
+  const long long n_db = db != nullptr ? (Cout + ct - 1) / ct : 0;
+  tile_extent(tile, &bm, &bn);
+  const long long n_dx = dx_tile_count(a.gdx, a.t, bm, bn);
+  RoleGrid& grid = a.grid;
+  grid.n_dw = (int)n_dw;
+  grid.n_db = (int)n_db;
+  grid.n_dx = (int)n_dx;
+  grid.dw_splits = dw_splits;
+  grid.splits = splits;
+  grid.ws = static_cast<float*>(ws);
+  grid.tickets = static_cast<int*>(tickets);
+  int dw_bm, dw_bn;
+  tile_extent(dw_tile, &dw_bm, &dw_bn);
+  const long long need = role_grid_workspace(&grid, dw_bm * dw_bn, bm * bn);
+  if (!plan_ok(grid, chunk, positions, ws_floats, need, n_tickets))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = role_grid_blocks(grid);
+  if (blocks == 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)with_tile(tile, [&](auto td) {
+    return with_dw_tile(dw_tile, [&](auto tw) {
+      using TD = decltype(td);
+      using TW = decltype(tw);
+      constexpr int floats = cmax(
+          cmax(dw_smem_floats<TW, Plain, Masked>(), dx_smem_floats<TD, Masked>()), kSumSmemFloats);
+      return launch_roles<conv_backward_kernel<TD, TW>>(blocks, floats, a, s);
+    });
+  });
 }

@@ -2,29 +2,29 @@
 // piece of index arithmetic exists once:
 //
 //   direct_conv_element  one output of the direct / dilated conv
-//                        (dconv_forward.cu; the ddy role of
-//                        tconv_backward.cu),
+//                        (dconv_forward.cu),
 //   phase_element        one output of the zero-free transposed conv by
-//                        residue class (tconv_phase.cu; the dx role of
-//                        conv_backward.cu),
-//   filter_grad_tile     32 filter-gradient elements, one CTA
-//                        (dconv_filtergrad.cu; the dW role of both fused
-//                        backwards),
-//   channel_sum_tile     32 bias-gradient channels, one CTA (the db role
-//                        of both fused backwards).
+//                        residue class (tconv_phase.cu),
+//   the tiled implicit-GEMM engine (below): every role of the fused
+//                        backwards (conv_backward.cu, tconv_backward.cu)
+//                        and the filter gradient (dconv_filtergrad.cu):
+//     dx_tile            a tile of dx = tconv(dy, W) in one residue class,
+//     ddy_tile           a tile of ddy = conv(g, W),
+//     dw_tile            a tile of dW,
+//     channel_sum        the bias gradient,
+//   each with its reduction split over several CTAs whose partials are
+//   added in split order (split_finish).
 //
 // Operands are read through small reader structs: `Plain` reads a tensor
 // as it lies; `Masked` forms v * act'(y) * scale at each load, so a
 // masked cotangent is never written to device memory (the Pallas
 // backwards kept it in VMEM the same way).
 //
-// The two reductions are deterministic: no atomics.  A CTA of
-// kSlices x kLanes threads owns kLanes outputs; warp s sums its share of
-// the positions (every kSlices-th row) in a fixed loop, and a
-// shared-memory tree of fixed shape adds the kSlices partials.  The same
-// inputs give the same bits.
+// Every sum runs in a fixed order and no output is written by atomics, so
+// the same inputs give the same bits.
 #pragma once
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -71,6 +71,7 @@ static inline PhaseGeom make_phase_geom(const ConvGeom& g, int per_h,
 }
 
 struct Plain {
+  static constexpr bool kMasked = false;
   const float* v;
   __device__ __forceinline__ float operator()(long long i) const {
     return __ldg(v + i);
@@ -84,15 +85,18 @@ struct Plain {
 // stay independent and in flight together.  With no activation y points
 // at v and the factor is y > 0 ? 1 : 1; scale 1 means none.
 struct Masked {
+  static constexpr bool kMasked = true;
   const float* v;
   const float* y;
   float below;   // act' where y <= 0 (relu 0, leaky_relu slope, none 1)
   int is_tanh;
   float scale;
-  __device__ __forceinline__ float operator()(long long i) const {
-    const float f = __ldg(v + i), out = __ldg(y + i);
+  __device__ __forceinline__ float apply(float f, float out) const {
     const float g = is_tanh ? 1.0f - out * out : (out > 0.0f ? 1.0f : below);
     return f * g * scale;
+  }
+  __device__ __forceinline__ float operator()(long long i) const {
+    return apply(__ldg(v + i), __ldg(y + i));
   }
 };
 
@@ -197,83 +201,845 @@ __device__ __forceinline__ bool phase_element(
   return true;
 }
 
-constexpr int kLanes = 32;   // outputs of one reduction CTA, one per lane
-constexpr int kSlices = 8;   // warps splitting each output's sum
-constexpr int kRoleThreads = kLanes * kSlices;
+// ===========================================================================
+// The tiled implicit-GEMM engine.
+//
+// A CTA of kGemmThreads threads computes one BM x BN fp32 tile of
+// C = A . B over a range of the reduction axis k.  Each thread owns a
+// TM x TN register micro-tile.  A and B pass through shared memory in
+// kBK-deep slabs, in a ring of kStages stages filled by cp.async: the
+// copies of slab s + kStages - 1 are in flight while slab s is
+// multiplied, so their latency hides behind kStages - 1 slabs of FMAs.
+// A masked operand copies both v and the forward output y and forms
+// v * act'(y) * scale in place, element by element, once its stage has
+// landed (each thread fixes the elements it copied), so the masked
+// cotangent still never reaches device memory.  A loader fetches its
+// elements along the operand's contiguous channel axis, so a warp's
+// lanes read consecutive addresses; padding taps, ragged edges and k
+// past the range are cp.async's zero fill, so the inner loop has no
+// branch.  Each role is this engine with its own two loaders (the
+// "gathers" of its implicit GEMM).
+//
+// The engine is written for any gather: tconv_phase.cu and
+// dconv_forward.cu can take it over with their own loaders.
 
-// Adds the kSlices warps' partials lane by lane in a tree of fixed shape;
-// every thread gets its lane's total.  Every thread of the CTA must call
-// it, once.
-__device__ __forceinline__ float slice_tree(float partial) {
-  __shared__ float part[kSlices][kLanes];
-  const int lane = threadIdx.x % kLanes, s = threadIdx.x / kLanes;
-  part[s][lane] = partial;
-  __syncthreads();
-  for (int h = kSlices / 2; h > 0; h /= 2) {
-    if (s < h) part[s][lane] += part[s + h][lane];
-    __syncthreads();
+constexpr int kGemmThreads = 256;
+constexpr int kBK = 16;         // reduction depth of one slab
+constexpr int kStages = 3;      // slabs in the shared-memory ring
+constexpr int kMaxSplits = 64;  // CTAs one tile's reduction may take
+
+// n / d for 0 <= n < 2^31 and a divisor d >= 1 fixed for a launch: one
+// multiply-high and a shift (the round-up method; exact on that range).
+struct FastDiv {
+  int d;
+  unsigned mul;
+  int shift;
+};
+
+__host__ __device__ inline FastDiv make_fastdiv(int d) {
+  FastDiv f;
+  f.d = d;
+  f.mul = 0;
+  f.shift = 0;
+  if (d > 1) {
+    int l = 0;
+    while ((1u << l) < (unsigned)d) ++l;  // ceil(log2 d)
+    f.mul = (unsigned)(((1ull << (31 + l)) + (unsigned)d - 1) / (unsigned)d);
+    f.shift = l - 1;
   }
-  return part[0][lane];
+  return f;
 }
 
-// dW[kx,ky,ci,co] = sum_{b,i,j} x[b, i*S+kx*D-P, j*S+ky*D-P, ci]
-//                               * dy[b,i,j,co]
-// for tile = ((kx*Kw + ky)*Cin + ci)*ceil(Cout/32) + co/32: lane l owns
-// co = 32*(tile % ceil(Cout/32)) + l.  Warp s walks the output rows
-// (b, i) = s, s + 8, ...; a row whose input row h lies in the padding is
-// skipped whole, and within a row j runs over the columns whose input
-// column is in the image, with no division in the loop, so the unrolled
-// loads of several j are in flight together.  Each warp's dy loads are
-// one contiguous 128-byte row, its x load one broadcast value.  x and dy
-// are the (B,Nh,Nw,Cin) and (B,Oh,Ow,Cout) operands of g.
-template <class X, class DY>
-__device__ __forceinline__ void filter_grad_tile(
-    const X& x, const DY& dy, float* __restrict__ dw, const ConvGeom& g,
-    long long tile) {
-  const int co_tiles = (g.Cout + kLanes - 1) / kLanes;
-  const int co = (int)(tile % co_tiles) * kLanes + threadIdx.x % kLanes;
-  long long t = tile / co_tiles;
-  const int ci = (int)(t % g.Cin);
-  t /= g.Cin;
-  const int ky = (int)(t % g.Kw);
-  const int kx = (int)(t / g.Kw);
-  // Input column c = j*S + off; the j with 0 <= c < Nw are [jlo, jhi).
-  const int off = ky * g.dw - g.pw;
-  const int jlo = off >= 0 ? 0 : (g.sw - 1 - off) / g.sw;
-  const int top = g.Nw - 1 - off;
-  const int jhi = top < 0 ? 0 : min(g.Ow, top / g.sw + 1);
-  float acc = 0.0f;
-  if (co < g.Cout) {
-    for (int bi = threadIdx.x / kLanes; bi < g.B * g.Oh; bi += kSlices) {
-      const int h = (bi % g.Oh) * g.sh + kx * g.dh - g.ph;
-      if (h < 0 || h >= g.Nh) continue;  // padding row: contributes zero
-      const long long xrow =
-          ((long long)(bi / g.Oh) * g.Nh + h) * g.Nw + off;
-      const long long dyrow = (long long)bi * g.Ow;
-#pragma unroll 4
-      for (int j = jlo; j < jhi; ++j)
-        acc = fmaf(x((xrow + (long long)j * g.sw) * g.Cin + ci),
-                   dy((dyrow + j) * g.Cout + co), acc);
+__device__ __forceinline__ int fast_div(int n, const FastDiv& f) {
+  return f.d == 1 ? n : (int)(__umulhi((unsigned)n, f.mul) >> f.shift);
+}
+
+// The tile shapes a role may take, by the id the host's plan names
+// (kernels/dconv_backward.py::TILES).
+template <int BM_, int BN_, int TM_, int TN_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
+  static constexpr int TX = BN / TN;            // threads along n
+  static constexpr int AS = BM + 4, BS = BN + 4;  // padded slab rows
+  static_assert((BM / TM) * (BN / TN) == kGemmThreads,
+                "one micro-tile per thread");
+  static_assert(kGemmThreads % BM == 0 || BM % kGemmThreads == 0, "");
+  static_assert(kGemmThreads % BN == 0, "");
+};
+using TileThin = Tile<256, 4, 4, 1>;     // 0: dx / ddy, N <= 4
+using TileTall = Tile<128, 32, 4, 4>;    // 1: dx / ddy, the rest
+using TileSquare = Tile<64, 64, 4, 4>;   // 2: dW, Cout > 32
+using TileSmall = Tile<64, 32, 4, 2>;    // 3: dW, Cout <= 32
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  // src-size 0 fills the 4 bytes with zero.
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One kBK x X slab of an operand as thread t loads it: elements
+// e = t + 256 q numbered along the operand's contiguous axis -- along k
+// when KContig (e -> k = e % kBK, x = e / kBK), else along x
+// (x = e % X, k = e / X).  Stored [k][x], rows padded to X + 4 floats.
+// A thread's k (KContig) or x (not) is the same for all its elements.
+template <int X, bool KContig>
+struct Slab {
+  static constexpr int kElems = X * kBK;
+  static constexpr int kPer = (kElems + kGemmThreads - 1) / kGemmThreads;
+  static constexpr int kPitch = X + 4;
+  static_assert(KContig ? kGemmThreads % kBK == 0 : kGemmThreads % X == 0,
+                "a thread's k (or x) must not change with q");
+  __device__ static int e(int q) { return threadIdx.x + q * kGemmThreads; }
+  __device__ static int k_of(int q) {
+    return KContig ? e(q) % kBK : e(q) / X;
+  }
+  __device__ static int x_of(int q) {
+    return KContig ? e(q) / kBK : e(q) % X;
+  }
+  __device__ static bool live(int q) { return e(q) < kElems; }
+  __device__ static int at(int q) { return k_of(q) * kPitch + x_of(q); }
+  // Floats of one stage of an operand read through R: v, and y after it
+  // for a masked operand.
+  template <class R>
+  __host__ __device__ static constexpr int stage_floats() {
+    return kBK * kPitch * (R::kMasked ? 2 : 1);
+  }
+  // Copy element q, r's v (and y) at `off`, into stage s; zeros when
+  // !valid.
+  template <class R>
+  __device__ static void put(float* s, int q, const R& r, long long off,
+                             bool valid) {
+    cp_async4(s + at(q), r.v + (valid ? off : 0), valid);
+    if constexpr (R::kMasked)
+      cp_async4(s + kBK * kPitch + at(q), r.y + (valid ? off : 0), valid);
+  }
+  // Once this thread's copies of stage s have landed: v * act'(y) * scale
+  // in place for a masked operand.
+  template <class R>
+  __device__ static void fixup(float* s, const R& r) {
+    if constexpr (R::kMasked) {
+#pragma unroll
+      for (int q = 0; q < kPer; ++q)
+        if (live(q)) s[at(q)] = r.apply(s[at(q)], s[kBK * kPitch + at(q)]);
     }
   }
-  acc = slice_tree(acc);
-  if (threadIdx.x < kLanes && co < g.Cout)
-    dw[((long long)(kx * g.Kw + ky) * g.Cin + ci) * g.Cout + co] = acc;
+};
+
+template <int N>
+__device__ __forceinline__ void load_row(float (&v)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      v[i] = t.x; v[i + 1] = t.y; v[i + 2] = t.z; v[i + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = p[i];
+  }
 }
 
-// out[c] = sum over the n rows of an (n, C) operand v, for the 32
-// channels c = 32*tile + lane.
-template <class V>
-__device__ __forceinline__ void channel_sum_tile(const V& v,
-                                                 float* __restrict__ out,
-                                                 int n, int C, int tile) {
-  const int c = tile * kLanes + threadIdx.x % kLanes;
-  float acc = 0.0f;
-  if (c < C) {
-#pragma unroll 4
-    for (int r = threadIdx.x / kLanes; r < n; r += kSlices)
-      acc += v((long long)r * C + c);
-  }
-  acc = slice_tree(acc);
-  if (threadIdx.x < kLanes && c < C) out[c] = acc;
+// Shared-memory floats of the ring of a GEMM with loaders LA and LB.
+template <class LA, class LB>
+__host__ __device__ constexpr int ring_floats() {
+  return kStages * (LA::kStage + LB::kStage);
 }
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// acc = A[:, k_begin:k_end] . B[k_begin:k_end, :] for this CTA's tile, in
+// the fixed order k = k_begin, k_begin + 1, ...  `la` / `lb` start the
+// copies of a slab of A ([k][m]) and B ([k][n]) into a stage (`fetch`)
+// and finish a landed stage (`fixup`).  smem holds the ring
+// (ring_floats).  Every thread of the CTA calls it.
+template <class T, class LA, class LB>
+__device__ __forceinline__ void gemm_mainloop(LA& la, LB& lb, int k_begin,
+                                              int k_end,
+                                              float (&acc)[T::TM][T::TN],
+                                              float* smem) {
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.0f;
+  if (k_begin >= k_end) return;
+  constexpr int kStage = LA::kStage + LB::kStage;
+  const int slabs = (k_end - k_begin + kBK - 1) / kBK;
+  const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < slabs) {
+      la.fetch(k_begin + s * kBK, k_end, smem + s * kStage);
+      lb.fetch(k_begin + s * kBK, k_end, smem + s * kStage + LA::kStage);
+    }
+    cp_async_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<kStages - 2>();
+    float* st = smem + (s % kStages) * kStage;
+    la.fixup(st);
+    lb.fixup(st + LA::kStage);
+    __syncthreads();  // stage s is whole; every thread is past slab s - 1
+    const int next = s + kStages - 1;
+    if (next < slabs) {
+      float* nx = smem + (next % kStages) * kStage;
+      la.fetch(k_begin + next * kBK, k_end, nx);
+      lb.fetch(k_begin + next * kBK, k_end, nx + LA::kStage);
+    }
+    cp_async_commit();
+    const float* a = st + ty * T::TM;
+    const float* b = st + LA::kStage + tx * T::TN;
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float av[T::TM], bv[T::TN];
+      load_row<T::TM>(av, a + kk * T::AS);
+      load_row<T::TN>(bv, b + kk * T::BS);
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j)
+          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// out(row, col, value) for every element of this thread's micro-tile,
+// row and col local to the tile.
+template <class T, class Out>
+__device__ __forceinline__ void store_tile(const float (&acc)[T::TM][T::TN],
+                                           const Out& out) {
+  const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j)
+      out(ty * T::TM + i, tx * T::TN + j, acc[i][j]);
+}
+
+// One CTA's share of a tile's reduction: split `split` of `splits`, over
+// consecutive chunks of the reduction axis.  With more than one split the
+// partials meet in `ws` (the tile's `splits` partials, in split order, in
+// a workspace the wrapper allocates) and the tile counts its finished
+// splits on `ticket`, an int the last split sets back to 0.
+struct Split {
+  int split, splits;
+  float* ws;
+  int* ticket;
+};
+
+// True in the CTA that finishes a tile's splits last.  Each split has
+// written its partial to ws before it calls this; the integer ticket only
+// elects the CTA that adds the partials, and orders nothing in the sum.
+// Every thread of the CTA calls it.
+__device__ __forceinline__ bool last_split(const Split& sp) {
+  __shared__ int last;
+  __threadfence();  // this split's partial is visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(sp.ticket, 1) == sp.splits - 1;
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();  // ... and the others' partials before they are read
+  return true;
+}
+
+// out(row, col, value) for the tile's sum: directly with one split;
+// else each split stores its partial tile (row-major BM x BN) to ws and
+// the last one adds the `splits` partials of each element in split order
+// 0, 1, ..., so the same inputs give the same bits whatever order the
+// CTAs ran in.  Every thread of the CTA calls it.
+template <class T, class Out>
+__device__ __forceinline__ void split_finish(
+    const float (&acc)[T::TM][T::TN], const Split& sp, const Out& out) {
+  if (sp.splits == 1) {
+    store_tile<T>(acc, out);
+    return;
+  }
+  constexpr int kTile = T::BM * T::BN;
+  float* mine = sp.ws + sp.split * kTile;
+  store_tile<T>(acc, [&](int row, int col, float v) {
+    __stcg(mine + row * T::BN + col, v);
+  });
+  if (!last_split(sp)) return;
+  for (int e = threadIdx.x; e < kTile; e += kGemmThreads) {
+    float s = 0.0f;
+    for (int r = 0; r < sp.splits; ++r) s += __ldcg(sp.ws + r * kTile + e);
+    out(e / T::BN, e % T::BN, s);
+  }
+  if (threadIdx.x == 0) *sp.ticket = 0;
+}
+
+// The k range of split sp of a reduction of length K: chunks of
+// ceil(K / splits) rounded up to whole slabs.
+__device__ __forceinline__ void split_range(int K, const Split& sp,
+                                            int* k_begin, int* k_end) {
+  const int chunk = ((K + sp.splits - 1) / sp.splits + kBK - 1) / kBK * kBK;
+  *k_begin = min(K, sp.split * chunk);
+  *k_end = min(K, *k_begin + chunk);
+}
+
+// -- the dW role --------------------------------------------------------------
+//
+// dW[kx,ky,ci,co] = sum_p X[b, i*S+kx*D-P, j*S+ky*D-P, ci] * DY[p, co]
+// over the positions p = (b, i, j) of the (B, Oh, Ow) frame: a GEMM with
+// M = Kh*Kw*Cin rows m = (kx*Kw + ky)*Cin + ci, N = Cout, and k = p.
+// X is the (B, Nh, Nw, Cin) operand of g.
+
+// A[p][m]: contiguous along m (ci), so a thread's m is fixed.
+template <class T, class X>
+struct DwA {
+  using S = Slab<T::BM, false>;
+  static constexpr int kStage = S::template stage_floats<X>();
+  X x;
+  ConvGeom g;
+  FastDiv fd_ow, fd_oh;
+  int ci, offh, offw;
+  bool mlive;
+  __device__ DwA(const X& x_, const ConvGeom& g_, FastDiv fd_cin,
+                 FastDiv fd_kw, FastDiv ow, FastDiv oh, int m0)
+      : x(x_), g(g_), fd_ow(ow), fd_oh(oh) {
+    const int m = m0 + S::x_of(0);
+    mlive = m < g.Kh * g.Kw * g.Cin;
+    const int tap = fast_div(m, fd_cin);
+    ci = m - tap * g.Cin;
+    const int kx = fast_div(tap, fd_kw);
+    offh = kx * g.dh - g.ph;
+    offw = (tap - kx * g.Kw) * g.dw - g.pw;
+  }
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) const {
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q) {
+      if (!S::live(q)) continue;
+      const int p = k0 + S::k_of(q);
+      const int bi = fast_div(p, fd_ow);
+      const int b = fast_div(bi, fd_oh);
+      const int h = (bi - b * g.Oh) * g.sh + offh;
+      const int w = (p - bi * g.Ow) * g.sw + offw;
+      const bool valid = mlive && p < k_end && h >= 0 && h < g.Nh &&
+                         w >= 0 && w < g.Nw;
+      S::put(s, q, x, ((b * g.Nh + h) * g.Nw + w) * g.Cin + ci, valid);
+    }
+  }
+  __device__ __forceinline__ void fixup(float* s) const { S::fixup(s, x); }
+};
+
+// B[k][n] = V[k * N + n] of a (K, N) operand read along n: the dW
+// role's dy (k = p, N = Cout) and the ddy role's W (k = (tap, ci)).
+template <class T, class V>
+struct RowsB {
+  using S = Slab<T::BN, false>;
+  static constexpr int kStage = S::template stage_floats<V>();
+  V v;
+  int N, n;
+  __device__ RowsB(const V& v_, int N_, int n0) : v(v_), N(N_) {
+    n = n0 + S::x_of(0);
+  }
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) const {
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q) {
+      if (!S::live(q)) continue;
+      const int k = k0 + S::k_of(q);
+      S::put(s, q, v, (long long)k * N + n, n < N && k < k_end);
+    }
+  }
+  __device__ __forceinline__ void fixup(float* s) const { S::fixup(s, v); }
+};
+
+// Division constants of a launch's geometry, made on the host.
+struct GeomDiv {
+  FastDiv cin, cout, kw, ow, oh;
+};
+
+static inline GeomDiv make_geom_div(const ConvGeom& g) {
+  GeomDiv d;
+  d.cin = make_fastdiv(g.Cin);
+  d.cout = make_fastdiv(g.Cout);
+  d.kw = make_fastdiv(g.Kw);
+  d.ow = make_fastdiv(g.Ow);
+  d.oh = make_fastdiv(g.Oh);
+  return d;
+}
+
+// One dW tile (`tile` over (M tiles, N tiles), n fastest); split sp sums
+// the positions of its chunk (split_range over B*Oh*Ow).
+template <class T, class X, class DY>
+__device__ __forceinline__ void dw_tile(const X& x, const DY& dy,
+                                        float* __restrict__ dw,
+                                        const ConvGeom& g, const GeomDiv& fd,
+                                        int tile, const Split& sp,
+                                        float* smem) {
+  const int n_tiles = (g.Cout + T::BN - 1) / T::BN;
+  const int m0 = (tile / n_tiles) * T::BM, n0 = (tile % n_tiles) * T::BN;
+  int k_begin, k_end;
+  split_range(g.B * g.Oh * g.Ow, sp, &k_begin, &k_end);
+  DwA<T, X> la(x, g, fd.cin, fd.kw, fd.ow, fd.oh, m0);
+  RowsB<T, DY> lb(dy, g.Cout, n0);
+  float acc[T::TM][T::TN];
+  gemm_mainloop<T>(la, lb, k_begin, k_end, acc, smem);
+  const int M = g.Kh * g.Kw * g.Cin;
+  split_finish<T>(acc, sp, [&](int row, int col, float v) {
+    const int m = m0 + row, n = n0 + col;
+    if (m < M && n < g.Cout) dw[m * g.Cout + n] = v;
+  });
+}
+
+// -- the bias gradient ---------------------------------------------------------
+//
+// out[c] = sum of v(r * C + c) over the rows r of an (n, C) operand, for
+// the channels of tile `tile` (min(C, 256) channels per tile).  Split sp
+// takes its chunk of rows; thread t takes channel t % ct and every
+// (256 / ct)-th row of it in four fixed interleaved sums; the row slices
+// are added in order in shared memory, and the splits' partials (256
+// floats each in ws) in split order.
+template <class V>
+__device__ __forceinline__ void channel_sum(const V& v,
+                                            float* __restrict__ out, int n,
+                                            int C, int tile, const Split& sp,
+                                            float* smem) {
+  const int ct = min(C, kGemmThreads), per = kGemmThreads / ct;
+  const int lane = threadIdx.x % ct, slice = threadIdx.x / ct;
+  const int c = tile * ct + lane;
+  const int chunk = (n + sp.splits - 1) / sp.splits;
+  const int r_end = min(n, (sp.split + 1) * chunk);
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+  if (slice < per && c < C) {
+    int r = sp.split * chunk + slice;
+    for (; r + 3 * per < r_end; r += 4 * per) {
+      s0 += v(r * C + c);
+      s1 += v((r + per) * C + c);
+      s2 += v((r + 2 * per) * C + c);
+      s3 += v((r + 3 * per) * C + c);
+    }
+    for (; r < r_end; r += per) s0 += v(r * C + c);
+  }
+  smem[threadIdx.x] = (s0 + s1) + (s2 + s3);
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x < ct)
+    for (int q = 0; q < per; ++q) s += smem[q * ct + threadIdx.x];
+  if (sp.splits == 1) {
+    if (threadIdx.x < ct && c < C) out[c] = s;
+    return;
+  }
+  if (threadIdx.x < ct)
+    __stcg(sp.ws + sp.split * kGemmThreads + threadIdx.x, s);
+  if (!last_split(sp)) return;
+  if (threadIdx.x < ct && c < C) {
+    float t = 0.0f;
+    for (int r = 0; r < sp.splits; ++r)
+      t += __ldcg(sp.ws + r * kGemmThreads + threadIdx.x);
+    out[c] = t;
+  }
+  if (threadIdx.x == 0) *sp.ticket = 0;
+}
+
+// -- the dx role of conv_backward ----------------------------------------------
+//
+// dx = tconv(DY, W) in one residue class (p, q): the dx pixels
+// (m*S + p - P, n*S + q - P) that lie in the frame, as a GEMM with rows
+// m = (b, mh, mw) of the class, N = Cin, and k = (slot, co) over the
+// class's taps (kx, ky) = (a + u*per_h, c + v*per_w), slot = u*nv + v.
+// Tap (u, v) reads dy at (mh - base_h - u*step_h, mw - base_w -
+// v*step_w): phase_element's arithmetic, with the taps in another order.
+
+// The class's taps and its rows of the dx frame.  a / c = -1 when no tap
+// reaches the residue (K < S): its pixels get an empty sum.
+struct PhaseClass {
+  int a, c, nu, nv, base_h, base_w, mlo_h, mlo_w, Hc, Wc;
+};
+
+// Rows m of one axis with 0 <= m*S + p - P < N: [*lo, *lo + count).
+__host__ __device__ inline int residue_rows(int N, int S, int P, int p,
+                                            int* lo) {
+  const int l = P - p > 0 ? (P - p + S - 1) / S : 0;
+  const int top = N - 1 + P - p;
+  const int h = top >= 0 ? top / S + 1 : 0;
+  *lo = l;
+  return h > l ? h - l : 0;
+}
+
+__host__ __device__ inline PhaseClass phase_class(const ConvGeom& g,
+                                                  const PhaseGeom& t, int p,
+                                                  int q) {
+  PhaseClass c;
+  c.a = c.c = -1;
+  for (int s = 0; s < t.TPh; ++s)
+    if ((s * g.dh) % g.sh == p) c.a = s;
+  for (int s = 0; s < t.TPw; ++s)
+    if ((s * g.dw) % g.sw == q) c.c = s;
+  const bool taps = c.a >= 0 && c.c >= 0;
+  c.nu = taps ? (g.Kh - c.a + t.per_h - 1) / t.per_h : 0;
+  c.nv = taps ? (g.Kw - c.c + t.per_w - 1) / t.per_w : 0;
+  c.base_h = taps ? c.a * g.dh / g.sh : 0;
+  c.base_w = taps ? c.c * g.dw / g.sw : 0;
+  c.Hc = residue_rows(g.Nh, g.sh, g.ph, p, &c.mlo_h);
+  c.Wc = residue_rows(g.Nw, g.sw, g.pw, q, &c.mlo_w);
+  return c;
+}
+
+// A[k][m] = DY at tap slot(k) of row m, read along co; the rows' (b,
+// mh - base_h, mw - base_w) come from a table in shared memory.
+template <class T, class DY>
+struct DxA {
+  using S = Slab<T::BM, true>;
+  static constexpr int kStage = S::template stage_floats<DY>();
+  DY dy;
+  ConvGeom g;
+  FastDiv fd_cout, fd_nv;
+  int step_h, step_w;
+  const int4* rows;
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) const {
+    const int k = k0 + S::k_of(0);
+    const int slot = fast_div(k, fd_cout);
+    const int co = k - slot * g.Cout;
+    const int u = fast_div(slot, fd_nv);
+    const int di = u * step_h, dj = (slot - u * fd_nv.d) * step_w;
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q) {
+      if (!S::live(q)) continue;
+      const int4 rt = rows[S::x_of(q)];
+      const int i = rt.y - di, j = rt.z - dj;
+      S::put(s, q, dy, ((rt.x * g.Oh + i) * g.Ow + j) * g.Cout + co,
+             k < k_end && rt.x >= 0 && i >= 0 && i < g.Oh && j >= 0 &&
+                 j < g.Ow);
+    }
+  }
+  __device__ __forceinline__ void fixup(float* s) const { S::fixup(s, dy); }
+};
+
+// B[k][n] = W[kx, ky, n, co] of tap slot(k), read along co.
+template <class T>
+struct DxB {
+  using S = Slab<T::BN, true>;
+  static constexpr int kStage = S::template stage_floats<Plain>();
+  Plain w;
+  ConvGeom g;
+  FastDiv fd_cout, fd_nv;
+  int a, c, per_h, per_w, n0;
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) const {
+    const int k = k0 + S::k_of(0);
+    const int slot = fast_div(k, fd_cout);
+    const int co = k - slot * g.Cout;
+    const int u = fast_div(slot, fd_nv);
+    const int kx = a + u * per_h, ky = c + (slot - u * fd_nv.d) * per_w;
+    const int base = (kx * g.Kw + ky) * g.Cin;
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q) {
+      if (!S::live(q)) continue;
+      const int n = n0 + S::x_of(q);
+      S::put(s, q, w, (base + n) * g.Cout + co, k < k_end && n < g.Cin);
+    }
+  }
+  __device__ __forceinline__ void fixup(float*) const {}
+};
+
+
+// dx tiles of class (p, q), n fastest: ceil(B*Hc*Wc / BM) * ceil(Cin / BN).
+__host__ __device__ inline int dx_class_tiles(const ConvGeom& g,
+                                              const PhaseClass& c, int BM,
+                                              int BN) {
+  return (g.B * c.Hc * c.Wc + BM - 1) / BM * ((g.Cin + BN - 1) / BN);
+}
+
+static inline long long dx_tile_count(const ConvGeom& g, const PhaseGeom& t,
+                                      int BM, int BN) {
+  long long n = 0;
+  for (int cls = 0; cls < g.sh * g.sw; ++cls)
+    n += dx_class_tiles(g, phase_class(g, t, cls / g.sw, cls % g.sw), BM, BN);
+  return n;
+}
+
+// One tile of dx; `tile` counts over the classes in (p, q) order.  g is
+// the dx frame (n_out).
+template <class T, class DY>
+__device__ __forceinline__ void dx_tile(const DY& dy,
+                                        const float* __restrict__ w,
+                                        float* __restrict__ dx,
+                                        const ConvGeom& g, const PhaseGeom& t,
+                                        const GeomDiv& fd, int tile,
+                                        const Split& sp, float* smem) {
+  int p = 0, q = 0;
+  PhaseClass c;
+  const int classes = g.sh * g.sw;
+  int cls = 0;
+  for (; cls < classes; ++cls) {
+    p = cls / g.sw;
+    q = cls % g.sw;
+    c = phase_class(g, t, p, q);
+    const int n = dx_class_tiles(g, c, T::BM, T::BN);
+    if (tile < n) break;
+    tile -= n;
+  }
+  if (cls == classes) return;
+  const int n_tiles = (g.Cin + T::BN - 1) / T::BN;
+  const int m0 = (tile / n_tiles) * T::BM, n0 = (tile % n_tiles) * T::BN;
+  const int hw = c.Hc * c.Wc, M = g.B * hw;
+  int4* rows =
+      reinterpret_cast<int4*>(smem + ring_floats<DxA<T, DY>, DxB<T>>());
+  for (int l = threadIdx.x; l < T::BM; l += kGemmThreads) {
+    const int m = m0 + l;
+    int4 rt = make_int4(-1, 0, 0, 0);
+    if (m < M) {
+      const int b = m / hw, rem = m - b * hw;
+      const int mh = c.mlo_h + rem / c.Wc, mw = c.mlo_w + rem % c.Wc;
+      rt = make_int4(b, mh - c.base_h, mw - c.base_w,
+                     ((b * g.Nh + mh * g.sh + p - g.ph) * g.Nw + mw * g.sw +
+                      q - g.pw) * g.Cin);
+    }
+    rows[l] = rt;
+  }
+  __syncthreads();
+  const FastDiv fd_nv = make_fastdiv(c.nv > 0 ? c.nv : 1);
+  DxA<T, DY> la{dy, g, fd.cout, fd_nv, t.step_h, t.step_w, rows};
+  DxB<T> lb{Plain{w}, g, fd.cout, fd_nv, c.a, c.c, t.per_h, t.per_w, n0};
+  float acc[T::TM][T::TN];
+  int k_begin, k_end;
+  split_range(c.nu * c.nv * g.Cout, sp, &k_begin, &k_end);
+  gemm_mainloop<T>(la, lb, k_begin, k_end, acc, smem);
+  split_finish<T>(acc, sp, [&](int row, int col, float v) {
+    const int4 rt = rows[row];
+    if (rt.x >= 0 && n0 + col < g.Cin) dx[rt.w + n0 + col] = v;
+  });
+}
+
+// -- the ddy role of tconv_backward ----------------------------------------------
+//
+// ddy[b,i,j,co] = sum_{kx,ky,ci} G[b, i*S+kx*D-P, j*S+ky*D-P, ci]
+//                                * W[kx,ky,ci,co]
+// as a GEMM with rows m = (b, i, j), N = Cout and k = (kx*Kw + ky)*Cin + ci
+// (so B[k][n] = W[k*Cout + n]).  G is the (B, Nh, Nw, Cin) operand of g.
+
+// A[k][m] = G at tap(k) of row m, read along ci; the rows' (b, i*S - P,
+// j*S - P) come from a table in shared memory.
+template <class T, class G>
+struct DdyA {
+  using S = Slab<T::BM, true>;
+  static constexpr int kStage = S::template stage_floats<G>();
+  G x;
+  ConvGeom g;
+  FastDiv fd_cin, fd_kw;
+  const int4* rows;
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) const {
+    const int k = k0 + S::k_of(0);
+    const int tap = fast_div(k, fd_cin);
+    const int ci = k - tap * g.Cin;
+    const int kx = fast_div(tap, fd_kw);
+    const int oh = kx * g.dh, ow = (tap - kx * g.Kw) * g.dw;
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q) {
+      if (!S::live(q)) continue;
+      const int4 rt = rows[S::x_of(q)];
+      const int h = rt.y + oh, w = rt.z + ow;
+      S::put(s, q, x, ((rt.x * g.Nh + h) * g.Nw + w) * g.Cin + ci,
+             k < k_end && rt.x >= 0 && h >= 0 && h < g.Nh && w >= 0 &&
+                 w < g.Nw);
+    }
+  }
+  __device__ __forceinline__ void fixup(float* s) const { S::fixup(s, x); }
+};
+
+template <class T, class G>
+__device__ __forceinline__ void ddy_tile(const G& x,
+                                         const float* __restrict__ w,
+                                         float* __restrict__ ddy,
+                                         const ConvGeom& g,
+                                         const GeomDiv& fd, int tile,
+                                         const Split& sp, float* smem) {
+  const int n_tiles = (g.Cout + T::BN - 1) / T::BN;
+  const int m0 = (tile / n_tiles) * T::BM, n0 = (tile % n_tiles) * T::BN;
+  const int M = g.B * g.Oh * g.Ow;
+  int4* rows =
+      reinterpret_cast<int4*>(smem + ring_floats<DdyA<T, G>, RowsB<T, Plain>>());
+  for (int l = threadIdx.x; l < T::BM; l += kGemmThreads) {
+    const int m = m0 + l;
+    int4 rt = make_int4(-1, 0, 0, 0);
+    if (m < M) {
+      const int bi = m / g.Ow, b = bi / g.Oh;
+      rt = make_int4(b, (bi - b * g.Oh) * g.sh - g.ph,
+                     (m - bi * g.Ow) * g.sw - g.pw, 0);
+    }
+    rows[l] = rt;
+  }
+  __syncthreads();
+  DdyA<T, G> la{x, g, fd.cin, fd.kw, rows};
+  RowsB<T, Plain> lb(Plain{w}, g.Cout, n0);
+  float acc[T::TM][T::TN];
+  int k_begin, k_end;
+  split_range(g.Kh * g.Kw * g.Cin, sp, &k_begin, &k_end);
+  gemm_mainloop<T>(la, lb, k_begin, k_end, acc, smem);
+  split_finish<T>(acc, sp, [&](int row, int col, float v) {
+    const int m = m0 + row, n = n0 + col;
+    if (m < M && n < g.Cout) ddy[m * g.Cout + n] = v;
+  });
+}
+
+// -- launching -------------------------------------------------------------------
+
+// Dynamic shared-memory floats of each role: the ring, and a gather
+// role's row table after it; the bias gradient's 256 partials.
+template <class T, class X, class DY>
+__host__ __device__ constexpr int dw_smem_floats() {
+  return ring_floats<DwA<T, X>, RowsB<T, DY>>();
+}
+
+template <class T, class DY>
+__host__ __device__ constexpr int dx_smem_floats() {
+  return ring_floats<DxA<T, DY>, DxB<T>>() + 4 * T::BM;
+}
+
+template <class T, class G>
+__host__ __device__ constexpr int ddy_smem_floats() {
+  return ring_floats<DdyA<T, G>, RowsB<T, Plain>>() + 4 * T::BM;
+}
+
+constexpr int kSumSmemFloats = kGemmThreads;
+
+// Launch `kernel` over `blocks` CTAs with `floats` of dynamic shared
+// memory, allowing it more than the default 48 KB once per device.
+template <auto kernel, class Args>
+cudaError_t launch_roles(long long blocks, int floats, const Args& args,
+                         cudaStream_t stream) {
+  static unsigned long long allowed = 0;   // one bit per device
+  const size_t bytes = sizeof(float) * (size_t)floats;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(__atomic_load_n(&allowed, __ATOMIC_RELAXED) & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    __atomic_fetch_or(&allowed, bit, __ATOMIC_RELAXED);
+  }
+  kernel<<<(unsigned)blocks, kGemmThreads, bytes, stream>>>(args);
+  return cudaGetLastError();
+}
+
+// Calls f(TileX{}) for the tile of id `id`: the dx / ddy tiles (0, 1)
+// and the dW tiles (2, 3).
+template <class F>
+cudaError_t with_tile(int id, F&& f) {
+  switch (id) {
+    case 0: return f(TileThin{});
+    case 1: return f(TileTall{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class F>
+cudaError_t with_dw_tile(int id, F&& f) {
+  switch (id) {
+    case 2: return f(TileSquare{});
+    case 3: return f(TileSmall{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+static inline bool gather_tile_ok(int id) { return id == 0 || id == 1; }
+
+static inline bool dw_tile_ok(int id) { return id == 2 || id == 3; }
+
+// Tile extents by id, for the host's counts.
+static inline void tile_extent(int id, int* bm, int* bn) {
+  static const int kBM[4] = {256, 128, 64, 64};
+  static const int kBN[4] = {4, 32, 64, 32};
+  *bm = kBM[id];
+  *bn = kBN[id];
+}
+
+// The roles of one launch and where each finds its tile, split,
+// workspace and ticket.  CTAs are laid out role after role (dW, db, then
+// the gather role dx or ddy), each tile's splits consecutive.  A role
+// whose tiles take one split each has no workspace.
+struct RoleGrid {
+  int n_dw, n_db, n_dx;        // tiles of each role
+  int dw_splits, splits;       // splits of dW and db, of dx / ddy
+  long long ws_db, ws_dx;      // workspace offsets of the db and dx regions
+  float* ws;
+  int* tickets;                // n_dw + n_db + n_dx, all 0 between launches
+};
+
+// The workspace floats and tickets a launch needs; fills g's offsets.
+static inline long long role_grid_workspace(RoleGrid* g, int dw_tile_elems,
+                                            int dx_tile_elems) {
+  const long long dw = g->dw_splits > 1
+      ? (long long)g->n_dw * g->dw_splits * dw_tile_elems : 0;
+  const long long db = g->dw_splits > 1
+      ? (long long)g->n_db * g->dw_splits * kGemmThreads : 0;
+  const long long dx = g->splits > 1
+      ? (long long)g->n_dx * g->splits * dx_tile_elems : 0;
+  g->ws_db = dw;
+  g->ws_dx = dw + db;
+  return dw + db + dx;
+}
+
+static inline long long role_grid_blocks(const RoleGrid& g) {
+  return (long long)(g.n_dw + g.n_db) * g.dw_splits +
+         (long long)g.n_dx * g.splits;
+}
+
+// CTA blockIdx.x's role (0 dW, 1 db, 2 dx / ddy), tile and split.
+template <int kDwElems, int kDxElems>
+__device__ __forceinline__ int role_of(const RoleGrid& g, int* tile,
+                                       Split* sp) {
+  int b = blockIdx.x;
+  const int n_dw = g.n_dw * g.dw_splits, n_db = g.n_db * g.dw_splits;
+  int role, base;
+  if (b < n_dw) {
+    role = 0;
+    *tile = b / g.dw_splits;
+    sp->split = b % g.dw_splits;
+    sp->splits = g.dw_splits;
+    sp->ws = g.ws + (long long)*tile * g.dw_splits * kDwElems;
+    base = 0;
+  } else if ((b -= n_dw) < n_db) {
+    role = 1;
+    *tile = b / g.dw_splits;
+    sp->split = b % g.dw_splits;
+    sp->splits = g.dw_splits;
+    sp->ws = g.ws + g.ws_db + (long long)*tile * g.dw_splits * kGemmThreads;
+    base = g.n_dw;
+  } else {
+    b -= n_db;
+    role = 2;
+    *tile = b / g.splits;
+    sp->split = b % g.splits;
+    sp->splits = g.splits;
+    sp->ws = g.ws + g.ws_dx + (long long)*tile * g.splits * kDxElems;
+    base = g.n_dw + g.n_db;
+  }
+  sp->ticket = g.tickets + base + *tile;
+  return role;
+}
+
+// The splits and dW chunk the host's plan names: 1 <= splits <=
+// kMaxSplits, the dW chunk the one split_range gives, the workspace and
+// the tickets at least what the launch needs.
+static inline bool plan_ok(const RoleGrid& g, int chunk, long long positions,
+                           long long ws_floats, long long ws_needed,
+                           int n_tickets) {
+  const long long want = ((positions + g.dw_splits - 1) / g.dw_splits +
+                          kBK - 1) / kBK * kBK;
+  return g.dw_splits >= 1 && g.dw_splits <= kMaxSplits && g.splits >= 1 &&
+         g.splits <= kMaxSplits && chunk == want && ws_floats >= ws_needed &&
+         (ws_needed == 0 || g.ws != nullptr) &&
+         (long long)n_tickets >= (long long)g.n_dw + g.n_db + g.n_dx &&
+         g.tickets != nullptr;
+}
+
+// Every flat index of the kernels is an int: refuse larger tensors.
+static inline bool fits_int(long long n) { return n < (1LL << 31); }

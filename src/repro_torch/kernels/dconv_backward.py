@@ -20,10 +20,18 @@ forward and filter-grad versions.  Each kernel computes all of its
 outputs in ONE launch, as `repro` does in one `pallas_call`, and forms
 the mask as it loads the cotangent.  Public entries:
 `kernels/ops.py::conv_backward` / `tconv_backward`.
+
+Every role of the kernels is a tiled implicit GEMM
+(`csrc/conv_body.cuh`).  `plan`, a pure function of the shapes, picks
+each launch's tiles and how many CTAs split each tile's reduction: the
+splits write partial tiles to a workspace and the last of them adds the
+partials in split order.  `split_filter_grad_plain` is that arithmetic
+for the dW role in plain PyTorch.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,10 +42,191 @@ from repro_torch.kernels.dconv_forward import dconv_forward_plain
 from repro_torch.kernels.tconv_phase import tconv_fused_plain
 
 _EP_ARGS = [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float]
+# tile, splits, dw_tile, dw_splits, chunk; the workspace and its floats;
+# the tickets and their count.
+_PLAN_ARGS = ([ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int64]
+              + [ctypes.c_void_p, ctypes.c_int])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 25 + _EP_ARGS
-                 + [ctypes.c_void_p])
+                 + _PLAN_ARGS + [ctypes.c_void_p])
 _CT_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + _EP_ARGS
-                + [ctypes.c_void_p])
+                + _PLAN_ARGS + [ctypes.c_void_p])
+
+# (BM, BN) of the kernels' tile shapes, by the C entries' tile id
+# (csrc/conv_body.cuh: TileThin, TileTall, TileSquare, TileSmall).
+TILES = ((256, 4), (128, 32), (64, 64), (64, 32))
+THIN, TALL, SQUARE, SMALL = range(4)
+GEMM_BK = 16          # reduction depth of one slab; chunks are multiples
+MAX_SPLITS = 64       # CTAs one tile's reduction may take (csrc kMaxSplits)
+MIN_CHUNK = 128       # positions a dW split sums at the least
+MIN_K_CHUNK = 64      # reduction length a dx / ddy split takes at the least
+SM_COUNT = 132        # H100 SXM
+DW_CTAS = 128         # CTAs the dW role aims at
+CHANNEL_TILE = 256    # channels of one db tile (the CTA's threads)
+
+
+class BackwardPlan(NamedTuple):
+    tile: int       # TILES id of the dx / ddy role (-1: no such role)
+    splits: int     # CTAs per dx / ddy tile
+    dw_tile: int    # TILES id of the dW role
+    dw_splits: int  # CTAs per dW tile (and per db tile)
+    chunk: int      # positions each dW split sums (a multiple of GEMM_BK)
+    tiles: int      # dx / ddy tiles
+    dw_tiles: int   # dW tiles
+    db_tiles: int   # db tiles (0 without a bias)
+    workspace: int  # floats of the splits' partial tiles
+
+    @property
+    def tickets(self) -> int:
+        """One ticket per tile of every role."""
+        return self.tiles + self.dw_tiles + self.db_tiles
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _residue_rows(n: int, s: int, p_: int, r: int) -> tuple[int, int]:
+    """(first, count) of the phase rows m with 0 <= m*s + r - p_ < n."""
+    lo = _cdiv(p_ - r, s) if p_ - r > 0 else 0
+    top = n - 1 + p_ - r
+    hi = top // s + 1 if top >= 0 else 0
+    return lo, max(0, hi - lo)
+
+
+def phase_classes(spec: ConvSpec, n_out) -> list[tuple[int, int, int]]:
+    """(Hc, Wc, taps) of each residue class (p, q), p-major, as the dx
+    role tiles them: the class's rows and columns of the (Nh, Nw) frame
+    and its taps (0 when no tap reaches it, K < S)."""
+    (sh, sw), (ph, pw), (dh, dw) = spec.stride, spec.padding, spec.dilation
+    kh, kw = spec.filter_shape
+    (per_h, per_w), (tph, tpw) = spec.tap_phase_period, spec.n_tap_phases
+    out = []
+    for p in range(sh):
+        for q in range(sw):
+            a = [s for s in range(tph) if (s * dh) % sh == p]
+            c = [s for s in range(tpw) if (s * dw) % sw == q]
+            taps = _cdiv(kh - a[0], per_h) * _cdiv(kw - c[0], per_w) \
+                if a and c else 0
+            out.append((_residue_rows(n_out[0], sh, ph, p)[1],
+                        _residue_rows(n_out[1], sw, pw, q)[1], taps))
+    return out
+
+
+def split_chunk(k: int, splits: int) -> int:
+    """The reduction length each of `splits` CTAs takes of k: whole slabs
+    (csrc/conv_body.cuh::split_range)."""
+    return _cdiv(_cdiv(k, splits), GEMM_BK) * GEMM_BK
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << max(0, n.bit_length() - 1)
+
+
+def _splits(k: int, want: int, min_chunk: int) -> int:
+    """CTAs per tile for a reduction of length k: `want`, at most
+    MAX_SPLITS, at least `min_chunk` each, then as few as leave no split
+    empty."""
+    splits = max(1, min(MAX_SPLITS, want, k // min_chunk))
+    while splits > 1 and (splits - 1) * split_chunk(k, splits) >= k:
+        splits -= 1
+    return splits
+
+
+def plan(op: str, spec: ConvSpec, batch: int, big_hw, small_hw, cin: int,
+         cout: int, n_out=None, bias: bool = False) -> BackwardPlan:
+    """The tiles and splits of one launch of `op`: "conv_backward" (dx
+    over the `n_out` frame), "tconv_backward" (ddy) or "filter_grad" (dW
+    alone); `bias` adds the db role.  `big_hw` is the (Nh, Nw) side (x,
+    or g), `small_hw` the (Oh, Ow) side (dy).
+
+    dx / ddy: the thin 256 x 4 tile when N (Cin, or Cout) <= 4, else
+    128 x 32; its reduction (the class's taps x Cout, or taps x Cin) is
+    split only when the tiles are fewer than half the SMs, into the power
+    of two nearest below 2 * SM_COUNT / tiles.  dW: 64 x 32 when Cout <=
+    32, else 64 x 64; its B*Oh*Ow positions are split into the power of
+    two nearest below DW_CTAS / tiles.  At most MAX_SPLITS, at least
+    MIN_K_CHUNK (dx / ddy) or MIN_CHUNK (dW) each, in whole slabs, and no
+    split empty; db takes the dW split.  The constants are the best of
+    `scripts/backward_plan_sweep.py` at the nine main-path layers on the
+    H100."""
+    kh, kw = spec.filter_shape
+    oh, ow = small_hw
+    if op == "conv_backward":
+        classes = phase_classes(spec, n_out)
+        tile = THIN if cin <= 4 else TALL
+        tiles = sum(_cdiv(batch * hc * wc, TILES[tile][0])
+                    for hc, wc, _ in classes) * _cdiv(cin, TILES[tile][1])
+        k = max(taps for _, _, taps in classes) * cout
+    elif op == "tconv_backward":
+        tile = THIN if cout <= 4 else TALL
+        tiles = _cdiv(batch * oh * ow, TILES[tile][0]) \
+            * _cdiv(cout, TILES[tile][1])
+        k = kh * kw * cin
+    elif op == "filter_grad":
+        tile, tiles, k = -1, 0, 0
+    else:
+        raise ValueError(f"unknown op {op!r}")
+    splits = 1 if 2 * tiles >= SM_COUNT else _splits(
+        k, _pow2_floor(2 * SM_COUNT // max(tiles, 1)), MIN_K_CHUNK)
+    dw_tile = SMALL if cout <= 32 else SQUARE
+    bm, bn = TILES[dw_tile]
+    dw_tiles = _cdiv(kh * kw * cin, bm) * _cdiv(cout, bn)
+    positions = batch * oh * ow
+    dw_splits = _splits(positions, _pow2_floor(max(1, DW_CTAS // dw_tiles)),
+                        MIN_CHUNK)
+    channels = cin if op == "tconv_backward" else cout
+    db_tiles = _cdiv(channels, min(channels, CHANNEL_TILE)) \
+        if bias and op != "filter_grad" else 0
+    workspace = (dw_splits > 1) * (dw_tiles * bm * bn + db_tiles
+                                   * CHANNEL_TILE) * dw_splits
+    if splits > 1:
+        workspace += tiles * splits * TILES[tile][0] * TILES[tile][1]
+    return BackwardPlan(tile, splits, dw_tile, dw_splits,
+                        split_chunk(positions, dw_splits), tiles, dw_tiles,
+                        db_tiles, workspace)
+
+
+_TICKETS: dict = {}
+
+
+def launch_buffers(p: BackwardPlan, device) -> tuple:
+    """(workspace pointer, floats, tickets pointer, count) for a launch of
+    plan `p` on the current stream of `device`.  The workspace is
+    torch.empty (no kernel); the tickets are one int32 buffer per (device,
+    stream), zeroed once when it is allocated and left at 0 by every
+    launch, so no call adds a fill kernel.  The caller keeps the returned
+    workspace tensor alive until the launch is queued."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < p.tickets:
+        tickets = torch.zeros(max(p.tickets, 1024), dtype=torch.int32,
+                              device=device)
+        _TICKETS[key] = tickets
+    ws = torch.empty(p.workspace, dtype=torch.float32, device=device) \
+        if p.workspace else None
+    return ws, (None if ws is None else ws.data_ptr(), p.workspace,
+                tickets.data_ptr(), tickets.numel())
+
+
+def split_filter_grad_plain(x: torch.Tensor, dy: torch.Tensor,
+                            spec: ConvSpec,
+                            p: Optional[BackwardPlan] = None) -> torch.Tensor:
+    """The dW role's split-position sum in plain PyTorch: one partial
+    filter gradient per chunk of the flat (b, i, j) positions of dy (the
+    other positions' dy zeroed), added in split order 0, 1, ..."""
+    B, _, _, cin = x.shape
+    _, oh, ow, cout = dy.shape
+    if p is None:
+        p = plan("filter_grad", spec, B, x.shape[1:3], (oh, ow), cin, cout)
+    flat = dy.reshape(B * oh * ow, cout)
+    total = None
+    for s in range(p.dw_splits):
+        part_dy = torch.zeros_like(flat)
+        part_dy[s * p.chunk:(s + 1) * p.chunk] = \
+            flat[s * p.chunk:(s + 1) * p.chunk]
+        part = dconv_filter_grad_plain(x, part_dy.reshape(dy.shape), spec)
+        total = part if total is None else total + part
+    return total
 
 
 def _masked(cot: torch.Tensor, out, epilogue: Epilogue | None):
@@ -85,6 +274,9 @@ def conv_backward_cuda(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     has_db = epilogue is not None and epilogue.bias
     db = torch.empty((cout,), dtype=torch.float32, device=dev) \
         if has_db else None
+    p = plan("conv_backward", spec, B, (nh_x, nw_x), (oh, ow), cin, cout,
+             n_out=(nh, nw), bias=bool(has_db))
+    ws, bufs = launch_buffers(p, dev)
     fn = build.kernel_function("conv_backward", "conv_backward_f32",
                                _BWD_ARGTYPES)
     with torch.cuda.device(dev):
@@ -96,7 +288,7 @@ def conv_backward_cuda(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                  *spec.stride, *spec.padding, *spec.dilation,
                  *spec.tap_phase_period, *spec.tap_phase_step,
                  *spec.taps_per_phase, *spec.n_tap_phases,
-                 *build.epilogue_args(epilogue),
+                 *build.epilogue_args(epilogue), *p[:5], *bufs,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("conv_backward", err)
     return dx, dw, db
@@ -116,6 +308,9 @@ def tconv_backward_cuda(g: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     has_db = epilogue is not None and epilogue.bias
     db = torch.empty((cin,), dtype=torch.float32, device=dev) \
         if has_db else None
+    p = plan("tconv_backward", spec, B, (nh, nw), (oh, ow), cin, cout,
+             bias=bool(has_db))
+    ws, bufs = launch_buffers(p, dev)
     fn = build.kernel_function("tconv_backward", "tconv_backward_f32",
                                _CT_ARGTYPES)
     with torch.cuda.device(dev):
@@ -124,7 +319,7 @@ def tconv_backward_cuda(g: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                  None if db is None else db.data_ptr(),
                  B, nh, nw, cin, oh, ow, cout, kh, kw,
                  *spec.stride, *spec.padding, *spec.dilation,
-                 *build.epilogue_args(epilogue),
+                 *build.epilogue_args(epilogue), *p[:5], *bufs,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("tconv_backward", err)
     return ddy, dw, db

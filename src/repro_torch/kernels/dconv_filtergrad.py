@@ -9,7 +9,8 @@ over the K*K real taps; the D-dilated filter never exists.  The plain
 version repeats `_fg_kernel`'s arithmetic: pad x once, one strided tap
 gather per (kx, ky), one (Cin x B*Oh*Ow) @ (B*Oh*Ow x Cout) matmul per
 tap.  The kernel is the dW role of the two fused backwards
-(`csrc/conv_body.cuh::filter_grad_tile`) launched alone.
+(`csrc/conv_body.cuh::dw_tile`, planned by
+`kernels/dconv_backward.py::plan`) launched alone.
 Public entry: `kernels/ops.py::dconv_filter_grad`.
 """
 from __future__ import annotations
@@ -23,7 +24,11 @@ from repro_torch.core.spec import ConvSpec
 from repro_torch.kernels import build
 from repro_torch.kernels.tap_gather import gather_tap, pad_to_tap_windows
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+# x, dy, dw; the geometry; dw_tile, dw_splits, chunk; the workspace and
+# its floats, the tickets and their count; the stream.
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 18
+             + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p])
 
 
 def dconv_filter_grad_plain(x: torch.Tensor, dy: torch.Tensor,
@@ -55,12 +60,17 @@ def dconv_filter_grad_cuda(x: torch.Tensor, dy: torch.Tensor,
     kh, kw = spec.filter_shape
     dw = torch.empty((kh, kw, cin, cout), dtype=torch.float32,
                      device=x.device)
+    # Imported here: dconv_backward imports this module's plain version.
+    from repro_torch.kernels.dconv_backward import launch_buffers, plan
+    p = plan("filter_grad", spec, B, (nh, nw), (oh, ow), cin, cout)
+    ws, bufs = launch_buffers(p, x.device)
     fn = build.kernel_function("dconv_filtergrad", "dconv_filter_grad_f32",
                                _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
                  B, nh, nw, cin, oh, ow, cout, kh, kw,
                  *spec.stride, *spec.padding, *spec.dilation,
+                 p.dw_tile, p.dw_splits, p.chunk, *bufs,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("dconv_filtergrad", err)
     return dw

@@ -33,6 +33,7 @@ from repro_torch.data.pipeline import ConvDataset
 from repro_torch.kernels import ops
 from repro_torch.kernels.attention import flash_attention_plain, plan
 from repro_torch.kernels.dconv_backward import (conv_backward_plain,
+                                                plan as backward_plan,
                                                 tconv_backward_plain)
 from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
 from repro_torch.kernels.dconv_forward import dconv_forward_plain
@@ -221,7 +222,9 @@ def test_filter_grad_kernel_matches_plain(cuda, geom):
 
 
 def test_backward_kernels_are_bit_identical_over_runs(cuda):
-    """dW and db sum in a fixed order: no atomics, the same bits."""
+    """dW and db sum in a fixed order: no atomics on them, the same bits,
+    with the positions split over 32 CTAs and their partials added in
+    split order."""
     gen = torch.Generator().manual_seed(14)
     ep = Epilogue(activation="leaky_relu", slope=0.2, bias=True, scale=0.5)
     x = _rand(gen, 16, 32, 32, 3, device=cuda)
@@ -229,6 +232,10 @@ def test_backward_kernels_are_bit_identical_over_runs(cuda):
     dy = _rand(gen, 16, 16, 16, 32, device=cuda)
     y = _rand(gen, 16, 16, 16, 32, device=cuda)
     geo = dict(stride=2, padding=1)
+    spec = ConvSpec.make(filter_shape=4, **geo)
+    for op in ("conv_backward", "tconv_backward", "filter_grad"):
+        assert backward_plan(op, spec, 16, (32, 32), (16, 16), 3, 32,
+                             n_out=(32, 32), bias=True).dw_splits == 32
     runs = [ops.conv_backward(x, dy, w, n_out=(32, 32), y=y, epilogue=ep,
                               **geo) for _ in range(2)]
     runs += [ops.tconv_backward(x, dy, w, z=torch.tanh(x),
@@ -239,6 +246,65 @@ def test_backward_kernels_are_bit_identical_over_runs(cuda):
     for a, b in zip(runs[::2], runs[1::2]):
         for ta, tb in zip(a, b):
             assert torch.equal(ta, tb)
+
+
+# (name, kernel side (B, H, W), Cin, Cout, K, activation): the nine
+# main-path layers at batch 64 (S = 2, P = 1) -- discriminator and CNN
+# convs for conv_backward and dconv_filter_grad, generator layers for
+# tconv_backward -- and the plan's edges: a position count the split
+# count does not divide, Cin = 3 at B = 16, Cin 130 / Cout 37.
+BACKWARD_LAYERS = [
+    ("disc_c1", (64, 32, 32), 3, 32, 4, "leaky_relu"),
+    ("disc_c2", (64, 16, 16), 32, 64, 4, "leaky_relu"),
+    ("disc_c3", (64, 8, 8), 64, 128, 4, "leaky_relu"),
+    ("cnn_l1", (64, 32, 32), 3, 32, 3, "relu"),
+    ("cnn_l2", (64, 16, 16), 32, 64, 3, "relu"),
+    ("cnn_l3", (64, 8, 8), 64, 128, 3, "relu"),
+    ("gan_t1", (64, 8, 8), 64, 128, 4, "relu"),
+    ("gan_t2", (64, 16, 16), 32, 64, 4, "relu"),
+    ("gan_t3", (64, 32, 32), 3, 32, 4, "tanh"),
+    ("positions_1183", (7, 26, 26), 8, 16, 3, "relu"),
+    ("cin3_b16", (16, 32, 32), 3, 32, 4, "leaky_relu"),
+    ("ragged_channels", (2, 9, 9), 130, 37, 3, "leaky_relu"),
+]
+
+
+@pytest.mark.parametrize("layer", BACKWARD_LAYERS, ids=lambda c: c[0])
+def test_backward_kernels_at_the_path_layers_and_plan_edges(cuda, layer):
+    """conv_backward, tconv_backward and dconv_filter_grad against their
+    plain versions under the layer's epilogue and the four of EP_KW.  The
+    cotangent is drawn at scale 1/sqrt(B*Oh*Ow), as in training, so each
+    dW sum is of order 1.  Reruns are bit-identical."""
+    name, (B, H, W), cin, cout, k, act = layer
+    spec = ConvSpec.make(stride=2, padding=1, filter_shape=k)
+    oh, ow = spec.out_size((H, W))
+    gen = torch.Generator().manual_seed(len(name))
+    big = _rand(gen, B, H, W, cin, device=cuda)
+    w = _rand(gen, k, k, cin, cout, device=cuda)
+    small = _rand(gen, B, oh, ow, cout, device=cuda) / (B * oh * ow) ** 0.5
+    geo = dict(stride=spec.stride, padding=spec.padding)
+    for kw in [dict(activation=act, slope=0.2)] + EP_KW:
+        ep = None if kw is None else Epilogue(**kw)
+        tanh = kw is not None and kw["activation"] == "tanh"
+        y = _rand(gen, B, oh, ow, cout, device=cuda)
+        z = _rand(gen, B, H, W, cin, device=cuda)
+        y, z = (torch.tanh(y), torch.tanh(z)) if tanh else (y, z)
+        runs = [ops.conv_backward(big, small, w, n_out=(H, W), y=y,
+                                  epilogue=ep, **geo) for _ in range(2)]
+        want = conv_backward_plain(big, small, w, spec, n_out=(H, W), y=y,
+                                   epilogue=ep)
+        _assert_same_outputs(runs[0], want if ep is not None else want[:2])
+        runs += [ops.tconv_backward(big, small, w, z=z, epilogue=ep, **geo)
+                 for _ in range(2)]
+        want = tconv_backward_plain(big, small, w, spec, z=z, epilogue=ep)
+        _assert_same_outputs(runs[2], want if ep is not None else want[:2])
+        for a, b in zip(runs[::2], runs[1::2]):
+            assert all(torch.equal(ta, tb) for ta, tb in zip(a, b)
+                       if ta is not None)
+    dw = ops.dconv_filter_grad(big, small, k=k, **geo)
+    torch.testing.assert_close(dw, dconv_filter_grad_plain(big, small, spec),
+                               atol=TOL, rtol=TOL)
+    assert torch.equal(dw, ops.dconv_filter_grad(big, small, k=k, **geo))
 
 
 def _step_launches():
