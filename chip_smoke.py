@@ -20,10 +20,12 @@ Phases (any failed check raises and ends the run non-zero):
      strided cache, in fp32 and bf16, each case printed with the kernel
      form it ran on, reruns bit-identical; for the conv backwards and the
      filter gradient the plan's edges -- a position count the dW split
-     does not divide, Cin = 3 at B = 16 -- each case printed with its
-     plan's tiles and dW split, reruns bit-identical): held against its
-     plain PyTorch version on the card, and at the paths' shapes against
-     the library call; kernel, plain and library timed with CUDA events;
+     does not divide, Cin = 3 at B = 16; for the two forwards a split
+     reduction and Cin 130 / Cout 37, and gan t3 on the phase kernel,
+     timed only -- every conv case printed with its plan's tiles and
+     splits, reruns bit-identical): held against its plain PyTorch
+     version on the card, and at the paths' shapes against the library
+     call; kernel, plain and library timed with CUDA events;
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
@@ -401,6 +403,22 @@ def main() -> int:
     ragged_ep = Epilogue(activation="leaky_relu", slope=0.2, bias=True,
                          scale=0.5)
 
+    def plan_name(op, spec, B, hw, oh_ow, cin, cout, bias=False):
+        """The tiles and splits `dconv_backward.plan` gives a launch: each
+        role's tile (BM x BN), tiles and CTAs per tile.  `hw` is the big
+        side (x, or the tconv's output n_out)."""
+        p = backward_plan(op, spec, B, hw, oh_ow, cin, cout, n_out=hw,
+                          bias=bias)
+        gather = None if p.tile < 0 else "{} {}x{} {} x{}".format(
+            "dx" if op in ("conv_backward", "tconv_phase") else
+            "y" if op == "dconv_forward" else "ddy", *BWD_TILES[p.tile],
+            p.tiles, p.splits)
+        if p.dw_tile < 0:
+            return gather
+        dw = "dW {}x{} {} x{} (chunk {})".format(
+            *BWD_TILES[p.dw_tile], p.dw_tiles, p.dw_splits, p.chunk)
+        return dw if gather is None else f"{gather}, {dw}"
+
     def fwd_case(name, B, hw, cin, cout, k, s, p, d, ep, path, timed=False):
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
         x, w = rand(B, *hw, cin), rand(*spec.filter_shape, cin, cout)
@@ -408,7 +426,9 @@ def main() -> int:
         w_lib = w.permute(3, 2, 0, 1).contiguous()   # one-time layout
         oh_ow = spec.out_size(hw)
         return dict(kernel="dconv_forward", case=name, path=path,
-                    timed=path or timed,
+                    timed=path or timed, rerun=True,
+                    form=plan_name("dconv_forward", spec, B, hw, oh_ow, cin,
+                                   cout),
                     run=lambda: ops.dconv_forward(
                         x, w, stride=s, padding=p, dilation=d, bias=bias,
                         epilogue=ep),
@@ -436,7 +456,10 @@ def main() -> int:
             else tconv_fused_plain
         exact = spec.input_size(in_hw)
         out_pad = tuple(n_out[a] - exact[a] for a in range(2))
+        form = "implicit_gemm.cu: no plan" if strategy == "implicit_gemm" \
+            else plan_name("tconv_phase", spec, B, n_out, in_hw, cin, cout)
         return dict(kernel=kernel, case=name, path=path, timed=path or timed,
+                    rerun=True, form=form,
                     run=lambda: ops.tconv_phase(
                         dy, w, stride=s, padding=p, n_out=n_out, dilation=d,
                         bias=bias, epilogue=ep, strategy=strategy),
@@ -450,17 +473,6 @@ def main() -> int:
                     nbytes=4 * (dy.numel() + w.numel()
                                 + (cin if bias is not None else 0)
                                 + B * n_out[0] * n_out[1] * cin))
-
-    def plan_name(op, spec, B, hw, oh_ow, cin, cout, bias=False):
-        """The tiles and splits `dconv_backward.plan` gives a launch: each
-        role's tile (BM x BN), tiles and CTAs per tile."""
-        p = backward_plan(op, spec, B, hw, oh_ow, cin, cout, n_out=hw,
-                          bias=bias)
-        dw = "dW {}x{} {} x{} (chunk {})".format(
-            *BWD_TILES[p.dw_tile], p.dw_tiles, p.dw_splits, p.chunk)
-        return dw if p.tile < 0 else "{} {}x{} {} x{}, {}".format(
-            "dx" if op == "conv_backward" else "ddy", *BWD_TILES[p.tile],
-            p.tiles, p.splits, dw)
 
     def backward_case(name, B, hw, cin, cout, k, s, p, d, ep, path):
         """conv_backward: (dx, dW[, db]) of y = ep(conv(x, w))."""
@@ -576,6 +588,12 @@ def main() -> int:
         cases.append(tconv_case("tconv_implicit_gemm", f"gan_t3_B{Bs}", Bs,
                                 (16, 16), (32, 32), 3, 32, 4, 2, 1, 1, tanh,
                                 path, timed=True))
+    # gan t3 on the phase kernel, timed only: the other arm of the
+    # phase / implicit-GEMM race (tiling.plan_strategy keeps t3 on the
+    # implicit GEMM).
+    cases.append(tconv_case("tconv_phase", f"gan_t3_B{B}_phase", B, (16, 16),
+                            (32, 32), 3, 32, 4, 2, 1, 1, tanh, False,
+                            timed=True))
     for name, hw, cin, cout, k, ep in direct:
         cases.append(fwd_case(f"{name}_B{B}", B, hw, cin, cout, k, 2, 1, 1,
                               ep, False, timed=True))
@@ -591,6 +609,18 @@ def main() -> int:
     # that are not a multiple of the 32-lane reduction tile.
     cases.append(fwd_case("ragged_fwd", 3, (37, 29), 5, 7, (3, 2), (2, 1),
                           (1, 2), (2, 3), ragged_ep, False))
+    # The forwards' plan edges: reductions split over CTAs whose chunks
+    # do not divide them (3 x 3 taps x 72 = 648, 14 ways of 48; the
+    # tconv's longest class 4 taps x 72 = 288, 9 ways of 32), and ragged
+    # channels (Cin 130, Cout 37) on both forward kernels.
+    cases.append(fwd_case("fwd_split_k648", 2, (8, 8), 72, 24, 3, 1, 1, 1,
+                          ragged_ep, False))
+    cases.append(tconv_case("tconv_phase", "tconv_split_k648", 2, (4, 4),
+                            (8, 8), 24, 72, 3, 2, 1, 1, ragged_ep, False))
+    cases.append(fwd_case("ragged_channels", 2, (9, 9), 130, 37, 3, 2, 1, 1,
+                          ragged_ep, False))
+    cases.append(tconv_case("tconv_phase", "ragged_channels", 2, (5, 5),
+                            (9, 9), 130, 37, 3, 2, 1, 1, ragged_ep, False))
     for kernel in ("tconv_phase", "tconv_implicit_gemm"):
         cases.append(tconv_case(kernel, "ragged_s3k2", 3, (5, 6), (14, 12),
                                 5, 7, (2, 3), (3, 2), (1, 1), 1, ragged_ep,

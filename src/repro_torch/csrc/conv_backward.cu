@@ -89,8 +89,8 @@ extern "C" int conv_backward_f32(
     void* dw, void* db, int B, int Nh_x, int Nw_x, int Cin, int Oh, int Ow,
     int Cout, int Kh, int Kw, int Nh, int Nw, int sh, int sw, int ph, int pw,
     int dil_h, int dil_w, int per_h, int per_w, int step_h, int step_w,
-    int KP, int KQ, int TPh, int TPw, int act, float slope, int has_scale,
-    float scale, int tile, int splits, int dw_tile, int dw_splits,
+    int TPh, int TPw, int act, float slope, int has_scale, float scale,
+    int tile, int splits, int dw_tile, int dw_splits,
     int chunk, void* ws, int64_t ws_floats, void* tickets, int n_tickets,
     void* stream) {
   BwdArgs a;
@@ -98,8 +98,7 @@ extern "C" int conv_backward_f32(
                    dil_h, dil_w);
   a.gdx = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw,
                     dil_h, dil_w);
-  a.t = make_phase_geom(a.gdx, per_h, per_w, step_h, step_w, KP, KQ, TPh,
-                        TPw);
+  a.t = make_phase_geom(per_h, per_w, step_h, step_w, TPh, TPw);
   a.fd = make_geom_div(a.gx);
   const long long positions = (long long)B * Oh * Ow;
   if (!gather_tile_ok(tile) || !dw_tile_ok(dw_tile) || Cin < 1 || Cout < 1 ||

@@ -1,19 +1,15 @@
-// Device bodies shared by the conv kernels of this directory, so each
-// piece of index arithmetic exists once:
-//
-//   direct_conv_element  one output of the direct / dilated conv
-//                        (dconv_forward.cu),
-//   phase_element        one output of the zero-free transposed conv by
-//                        residue class (tconv_phase.cu),
-//   the tiled implicit-GEMM engine (below): every role of the fused
-//                        backwards (conv_backward.cu, tconv_backward.cu)
-//                        and the filter gradient (dconv_filtergrad.cu):
-//     dx_tile            a tile of dx = tconv(dy, W) in one residue class,
-//     ddy_tile           a tile of ddy = conv(g, W),
-//     dw_tile            a tile of dW,
+// The tiled implicit-GEMM engine shared by every conv kernel of this
+// directory but implicit_gemm.cu, so each piece of index arithmetic exists
+// once.  Its roles:
+//     dx_tile            a tile of dx = tconv(dy, W) in one residue class:
+//                        conv_backward.cu's dx and tconv_phase.cu,
+//     ddy_tile           a tile of conv(g, W): tconv_backward.cu's ddy and
+//                        dconv_forward.cu,
+//     dw_tile            a tile of dW (the backwards, dconv_filtergrad.cu),
 //     channel_sum        the bias gradient,
 //   each with its reduction split over several CTAs whose partials are
-//   added in split order (split_finish).
+//   added in split order (split_finish).  The forwards apply their
+//   epilogue in the gather role's store, to the final sum.
 //
 // Operands are read through small reader structs: `Plain` reads a tensor
 // as it lies; `Masked` forms v * act'(y) * scale at each load, so a
@@ -40,11 +36,10 @@ struct ConvGeom {
 };
 
 // Tap-phase bookkeeping of the transposed conv (ConvSpec on the host):
-// period S/gcd(S,D), step D/gcd(S,D), taps per phase KP x KQ, non-empty
-// tap phases TPh x TPw, and the phase-plane extent Mh x Mw that covers
-// the (Nh, Nw) frame.
+// period S/gcd(S,D), step D/gcd(S,D) and the non-empty tap phases
+// TPh x TPw.
 struct PhaseGeom {
-  int per_h, per_w, step_h, step_w, KP, KQ, TPh, TPw, Mh, Mw;
+  int per_h, per_w, step_h, step_w, TPh, TPw;
 };
 
 static inline ConvGeom make_geom(int B, int Nh, int Nw, int Cin, int Oh,
@@ -58,15 +53,11 @@ static inline ConvGeom make_geom(int B, int Nh, int Nw, int Cin, int Oh,
   return g;
 }
 
-static inline PhaseGeom make_phase_geom(const ConvGeom& g, int per_h,
-                                        int per_w, int step_h, int step_w,
-                                        int KP, int KQ, int TPh, int TPw) {
+static inline PhaseGeom make_phase_geom(int per_h, int per_w, int step_h,
+                                        int step_w, int TPh, int TPw) {
   PhaseGeom t;
   t.per_h = per_h; t.per_w = per_w; t.step_h = step_h; t.step_w = step_w;
-  t.KP = KP; t.KQ = KQ; t.TPh = TPh; t.TPw = TPw;
-  // Phase-plane rows m with y = m*S + p - P < Nh, for the widest class.
-  t.Mh = (g.Nh + g.ph + g.sh - 1) / g.sh;
-  t.Mw = (g.Nw + g.pw + g.sw - 1) / g.sw;
+  t.TPh = TPh; t.TPw = TPw;
   return t;
 }
 
@@ -113,94 +104,6 @@ static inline Masked make_masked(const void* v, const void* y, int act,
   return m;
 }
 
-// y[idx] of the direct conv before any epilogue, idx flat over
-// (B, Oh, Ow, Cout), co fastest:
-//   sum_{kx,ky,ci} x[b, i*S+kx*D-P, j*S+ky*D-P, ci] * W[kx,ky,ci,co]
-// over the K*K real taps only (the D-dilated filter is never formed).
-// Padding is a bounds predicate on the x load.
-template <class X>
-__device__ __forceinline__ float direct_conv_element(
-    const X& x, const float* __restrict__ w, const ConvGeom& g,
-    long long idx) {
-  const int co = (int)(idx % g.Cout);
-  long long t = idx / g.Cout;
-  const int j = (int)(t % g.Ow);
-  t /= g.Ow;
-  const int i = (int)(t % g.Oh);
-  const int b = (int)(t / g.Oh);
-  float acc = 0.0f;
-  for (int kx = 0; kx < g.Kh; ++kx) {
-    const int h = i * g.sh + kx * g.dh - g.ph;
-    if (h < 0 || h >= g.Nh) continue;  // padding row: contributes zero
-    for (int ky = 0; ky < g.Kw; ++ky) {
-      const int c = j * g.sw + ky * g.dw - g.pw;
-      if (c < 0 || c >= g.Nw) continue;
-      const long long xp = (((long long)b * g.Nh + h) * g.Nw + c) * g.Cin;
-      const float* wp = w + (long long)(kx * g.Kw + ky) * g.Cin * g.Cout + co;
-      for (int ci = 0; ci < g.Cin; ++ci)
-        acc = fmaf(x(xp + ci), wp[(long long)ci * g.Cout], acc);
-    }
-  }
-  return acc;
-}
-
-// Element e = (m, n, ci) of residue class (p, q) of batch row b of the
-// transposed conv dx = tconv(dy, W), before any epilogue.  Returns false
-// when the element lies outside the (Nh, Nw) frame; otherwise sets *out
-// to its flat dx index, *ci_out to its channel and *acc_out to its sum.
-//
-// Tap kx lands in output residue (kx*D) mod S; residues repeat with period
-// S/gcd(S,D), so tap phase `a` holds taps kx = a + u*period, which land
-// on phase rows m = i + (a*D)//S + u*(D/gcd).  The slot -> tap map
-// kx = a + (KP-1-uf)*period is pack_phase_filters' (padding slots,
-// kx >= K, are skipped).  Residues no tap reaches keep an empty sum.
-template <class DY>
-__device__ __forceinline__ bool phase_element(
-    const DY& dy, const float* __restrict__ w, const ConvGeom& g,
-    const PhaseGeom& t, int b, int p, int q, long long e, long long* out,
-    int* ci_out, float* acc_out) {
-  const int ci = (int)(e % g.Cin);
-  const int n = (int)((e / g.Cin) % t.Mw);
-  const int m = (int)(e / ((long long)g.Cin * t.Mw));
-  const int y = m * g.sh + p - g.ph;  // dx position of phase element (m, n)
-  const int x = n * g.sw + q - g.pw;
-  if (y < 0 || y >= g.Nh || x < 0 || x >= g.Nw) return false;
-
-  // Tap phase whose residue is (p, q); -1 when no tap reaches it.
-  int a = -1, c = -1;
-  for (int s = 0; s < t.TPh; ++s)
-    if ((s * g.dh) % g.sh == p) a = s;
-  for (int s = 0; s < t.TPw; ++s)
-    if ((s * g.dw) % g.sw == q) c = s;
-
-  float acc = 0.0f;
-  if (a >= 0 && c >= 0) {
-    const int base_h = (a * g.dh) / g.sh, base_w = (c * g.dw) / g.sw;
-    for (int uf = 0; uf < t.KP; ++uf) {
-      const int u = t.KP - 1 - uf;  // flipped slot: tap kx = a + u*period
-      const int kx = a + u * t.per_h;
-      if (kx >= g.Kh) continue;     // padding slot of a ragged phase
-      const int i = m - base_h - u * t.step_h;
-      if (i < 0 || i >= g.Oh) continue;
-      for (int vf = 0; vf < t.KQ; ++vf) {
-        const int v = t.KQ - 1 - vf;
-        const int ky = c + v * t.per_w;
-        if (ky >= g.Kw) continue;
-        const int j = n - base_w - v * t.step_w;
-        if (j < 0 || j >= g.Ow) continue;
-        const long long dyp = (((long long)b * g.Oh + i) * g.Ow + j) * g.Cout;
-        const float* wp = w + ((long long)(kx * g.Kw + ky) * g.Cin + ci) * g.Cout;
-        for (int co = 0; co < g.Cout; ++co)
-          acc = fmaf(dy(dyp + co), wp[co], acc);
-      }
-    }
-  }
-  *out = (((long long)b * g.Nh + y) * g.Nw + x) * g.Cin + ci;
-  *ci_out = ci;
-  *acc_out = acc;
-  return true;
-}
-
 // ===========================================================================
 // The tiled implicit-GEMM engine.
 //
@@ -218,10 +121,7 @@ __device__ __forceinline__ bool phase_element(
 // lanes read consecutive addresses; padding taps, ragged edges and k
 // past the range are cp.async's zero fill, so the inner loop has no
 // branch.  Each role is this engine with its own two loaders (the
-// "gathers" of its implicit GEMM).
-//
-// The engine is written for any gather: tconv_phase.cu and
-// dconv_forward.cu can take it over with their own loaders.
+// "gathers" of its implicit GEMM) and its own store.
 
 constexpr int kGemmThreads = 256;
 constexpr int kBK = 16;         // reduction depth of one slab
@@ -270,6 +170,7 @@ using TileThin = Tile<256, 4, 4, 1>;     // 0: dx / ddy, N <= 4
 using TileTall = Tile<128, 32, 4, 4>;    // 1: dx / ddy, the rest
 using TileSquare = Tile<64, 64, 4, 4>;   // 2: dW, Cout > 32
 using TileSmall = Tile<64, 32, 4, 2>;    // 3: dW, Cout <= 32
+using TileHalf = Tile<256, 16, 4, 4>;    // 4: the forwards, 4 < N <= 16
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -647,14 +548,34 @@ __device__ __forceinline__ void channel_sum(const V& v,
   if (threadIdx.x == 0) *sp.ticket = 0;
 }
 
-// -- the dx role of conv_backward ----------------------------------------------
+// -- the gather roles' stores --------------------------------------------------
+//
+// ep(v, c) of a gather role's output element in channel c, applied where
+// the tile is stored: to the final sum, after split_finish's split-order
+// add, never to a partial.  The backwards store the sum as it is; the
+// forwards fuse act(scale * v + bias[c]) (common.cuh).
+
+struct NoEpilogue {
+  __device__ __forceinline__ float operator()(float v, int) const {
+    return v;
+  }
+};
+
+struct FusedEpilogue {
+  EpilogueArgs args;
+  __device__ __forceinline__ float operator()(float v, int c) const {
+    return apply_epilogue(v, c, args);
+  }
+};
+
+// -- the dx role: conv_backward's dx, tconv_phase ------------------------------
 //
 // dx = tconv(DY, W) in one residue class (p, q): the dx pixels
 // (m*S + p - P, n*S + q - P) that lie in the frame, as a GEMM with rows
 // m = (b, mh, mw) of the class, N = Cin, and k = (slot, co) over the
 // class's taps (kx, ky) = (a + u*per_h, c + v*per_w), slot = u*nv + v.
 // Tap (u, v) reads dy at (mh - base_h - u*step_h, mw - base_w -
-// v*step_w): phase_element's arithmetic, with the taps in another order.
+// v*step_w).
 
 // The class's taps and its rows of the dx frame.  a / c = -1 when no tap
 // reaches the residue (K < S): its pixels get an empty sum.
@@ -764,14 +685,18 @@ static inline long long dx_tile_count(const ConvGeom& g, const PhaseGeom& t,
 }
 
 // One tile of dx; `tile` counts over the classes in (p, q) order.  g is
-// the dx frame (n_out).
-template <class T, class DY>
+// the dx frame (n_out).  Every row of a class is tiled, those that no
+// tap or no dy position reaches too (residues a tap never lands in, K <
+// S; an n_out tail past the full frame): their sum is empty, so they
+// store ep(0), the fill of repro's assemble_phase_major.
+template <class T, class DY, class Ep = NoEpilogue>
 __device__ __forceinline__ void dx_tile(const DY& dy,
                                         const float* __restrict__ w,
                                         float* __restrict__ dx,
                                         const ConvGeom& g, const PhaseGeom& t,
                                         const GeomDiv& fd, int tile,
-                                        const Split& sp, float* smem) {
+                                        const Split& sp, float* smem,
+                                        const Ep& ep = Ep()) {
   int p = 0, q = 0;
   PhaseClass c;
   const int classes = g.sh * g.sw;
@@ -812,16 +737,19 @@ __device__ __forceinline__ void dx_tile(const DY& dy,
   gemm_mainloop<T>(la, lb, k_begin, k_end, acc, smem);
   split_finish<T>(acc, sp, [&](int row, int col, float v) {
     const int4 rt = rows[row];
-    if (rt.x >= 0 && n0 + col < g.Cin) dx[rt.w + n0 + col] = v;
+    const int n = n0 + col;
+    if (rt.x >= 0 && n < g.Cin) dx[rt.w + n] = ep(v, n);
   });
 }
 
-// -- the ddy role of tconv_backward ----------------------------------------------
+// -- the ddy role: tconv_backward's ddy, dconv_forward ---------------------------
 //
 // ddy[b,i,j,co] = sum_{kx,ky,ci} G[b, i*S+kx*D-P, j*S+ky*D-P, ci]
 //                                * W[kx,ky,ci,co]
-// as a GEMM with rows m = (b, i, j), N = Cout and k = (kx*Kw + ky)*Cin + ci
-// (so B[k][n] = W[k*Cout + n]).  G is the (B, Nh, Nw, Cin) operand of g.
+// over the K*K real taps (the D-dilated filter is never formed; padding is
+// the loader's bounds predicate), as a GEMM with rows m = (b, i, j),
+// N = Cout and k = (kx*Kw + ky)*Cin + ci (so B[k][n] = W[k*Cout + n]).
+// G is the (B, Nh, Nw, Cin) operand of g.
 
 // A[k][m] = G at tap(k) of row m, read along ci; the rows' (b, i*S - P,
 // j*S - P) come from a table in shared memory.
@@ -852,13 +780,14 @@ struct DdyA {
   __device__ __forceinline__ void fixup(float* s) const { S::fixup(s, x); }
 };
 
-template <class T, class G>
+template <class T, class G, class Ep = NoEpilogue>
 __device__ __forceinline__ void ddy_tile(const G& x,
                                          const float* __restrict__ w,
                                          float* __restrict__ ddy,
                                          const ConvGeom& g,
                                          const GeomDiv& fd, int tile,
-                                         const Split& sp, float* smem) {
+                                         const Split& sp, float* smem,
+                                         const Ep& ep = Ep()) {
   const int n_tiles = (g.Cout + T::BN - 1) / T::BN;
   const int m0 = (tile / n_tiles) * T::BM, n0 = (tile % n_tiles) * T::BN;
   const int M = g.B * g.Oh * g.Ow;
@@ -883,7 +812,7 @@ __device__ __forceinline__ void ddy_tile(const G& x,
   gemm_mainloop<T>(la, lb, k_begin, k_end, acc, smem);
   split_finish<T>(acc, sp, [&](int row, int col, float v) {
     const int m = m0 + row, n = n0 + col;
-    if (m < M && n < g.Cout) ddy[m * g.Cout + n] = v;
+    if (m < M && n < g.Cout) ddy[m * g.Cout + n] = ep(v, n);
   });
 }
 
@@ -949,14 +878,24 @@ cudaError_t with_dw_tile(int id, F&& f) {
   }
 }
 
+// The forwards' gather tiles: those of the backwards and TileHalf (4).
+template <class F>
+cudaError_t with_forward_tile(int id, F&& f) {
+  return id == 4 ? f(TileHalf{}) : with_tile(id, f);
+}
+
 static inline bool gather_tile_ok(int id) { return id == 0 || id == 1; }
+
+static inline bool forward_tile_ok(int id) {
+  return gather_tile_ok(id) || id == 4;
+}
 
 static inline bool dw_tile_ok(int id) { return id == 2 || id == 3; }
 
 // Tile extents by id, for the host's counts.
 static inline void tile_extent(int id, int* bm, int* bn) {
-  static const int kBM[4] = {256, 128, 64, 64};
-  static const int kBN[4] = {4, 32, 64, 32};
+  static const int kBM[5] = {256, 128, 64, 64, 256};
+  static const int kBN[5] = {4, 32, 64, 32, 16};
   *bm = kBM[id];
   *bn = kBN[id];
 }
@@ -1043,3 +982,21 @@ static inline bool plan_ok(const RoleGrid& g, int chunk, long long positions,
 
 // Every flat index of the kernels is an int: refuse larger tensors.
 static inline bool fits_int(long long n) { return n < (1LL << 31); }
+
+// The grid of a gather role launched alone (the forwards): n_tiles tiles
+// of tile_elems, `splits` CTAs each, no dW or db role.  False for a plan,
+// a workspace or tickets the launch cannot take.
+static inline bool gather_grid(RoleGrid* g, long long n_tiles,
+                               int tile_elems, int splits, void* ws,
+                               long long ws_floats, void* tickets,
+                               int n_tickets) {
+  g->n_dw = g->n_db = 0;
+  g->n_dx = (int)n_tiles;
+  g->dw_splits = 1;
+  g->splits = splits;
+  g->ws = static_cast<float*>(ws);
+  g->tickets = static_cast<int*>(tickets);
+  const long long need = role_grid_workspace(g, 0, tile_elems);
+  return fits_int(n_tiles) &&
+         plan_ok(*g, 0, 0, ws_floats, need, n_tickets);
+}

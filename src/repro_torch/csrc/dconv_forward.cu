@@ -6,57 +6,92 @@
 //                                    * W[kx,ky,ci,co] )
 // over the K*K real taps only: the D-dilated filter is never formed.
 //
-// Design.  One thread per output element (b, i, j, co), co fastest, so a
-// warp's W loads and y stores are contiguous and its x loads are
-// broadcasts of a few pixels.  The Pallas kernel's sequential
-// (Cin-tile, tap) grid axes, which accumulated into a stationary VMEM
-// block, become the thread's own tap and channel loops into one fp32
-// register; the epilogue is applied in that register before the single
-// store.  Padding is a bounds predicate on the x load, so neither the
-// host pad nor pad_to_tap_windows exists.  No atomics, no shared memory.
+// Design.  The ddy role of the tiled implicit-GEMM engine
+// (conv_body.cuh::ddy_tile), launched alone with a plain input: a GEMM
+// of the (B*Oh*Ow) output positions x Cout over k = (tap, ci), in tiles
+// the plan (kernels/dconv_backward.py::plan) picks, with 4 x 4 register
+// micro-tiles, fed by a 3-stage cp.async ring of 16-deep slabs -- x
+// gathered along ci per tap, W read along Cout.  Padding and dilation are
+// the gather's bounds predicate (cp.async's zero fill), so neither the
+// host pad nor pad_to_tap_windows exists.  The Pallas kernel's
+// sequential (Cin-tile, tap) grid axes, which accumulated into a
+// stationary VMEM block, become the tile's reduction axis; when the tiles
+// alone would not fill the card the plan splits it over several CTAs
+// whose partial tiles the last of them adds in split order (no atomics:
+// the same bits on every run).  The epilogue act(scale * v + bias[co]) is
+// applied in the tile's store, to the final sum.
 //
-// Bound.  On the slice's ASPP branches (3x3, Cin=3, Cout=16) the kernel
-// does 27 MACs per output element and writes 16 floats per pixel read:
-// the bound is the output bytes (memory), not the arithmetic.
+// Bound.  On the slice's ASPP branches (3x3, Cin=3, Cout=16, B = 4 at
+// 128x128) each output does 27 MACs and the kernel writes 16 floats per
+// pixel read: the output bytes (memory) bound it.  On the training
+// layers (B = 64, K = 3 or 4, Cout 32-128) the useful arithmetic does.
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 #include "conv_body.cuh"
 
-// The element body (tap and channel loops, padding predicate) is
-// conv_body.cuh::direct_conv_element, shared with the ddy role of
-// tconv_backward.cu.
-__global__ void dconv_forward_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ w,
-                                     float* __restrict__ y, ConvGeom g,
-                                     EpilogueArgs ep) {
-  const long long total = (long long)g.B * g.Oh * g.Ow * g.Cout;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  y[idx] = apply_epilogue(direct_conv_element(Plain{x}, w, g, idx),
-                          (int)(idx % g.Cout), ep);
+struct FwdArgs {
+  Plain x;
+  const float* w;
+  float* y;
+  ConvGeom g;
+  GeomDiv fd;
+  RoleGrid grid;
+  FusedEpilogue ep;
+};
+
+template <class T>
+__global__ void __launch_bounds__(kGemmThreads)
+    dconv_forward_kernel(const FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  int tile;
+  Split sp;
+  role_of<1, T::BM * T::BN>(a.grid, &tile, &sp);
+  ddy_tile<T>(a.x, a.w, a.y, a.g, a.fd, tile, sp, smem, a.ep);
 }
 
 // x (B,Nh,Nw,Cin), w (Kh,Kw,Cin,Cout), bias (Cout,) or null ->
 // y (B,Oh,Ow,Cout); all fp32, contiguous, on the device of `stream`.
-// Returns cudaGetLastError() after the launch.
+// The tile (id) and splits come from the plan, with a workspace of
+// ws_floats floats and n_tickets ints that are 0 (and are 0 again after
+// the launch).  Returns the launch's CUDA error (cudaErrorInvalidValue
+// for a plan, a workspace or a size it cannot take).
 extern "C" int dconv_forward_f32(const void* x, const void* w,
                                  const void* bias, void* y, int B, int Nh,
                                  int Nw, int Cin, int Kh, int Kw, int Cout,
                                  int Oh, int Ow, int sh, int sw, int ph,
                                  int pw, int dh, int dw, int act,
                                  float slope, int has_scale, float scale,
-                                 void* stream) {
-  const ConvGeom g = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw,
-                               ph, pw, dh, dw);
-  const long long total = (long long)B * Oh * Ow * Cout;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks > 0) {
-    dconv_forward_kernel<<<(unsigned)blocks, threads, 0,
-                           (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)w, (float*)y, g,
-        make_epilogue(bias, act, slope, has_scale, scale));
-  }
-  return (int)cudaGetLastError();
+                                 int tile, int splits, void* ws,
+                                 int64_t ws_floats, void* tickets,
+                                 int n_tickets, void* stream) {
+  FwdArgs a;
+  a.g = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw, dh,
+                  dw);
+  a.fd = make_geom_div(a.g);
+  const long long positions = (long long)B * Oh * Ow;
+  if (!forward_tile_ok(tile) || Cin < 1 || Cout < 1 ||
+      !fits_int((long long)B * Nh * Nw * Cin) ||
+      !fits_int(positions * Cout) ||
+      !fits_int((long long)Kh * Kw * Cin * Cout))
+    return (int)cudaErrorInvalidValue;
+  a.x = Plain{static_cast<const float*>(x)};
+  a.w = static_cast<const float*>(w);
+  a.y = static_cast<float*>(y);
+  a.ep = FusedEpilogue{make_epilogue(bias, act, slope, has_scale, scale)};
+  int bm, bn;
+  tile_extent(tile, &bm, &bn);
+  const long long tiles = (positions + bm - 1) / bm * ((Cout + bn - 1) / bn);
+  if (!gather_grid(&a.grid, tiles, bm * bn, splits, ws, ws_floats, tickets,
+                   n_tickets))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = role_grid_blocks(a.grid);
+  if (blocks == 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)with_forward_tile(tile, [&](auto td) {
+    using T = decltype(td);
+    return launch_roles<dconv_forward_kernel<T>>(
+        blocks, ddy_smem_floats<T, Plain>(), a, s);
+  });
 }

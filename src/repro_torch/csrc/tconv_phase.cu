@@ -13,71 +13,100 @@
 // with that class's own taps, and no stride zero or dilation zero is ever
 // multiplied.
 //
-// Design.  Block (x, y, z) = (tile of the class's output plane x Cin,
-// residue class (p, q) of the stride, batch row).  Each block owns ONE
-// residue class, so every thread of the block runs the same tap loop: only
-// that class's KP x KQ packed slots, with the slot -> tap map
-// kx = a + (KP-1-uf)*period of pack_phase_filters (tconv_phase.py:221) and
-// padding slots (kx >= K) skipped -- there are no predicated lanes.
-// One thread per output element (m, n, ci), with an fp32 accumulator in a
-// register over (slot, Cout); the Pallas kernel's sequential (Cout-tile,
-// tap) grid axes become those loops.  Each element is stored straight to
-// its stride-residue position r = m*S + p in dx, already cropped by the
-// padding, so assemble_phase_major's interleave and crop are folded into
-// the store.  Positions no tap reaches -- residues with no tap phase
-// (period > K) and non-exact n_out tails beyond the full frame -- keep an
-// empty sum and take ep(0) = act(bias), the assembly's fill.
+// Design.  The dx role of the tiled implicit-GEMM engine
+// (conv_body.cuh::dx_tile), launched alone: per residue class (p, q) a
+// GEMM of the class's (B, Hc, Wc) rows x Cin over (tap slot, Cout), in
+// the plan's tiles (128 x 32; 256 x 4 at Cin <= 4, 256 x 16 at Cin <=
+// 16) with register micro-tiles, fed by a 3-stage cp.async ring of
+// 16-deep slabs read along Cout (a warp's lanes read consecutive floats
+// of dy and of W).  The
+// Pallas kernel's sequential (Cout-tile, tap) grid axes become the
+// reduction axis of the tile; when the tiles alone would not fill the
+// card, the plan (kernels/dconv_backward.py::plan) splits it over several
+// CTAs whose partial tiles are added in split order by the last of them
+// (no atomics: the same bits on every run).  Each element is stored
+// straight to its stride-residue position r = m*S + p in dx, already
+// cropped by the padding, so assemble_phase_major's interleave and crop
+// are folded into the store, and the epilogue act(scale * v + bias[ci])
+// is applied there, to the final sum.  Positions no tap reaches --
+// residues with no tap phase (period > K) and non-exact n_out tails
+// beyond the full frame -- are rows of the GEMM like any other with an
+// empty sum, so they store ep(0) = act(bias), the assembly's fill.
 //
-// Bound.  On the generator layers (K=4, S=2, Cout=128/64) each output
-// element does 4*Cout MACs from W rows read many times over through L1/L2:
-// the arithmetic, not the unique bytes, bounds this simple form.
+// Bound.  On the generator layers (K=4, S=2, Cout=128/64) each dx element
+// does 4*Cout MACs; the unique bytes (dy, W, dx) are a few MB, so the
+// useful arithmetic (2-5 microseconds at B = 64) bounds the launch.
+// The tiles reuse each dy element 32 times and each W element 128 times
+// from shared memory and 4 times from registers.
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 #include "conv_body.cuh"
 
-// The element body (slot -> tap map, bounds, Cout loop) is
-// conv_body.cuh::phase_element, shared with the dx role of
-// conv_backward.cu.
-__global__ void tconv_phase_kernel(const float* __restrict__ dy,
-                                   const float* __restrict__ w,
-                                   float* __restrict__ dx, ConvGeom g,
-                                   PhaseGeom t, EpilogueArgs ep) {
-  const int p = blockIdx.y / g.sw, q = blockIdx.y % g.sw;  // residue class
-  const int b = blockIdx.z;
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)t.Mh * t.Mw * g.Cin) return;
-  long long out;
-  int ci;
-  float acc;
-  if (phase_element(Plain{dy}, w, g, t, b, p, q, e, &out, &ci, &acc))
-    dx[out] = apply_epilogue(acc, ci, ep);
+struct PhaseArgs {
+  Plain dy;
+  const float* w;
+  float* dx;
+  ConvGeom g;   // the dx frame (n_out)
+  PhaseGeom t;
+  GeomDiv fd;
+  RoleGrid grid;
+  FusedEpilogue ep;
+};
+
+template <class T>
+__global__ void __launch_bounds__(kGemmThreads)
+    tconv_phase_kernel(const PhaseArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  int tile;
+  Split sp;
+  role_of<1, T::BM * T::BN>(a.grid, &tile, &sp);
+  dx_tile<T>(a.dy, a.w, a.dx, a.g, a.t, a.fd, tile, sp, smem, a.ep);
 }
 
 // dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout), bias (Cin,) or null ->
 // dx (B,Nh,Nw,Cin); all fp32, contiguous.  The tap-phase bookkeeping
-// (period, step, KP/KQ, TPh/TPw) comes from ConvSpec on the host.
-// Returns cudaGetLastError() after the launch.
+// (period, step, TPh/TPw) comes from ConvSpec on the host; the
+// tile (id) and splits from the plan, with a workspace of ws_floats
+// floats and n_tickets ints that are 0 (and are 0 again after the
+// launch).  Returns the launch's CUDA error (cudaErrorInvalidValue for a
+// plan, a workspace or a size it cannot take).
 extern "C" int tconv_phase_f32(const void* dy, const void* w,
                                const void* bias, void* dx, int B, int Oh,
                                int Ow, int Cout, int Kh, int Kw, int Cin,
                                int Nh, int Nw, int sh, int sw, int ph,
                                int pw, int dh, int dw, int per_h, int per_w,
-                               int step_h, int step_w, int KP, int KQ,
-                               int TPh, int TPw, int act, float slope,
-                               int has_scale, float scale, void* stream) {
-  const ConvGeom g = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw,
-                               ph, pw, dh, dw);
-  const PhaseGeom t = make_phase_geom(g, per_h, per_w, step_h, step_w, KP,
-                                      KQ, TPh, TPw);
-  const long long per_class = (long long)t.Mh * t.Mw * Cin;
-  const int threads = 256;
-  const long long tiles = (per_class + threads - 1) / threads;
-  if (tiles > 0 && B > 0) {
-    dim3 grid((unsigned)tiles, (unsigned)(sh * sw), (unsigned)B);
-    tconv_phase_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)dy, (const float*)w, (float*)dx, g, t,
-        make_epilogue(bias, act, slope, has_scale, scale));
-  }
-  return (int)cudaGetLastError();
+                               int step_h, int step_w, int TPh, int TPw,
+                               int act, float slope, int has_scale,
+                               float scale, int tile, int splits, void* ws,
+                               int64_t ws_floats, void* tickets,
+                               int n_tickets, void* stream) {
+  PhaseArgs a;
+  a.g = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw, dh,
+                  dw);
+  a.t = make_phase_geom(per_h, per_w, step_h, step_w, TPh, TPw);
+  a.fd = make_geom_div(a.g);
+  if (!forward_tile_ok(tile) || Cin < 1 || Cout < 1 ||
+      !fits_int((long long)B * Nh * Nw * Cin) ||
+      !fits_int((long long)B * Oh * Ow * Cout) ||
+      !fits_int((long long)Kh * Kw * Cin * Cout))
+    return (int)cudaErrorInvalidValue;
+  a.dy = Plain{static_cast<const float*>(dy)};
+  a.w = static_cast<const float*>(w);
+  a.dx = static_cast<float*>(dx);
+  a.ep = FusedEpilogue{make_epilogue(bias, act, slope, has_scale, scale)};
+  int bm, bn;
+  tile_extent(tile, &bm, &bn);
+  if (!gather_grid(&a.grid, dx_tile_count(a.g, a.t, bm, bn), bm * bn,
+                   splits, ws, ws_floats, tickets, n_tickets))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = role_grid_blocks(a.grid);
+  if (blocks == 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)with_forward_tile(tile, [&](auto td) {
+    using T = decltype(td);
+    return launch_roles<tconv_phase_kernel<T>>(
+        blocks, dx_smem_floats<T, Plain>(), a, s);
+  });
 }

@@ -22,11 +22,14 @@ the mask as it loads the cotangent.  Public entries:
 `kernels/ops.py::conv_backward` / `tconv_backward`.
 
 Every role of the kernels is a tiled implicit GEMM
-(`csrc/conv_body.cuh`).  `plan`, a pure function of the shapes, picks
-each launch's tiles and how many CTAs split each tile's reduction: the
-splits write partial tiles to a workspace and the last of them adds the
-partials in split order.  `split_filter_grad_plain` is that arithmetic
-for the dW role in plain PyTorch.
+(`csrc/conv_body.cuh`), and the two forward kernels (`csrc/tconv_phase.cu`,
+`csrc/dconv_forward.cu`) launch its dx and ddy roles alone.  `plan`, a
+pure function of the shapes, picks each launch's tiles and how many CTAs
+split each tile's reduction, for the backwards and the forwards alike:
+the splits write partial tiles to a workspace and the last of them adds
+the partials in split order.  `split_filter_grad_plain` and
+`split_forward_plain` are that arithmetic for the dW role and for the
+forwards in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -46,19 +49,24 @@ _EP_ARGS = [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float]
 # the tickets and their count.
 _PLAN_ARGS = ([ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int64]
               + [ctypes.c_void_p, ctypes.c_int])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 25 + _EP_ARGS
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 23 + _EP_ARGS
                  + _PLAN_ARGS + [ctypes.c_void_p])
 _CT_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + _EP_ARGS
                 + _PLAN_ARGS + [ctypes.c_void_p])
 
 # (BM, BN) of the kernels' tile shapes, by the C entries' tile id
-# (csrc/conv_body.cuh: TileThin, TileTall, TileSquare, TileSmall).
-TILES = ((256, 4), (128, 32), (64, 64), (64, 32))
-THIN, TALL, SQUARE, SMALL = range(4)
+# (csrc/conv_body.cuh: TileThin, TileTall, TileSquare, TileSmall,
+# TileHalf).
+TILES = ((256, 4), (128, 32), (64, 64), (64, 32), (256, 16))
+THIN, TALL, SQUARE, SMALL, HALF = range(5)
+# The ops a plan is made for: the backwards and the standalone filter
+# gradient, and the forwards, which launch one gather role alone.
+FORWARD_OPS = ("tconv_phase", "dconv_forward")
+OPS = ("conv_backward", "tconv_backward", "filter_grad") + FORWARD_OPS
 GEMM_BK = 16          # reduction depth of one slab; chunks are multiples
 MAX_SPLITS = 64       # CTAs one tile's reduction may take (csrc kMaxSplits)
 MIN_CHUNK = 128       # positions a dW split sums at the least
-MIN_K_CHUNK = 64      # reduction length a dx / ddy split takes at the least
+MIN_K_CHUNK = 32      # reduction length a dx / ddy split takes at the least
 SM_COUNT = 132        # H100 SXM
 DW_CTAS = 128         # CTAs the dW role aims at
 CHANNEL_TILE = 256    # channels of one db tile (the CTA's threads)
@@ -67,7 +75,7 @@ CHANNEL_TILE = 256    # channels of one db tile (the CTA's threads)
 class BackwardPlan(NamedTuple):
     tile: int       # TILES id of the dx / ddy role (-1: no such role)
     splits: int     # CTAs per dx / ddy tile
-    dw_tile: int    # TILES id of the dW role
+    dw_tile: int    # TILES id of the dW role (-1: none, a forward)
     dw_splits: int  # CTAs per dW tile (and per db tile)
     chunk: int      # positions each dW split sums (a multiple of GEMM_BK)
     tiles: int      # dx / ddy tiles
@@ -132,42 +140,58 @@ def _splits(k: int, want: int, min_chunk: int) -> int:
     return splits
 
 
+def _gather_tile(op: str, n: int) -> int:
+    """The dx / ddy tile for N = n output channels: 256 x 4 at n <= 4;
+    for the forwards 256 x 16 at 4 < n <= 16; else 128 x 32."""
+    if n <= 4:
+        return THIN
+    return HALF if op in FORWARD_OPS and n <= 16 else TALL
+
+
 def plan(op: str, spec: ConvSpec, batch: int, big_hw, small_hw, cin: int,
          cout: int, n_out=None, bias: bool = False) -> BackwardPlan:
     """The tiles and splits of one launch of `op`: "conv_backward" (dx
     over the `n_out` frame), "tconv_backward" (ddy) or "filter_grad" (dW
-    alone); `bias` adds the db role.  `big_hw` is the (Nh, Nw) side (x,
-    or g), `small_hw` the (Oh, Ow) side (dy).
+    alone), with `bias` adding the db role; or a forward, whose gather
+    role runs alone: "tconv_phase" (dx = tconv(dy, W) over the `n_out`
+    frame, as conv_backward's dx) or "dconv_forward" (y = conv(x, W), as
+    tconv_backward's ddy).  `big_hw` is the (Nh, Nw) side (x, g, or the
+    tconv's output), `small_hw` the (Oh, Ow) side (dy, or the conv's
+    output).
 
-    dx / ddy: the thin 256 x 4 tile when N (Cin, or Cout) <= 4, else
-    128 x 32; its reduction (the class's taps x Cout, or taps x Cin) is
-    split only when the tiles are fewer than half the SMs, into the power
-    of two nearest below 2 * SM_COUNT / tiles.  dW: 64 x 32 when Cout <=
-    32, else 64 x 64; its B*Oh*Ow positions are split into the power of
-    two nearest below DW_CTAS / tiles.  At most MAX_SPLITS, at least
-    MIN_K_CHUNK (dx / ddy) or MIN_CHUNK (dW) each, in whole slabs, and no
-    split empty; db takes the dW split.  The constants are the best of
-    `scripts/backward_plan_sweep.py` at the nine main-path layers on the
+    dx / ddy: the thin 256 x 4 tile when N (Cin, or Cout) <= 4, a
+    forward's 256 x 16 at 4 < N <= 16, else 128 x 32; its reduction (the
+    class's taps x Cout, or taps x Cin) is split only when the tiles are
+    fewer than half the SMs, into the power of two nearest below
+    2 * SM_COUNT / tiles.  dW: 64 x 32 when Cout <= 32, else 64 x 64;
+    its B*Oh*Ow positions are split into the power of two nearest below
+    DW_CTAS / tiles.  At most MAX_SPLITS, at least MIN_K_CHUNK (dx / ddy)
+    or MIN_CHUNK (dW) each, in whole slabs, and no split empty; db takes
+    the dW split.  A forward has no dW or db tiles (dw_tile -1, one
+    dW split of chunk 0).  The constants are the best of
+    `scripts/backward_plan_sweep.py` at the main-path layers on the
     H100."""
+    if op not in OPS:
+        raise ValueError(f"unknown op {op!r}")
     kh, kw = spec.filter_shape
     oh, ow = small_hw
-    if op == "conv_backward":
+    if op in ("conv_backward", "tconv_phase"):
         classes = phase_classes(spec, n_out)
-        tile = THIN if cin <= 4 else TALL
-        tiles = sum(_cdiv(batch * hc * wc, TILES[tile][0])
-                    for hc, wc, _ in classes) * _cdiv(cin, TILES[tile][1])
+        n, rows = cin, [batch * hc * wc for hc, wc, _ in classes]
         k = max(taps for _, _, taps in classes) * cout
-    elif op == "tconv_backward":
-        tile = THIN if cout <= 4 else TALL
-        tiles = _cdiv(batch * oh * ow, TILES[tile][0]) \
-            * _cdiv(cout, TILES[tile][1])
-        k = kh * kw * cin
-    elif op == "filter_grad":
-        tile, tiles, k = -1, 0, 0
+    elif op in ("tconv_backward", "dconv_forward"):
+        n, rows, k = cout, [batch * oh * ow], kh * kw * cin
     else:
-        raise ValueError(f"unknown op {op!r}")
+        n, rows, k = 0, [], 0
+    tile = _gather_tile(op, n) if rows else -1
+    tiles = sum(_cdiv(r, TILES[tile][0]) for r in rows) \
+        * _cdiv(n, TILES[tile][1]) if rows else 0
     splits = 1 if 2 * tiles >= SM_COUNT else _splits(
         k, _pow2_floor(2 * SM_COUNT // max(tiles, 1)), MIN_K_CHUNK)
+    workspace = tiles * splits * TILES[tile][0] * TILES[tile][1] \
+        if splits > 1 else 0
+    if op in FORWARD_OPS:
+        return BackwardPlan(tile, splits, -1, 1, 0, tiles, 0, 0, workspace)
     dw_tile = SMALL if cout <= 32 else SQUARE
     bm, bn = TILES[dw_tile]
     dw_tiles = _cdiv(kh * kw * cin, bm) * _cdiv(cout, bn)
@@ -177,10 +201,8 @@ def plan(op: str, spec: ConvSpec, batch: int, big_hw, small_hw, cin: int,
     channels = cin if op == "tconv_backward" else cout
     db_tiles = _cdiv(channels, min(channels, CHANNEL_TILE)) \
         if bias and op != "filter_grad" else 0
-    workspace = (dw_splits > 1) * (dw_tiles * bm * bn + db_tiles
-                                   * CHANNEL_TILE) * dw_splits
-    if splits > 1:
-        workspace += tiles * splits * TILES[tile][0] * TILES[tile][1]
+    workspace += (dw_splits > 1) * (dw_tiles * bm * bn + db_tiles
+                                    * CHANNEL_TILE) * dw_splits
     return BackwardPlan(tile, splits, dw_tile, dw_splits,
                         split_chunk(positions, dw_splits), tiles, dw_tiles,
                         db_tiles, workspace)
@@ -227,6 +249,46 @@ def split_filter_grad_plain(x: torch.Tensor, dy: torch.Tensor,
         part = dconv_filter_grad_plain(x, part_dy.reshape(dy.shape), spec)
         total = part if total is None else total + part
     return total
+
+
+def split_forward_plain(op: str, a: torch.Tensor, w: torch.Tensor,
+                        spec: ConvSpec, splits: int, *, n_out=None,
+                        bias=None, epilogue: Epilogue | None = None,
+                        slab: int = GEMM_BK) -> torch.Tensor:
+    """A forward kernel's split reduction in plain PyTorch: one partial
+    per chunk of consecutive k, the filter's other entries zeroed, the
+    partials added in split order 0, 1, ..., then the epilogue applied
+    once to the sum.  Chunks are ceil(ceil(K / splits) / slab) * slab
+    long (`slab` = GEMM_BK: the kernels' split_range).
+
+    "dconv_forward": a = x; k = (kx*Kw + ky)*Cin + ci, K = Kh*Kw*Cin.
+    "tconv_phase": a = dy; each residue class has its own k = (slot,
+    co), slot = u*nv + v over its taps (kx, ky) = (a + u*per_h, c +
+    v*per_w), and its own K = taps * Cout.  Positions no tap reaches sum
+    nothing and take ep(0)."""
+    kh, kw, cin, cout = w.shape
+    if op == "dconv_forward":
+        k = torch.arange(kh * kw * cin).reshape(kh, kw, cin, 1)
+        big_k = kh * kw * cin
+    elif op == "tconv_phase":
+        per_h, per_w = spec.tap_phase_period
+        kx = torch.arange(kh).reshape(kh, 1, 1, 1)
+        ky = torch.arange(kw).reshape(1, kw, 1, 1)
+        nu = -(-(kh - kx % per_h) // per_h)
+        nv = -(-(kw - ky % per_w) // per_w)
+        co = torch.arange(cout).reshape(1, 1, 1, cout)
+        k = ((kx // per_h) * nv + ky // per_w) * cout + co
+        big_k = nu * nv * cout
+    else:
+        raise ValueError(f"not a forward op: {op!r}")
+    chunk = _cdiv(_cdiv(big_k, splits), slab) * slab
+    total = None
+    for s in range(splits):
+        part_w = w * ((k >= s * chunk) & (k < (s + 1) * chunk))
+        part = dconv_forward_plain(a, part_w, spec) if op == "dconv_forward" \
+            else tconv_fused_plain(a, part_w, spec, n_out=n_out)
+        total = part if total is None else total + part
+    return total if epilogue is None else epilogue.apply(total, bias)
 
 
 def _masked(cot: torch.Tensor, out, epilogue: Epilogue | None):
@@ -287,7 +349,7 @@ def conv_backward_cuda(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                  B, nh_x, nw_x, cin, oh, ow, cout, kh, kw, nh, nw,
                  *spec.stride, *spec.padding, *spec.dilation,
                  *spec.tap_phase_period, *spec.tap_phase_step,
-                 *spec.taps_per_phase, *spec.n_tap_phases,
+                 *spec.n_tap_phases,
                  *build.epilogue_args(epilogue), *p[:5], *bufs,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("conv_backward", err)

@@ -9,7 +9,10 @@ over the K*K real taps; the D-dilated filter never exists.  The plain
 version repeats the reference's arithmetic -- pad once, one strided window
 per tap, one matmul per tap into an fp32 accumulator, then the epilogue --
 and is what the CPU tests run and what the card's kernel is held against.
-Public entry: `kernels/ops.py::dconv_forward`.
+The kernel is the ddy role of the tiled implicit-GEMM engine
+(`csrc/conv_body.cuh`), its tiles and splits from `dconv_backward.plan`,
+with the epilogue in its store.  Public entry:
+`kernels/ops.py::dconv_forward`.
 """
 from __future__ import annotations
 
@@ -22,9 +25,12 @@ from repro_torch.core.spec import ConvSpec, Epilogue
 from repro_torch.kernels import build
 from repro_torch.kernels.tap_gather import gather_tap, pad_to_tap_windows
 
+# x, w, bias, y; the geometry; the epilogue; the plan's tile and splits,
+# the workspace and its floats, the tickets and their count; the stream.
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
-             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float]
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int64]
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def _out_size(spec: ConvSpec, x: torch.Tensor) -> tuple[int, int]:
@@ -61,18 +67,25 @@ def dconv_forward_cuda(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
                        ) -> torch.Tensor:
     """Launch the kernel on the current stream.  fp32, contiguous, one
     device -- the wrapper in `kernels/ops.py` checks all three."""
+    # dconv_backward imports this module's plain version.
+    from repro_torch.kernels import dconv_backward
+
     oh, ow = _out_size(spec, x)
     B, nh, nw, cin = x.shape
     kh, kw, _, cout = w.shape
-    y = torch.empty((B, oh, ow, cout), dtype=torch.float32, device=x.device)
+    dev = x.device
+    y = torch.empty((B, oh, ow, cout), dtype=torch.float32, device=dev)
+    p = dconv_backward.plan("dconv_forward", spec, B, (nh, nw), (oh, ow),
+                            cin, cout)
+    ws, bufs = dconv_backward.launch_buffers(p, dev)
     fn = build.kernel_function("dconv_forward", "dconv_forward_f32",
                                _ARGTYPES)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         err = fn(x.data_ptr(), w.data_ptr(),
                  None if bias is None else bias.data_ptr(), y.data_ptr(),
                  B, nh, nw, cin, kh, kw, cout, oh, ow,
                  *spec.stride, *spec.padding, *spec.dilation,
-                 *build.epilogue_args(epilogue),
+                 *build.epilogue_args(epilogue), p.tile, p.splits, *bufs,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("dconv_forward", err)
     return y

@@ -13,7 +13,9 @@ no stride or dilation zero is ever multiplied.
 The plain version repeats the reference's arithmetic: packed rotated
 sub-filters (`pack_phase_filters`), one padded dy, one window and matmul
 per (phase, valid slot) into phase-major planes, the epilogue per plane,
-then `assemble_phase_major`.  The kernel folds the assembly into its
+then `assemble_phase_major`.  The kernel is the dx role of the tiled
+implicit-GEMM engine (`csrc/conv_body.cuh`), its tiles and splits from
+`dconv_backward.plan`; it folds the assembly and the epilogue into its
 store.  Public entry: `kernels/ops.py::tconv_phase`.
 """
 from __future__ import annotations
@@ -27,9 +29,13 @@ from repro_torch.core import ecoflow
 from repro_torch.core.spec import ConvSpec, Epilogue, _pair
 from repro_torch.kernels import build
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 23
-             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                ctypes.c_void_p])
+# dy, w, bias, dx; the geometry and tap phases; the epilogue; the plan's
+# tile and splits, the workspace and its floats, the tickets and their
+# count; the stream.
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 21
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float]
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int64]
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def pack_phase_filters(w: torch.Tensor, stride,
@@ -160,19 +166,26 @@ def tconv_fused_cuda(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
                      ) -> torch.Tensor:
     """Launch the kernel on the current stream.  fp32, contiguous, one
     device -- the wrapper in `kernels/ops.py` checks all three."""
+    # dconv_backward imports this module's plain version.
+    from repro_torch.kernels import dconv_backward
+
     B, Oh, Ow, Cout = dy.shape
     Kh, Kw, Cin, _ = w.shape
     Nh, Nw = n_out
-    dx = torch.empty((B, Nh, Nw, Cin), dtype=torch.float32, device=dy.device)
+    dev = dy.device
+    dx = torch.empty((B, Nh, Nw, Cin), dtype=torch.float32, device=dev)
+    p = dconv_backward.plan("tconv_phase", spec, B, (Nh, Nw), (Oh, Ow), Cin,
+                            Cout, n_out=(Nh, Nw))
+    ws, bufs = dconv_backward.launch_buffers(p, dev)
     fn = build.kernel_function("tconv_phase", "tconv_phase_f32", _ARGTYPES)
-    with torch.cuda.device(dy.device):
+    with torch.cuda.device(dev):
         err = fn(dy.data_ptr(), w.data_ptr(),
                  None if bias is None else bias.data_ptr(), dx.data_ptr(),
                  B, Oh, Ow, Cout, Kh, Kw, Cin, Nh, Nw,
                  *spec.stride, *spec.padding, *spec.dilation,
                  *spec.tap_phase_period, *spec.tap_phase_step,
-                 *spec.taps_per_phase, *spec.n_tap_phases,
-                 *build.epilogue_args(epilogue),
+                 *spec.n_tap_phases,
+                 *build.epilogue_args(epilogue), p.tile, p.splits, *bufs,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("tconv_phase", err)
     return dx

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each held against its plain PyTorch
-version, plus the wrappers' launch counts and refusals, the backward
+version, plus the wrappers' launch counts and refusals, the conv
 kernels' determinism and the training steps' launches per step.
 
 These tests need a CUDA card and skip without one.  They import no JAX
@@ -12,8 +12,8 @@ and differ only in summation order.  Flash attention in bf16: both sides
 compute the same fp32 values from the same bf16 inputs and round once, so
 they may differ by one bf16 ulp: rtol = 2^-7, atol = 1e-4 (the wgmma
 form splits P into two bf16 terms to stay in that class).  Repeated
-launches of a backward kernel or of flash attention on the same inputs
-must agree bit for bit.
+launches of a conv kernel on the engine or of flash attention on the
+same inputs must agree bit for bit.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from repro_torch.data.pipeline import ConvDataset
 from repro_torch.kernels import ops
 from repro_torch.kernels.attention import flash_attention_plain, plan
 from repro_torch.kernels.dconv_backward import (conv_backward_plain,
+                                                phase_classes,
                                                 plan as backward_plan,
                                                 tconv_backward_plain)
 from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
@@ -93,6 +94,78 @@ def test_dconv_forward_kernel_matches_plain(cuda, geom):
                                 bias=b, epilogue=ep)
         want = dconv_forward_plain(x, w, spec, bias=b, epilogue=ep)
         torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+# The forwards' plan edges on the card, as TCONV_GRID geometries (stride,
+# dilation, filter, padding, batch, dy size, Cin, Cout, n_out slack) and
+# (batch, x side, Cin, Cout, K, S, P, D): residues no tap reaches (S = 3 >
+# K = 2) whose outputs take the bias fill ep(0), a non-exact n_out tail,
+# reductions the plan splits, ragged channels, and an ASPP branch (the
+# 256 x 16 tile, D = 4).
+TCONV_EDGES = [
+    ("bias_fill_s3_k2", (3, 1, 2, 0, 2, (4, 4), 3, 40, 0)),
+    ("nonexact_tail", (2, 1, 3, 0, 2, (4, 4), 3, 48, 1)),
+    ("split", (2, 1, 4, 1, 2, (4, 4), 64, 128, 0)),
+    ("ragged_channels", (2, 1, 3, 1, 2, (5, 5), 130, 37, 0)),
+]
+FWD_EDGES = [
+    ("split", (2, (8, 8), 72, 24, 3, 1, 1, 1)),
+    ("ragged_channels", (2, (9, 9), 130, 37, 3, 2, 1, 1)),
+    ("aspp_rate4", (1, (64, 64), 3, 16, 3, 1, 4, 4)),
+]
+
+
+@pytest.mark.parametrize("name,geom", TCONV_EDGES,
+                         ids=[c[0] for c in TCONV_EDGES])
+def test_tconv_phase_kernel_at_plan_edges(cuda, name, geom):
+    """Against the plain version under the four epilogues of EP_KW; a
+    rerun is bit-identical."""
+    spec, n_out, dy, w, bias = (
+        torch.tensor(a).to(cuda) if isinstance(a, np.ndarray) else a
+        for a in tconv_case(geom, 8))
+    p = backward_plan("tconv_phase", spec, dy.shape[0], n_out,
+                      tuple(dy.shape[1:3]), w.shape[2], w.shape[3],
+                      n_out=n_out)
+    if name == "split":
+        assert p.splits > 1
+    if name == "bias_fill_s3_k2":
+        assert any(taps == 0 for _, _, taps in phase_classes(spec, n_out))
+    for kw in EP_KW:
+        ep = None if kw is None else Epilogue(**kw)
+        b = bias if ep is not None and ep.bias else None
+        runs = [ops.tconv_phase(dy, w, stride=spec.stride,
+                                padding=spec.padding, n_out=n_out,
+                                dilation=spec.dilation, bias=b, epilogue=ep,
+                                strategy="phase") for _ in range(2)]
+        torch.testing.assert_close(
+            runs[0], tconv_fused_plain(dy, w, spec, n_out=n_out, bias=b,
+                                       epilogue=ep), atol=TOL, rtol=TOL)
+        assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("name,geom", FWD_EDGES, ids=[c[0] for c in FWD_EDGES])
+def test_dconv_forward_kernel_at_plan_edges(cuda, name, geom):
+    """Against the plain version under the four epilogues of EP_KW; a
+    rerun is bit-identical."""
+    B, hw, cin, cout, k, s, p_, d = geom
+    spec = ConvSpec.make(stride=s, padding=p_, filter_shape=k, dilation=d)
+    gen = torch.Generator().manual_seed(len(name))
+    x = _rand(gen, B, *hw, cin, device=cuda)
+    w = _rand(gen, k, k, cin, cout, device=cuda)
+    bias = _rand(gen, cout, device=cuda)
+    p = backward_plan("dconv_forward", spec, B, hw, spec.out_size(hw), cin,
+                      cout)
+    if name == "split":
+        assert p.splits > 1
+    for kw in EP_KW:
+        ep = None if kw is None else Epilogue(**kw)
+        b = bias if ep is not None and ep.bias else None
+        runs = [ops.dconv_forward(x, w, stride=s, padding=p_, dilation=d,
+                                  bias=b, epilogue=ep) for _ in range(2)]
+        torch.testing.assert_close(
+            runs[0], dconv_forward_plain(x, w, spec, bias=b, epilogue=ep),
+            atol=TOL, rtol=TOL)
+        assert torch.equal(runs[0], runs[1])
 
 
 def test_each_wrapper_counts_its_launches(cuda):
