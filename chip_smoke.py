@@ -20,12 +20,15 @@ Phases (any failed check raises and ends the run non-zero):
      strided cache, in fp32 and bf16, each case printed with the kernel
      form it ran on, reruns bit-identical; for the conv backwards and the
      filter gradient the plan's edges -- a position count the dW split
-     does not divide, Cin = 3 at B = 16; for the two forwards a split
-     reduction and Cin 130 / Cout 37, and gan t3 on the phase kernel,
-     timed only -- every conv case printed with its plan's tiles and
-     splits, reruns bit-identical): held against its plain PyTorch
-     version on the card, and at the paths' shapes against the library
-     call; kernel, plain and library timed with CUDA events;
+     does not divide, Cin = 3 at B = 16; for the two forwards and the
+     implicit GEMM a split reduction and Cin 130 / Cout 37 -- every conv
+     case printed with its plan's tiles and splits, or the implicit
+     GEMM's tile, chunk and CTAs, reruns bit-identical): held against its
+     plain PyTorch version on the card, and at the paths' shapes against
+     the library call; kernel, plain and library timed with CUDA events,
+     beside an empty kernel's launch (the floor under every launch); the
+     phase / implicit-GEMM race: the generator's t1-t3 at batch 4 and 64
+     on the kernel the strategy rule does not pick, timed only;
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
@@ -75,6 +78,7 @@ inputs to 10 bits.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -354,6 +358,7 @@ def main() -> int:
                                                     tconv_backward_plain)
     from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
     from repro_torch.kernels.dconv_forward import dconv_forward_plain
+    from repro_torch.kernels.implicit_gemm import plan as ig_plan
     from repro_torch.kernels.implicit_gemm import tconv_implicit_gemm_plain
     from repro_torch.kernels.tconv_phase import tconv_fused_plain
     from repro_torch.models import cnn, gan, vision
@@ -419,6 +424,14 @@ def main() -> int:
             *BWD_TILES[p.dw_tile], p.dw_tiles, p.dw_splits, p.chunk)
         return dw if gather is None else f"{gather}, {dw}"
 
+    def ig_plan_name(spec, B, n_out, in_hw, cin, cout):
+        """The tile, Cin tile, Cout chunk, CTAs and shared memory that
+        `implicit_gemm.plan` gives a launch."""
+        p = ig_plan(spec, B, n_out, in_hw, cin, cout)
+        return (f"tile {p.th}x{p.tw}, Cin {p.cin_t}, chunk {p.chunk} in "
+                f"{p.stages} stage(s), {p.ctas} CTAs x {p.threads} threads, "
+                f"{p.smem} B shared")
+
     def fwd_case(name, B, hw, cin, cout, k, s, p, d, ep, path, timed=False):
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
         x, w = rand(B, *hw, cin), rand(*spec.filter_shape, cin, cout)
@@ -456,7 +469,8 @@ def main() -> int:
             else tconv_fused_plain
         exact = spec.input_size(in_hw)
         out_pad = tuple(n_out[a] - exact[a] for a in range(2))
-        form = "implicit_gemm.cu: no plan" if strategy == "implicit_gemm" \
+        form = ig_plan_name(spec, B, n_out, in_hw, cin, cout) \
+            if strategy == "implicit_gemm" \
             else plan_name("tconv_phase", spec, B, n_out, in_hw, cin, cout)
         return dict(kernel=kernel, case=name, path=path, timed=path or timed,
                     rerun=True, form=form,
@@ -588,12 +602,19 @@ def main() -> int:
         cases.append(tconv_case("tconv_implicit_gemm", f"gan_t3_B{Bs}", Bs,
                                 (16, 16), (32, 32), 3, 32, 4, 2, 1, 1, tanh,
                                 path, timed=True))
-    # gan t3 on the phase kernel, timed only: the other arm of the
-    # phase / implicit-GEMM race (tiling.plan_strategy keeps t3 on the
-    # implicit GEMM).
-    cases.append(tconv_case("tconv_phase", f"gan_t3_B{B}_phase", B, (16, 16),
-                            (32, 32), 3, 32, 4, 2, 1, 1, tanh, False,
-                            timed=True))
+    # The phase / implicit-GEMM race (tiling.plan_strategy sends t1 and t2
+    # to the phase kernel, t3 to the implicit GEMM): each generator layer
+    # on the other kernel, timed only.
+    for Bs in (SLOT_BATCH, B):
+        for layer, in_hw, n_out, cin, cout, ep in (
+                ("gan_t1", (4, 4), (8, 8), 64, 128, relu),
+                ("gan_t2", (8, 8), (16, 16), 32, 64, relu),
+                ("gan_t3", (16, 16), (32, 32), 3, 32, tanh)):
+            kernel, arm = ("tconv_phase", "phase") if layer == "gan_t3" \
+                else ("tconv_implicit_gemm", "ig")
+            cases.append(tconv_case(kernel, f"{layer}_B{Bs}_{arm}", Bs, in_hw,
+                                    n_out, cin, cout, 4, 2, 1, 1, ep, False,
+                                    timed=True))
     for name, hw, cin, cout, k, ep in direct:
         cases.append(fwd_case(f"{name}_B{B}", B, hw, cin, cout, k, 2, 1, 1,
                               ep, False, timed=True))
@@ -615,13 +636,16 @@ def main() -> int:
     # channels (Cin 130, Cout 37) on both forward kernels.
     cases.append(fwd_case("fwd_split_k648", 2, (8, 8), 72, 24, 3, 1, 1, 1,
                           ragged_ep, False))
-    cases.append(tconv_case("tconv_phase", "tconv_split_k648", 2, (4, 4),
-                            (8, 8), 24, 72, 3, 2, 1, 1, ragged_ep, False))
     cases.append(fwd_case("ragged_channels", 2, (9, 9), 130, 37, 3, 2, 1, 1,
                           ragged_ep, False))
-    cases.append(tconv_case("tconv_phase", "ragged_channels", 2, (5, 5),
-                            (9, 9), 130, 37, 3, 2, 1, 1, ragged_ep, False))
     for kernel in ("tconv_phase", "tconv_implicit_gemm"):
+        # On the implicit GEMM: Cout over one chunk (72, 37; two stages)
+        # and Cin over one thread's register tile (24, 130).
+        cases.append(tconv_case(kernel, "tconv_split_k648", 2, (4, 4),
+                                (8, 8), 24, 72, 3, 2, 1, 1, ragged_ep, False))
+        cases.append(tconv_case(kernel, "ragged_channels", 2, (5, 5),
+                                (9, 9), 130, 37, 3, 2, 1, 1, ragged_ep,
+                                False))
         cases.append(tconv_case(kernel, "ragged_s3k2", 3, (5, 6), (14, 12),
                                 5, 7, (2, 3), (3, 2), (1, 1), 1, ragged_ep,
                                 False))
@@ -749,7 +773,15 @@ def main() -> int:
         return err
 
     timer = DeviceTimer()
-    kernels = {}
+    # The floor under every launch: a kernel that does nothing, launched
+    # through ctypes as the kernels are, on the same timer.
+    empty = build.kernel_function("implicit_gemm", "empty_launch",
+                                  [ctypes.c_void_p])
+    floor_ms = timer(lambda: build.check_launch("implicit_gemm", empty(
+        torch.cuda.current_stream().cuda_stream)))
+    print("launch floor " + json.dumps({"empty_kernel_ms": floor_ms,
+                                        "card": card}))
+    kernels, race = {}, {}
     for c in cases:
         got = c["run"]()
         torch.cuda.synchronize()
@@ -775,6 +807,10 @@ def main() -> int:
                        bound_ms=b_ms, bound_by=b_by, macs=c["macs"],
                        nbytes=c["nbytes"])
         print("case " + json.dumps(row))
+        layer = re.match(r"(gan_t\d_B\d+)", c["case"])
+        if layer and c["timed"] and c["kernel"] in ("tconv_phase",
+                                                    "tconv_implicit_gemm"):
+            race.setdefault(layer.group(1), {})[c["kernel"]] = row["ms"]
         k = kernels.setdefault(c["kernel"], dict(
             name=c["kernel"], max_abs_err=0.0, ms=0.0, plain_ms=0.0,
             library_ms=0.0, bound_ms=0.0, by={"bytes": 0.0,
@@ -784,6 +820,7 @@ def main() -> int:
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 k[key] += row[key]
             k["by"][row["bound_by"]] += row["bound_ms"]
+    print("race " + json.dumps(race | {"card": card}))
     print(f"kernels: all {len(kernels)} agree with their plain versions "
           f"and the library within {TOL:g} at every case (flash attention "
           f"in bf16, (atol, rtol): {ATTN_TOL[torch.bfloat16]} against the "

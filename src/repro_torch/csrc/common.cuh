@@ -1,6 +1,7 @@
-// Shared by the conv kernels of this directory: the C entry that names a
-// CUDA error for the Python wrappers, and the elementwise tail fused into
-// every kernel, y = act(scale * acc + bias), in the order of
+// Shared by the kernels of this directory: the C entry that names a CUDA
+// error for the Python wrappers, a divider by a launch's fixed divisor,
+// and the elementwise tail fused into every conv kernel,
+// y = act(scale * acc + bias), in the order of
 // repro_torch.core.spec.Epilogue.apply -- scale, then bias, then the
 // activation -- applied to the fp32 accumulator in registers before the
 // one store of each output element.
@@ -43,6 +44,32 @@ static inline EpilogueArgs make_epilogue(const void* bias, int act,
   ep.has_scale = has_scale;
   ep.scale = scale;
   return ep;
+}
+
+// n / d for 0 <= n < 2^31 and a divisor d >= 1 fixed for a launch: one
+// multiply-high and a shift (the round-up method; exact on that range).
+struct FastDiv {
+  int d;
+  unsigned mul;
+  int shift;
+};
+
+__host__ __device__ inline FastDiv make_fastdiv(int d) {
+  FastDiv f;
+  f.d = d;
+  f.mul = 0;
+  f.shift = 0;
+  if (d > 1) {
+    int l = 0;
+    while ((1u << l) < (unsigned)d) ++l;  // ceil(log2 d)
+    f.mul = (unsigned)(((1ull << (31 + l)) + (unsigned)d - 1) / (unsigned)d);
+    f.shift = l - 1;
+  }
+  return f;
+}
+
+__device__ __forceinline__ int fast_div(int n, const FastDiv& f) {
+  return f.d == 1 ? n : (int)(__umulhi((unsigned)n, f.mul) >> f.shift);
 }
 
 // Each shared library carries its own copy: the wrappers name a failed

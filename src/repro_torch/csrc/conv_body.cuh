@@ -128,32 +128,6 @@ constexpr int kBK = 16;         // reduction depth of one slab
 constexpr int kStages = 3;      // slabs in the shared-memory ring
 constexpr int kMaxSplits = 64;  // CTAs one tile's reduction may take
 
-// n / d for 0 <= n < 2^31 and a divisor d >= 1 fixed for a launch: one
-// multiply-high and a shift (the round-up method; exact on that range).
-struct FastDiv {
-  int d;
-  unsigned mul;
-  int shift;
-};
-
-__host__ __device__ inline FastDiv make_fastdiv(int d) {
-  FastDiv f;
-  f.d = d;
-  f.mul = 0;
-  f.shift = 0;
-  if (d > 1) {
-    int l = 0;
-    while ((1u << l) < (unsigned)d) ++l;  // ceil(log2 d)
-    f.mul = (unsigned)(((1ull << (31 + l)) + (unsigned)d - 1) / (unsigned)d);
-    f.shift = l - 1;
-  }
-  return f;
-}
-
-__device__ __forceinline__ int fast_div(int n, const FastDiv& f) {
-  return f.d == 1 ? n : (int)(__umulhi((unsigned)n, f.mul) >> f.shift);
-}
-
 // The tile shapes a role may take, by the id the host's plan names
 // (kernels/dconv_backward.py::TILES).
 template <int BM_, int BN_, int TM_, int TN_>

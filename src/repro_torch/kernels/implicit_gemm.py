@@ -1,6 +1,6 @@
 """Predicated implicit-GEMM transposed convolution, any (stride S,
-dilation D): the CUDA kernel `csrc/implicit_gemm.cu` and its plain
-PyTorch version (port of `repro/kernels/implicit_gemm.py`).
+dilation D): the CUDA kernel `csrc/implicit_gemm.cu`, its plan and its
+plain PyTorch version (port of `repro/kernels/implicit_gemm.py`).
 
 The same function as `kernels/tconv_phase.py`, written as ONE flat GEMM
 over the full (Fh, Fw) transposed frame and all Kh*Kw taps, where lane
@@ -11,21 +11,148 @@ h % S == 0 and h // S < Oh.  The masked fraction is exactly
 The plain version repeats the reference's arithmetic: dy zero-interleaved
 and framed by the tap reach D*(K-1), one static window and matmul per
 tap over the full frame, the epilogue, then the tail fill and padding
-crop.  The kernel reads dy in place behind an address predicate instead.
+crop.  The kernel skips the dead lanes instead: one CTA per tile of
+TH x TW output sites and Cin_t output channels stages the tile's dy halo
+and the weights in shared memory, one Cout chunk at a time, and each
+thread sums one site over the live taps.  `plan`, a pure function of the
+shapes, picks the tile, the Cin tile and the chunk; `halo_origin` and
+`halo_extent` are the halo the kernel copies.
 Public entry: `kernels/ops.py::tconv_phase(strategy="implicit_gemm")`.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.spec import ConvSpec, Epilogue
 from repro_torch.kernels import build
 
+# dy, w, bias, dx; the geometry; the epilogue; the plan's tile, Cin tile
+# and chunk; the stream.
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
-             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float]
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+SMEM_BYTES = 232448   # dynamic shared memory of one CTA (csrc kSmemBytes)
+MAX_THREADS = 512     # one thread per site of a tile (csrc kMaxThreads)
+MAX_CHUNK = 32        # Cout of one stage (csrc kMaxChunk)
+CHUNKS = (4, 8, 16, MAX_CHUNK)   # the kernel's instantiations
+CIN_TILES = (1, 2, 3, 4, 8)      # the kernel's instantiations
+WARP = 32
+CTA_SITES = 128       # sites of a tile when a class's warp gives fewer
+MIN_CLASS_COLS = 8    # columns of one residue class in a tile
+MAX_CLASS_COLS = 16
+
+
+class IGPlan(NamedTuple):
+    th: int         # tile rows (sites), a multiple of the row stride
+    tw: int         # tile columns, a multiple of the column stride
+    cin_t: int      # output channels per CTA (CIN_TILES)
+    chunk: int      # Cout per stage of the in-CTA loop (CHUNKS)
+    ctas: int       # tiles x Cin tiles
+    smem: int       # dynamic shared-memory bytes
+    threads: int    # per CTA: one per site, th * tw
+    tiles: int      # spatial tiles over (B, Nh, Nw)
+    halo: tuple     # (rows, cols) of the dy halo
+    stages: int     # 2 when Cout takes more than one chunk
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << max(0, n.bit_length() - 1)
+
+
+def halo_origin(spec: ConvSpec, y0: int, x0: int) -> tuple[int, int]:
+    """The first dy row and column of the halo of the tile at site (y0,
+    x0): the least i with i*S >= y0 + P - D*(K-1)."""
+    return tuple(_cdiv(o + p - d * (k - 1), s) for o, s, p, d, k in zip(
+        (y0, x0), spec.stride, spec.padding, spec.dilation,
+        spec.filter_shape))
+
+
+def halo_extent(spec: ConvSpec, th: int, tw: int) -> tuple[int, int]:
+    """(rows, cols) of dy that the sites of a th x tw tile reach through
+    a tap: the same for every tile, since each starts at a multiple of
+    the stride."""
+    return tuple((p + t - 1) // s - _cdiv(p - d * (k - 1), s) + 1
+                 for t, s, p, d, k in zip(
+                     (th, tw), spec.stride, spec.padding, spec.dilation,
+                     spec.filter_shape))
+
+
+def halo_pitch(chunk: int) -> int:
+    """Floats per halo position: the chunk padded to an odd number of
+    16-byte words, so a quarter-warp's lanes hit distinct banks."""
+    return chunk if (chunk // 4) % 2 else chunk + 4
+
+
+def counted(spec: ConvSpec, batch: int, n_out, cin: int, cout: int,
+            th: int, tw: int, cin_t: int, chunk: int) -> IGPlan:
+    """The IGPlan of this tile, Cin tile and chunk, counted as the kernel
+    counts its CTAs and shared memory."""
+    kh, kw = spec.filter_shape
+    hh, hw = halo_extent(spec, th, tw)
+    stages = 2 if cout > chunk else 1
+    smem = 4 * stages * (hh * hw * halo_pitch(chunk) + kh * kw * cin_t * chunk)
+    tiles = batch * _cdiv(n_out[0], th) * _cdiv(n_out[1], tw)
+    return IGPlan(th, tw, cin_t, chunk, tiles * _cdiv(cin, cin_t), smem,
+                  th * tw, tiles, (hh, hw), stages)
+
+
+def plan(spec: ConvSpec, batch: int, n_out, in_hw, cin: int,
+         cout: int) -> IGPlan:
+    """The kernel's tile, Cin tile and Cout chunk for one launch.
+
+    A tile holds cu x cv sites of each of the S_h * S_w residue classes
+    (th = S_h * cu, tw = S_w * cv): one warp's sites per class, or
+    CTA_SITES / classes where that is more; cv is the class's columns in
+    the frame, rounded up to a power of two, between MIN_CLASS_COLS and
+    MAX_CLASS_COLS.  At most MAX_THREADS sites (cu, then cv, halve).  The
+    chunk is Cout rounded up to a power of two, at least 4 and at most
+    MAX_CHUNK; it halves, then the tile, until the stages fit SMEM_BYTES.
+    Raises ValueError, naming the geometry, when nothing fits.  `batch`
+    and `in_hw` (dy's size, implied by `n_out`) only count the CTAs."""
+    (sh, sw) = spec.stride
+    classes = sh * sw
+    cin_t = cin if cin <= 4 else 8
+    sites = max(WARP, _pow2_floor(CTA_SITES // classes))
+    cv = min(sites, MAX_CLASS_COLS,
+             max(MIN_CLASS_COLS, _pow2_ceil(_cdiv(n_out[1], sw))))
+    cu = sites // cv
+    while classes * cu * cv > MAX_THREADS and cu > 1:
+        cu //= 2
+    while classes * cu * cv > MAX_THREADS and cv > 1:
+        cv //= 2
+    chunk = min(MAX_CHUNK, max(4, _pow2_ceil(cout)))
+    if classes * cu * cv <= MAX_THREADS:
+        while True:
+            p = counted(spec, batch, n_out, cin, cout, sh * cu, sw * cv,
+                        cin_t, chunk)
+            if p.smem <= SMEM_BYTES:
+                return p
+            if chunk > 4:
+                chunk //= 2
+            elif cu > 1:
+                cu //= 2
+            elif cv > 1:
+                cv //= 2
+            else:
+                break
+    raise ValueError(
+        f"implicit-GEMM tconv: no tile fits stride={spec.stride}, "
+        f"dilation={spec.dilation}, filter={spec.filter_shape}, "
+        f"padding={spec.padding}, dy {tuple(in_hw)} x {cout} -> n_out "
+        f"{tuple(n_out)} x {cin} ({MAX_THREADS} threads, {SMEM_BYTES} "
+        f"bytes of shared memory)")
 
 
 def _upsample_pad(dy: torch.Tensor, sh: int, sw: int, gh: int,
@@ -82,11 +209,13 @@ def tconv_implicit_gemm_cuda(dy: torch.Tensor, w: torch.Tensor,
                              spec: ConvSpec, *, n_out, bias=None,
                              epilogue: Epilogue | None = None
                              ) -> torch.Tensor:
-    """Launch the kernel on the current stream.  fp32, contiguous, one
-    device -- the wrapper in `kernels/ops.py` checks all three."""
+    """Launch the kernel on the current stream with `plan`'s tiles.  fp32,
+    contiguous, one device -- the wrapper in `kernels/ops.py` checks all
+    three."""
     B, Oh, Ow, Cout = dy.shape
     Kh, Kw, Cin, _ = w.shape
     Nh, Nw = n_out
+    p = plan(spec, B, n_out, (Oh, Ow), Cin, Cout)
     dx = torch.empty((B, Nh, Nw, Cin), dtype=torch.float32, device=dy.device)
     fn = build.kernel_function("implicit_gemm", "tconv_implicit_gemm_f32",
                                _ARGTYPES)
@@ -95,7 +224,7 @@ def tconv_implicit_gemm_cuda(dy: torch.Tensor, w: torch.Tensor,
                  None if bias is None else bias.data_ptr(), dx.data_ptr(),
                  B, Oh, Ow, Cout, Kh, Kw, Cin, Nh, Nw,
                  *spec.stride, *spec.padding, *spec.dilation,
-                 *build.epilogue_args(epilogue),
-                 torch.cuda.current_stream().cuda_stream)
+                 *build.epilogue_args(epilogue), p.th, p.tw, p.cin_t,
+                 p.chunk, torch.cuda.current_stream().cuda_stream)
     build.check_launch("implicit_gemm", err)
     return dx

@@ -38,6 +38,7 @@ from repro_torch.kernels.dconv_backward import (conv_backward_plain,
                                                 tconv_backward_plain)
 from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
 from repro_torch.kernels.dconv_forward import dconv_forward_plain
+from repro_torch.kernels.implicit_gemm import plan as ig_plan
 from repro_torch.kernels.implicit_gemm import tconv_implicit_gemm_plain
 from repro_torch.kernels.tconv_phase import tconv_fused_plain
 from repro_torch.models import cnn, gan
@@ -141,6 +142,85 @@ def test_tconv_phase_kernel_at_plan_edges(cuda, name, geom):
             runs[0], tconv_fused_plain(dy, w, spec, n_out=n_out, bias=b,
                                        epilogue=ep), atol=TOL, rtol=TOL)
         assert torch.equal(runs[0], runs[1])
+
+
+# The implicit-GEMM kernel's plan edges, as TCONV_GRID geometries: Cout
+# not a multiple of 4 (4-byte copies) with an n_out tail, Cout over one
+# chunk (37, 130), Cin over one thread's register tile (130), many tiles
+# per image (B = 1, 64 x 64), wide halos (S = 1 with D = 2; K = 11 with
+# S = 4, whose chunk shrinks to fit two stages), and residues no tap
+# reaches (S = 3, K = 2) over two chunks.
+IG_EDGES = [
+    ("cout7_tail", (2, 1, 4, 1, 2, (5, 5), 3, 7, 1)),
+    ("ragged_channels", (2, 1, 3, 1, 2, (5, 5), 130, 37, 0)),
+    ("cout130", (2, 1, 3, 1, 2, (5, 5), 5, 130, 0)),
+    ("b1_64x64", (2, 1, 4, 1, 1, (32, 32), 3, 32, 0)),
+    ("s1_d2", (1, 2, 3, 2, 2, (20, 20), 5, 12, 0)),
+    ("k11_s4", (4, 1, 11, 0, 2, (6, 6), 5, 40, 0)),
+    ("bias_fill_s3_k2", (3, 1, 2, 0, 2, (4, 4), 3, 40, 0)),
+]
+
+
+@pytest.mark.parametrize("name,geom", IG_EDGES, ids=[c[0] for c in IG_EDGES])
+def test_implicit_gemm_kernel_at_plan_edges(cuda, name, geom):
+    """Against the plain version under the four epilogues of EP_KW; a
+    rerun is bit-identical."""
+    spec, n_out, dy, w, bias = (
+        torch.tensor(a).to(cuda) if isinstance(a, np.ndarray) else a
+        for a in tconv_case(geom, 11))
+    p = ig_plan(spec, dy.shape[0], n_out, tuple(dy.shape[1:3]), w.shape[2],
+                w.shape[3])
+    if name in ("ragged_channels", "cout130", "bias_fill_s3_k2"):
+        assert p.stages == 2
+    if name == "b1_64x64":
+        assert p.tiles > 4
+    for kw in EP_KW:
+        ep = None if kw is None else Epilogue(**kw)
+        b = bias if ep is not None and ep.bias else None
+        runs = [ops.tconv_phase(dy, w, stride=spec.stride,
+                                padding=spec.padding, n_out=n_out,
+                                dilation=spec.dilation, bias=b, epilogue=ep,
+                                strategy="implicit_gemm") for _ in range(2)]
+        torch.testing.assert_close(
+            runs[0], tconv_implicit_gemm_plain(dy, w, spec, n_out=n_out,
+                                               bias=b, epilogue=ep),
+            atol=TOL, rtol=TOL)
+        assert torch.equal(runs[0], runs[1])
+
+
+def test_implicit_gemm_reads_operands_off_the_16_byte_grid(cuda):
+    """dy and w contiguous but one float past a 16-byte boundary: the
+    kernel takes its 4-byte copies and still matches the plain version."""
+    spec, n_out, dy, w, bias = tconv_case((2, 1, 4, 1, 2, (16, 16), 3, 32,
+                                           0), 12)
+
+    def shifted(a):
+        flat = torch.zeros(a.size + 1, device=cuda)
+        flat[1:] = torch.tensor(a.ravel(), device=cuda)
+        return flat[1:].view(a.shape)
+
+    dy, w = shifted(dy), shifted(w)
+    assert dy.is_contiguous() and dy.data_ptr() % 16 != 0
+    got = ops.tconv_implicit_gemm(dy, w, stride=spec.stride,
+                                  padding=spec.padding, n_out=n_out)
+    torch.testing.assert_close(
+        got, tconv_implicit_gemm_plain(dy, w, spec, n_out=n_out), atol=TOL,
+        rtol=TOL)
+
+
+def test_implicit_gemm_refuses_a_plan_out_of_range(cuda, monkeypatch):
+    """The C entry checks the plan it is given: a tile that is not a
+    multiple of the stride is refused, and the wrapper raises."""
+    from repro_torch.kernels import implicit_gemm
+    gen = torch.Generator().manual_seed(6)
+    dy = _rand(gen, 2, 4, 4, 8, device=cuda)
+    w = _rand(gen, 4, 4, 3, 8, device=cuda)
+    spec = ConvSpec.make(stride=2, padding=1, filter_shape=4)
+    good = implicit_gemm.plan(spec, 2, (8, 8), (4, 4), 3, 8)
+    monkeypatch.setattr(implicit_gemm, "plan",
+                        lambda *a: good._replace(th=3))
+    with pytest.raises(RuntimeError, match="implicit_gemm kernel launch"):
+        ops.tconv_implicit_gemm(dy, w, stride=2, padding=1, n_out=(8, 8))
 
 
 @pytest.mark.parametrize("name,geom", FWD_EDGES, ids=[c[0] for c in FWD_EDGES])
