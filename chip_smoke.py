@@ -53,7 +53,22 @@ Phases (any failed check raises and ends the run non-zero):
      form, every decode step on the split form -- no NaN in any logits,
      every request answered, and the same tokens from a second run; then
      a torch.profiler trace of 4 decode steps: the device's busy time, the
-     flash-attention kernels' part of it, against the step's wall time.
+     flash-attention kernels' part of it, against the step's wall time;
+  7. the trainer: ConvTrainer (train/conv_trainer.py) for `gan`, `gan_gen`
+     and `cnn` at the published widths, batch 64, 8 steps, its step
+     captured once as a CUDA graph and replayed (train/step_graph.py):
+     (a) the run equals 8 eager `build_step` steps on the graph's stream,
+     losses and state bit for bit, with one capture and the wrappers
+     called only at warm-up and capture; (b) 4 steps, then a fresh trainer
+     resuming from the checkpoint to 8, equal the straight run bit for
+     bit; (c) a nan_output injected at attempt 2 trips the flag on the
+     card, is rolled back and retried, blames named layers and ends
+     bit-equal to the straight run; (d) the run within 1e-3 of the same
+     trainer on the CPU; (e) a torch.profiler trace of one replay launches
+     each conv kernel as STEP_LAUNCHES says (27 / 12 / 6); (f) ms per step
+     eager and replayed (batch on the card), device-busy ms and idle share
+     of each, the commit copy's device ms, the trainer loop's ms per step
+     and `batch_at`'s ms.
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
 and the library.  Kernel, plain version and library all compute in fp32;
@@ -70,7 +85,10 @@ unscaled, a sum of 16384 unit products would put its rounding near the
 tolerance itself.
 Training: atol = rtol = 1e-3 after every step -- dW sums up to 16384 fp32
 products in another order than the plain matmul, and five steps carry
-the difference on.  LM parity: atol = rtol = 1e-3 on logits and cache
+the difference on; the trainer's 8 steps are held to the same 1e-3.
+Replayed against eager steps, resumed and rolled-back runs against the
+straight run: bit for bit (the kernels use no atomics and split their
+sums in a fixed order).  LM parity: atol = rtol = 1e-3 on logits and cache
 after every call (fp32 matmuls over d_model 1024 and d_ff 3072 in
 another order than the CPU's, carried through 2 layers and 8 steps).
 TF32 is turned off for cuDNN and for torch.matmul, so no side rounds its
@@ -81,9 +99,11 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -140,6 +160,22 @@ STEP_LAUNCHES = {
                      "tconv_backward": 3},
     "sgd_step": {"dconv_forward": 3, "conv_backward": 3},
 }
+
+
+# Phase 7: ConvTrainer at the published widths, each workload with the
+# model step it runs (STEP_LAUNCHES' key) and its geometry.
+TRAINER_MODELS = {
+    "gan": ("gan_sgd_step", dict(z_dim=64, base=64)),
+    "gan_gen": ("gen_sgd_step", dict(z_dim=64, base=64)),
+    "cnn": ("sgd_step", dict(widths=(32, 64, 128), image=32, n_classes=10)),
+}
+TRAINER_STEPS = 8
+TRAINER_CKPT_EVERY = 4
+TRAINER_NAN_AT = 2        # the step attempt the injected nan_output poisons
+TRAINER_TIMED = 20        # steps per timing of eager steps and replays
+TRAINER_PROFILED = 5      # replays (eager steps) per timing trace
+PROFILE_PAD_S = 0.05      # idle host time on each side of a traced window
+PROFILE_LEAD_IN = 8       # spin kernels that open a traced window
 
 
 def card_line() -> str:
@@ -338,6 +374,278 @@ def train_profile(step, state, batches) -> dict:
                   "other_device_ms_per_step": busy - sum(by_kernel.values()),
                   "device_idle_share": 1.0 - busy / wall_ms,
                   "kernels_per_step": len(kernels) / len(batches)}
+
+
+def calls_profile(call, n: int) -> dict:
+    """A torch.profiler trace of `n` calls of `call`.  Per call: the
+    device's busy time (every kernel and copy), the conv kernels' launches
+    and ms by wrapper (CONV_SYMBOLS), all kernels, and the device's idle
+    share against the wall time under the profiler.  Raises if the trace
+    holds no kernel: the launch pin reads it.
+
+    Late in a long process (after phase 6) every trace on the card lost
+    its first two device events -- a one-replay trace showed 2 of the
+    CNN step's 3 `dconv_forward` launches -- and an unpadded one-replay
+    trace sometimes came back empty.  So each window opens with
+    PROFILE_LEAD_IN spin kernels and a synchronize (the events lost are
+    theirs; they are left out of every number here) and PROFILE_PAD_S of
+    idle host time on each side of the timed calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        time.sleep(PROFILE_PAD_S)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.name]
+    if not kernels:
+        raise AssertionError("the profiler's trace holds no device event")
+
+    def conv(sym):
+        return [e for e in kernels
+                if re.search(rf"(?<![A-Za-z_]){sym}\b", e.name)]
+
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+    launches = {name: len(conv(sym)) / n for name, sym in CONV_SYMBOLS.items()}
+    return {"calls": n, "wall_ms_per_call_under_profiler": wall_ms,
+            "device_busy_ms_per_call": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_events_per_call": len(kernels) / n,
+            "conv_launches_per_call": {k: v for k, v in launches.items()
+                                       if v},
+            "conv_kernel_ms_per_call": {
+                name: sum(e.time_range.elapsed_us() for e in conv(sym))
+                / 1e3 / n for name, sym in CONV_SYMBOLS.items()
+                if launches[name]}}
+
+
+def trainer_phase(card: str) -> dict:
+    """Phase 7: ConvTrainer on the card, each workload of TRAINER_MODELS
+    at the published widths, batch TRAIN_BATCH, TRAINER_STEPS steps:
+    (a) a trainer's run (one capture, every step a replay) equals the
+    eager `build_step` steps on the graph's stream, losses and state bit
+    for bit; (b) TRAINER_CKPT_EVERY steps, then a fresh trainer resuming
+    from the checkpoint, equal the straight run bit for bit; (c) a
+    nan_output at attempt TRAINER_NAN_AT trips the flag on the device,
+    is rolled back and retried, ends bit-equal to the straight run and
+    blames named layers; (d) the straight run within TRAIN_TOL of the
+    same trainer on the CPU; (e) one replay's trace launches each conv
+    kernel as STEP_LAUNCHES says; (f) timings.  Returns the wrappers'
+    launches counted over the (a) runs (warm-up and capture: a replay
+    calls no wrapper)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import tree_leaves, tree_paths
+    from repro_torch.serve.faults import (FaultEvent, FaultInjector,
+                                          FaultSchedule, train_site)
+    from repro_torch.train.conv_trainer import (_BATCH_KEYS, ConvTrainer,
+                                                ConvTrainerConfig)
+    from repro_torch.train.step_graph import WARMUP_STEPS
+
+    dev = torch.device("cuda")
+    launches = {}
+
+    def same(a, b) -> bool:
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+    def losses(out):
+        return [h["loss"] for h in out["history"]]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for workload, (step_name, widths) in TRAINER_MODELS.items():
+            def cfg(**kw):
+                return ConvTrainerConfig(**(dict(
+                    workload=workload, total_steps=TRAINER_STEPS,
+                    batch=TRAIN_BATCH, backend="cuda", lr=LR,
+                    ckpt_every=TRAINER_CKPT_EVERY, seed=0) | widths | kw))
+
+            def on_device(tr, i):
+                b = tr.data.batch_at(i)
+                return tuple(torch.from_numpy(b[k]).to(dev)
+                             for k in _BATCH_KEYS[workload])
+
+            # (a) the trainer against its eager steps.
+            tr = ConvTrainer(cfg(), device=dev)
+            ops.reset_launches()
+            straight = tr.run()
+            torch.cuda.synchronize()
+            counted = {k: v for k, v in ops.LAUNCHES.items() if v}
+            traced_steps = {k: (WARMUP_STEPS + 1) * v
+                            for k, v in STEP_LAUNCHES[step_name].items()}
+            if counted != traced_steps or tr.captures != 1:
+                raise AssertionError(
+                    f"trainer {workload}: {tr.captures} captures, wrapper "
+                    f"launches {counted}, expected {traced_steps} (warm-up "
+                    f"and one capture)")
+            for k, v in counted.items():
+                launches[k] = launches.get(k, 0) + v
+            if [h["step"] for h in straight["history"]] != \
+                    list(range(1, TRAINER_STEPS + 1)):
+                raise AssertionError(f"trainer {workload}: history "
+                                     f"{straight['history']}")
+            step_fn = tr.build_step(guarded=True)
+            lr = torch.tensor(LR, dtype=torch.float32, device=dev)
+            state, eager_losses = tr.init_state(), []
+            side = tr.graph.stream
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for i in range(TRAINER_STEPS):
+                    state, metrics, finite = step_fn(state, on_device(tr, i),
+                                                     lr)
+                    eager_losses.append(metrics["loss"])
+            torch.cuda.current_stream().wait_stream(side)
+            eager_losses = [float(v) for v in eager_losses]
+            if not same(straight["state"], state) or \
+                    losses(straight) != eager_losses:
+                raise AssertionError(
+                    f"trainer {workload}: the replayed run is not bit-equal "
+                    f"to the eager steps (losses {losses(straight)} vs "
+                    f"{eager_losses})")
+
+            # (b) resume from a checkpoint.
+            d = os.path.join(tmp, workload)
+            ConvTrainer(cfg(ckpt_dir=d, total_steps=TRAINER_CKPT_EVERY),
+                        device=dev).run()
+            resumed = ConvTrainer(cfg(ckpt_dir=d), device=dev).run()
+            if resumed["start_step"] != TRAINER_CKPT_EVERY or not same(
+                    resumed["state"], straight["state"]) or \
+                    losses(resumed) != losses(straight)[TRAINER_CKPT_EVERY:]:
+                raise AssertionError(f"trainer {workload}: the resumed run "
+                                     f"is not bit-equal to the straight run")
+
+            # (c) a NaN in the batch of attempt TRAINER_NAN_AT.
+            inj = FaultInjector(FaultSchedule([FaultEvent(
+                train_site(workload), TRAINER_NAN_AT, "nan_output")]))
+            faulted_tr = ConvTrainer(cfg(), injector=inj, device=dev)
+            faulted = faulted_tr.run()
+            stats, blames = faulted["guard_stats"], faulted["blames"]
+            leaf_names = {p for p, _ in tree_paths(straight["state"])}
+            if stats["nonfinite_steps"] != 1 or stats["retries"] != 1 or \
+                    faulted_tr.captures != 1 or len(blames) != 1 or \
+                    blames[0]["step"] != TRAINER_NAN_AT or \
+                    not blames[0]["grads"] or \
+                    not set(blames[0]["grads"]) <= leaf_names or \
+                    not same(faulted["state"], straight["state"]) or \
+                    losses(faulted) != losses(straight):
+                raise AssertionError(
+                    f"trainer {workload}: NaN rollback: stats {stats}, "
+                    f"blames {blames}, {faulted_tr.captures} captures")
+
+            # (d) the same run on the CPU.
+            on_cpu = ConvTrainer(cfg(), device="cpu").run()
+            worst = 0.0
+            for (path, a), (_, b) in zip(tree_paths(straight["state"]),
+                                         tree_paths(on_cpu["state"])):
+                a = a.cpu()
+                if a.shape != b.shape or not torch.allclose(
+                        a, b, atol=TRAIN_TOL, rtol=TRAIN_TOL):
+                    raise AssertionError(
+                        f"trainer {workload} {path}: max |err| "
+                        f"{(a - b).abs().max().item():.3e} against the CPU")
+                worst = max(worst, (a - b).abs().max().item())
+            if not np.allclose(losses(straight), losses(on_cpu),
+                               atol=TRAIN_TOL, rtol=TRAIN_TOL):
+                raise AssertionError(f"trainer {workload}: losses "
+                                     f"{losses(straight)} against the CPU's "
+                                     f"{losses(on_cpu)}")
+
+            # (e) one replay's conv launches, by kernel symbol.
+            graph = tr.graph
+
+            def replay():
+                graph.run(LR)
+
+            one = calls_profile(replay, 1)
+            if one["conv_launches_per_call"] != STEP_LAUNCHES[step_name]:
+                raise AssertionError(
+                    f"trainer {workload}: one replay launched "
+                    f"{one['conv_launches_per_call']}, expected "
+                    f"{STEP_LAUNCHES[step_name]}")
+            print("trainer " + json.dumps({
+                "workload": workload, "step": step_name,
+                "batch": TRAIN_BATCH, "steps": TRAINER_STEPS,
+                "captures": tr.captures, "wrapper_launches": counted,
+                "launches_per_replay": one["conv_launches_per_call"],
+                "losses": losses(straight),
+                "replay_equals_eager": True, "resume_equals_straight": True,
+                "nan_rollback": {"guard": stats, "blame": blames[0]["grads"]},
+                "max_abs_err_vs_cpu": worst, "tol": TRAIN_TOL,
+                "card": card}))
+
+            # (f) timings: eager steps and replays with the batch on the
+            # card (host clock to a synchronize), their traces, and the
+            # loop with batch_at on the host.
+            data, state = on_device(tr, 0), graph.state
+
+            def eager():
+                step_fn(state, data, lr)
+
+            timing = {"workload": workload, "batch": TRAIN_BATCH}
+            for name, call in (("eager", eager), ("replay", replay)):
+                for _ in range(3):
+                    call()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(TRAINER_TIMED):
+                    call()
+                torch.cuda.synchronize()
+                timing[f"{name}_ms_per_step"] = \
+                    (time.perf_counter() - t0) * 1e3 / TRAINER_TIMED
+                prof = calls_profile(call, TRAINER_PROFILED)
+                timing[f"{name}_profile"] = {
+                    k: prof[k] for k in ("wall_ms_per_call_under_profiler",
+                                         "device_busy_ms_per_call",
+                                         "device_idle_share",
+                                         "device_events_per_call")}
+            timing["commit_device_ms"] = calls_profile(
+                lambda: graph.commit(graph.outputs[0]),
+                TRAINER_PROFILED)["device_busy_ms_per_call"]
+            for name in ("eager", "replay"):   # against the unprofiled ms
+                busy = timing[f"{name}_profile"]["device_busy_ms_per_call"]
+                timing[f"{name}_device_busy_ms"] = busy
+                timing[f"{name}_idle_share"] = \
+                    1.0 - busy / timing[f"{name}_ms_per_step"]
+            starts, batch_ms = [], []
+            batch_at = tr.data.batch_at
+
+            def timed_batch_at(step):
+                t0 = time.perf_counter()
+                starts.append(t0)
+                out = batch_at(step)
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            tr.data.batch_at = timed_batch_at
+            loop = tr.run()       # the same trainer: a restore, no capture
+            loop_end = time.perf_counter()
+            del tr.data.batch_at
+            if tr.captures != 1 or not same(loop["state"], straight["state"]):
+                raise AssertionError(f"trainer {workload}: a second run of "
+                                     f"the trainer captured again or "
+                                     f"changed its result")
+            timing["loop_ms_per_step"] = \
+                (loop_end - starts[0]) * 1e3 / TRAINER_STEPS
+            timing["batch_at_ms"] = sum(batch_ms) / len(batch_ms)
+            timing["captures"] = tr.captures
+            print("trainer timing " + json.dumps(timing | {"card": card}))
+    print(f"trainer: {', '.join(TRAINER_MODELS)} at batch {TRAIN_BATCH}: "
+          f"{TRAINER_STEPS} replayed steps equal the eager steps bit for "
+          f"bit, resume and NaN rollback equal the straight run bit for bit, "
+          f"the CPU within {TRAIN_TOL:g}, one capture per trainer, "
+          f"{'/'.join(str(sum(STEP_LAUNCHES[s].values())) for s, _ in TRAINER_MODELS.values())} "
+          f"conv launches per replay")
+    return launches
 
 
 def main() -> int:
@@ -1162,6 +1470,9 @@ def main() -> int:
           f"{full.n_layers} flash_attention launches per prefill and per "
           f"decode step, no NaN")
 
+    # -- phase 7: the trainer, its step captured as a CUDA graph ---------------
+    trainer_launches = trainer_phase(card)
+
     sources = {"dconv_forward": ("dconv_forward.cu",
                                  "src/repro/kernels/dconv_forward.py:104"),
                "tconv_phase": ("tconv_phase.cu",
@@ -1185,7 +1496,8 @@ def main() -> int:
                      "replaces": replaces,
                      "launches": serve_launches.get(name, 0)
                      + train_launches.get(name, 0)
-                     + lm_launches.get(name, 0),
+                     + lm_launches.get(name, 0)
+                     + trainer_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),

@@ -76,8 +76,9 @@ def guarded_sgd_step(params: dict, x: torch.Tensor, labels: torch.Tensor,
                      *, lr=0.05, stride=2, backend=None,
                      fuse_epilogue=True):
     """`sgd_step` + the numerics guard: (new_params, loss, all_finite),
-    `all_finite` over the UPDATED params and the loss.  The guard adds no
-    kernel launch."""
+    `all_finite` a 0-d bool tensor over the UPDATED params and the loss,
+    left on the device (no host read).  The guard adds no kernel launch
+    of ours."""
     new, loss = sgd_step(params, x, labels, lr=lr, stride=stride,
                          backend=backend, fuse_epilogue=fuse_epilogue)
     return new, loss, tree_all_finite(new, loss)

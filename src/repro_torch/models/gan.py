@@ -193,7 +193,8 @@ def gan_sgd_step(state: dict, z: torch.Tensor, real: torch.Tensor, *,
 def guarded_gen_sgd_step(g_params: dict, d_params: dict, z: torch.Tensor,
                          *, lr=0.05, backend=None, fuse_epilogue=True):
     """`gen_sgd_step` + the all-finite flag:
-    (new_g_params, g_loss, all_finite)."""
+    (new_g_params, g_loss, all_finite), the flag a 0-d bool tensor left
+    on the device."""
     new, loss = gen_sgd_step(g_params, d_params, z, lr=lr, backend=backend,
                              fuse_epilogue=fuse_epilogue)
     return new, loss, tree_all_finite(new, loss)
@@ -202,7 +203,8 @@ def guarded_gen_sgd_step(g_params: dict, d_params: dict, z: torch.Tensor,
 def guarded_gan_sgd_step(state: dict, z: torch.Tensor, real: torch.Tensor,
                          *, lr=0.05, backend=None, fuse_epilogue=True):
     """`gan_sgd_step` + the all-finite flag:
-    (new_state, g_loss, d_loss, all_finite)."""
+    (new_state, g_loss, d_loss, all_finite), the flag a 0-d bool tensor
+    left on the device."""
     new, g_loss, d_loss = gan_sgd_step(state, z, real, lr=lr,
                                        backend=backend,
                                        fuse_epilogue=fuse_epilogue)

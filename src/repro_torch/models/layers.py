@@ -43,14 +43,30 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
-def tree_all_finite(*trees) -> bool:
-    """True when every floating leaf of every tree is finite.  Integer
-    leaves (labels, counters) are skipped.  One device reduction per
-    leaf and one read of the result."""
+def tree_paths(tree, prefix: str = "") -> list:
+    """(path, leaf) pairs in `jax.tree_util.tree_flatten`'s order: dict
+    keys SORTED, then sequences in order.  Each path is the string
+    `jax.tree_util.keystr` gives the same leaf, e.g. "['convs'][0]"."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_paths(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def tree_all_finite(*trees) -> torch.Tensor:
+    """0-d bool tensor: every floating leaf of every tree is finite.
+    Integer leaves (labels, counters) are skipped.  One device reduction
+    per leaf and none to the host: the flag stays on the leaves' device
+    until the caller reads it, so a step that returns it can be captured
+    in a CUDA graph (as `repro`'s stays inside its jit).  A tree with no
+    floating leaf gives `torch.tensor(True)`."""
     flags = [torch.isfinite(leaf).all()
              for tree in trees for leaf in tree_leaves(tree)
              if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
-    return bool(torch.stack(flags).all()) if flags else True
+    return torch.stack(flags).all() if flags else torch.tensor(True)
 
 
 def trunc_normal(generator: torch.Generator, shape, scale: float):

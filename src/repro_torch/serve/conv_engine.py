@@ -138,7 +138,8 @@ class ConvServeEngine:
         if slot_batch < 1 or queue_limit < 1:
             raise ValueError("slot_batch and queue_limit must be >= 1")
         if injector is not None:
-            raise NotImplementedError("fault injection (serve/faults.py) "
+            raise NotImplementedError("the engine's fault injection "
+                                      "(serve/faults.py::inject_backend) "
                                       "is not ported yet; injector must "
                                       "be None")
         self.device = resolve_device(device)

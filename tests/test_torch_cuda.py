@@ -693,3 +693,107 @@ def test_engine_prefills_on_wgmma_and_decodes_on_split(cuda):
     assert ops.FLASH_FORMS == {"tile": 0, "wgmma": 2 * prefills,
                                "split": 2 * decodes}
     assert ops.LAUNCHES["flash_attention"] == 2 * (prefills + decodes)
+
+
+# -- the trainer's compiled step (train/step_graph.py) ------------------------
+
+_TRAINER_SIZES = {"cnn": dict(widths=(8, 16), image=16),
+                  "gan_gen": dict(z_dim=16, base=8),
+                  "gan": dict(z_dim=16, base=8)}
+
+
+def _trainer(workload, device, injector=None, **kw):
+    from repro_torch.train.conv_trainer import ConvTrainer, ConvTrainerConfig
+    base = dict(workload=workload, total_steps=4, batch=8, backend="cuda",
+                ckpt_every=2, seed=0, **_TRAINER_SIZES[workload])
+    base.update(kw)
+    return ConvTrainer(ConvTrainerConfig(**base), injector=injector,
+                       device=device)
+
+
+def _eager_run(tr, lrs):
+    """The trainer's steps eagerly (`build_step`) on its graph's stream,
+    from its seeded init, at the learning rates `lrs`: (state, losses)."""
+    from repro_torch.train.conv_trainer import _BATCH_KEYS
+    fn, state = tr.build_step(guarded=True), tr.init_state()
+    side, losses = tr.graph.stream, []
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i, lr in enumerate(lrs):
+            b = tr.data.batch_at(i)
+            data = tuple(torch.from_numpy(b[k]).to(tr.device)
+                         for k in _BATCH_KEYS[tr.tcfg.workload])
+            state, metrics, fin = fn(state, data, torch.tensor(
+                lr, dtype=torch.float32, device=tr.device))
+            assert fin.dtype == torch.bool and fin.is_cuda
+            losses.append(float(metrics["loss"]))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    return state, losses
+
+
+def _assert_state_bit_equal(a, b):
+    from repro_torch.models.layers import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("workload", ["cnn", "gan_gen", "gan"])
+def test_trainer_replays_equal_eager_steps(cuda, workload):
+    """4 trainer steps (one capture, 4 replays) equal 4 eager steps on the
+    same stream, losses and state bit for bit."""
+    tr = _trainer(workload, cuda)
+    out = tr.run()
+    assert tr.captures == 1
+    state, losses = _eager_run(tr, [0.05] * 4)
+    _assert_state_bit_equal(out["state"], state)
+    assert [h["loss"] for h in out["history"]] == losses
+
+
+def test_one_capture_across_a_shrink_lr_retry_and_a_restore(cuda, tmp_path):
+    from repro_torch.serve.faults import (FaultEvent, FaultInjector,
+                                          FaultSchedule)
+    inj = FaultInjector(FaultSchedule([FaultEvent("train.cnn", 1,
+                                                  "nan_output"),
+                                       FaultEvent("train.cnn", 2,
+                                                  "nan_output")]))
+    tr = _trainer("cnn", cuda, inj, ckpt_dir=str(tmp_path),
+                  nonfinite_policy="shrink_lr", max_retries=3)
+    out = tr.run()
+    assert out["guard_stats"]["lr_shrinks"] == 1
+    assert [h["step"] for h in out["history"]] == [1, 2, 3, 4]
+    tr.tcfg.total_steps = 6             # the same trainer restores step 4
+    out = tr.run()
+    assert out["start_step"] == 4 and tr.captures == 1
+    state, losses = _eager_run(tr, [0.05, 0.025, 0.05, 0.05, 0.05, 0.05])
+    _assert_state_bit_equal(out["state"], state)
+    assert [h["loss"] for h in out["history"]] == losses[4:]
+
+
+@pytest.mark.parametrize("workload", ["cnn", "gan"])
+def test_trainer_resume_bit_exact_on_the_card(cuda, workload, tmp_path):
+    d = str(tmp_path)
+    _trainer(workload, cuda, total_steps=2, ckpt_dir=d).run()
+    out_r = _trainer(workload, cuda, ckpt_dir=d).run()
+    assert out_r["start_step"] == 2
+    out_s = _trainer(workload, cuda).run()
+    _assert_state_bit_equal(out_r["state"], out_s["state"])
+    assert out_r["history"] == out_s["history"][2:]
+
+
+def test_async_checkpoints_during_replays_equal_blocking_ones(cuda,
+                                                              tmp_path):
+    """Every step checkpointed: the async writer snapshots the step's
+    buffers before the next replay and commit overwrite them."""
+    kw = dict(ckpt_every=1, keep_last=8, total_steps=6)
+    out_a = _trainer("gan", cuda, ckpt_dir=str(tmp_path / "a"),
+                     async_checkpoint=True, **kw).run()
+    out_b = _trainer("gan", cuda, ckpt_dir=str(tmp_path / "b"), **kw).run()
+    _assert_state_bit_equal(out_a["state"], out_b["state"])
+    for step in range(1, 7):
+        for i in range(8):
+            leaf = f"step_{step}/leaf_{i}.npy"
+            np.testing.assert_array_equal(np.load(tmp_path / "a" / leaf),
+                                          np.load(tmp_path / "b" / leaf))

@@ -53,6 +53,14 @@ def _leaves(tree):
         tlayers.tree_map(lambda t: t.detach().numpy(), tree))
 
 
+def _assert_flag(flag, device):
+    """The guard's flag: a 0-d bool tensor on the step's device (no host
+    read inside the step), as `repro`'s is a jax.Array in the jit."""
+    assert isinstance(flag, torch.Tensor)
+    assert flag.dtype == torch.bool and flag.dim() == 0
+    assert flag.device == device
+
+
 def _assert_tree_close(got, want, err_msg=""):
     got_leaves = _leaves(got)
     want_leaves = jax.tree_util.tree_leaves(want)
@@ -114,7 +122,14 @@ def test_tree_all_finite_matches_repro(bad):
     want = bool(jlayers.tree_all_finite(leaves, np.float32(1.0)))
     got = tlayers.tree_all_finite(params_from_numpy(leaves, "cpu"),
                                   torch.tensor(1.0))
-    assert got is want
+    _assert_flag(got, torch.device("cpu"))
+    assert bool(got) is want
+
+
+def test_tree_all_finite_without_a_floating_leaf_is_true():
+    got = tlayers.tree_all_finite({"labels": torch.arange(3)}, [])
+    _assert_flag(got, torch.device("cpu"))
+    assert bool(got) is True
 
 
 def test_params_from_numpy_carries_the_training_trees():
@@ -195,7 +210,8 @@ def test_guarded_steps_match_repro():
         params_from_numpy(_cnn_params(), "cpu"), torch.tensor(b["x"]),
         torch.tensor(b["labels"]), backend="cuda")
     want, want_loss, want_ok = _repro_cnn_step(True, True)
-    assert ok is bool(want_ok) is True
+    _assert_flag(ok, loss.device)
+    assert bool(ok) is bool(want_ok) is True
     assert_allclose(loss, want_loss, rtol=TOL, atol=TOL)
     _assert_tree_close(new, want)
 
@@ -204,14 +220,16 @@ def test_guarded_steps_match_repro():
     new, loss, ok = tgan.guarded_gen_sgd_step(st["g"], st["d"], z,
                                               backend="cuda")
     want, want_loss, want_ok = _repro_gen_step(True, True)
-    assert ok is bool(want_ok) is True
+    _assert_flag(ok, loss.device)
+    assert bool(ok) is bool(want_ok) is True
     _assert_tree_close(new, want)
 
     real = torch.tensor(_gan_batch()["real"])
     new, g_loss, d_loss, ok = tgan.guarded_gan_sgd_step(st, z, real,
                                                         backend="cuda")
     want, want_g, want_d, want_ok = _repro_gan_step(True, True)
-    assert ok is bool(want_ok) is True
+    _assert_flag(ok, g_loss.device)
+    assert bool(ok) is bool(want_ok) is True
     assert_allclose(d_loss, want_d, rtol=TOL, atol=TOL)
     _assert_tree_close(new, want)
 
@@ -224,7 +242,8 @@ def test_guarded_step_flags_a_non_finite_update():
     _, _, ok = tcnn.guarded_sgd_step(p, torch.tensor(b["x"]),
                                      torch.tensor(b["labels"]),
                                      backend="cuda")
-    assert ok is False
+    _assert_flag(ok, torch.device("cpu"))
+    assert bool(ok) is False
 
 
 def test_steps_do_not_touch_the_callers_params():
