@@ -28,7 +28,11 @@ Phases (any failed check raises and ends the run non-zero):
      the library call; kernel, plain and library timed with CUDA events,
      beside an empty kernel's launch (the floor under every launch); the
      phase / implicit-GEMM race: the generator's t1-t3 at batch 4 and 64
-     on the kernel the strategy rule does not pick, timed only;
+     on both kernels, the one `tiling.plan_strategy` picks and the other;
+     phase 8's geometries (the atrous branches at D = 1, 2, 4 and the 1x1
+     fuse conv at batch 16, 128x128, forward and backward; patchify's
+     S = K = 14 conv at batch 8, 448x448, 3 -> 1024, forward and
+     backward) and the paper's 14 input gradients on both kernels;
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
@@ -68,7 +72,18 @@ Phases (any failed check raises and ends the run non-zero):
      each conv kernel as STEP_LAUNCHES says (27 / 12 / 6); (f) ms per step
      eager and replayed (batch on the card), device-busy ms and idle share
      of each, the commit copy's device ms, the trainer loop's ms per step
-     and `batch_at`'s ms.
+     and `batch_at`'s ms;
+  8. vision (`vision_phase`): (a) 5 steps of `examples.segment_atrous`'s
+     step (AdamW) on the ASPP head at batch 16, 128x128, and (b) patchify
+     at batch 8, 448x448, d_model 1024: its embeddings and 3 AdamW steps
+     on sum(out^2), each step held against the same step on the CPU, its
+     launches against VISION_LAUNCHES, step 1 rerun bit for bit; (c) the
+     planner autotuned into a temporary artifact at the generator's t1-t3
+     (B = 4, 64) and the paper's 14 input gradients: both arms, the
+     analytical pick and its misses; the artifact replayed with no
+     runner call; the serving engine's warmup served from it; each
+     corruption of it warned about and re-planned; (d) ms per atrous and
+     patchify step, device-busy ms, idle share and ms by conv kernel.
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
 and the library.  Kernel, plain version and library all compute in fp32;
@@ -152,13 +167,24 @@ ATTN_FORMS = ("tile", "wgmma", "split")   # csrc/flash_attention.cu's kernels
 # times (fake in both losses, real in the D loss); the D loss takes no
 # generator gradient.
 STEP_LAUNCHES = {
-    "gan_sgd_step": {"tconv_phase": 4, "tconv_implicit_gemm": 2,
-                     "dconv_forward": 9, "conv_backward": 9,
-                     "tconv_backward": 3},
-    "gen_sgd_step": {"tconv_phase": 2, "tconv_implicit_gemm": 1,
-                     "dconv_forward": 3, "conv_backward": 3,
-                     "tconv_backward": 3},
+    "gan_sgd_step": {"tconv_implicit_gemm": 6, "dconv_forward": 9,
+                     "conv_backward": 9, "tconv_backward": 3},
+    "gen_sgd_step": {"tconv_implicit_gemm": 3, "dconv_forward": 3,
+                     "conv_backward": 3, "tconv_backward": 3},
     "sgd_step": {"dconv_forward": 3, "conv_backward": 3},
+}
+# Phase 8's launches.  The atrous loss and its gradients: the three
+# dilated branches (relu in the epilogue) forward and backward, and the
+# 1x1 fuse conv's backward (its plain forward is a torch.matmul); the
+# example's step adds the post-update forward.  `repro` counts the same
+# pallas_calls (7, 10).  Patchify's plain S = 14 forward takes the
+# dconv_forward kernel, where `repro` sends a plain D = 1 forward to XLA:
+# 2 launches against its 1 pallas_call (ROADMAP C; tests/test_torch_train.py
+# pins all three).
+VISION_LAUNCHES = {
+    "atrous_seg_loss": {"dconv_forward": 3, "conv_backward": 4},
+    "segment_atrous_step": {"dconv_forward": 6, "conv_backward": 4},
+    "patchify": {"dconv_forward": 1, "conv_backward": 1},
 }
 
 
@@ -176,6 +202,56 @@ TRAINER_TIMED = 20        # steps per timing of eager steps and replays
 TRAINER_PROFILED = 5      # replays (eager steps) per timing trace
 PROFILE_PAD_S = 0.05      # idle host time on each side of a traced window
 PROFILE_LEAD_IN = 8       # spin kernels that open a traced window
+
+# Phase 8: the atrous head at the serving slice's widths trained as
+# `repro_torch.examples.segment_atrous` trains it, and patchify at
+# `repro`'s default width.
+ATROUS_BATCH = 16
+ATROUS_SIZE = 128
+ATROUS_STEPS = 5
+ATROUS_OPT = dict(lr=3e-3, warmup_steps=10, total_steps=120,
+                  weight_decay=0.01)      # examples/segment_atrous.py:62-63
+PATCH = 14
+PATCH_BATCH = 8
+PATCH_SIZE = 448
+PATCH_D_MODEL = 1024
+PATCH_STEPS = 3
+VISION_TIMED = 10         # eager steps per timing
+MISS_RATIO = 1.1          # an analytical pick this much slower is a miss
+# The paper's layers whose input gradients the planner races (Table 5,
+# Table 7 and the two DeepLab ASPP layers of repro/core/dataflow_sim.py,
+# copied: name, Cin, N in, N out, K, M = Cout, S, D), at its batch 4.
+PAPER_BATCH = 4
+PAPER_LAYERS = [
+    ("alexnet-CONV1", 3, 224, 55, 11, 64, 4, 1),
+    ("alexnet-CONV2", 64, 31, 27, 5, 192, 1, 1),
+    ("resnet50-CONV3", 128, 57, 28, 3, 128, 2, 1),
+    ("shufflenet-CONV2", 58, 57, 28, 3, 58, 2, 1),
+    ("shufflenet-CONV5", 232, 7, 7, 1, 232, 1, 1),
+    ("inception-CONV3", 192, 17, 8, 3, 320, 2, 1),
+    ("xception-CONV3", 728, 29, 14, 3, 1, 2, 1),
+    ("mobilenet-CONV5", 512, 15, 7, 3, 1, 2, 1),
+    ("cyclegan-disc-CONV3", 64, 114, 56, 4, 128, 2, 1),
+    ("cyclegan-gen-TCONV1", 128, 113, 56, 3, 256, 2, 1),
+    ("pix2pix-disc-CONV6", 128, 130, 64, 4, 256, 2, 1),
+    ("pix2pix-gen-TCONV4", 128, 130, 64, 4, 512, 2, 1),
+    ("deeplab-ASPP-d2", 256, 33, 33, 3, 256, 1, 2),
+    ("deeplab-ASPP-d4", 256, 33, 33, 3, 256, 1, 4),
+]
+# The generator's transposed convs as (name, dy side, n_out, Cin, Cout,
+# activation): K = 4, S = 2, P = 1.
+GEN_TCONVS = [("gan_t1", (4, 4), (8, 8), 64, 128, "relu"),
+              ("gan_t2", (8, 8), (16, 16), 32, 64, "relu"),
+              ("gan_t3", (16, 16), (32, 32), 3, 32, "tanh")]
+TCONV_KERNELS = {"phase": "tconv_phase", "implicit_gemm": "tconv_implicit_gemm"}
+
+
+def paper_spec(n_in, n_out, k, s, d):
+    """`dataflow_sim.ConvLayer.padding`'s P, in a ConvSpec."""
+    from repro_torch.core.spec import ConvSpec
+
+    p = max(0, ((n_out - 1) * s + d * (k - 1) + 1 - n_in + 1) // 2)
+    return ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
 
 
 def card_line() -> str:
@@ -648,6 +724,328 @@ def trainer_phase(card: str) -> dict:
     return launches
 
 
+def vision_phase(card: str) -> dict:
+    """Phase 8, in fp32 at full width: (a) ATROUS_STEPS steps of
+    `examples.segment_atrous`'s step (the atrous loss's gradients, AdamW,
+    the post-update logits' pixel accuracy) on the serving slice's head
+    at batch ATROUS_BATCH, ATROUS_SIZE^2; (b) patchify (S = K = PATCH,
+    PATCH_SIZE^2 RGB, d_model PATCH_D_MODEL, batch PATCH_BATCH): the
+    embeddings, then PATCH_STEPS steps of sum(out^2)'s gradient and
+    AdamW.  Each step: launches as VISION_LAUNCHES says, loss and every
+    param, moment and gradient within TRAIN_TOL of the same step on the
+    CPU, no NaN (a patchify step from the card's state, its AdamW on the
+    card's gradients); step 1 rerun bit for bit.  (c) The planner: autotune
+    into a temporary artifact at the generator's t1-t3 (B = 4 and 64) and
+    the input gradients of PAPER_LAYERS, each point's two arms beside the
+    analytical pick (a miss: the pick's arm more than MISS_RATIO slower);
+    a second resolution replays with zero runner calls;
+    ConvServeEngine.warmup finds every serving launch in the artifact;
+    each corrupt_tile_cache mode warns and re-plans.  (d) ms per step
+    (host clock to a synchronize), device-busy ms, idle share and ms by
+    conv kernel (a profiler trace).  Returns the wrappers' launches of
+    the (a) and (b) steps on the card."""
+    import shutil
+    import warnings
+
+    from repro_torch.core.spec import ConvSpec, Epilogue
+    from repro_torch.examples import segment_atrous as seg
+    from repro_torch.kernels import ops, tiling
+    from repro_torch.models import gan, vision
+    from repro_torch.models.layers import (sgd_grads, tree_leaves, tree_map,
+                                           tree_paths)
+    from repro_torch.optim import optimizer as optim
+    from repro_torch.serve.conv_engine import ConvServeEngine
+    from repro_torch.serve.faults import corrupt_tile_cache
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    launches = {}
+
+    def counted(what, table):
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        if got != table:
+            raise AssertionError(f"{what}: launches {got}, expected {table}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def hold(what, got, want) -> float:
+        worst = 0.0
+        for (path, a), (_, b) in zip(tree_paths(got), tree_paths(want)):
+            a, b = a.to(cpu).double(), b.double()
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{what} {path}: a non-finite value on "
+                                     f"the card")
+            if a.shape != b.shape or not torch.allclose(
+                    a, b, atol=TRAIN_TOL, rtol=TRAIN_TOL):
+                raise AssertionError(f"{what} {path}: max |err| "
+                                     f"{(a - b).abs().max().item():.3e} "
+                                     f"against the CPU")
+            worst = max(worst, (a - b).abs().max().item())
+        return worst
+
+    def rerun_equal(what, first, again):
+        if not all(torch.equal(a, b) for a, b in zip(tree_leaves(first),
+                                                     tree_leaves(again))):
+            raise AssertionError(f"{what}: step 1 rerun on the card is not "
+                                 f"bit-identical")
+
+    # (a) the atrous head, trained as the example trains it.
+    ocfg = optim.AdamWConfig(**ATROUS_OPT)
+    step = seg.make_step(ocfg)
+    head = vision.atrous_head_init(torch.Generator().manual_seed(8),
+                                   device=cpu)   # 3 -> 16 x (1, 2, 4) -> 4
+    on_cpu = (head, optim.adamw_init(head, ocfg))
+    on_card = tree_map(lambda t: t.to(dev), on_cpu)
+    worst = 0.0
+    for i in range(ATROUS_STEPS):
+        x, y = seg.synth_batch(i, batch=ATROUS_BATCH, size=ATROUS_SIZE)
+        xd, yd = x.to(dev), y.to(dev)
+        ops.reset_launches()
+        out = step(*on_card, xd, yd)
+        torch.cuda.synchronize()
+        counted(f"atrous step {i + 1}", VISION_LAUNCHES["segment_atrous_step"])
+        if i == 0:
+            rerun_equal("atrous", out, step(*on_card, xd, yd))
+        want = step(*on_cpu, x, y)
+        worst = max(worst, hold(f"atrous step {i + 1}", out, want))
+        on_card, on_cpu = out[:2], want[:2]
+        print(f"vision atrous step {i + 1}: loss {float(out[2]):.6f}, "
+              f"pixel accuracy {float(out[3]):.6f}")
+    print("vision atrous " + json.dumps({
+        "batch": ATROUS_BATCH, "size": ATROUS_SIZE, "steps": ATROUS_STEPS,
+        "launches_per_step": VISION_LAUNCHES["segment_atrous_step"],
+        "max_abs_err_vs_cpu": worst, "tol": TRAIN_TOL, "card": card}))
+    atrous_state, atrous_batch = on_card, (xd, yd)
+
+    # (b) patchify: the embeddings, then sum(out^2)'s gradient and AdamW.
+    pcpu = vision.patchify_init(torch.Generator().manual_seed(9),
+                                patch=PATCH, d_model=PATCH_D_MODEL,
+                                device=cpu)
+    img = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (PATCH_BATCH, PATCH_SIZE, PATCH_SIZE, 3)).astype(np.float32))
+    imgd = img.to(dev)
+
+    def patch_grads(params, images):
+        return sgd_grads(lambda q: torch.sum(vision.patchify_apply(
+            q, images, patch=PATCH, backend="cuda") ** 2), params)
+
+    def patch_step(params, opt_state, images):
+        loss, grads = patch_grads(params, images)
+        params, opt_state, _ = optim.adamw_update(grads, opt_state, params,
+                                                  ocfg)
+        return params, opt_state, loss, grads
+
+    with torch.no_grad():
+        ops.reset_launches()
+        emb = vision.patchify_apply(tree_map(lambda t: t.to(dev), pcpu),
+                                    imgd, patch=PATCH, backend="cuda")
+        torch.cuda.synchronize()
+        counted("patchify forward", {"dconv_forward": 1})
+        want = vision.patchify_apply(pcpu, img, patch=PATCH, backend="cuda")
+    tokens = (PATCH_SIZE // PATCH) ** 2
+    if tuple(emb.shape) != (PATCH_BATCH, tokens, PATCH_D_MODEL):
+        raise AssertionError(f"patchify: embeddings {tuple(emb.shape)}")
+    pworst = hold("patchify forward", emb, want)
+    # Each step starts the CPU from the card's state, and the CPU's AdamW
+    # takes the card's gradients: AdamW's first steps move every weight by
+    # about +-lr, the sign of its gradient, so a gradient entry within
+    # rounding of zero (of 600k) would flip a whole +-lr step between the
+    # two sides, and the flip would carry on.
+    on_card = tree_map(lambda t: t.to(dev), (pcpu,
+                                             optim.adamw_init(pcpu, ocfg)))
+    for i in range(PATCH_STEPS):
+        ops.reset_launches()
+        out = patch_step(*on_card, imgd)
+        torch.cuda.synchronize()
+        counted(f"patchify step {i + 1}", VISION_LAUNCHES["patchify"])
+        if i == 0:
+            rerun_equal("patchify", out, patch_step(*on_card, imgd))
+        params, opt_state = tree_map(lambda t: t.to(cpu), on_card)
+        loss, grads = patch_grads(params, img)
+        pworst = max(pworst, hold(f"patchify step {i + 1} gradients",
+                                  out[2:], (loss, grads)))
+        want = optim.adamw_update(tree_map(lambda t: t.to(cpu), out[3]),
+                                  opt_state, params, ocfg)[:2]
+        pworst = max(pworst, hold(f"patchify step {i + 1} AdamW", out[:2],
+                                  want))
+        on_card = out[:2]
+        print(f"vision patchify step {i + 1}: loss {float(out[2]):.6e}")
+    print("vision patchify " + json.dumps({
+        "batch": PATCH_BATCH, "size": PATCH_SIZE, "patch": PATCH,
+        "d_model": PATCH_D_MODEL, "tokens": tokens, "steps": PATCH_STEPS,
+        "launches_per_step": VISION_LAUNCHES["patchify"],
+        "max_abs_err_vs_cpu": pworst, "tol": TRAIN_TOL, "card": card}))
+    patch_state = on_card
+
+    # (c) the planner.
+    gen_spec = ConvSpec.make(stride=2, padding=1, filter_shape=4)
+    points = [(f"{name}_B{b}", gen_spec, (b, *n_out, cin), (b, *in_hw, cout),
+               Epilogue(activation=act))
+              for b in (SLOT_BATCH, TRAIN_BATCH)
+              for name, in_hw, n_out, cin, cout, act in GEN_TCONVS]
+    points += [(name, paper_spec(n, o, k, s, d), (PAPER_BATCH, n, n, cin),
+                (PAPER_BATCH, o, o, m), None)
+               for name, cin, n, o, k, m, s, d in PAPER_LAYERS]
+    runner_calls = [0]
+    runners = dict(tiling._RUNNERS)
+
+    def counting(factory):
+        def make(*args, **kw):
+            run = factory(*args, **kw)
+
+            def call(plan):
+                runner_calls[0] += 1
+                return run(plan)
+            return call
+        return make
+
+    def forget():
+        tiling._MEM_CACHE.clear()
+        tiling._MEM_STRATEGY.clear()
+
+    tiling._RUNNERS.update({k: counting(f) for k, f in runners.items()})
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            art = Path(tmp) / "tiles.json"
+            t0 = time.perf_counter()
+            tuned, misses = {}, []
+            for name, spec, xs, ds, ep in points:
+                kw = dict(x_shape=xs, dy_shape=ds, epilogue=ep)
+                tuned[name] = tiling.plan_strategy(
+                    "input_grad", spec, mode="autotune",
+                    tile_cache_path=art, **kw)
+                pick = tiling.plan_strategy("input_grad", spec,
+                                            mode="analytical", **kw)[0]
+                row = json.loads(art.read_text())[tiling._cache_key(
+                    "input_grad", spec, xs, ds, ep, "auto")]
+                arms = row["arms_us"]
+                other = "phase" if pick == "implicit_gemm" else \
+                    "implicit_gemm"
+                miss = pick in arms and other in arms and \
+                    arms[pick] > MISS_RATIO * arms[other]
+                if miss:
+                    misses.append(name)
+                print("planner race " + json.dumps({
+                    "point": name, "x_shape": xs, "dy_shape": ds,
+                    "stride": spec.stride, "dilation": spec.dilation,
+                    "arms_us": arms, "autotune_pick": tuned[name][0],
+                    "analytical_pick": pick,
+                    "model_us": tiling.race_costs_us(spec, xs, ds, ep),
+                    "miss": miss, "card": card}))
+            sweep_s = time.perf_counter() - t0
+            forget()
+            runner_calls[0] = 0
+            for name, spec, xs, ds, ep in points:
+                again = tiling.plan_strategy(
+                    "input_grad", spec, x_shape=xs, dy_shape=ds, epilogue=ep,
+                    mode="autotune", tile_cache_path=art)
+                if again != tuned[name]:
+                    raise AssertionError(f"planner: {name} replayed as "
+                                         f"{again}, tuned {tuned[name]}")
+            if runner_calls[0]:
+                raise AssertionError(f"planner: the replay made "
+                                     f"{runner_calls[0]} runner calls")
+
+            # The serving buckets: the generator's launches are tuned
+            # above; the atrous head's forwards are tuned here.
+            gp = gan.generator_init(torch.Generator().manual_seed(1234),
+                                    device=dev)
+            ap = vision.atrous_head_init(torch.Generator().manual_seed(1234),
+                                         device=dev)
+            aspp = vision.atrous_plan_requests(
+                ap, (SLOT_BATCH, ATROUS_SIZE, ATROUS_SIZE, 3))
+            for op, spec, xs, ds, ep in aspp:
+                tiling.plan_tiles(op, spec, x_shape=xs, dy_shape=ds,
+                                  epilogue=ep, mode="autotune",
+                                  tile_cache_path=art)
+            forget()
+            eng = ConvServeEngine(gan_params=gp, aspp_params=ap,
+                                  slot_batch=SLOT_BATCH, device=dev,
+                                  tile_cache_path=art)
+            summary = eng.warmup([("gan_gen", (64,)),
+                                  ("aspp", (ATROUS_SIZE, ATROUS_SIZE, 3))])
+            if summary["artifact"] != summary["plans"] or \
+                    summary["analytical"]:
+                raise AssertionError(f"engine warmup: {summary}")
+
+            # Each corruption of the artifact warns and re-plans.
+            entries = [("input_grad", spec, xs, ds, ep)
+                       for _, spec, xs, ds, ep in points] + aspp
+            by_key = {tiling._cache_key(op, spec, xs, ds, ep, st): (
+                op, spec, xs, ds, ep) for op, spec, xs, ds, ep in entries
+                for st in ("auto", "phase")}
+            corrupted = {}
+            for mode in ("truncate", "garbage", "torn_row"):
+                bad = Path(tmp) / f"{mode}.json"
+                shutil.copy(art, bad)
+                corrupt_tile_cache(bad, mode, seed=0)
+                forget()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    plans = tiling.warmup_plans(entries,
+                                                tile_cache_path=bad)
+                    if mode == "torn_row":
+                        torn = [k for k, v in json.loads(
+                            bad.read_text()).items()
+                            if v == {"cin_tile": "not-an-int"}]
+                        op, spec, xs, ds, ep = by_key[torn[0]]
+                    else:
+                        op, spec, xs, ds, ep = entries[2]   # gan_t3_B4
+                    tiling.plan_strategy(op, spec, x_shape=xs, dy_shape=ds,
+                                         epilogue=ep, mode="autotune",
+                                         tile_cache_path=bad)
+                if not any(issubclass(w.category, RuntimeWarning)
+                           for w in caught):
+                    raise AssertionError(f"corrupt_tile_cache {mode}: no "
+                                         f"warning")
+                json.loads(bad.read_text())        # re-planned and rewritten
+                corrupted[mode] = {
+                    "warnings": len(caught),
+                    "analytical": sum(v["source"] == "analytical"
+                                      for v in plans.values()),
+                    "artifact": sum(v["source"] == "artifact"
+                                    for v in plans.values())}
+    finally:
+        tiling._RUNNERS.update(runners)
+        forget()
+    print("planner " + json.dumps({
+        "points": len(points), "sweep_s": sweep_s, "misses": misses,
+        "replay_runner_calls": 0, "engine_warmup": summary,
+        "corrupt": corrupted, "card": card}))
+
+    # (d) timings, eager, batch on the card.
+    def atrous_call():
+        step(*atrous_state, *atrous_batch)
+
+    def patch_call():
+        patch_step(*patch_state, imgd)
+
+    for name, call, batch in (("atrous", atrous_call, ATROUS_BATCH),
+                              ("patchify", patch_call, PATCH_BATCH)):
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VISION_TIMED):
+            call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / VISION_TIMED
+        prof = calls_profile(call, 3)
+        print("vision timing " + json.dumps({
+            "workload": name, "batch": batch, "ms_per_step": ms,
+            "device_busy_ms": prof["device_busy_ms_per_call"],
+            "idle_share": 1.0 - prof["device_busy_ms_per_call"] / ms,
+            "conv_kernel_ms": prof["conv_kernel_ms_per_call"],
+            "conv_launches": prof["conv_launches_per_call"],
+            "device_events": prof["device_events_per_call"],
+            "card": card}))
+    print(f"vision: {ATROUS_STEPS} atrous steps at batch {ATROUS_BATCH} and "
+          f"{PATCH_STEPS} patchify steps at batch {PATCH_BATCH} equal the "
+          f"CPU within {TRAIN_TOL:g}, step 1 bit for bit; the planner "
+          f"replayed {len(points)} points with no runner call, the engine "
+          f"warmed up from the artifact, every corruption re-planned")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -657,7 +1055,7 @@ def main() -> int:
     from repro_torch.core.spec import ConvSpec, Epilogue
     from repro_torch.data.pipeline import ConvDataset
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build, ops, tiling
     from repro_torch.kernels.attention import flash_attention_plain
     from repro_torch.kernels.attention import plan as attn_plan
     from repro_torch.kernels.dconv_backward import TILES as BWD_TILES
@@ -765,10 +1163,11 @@ def main() -> int:
                                 + B * oh_ow[0] * oh_ow[1] * cout))
 
     def tconv_case(kernel, name, B, in_hw, n_out, cin, cout, k, s, p, d, ep,
-                   path, timed=False):
+                   path, timed=False, w_scale=1.0):
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
         assert spec.out_size(n_out) == tuple(in_hw), (name, n_out)
-        dy, w = rand(B, *in_hw, cout), rand(*spec.filter_shape, cin, cout)
+        dy = rand(B, *in_hw, cout)
+        w = rand(*spec.filter_shape, cin, cout) * w_scale
         bias = rand(cin) if ep.bias else None
         w_lib = w.permute(3, 2, 0, 1).contiguous()   # one-time layout
         strategy = "implicit_gemm" if kernel == "tconv_implicit_gemm" \
@@ -796,7 +1195,8 @@ def main() -> int:
                                 + (cin if bias is not None else 0)
                                 + B * n_out[0] * n_out[1] * cin))
 
-    def backward_case(name, B, hw, cin, cout, k, s, p, d, ep, path):
+    def backward_case(name, B, hw, cin, cout, k, s, p, d, ep, path,
+                      timed=False):
         """conv_backward: (dx, dW[, db]) of y = ep(conv(x, w))."""
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
         oh_ow = spec.out_size(hw)
@@ -815,7 +1215,8 @@ def main() -> int:
                 ((m.sum(dim=(0, 1, 2)),) if ep.bias else ())
 
         macs = useful_macs(spec, B, oh_ow, hw, cin, cout)
-        return dict(kernel="conv_backward", case=name, path=path, timed=path,
+        return dict(kernel="conv_backward", case=name, path=path,
+                    timed=path or timed,
                     rerun=True, form=plan_name("conv_backward", spec, B, hw,
                                                oh_ow, cin, cout, ep.bias),
                     run=lambda: ops.conv_backward(x, dy, w, n_out=hw, y=y,
@@ -894,35 +1295,28 @@ def main() -> int:
     gen_layers = [("gan_t1", (8, 8), 64, 128, relu),
                   ("gan_t2", (16, 16), 32, 64, relu),
                   ("gan_t3", (32, 32), 3, 32, tanh)]
-    cases = []
+    cases, picks = [], {}
     for Bs in (SLOT_BATCH, 64):
         path = Bs == SLOT_BATCH
         for r in (1, 2, 4):   # ASPP branches: 3x3, S=1, P=D=r, 3 -> 16
             cases.append(fwd_case(f"aspp_rate{r}_B{Bs}", Bs, (128, 128), 3,
                                   16, 3, 1, r, r, relu, path, timed=True))
-        # Generator layers t1, t2 (phase) and t3 (implicit GEMM).
-        cases.append(tconv_case("tconv_phase", f"gan_t1_B{Bs}", Bs, (4, 4),
-                                (8, 8), 64, 128, 4, 2, 1, 1, relu, path,
-                                timed=True))
-        cases.append(tconv_case("tconv_phase", f"gan_t2_B{Bs}", Bs, (8, 8),
-                                (16, 16), 32, 64, 4, 2, 1, 1, relu, path,
-                                timed=True))
-        cases.append(tconv_case("tconv_implicit_gemm", f"gan_t3_B{Bs}", Bs,
-                                (16, 16), (32, 32), 3, 32, 4, 2, 1, 1, tanh,
-                                path, timed=True))
-    # The phase / implicit-GEMM race (tiling.plan_strategy sends t1 and t2
-    # to the phase kernel, t3 to the implicit GEMM): each generator layer
-    # on the other kernel, timed only.
-    for Bs in (SLOT_BATCH, B):
-        for layer, in_hw, n_out, cin, cout, ep in (
-                ("gan_t1", (4, 4), (8, 8), 64, 128, relu),
-                ("gan_t2", (8, 8), (16, 16), 32, 64, relu),
-                ("gan_t3", (16, 16), (32, 32), 3, 32, tanh)):
-            kernel, arm = ("tconv_phase", "phase") if layer == "gan_t3" \
-                else ("tconv_implicit_gemm", "ig")
-            cases.append(tconv_case(kernel, f"{layer}_B{Bs}_{arm}", Bs, in_hw,
-                                    n_out, cin, cout, 4, 2, 1, 1, ep, False,
-                                    timed=True))
+        # The generator's layers on both kernels of the phase /
+        # implicit-GEMM race: the arm tiling.plan_strategy picks is the
+        # path's, the other is timed for the race.  Each kernel's row sums
+        # its three layers at the slot batch.
+        for layer, in_hw, n_out, cin, cout, act in GEN_TCONVS:
+            ep = Epilogue(activation=act)
+            picks[f"{layer}_B{Bs}"] = tiling.plan_strategy(
+                "input_grad", ConvSpec.make(stride=2, padding=1,
+                                            filter_shape=4),
+                x_shape=(Bs, *n_out, cin), dy_shape=(Bs, *in_hw, cout),
+                epilogue=ep)[0]
+            for arm, kernel in TCONV_KERNELS.items():
+                cases.append(tconv_case(
+                    kernel, f"{layer}_B{Bs}_{arm}", Bs, in_hw, n_out, cin,
+                    cout, 4, 2, 1, 1, ep, path, timed=True) | {
+                        "race": f"{layer}_B{Bs}"})
     for name, hw, cin, cout, k, ep in direct:
         cases.append(fwd_case(f"{name}_B{B}", B, hw, cin, cout, k, 2, 1, 1,
                               ep, False, timed=True))
@@ -973,6 +1367,42 @@ def main() -> int:
                                       ragged_ep, False))
         cases.append(filter_grad_case(name, Bs, hw, cin, cout, k, s, p, d,
                                       False))
+    # Phase 8's geometries, held here before it trains on them: the atrous
+    # head's branches (3 -> 16, D = P = 1, 2, 4, relu; the dx tile at N =
+    # 3 with dilation) forward and backward, its 1x1 fuse conv's backward
+    # (48 -> 4), and patchify's S = K = 14 conv (3 -> 1024; 196 residue
+    # classes of one tap in the dx role) forward and backward.
+    plain_ep = Epilogue()
+    for r in (1, 2, 4):
+        cases.append(fwd_case(f"atrous_rate{r}_B{ATROUS_BATCH}", ATROUS_BATCH,
+                              (ATROUS_SIZE, ATROUS_SIZE), 3, 16, 3, 1, r, r,
+                              relu, False, timed=True))
+        cases.append(backward_case(
+            f"atrous_rate{r}_B{ATROUS_BATCH}", ATROUS_BATCH,
+            (ATROUS_SIZE, ATROUS_SIZE), 3, 16, 3, 1, r, r, relu, False,
+            timed=True))
+    cases.append(backward_case(f"atrous_fuse_B{ATROUS_BATCH}", ATROUS_BATCH,
+                               (ATROUS_SIZE, ATROUS_SIZE), 48, 4, 1, 1, 0, 1,
+                               plain_ep, False, timed=True))
+    for make in (fwd_case, backward_case):
+        cases.append(make(f"patchify_B{PATCH_BATCH}", PATCH_BATCH,
+                          (PATCH_SIZE, PATCH_SIZE), 3, PATCH_D_MODEL, PATCH,
+                          PATCH, 0, 1, plain_ep, False, timed=True))
+    # The input gradients the planner races in phase 8, on both of its
+    # arms at their analytical plans (weights at 1/sqrt(Kh*Kw*Cout), so
+    # each output is of order 1).
+    for name, cin, n, o, k, m, s, d in PAPER_LAYERS:
+        spec = paper_spec(n, o, k, s, d)
+        picks[name] = tiling.plan_strategy(
+            "input_grad", spec, x_shape=(PAPER_BATCH, n, n, cin),
+            dy_shape=(PAPER_BATCH, o, o, m))[0]
+        for arm, kernel in TCONV_KERNELS.items():
+            cases.append(tconv_case(kernel, f"{name}_{arm}", PAPER_BATCH,
+                                    (o, o), (n, n), cin, m, k, s,
+                                    spec.padding, d, plain_ep, False,
+                                    timed=True,
+                                    w_scale=1.0 / math.sqrt(k * k * m))
+                         | {"race": name})
 
     def attention_case(name, B, Sq, Sk, Hq, Hk, D, causal, dtype, path,
                        timed=False, cache_len=0):
@@ -1115,10 +1545,11 @@ def main() -> int:
                        bound_ms=b_ms, bound_by=b_by, macs=c["macs"],
                        nbytes=c["nbytes"])
         print("case " + json.dumps(row))
-        layer = re.match(r"(gan_t\d_B\d+)", c["case"])
-        if layer and c["timed"] and c["kernel"] in ("tconv_phase",
-                                                    "tconv_implicit_gemm"):
-            race.setdefault(layer.group(1), {})[c["kernel"]] = row["ms"]
+        if "race" in c:
+            point = race.setdefault(c["race"], {"pick": picks[c["race"]]})
+            point[c["kernel"]] = row["ms"]
+            point["library"], point["bound"] = row["library_ms"], \
+                row["bound_ms"]
         k = kernels.setdefault(c["kernel"], dict(
             name=c["kernel"], max_abs_err=0.0, ms=0.0, plain_ms=0.0,
             library_ms=0.0, bound_ms=0.0, by={"bytes": 0.0,
@@ -1128,6 +1559,9 @@ def main() -> int:
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 k[key] += row[key]
             k["by"][row["bound_by"]] += row["bound_ms"]
+    for point in race.values():   # a miss: the pick's arm 10 % slower
+        ms = {arm: point[kernel] for arm, kernel in TCONV_KERNELS.items()}
+        point["miss"] = ms[point["pick"]] > MISS_RATIO * min(ms.values())
     print("race " + json.dumps(race | {"card": card}))
     print(f"kernels: all {len(kernels)} agree with their plain versions "
           f"and the library within {TOL:g} at every case (flash attention "
@@ -1158,8 +1592,10 @@ def main() -> int:
     wall = time.perf_counter() - t0
     serve_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     batches = -(-N_REQUESTS // SLOT_BATCH)
-    expect = {"tconv_phase": 2 * batches, "tconv_implicit_gemm": batches,
-              "dconv_forward": 3 * batches}
+    expect = {"dconv_forward": 3 * batches}
+    for layer, *_ in GEN_TCONVS:      # each layer on the arm the race picks
+        kernel = TCONV_KERNELS[picks[f"{layer}_B{SLOT_BATCH}"]]
+        expect[kernel] = expect.get(kernel, 0) + batches
     if serve_launches != expect:
         raise AssertionError(f"serve launches {serve_launches}, expected "
                              f"{expect}")
@@ -1473,6 +1909,9 @@ def main() -> int:
     # -- phase 7: the trainer, its step captured as a CUDA graph ---------------
     trainer_launches = trainer_phase(card)
 
+    # -- phase 8: atrous training, patchify and the planner --------------------
+    vision_launches = vision_phase(card)
+
     sources = {"dconv_forward": ("dconv_forward.cu",
                                  "src/repro/kernels/dconv_forward.py:104"),
                "tconv_phase": ("tconv_phase.cu",
@@ -1497,7 +1936,8 @@ def main() -> int:
                      "launches": serve_launches.get(name, 0)
                      + train_launches.get(name, 0)
                      + lm_launches.get(name, 0)
-                     + trainer_launches.get(name, 0),
+                     + trainer_launches.get(name, 0)
+                     + vision_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),

@@ -9,9 +9,10 @@ every tile and chunk the kernel takes: the sweep that
 Needs one CUDA card and `nvcc`.  The layers: gan t3 (Cin 3, the main
 path) and t1, t2 (the phase / implicit-GEMM race's other arm), K = 4,
 S = 2, P = 1, at the serving slot batch 4 and at batch 64.  `--sweep`
-forces every tile of cu x cv sites per residue class (cu, cv in 1, 2,
-4, 8, 16, at most 512 threads, each class at least one warp) and every
-chunk that fits, each launch held against the plain version within
+launches every plan of `implicit_gemm.candidates` (the set the planner's
+autotune walks: every tile of cu x cv sites per residue class, cu, cv in
+1, 2, 4, 8, 16, at most 512 threads, each class at least one warp, and
+every chunk that fits), each launch held against the plain version within
 1e-4 and timed with CUDA events (the least of three
 `chip_smoke.DeviceTimer` readings of 20 launches), beside an empty
 kernel's launch.  `--src` imports `repro_torch` from another tree (a
@@ -40,7 +41,6 @@ LAYERS = [("gan_t3_B4", 4, (16, 16), 3, 32),
           ("gan_t1_B64", 64, (4, 4), 64, 128),
           ("gan_t2_B4", 4, (8, 8), 32, 64),
           ("gan_t2_B64", 64, (8, 8), 32, 64)]
-SIDES = (1, 2, 4, 8, 16)
 
 
 def main() -> int:
@@ -88,38 +88,24 @@ def main() -> int:
             return ops.tconv_implicit_gemm(dy, w, stride=2, padding=1,
                                            n_out=n_out, epilogue=ep)
 
-        def timed():
-            got = run()
+        def timed(call=run):
+            got = call()
             torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-            return min(timer(run) for _ in range(3))
+            return min(timer(call) for _ in range(3))
 
         own = ig.plan(spec, B, n_out, in_hw, cin, cout) \
             if hasattr(ig, "plan") else None
         own_ms = timed()
         emit({"layer": name, "plan": None if own is None else own._asdict(),
               "ms": own_ms})
-        if not args.sweep or own is None:
+        if not args.sweep or not hasattr(ig, "candidates"):
             continue
         best = (own_ms, own)
-        planner = ig.plan
-        try:
-            for cu in SIDES:
-                for cv in SIDES:
-                    if cu * cv < 32 or 4 * cu * cv > ig.MAX_THREADS:
-                        continue
-                    for chunk in ig.CHUNKS:
-                        if chunk > max(4, cout):
-                            continue
-                        p = ig.counted(spec, B, n_out, cin, cout, 2 * cu,
-                                       2 * cv, own.cin_t, chunk)
-                        if p.smem > ig.SMEM_BYTES:
-                            continue
-                        ig.plan = lambda *a, p=p: p
-                        ms = timed()
-                        emit({"layer": name, "plan": p._asdict(), "ms": ms})
-                        best = min(best, (ms, p), key=lambda t: t[0])
-        finally:
-            ig.plan = planner
+        for p in ig.candidates(spec, B, n_out, in_hw, cin, cout)[1:]:
+            ms = timed(lambda p=p: ig.tconv_implicit_gemm_cuda(
+                dy, w, spec, n_out=n_out, epilogue=ep, plan=p))
+            emit({"layer": name, "plan": p._asdict(), "ms": ms})
+            best = min(best, (ms, p), key=lambda t: t[0])
         emit({"best": name, "ms": best[0], "plan": best[1]._asdict(),
               "plan_ms": own_ms, "own_plan": own._asdict()})
     print(chip_smoke.card_line())

@@ -27,9 +27,11 @@ Every role of the kernels is a tiled implicit GEMM
 pure function of the shapes, picks each launch's tiles and how many CTAs
 split each tile's reduction, for the backwards and the forwards alike:
 the splits write partial tiles to a workspace and the last of them adds
-the partials in split order.  `split_filter_grad_plain` and
-`split_forward_plain` are that arithmetic for the dW role and for the
-forwards in plain PyTorch.
+the partials in split order.  The launchers take their plan from
+`kernels/tiling.py`, which gives `plan`'s (analytical mode) or the
+fastest of `candidates` on the card (autotune).  `split_filter_grad_plain`
+and `split_forward_plain` are the split arithmetic for the dW role and
+for the forwards in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.spec import ConvSpec, Epilogue
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tiling
 from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
 from repro_torch.kernels.dconv_forward import dconv_forward_plain
 from repro_torch.kernels.tconv_phase import tconv_fused_plain
@@ -173,31 +175,48 @@ def plan(op: str, spec: ConvSpec, batch: int, big_hw, small_hw, cin: int,
     H100."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}")
+    n = cin if op in ("conv_backward", "tconv_phase") else cout
+    tile = -1 if op == "filter_grad" else _gather_tile(op, n)
+    dw_tile = -1 if op in FORWARD_OPS else SMALL if cout <= 32 else SQUARE
+    one = counted(op, spec, batch, small_hw, cin, cout, tile, 1, dw_tile,
+                  1, n_out=n_out, bias=bias)
+    splits = 1 if 2 * one.tiles >= SM_COUNT else _splits(
+        reduction(op, spec, small_hw, cin, cout, n_out),
+        _pow2_floor(2 * SM_COUNT // max(one.tiles, 1)), MIN_K_CHUNK)
+    dw_splits = 1 if op in FORWARD_OPS else _splits(
+        batch * small_hw[0] * small_hw[1],
+        _pow2_floor(max(1, DW_CTAS // one.dw_tiles)), MIN_CHUNK)
+    return counted(op, spec, batch, small_hw, cin, cout, tile, splits,
+                   dw_tile, dw_splits, n_out=n_out, bias=bias)
+
+
+def counted(op: str, spec: ConvSpec, batch: int, small_hw, cin: int,
+            cout: int, tile: int, splits: int, dw_tile: int = -1,
+            dw_splits: int = 1, n_out=None, bias: bool = False
+            ) -> BackwardPlan:
+    """The BackwardPlan of these tiles and splits for one launch of `op`,
+    counted as `plan` counts its tiles, chunk and workspace (`plan` picks
+    the four choices; a planner's candidate or a cache row names them).
+    A forward takes no dW or db role: dw_tile -1, one dW split."""
+    if op not in OPS:
+        raise ValueError(f"unknown op {op!r}")
     kh, kw = spec.filter_shape
-    oh, ow = small_hw
     if op in ("conv_backward", "tconv_phase"):
-        classes = phase_classes(spec, n_out)
-        n, rows = cin, [batch * hc * wc for hc, wc, _ in classes]
-        k = max(taps for _, _, taps in classes) * cout
+        n = cin
+        rows = [batch * hc * wc for hc, wc, _ in phase_classes(spec, n_out)]
     elif op in ("tconv_backward", "dconv_forward"):
-        n, rows, k = cout, [batch * oh * ow], kh * kw * cin
+        n, rows = cout, [batch * small_hw[0] * small_hw[1]]
     else:
-        n, rows, k = 0, [], 0
-    tile = _gather_tile(op, n) if rows else -1
+        n, rows = 0, []
     tiles = sum(_cdiv(r, TILES[tile][0]) for r in rows) \
         * _cdiv(n, TILES[tile][1]) if rows else 0
-    splits = 1 if 2 * tiles >= SM_COUNT else _splits(
-        k, _pow2_floor(2 * SM_COUNT // max(tiles, 1)), MIN_K_CHUNK)
     workspace = tiles * splits * TILES[tile][0] * TILES[tile][1] \
-        if splits > 1 else 0
+        if splits > 1 and rows else 0
     if op in FORWARD_OPS:
         return BackwardPlan(tile, splits, -1, 1, 0, tiles, 0, 0, workspace)
-    dw_tile = SMALL if cout <= 32 else SQUARE
     bm, bn = TILES[dw_tile]
     dw_tiles = _cdiv(kh * kw * cin, bm) * _cdiv(cout, bn)
-    positions = batch * oh * ow
-    dw_splits = _splits(positions, _pow2_floor(max(1, DW_CTAS // dw_tiles)),
-                        MIN_CHUNK)
+    positions = batch * small_hw[0] * small_hw[1]
     channels = cin if op == "tconv_backward" else cout
     db_tiles = _cdiv(channels, min(channels, CHANNEL_TILE)) \
         if bias and op != "filter_grad" else 0
@@ -206,6 +225,61 @@ def plan(op: str, spec: ConvSpec, batch: int, big_hw, small_hw, cin: int,
     return BackwardPlan(tile, splits, dw_tile, dw_splits,
                         split_chunk(positions, dw_splits), tiles, dw_tiles,
                         db_tiles, workspace)
+
+
+def reduction(op: str, spec: ConvSpec, small_hw, cin: int, cout: int,
+              n_out=None) -> int:
+    """Length of the dx / ddy role's reduction (0 without one): the
+    longest residue class's taps x Cout, or Kh*Kw*Cin."""
+    kh, kw = spec.filter_shape
+    if op in ("conv_backward", "tconv_phase"):
+        return max(taps for _, _, taps in phase_classes(spec, n_out)) * cout
+    if op in ("tconv_backward", "dconv_forward"):
+        return kh * kw * cin
+    return 0
+
+
+SWEEP_SPLITS = (1, 2, 4, 8, 16)     # dx / ddy splits a sweep tries
+SWEEP_DW_SPLITS = (4, 8, 16, 32, 64)
+
+
+def candidates(op: str, spec: ConvSpec, batch: int, small_hw, cin: int,
+               cout: int, n_out=None, bias: bool = False) -> list:
+    """The plans an autotune sweep times for one launch of `op`, `plan`'s
+    own first (`scripts/backward_plan_sweep.py` walks the same set): the
+    dx / ddy role at `plan`'s tile (a forward also at 256 x 16 or 128 x
+    32, whichever `plan` did not take, when N > 4), split over
+    SWEEP_SPLITS; the dW role at 64 x 32 and, at Cout > 32, 64 x 64,
+    split over SWEEP_DW_SPLITS.  No reduction is split so far that a
+    split is left empty."""
+    own = plan(op, spec, batch, None, small_hw, cin, cout, n_out=n_out,
+               bias=bias)
+    k = reduction(op, spec, small_hw, cin, cout, n_out)
+    positions = batch * small_hw[0] * small_hw[1]
+
+    def fills(length, splits):
+        return splits == 1 or (splits - 1) * split_chunk(length,
+                                                         splits) < length
+
+    tiles = [own.tile]
+    if op in FORWARD_OPS and own.tile != THIN:   # 128 x 32 or 256 x 16
+        tiles.append(HALF if own.tile == TALL else TALL)
+    splits = [1] if own.tile < 0 else [s for s in SWEEP_SPLITS
+                                       if fills(k, s)]
+    if op in FORWARD_OPS:
+        dw = [(-1, 1)]
+    else:
+        dw = [(t, s) for t in ((SMALL,) if cout <= 32 else (SQUARE, SMALL))
+              for s in SWEEP_DW_SPLITS if fills(positions, s)]
+    out = [own]
+    for t in tiles:
+        for s in splits:
+            for dt, ds in dw:
+                p = counted(op, spec, batch, small_hw, cin, cout, t, s, dt,
+                            ds, n_out=n_out, bias=bias)
+                if p not in out:
+                    out.append(p)
+    return out
 
 
 _TICKETS: dict = {}
@@ -323,9 +397,11 @@ def tconv_backward_plain(g: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
 
 def conv_backward_cuda(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                        spec: ConvSpec, *, n_out, y=None,
-                       epilogue: Epilogue | None = None):
-    """Launch the kernel on the current stream.  fp32, contiguous, one
-    device -- the wrapper in `kernels/ops.py` checks all three."""
+                       epilogue: Epilogue | None = None,
+                       plan: BackwardPlan | None = None):
+    """Launch the kernel on the current stream at `plan` (default: the
+    planner's).  fp32, contiguous, one device -- the wrapper in
+    `kernels/ops.py` checks all three."""
     B, nh_x, nw_x, cin = x.shape
     _, oh, ow, cout = dy.shape
     kh, kw = spec.filter_shape
@@ -336,8 +412,8 @@ def conv_backward_cuda(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     has_db = epilogue is not None and epilogue.bias
     db = torch.empty((cout,), dtype=torch.float32, device=dev) \
         if has_db else None
-    p = plan("conv_backward", spec, B, (nh_x, nw_x), (oh, ow), cin, cout,
-             n_out=(nh, nw), bias=bool(has_db))
+    p = plan or tiling.plan_tiles("backward", spec, x_shape=dx.shape,
+                                  dy_shape=dy.shape, epilogue=epilogue)
     ws, bufs = launch_buffers(p, dev)
     fn = build.kernel_function("conv_backward", "conv_backward_f32",
                                _BWD_ARGTYPES)
@@ -358,9 +434,11 @@ def conv_backward_cuda(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
 
 def tconv_backward_cuda(g: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                         spec: ConvSpec, *, z=None,
-                        epilogue: Epilogue | None = None):
-    """Launch the kernel on the current stream.  fp32, contiguous, one
-    device -- the wrapper in `kernels/ops.py` checks all three."""
+                        epilogue: Epilogue | None = None,
+                        plan: BackwardPlan | None = None):
+    """Launch the kernel on the current stream at `plan` (default: the
+    planner's).  fp32, contiguous, one device -- the wrapper in
+    `kernels/ops.py` checks all three."""
     B, nh, nw, cin = g.shape
     _, oh, ow, cout = dy.shape
     kh, kw = spec.filter_shape
@@ -370,8 +448,8 @@ def tconv_backward_cuda(g: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     has_db = epilogue is not None and epilogue.bias
     db = torch.empty((cin,), dtype=torch.float32, device=dev) \
         if has_db else None
-    p = plan("tconv_backward", spec, B, (nh, nw), (oh, ow), cin, cout,
-             bias=bool(has_db))
+    p = plan or tiling.plan_tiles("ct_backward", spec, x_shape=g.shape,
+                                  dy_shape=dy.shape, epilogue=epilogue)
     ws, bufs = launch_buffers(p, dev)
     fn = build.kernel_function("tconv_backward", "tconv_backward_f32",
                                _CT_ARGTYPES)
@@ -385,3 +463,42 @@ def tconv_backward_cuda(g: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("tconv_backward", err)
     return ddy, dw, db
+
+
+def _autotune_operands(spec: ConvSpec, x_shape, dy_shape, epilogue,
+                       out_shape):
+    """Fixed random inputs on the card for a backward's runner: the big
+    side, the small side at scale 1/sqrt(B*Oh*Ow) (each dW sum of order
+    1), the filter at 1/sqrt(Kh*Kw*max(Cin, Cout)), and an `out_shape`
+    output the epilogue could give."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kh, kw = spec.filter_shape
+    big = torch.randn(x_shape, generator=gen, device="cuda")
+    small = torch.randn(dy_shape, generator=gen, device="cuda") \
+        / (dy_shape[0] * dy_shape[1] * dy_shape[2]) ** 0.5
+    w = torch.randn((kh, kw, x_shape[3], dy_shape[3]), generator=gen,
+                    device="cuda") / (kh * kw * max(x_shape[3],
+                                                    dy_shape[3])) ** 0.5
+    out = None
+    if epilogue is not None and epilogue.needs_y:
+        act = Epilogue(activation=epilogue.activation, slope=epilogue.slope)
+        out = act.apply(torch.randn(out_shape, generator=gen, device="cuda"))
+    return big, small, w, out
+
+
+def _conv_backward_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+    x, dy, w, y = _autotune_operands(spec, x_shape, dy_shape, epilogue,
+                                     dy_shape)
+    return lambda p: conv_backward_cuda(x, dy, w, spec, n_out=x_shape[1:3],
+                                        y=y, epilogue=epilogue, plan=p)
+
+
+def _tconv_backward_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+    g, dy, w, z = _autotune_operands(spec, x_shape, dy_shape, epilogue,
+                                     x_shape)
+    return lambda p: tconv_backward_cuda(g, dy, w, spec, z=z,
+                                         epilogue=epilogue, plan=p)
+
+
+tiling.register_autotune_runner("backward", _conv_backward_runner)
+tiling.register_autotune_runner("ct_backward", _tconv_backward_runner)

@@ -9,8 +9,8 @@ over the K*K real taps; the D-dilated filter never exists.  The plain
 version repeats `_fg_kernel`'s arithmetic: pad x once, one strided tap
 gather per (kx, ky), one (Cin x B*Oh*Ow) @ (B*Oh*Ow x Cout) matmul per
 tap.  The kernel is the dW role of the two fused backwards
-(`csrc/conv_body.cuh::dw_tile`, planned by
-`kernels/dconv_backward.py::plan`) launched alone.
+(`csrc/conv_body.cuh::dw_tile`, planned by `kernels/tiling.py`)
+launched alone.
 Public entry: `kernels/ops.py::dconv_filter_grad`.
 """
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.spec import ConvSpec
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tiling
 from repro_torch.kernels.tap_gather import gather_tap, pad_to_tap_windows
 
 # x, dy, dw; the geometry; dw_tile, dw_splits, chunk; the workspace and
@@ -52,17 +52,20 @@ def dconv_filter_grad_plain(x: torch.Tensor, dy: torch.Tensor,
 
 
 def dconv_filter_grad_cuda(x: torch.Tensor, dy: torch.Tensor,
-                           spec: ConvSpec) -> torch.Tensor:
-    """Launch the kernel on the current stream.  fp32, contiguous, one
-    device -- the wrapper in `kernels/ops.py` checks all three."""
+                           spec: ConvSpec, *, plan=None) -> torch.Tensor:
+    """Launch the kernel on the current stream at `plan` (a
+    `dconv_backward.BackwardPlan`; default: the planner's).  fp32,
+    contiguous, one device -- the wrapper in `kernels/ops.py` checks all
+    three."""
     B, nh, nw, cin = x.shape
     _, oh, ow, cout = dy.shape
     kh, kw = spec.filter_shape
     dw = torch.empty((kh, kw, cin, cout), dtype=torch.float32,
                      device=x.device)
     # Imported here: dconv_backward imports this module's plain version.
-    from repro_torch.kernels.dconv_backward import launch_buffers, plan
-    p = plan("filter_grad", spec, B, (nh, nw), (oh, ow), cin, cout)
+    from repro_torch.kernels.dconv_backward import launch_buffers
+    p = plan or tiling.plan_tiles("filter_grad", spec, x_shape=x.shape,
+                                  dy_shape=dy.shape)
     ws, bufs = launch_buffers(p, x.device)
     fn = build.kernel_function("dconv_filtergrad", "dconv_filter_grad_f32",
                                _ARGTYPES)
@@ -74,3 +77,17 @@ def dconv_filter_grad_cuda(x: torch.Tensor, dy: torch.Tensor,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("dconv_filtergrad", err)
     return dw
+
+
+def _autotune_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+    """The planner's runner: the kernel at a given plan on fixed random
+    inputs on the card, dy at scale 1/sqrt(B*Oh*Ow) (each sum of order
+    1)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(x_shape, generator=gen, device="cuda")
+    dy = torch.randn(dy_shape, generator=gen, device="cuda") \
+        / (dy_shape[0] * dy_shape[1] * dy_shape[2]) ** 0.5
+    return lambda p: dconv_filter_grad_cuda(x, dy, spec, plan=p)
+
+
+tiling.register_autotune_runner("filter_grad", _autotune_runner)

@@ -10,8 +10,9 @@ version repeats the reference's arithmetic -- pad once, one strided window
 per tap, one matmul per tap into an fp32 accumulator, then the epilogue --
 and is what the CPU tests run and what the card's kernel is held against.
 The kernel is the ddy role of the tiled implicit-GEMM engine
-(`csrc/conv_body.cuh`), its tiles and splits from `dconv_backward.plan`,
-with the epilogue in its store.  Public entry:
+(`csrc/conv_body.cuh`), its tiles and splits from the planner
+(`kernels/tiling.py`: `dconv_backward.plan`, or an autotuned plan), with
+the epilogue in its store.  Public entry:
 `kernels/ops.py::dconv_forward`.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.spec import ConvSpec, Epilogue
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tiling
 from repro_torch.kernels.tap_gather import gather_tap, pad_to_tap_windows
 
 # x, w, bias, y; the geometry; the epilogue; the plan's tile and splits,
@@ -63,10 +64,12 @@ def dconv_forward_plain(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
 
 
 def dconv_forward_cuda(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
-                       bias=None, epilogue: Epilogue | None = None
-                       ) -> torch.Tensor:
-    """Launch the kernel on the current stream.  fp32, contiguous, one
-    device -- the wrapper in `kernels/ops.py` checks all three."""
+                       bias=None, epilogue: Epilogue | None = None,
+                       plan=None) -> torch.Tensor:
+    """Launch the kernel on the current stream at `plan` (a
+    `dconv_backward.BackwardPlan`; default: the planner's).  fp32,
+    contiguous, one device -- the wrapper in `kernels/ops.py` checks all
+    three."""
     # dconv_backward imports this module's plain version.
     from repro_torch.kernels import dconv_backward
 
@@ -75,8 +78,8 @@ def dconv_forward_cuda(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
     kh, kw, _, cout = w.shape
     dev = x.device
     y = torch.empty((B, oh, ow, cout), dtype=torch.float32, device=dev)
-    p = dconv_backward.plan("dconv_forward", spec, B, (nh, nw), (oh, ow),
-                            cin, cout)
+    p = plan or tiling.plan_tiles("forward", spec, x_shape=x.shape,
+                                  dy_shape=y.shape, epilogue=epilogue)
     ws, bufs = dconv_backward.launch_buffers(p, dev)
     fn = build.kernel_function("dconv_forward", "dconv_forward_f32",
                                _ARGTYPES)
@@ -89,3 +92,20 @@ def dconv_forward_cuda(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("dconv_forward", err)
     return y
+
+
+def _autotune_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+    """The planner's runner: the kernel at a given plan on fixed random
+    inputs on the card (weights scaled so each output is of order 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kh, kw = spec.filter_shape
+    x = torch.randn(x_shape, generator=gen, device="cuda")
+    w = torch.randn((kh, kw, x_shape[3], dy_shape[3]), generator=gen,
+                    device="cuda") / (kh * kw * x_shape[3]) ** 0.5
+    bias = torch.randn(dy_shape[3], generator=gen, device="cuda") \
+        if epilogue is not None and epilogue.bias else None
+    return lambda p: dconv_forward_cuda(x, w, spec, bias=bias,
+                                        epilogue=epilogue, plan=p)
+
+
+tiling.register_autotune_runner("forward", _autotune_runner)

@@ -15,8 +15,9 @@ crop.  The kernel skips the dead lanes instead: one CTA per tile of
 TH x TW output sites and Cin_t output channels stages the tile's dy halo
 and the weights in shared memory, one Cout chunk at a time, and each
 thread sums one site over the live taps.  `plan`, a pure function of the
-shapes, picks the tile, the Cin tile and the chunk; `halo_origin` and
-`halo_extent` are the halo the kernel copies.
+shapes, picks the tile, the Cin tile and the chunk (the launcher takes
+it, or an autotuned one of `candidates`, from `kernels/tiling.py`);
+`halo_origin` and `halo_extent` are the halo the kernel copies.
 Public entry: `kernels/ops.py::tconv_phase(strategy="implicit_gemm")`.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.spec import ConvSpec, Epilogue
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tiling
 
 # dy, w, bias, dx; the geometry; the epilogue; the plan's tile, Cin tile
 # and chunk; the stream.
@@ -155,6 +156,35 @@ def plan(spec: ConvSpec, batch: int, n_out, in_hw, cin: int,
         f"bytes of shared memory)")
 
 
+SWEEP_SIDES = (1, 2, 4, 8, 16)   # sites per class along an axis, swept
+
+
+def candidates(spec: ConvSpec, batch: int, n_out, in_hw, cin: int,
+               cout: int) -> list:
+    """The plans an autotune sweep times for one launch, `plan`'s own
+    first (`scripts/implicit_gemm_sweep.py --sweep` walks the same set):
+    cu x cv sites per residue class for cu, cv in SWEEP_SIDES, each class
+    at least one warp and the tile at most MAX_THREADS sites, at every
+    chunk up to Cout (at least 4) whose stages fit SMEM_BYTES, at
+    `plan`'s Cin tile.  Raises ValueError, as `plan` does, when nothing
+    fits."""
+    own = plan(spec, batch, n_out, in_hw, cin, cout)
+    sh, sw = spec.stride
+    out = [own]
+    for cu in SWEEP_SIDES:
+        for cv in SWEEP_SIDES:
+            if cu * cv < WARP or sh * sw * cu * cv > MAX_THREADS:
+                continue
+            for chunk in CHUNKS:
+                if chunk > max(4, cout):
+                    continue
+                p = counted(spec, batch, n_out, cin, cout, sh * cu, sw * cv,
+                            own.cin_t, chunk)
+                if p.smem <= SMEM_BYTES and p not in out:
+                    out.append(p)
+    return out
+
+
 def _upsample_pad(dy: torch.Tensor, sh: int, sw: int, gh: int,
                   gw: int) -> torch.Tensor:
     """Zero-interleave (B, Oh, Ow, C) by (sh, sw) and pad both sides by the
@@ -207,16 +237,18 @@ def tconv_implicit_gemm_plain(dy: torch.Tensor, w: torch.Tensor,
 
 def tconv_implicit_gemm_cuda(dy: torch.Tensor, w: torch.Tensor,
                              spec: ConvSpec, *, n_out, bias=None,
-                             epilogue: Epilogue | None = None
-                             ) -> torch.Tensor:
-    """Launch the kernel on the current stream with `plan`'s tiles.  fp32,
-    contiguous, one device -- the wrapper in `kernels/ops.py` checks all
-    three."""
+                             epilogue: Epilogue | None = None,
+                             plan: IGPlan | None = None) -> torch.Tensor:
+    """Launch the kernel on the current stream at `plan` (default: the
+    planner's implicit-GEMM plan).  fp32, contiguous, one device -- the
+    wrapper in `kernels/ops.py` checks all three."""
     B, Oh, Ow, Cout = dy.shape
     Kh, Kw, Cin, _ = w.shape
     Nh, Nw = n_out
-    p = plan(spec, B, n_out, (Oh, Ow), Cin, Cout)
     dx = torch.empty((B, Nh, Nw, Cin), dtype=torch.float32, device=dy.device)
+    p = plan or tiling.plan_strategy(
+        "input_grad", spec, x_shape=dx.shape, dy_shape=dy.shape,
+        epilogue=epilogue, strategy="implicit_gemm")[1]
     fn = build.kernel_function("implicit_gemm", "tconv_implicit_gemm_f32",
                                _ARGTYPES)
     with torch.cuda.device(dy.device):
@@ -228,3 +260,17 @@ def tconv_implicit_gemm_cuda(dy: torch.Tensor, w: torch.Tensor,
                  p.chunk, torch.cuda.current_stream().cuda_stream)
     build.check_launch("implicit_gemm", err)
     return dx
+
+
+def _autotune_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+    # tconv_phase imports nothing of this module.
+    from repro_torch.kernels.tconv_phase import autotune_operands
+
+    dy, w, bias = autotune_operands(spec, x_shape, dy_shape, epilogue)
+    return lambda p: tconv_implicit_gemm_cuda(
+        dy, w, spec, n_out=x_shape[1:3], bias=bias, epilogue=epilogue,
+        plan=p)
+
+
+tiling.register_autotune_runner("input_grad", _autotune_runner,
+                                "implicit_gemm")

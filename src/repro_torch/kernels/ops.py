@@ -6,11 +6,12 @@ Each conv wrapper takes fp32 tensors on one device; `flash_attention`
 takes fp32 or bf16.  On a CUDA tensor a wrapper launches its hand-written
 kernel and adds one to its entry of `LAUNCHES`; on a CPU tensor it runs
 the kernel's plain PyTorch version and counts nothing.  There is no
-fallback: a launch that fails raises.
+fallback: a launch that fails raises.  Each kernel takes its plan (tiles,
+splits) from `tiling`, the Hopper planner.
 
   dconv_forward        -> csrc/dconv_forward.cu
-  tconv_phase          -> csrc/tconv_phase.cu or, when the strategy
-                          planner picks it, csrc/implicit_gemm.cu
+  tconv_phase          -> csrc/tconv_phase.cu or, when the planner's
+                          strategy race picks it, csrc/implicit_gemm.cu
   tconv_implicit_gemm  -> tconv_phase with the implicit-GEMM strategy
   conv_backward        -> csrc/conv_backward.cu   (dx, dW, db of a conv)
   tconv_backward       -> csrc/tconv_backward.cu  (ddy, dW, db of a tconv)
@@ -148,19 +149,23 @@ def tconv_phase(dy: torch.Tensor, w: torch.Tensor, *, stride, padding,
                          filter_shape=(w.shape[0], w.shape[1]),
                          dilation=dilation)
     nh, nw = _pair(n_out)
-    strategy = tiling.plan_strategy(
-        "input_grad", spec, x_shape=(dy.shape[0], nh, nw, w.shape[2]),
-        dy_shape=tuple(dy.shape), epilogue=epilogue, strategy=strategy)
     bias, epilogue = _epilogue_operands(bias, epilogue)
+    on_card = _on_cuda(dy, w, bias)
+    # The plain versions need no plan: on the CPU only the strategy counts,
+    # and it is the analytical one (no sweep times a CPU tensor).
+    strategy, plan_ = tiling.plan_strategy(
+        "input_grad", spec, x_shape=(dy.shape[0], nh, nw, w.shape[2]),
+        dy_shape=tuple(dy.shape), epilogue=epilogue, strategy=strategy,
+        mode=None if on_card else "analytical")
     ig = strategy == "implicit_gemm"
-    if not _on_cuda(dy, w, bias):
+    if not on_card:
         plain = tconv_implicit_gemm_plain if ig else tconv_fused_plain
         return plain(dy, w, spec, n_out=(nh, nw), bias=bias,
                      epilogue=epilogue)
     launch = tconv_implicit_gemm_cuda if ig else tconv_fused_cuda
     dx = launch(dy.contiguous(), w.contiguous(), spec, n_out=(nh, nw),
                 bias=None if bias is None else bias.contiguous(),
-                epilogue=epilogue)
+                epilogue=epilogue, plan=plan_)
     LAUNCHES["tconv_implicit_gemm" if ig else "tconv_phase"] += 1
     return dx
 

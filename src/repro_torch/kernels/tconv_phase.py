@@ -15,8 +15,8 @@ sub-filters (`pack_phase_filters`), one padded dy, one window and matmul
 per (phase, valid slot) into phase-major planes, the epilogue per plane,
 then `assemble_phase_major`.  The kernel is the dx role of the tiled
 implicit-GEMM engine (`csrc/conv_body.cuh`), its tiles and splits from
-`dconv_backward.plan`; it folds the assembly and the epilogue into its
-store.  Public entry: `kernels/ops.py::tconv_phase`.
+the planner (`kernels/tiling.py`: `dconv_backward.plan`, or an autotuned
+plan); it folds the assembly and the epilogue into its store.  Public entry: `kernels/ops.py::tconv_phase`.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import ecoflow
 from repro_torch.core.spec import ConvSpec, Epilogue, _pair
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tiling
 
 # dy, w, bias, dx; the geometry and tap phases; the epilogue; the plan's
 # tile and splits, the workspace and its floats, the tickets and their
@@ -162,10 +162,12 @@ def tconv_fused_plain(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
 
 
 def tconv_fused_cuda(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
-                     n_out, bias=None, epilogue: Epilogue | None = None
-                     ) -> torch.Tensor:
-    """Launch the kernel on the current stream.  fp32, contiguous, one
-    device -- the wrapper in `kernels/ops.py` checks all three."""
+                     n_out, bias=None, epilogue: Epilogue | None = None,
+                     plan=None) -> torch.Tensor:
+    """Launch the kernel on the current stream at `plan` (a
+    `dconv_backward.BackwardPlan`; default: the planner's phase plan).
+    fp32, contiguous, one device -- the wrapper in `kernels/ops.py`
+    checks all three."""
     # dconv_backward imports this module's plain version.
     from repro_torch.kernels import dconv_backward
 
@@ -174,8 +176,8 @@ def tconv_fused_cuda(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
     Nh, Nw = n_out
     dev = dy.device
     dx = torch.empty((B, Nh, Nw, Cin), dtype=torch.float32, device=dev)
-    p = dconv_backward.plan("tconv_phase", spec, B, (Nh, Nw), (Oh, Ow), Cin,
-                            Cout, n_out=(Nh, Nw))
+    p = plan or tiling.plan_tiles("input_grad", spec, x_shape=dx.shape,
+                                  dy_shape=dy.shape, epilogue=epilogue)
     ws, bufs = dconv_backward.launch_buffers(p, dev)
     fn = build.kernel_function("tconv_phase", "tconv_phase_f32", _ARGTYPES)
     with torch.cuda.device(dev):
@@ -189,3 +191,27 @@ def tconv_fused_cuda(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("tconv_phase", err)
     return dx
+
+
+def autotune_operands(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+    """(dy, w, bias) of a transposed conv's runner: fixed random inputs on
+    the card, the weights scaled so each output is of order 1 (both
+    strategies' runners take these, so the race times one function)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kh, kw = spec.filter_shape
+    taps = max(1, -(-kh // spec.stride[0]) * -(-kw // spec.stride[1]))
+    dy = torch.randn(dy_shape, generator=gen, device="cuda")
+    w = torch.randn((kh, kw, x_shape[3], dy_shape[3]), generator=gen,
+                    device="cuda") / (taps * dy_shape[3]) ** 0.5
+    bias = torch.randn(x_shape[3], generator=gen, device="cuda") \
+        if epilogue is not None and epilogue.bias else None
+    return dy, w, bias
+
+
+def _autotune_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+    dy, w, bias = autotune_operands(spec, x_shape, dy_shape, epilogue)
+    return lambda p: tconv_fused_cuda(dy, w, spec, n_out=x_shape[1:3],
+                                      bias=bias, epilogue=epilogue, plan=p)
+
+
+tiling.register_autotune_runner("input_grad", _autotune_runner)

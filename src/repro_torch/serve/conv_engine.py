@@ -24,8 +24,14 @@ segmentation (`aspp`) on one card.
     exponentially (bounded); a non-finite output is retried once on the
     same rung, then degrades.
 
-Deferred to later slices: the tile-cache artifact replay of `repro`'s
-`warmup` and fault injection (`serve/faults.py`), so `injector` must be
+  * **Warmup.**  `warmup` resolves every bucket's launch plans from the
+    shipped tile-cache artifact (`tiling.warmup_plans`: never an autotune
+    sweep; a corrupt artifact warns and falls back to the analytical
+    planner) and, with `compile`, builds the kernels and runs one dummy
+    batch through the primary rung.
+
+Fault injection into the engine's launches (`repro`'s
+`serve/faults.py::inject_backend`) is not ported: `injector` must be
 None.
 """
 from __future__ import annotations
@@ -134,7 +140,8 @@ class ConvServeEngine:
                  ladder: Optional[Sequence[str]] = None,
                  injector=None, fail_threshold: int = 2, cooldown: int = 3,
                  retry_backoff_s: float = 0.0, max_backoff_s: float = 0.05,
-                 rates: Tuple[int, ...] = (1, 2, 4), device=None):
+                 rates: Tuple[int, ...] = (1, 2, 4), device=None,
+                 tile_cache_path=None):
         if slot_batch < 1 or queue_limit < 1:
             raise ValueError("slot_batch and queue_limit must be >= 1")
         if injector is not None:
@@ -164,6 +171,7 @@ class ConvServeEngine:
         self.retry_backoff_s = float(retry_backoff_s)
         self.max_backoff_s = float(max_backoff_s)
         self.rates = tuple(rates)
+        self.tile_cache_path = tile_cache_path
 
         self._queue: deque = deque()
         self._buckets: Dict[tuple, _Bucket] = {}
@@ -232,20 +240,26 @@ class ConvServeEngine:
 
     def warmup(self, shapes: Sequence[Tuple[str, tuple]], *,
                compile: bool = False) -> dict:
-        """Plan every bucket's transposed-conv strategies and, with
-        `compile`, build the CUDA kernels (all sources at once) and run
-        one dummy batch through the primary rung.  `shapes` lists
-        ``(kind, payload_shape)`` pairs."""
+        """Pre-plan every bucket's launches from the tile-cache artifact
+        (`tile_cache_path`, default ECOFLOW_TILE_CACHE; never an autotune
+        sweep, a corrupt artifact warns and falls back to the analytical
+        planner) and, with `compile`, build the CUDA kernels (all sources
+        at once) and run one dummy batch through the primary rung.
+        `shapes` lists ``(kind, payload_shape)`` pairs."""
         entries = []
         for kind, payload_shape in shapes:
             bucket = self._bucket(kind, tuple(payload_shape))
             entries.extend(self._plan_entries(kind, bucket.payload_shape))
-        strategies = [tiling.plan_strategy(op, spec, x_shape=xs,
-                                           dy_shape=ds, epilogue=ep)
-                      for op, spec, xs, ds, ep in entries
-                      if op == "input_grad"]
-        summary = {"buckets": len(self._buckets), "plans": len(entries),
-                   "strategies": strategies}
+        plans = tiling.warmup_plans(entries,
+                                    tile_cache_path=self.tile_cache_path)
+        summary = {
+            "buckets": len(self._buckets),
+            "plans": len(plans),
+            "artifact": sum(1 for v in plans.values()
+                            if v["source"] == "artifact"),
+            "analytical": sum(1 for v in plans.values()
+                              if v["source"] == "analytical"),
+        }
         if compile:
             if self.device.type == "cuda":
                 build.build()

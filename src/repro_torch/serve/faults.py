@@ -17,14 +17,18 @@ disappears, a step straggles, or an output comes back NaN/Inf.
     trainer's seam: one site per workload, stepped once per step
     attempt, with output-class events stamped into the host batch so
     the trainer's real guard trips.
+  * `corrupt_tile_cache` mangles the planner's tile-cache artifact
+    (`kernels/tiling.py`) the three ways deployments see it break.
 
 Not ported yet (ROADMAP A.10): `inject_backend` (the serving engine's
-per-op injection and `fallback_backend`'s tests) and, with A.9's tile
-cache, `corrupt_tile_cache`.  Pure numpy: no torch needed here.
+per-op injection and `fallback_backend`'s tests): a rung that degrades to
+the next backend, where the port on the card has no fallback.  Pure
+numpy: no torch needed here.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -205,3 +209,38 @@ def poison_batch(injector: FaultInjector, ev: Optional[FaultEvent],
             out[key] = injector.poison(ev, v)
             break
     return out
+
+
+def corrupt_tile_cache(path, mode: str = "truncate", seed: int = 0) -> None:
+    """Mangle an ECOFLOW_TILE_CACHE artifact the way real deployments
+    see it break -- the warmup / planner side must warn and re-plan
+    (kernels/tiling.py's load policy), never crash:
+
+      * "truncate"  -- cut the file mid-document (pre-atomic-write crash);
+      * "garbage"   -- overwrite with non-JSON bytes (torn copy);
+      * "torn_row"  -- keep valid JSON but replace one row's plan fields
+                       with nonsense (partial hand edit / version skew).
+
+    The bytes written are `repro`'s for the same file, mode and seed."""
+    import pathlib
+    p = pathlib.Path(path)
+    if mode == "truncate":
+        text = p.read_text() if p.exists() else json.dumps(
+            {"x": {"cin_tile": 8}})
+        p.write_text(text[:max(1, len(text) // 2)])
+    elif mode == "garbage":
+        p.write_bytes(b"\x00\xffnot-json\x13" * 7)
+    elif mode == "torn_row":
+        try:
+            doc = json.loads(p.read_text())
+        except (OSError, ValueError):
+            doc = {}
+        if not isinstance(doc, dict) or not doc:
+            doc = {"seed-row": {}}
+        rng = np.random.default_rng(seed)
+        key = sorted(doc)[int(rng.integers(len(doc)))]
+        doc[key] = {"cin_tile": "not-an-int"}
+        p.write_text(json.dumps(doc))
+    else:
+        raise ValueError(f"unknown corruption mode {mode!r}; expected "
+                         f"truncate | garbage | torn_row")

@@ -208,19 +208,20 @@ def test_implicit_gemm_reads_operands_off_the_16_byte_grid(cuda):
         rtol=TOL)
 
 
-def test_implicit_gemm_refuses_a_plan_out_of_range(cuda, monkeypatch):
+def test_implicit_gemm_refuses_a_plan_out_of_range(cuda):
     """The C entry checks the plan it is given: a tile that is not a
-    multiple of the stride is refused, and the wrapper raises."""
+    multiple of the stride is refused, and the launcher raises.  (The plan
+    is passed to the launcher: the planner memoizes what `plan` returns,
+    so a patched `plan` would outlive the test.)"""
     from repro_torch.kernels import implicit_gemm
     gen = torch.Generator().manual_seed(6)
     dy = _rand(gen, 2, 4, 4, 8, device=cuda)
     w = _rand(gen, 4, 4, 3, 8, device=cuda)
     spec = ConvSpec.make(stride=2, padding=1, filter_shape=4)
     good = implicit_gemm.plan(spec, 2, (8, 8), (4, 4), 3, 8)
-    monkeypatch.setattr(implicit_gemm, "plan",
-                        lambda *a: good._replace(th=3))
     with pytest.raises(RuntimeError, match="implicit_gemm kernel launch"):
-        ops.tconv_implicit_gemm(dy, w, stride=2, padding=1, n_out=(8, 8))
+        implicit_gemm.tconv_implicit_gemm_cuda(dy, w, spec, n_out=(8, 8),
+                                               plan=good._replace(th=3))
 
 
 @pytest.mark.parametrize("name,geom", FWD_EDGES, ids=[c[0] for c in FWD_EDGES])
@@ -253,9 +254,9 @@ def test_each_wrapper_counts_its_launches(cuda):
     dy = _rand(gen, 2, 4, 4, 8, device=cuda)
     ops.reset_launches()
     ops.tconv_phase(dy, _rand(gen, 4, 4, 16, 8, device=cuda), stride=2,
-                    padding=1, n_out=(8, 8))              # Cin 16: phase
+                    padding=1, n_out=(8, 8), strategy="phase")
     ops.tconv_phase(dy, _rand(gen, 4, 4, 3, 8, device=cuda), stride=2,
-                    padding=1, n_out=(8, 8))              # Cin 3: implicit
+                    padding=1, n_out=(8, 8))    # the race: implicit GEMM
     ops.dconv_forward(_rand(gen, 1, 8, 8, 3, device=cuda),
                       _rand(gen, 3, 3, 3, 4, device=cuda), stride=1,
                       padding=2, dilation=2)
@@ -797,3 +798,114 @@ def test_async_checkpoints_during_replays_equal_blocking_ones(cuda,
             leaf = f"step_{step}/leaf_{i}.npy"
             np.testing.assert_array_equal(np.load(tmp_path / "a" / leaf),
                                           np.load(tmp_path / "b" / leaf))
+
+
+# -- phase 8's path and the planner on the card --------------------------------
+
+@pytest.mark.parametrize("step", ["atrous_seg_loss", "segment_atrous_step",
+                                  "patchify"])
+def test_vision_launches(cuda, step):
+    """The atrous loss, the example's step and patchify launch each kernel
+    as chip_smoke.VISION_LAUNCHES says (held to `repro` on the CPU), at
+    small widths, and hold their plain versions on the CPU within 1e-3."""
+    from repro_torch.examples import segment_atrous as tex
+    from repro_torch.models import vision
+    from repro_torch.models.layers import sgd_grads, tree_leaves
+    from repro_torch.optim import optimizer as opt
+
+    table = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(table)
+    table.loader.exec_module(mod)
+    gen = torch.Generator().manual_seed(19)
+    x, y = tex.synth_batch(0, batch=2, size=32)
+    if step == "patchify":
+        params = vision.patchify_init(gen, d_model=64, device="cpu")
+        img = torch.randn((2, 56, 56, 3), generator=gen)
+
+        def call(p, dev):
+            return sgd_grads(lambda q: torch.sum(vision.patchify_apply(
+                q, img.to(dev), backend="cuda") ** 2), p)
+    else:
+        params = vision.atrous_head_init(gen, device="cpu")
+        cfg = opt.AdamWConfig(lr=3e-3, warmup_steps=10, weight_decay=0.01)
+
+        def call(p, dev):
+            if step == "atrous_seg_loss":
+                return sgd_grads(lambda q: vision.atrous_seg_loss(
+                    q, x.to(dev), y.to(dev), backend="cuda"), p)
+            return tex.make_step(cfg)(p, opt.adamw_init(p, cfg), x.to(dev),
+                                      y.to(dev))
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    ops.reset_launches()
+    got = call(on_card, cuda)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == \
+        mod.VISION_LAUNCHES[step]
+    want = call(params, torch.device("cpu"))
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=1e-3)
+
+
+def test_planner_refuses_to_time_during_a_capture(cuda, tmp_path):
+    from repro_torch.kernels import tiling
+
+    spec = ConvSpec.make(stride=1, padding=2, filter_shape=3, dilation=2)
+    x = torch.randn((2, 16, 16, 3), device=cuda)
+    w = torch.randn((3, 3, 3, 8), device=cuda)
+    ops.dconv_forward(x, w, stride=1, padding=2, dilation=2)  # built, warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="captures a CUDA graph"):
+        with torch.cuda.graph(graph):
+            tiling.plan_tiles("forward", spec, x_shape=(2, 16, 16, 3),
+                              dy_shape=(2, 16, 16, 8), mode="autotune",
+                              tile_cache_path=tmp_path / "c.json")
+    assert not (tmp_path / "c.json").exists()
+
+
+# (op, strategy, spec (S, P, K, D), x_shape, dy_shape, epilogue kwargs)
+RUNNER_CASES = [
+    ("forward", "phase", (1, 2, 3, 2), (2, 20, 20, 3), (2, 20, 20, 16),
+     dict(activation="relu")),
+    ("input_grad", "phase", (2, 1, 4, 1), (4, 8, 8, 64), (4, 4, 4, 128),
+     dict(activation="relu")),
+    ("input_grad", "implicit_gemm", (2, 1, 4, 1), (4, 8, 8, 64),
+     (4, 4, 4, 128), dict(activation="relu", bias=True)),
+    ("input_grad", "implicit_gemm", (1, 4, 3, 4), (2, 17, 17, 8),
+     (2, 17, 17, 24), None),
+    ("backward", "phase", (1, 4, 3, 4), (4, 32, 32, 3), (4, 32, 32, 16),
+     dict(activation="relu")),
+    ("backward", "phase", (14, 0, 14, 1), (2, 56, 56, 3), (2, 4, 4, 64),
+     None),
+    ("ct_backward", "phase", (2, 1, 4, 1), (4, 16, 16, 32), (4, 8, 8, 64),
+     dict(activation="tanh", bias=True)),
+    ("filter_grad", "phase", (2, 1, 3, 1), (4, 17, 17, 8), (4, 9, 9, 40),
+     None),
+]
+
+
+@pytest.mark.parametrize("case", RUNNER_CASES,
+                         ids=[f"{c[0]}_{c[1]}_{i}"
+                              for i, c in enumerate(RUNNER_CASES)])
+def test_autotune_runners_agree_with_the_analytical_plan(cuda, case):
+    """Every candidate the planner would time gives the analytical plan's
+    output within 1e-4 through its kernel's registered runner."""
+    from repro_torch.kernels import tiling
+
+    op, strategy, (s, p, k, d), xs, ds, ep_kw = case
+    spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
+    ep = None if ep_kw is None else Epilogue(**ep_kw)
+    run = tiling._RUNNERS[(op, strategy)](spec, xs, ds, epilogue=ep)
+    plans = tiling._candidates(op, spec, xs, ds, ep, strategy)
+    assert plans[0] == tiling.plan_strategy(
+        op, spec, x_shape=xs, dy_shape=ds, epilogue=ep, strategy=strategy,
+        mode="analytical")[1]
+    want = run(plans[0])
+    for plan in plans:
+        got = run(plan)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if b is not None:
+                torch.testing.assert_close(a, b, atol=TOL, rtol=TOL,
+                                           msg=lambda m: f"{plan}: {m}")

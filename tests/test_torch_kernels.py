@@ -23,10 +23,11 @@ from _torch_cases import EP_KW, FWD_GRID, TCONV_GRID, tconv_case
 from conftest import assert_allclose
 from repro.core import spec as jspec
 from repro.kernels import ops as jops
-from repro.kernels import tiling as jtiling
 from repro_torch.core import spec as tspec
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import tiling as ttiling
+from repro_torch.kernels.dconv_backward import plan as backward_plan
+from repro_torch.kernels.implicit_gemm import plan as ig_plan
 
 
 def _eps(kw):
@@ -128,36 +129,40 @@ GEN_LAYERS = [("t1", 4, 8, 64, 128), ("t2", 8, 16, 32, 64),
               ("t3", 16, 32, 3, 32)]
 
 
-@pytest.mark.parametrize("batch", [4, 64])
+@pytest.mark.parametrize("batch", [2, 4, 64])
 @pytest.mark.parametrize("layer", GEN_LAYERS, ids=[g[0] for g in GEN_LAYERS])
-def test_plan_strategy_agrees_with_repro_compiled(layer, batch):
-    """The port's rule gives `repro`'s compiled-mode race decision on the
-    generator's layers: t1, t2 -> phase; t3 -> implicit_gemm."""
+def test_plan_strategy_picks_the_hopper_race_winner(layer, batch):
+    """The analytical Hopper race sends every generator layer to the
+    implicit GEMM (B.5), which the card measured faster at all six points
+    (PERF.md section 6), at the CPU tests' batch 2 too: `repro`'s TPU
+    cost model, which sends t1 and t2 to the phase kernel, does not apply
+    to the card (ROADMAP C).  The plan is `implicit_gemm.plan`'s."""
     _, n_in, n_out, cin, cout = layer
+    spec = tspec.ConvSpec.make(stride=2, padding=1, filter_shape=4)
     kw = dict(x_shape=(batch, n_out, n_out, cin),
               dy_shape=(batch, n_in, n_in, cout))
-    ep_kw = dict(activation="tanh" if cin == 3 else "relu")
-    want, _ = jtiling.plan_strategy(
-        "input_grad", jspec.ConvSpec.make(stride=2, padding=1,
-                                          filter_shape=4),
-        interpret=False, epilogue=jspec.Epilogue(**ep_kw), **kw)
-    got = ttiling.plan_strategy(
-        "input_grad", tspec.ConvSpec.make(stride=2, padding=1,
-                                          filter_shape=4),
-        epilogue=tspec.Epilogue(**ep_kw), **kw)
-    assert got == want == ("implicit_gemm" if cin == 3 else "phase")
+    ep = tspec.Epilogue(activation="tanh" if cin == 3 else "relu")
+    costs = ttiling.race_costs_us(spec, ep=ep, **kw)
+    assert costs["implicit_gemm"] < costs["phase"]
+    assert ttiling.plan_strategy("input_grad", spec, epilogue=ep, **kw) == (
+        "implicit_gemm", ig_plan(spec, batch, (n_out, n_out), (n_in, n_in),
+                                 cin, cout))
 
 
 def test_plan_strategy_pins_and_refusals():
     spec = tspec.ConvSpec.make(stride=2, padding=1, filter_shape=4)
     kw = dict(x_shape=(4, 8, 8, 64), dy_shape=(4, 4, 4, 128))
+    args = (spec, 4, (8, 8), (4, 4), 64, 128)
     assert ttiling.plan_strategy("input_grad", spec, strategy="implicit_gemm",
-                                 **kw) == "implicit_gemm"
+                                 **kw) == ("implicit_gemm", ig_plan(*args))
+    assert ttiling.plan_strategy("input_grad", spec, strategy="phase",
+                                 **kw) == ("phase", backward_plan(
+                                     "tconv_phase", *args, n_out=(8, 8)))
     assert ttiling.plan_strategy("input_grad", spec, strategy="auto",
-                                 **kw) == "phase"
+                                 **kw)[0] == "implicit_gemm"
     # only the standalone input gradient has an implicit-GEMM kernel
     assert ttiling.plan_strategy("forward", spec, strategy="implicit_gemm",
-                                 **kw) == "phase"
+                                 **kw)[0] == "phase"
     with pytest.raises(ValueError, match="unknown strategy"):
         ttiling.plan_strategy("input_grad", spec, strategy="fastest", **kw)
 
@@ -190,7 +195,7 @@ def test_plain_path_counts_no_launch():
     assert torch.equal(pinned, tops.tconv_phase(
         dy, w, stride=2, padding=1, n_out=(6, 6), strategy="implicit_gemm"))
     assert_allclose(pinned, tops.tconv_phase(dy, w, stride=2, padding=1,
-                                             n_out=(6, 6)))   # rule: phase
+                                             n_out=(6, 6)))   # the race's
     x, w3 = torch.zeros((1, 6, 6, 3)), torch.zeros((3, 3, 3, 4))
     y = tops.dconv_forward(x, w3, stride=1, padding=1, dilation=1)
     tops.conv_backward(x, y, w3, stride=1, padding=1, n_out=(6, 6))

@@ -6,6 +6,8 @@ circuit-breaker transitions.  Narrow widths; fp32 at rtol = atol = 1e-4
 (DESIGN.md Sec. 2.3)."""
 from __future__ import annotations
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -327,16 +329,59 @@ def test_engine_on_the_card_raises_a_kernel_fault(gan_np):
     assert eng.stats["kernel_faults"] == 1 and eng.stats["fallbacks"] == 0
 
 
-def test_warmup_plans_and_runs_the_primary_rung(gan_np, aspp_np):
-    t, _ = _engines(gan_np, aspp_np, slot_batch=2, queue_limit=4)
+def test_warmup_plans_and_runs_the_primary_rung(gan_np, aspp_np, tmp_path):
+    t, _ = _engines(gan_np, aspp_np, slot_batch=2, queue_limit=4,
+                    tile_cache_path=tmp_path / "absent.json")
     summary = t.warmup([("gan_gen", (Z_DIM,)), ("aspp", IMG)], compile=True)
-    assert summary["buckets"] == 2 and summary["plans"] == 3 + 4
-    # narrow widths: t1 makes 8 channels (phase), t2 4 and t3 3 (implicit)
-    assert summary["strategies"] == ["phase", "implicit_gemm",
-                                     "implicit_gemm"]
+    # no artifact: every launch planned analytically, none timed
+    assert summary == {"buckets": 2, "plans": 3 + 4, "artifact": 0,
+                       "analytical": 7}
     assert t.health()["warmup"] == summary
     b = t._bucket("aspp", IMG)
     assert [s.dilation for s in b.specs] == [(1, 1), (2, 2), (4, 4), (1, 1)]
+
+
+@pytest.mark.parametrize("artifact", ["absent", "rows", "garbage"])
+def test_warmup_summary_matches_repro(gan_np, aspp_np, tmp_path, artifact):
+    """The same shapes and the same artifact file give `repro`'s summary.
+    "rows": the file holds one measured `|st:auto` row per package for
+    the generator's t3 (each package reads only its own key: `repro`'s
+    names its TPU mode, the port's the Hopper target); "garbage": both
+    warn and plan every launch analytically."""
+    import warnings
+
+    from repro.kernels import tiling as jtiling
+    from repro_torch.kernels import tiling as ttiling
+    from repro_torch.kernels.implicit_gemm import plan as ig_plan
+    from repro_torch.serve.faults import corrupt_tile_cache
+
+    path = tmp_path / "artifact.json"
+    t, j = _engines(gan_np, aspp_np, slot_batch=2, queue_limit=4,
+                    tile_cache_path=path)
+    _, spec, xs, ds, ep = tgan.generator_plan_requests(
+        params_from_numpy(gan_np, "cpu"), 2)[-1]
+    if artifact != "absent":
+        jkey = jtiling._cache_key(
+            "input_grad", jspec.ConvSpec.make(stride=2, padding=1,
+                                              filter_shape=4), xs, ds, 4,
+            jtiling.DEFAULT_VMEM_BUDGET, True,
+            jspec.Epilogue(activation="tanh"), "auto")
+        tkey = ttiling._cache_key("input_grad", spec, xs, ds, ep, "auto")
+        row = ig_plan(spec, xs[0], xs[1:3], ds[1:3], xs[3], ds[3])
+        path.write_text(json.dumps({
+            jkey: {"cin_tile": 3, "cout_tile": 4, "spatial_tile": 16,
+                   "strategy": "implicit_gemm", "us": 5.0},
+            tkey: dict(ttiling._row(row), strategy="implicit_gemm",
+                       us=5.0)}))
+    if artifact == "garbage":
+        corrupt_tile_cache(path, "garbage")
+    shapes = [("gan_gen", (Z_DIM,)), ("aspp", IMG)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want = j.warmup(shapes)
+        got = t.warmup(shapes)
+    assert got == want
+    assert got["artifact"] == (1 if artifact == "rows" else 0)
 
 
 def test_cuda_backend_is_inference_only():

@@ -365,3 +365,91 @@ def test_port_step_calls_each_kernel_as_the_table_says(step, monkeypatch):
         else:
             tgan.gan_sgd_step(st, z, real, backend="cuda")
     assert dict(counts) == _step_table()[step]
+
+
+# -- phase 8's launch table (VISION_LAUNCHES) ---------------------------------
+
+def _vision_cases():
+    """(repro's loss-and-grads callable, its args, the port's CPU call) of
+    each VISION_LAUNCHES entry, at small widths (the counts do not depend
+    on them)."""
+    from repro.models import vision as jvision
+    from repro.optim import optimizer as jopt
+    from repro_torch.examples import segment_atrous as tex
+    from repro_torch.models import vision as tvision
+    from repro_torch.optim import optimizer as topt
+
+    head = jvision.atrous_head_init(jax.random.PRNGKey(0), in_ch=3, width=4,
+                                    n_classes=4)
+    x = jnp.zeros((2, 12, 12, 3))
+    y = jnp.zeros((2, 12, 12), jnp.int32)
+    patch = jvision.patchify_init(jax.random.PRNGKey(1), d_model=8)
+    img = jnp.zeros((2, 28, 28, 3))
+    cfg = jopt.AdamWConfig(lr=3e-3, warmup_steps=10, weight_decay=0.01)
+
+    def j_loss(p):
+        return jax.value_and_grad(lambda q: jvision.atrous_seg_loss(
+            q, x, y, backend="pallas"))(p)
+
+    def j_step(p, opt):
+        _, g = j_loss(p)
+        p, opt, _ = jopt.adamw_update(g, opt, p, cfg)
+        return jvision.atrous_head_apply(p, x, backend="pallas")
+
+    def j_patch(p):
+        return jax.grad(lambda q: jnp.sum(jvision.patchify_apply(
+            q, img, backend="pallas") ** 2))(p)
+
+    th = params_from_numpy(jax.tree.map(np.asarray, head), "cpu")
+    tp = params_from_numpy(jax.tree.map(np.asarray, patch), "cpu")
+    tx, ty = torch.zeros((2, 12, 12, 3)), torch.zeros((2, 12, 12),
+                                                      dtype=torch.int32)
+    tcfg = topt.AdamWConfig(lr=3e-3, warmup_steps=10, weight_decay=0.01)
+    return {
+        "atrous_seg_loss": (j_loss, (head,), lambda: tlayers.sgd_grads(
+            lambda q: tvision.atrous_seg_loss(q, tx, ty, backend="cuda"),
+            th)),
+        "segment_atrous_step": (
+            j_step, (head, jopt.adamw_init(head, cfg)),
+            lambda: tex.make_step(tcfg)(th, topt.adamw_init(th, tcfg), tx,
+                                        ty)),
+        "patchify": (j_patch, (patch,), lambda: tlayers.sgd_grads(
+            lambda q: torch.sum(tvision.patchify_apply(
+                q, torch.zeros((2, 28, 28, 3)), backend="cuda") ** 2), tp)),
+    }
+
+
+def _smoke_table(name):
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, name)
+
+
+@pytest.mark.parametrize("step", ["atrous_seg_loss", "segment_atrous_step",
+                                  "patchify"])
+def test_vision_launch_table_matches_repro_pallas_calls(step, monkeypatch):
+    """The atrous loss and the example's step launch what `repro`'s same
+    calls on `pallas` count as pallas_calls (7 and 10), kernel by kernel.
+    Patchify launches one more: its plain S = 14 forward takes the
+    dconv_forward kernel, which `repro` sends to XLA (ROADMAP C)."""
+    table = _smoke_table("VISION_LAUNCHES")[step]
+    fn, args, _ = _vision_cases()[step]
+    counts = _counting(monkeypatch, jops, _PALLAS)
+    n = count_pallas_calls(fn, *args)
+    if step == "patchify":
+        assert dict(counts) == {"conv_backward": 1} and n == 1
+        assert table == {"dconv_forward": 1, "conv_backward": 1}
+    else:
+        assert dict(counts) == table
+        assert n == sum(table.values()) == {"atrous_seg_loss": 7,
+                                            "segment_atrous_step": 10}[step]
+
+
+@pytest.mark.parametrize("step", ["atrous_seg_loss", "segment_atrous_step",
+                                  "patchify"])
+def test_port_vision_calls_each_kernel_as_the_table_says(step, monkeypatch):
+    counts = _counting(monkeypatch, tops, _PLAIN)
+    _vision_cases()[step][2]()
+    assert dict(counts) == _smoke_table("VISION_LAUNCHES")[step]
