@@ -10,7 +10,7 @@ of JAX and nothing of the JAX package `repro`.
 
 Phases (any failed check raises and ends the run non-zero):
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. build the seven CUDA kernels of src/repro_torch/csrc (one nvcc per
+  2. build the eight CUDA sources of src/repro_torch/csrc (one nvcc per
      source, all at once), with each kernel's registers and spills;
   3. each kernel at its main paths' shapes and at ragged geometries
      (S > K, S = D, ragged channels, a bias, a scale, a non-exact n_out;
@@ -32,7 +32,14 @@ Phases (any failed check raises and ends the run non-zero):
      phase 8's geometries (the atrous branches at D = 1, 2, 4 and the 1x1
      fuse conv at batch 16, 128x128, forward and backward; patchify's
      S = K = 14 conv at batch 8, 448x448, 3 -> 1024, forward and
-     backward) and the paper's 14 input gradients on both kernels;
+     backward) and the paper's 14 input gradients on both kernels; the
+     attention backward (csrc/flash_attention_bwd.cu) at qwen3's head_dim
+     128, GQA g = 2, causal, bf16 and fp32, S = 1024, 1000 and the
+     training path's 4096, and Sq 300 / Sk 1000 at q_offset 500: each
+     case first holds the forward kernel's lse against the plain lse,
+     then dq, dk, dv against the plain backward and, timed, SDPA's
+     backward (its forward + backward less its forward), reruns
+     bit-identical;
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
@@ -83,7 +90,19 @@ Phases (any failed check raises and ends the run non-zero):
      analytical pick and its misses; the artifact replayed with no
      runner call; the serving engine's warmup served from it; each
      corruption of it warned about and re-planned; (d) ms per atrous and
-     patchify step, device-busy ms, idle share and ms by conv kernel.
+     patchify step, device-busy ms, idle share and ms by conv kernel;
+  9. LM training (`lm_train_phase`): (a) qwen3-0.6b at its published
+     widths but 2 layers, batch 2 x seq 256 with masked labels: `LM.loss`
+     and every gradient (remat "full", attention forward and backward on
+     the kernels) held against the CPU in fp32 and bf16; (b) the whole
+     qwen3-0.6b (28 layers, bf16 compute, fp32 master weights, AdamW)
+     through `Trainer.run` -- `launch/train`'s path -- at train_4k's
+     seq 4096, global batch 8 (train_4k's 256 cut to one card) in 4
+     microbatches, 1 warm-up and 3 timed steps with a checkpoint
+     directory: every loss finite, each step 224 `flash_attention` and
+     112 `flash_attention_backward` calls, the step-4 checkpoint on disk;
+     ms per step, tokens/s, peak memory, and a torch.profiler trace of
+     one more step (device ms by kernel group, busy share).
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
 and the library.  Kernel, plain version and library all compute in fp32;
@@ -98,6 +117,12 @@ draws its cotangent at scale 1/sqrt(B*Oh*Ow), so each filter-gradient
 sum over B*Oh*Ow products is of order 1, as it is in training;
 unscaled, a sum of 16384 unit products would put its rounding near the
 tolerance itself.
+The attention backward is held to its plain version as the forward
+is (fp32 1e-4; bf16 one ulp: both round fp32 sums once), the lse at
+1e-4, SDPA's gradients at the forward's library tolerance.  LM training
+parity (phase 9 (a)): each gradient leaf within 1e-3 (fp32) or 5e-2
+(bf16) of its largest magnitude, absolute and relative: gradients near
+zero carry the rounding of the largest terms of their sums.
 Training: atol = rtol = 1e-3 after every step -- dW sums up to 16384 fp32
 products in another order than the plain matmul, and five steps carry
 the difference on; the trainer's 8 steps are held to the same 1e-3.
@@ -151,6 +176,18 @@ PARITY_TOL = 1e-3
 PROFILE_CACHED = 512      # positions in the cache when decode is traced
 PROFILE_STEPS = 4
 PROFILE_TRAIN_STEPS = 2   # training steps traced per model
+# Phase 9, LM training: (a) PARITY_LAYERS layers at the published widths,
+# batch 2 x seq 256, loss and gradients against the CPU; (b) the whole
+# model through Trainer.run at train_4k's length, batch cut to one card.
+LM_TRAIN_PARITY = (2, 256)        # (batch, seq) of (a)
+LM_TRAIN_TOL = {"float32": 1e-3, "bfloat16": 5e-2}   # of each leaf's max
+LM_TRAIN_SEQ = 4096               # SHAPES["train_4k"].seq_len
+LM_TRAIN_BATCH = 8                # train_4k's 256, cut to one card
+LM_TRAIN_STEPS = 4                # 1 warm-up + 3 timed
+# The attention backward's kernels (csrc/flash_attention_bwd.cu), three
+# launches per wrapper call.
+ATTN_BWD_SYMBOLS = ("attn_bwd_delta_kernel", "attn_bwd_dkdv_kernel",
+                    "attn_bwd_dq_kernel")
 # The conv wrappers' kernel symbols (csrc/*.cu), to sort a trace by.
 CONV_SYMBOLS = {"dconv_forward": "dconv_forward_kernel",
                 "tconv_phase": "tconv_phase_kernel",
@@ -1046,6 +1083,224 @@ def vision_phase(card: str) -> dict:
     return launches
 
 
+def lm_step_profile(call) -> dict:
+    """Where one LM training step's device time goes: a torch.profiler
+    trace of one `call()` (opened as `calls_profile` opens its windows).
+    Device ms by group -- the attention forward by form, the attention
+    backward's three kernels, cuBLAS / CUTLASS matrix products, the rest
+    -- the ten costliest kernel names, and the device's busy share of
+    the step's wall time under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.name]
+    if not kernels:
+        raise AssertionError("the profiler's trace holds no device event")
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+
+    def group(name):
+        for form in ATTN_FORMS:
+            if f"flash_attention_{form}_kernel<" in name:
+                return f"attention_forward_{form}"
+        for sym in ATTN_BWD_SYMBOLS:
+            if sym in name:
+                return sym
+        if re.search(r"gemm|nvjet|xmma|cutlass|sm90_", name):
+            return "matmul"
+        return "other"
+
+    groups: dict = {}
+    for name, ms in by_name.items():
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms_under_profiler": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_events": len(kernels), "ms_by_group": groups,
+            "top_kernels_ms": [[n[:120], ms] for n, ms in top]}
+
+
+def lm_train_phase(card: str) -> dict:
+    """Phase 9: LM training on the card.  (a) LM_ARCH at its published
+    widths but PARITY_LAYERS layers, params from a numpy seed, batch x seq
+    LM_TRAIN_PARITY: `LM.loss` and every gradient (`launch.steps.
+    loss_and_grads`, remat "full") on the card against the CPU's, in fp32
+    and in bf16, each leaf within LM_TRAIN_TOL of its largest |gradient|
+    (atol; rtol the same); the attention forward launched twice per layer
+    (the remat recompute) and its backward once.  (b) `launch/train`'s
+    path: the whole LM_ARCH (28 layers, bf16 compute, fp32 master) through
+    `Trainer.run` at seq LM_TRAIN_SEQ, global batch LM_TRAIN_BATCH in the
+    config's 4 microbatches, LM_TRAIN_STEPS steps (the first a warm-up)
+    with a checkpoint directory: every loss finite, every step 2 x 28 x 4
+    `flash_attention` launches and 28 x 4 `flash_attention_backward`
+    calls; ms per step, tokens/s, peak memory, then one more step traced
+    (ms by kernel group, device-busy share).  Returns (b)'s launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.layers import tree_map, tree_paths
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    full = get_config(LM_ARCH)
+
+    # (a) parity of the loss and every gradient, fp32 and bf16.
+    B, S = LM_TRAIN_PARITY
+    batch = TokenDataset(vocab=full.vocab, seq_len=S, global_batch=B,
+                         seed=21).batch(0)
+    labels = batch["labels"].copy()
+    labels[0, :7] = -1                     # masked positions
+    rng = np.random.default_rng(22)
+    pcfg = full.scaled(n_layers=PARITY_LAYERS)
+    with torch.device("meta"):
+        shapes = LM(pcfg).init_tree(torch.Generator())
+
+    def draw(t):
+        scale = (1.0 if t.shape == (pcfg.vocab, pcfg.d_model) else
+                 1.0 / math.sqrt(t.shape[1]) if t.dim() == 3 else 0.1)
+        return torch.from_numpy(
+            (scale * rng.standard_normal(t.shape)).astype(np.float32))
+
+    cpu_params = tree_map(draw, shapes)
+    dev_params = tree_map(lambda t: t.to(dev), cpu_params)
+    parity = {}
+    for dtype in ("float32", "bfloat16"):
+        lm = LM(pcfg.scaled(dtype=dtype))
+        ops.reset_launches()
+        (loss, _), grads = loss_and_grads(
+            lm, dev_params, torch.from_numpy(batch["inputs"]).to(dev),
+            torch.from_numpy(labels).to(dev))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        want_l = {"flash_attention": 2 * PARITY_LAYERS,
+                  "flash_attention_backward": PARITY_LAYERS}
+        if launches != want_l:
+            raise AssertionError(f"lm train parity {dtype}: launches "
+                                 f"{launches}, expected {want_l}")
+        (want_loss, _), want = loss_and_grads(
+            lm, cpu_params, torch.from_numpy(batch["inputs"]),
+            torch.from_numpy(labels))
+        tol = LM_TRAIN_TOL[dtype]
+        worst = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        if worst > tol:
+            raise AssertionError(f"lm train parity {dtype}: loss "
+                                 f"{loss.item()} vs {want_loss.item()}")
+        for (path, g), (_, w) in zip(tree_paths(grads), tree_paths(want)):
+            g = g.to(cpu)
+            big = w.abs().max().item()
+            if not bool(torch.isfinite(g).all()) or not torch.allclose(
+                    g, w, rtol=tol, atol=tol * big):
+                raise AssertionError(
+                    f"lm train parity {dtype}: gradient {path}: max |err| "
+                    f"{(g - w).abs().max().item():.3e}, largest |grad| "
+                    f"{big:.3e}")
+            worst = max(worst, (g - w).abs().max().item() / max(big, 1e-30))
+        parity[dtype] = {"loss": loss.item(), "cpu_loss": want_loss.item(),
+                         "max_err_of_leaf_max": worst, "tol": tol,
+                         "launches": launches}
+    print("lm train parity " + json.dumps({
+        "arch": LM_ARCH, "n_layers": PARITY_LAYERS, "batch": B, "seq": S,
+        "leaves": len(tree_paths(cpu_params))} | parity))
+    del cpu_params, dev_params, grads, want
+
+    # (b) launch/train's path: the whole model through Trainer.run.
+    ds = TokenDataset(vocab=full.vocab, seq_len=LM_TRAIN_SEQ,
+                      global_batch=LM_TRAIN_BATCH, seed=0)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tcfg = TrainerConfig(total_steps=LM_TRAIN_STEPS, ckpt_dir=ckpt_dir,
+                             ckpt_every=10 * LM_TRAIN_STEPS, log_every=1,
+                             keep_last=1)
+        trainer = Trainer(full, ds, AdamWConfig(
+            lr=3e-4, warmup_steps=1, total_steps=LM_TRAIN_STEPS), tcfg,
+            device=dev)
+        if trainer.n_micro != 4:
+            raise AssertionError(f"lm train: {trainer.n_micro} microbatches "
+                                 f"at global batch {LM_TRAIN_BATCH}, "
+                                 f"expected 4")
+        steps = []
+        step_fn = trainer.step_fn
+
+        def timed_step(params, opt, b):
+            torch.cuda.synchronize()
+            before = dict(ops.LAUNCHES)
+            t0 = time.perf_counter()
+            out = step_fn(params, opt, b)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": {k: ops.LAUNCHES[k] - before[k]
+                                       for k in before
+                                       if ops.LAUNCHES[k] - before[k]}})
+            return out
+
+        trainer.step_fn = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        saved = sorted(os.listdir(ckpt_dir))
+    per_step = {"flash_attention": 2 * full.n_layers * 4,
+                "flash_attention_backward": full.n_layers * 4}
+    for i, st in enumerate(steps):
+        if st["launches"] != per_step:
+            raise AssertionError(f"lm train step {i + 1}: launches "
+                                 f"{st['launches']}, expected {per_step}")
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != LM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"lm train: losses {losses}")
+    if f"step_{LM_TRAIN_STEPS}" not in saved:
+        raise AssertionError(f"lm train: checkpoint directory holds {saved}")
+    timed = [st["ms"] for st in steps[1:]]
+    ms = sum(timed) / len(timed)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    b = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(
+        LM_TRAIN_STEPS).items()}
+    prof = lm_step_profile(lambda: step_fn(out["params"], out["opt"], b))
+    print("lm train " + json.dumps({
+        "arch": LM_ARCH, "n_layers": full.n_layers, "dtype": full.dtype,
+        "seq": LM_TRAIN_SEQ, "global_batch": LM_TRAIN_BATCH,
+        "microbatches": trainer.n_micro, "remat": full.remat,
+        "steps": LM_TRAIN_STEPS, "losses": losses,
+        "ms_per_step_warmup": steps[0]["ms"], "ms_per_step_timed": timed,
+        "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+        "peak_memory_gb": peak / 1e9, "launches_per_step": per_step,
+        "run_s": run_s, "checkpoint_and_loop_s": run_s - sum(
+            st["ms"] for st in steps) / 1e3, "card": card}))
+    print("lm train profile " + json.dumps(prof | {"card": card}))
+    print(f"lm train: {PARITY_LAYERS}-layer {LM_ARCH} loss and every "
+          f"gradient equal the CPU (fp32 {LM_TRAIN_TOL['float32']:g}, bf16 "
+          f"{LM_TRAIN_TOL['bfloat16']:g} of each leaf's max); the whole "
+          f"model trained {LM_TRAIN_STEPS} steps at seq {LM_TRAIN_SEQ}, "
+          f"batch {LM_TRAIN_BATCH}, {per_step['flash_attention']} "
+          f"flash_attention and {per_step['flash_attention_backward']} "
+          f"backward launches per step, losses finite")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1056,7 +1311,9 @@ def main() -> int:
     from repro_torch.data.pipeline import ConvDataset
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, tiling
-    from repro_torch.kernels.attention import flash_attention_plain
+    from repro_torch.kernels.attention import (
+        flash_attention_backward_plain, flash_attention_cuda,
+        flash_attention_plain)
     from repro_torch.kernels.attention import plan as attn_plan
     from repro_torch.kernels.dconv_backward import TILES as BWD_TILES
     from repro_torch.kernels.dconv_backward import plan as backward_plan
@@ -1439,6 +1696,70 @@ def main() -> int:
                     nbytes=q.element_size() * (2 * q.numel()
                                                + 2 * B * Sk * Hk * D))
 
+    def attention_bwd_case(name, B, Sq, Sk, Hq, Hk, D, dtype, path,
+                           timed=False, q_offset=None):
+        """flash_attention_backward (causal) from the kernel's own forward
+        output and lse, at a cotangent of unit scale.  Its check holds the
+        kernel's lse against the plain forward's first.  The library is
+        SDPA's backward: its forward + backward (autograd) less its
+        forward, both timed here."""
+        q = rand(B, Sq, Hq, D).to(dtype)
+        k, v = rand(B, Sk, Hk, D).to(dtype), rand(B, Sk, Hk, D).to(dtype)
+        do = rand(B, Sq, Hq, D).to(dtype)
+        off = Sk - Sq if q_offset is None else q_offset
+        out, lse = flash_attention_cuda(
+            q, k, v, causal=True, q_offset=off,
+            form=attn_plan(dtype, B, Sq, Sk, Hq, Hk, D), return_lse=True)
+        timed = path or timed
+        assert not timed or Sq == Sk, name
+
+        def check():
+            want = flash_attention_plain(q, k, v, q_offset=off,
+                                         return_lse=True)[1]
+            max_err(lse, want, f"flash_attention lse {name}")
+
+        def sdpa(backward):
+            qq, kk, vv = (t.detach().transpose(1, 2).requires_grad_(backward)
+                          for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                               enable_gqa=True)
+            if not backward:
+                return o
+            return tuple(g.transpose(1, 2) for g in torch.autograd.grad(
+                o, (qq, kk, vv), do.transpose(1, 2)))
+
+        pairs = B * Hq * visible_pairs(Sq, Sk, True)
+        return dict(kernel="flash_attention_backward", case=name, path=path,
+                    rerun=True, timed=timed, tol=ATTN_TOL[dtype],
+                    lib_tol=ATTN_LIB_TOL[dtype], check=check,
+                    iters=5 if Sq >= 4096 else 20,
+                    flops_per_s=BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                    else FP32_FLOPS_PER_S,
+                    run=lambda: ops.flash_attention_backward(
+                        q, k, v, out, do, lse, causal=True, q_offset=off),
+                    plain=lambda: flash_attention_backward_plain(
+                        q, k, v, out, do, lse, causal=True, q_offset=off),
+                    lib=lambda: sdpa(True), lib_forward=lambda: sdpa(False),
+                    macs=5 * D * pairs,       # 10 D operations per pair
+                    nbytes=q.element_size() * (4 * q.numel() + 4 * k.numel())
+                    + lse.element_size() * lse.numel())
+
+    # The training path's attentions (qwen3-0.6b at train_4k's length,
+    # one microbatch of 2): the forward and its backward.
+    cases.append(attention_case("train_S4096_bf16", 2, LM_TRAIN_SEQ,
+                                LM_TRAIN_SEQ, 16, 8, 128, True,
+                                torch.bfloat16, True))
+    cases.append(attention_bwd_case("train_S4096_bf16", 2, LM_TRAIN_SEQ,
+                                    LM_TRAIN_SEQ, 16, 8, 128, torch.bfloat16,
+                                    True))
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for S in (1024, 1000):
+            cases.append(attention_bwd_case(f"S{S}_{tag}", 2, S, S, 16, 8,
+                                            128, dtype, False, timed=True))
+        cases.append(attention_bwd_case(f"Sq300_Sk1000_qoff500_{tag}", 2,
+                                        300, 1000, 16, 8, 128, dtype, False,
+                                        q_offset=500))
+
     # The serving path's attentions (qwen3-0.6b: Hq 16, Hk 8, head_dim
     # 128, bf16, slot batch 4): prefill at the served lengths, and decode
     # over the live prefix of a max_len 2048 cache.
@@ -1521,6 +1842,8 @@ def main() -> int:
                                         "card": card}))
     kernels, race = {}, {}
     for c in cases:
+        if "check" in c:
+            c["check"]()
         got = c["run"]()
         torch.cuda.synchronize()
         what = f"{c['kernel']} {c['case']}"
@@ -1540,8 +1863,12 @@ def main() -> int:
                               c.get("lib_tol", tol))
             b_ms, b_by = bound_ms(c["nbytes"], c["macs"],
                                   c.get("flops_per_s", FP32_FLOPS_PER_S))
-            row.update(lib_err=lib_err, ms=timer(c["run"]),
-                       plain_ms=timer(c["plain"]), library_ms=timer(lib),
+            iters = c.get("iters", 20)
+            lib_ms = timer(lib, iters)
+            if "lib_forward" in c:   # a backward: less the library's forward
+                lib_ms -= timer(c["lib_forward"], iters)
+            row.update(lib_err=lib_err, ms=timer(c["run"], iters),
+                       plain_ms=timer(c["plain"], iters), library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by, macs=c["macs"],
                        nbytes=c["nbytes"])
         print("case " + json.dumps(row))
@@ -1912,6 +2239,9 @@ def main() -> int:
     # -- phase 8: atrous training, patchify and the planner --------------------
     vision_launches = vision_phase(card)
 
+    # -- phase 9: LM training -------------------------------------------------
+    lm_train_launches = lm_train_phase(card)
+
     sources = {"dconv_forward": ("dconv_forward.cu",
                                  "src/repro/kernels/dconv_forward.py:104"),
                "tconv_phase": ("tconv_phase.cu",
@@ -1926,7 +2256,10 @@ def main() -> int:
                    "dconv_filtergrad.cu",
                    "src/repro/kernels/dconv_filtergrad.py:114"),
                "flash_attention": ("flash_attention.cu",
-                                   "src/repro/kernels/attention.py:83")}
+                                   "src/repro/kernels/attention.py:83"),
+               "flash_attention_backward": (
+                   "flash_attention_bwd.cu",
+                   "jax.grad of src/repro/models/layers.py:108")}
     rows = []
     for name, (source, replaces) in sources.items():
         k = kernels[name]
@@ -1937,7 +2270,8 @@ def main() -> int:
                      + train_launches.get(name, 0)
                      + lm_launches.get(name, 0)
                      + trainer_launches.get(name, 0)
-                     + vision_launches.get(name, 0),
+                     + vision_launches.get(name, 0)
+                     + lm_train_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),

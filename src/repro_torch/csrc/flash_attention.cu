@@ -4,6 +4,11 @@
 // strides and a unit stride along D; g = Hq / Hk; scale = D**-0.5.  Key j
 // is visible to query i iff j < Sk and, when causal, j <= q_offset + i.
 // Masked scores are -1e30; the output is acc / max(l, 1e-30) in q's type.
+// When the caller gives an `lse` buffer (B, Hq, Sq) fp32, every form also
+// writes each row's log-sum-exp, lse = m + log(max(l, 1e-30)) in natural
+// units of the scaled scores -- the one that normalised o, which the
+// backward (flash_attention_bwd.cu) uses to recompute P = exp(s - lse).
+// A null `lse` writes nothing, so serving is unchanged bit for bit.
 //
 // Replaces repro/kernels/attention.py::flash_attention_pallas (body
 // _flash_kernel), whose grid (B, Hq, q block, kv block) carried the
@@ -100,7 +105,16 @@ struct AttnArgs {
   int causal;
   float scale;
   int64_t q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
+  float* lse;   // (B, Hq, Sq) row log-sum-exps, or null
 };
+
+// Row (b, h, i)'s log-sum-exp, from its max m and normaliser l in natural
+// units.
+__device__ __forceinline__ void store_lse(const AttnArgs& a, int64_t b,
+                                          int64_t h, int64_t i, float m,
+                                          float l) {
+  a.lse[(b * a.Hq + h) * a.Sq + i] = m + logf(fmaxf(l, 1e-30f));
+}
 
 // 16 bytes of T along D as fp32.
 template <typename T>
@@ -312,6 +326,7 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t row = row0 + r;
     if (row >= a.Sq) break;
     const float l_safe = fmaxf(l[r], 1e-30f);
+    if (a.lse != nullptr && lane == 0) store_lse(a, b, h, row, m[r], l[r]);
     T* orow = o + b * a.o_b + row * a.o_s + h * a.o_h;
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
@@ -553,6 +568,8 @@ __global__ void __launch_bounds__(kSplitThreads)
       }
     }
     const float l_safe = fmaxf(lsum, 1e-30f);
+    if (a.lse != nullptr && lane == 0)
+      store_lse(a, b, hk * g + r % g, r / g, M, lsum);
     T* orow = o + b * a.o_b + (r / g) * a.o_s + (hk * g + r % g) * a.o_h;
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
@@ -1021,6 +1038,12 @@ __global__ void __launch_bounds__(WgLayout<D>::kThreads, D <= 128 ? 2 : 1)
     const int64_t row = row0 + ra + 8 * h;
     if (row >= rows) continue;
     const float l_safe = fmaxf(l[h], 1e-30f);
+    // m is in base-2 units (s * scale * log2(e)); l sums the same p that
+    // normalised acc -- the hi/lo split of P touched neither.  The four
+    // lanes of a quad hold the same row's m and l.
+    if (a.lse != nullptr && (lane & 3) == 0)
+      store_lse(a, b, hk * g + row % g, row / g,
+                m[h] * 0.6931471805599453f, l[h]);
     __nv_bfloat16* orow =
         o + b * a.o_b + (row / g) * a.o_s + (hk * g + row % g) * a.o_h + cq;
 #pragma unroll
@@ -1223,26 +1246,28 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-AttnArgs make_args(int64_t B, int64_t Sq, int64_t Sk, int64_t Hq, int64_t Hk,
-                   int64_t causal, int64_t q_offset, float scale,
+AttnArgs make_args(void* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t Hq,
+                   int64_t Hk, int64_t causal, int64_t q_offset, float scale,
                    int64_t q_b, int64_t q_s, int64_t q_h, int64_t k_b,
                    int64_t k_s, int64_t k_h, int64_t v_b, int64_t v_s,
                    int64_t v_h, int64_t o_b, int64_t o_s, int64_t o_h) {
   return AttnArgs{B,   Sq,  Sk,  Hq,  Hk,  q_offset, (int)causal, scale,
                   q_b, q_s, q_h, k_b, k_s, k_h,      v_b,         v_s,
-                  v_h, o_b, o_s, o_h};
+                  v_h, o_b, o_s, o_h, static_cast<float*>(lse)};
 }
 
 }  // namespace
 
 // q (B,Sq,Hq,D), k/v (B,Sk,Hk,D) -> o (B,Sq,Hq,D), fp32; strides in
-// elements, unit along D, 16-byte aligned.  `form` is 0 tile, 1 wgmma
-// (bf16 only), 2 split (with `splits` CTAs per (b, kv head), 1..8).
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// a shape or form it does not take).
+// elements, unit along D, 16-byte aligned.  `lse` is null or a contiguous
+// fp32 (B,Hq,Sq) buffer for the rows' log-sum-exps.  `form` is 0 tile,
+// 1 wgmma (bf16 only), 2 split (with `splits` CTAs per (b, kv head),
+// 1..8).  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape or form it does not take).
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int64_t B,
-                                   int64_t Sq, int64_t Sk, int64_t Hq,
+                                   const void* v, void* o, void* lse,
+                                   int64_t B, int64_t Sq, int64_t Sk,
+                                   int64_t Hq,
                                    int64_t Hk, int64_t D, int64_t causal,
                                    int64_t q_offset, float scale,
                                    int64_t q_b, int64_t q_s, int64_t q_h,
@@ -1251,16 +1276,17 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int64_t o_b, int64_t o_s, int64_t o_h,
                                    int64_t form, int64_t splits,
                                    void* stream) {
-  const AttnArgs a = make_args(B, Sq, Sk, Hq, Hk, causal, q_offset, scale,
-                               q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h,
-                               o_b, o_s, o_h);
+  const AttnArgs a = make_args(lse, B, Sq, Sk, Hq, Hk, causal, q_offset,
+                               scale, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s,
+                               v_h, o_b, o_s, o_h);
   return dispatch<float>(q, k, v, o, D, a, form, splits, stream);
 }
 
 // The same with bf16 q, k, v and o.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int64_t B,
-                                    int64_t Sq, int64_t Sk, int64_t Hq,
+                                    const void* v, void* o, void* lse,
+                                    int64_t B, int64_t Sq, int64_t Sk,
+                                    int64_t Hq,
                                     int64_t Hk, int64_t D, int64_t causal,
                                     int64_t q_offset, float scale,
                                     int64_t q_b, int64_t q_s, int64_t q_h,
@@ -1269,8 +1295,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int64_t o_b, int64_t o_s, int64_t o_h,
                                     int64_t form, int64_t splits,
                                     void* stream) {
-  const AttnArgs a = make_args(B, Sq, Sk, Hq, Hk, causal, q_offset, scale,
-                               q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h,
-                               o_b, o_s, o_h);
+  const AttnArgs a = make_args(lse, B, Sq, Sk, Hq, Hk, causal, q_offset,
+                               scale, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s,
+                               v_h, o_b, o_s, o_h);
   return dispatch<__nv_bfloat16>(q, k, v, o, D, a, form, splits, stream);
 }

@@ -10,7 +10,9 @@ when causal, key j visible to query i iff j <= q_offset + i
 Both versions run the same online-softmax recurrence over kv blocks:
 running max m (initially -1e30), normalizer l and an fp32 accumulator,
 masked scores -1e30, output acc / max(l, 1e-30) in q's dtype.
-Public entry: `kernels/ops.py::flash_attention`.
+With `return_lse` both also give each row's log-sum-exp (B, Hq, Sq),
+lse = m + log(max(l, 1e-30)), from which the backward recomputes
+P = exp(scale q.k - lse).  Public entry: `kernels/ops.py::flash_attention`.
 
 The kernel has three forms, and `plan` picks one per call from the
 shapes alone:
@@ -26,6 +28,12 @@ shapes alone:
     this plain version does.
   * "tile": everything else (fp32 prefill, head_dim 16 or 32): fp32
     SIMT, one CTA per (b, h, 16 query rows).
+
+The backward, `csrc/flash_attention_bwd.cu`, and its plain version
+`flash_attention_backward_plain` compute dq, dk, dv from q, k, v, the
+output, its cotangent and the lse: three launches (delta = dO . o; dk
+and dv per block of keys, summing the GQA group's heads in order; dq per
+block of queries), no atomics.
 """
 from __future__ import annotations
 
@@ -49,11 +57,17 @@ SPLIT_WARP_KEYS = 32     # keys of a tile each of its two warps takes
 MAX_SPLITS = 8           # the portable thread-block cluster size
 SM_COUNT = 132           # H100 SXM
 
-# q, k, v, out; B, Sq, Sk, Hq, Hk, D, causal, q_offset; scale; the
-# (batch, sequence, head) strides of q, k, v and out; form, splits; the
-# stream.
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8 + [ctypes.c_float]
+# q, k, v, out, lse (or None); B, Sq, Sk, Hq, Hk, D, causal, q_offset;
+# scale; the (batch, sequence, head) strides of q, k, v and out; form,
+# splits; the stream.
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 8 + [ctypes.c_float]
              + [ctypes.c_int64] * 14 + [ctypes.c_void_p])
+_BWD_SYMBOLS = {torch.float32: "flash_attention_bwd_f32",
+                torch.bfloat16: "flash_attention_bwd_bf16"}
+# q, k, v, out, dout, lse, delta, dq, dk, dv; B, Sq, Sk, Hq, Hk, D, causal,
+# q_offset; scale; the stream.
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 
 class AttentionPlan(NamedTuple):
@@ -87,8 +101,9 @@ def plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, Hq: int, Hk: int,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, q_offset: int | None = None,
-                          blk_k: int = 128) -> torch.Tensor:
-    """q (B,Sq,Hq,D), k/v (B,Sk,Hk,D), Hq % Hk == 0 -> (B,Sq,Hq,D).
+                          blk_k: int = 128, return_lse: bool = False):
+    """q (B,Sq,Hq,D), k/v (B,Sk,Hk,D), Hq % Hk == 0 -> (B,Sq,Hq,D), and
+    with `return_lse` also the rows' log-sum-exps (B,Hq,Sq) in fp32.
 
     The recurrence over kv blocks of `blk_k` keys, on whole tensors; with
     `causal` it stops after the last block a query can see (the blocks
@@ -118,8 +133,58 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p, vb)
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+    l_safe = torch.clamp_min(l, 1e-30)
+    out = (acc / l_safe[..., None]).reshape(B, Sq, Hq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = (m + torch.log(l_safe)).permute(0, 2, 3, 1).reshape(B, Hq, Sq)
+    return out, lse
+
+
+def flash_attention_backward_plain(q, k, v, out, dout, lse, *,
+                                   causal: bool = True,
+                                   q_offset: int | None = None,
+                                   blk_k: int = 128):
+    """(dq, dk, dv) of `flash_attention_plain` at cotangent `dout`, from
+    its output `out` and lse (B,Hq,Sq), in q's dtype: block-wise over kv
+    blocks of `blk_k` keys with the kernel's formulas, not autograd,
+        P = exp(scale q.k - lse) (0 where not visible),  dV = P^T dO,
+        dS = P (dO.v - delta),  delta = dO . out,
+        dQ = scale dS K,  dK = scale dS^T Q,
+    the GQA group's heads summed into their kv head.  Keys no query sees
+    get 0."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hk, _ = k.shape
+    g = Hq // Hk
+    off = Sk - Sq if q_offset is None else q_offset
+    scale = D ** -0.5
+    shape = (B, Sq, Hk, g, D)
+    qf = (q.float() * scale).reshape(shape)
+    dof = dout.float().reshape(shape)
+    delta = (dof * out.float().reshape(shape)).sum(dim=-1)    # (B,Sq,Hk,g)
+    lse_ = lse.float().reshape(B, Hk, g, Sq).permute(0, 3, 1, 2)
+    q_pos = off + torch.arange(Sq, device=q.device)
+    dq = torch.zeros(shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Sk, Hk, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    kv_end = min(Sk, off + Sq) if causal else Sk
+    for kv0 in range(0, kv_end, blk_k):
+        kb = k[:, kv0:kv0 + blk_k].float()
+        vb = v[:, kv0:kv0 + blk_k].float()
+        n = kb.shape[1]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kb)
+        p = torch.exp(s - lse_[..., None])
+        if causal:
+            k_pos = kv0 + torch.arange(n, device=q.device)
+            mask = k_pos[None, :] <= q_pos[:, None]
+            p = torch.where(mask[None, :, None, None, :], p, 0.0)
+        dv[:, kv0:kv0 + n] = torch.einsum("bqhgk,bqhgd->bkhd", p, dof)
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dof, vb)
+        ds = p * (dp - delta[..., None])
+        dq += torch.einsum("bqhgk,bkhd->bqhgd", ds, kb)
+        dk[:, kv0:kv0 + n] = torch.einsum("bqhgk,bqhgd->bkhd", ds, qf)
+    return ((dq * scale).reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def split_kv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -209,22 +274,59 @@ def check_operand(name: str, t: torch.Tensor) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, q_offset: int,
-                         form: AttentionPlan) -> torch.Tensor:
+                         form: AttentionPlan, return_lse: bool = False):
     """Launch the kernel's `form` (from `plan`) on the current stream.
     One device, one dtype (fp32 or bf16), a head_dim of HEAD_DIMS -- the
-    wrapper in `kernels/ops.py` checks all three."""
+    wrapper in `kernels/ops.py` checks all three.  With `return_lse` the
+    kernel also writes the rows' log-sum-exps: (out, lse (B,Hq,Sq) fp32);
+    without, it writes none, bit for bit the launch serving makes."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_operand(name, t)
     B, Sq, Hq, D = q.shape
     _, Sk, Hk, _ = k.shape
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     symbol = _SYMBOLS[q.dtype]
     fn = build.kernel_function("flash_attention", symbol, _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, Sq, Sk, Hq, Hk, D, int(causal), q_offset, D ** -0.5,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], FORMS.index(form.form), form.splits,
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("flash_attention", err)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_backward_cuda(q, k, v, out, dout, lse, *, causal: bool,
+                                  q_offset: int):
+    """Launch `csrc/flash_attention_bwd.cu` (three kernels) on the current
+    stream -- on autograd's backward thread that is the stream the
+    forward's consumers ran on.  Every operand must be contiguous, and
+    q, k, v, out and dout of one dtype (fp32 or bf16); lse is fp32
+    (B,Hq,Sq).  Returns (dq, dk, dv) in q's dtype."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hk, _ = k.shape
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout), ("lse", lse)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_backward needs a contiguous "
+                             f"{name}, got strides {tuple(t.stride())}")
+    if lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq):
+        raise ValueError(f"lse must be float32 {(B, Hq, Sq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = build.kernel_function("flash_attention_bwd", _BWD_SYMBOLS[q.dtype],
+                               _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq,
+                 Hk, D, int(causal), q_offset, D ** -0.5,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check_launch("flash_attention_bwd", err)
+    return dq, dk, dv

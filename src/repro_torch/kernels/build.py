@@ -20,7 +20,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("dconv_forward", "tconv_phase", "implicit_gemm", "conv_backward",
-           "tconv_backward", "dconv_filtergrad", "flash_attention")
+           "tconv_backward", "dconv_filtergrad", "flash_attention",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -17,7 +17,10 @@ splits) from `tiling`, the Hopper planner.
   tconv_backward       -> csrc/tconv_backward.cu  (ddy, dW, db of a tconv)
   dconv_filter_grad    -> csrc/dconv_filtergrad.cu
   flash_attention      -> csrc/flash_attention.cu, in the form
-                          `attention.plan` picks (counted in FLASH_FORMS)
+                          `attention.plan` picks (counted in FLASH_FORMS);
+                          when an operand requires grad, through
+                          `FlashAttentionFn`, whose backward is
+  flash_attention_backward -> csrc/flash_attention_bwd.cu
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import torch
 from repro_torch.core.spec import ConvSpec, Epilogue, _pair
 from repro_torch.kernels import tiling
 from repro_torch.kernels.attention import (FORMS, HEAD_DIMS,
+                                           flash_attention_backward_cuda,
+                                           flash_attention_backward_plain,
                                            flash_attention_cuda,
                                            flash_attention_plain, plan)
 from repro_torch.kernels.dconv_backward import (conv_backward_cuda,
@@ -44,7 +49,7 @@ from repro_torch.kernels.tconv_phase import (tconv_fused_cuda,
 # Kernel launches per wrapper since the last reset.
 LAUNCHES = {"dconv_forward": 0, "tconv_phase": 0, "tconv_implicit_gemm": 0,
             "conv_backward": 0, "tconv_backward": 0, "dconv_filter_grad": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_backward": 0}
 # flash_attention's launches by kernel form (they sum to its LAUNCHES).
 FLASH_FORMS = dict.fromkeys(FORMS, 0)
 
@@ -260,7 +265,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     j <= q_offset + i; `q_offset` defaults to Sk - Sq.  k and v may be
     strided views (the live prefix of a KV cache): the kernel reads them
     in place.  `blk_k` is the plain version's kv block on the CPU; the
-    kernel has its own."""
+    kernel has its own.  When autograd records and an operand requires
+    grad, the call goes through `FlashAttentionFn` (on the card its
+    backward is a kernel too)."""
+    off = _check_attention(q, k, v, causal, q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, off, blk_k)
+    return _flash_forward(q, k, v, causal, off, blk_k, return_lse=False)
+
+
+def _check_attention(q, k, v, causal: bool, q_offset) -> int:
+    """Raise on operands the kernel does not take; return the q_offset."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
         raise ValueError(f"expected q (B,Sq,Hq,D) and k, v (B,Sk,Hk,D), got "
@@ -286,14 +302,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal and off < 0:
         raise ValueError(f"causal attention needs q_offset >= 0 (every query "
                          f"sees key 0), got {off}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    return off
+
+
+def _flash_forward(q, k, v, causal: bool, off: int, blk_k: int, *,
+                   return_lse: bool):
+    """The forward on checked operands: the plain version on the CPU, one
+    kernel launch on the card."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, q_offset=off,
-                                     blk_k=blk_k)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    form = plan(q.dtype, q.shape[0], Sq, Sk, Hq, Hk, D)
+                                     blk_k=blk_k, return_lse=return_lse)
+    form = plan(q.dtype, q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                k.shape[2], q.shape[3])
     out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
-                               form=form)
+                               form=form, return_lse=return_lse)
     LAUNCHES["flash_attention"] += 1
     FLASH_FORMS[form.form] += 1
     return out
+
+
+def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool,
+                             q_offset: int, blk_k: int = 128):
+    """(dq, dk, dv) of `flash_attention(q, k, v)` = `out` at cotangent
+    `dout`, from the forward's row log-sum-exps `lse` (B,Hq,Sq).  On the
+    card the three launches of csrc/flash_attention_bwd.cu (counted once
+    here); on the CPU the plain version.  A failed launch raises."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, dout, lse,
+                                              causal=causal,
+                                              q_offset=q_offset, blk_k=blk_k)
+    # Autograd hands over whatever dout its consumer gave (a transpose's
+    # gradient is strided): in training a copy is acceptable.
+    grads = flash_attention_backward_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(), out.contiguous(),
+        dout.contiguous(), lse, causal=causal, q_offset=q_offset)
+    LAUNCHES["flash_attention_backward"] += 1
+    return grads
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention` with a gradient: the forward also writes the rows'
+    log-sum-exps and saves (q, k, v, out, lse); the backward is
+    `flash_attention_backward`.  Under `torch.utils.checkpoint` the
+    forward runs again in the backward pass and saves its lse again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, off, blk_k):
+        out, lse = _flash_forward(q, k, v, causal, off, blk_k,
+                                  return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.off, ctx.blk_k = causal, off, blk_k
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, dout, lse, causal=ctx.causal, q_offset=ctx.off,
+            blk_k=ctx.blk_k)
+        return dq, dk, dv, None, None, None

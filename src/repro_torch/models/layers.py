@@ -1,7 +1,7 @@
 """Shared layers (port of `repro/models/layers.py`): the parameter-tree
 helpers the conv models' functional training steps need, and the dense
 transformer's layers -- norms, rope, GQA attention (prefill and decode
-over a KV cache), MLPs, embeddings.
+over a KV cache), MLPs, embeddings and the chunked cross-entropy head.
 
 A tree is nested dicts, lists and tuples with tensors at the leaves, as
 the models' params are.  The transformer layers take params as dicts of
@@ -16,6 +16,7 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.attention import NEG_INF
@@ -273,3 +274,36 @@ def logits_head(params, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return (x @ params["tok"].t().to(x.dtype)).float()
     return (x @ params["head"].to(x.dtype)).float()
+
+
+def _chunk_loss(params, xb, lb, cfg: ModelConfig):
+    """(sum of the chunk's nll, its count of labels >= 0)."""
+    logits = logits_head(params, xb, cfg)                 # (B,c,V) fp32
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lb.clamp_min(0).long()[..., None])[..., 0]
+    valid = (lb >= 0).float()
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def chunked_xent(params, x, labels, cfg: ModelConfig):
+    """Mean cross-entropy over the labels >= 0 (-1 masks a position)
+    without the (B,S,V) logits: chunks of `cfg.loss_chunk` positions,
+    each under `torch.utils.checkpoint`, so one chunk's fp32 logits exist
+    at a time and the backward recomputes them.  The sums run in chunk
+    order, as `repro`'s scan carries them."""
+    B, S, _ = x.shape
+    c = min(cfg.loss_chunk, S)
+    nc = -(-S // c)
+    pad = nc * c - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nc):
+        nll, n = checkpoint(_chunk_loss, params, x[:, i * c:(i + 1) * c],
+                            labels[:, i * c:(i + 1) * c], cfg,
+                            use_reentrant=False)
+        tot = tot + nll
+        cnt = cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)

@@ -6,6 +6,10 @@ blocks STACKED on a leading layer axis -- so `repro`'s params copy
 across unchanged (`convert.params_from_numpy`); `lax.scan` over the
 layers becomes a Python loop over that axis.
 
+Training: `forward` runs the layers under `torch.utils.checkpoint` when
+`cfg.remat == "full"` (`repro`'s `jax.checkpoint` of the layer body), and
+`loss` is `repro`'s: the chunked cross-entropy plus 0.01 * aux.
+
 The cache is {"k", "v": (L, B, max_len, Hk, D) in the compute dtype,
 "len": the number of positions filled, a Python int}.  `decode_step`
 writes each new token's k and v into the cache's buffers IN PLACE; the
@@ -20,6 +24,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -41,9 +46,22 @@ def _tf_block_apply(p, x, cfg: ModelConfig, positions):
     return x + L.mlp_block(p["mlp"], hin, cfg), 0.0
 
 
-def _layer(blocks, i: int):
-    """Layer i's params: a view into each stacked leaf."""
-    return L.tree_map(lambda a: a[i], blocks)
+def _layers(blocks, n: int) -> list:
+    """Every layer's params as views of the stacked leaves, taken by one
+    `unbind` per leaf: the backward then stacks the layers' gradients
+    once, where indexing layer by layer would scatter each into a zeroed
+    copy of the whole stack."""
+    cols = [a.unbind(0) for a in L.tree_leaves(blocks)]
+
+    def layer(i):
+        it = iter([c[i] for c in cols])
+        return L.tree_map(lambda _: next(it), blocks)
+
+    return [layer(i) for i in range(n)]
+
+
+def _block_out(p, x, cfg: ModelConfig, positions):
+    return _tf_block_apply(p, x, cfg, positions)[0]
 
 
 def _pad_cache(k, max_len: int):
@@ -73,28 +91,50 @@ class LM:
     def init(self, generator: torch.Generator, device=None) -> Dict[str, Any]:
         """Random fp32 params of `repro`'s shapes and scales, drawn on the
         CPU from `generator`, then moved to `device` (`None` = the card)."""
-        cfg = self.cfg
         dev = resolve_device(device)
+        return L.tree_map(lambda t: t.to(dev), self.init_tree(generator))
+
+    def init_tree(self, generator: torch.Generator) -> Dict[str, Any]:
+        """`init`'s params on the default device: under
+        `with torch.device("meta")` the tree's shapes and dtypes alone,
+        drawn and stored nowhere (`repro`'s `jax.eval_shape` of init)."""
+        cfg = self.cfg
         params = {"embed": L.embedding_init(generator, cfg),
                   "final_norm": L.rmsnorm_init(cfg.d_model)}
         per_layer = [_tf_block_init(generator, cfg)
                      for _ in range(cfg.n_layers)]
         params["blocks"] = L.tree_map(lambda *ls: torch.stack(ls),
                                       *per_layer)
-        return L.tree_map(lambda t: t.to(dev), params)
+        return params
 
     # -- forward (training) --------------------------------------------------
     def forward(self, params, inputs, positions=None):
-        """inputs: tokens (B,S).  Returns (hidden (B,S,D), aux_loss)."""
+        """inputs: tokens (B,S).  Returns (hidden (B,S,D), aux_loss).
+
+        With `remat == "full"` each layer runs under
+        `torch.utils.checkpoint`: only its input is kept, and the backward
+        runs the layer again.  (`repro` also fences the stashed input with
+        `_diff_barrier`, an XLA optimization barrier against hoisting its
+        bf16 -> f32 convert out of the layer scan; eager PyTorch hoists
+        nothing, so it has no counterpart here.)"""
         cfg = self.cfg
         x = L.embed(params["embed"], inputs, cfg)
         B, S, _ = x.shape
         if positions is None:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        for i in range(cfg.n_layers):
-            x, _ = _tf_block_apply(_layer(params["blocks"], i), x, cfg,
-                                   positions)
+        for p in _layers(params["blocks"], cfg.n_layers):
+            if cfg.remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(_block_out, p, x, cfg, positions,
+                               use_reentrant=False)
+            else:
+                x = _block_out(p, x, cfg, positions)
         return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), 0.0
+
+    def loss(self, params, inputs, labels):
+        """(nll + 0.01 * aux, {"nll", "aux"}); labels of -1 are masked."""
+        x, aux = self.forward(params, inputs)
+        nll = L.chunked_xent(params["embed"], x, labels, self.cfg)
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     # -- cache --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
@@ -115,8 +155,7 @@ class LM:
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         ks, vs = [], []
-        for i in range(cfg.n_layers):
-            p = _layer(params["blocks"], i)
+        for p in _layers(params["blocks"], cfg.n_layers):
             h, (kk, vv) = L.attention_block(
                 p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
                 positions)
@@ -136,8 +175,7 @@ class LM:
         cfg = self.cfg
         x = L.embed(params["embed"], tokens, cfg)
         clen = cache["len"]
-        for i in range(cfg.n_layers):
-            p = _layer(params["blocks"], i)
+        for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
             h, _, _ = L.attention_decode(
                 p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
                 cache["k"][i], cache["v"][i], clen)

@@ -31,7 +31,9 @@ from repro_torch.core.conv import ecoflow_conv, ecoflow_conv_transpose
 from repro_torch.core.spec import ConvSpec, Epilogue, resolve_backend
 from repro_torch.data.pipeline import ConvDataset
 from repro_torch.kernels import ops
-from repro_torch.kernels.attention import flash_attention_plain, plan
+from repro_torch.kernels.attention import (flash_attention_backward_plain,
+                                           flash_attention_cuda,
+                                           flash_attention_plain, plan)
 from repro_torch.kernels.dconv_backward import (conv_backward_plain,
                                                 phase_classes,
                                                 plan as backward_plan,
@@ -263,7 +265,8 @@ def test_each_wrapper_counts_its_launches(cuda):
     assert ops.LAUNCHES == {"dconv_forward": 1, "tconv_phase": 1,
                             "tconv_implicit_gemm": 1, "conv_backward": 0,
                             "tconv_backward": 0, "dconv_filter_grad": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0,
+                            "flash_attention_backward": 0}
     ops.dconv_forward(_rand(gen, 1, 8, 8, 3, device="cpu"),
                       _rand(gen, 3, 3, 3, 4, device="cpu"), stride=1,
                       padding=2, dilation=2)              # plain: no launch
@@ -670,6 +673,111 @@ def test_flash_attention_forms_with_a_q_offset(cuda, dtype, Sq):
                                rtol=rtol)
     assert torch.equal(got, ops.flash_attention(q, k, v, causal=True,
                                                 q_offset=100))
+
+
+# (B, Sq, Sk, Hq, Hk, D, causal, q_offset) of the backward: every head_dim,
+# g = 1 and 2, MQA, causal or not, Sq = Sk ragged about the 64-row and
+# 64-key blocks, and Sq < Sk with a q_offset (None: Sk - Sq).
+ATTN_BWD_CASES = [
+    (1, 63, 63, 2, 2, 16, True, None), (2, 65, 65, 4, 2, 32, True, None),
+    (1, 64, 64, 4, 1, 64, True, None), (1, 130, 130, 4, 2, 128, True, None),
+    (1, 70, 70, 2, 1, 256, True, None), (1, 33, 70, 4, 2, 16, False, None),
+    (1, 100, 300, 4, 2, 128, True, 37), (2, 40, 90, 2, 2, 64, True, None),
+    (1, 65, 65, 4, 2, 128, False, None), (1, 1, 40, 4, 4, 32, True, None)]
+
+
+def _forward_with_lse(q, k, v, causal, off):
+    """The forward kernel's (out, lse), in the form the wrapper plans."""
+    form = plan(q.dtype, q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                k.shape[2], q.shape[3])
+    return flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
+                                form=form, return_lse=True)
+
+
+def _attention_grad_operands(case, dtype, device, seed):
+    """q, k, v, the forward's output and lse through the kernel, and a
+    seeded cotangent."""
+    B, Sq, Sk, Hq, Hk, D, causal, off = case
+    q, k, v = _attention_operands((B, Sq, Sk, Hq, Hk, D), dtype, device, seed)
+    off = Sk - Sq if off is None else off
+    out, lse = _forward_with_lse(q, k, v, causal, off)
+    do = torch.tensor(np.random.default_rng(seed + 1).standard_normal(
+        q.shape).astype(np.float32)).to(device=device, dtype=dtype)
+    return q, k, v, out, lse, do, causal, off
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ATTN_BWD_CASES)
+def test_flash_attention_lse_matches_plain(cuda, dtype, case):
+    """Every form writes the lse that normalised its output; asking for it
+    leaves the output bit for bit as without."""
+    q, k, v, out, lse, _, causal, off = _attention_grad_operands(
+        case, dtype, cuda, 31)
+    want_out, want = flash_attention_plain(q, k, v, causal=causal,
+                                           q_offset=off, return_lse=True)
+    assert lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    torch.testing.assert_close(lse, want, atol=TOL, rtol=TOL)
+    assert torch.equal(out, ops.flash_attention(q, k, v, causal=causal,
+                                                q_offset=off))
+
+
+@pytest.mark.parametrize("Sq", [1, 8, 200])
+def test_flash_attention_lse_from_the_split_and_wgmma_forms(cuda, Sq):
+    q, k, v = _attention_operands((2, Sq, 600, 4, 2, 128), torch.bfloat16,
+                                  cuda, 32)
+    out, lse = _forward_with_lse(q, k, v, True, 100)
+    want = flash_attention_plain(q, k, v, causal=True, q_offset=100,
+                                 return_lse=True)[1]
+    torch.testing.assert_close(lse, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ATTN_BWD_CASES)
+def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, case):
+    q, k, v, out, lse, do, causal, off = _attention_grad_operands(
+        case, dtype, cuda, 33)
+    ops.reset_launches()
+    got = ops.flash_attention_backward(q, k, v, out, do, lse, causal=causal,
+                                       q_offset=off)
+    assert ops.LAUNCHES["flash_attention_backward"] == 1
+    want = flash_attention_backward_plain(q, k, v, out, do, lse,
+                                          causal=causal, q_offset=off)
+    atol, rtol = ATTN_TOL[dtype]
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol)
+    again = ops.flash_attention_backward(q, k, v, out, do, lse,
+                                         causal=causal, q_offset=off)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_attention_grad_launches_both_kernels(cuda):
+    """An operand that requires grad takes the autograd Function: one
+    forward launch writing the lse, one backward call, and gradients for
+    q, k and v; a strided cotangent is made contiguous."""
+    q, k, v = _attention_operands((2, 70, 70, 4, 2, 64), torch.bfloat16,
+                                  cuda, 34)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    do = torch.randn((2, 4, 70, 64), device=cuda).to(torch.bfloat16)
+    (out * do.transpose(1, 2)).float().sum().backward()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES["flash_attention_backward"] == 1
+    want = flash_attention_backward_plain(
+        *(t.detach() for t in (q, k, v, out)), do.transpose(1, 2),
+        flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                              return_lse=True)[1], causal=True, q_offset=0)
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    for t, w in zip((q, k, v), want):
+        torch.testing.assert_close(t.grad.float(), w.float(), atol=atol,
+                                   rtol=rtol)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).grad_fn is None
 
 
 def test_engine_prefills_on_wgmma_and_decodes_on_split(cuda):

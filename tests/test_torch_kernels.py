@@ -204,7 +204,8 @@ def test_plain_path_counts_no_launch():
     assert tops.LAUNCHES == {"dconv_forward": 0, "tconv_phase": 0,
                              "tconv_implicit_gemm": 0, "conv_backward": 0,
                              "tconv_backward": 0, "dconv_filter_grad": 0,
-                             "flash_attention": 0}
+                             "flash_attention": 0,
+                             "flash_attention_backward": 0}
 
 
 _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
@@ -224,6 +225,10 @@ _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
      "_ARGTYPES"),
     ("attention", "flash_attention", "flash_attention_f32", "_ARGTYPES"),
     ("attention", "flash_attention", "flash_attention_bf16", "_ARGTYPES"),
+    ("attention", "flash_attention_bwd", "flash_attention_bwd_f32",
+     "_BWD_ARGTYPES"),
+    ("attention", "flash_attention_bwd", "flash_attention_bwd_bf16",
+     "_BWD_ARGTYPES"),
 ])
 def test_c_entries_take_the_wrappers_argtypes(module, source, symbol,
                                               argtypes):
