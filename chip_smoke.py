@@ -35,9 +35,11 @@ Phases (any failed check raises and ends the run non-zero):
      backward) and the paper's 14 input gradients on both kernels; the
      attention backward (csrc/flash_attention_bwd.cu) at qwen3's head_dim
      128, GQA g = 2, causal, bf16 and fp32, S = 1024, 1000 and the
-     training path's 4096, and Sq 300 / Sk 1000 at q_offset 500: each
-     case first holds the forward kernel's lse against the plain lse,
-     then dq, dk, dv against the plain backward and, timed, SDPA's
+     training path's 4096, and Sq 300 / Sk 1000 at q_offset 500, each on
+     the form `attention.backward_plan` picks (bf16: wgmma, fp32: simt)
+     and, in bf16 at S = 4096, 1024 and 1000, on the simt form as well:
+     each case first holds the forward kernel's lse against the plain
+     lse, then dq, dk, dv against the plain backward and, timed, SDPA's
      backward (its forward + backward less its forward), reruns
      bit-identical;
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
@@ -100,9 +102,11 @@ Phases (any failed check raises and ends the run non-zero):
      seq 4096, global batch 8 (train_4k's 256 cut to one card) in 4
      microbatches, 1 warm-up and 3 timed steps with a checkpoint
      directory: every loss finite, each step 224 `flash_attention` and
-     112 `flash_attention_backward` calls, the step-4 checkpoint on disk;
-     ms per step, tokens/s, peak memory, and a torch.profiler trace of
-     one more step (device ms by kernel group, busy share).
+     112 `flash_attention_backward` calls, all on their wgmma forms
+     (`ops.FLASH_FORMS`, `ops.FLASH_BWD_FORMS`), the step-4 checkpoint on
+     disk; ms per step, tokens/s, peak memory, and a torch.profiler trace
+     of one more step (device ms by kernel group, busy share); then the
+     same run again, its losses bit-equal.
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
 and the library.  Kernel, plain version and library all compute in fp32;
@@ -185,9 +189,11 @@ LM_TRAIN_SEQ = 4096               # SHAPES["train_4k"].seq_len
 LM_TRAIN_BATCH = 8                # train_4k's 256, cut to one card
 LM_TRAIN_STEPS = 4                # 1 warm-up + 3 timed
 # The attention backward's kernels (csrc/flash_attention_bwd.cu), three
-# launches per wrapper call.
+# launches per wrapper call: delta, then dk/dv and dq of the simt or the
+# wgmma form.
 ATTN_BWD_SYMBOLS = ("attn_bwd_delta_kernel", "attn_bwd_dkdv_kernel",
-                    "attn_bwd_dq_kernel")
+                    "attn_bwd_dq_kernel", "attn_bwd_dkdv_wgmma_kernel",
+                    "attn_bwd_dq_wgmma_kernel")
 # The conv wrappers' kernel symbols (csrc/*.cu), to sort a trace by.
 CONV_SYMBOLS = {"dconv_forward": "dconv_forward_kernel",
                 "tconv_phase": "tconv_phase_kernel",
@@ -1150,8 +1156,10 @@ def lm_train_phase(card: str) -> dict:
     config's 4 microbatches, LM_TRAIN_STEPS steps (the first a warm-up)
     with a checkpoint directory: every loss finite, every step 2 x 28 x 4
     `flash_attention` launches and 28 x 4 `flash_attention_backward`
-    calls; ms per step, tokens/s, peak memory, then one more step traced
-    (ms by kernel group, device-busy share).  Returns (b)'s launches."""
+    calls, all on the wgmma forms; ms per step, tokens/s, peak memory,
+    then one more step traced (ms by kernel group, device-busy share),
+    and a rerun whose losses must be bit-equal.  Returns (b)'s
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenDataset
     from repro_torch.kernels import ops
@@ -1239,17 +1247,20 @@ def lm_train_phase(card: str) -> dict:
                                  f"expected 4")
         steps = []
         step_fn = trainer.step_fn
+        counts = (ops.LAUNCHES, ops.FLASH_FORMS, ops.FLASH_BWD_FORMS)
 
         def timed_step(params, opt, b):
             torch.cuda.synchronize()
-            before = dict(ops.LAUNCHES)
+            before = [dict(c) for c in counts]
             t0 = time.perf_counter()
             out = step_fn(params, opt, b)
             torch.cuda.synchronize()
+            launches, fwd, bwd = ({k: c[k] - was[k] for k in was
+                                  if c[k] - was[k]}
+                                 for c, was in zip(counts, before))
             steps.append({"ms": (time.perf_counter() - t0) * 1e3,
-                          "launches": {k: ops.LAUNCHES[k] - before[k]
-                                       for k in before
-                                       if ops.LAUNCHES[k] - before[k]}})
+                          "launches": launches, "forms": fwd,
+                          "backward_forms": bwd})
             return out
 
         trainer.step_fn = timed_step
@@ -1265,10 +1276,15 @@ def lm_train_phase(card: str) -> dict:
         saved = sorted(os.listdir(ckpt_dir))
     per_step = {"flash_attention": 2 * full.n_layers * 4,
                 "flash_attention_backward": full.n_layers * 4}
+    forms = ({"wgmma": per_step["flash_attention"]},
+             {"wgmma": per_step["flash_attention_backward"]})
     for i, st in enumerate(steps):
-        if st["launches"] != per_step:
-            raise AssertionError(f"lm train step {i + 1}: launches "
-                                 f"{st['launches']}, expected {per_step}")
+        if st["launches"] != per_step or \
+                (st["forms"], st["backward_forms"]) != forms:
+            raise AssertionError(
+                f"lm train step {i + 1}: launches {st['launches']}, forms "
+                f"{st['forms']} / {st['backward_forms']}, expected "
+                f"{per_step}, all on wgmma")
     losses = [h["loss"] for h in out["history"]]
     if len(losses) != LM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"lm train: losses {losses}")
@@ -1280,14 +1296,30 @@ def lm_train_phase(card: str) -> dict:
     b = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(
         LM_TRAIN_STEPS).items()}
     prof = lm_step_profile(lambda: step_fn(out["params"], out["opt"], b))
+    # The same run again (no checkpoint directory): the losses bit for bit.
+    n_micro = trainer.n_micro
+    del out, b, trainer
+    torch.cuda.empty_cache()
+    again = Trainer(full, ds, AdamWConfig(
+        lr=3e-4, warmup_steps=1, total_steps=LM_TRAIN_STEPS),
+        TrainerConfig(total_steps=LM_TRAIN_STEPS, log_every=1),
+        device=dev).run()
+    rerun = [h["loss"] for h in again["history"]]
+    del again
+    torch.cuda.empty_cache()
+    if rerun != losses:
+        raise AssertionError(f"lm train: a rerun's losses {rerun} differ "
+                             f"from {losses}")
     print("lm train " + json.dumps({
         "arch": LM_ARCH, "n_layers": full.n_layers, "dtype": full.dtype,
         "seq": LM_TRAIN_SEQ, "global_batch": LM_TRAIN_BATCH,
-        "microbatches": trainer.n_micro, "remat": full.remat,
+        "microbatches": n_micro, "remat": full.remat,
         "steps": LM_TRAIN_STEPS, "losses": losses,
         "ms_per_step_warmup": steps[0]["ms"], "ms_per_step_timed": timed,
+        "rerun_losses": rerun,
         "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
         "peak_memory_gb": peak / 1e9, "launches_per_step": per_step,
+        "forms_per_step": forms[0], "backward_forms_per_step": forms[1],
         "run_s": run_s, "checkpoint_and_loop_s": run_s - sum(
             st["ms"] for st in steps) / 1e3, "card": card}))
     print("lm train profile " + json.dumps(prof | {"card": card}))
@@ -1297,7 +1329,8 @@ def lm_train_phase(card: str) -> dict:
           f"model trained {LM_TRAIN_STEPS} steps at seq {LM_TRAIN_SEQ}, "
           f"batch {LM_TRAIN_BATCH}, {per_step['flash_attention']} "
           f"flash_attention and {per_step['flash_attention_backward']} "
-          f"backward launches per step, losses finite")
+          f"backward launches per step, all on wgmma, losses finite and "
+          f"bit-equal in a rerun")
     return launches
 
 
@@ -1312,8 +1345,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, tiling
     from repro_torch.kernels.attention import (
-        flash_attention_backward_plain, flash_attention_cuda,
-        flash_attention_plain)
+        flash_attention_backward_cuda, flash_attention_backward_plain,
+        flash_attention_cuda, flash_attention_plain)
+    from repro_torch.kernels.attention import backward_plan as attn_bwd_plan
     from repro_torch.kernels.attention import plan as attn_plan
     from repro_torch.kernels.dconv_backward import TILES as BWD_TILES
     from repro_torch.kernels.dconv_backward import plan as backward_plan
@@ -1697,12 +1731,13 @@ def main() -> int:
                                                + 2 * B * Sk * Hk * D))
 
     def attention_bwd_case(name, B, Sq, Sk, Hq, Hk, D, dtype, path,
-                           timed=False, q_offset=None):
+                           timed=False, q_offset=None, form=None):
         """flash_attention_backward (causal) from the kernel's own forward
-        output and lse, at a cotangent of unit scale.  Its check holds the
-        kernel's lse against the plain forward's first.  The library is
-        SDPA's backward: its forward + backward (autograd) less its
-        forward, both timed here."""
+        output and lse, at a cotangent of unit scale, in `form` (None:
+        `backward_plan`'s).  Its check holds the kernel's lse against the
+        plain forward's first.  The library is SDPA's backward: its
+        forward + backward (autograd) less its forward, both timed
+        here."""
         q = rand(B, Sq, Hq, D).to(dtype)
         k, v = rand(B, Sk, Hk, D).to(dtype), rand(B, Sk, Hk, D).to(dtype)
         do = rand(B, Sq, Hq, D).to(dtype)
@@ -1729,14 +1764,16 @@ def main() -> int:
                 o, (qq, kk, vv), do.transpose(1, 2)))
 
         pairs = B * Hq * visible_pairs(Sq, Sk, True)
+        form = form or attn_bwd_plan(dtype, B, Sq, Sk, Hq, Hk, D)
         return dict(kernel="flash_attention_backward", case=name, path=path,
-                    rerun=True, timed=timed, tol=ATTN_TOL[dtype],
+                    form=form, rerun=True, timed=timed, tol=ATTN_TOL[dtype],
                     lib_tol=ATTN_LIB_TOL[dtype], check=check,
                     iters=5 if Sq >= 4096 else 20,
                     flops_per_s=BF16_FLOPS_PER_S if dtype == torch.bfloat16
                     else FP32_FLOPS_PER_S,
-                    run=lambda: ops.flash_attention_backward(
-                        q, k, v, out, do, lse, causal=True, q_offset=off),
+                    run=lambda: flash_attention_backward_cuda(
+                        q, k, v, out, do, lse, causal=True, q_offset=off,
+                        form=form),
                     plain=lambda: flash_attention_backward_plain(
                         q, k, v, out, do, lse, causal=True, q_offset=off),
                     lib=lambda: sdpa(True), lib_forward=lambda: sdpa(False),
@@ -1745,17 +1782,24 @@ def main() -> int:
                     + lse.element_size() * lse.numel())
 
     # The training path's attentions (qwen3-0.6b at train_4k's length,
-    # one microbatch of 2): the forward and its backward.
+    # one microbatch of 2): the forward and its backward -- the path's
+    # form (wgmma), then the simt form on the same shape, timed beside it.
     cases.append(attention_case("train_S4096_bf16", 2, LM_TRAIN_SEQ,
                                 LM_TRAIN_SEQ, 16, 8, 128, True,
                                 torch.bfloat16, True))
     cases.append(attention_bwd_case("train_S4096_bf16", 2, LM_TRAIN_SEQ,
                                     LM_TRAIN_SEQ, 16, 8, 128, torch.bfloat16,
                                     True))
+    cases.append(attention_bwd_case("train_S4096_bf16_simt", 2, LM_TRAIN_SEQ,
+                                    LM_TRAIN_SEQ, 16, 8, 128, torch.bfloat16,
+                                    False, timed=True, form="simt"))
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        forms = (None, "simt") if dtype == torch.bfloat16 else (None,)
         for S in (1024, 1000):
-            cases.append(attention_bwd_case(f"S{S}_{tag}", 2, S, S, 16, 8,
-                                            128, dtype, False, timed=True))
+            for form in forms:
+                cases.append(attention_bwd_case(
+                    f"S{S}_{tag}" + ("_simt" if form else ""), 2, S, S, 16,
+                    8, 128, dtype, False, timed=True, form=form))
         cases.append(attention_bwd_case(f"Sq300_Sk1000_qoff500_{tag}", 2,
                                         300, 1000, 16, 8, 128, dtype, False,
                                         q_offset=500))

@@ -1,19 +1,19 @@
 #!/usr/bin/env python3
-"""The flash-attention forward without an lse buffer, bit for bit against
-another tree's kernel (a parent commit's, from before the kernel could
-write the lse).
+"""The flash-attention forward with and without an lse buffer, bit for
+bit against another tree's kernel (a parent commit's).
 
     python3 scripts/attention_null_lse.py --parent build/parent/src
 
 Needs one CUDA card and `nvcc`.  `--parent` is the `src/` of the other
-tree (unpack it with `git archive <commit> src | tar -x -C build/parent`);
-its `csrc/flash_attention.cu` is built here into `build/` and called
-through its own C entry, which takes no `lse` argument.  For every form
-(tile, wgmma, split), both dtypes and each head_dim the form takes, the
-serving launch (`ops.flash_attention`, lse null) and the training launch
-(the same kernel writing the lse) must equal the other tree's output bit
-for bit.  Prints one JSON line per case and exits non-zero on any
-difference.
+tree (unpack it with `git archive <commit> src | tar -x -C build/parent`),
+one whose kernel writes the lse (PR 20 on); its `csrc/flash_attention.cu`
+(with the headers beside it) is built here into `build/` and called
+through its own C entry, with a null lse and with an lse buffer.  For
+every form (tile, wgmma, split), both dtypes and each head_dim the form
+takes, the serving launch (`ops.flash_attention`, lse null) and the
+training launch (the same kernel writing the lse) must equal the other
+tree's output bit for bit, and the two trees' lse must be equal.  Prints
+one JSON line per case and exits non-zero on any difference.
 """
 from __future__ import annotations
 
@@ -29,11 +29,6 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-# The C entry before the lse argument: q, k, v, out; B, Sq, Sk, Hq, Hk, D,
-# causal, q_offset; scale; 12 strides; form, splits; the stream.
-_OLD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8
-                 + [ctypes.c_float] + [ctypes.c_int64] * 14
-                 + [ctypes.c_void_p])
 # (B, Sq, Sk, Hq, Hk, D, causal): prefill on the tile and wgmma forms,
 # decode (Sq = 1) on the split form, ragged lengths, q_offset via Sq < Sk.
 CASES = [(2, 300, 300, 16, 8, 128, True), (1, 65, 130, 4, 2, 64, True),
@@ -52,22 +47,25 @@ def build_parent(parent_src: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
-def parent_forward(lib, q, k, v, causal, off, form):
-    from repro_torch.kernels.attention import FORMS
+def parent_forward(lib, q, k, v, causal, off, form, with_lse):
+    """The other tree's (out, lse), lse None for a serving launch."""
+    from repro_torch.kernels.attention import _ARGTYPES, FORMS
     B, Sq, Hq, D = q.shape
     _, Sk, Hk, _ = k.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     fn = getattr(lib, "flash_attention_f32" if q.dtype == torch.float32
                  else "flash_attention_bf16")
-    fn.argtypes, fn.restype = _OLD_ARGTYPES, ctypes.c_int
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-             Sk, Hq, Hk, D, int(causal), off, D ** -0.5, *q.stride()[:3],
-             *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-             FORMS.index(form.form), form.splits,
-             torch.cuda.current_stream().cuda_stream)
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hk, D,
+             int(causal), off, D ** -0.5, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], *out.stride()[:3], FORMS.index(form.form),
+             form.splits, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"the parent's kernel failed: CUDA error {err}")
-    return out
+    return out, lse
 
 
 def main() -> int:
@@ -91,18 +89,24 @@ def main() -> int:
             v = torch.randn((B, Sk, Hk, D), generator=gen).to("cuda", dtype)
             off = Sk - Sq
             form = plan(dtype, B, Sq, Sk, Hq, Hk, D)
-            want = parent_forward(lib, q, k, v, causal, off, form)
+            want = parent_forward(lib, q, k, v, causal, off, form,
+                                  False)[0]
+            want_train, want_lse = parent_forward(lib, q, k, v, causal, off,
+                                                  form, True)
             serve = ops.flash_attention(q, k, v, causal=causal)
-            train = flash_attention_cuda(q, k, v, causal=causal,
-                                         q_offset=off, form=form,
-                                         return_lse=True)[0]
+            train, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                              q_offset=off, form=form,
+                                              return_lse=True)
             torch.cuda.synchronize()
             row = {"dtype": str(dtype).split(".")[1],
                    "shape": [B, Sq, Sk, Hq, Hk, D], "causal": causal,
                    "form": form.form, "splits": form.splits,
                    "null_lse_equal": torch.equal(serve, want),
-                   "with_lse_equal": torch.equal(train, want)}
-            bad += not (row["null_lse_equal"] and row["with_lse_equal"])
+                   "with_lse_equal": torch.equal(train, want)
+                   and torch.equal(train, want_train),
+                   "lse_equal": torch.equal(lse, want_lse)}
+            bad += not (row["null_lse_equal"] and row["with_lse_equal"]
+                        and row["lse_equal"])
             print("case " + json.dumps(row))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -17,29 +17,73 @@
 // sum carries over between them, and every output is written once by one
 // CTA after a fixed sequence of operations -- reruns are bit-identical.
 //   (a) delta[b,h,i] = sum_d dO o, one warp per row (butterfly sum);
-//   (b) dk, dv: one CTA per (b, kv head, block of BK keys).  It walks the
+//   (b) dk, dv: one CTA per (b, kv head, block of keys).  It walks the
 //       g query heads of the group and, for each, the query blocks that
 //       can see its keys (causal: from the block holding query
 //       k0 - q_offset), accumulating dK and dV in registers, and stores
 //       once.  The GQA sum over heads is that loop, in head order;
-//   (c) dq: one CTA per (b, q head, block of BQ queries), over the key
-//       blocks up to its last query's diagonal.
-// P and dS are recomputed in both (b) and (c): 14 D operations per visible
-// pair against the 10 D of the algorithm, the price of no atomics.
+//   (c) dq: one CTA per (b, q head, block of queries), over the key
+//       blocks up to its last query's diagonal, in order.
+// P and dS are recomputed in both (b) and (c), the price of no atomics.
+// Bound: operations, 10 D per visible pair (S, dP, dV, dK, dQ at 2 D
+// each) at 989 TFLOP/s in bf16 on the tensor cores, 67 in fp32.
+// kernels/attention.py::backward_plan picks one of two forms per call.
 //
-// SIMT form: fp32 FMAs on shared-memory tiles (K, V, Q scaled, dO, rows
-// padded to D + 1 floats so that the 16 threads of a half-warp reading 16
-// rows hit 16 banks), 256 threads as a 16 x 16 grid, each owning a
-// (rows / 16) x (cols / 16) register tile of every product.  Bound:
-// operations (10 D per visible pair at 67 TFLOP/s in fp32, 989 in bf16
-// on the tensor cores a later form will use); this form is far from it.
+// 1. wgmma (bf16 at head_dim 64 and 128): the tensor cores.  Warps 0-3
+//    are one consumer warpgroup, warp 4 the producer; every operand tile
+//    (64 rows of D bf16, 64-column panels, 128-byte swizzle) comes in by
+//    TMA under mbarriers, from one 4-d tensor map per operand
+//    (hopper.cuh::tile_map; rows past Sq or Sk arrive as zeros).
+//    (b) keeps its K and V tiles (64 keys) resident and streams the Q and
+//    dO tiles of 64 queries through a ring of 2 stages (full / empty
+//    mbarriers), head by head and block by block; the producer warp also
+//    writes each tile's lse (times log2 e) and delta into the stage.  It
+//    works in the transposed orientation, so that each accumulator
+//    fragment is already the next product's A operand (register for
+//    register, as the forward's S is its P):
+//      S^T  = K Q^T    wgmma m64n64k16, both K-major from shared memory;
+//      dP^T = V dO^T   the same, issued behind S^T and waited on after P;
+//      P^T  = exp2(S^T scale log2 e - lse log2 e), 0 where not visible;
+//      dS^T = P^T (dP^T - delta)   (lse, delta by column, from shared);
+//      dV  += P^T dO,  dK += dS^T Q   wgmma m64nDk16, A from registers,
+//           B MN-major from shared memory (the transpose bit, as the
+//           forward's V).
+//    A query past Sq gets lse = +inf, so its P is 0 without a mask; the
+//    causal mask is a per-row column limit.  (c) keeps its Q and dO tiles
+//    resident and streams K and V tiles: S = Q K^T, dP = dO V^T, P, dS,
+//    dQ += dS K (B = K, MN-major).
+//    Numerics: S and dP are sums of exact bf16 products in fp32.  P and
+//    dS are fp32, and one bf16 operand would leave the one-bf16-ulp class
+//    the kernel is held to, so each is split as the forward splits P,
+//    hi = bf16(x), lo = bf16(x - hi), both products into one fp32
+//    accumulator (~16 bits kept).  That makes 20 D tensor-core operations
+//    per visible pair -- (b) S 2 D, dP 2 D, dV 4 D, dK 4 D; (c) S 2 D,
+//    dP 2 D, dQ 4 D -- twice the bound's 10 D: a floor of 0.695 ms at the
+//    training shape (B 2, S 4096, Hq 16 / Hk 8, D 128, causal) against
+//    the bound's 0.3475.  Registers: (b) holds dK and dV (D / 2 fp32 a
+//    thread each) beside S^T and dP^T (32 each), about 192 values at D
+//    128, so one CTA an SM there (two at D 64); (c) holds dQ, S and dP,
+//    two CTAs an SM.  Causal work is a triangle: (b)'s lowest key blocks
+//    and (c)'s highest query blocks have the most tiles, and start first.
+//
+// 2. simt (fp32 -- "fp32 means fp32": TF32 would leave its class -- and
+//    head_dim 16, 32 and 256: 16 and 32 are narrower than form 1's
+//    64-column panels, and at 256 one warpgroup's dK and dV alone would
+//    take 256 registers a thread): fp32 FMAs on shared-memory tiles
+//    (K, V, Q scaled, dO, rows padded to D + 1 floats so that the 16
+//    threads of a half-warp reading 16 rows hit 16 banks), 256 threads
+//    as a 16 x 16 grid, each owning a (rows / 16) x (cols / 16) register
+//    tile of every product: 14 D operations per visible pair, far from
+//    its bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -105,7 +149,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Shared tiles and the products both (b) and (c) run.
+// Form 2, simt: shared tiles and the products both its (b) and (c) run.
 
 template <int D, int BQ, int BK>
 struct Tiles {
@@ -191,7 +235,7 @@ __device__ __forceinline__ void p_and_ds(const float* qs, const float* dos,
 }
 
 // ---------------------------------------------------------------------------
-// (b) dk, dv.  Grid (key blocks, Hk, B).
+// simt (b) dk, dv.  Grid (key blocks, Hk, B).
 
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
@@ -288,7 +332,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// (c) dq.  Grid (query blocks, Hq, B).
+// simt (c) dq.  Grid (query blocks, Hq, B).
 
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
@@ -371,27 +415,458 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Launches.
+// Form 1: wgmma (bf16, head_dim 64 and 128).
 
-// The dynamic shared-memory limit is a per-device attribute of the
-// function: set it once per device.
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t smem, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(done.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    done.fetch_or(bit, std::memory_order_relaxed);
-  }
-  return cudaSuccess;
+constexpr float kLog2e = 1.4426950408889634f;
+
+enum BwdForm { BWD_SIMT = 0, BWD_WGMMA = 1 };
+
+// One consumer warpgroup and one producer warp; tiles of 64 rows.  (b):
+// the resident pair is K and V, a stage holds Q, dO and the tile's 64
+// lse (times log2 e) and 64 delta; (c): the resident pair is Q and dO, a
+// stage K and V (its stats unused).
+template <int D>
+struct BwdLayout {
+  static constexpr int kStages = 2;
+  static constexpr int kConsumers = 128;
+  static constexpr int kThreads = kConsumers + 32;
+  static constexpr int kTile = D / 64 * kPanelBytes;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kStats = 2 * kTile + kStages * kStage;
+  static constexpr int kBars = kStats + kStages * 128 * (int)sizeof(float);
+  // 1024 bytes of slack to align the swizzled panels; full, empty and
+  // the resident pair's barrier.
+  static constexpr size_t kSmem = 1024 + kBars + (2 * kStages + 1) * 8;
+};
+
+__device__ __forceinline__ int clamp64(int64_t x) {
+  return (int)(x < 0 ? 0 : x > 64 ? 64 : x);
 }
 
-// Blocks of 64 queries and 64 keys; 32 at head_dim 256, where four 64-row
-// tiles of D + 1 floats would not fit in shared memory.
+// acc (64 x D) += A . B over 64 rows of B (four k16 steps), A the hi and
+// then the lo fragments, B a tile's panels MN-major.
+template <int D>
+__device__ __forceinline__ void wgmma_hi_lo(float* acc, const uint32_t* hi,
+                                            const uint32_t* lo,
+                                            const unsigned char* tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<D>(acc, hi + 4 * kk, smem_desc(tile + kk * 2048, kPanelBytes,
+                                             1024));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<D>(acc, lo + 4 * kk, smem_desc(tile + kk * 2048, kPanelBytes,
+                                             1024));
+}
+
+// Issues c (64 x 64, fp32) = A . B^T over D, A and B tiles K-major, as
+// one commit group.
+template <int D>
+__device__ __forceinline__ void wgmma_scores(float* c, const unsigned char* a,
+                                             const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+    wgmma_ss_n64(c, smem_desc(a + off, 16, 1024), smem_desc(b + off, 16, 1024),
+                 kk > 0);
+  }
+  wg_commit();
+}
+
+// Arms `bar` for two tiles and loads them: rows [row, row + 64) of head h
+// of batch b from maps m0 and m1, to dst and dst + one tile.
+template <int D>
+__device__ __forceinline__ void load_pair(unsigned char* dst,
+                                          const CUtensorMap* m0,
+                                          const CUtensorMap* m1,
+                                          uint64_t* bar, int h, int64_t row,
+                                          int b) {
+  mbar_expect_tx(bar, 2 * BwdLayout<D>::kTile);
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p) {
+    tma_load(dst + p * kPanelBytes, m0, bar, 64 * p, h, (int)row, b);
+    tma_load(dst + BwdLayout<D>::kTile + p * kPanelBytes, m1, bar, 64 * p,
+             h, (int)row, b);
+  }
+}
+
+// (b) dk, dv.  Grid (B * Hk, key blocks).
+template <int D>
+__global__ void __launch_bounds__(BwdLayout<D>::kThreads, D <= 64 ? 2 : 1)
+    attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, BwdArgs a) {
+  using L = BwdLayout<D>;
+  constexpr int NACC = D / 2;   // dK or dV registers per thread
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  unsigned char* base =
+      bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
+  unsigned char* ks = base;                    // resident K, then V
+  unsigned char* vs = base + L::kTile;
+  unsigned char* ring = base + 2 * L::kTile;   // stage s: Q, then dO
+  float* stats = reinterpret_cast<float*>(base + L::kStats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* resident = empty + L::kStages;
+
+  // Key blocks in y: under a causal mask the lowest see the most query
+  // blocks, and the blocks of a launch start in (x, y) order.
+  const int64_t k0 = (int64_t)blockIdx.y * 64;
+  const int hk = (int)(blockIdx.x % a.Hk), b = (int)(blockIdx.x / a.Hk);
+  const int64_t g = a.Hq / a.Hk;
+  const int64_t q_first =
+      a.causal ? max64(0, k0 - a.q_offset) / 64 * 64 : 0;
+  const int per_head =
+      q_first < a.Sq ? (int)((a.Sq - q_first + 63) / 64) : 0;
+  const int n_tiles = (int)g * per_head;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 32);             // the producer warp's lanes
+      mbar_init(&empty[s], L::kConsumers);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= L::kConsumers) {
+    // The producer warp: lane 0 issues the TMA loads; every lane writes
+    // its share of the stage's lse and delta and then arrives, so the
+    // phase completes once all of them and the tiles have landed.
+    const int lane = threadIdx.x - L::kConsumers;
+    if (lane == 0) load_pair<D>(ks, &tm_k, &tm_v, resident, hk, k0, b);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % L::kStages;
+      const int h = hk * (int)g + t / per_head;
+      const int64_t q0 = q_first + (int64_t)(t % per_head) * 64;
+      if (t >= L::kStages) mbar_wait(&empty[s], ((t / L::kStages) & 1) ^ 1);
+      float* st = stats + s * 128;
+      const int64_t row = ((int64_t)b * a.Hq + h) * a.Sq;
+      for (int i = lane; i < 64; i += 32) {
+        const bool in = q0 + i < a.Sq;
+        st[i] = in ? lse[row + q0 + i] * kLog2e : INFINITY;
+        st[64 + i] = in ? delta[row + q0 + i] : 0.0f;
+      }
+      if (lane == 0)
+        load_pair<D>(ring + s * L::kStage, &tm_q, &tm_do, &full[s], h, q0,
+                     b);
+      else
+        mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // The consumer warpgroup.  Fragment rows (keys) k0 + ra + 8 h, columns
+  // (queries) q0 + 8 j + cq + e: S[4 j + 2 h + e], as every accumulator.
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ra = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  const float scale2 = a.scale * kLog2e;
+  float dK[NACC], dV[NACC], S[32], dP[32];
+  uint32_t hp[16], lp[16], hs[16], ls[16];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) dK[i] = dV[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) S[i] = dP[i] = 0.0f;
+  mbar_wait(resident, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % L::kStages;
+    const int64_t q0 = q_first + (int64_t)(t % per_head) * 64;
+    mbar_wait(&full[s], (t / L::kStages) & 1);
+    const unsigned char* qt = ring + s * L::kStage;
+    const unsigned char* dot = qt + L::kTile;
+    const float* st = stats + s * 128;
+
+    // S^T = K Q^T and dP^T = V dO^T, two commit groups.
+    pin<32>(S);
+    pin<32>(dP);
+    wg_fence();
+    wgmma_scores<D>(S, ks, qt);
+    wgmma_scores<D>(dP, vs, dot);
+
+    // Row h sees the columns from lim[h] on: none for a key past Sk (its
+    // row is never stored), under a causal mask those with
+    // q0 + c >= key - q_offset.  A query past Sq has lse = +inf: P = 0.
+    int lim[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t key = k0 + ra + 8 * h;
+      lim[h] = key >= a.Sk ? 64
+               : a.causal  ? clamp64(key - a.q_offset - q0)
+                           : 0;
+    }
+    wg_wait<1>();
+    pin<32>(S);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * j + cq);
+#pragma unroll
+      for (int i = 4 * j; i < 4 * j + 4; ++i) {
+        const int c = 8 * j + cq + (i & 1);
+        const float p = exp2f(S[i] * scale2 - ((i & 1) ? l2.y : l2.x));
+        S[i] = c >= lim[(i / 2) & 1] ? p : 0.0f;
+      }
+    }
+    wg_wait<0>();
+    pin<32>(dP);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(st + 64 + 8 * j + cq);
+#pragma unroll
+      for (int i = 4 * j; i < 4 * j + 4; ++i)
+        dP[i] = S[i] * (dP[i] - ((i & 1) ? d2.y : d2.x));
+    }
+    // P^T and dS^T as A operands: columns 16 kk .. 16 kk + 15 of the
+    // fragment are the A fragment of k16 step kk.
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      split_pair(S[2 * i], S[2 * i + 1], hp[i], lp[i]);
+      split_pair(dP[2 * i], dP[2 * i + 1], hs[i], ls[i]);
+    }
+    pin<16>(hp);
+    pin<16>(lp);
+    pin<16>(hs);
+    pin<16>(ls);
+    pin<NACC>(dV);
+    pin<NACC>(dK);
+
+    // dV += P^T dO, dK += dS^T Q.
+    wg_fence();
+    wgmma_hi_lo<D>(dV, hp, lp, dot);
+    wgmma_hi_lo<D>(dK, hs, ls, qt);
+    wg_commit();
+    wg_wait<0>();
+    pin<NACC>(dV);
+    pin<NACC>(dK);
+    pin<16>(hp);
+    pin<16>(lp);
+    pin<16>(hs);
+    pin<16>(ls);
+    mbar_arrive(&empty[s]);
+  }
+
+  // Keys no query sees keep dK = dV = 0.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t key = k0 + ra + 8 * h;
+    if (key >= a.Sk) continue;
+    const int64_t off = ((b * a.Sk + key) * a.Hk + hk) * D + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+          __floats2bfloat162_rn(dK[4 * j + 2 * h] * a.scale,
+                                dK[4 * j + 2 * h + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+          __floats2bfloat162_rn(dV[4 * j + 2 * h], dV[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// (c) dq.  Grid (B * Hq, query blocks).
+template <int D>
+__global__ void __launch_bounds__(BwdLayout<D>::kThreads, 2)
+    attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, BwdArgs a) {
+  using L = BwdLayout<D>;
+  constexpr int NACC = D / 2;   // dQ registers per thread
+  extern __shared__ __align__(128) unsigned char bwd_smem[];
+  unsigned char* base =
+      bwd_smem + ((1024 - (smem_u32(bwd_smem) & 1023)) & 1023);
+  unsigned char* qs = base;                    // resident Q, then dO
+  unsigned char* dos = base + L::kTile;
+  unsigned char* ring = base + 2 * L::kTile;   // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* resident = empty + L::kStages;
+
+  // Query blocks in y, the highest (the most key blocks) first.
+  const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * 64;
+  const int h = (int)(blockIdx.x % a.Hq), b = (int)(blockIdx.x / a.Hq);
+  const int hk = h / (int)(a.Hq / a.Hk);
+  const int64_t q_last = min64(a.Sq, q0 + 64) - 1;
+  const int64_t kv_end =
+      a.causal ? min64(a.Sk, a.q_offset + q_last + 1) : a.Sk;
+  const int n_tiles = (int)((kv_end + 63) / 64);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], L::kConsumers);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= L::kConsumers) {
+    // The producer: one thread keeps the ring of K/V stages full.
+    if (threadIdx.x == L::kConsumers) {
+      load_pair<D>(qs, &tm_q, &tm_do, resident, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % L::kStages;
+        if (t >= L::kStages)
+          mbar_wait(&empty[s], ((t / L::kStages) & 1) ^ 1);
+        load_pair<D>(ring + s * L::kStage, &tm_k, &tm_v, &full[s], hk,
+                     (int64_t)t * 64, b);
+      }
+    }
+    return;
+  }
+
+  // Fragment rows (queries) q0 + ra + 8 h, columns (keys) k0 + 8 j + cq
+  // + e.  A row past Sq gets lse = +inf: P = 0.
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ra = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  const float scale2 = a.scale * kLog2e;
+  float lse2[2], dlt[2];
+  int64_t vis_end[2];   // row h sees the keys below vis_end[h]
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t i = q0 + ra + 8 * hh;
+    const int64_t row = ((int64_t)b * a.Hq + h) * a.Sq + i;
+    lse2[hh] = i < a.Sq ? lse[row] * kLog2e : INFINITY;
+    dlt[hh] = i < a.Sq ? delta[row] : 0.0f;
+    vis_end[hh] = a.causal ? min64(a.Sk, a.q_offset + i + 1) : a.Sk;
+  }
+  float dQ[NACC], S[32], dP[32];
+  uint32_t hs[16], ls[16];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) dQ[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) S[i] = dP[i] = 0.0f;
+  mbar_wait(resident, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % L::kStages;
+    const int64_t k0 = (int64_t)t * 64;
+    mbar_wait(&full[s], (t / L::kStages) & 1);
+    const unsigned char* kt = ring + s * L::kStage;
+    const unsigned char* vt = kt + L::kTile;
+
+    // S = Q K^T and dP = dO V^T, two commit groups.
+    pin<32>(S);
+    pin<32>(dP);
+    wg_fence();
+    wgmma_scores<D>(S, qs, kt);
+    wgmma_scores<D>(dP, dos, vt);
+    const int lim[2] = {clamp64(vis_end[0] - k0), clamp64(vis_end[1] - k0)};
+    wg_wait<1>();
+    pin<32>(S);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i / 2) & 1;
+      const float p = exp2f(S[i] * scale2 - lse2[hh]);
+      S[i] = 8 * (i / 4) + cq + (i & 1) < lim[hh] ? p : 0.0f;
+    }
+    wg_wait<0>();
+    pin<32>(dP);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dP[i] = S[i] * (dP[i] - dlt[(i / 2) & 1]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      split_pair(dP[2 * i], dP[2 * i + 1], hs[i], ls[i]);
+    pin<16>(hs);
+    pin<16>(ls);
+    pin<NACC>(dQ);
+
+    // dQ += dS K.
+    wg_fence();
+    wgmma_hi_lo<D>(dQ, hs, ls, kt);
+    wg_commit();
+    wg_wait<0>();
+    pin<NACC>(dQ);
+    pin<16>(hs);
+    pin<16>(ls);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t i = q0 + ra + 8 * hh;
+    if (i >= a.Sq) continue;
+    __nv_bfloat16* dqr = dq + (((int64_t)b * a.Sq + i) * a.Hq + h) * D + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dqr + 8 * j) =
+          __floats2bfloat162_rn(dQ[4 * j + 2 * hh] * a.scale,
+                                dQ[4 * j + 2 * hh + 1] * a.scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launches.
+
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* dout, void* delta,
+                         int D, const BwdArgs& a, cudaStream_t stream) {
+  const int64_t rows = a.B * a.Sq * a.Hq;
+  attn_bwd_delta_kernel<T>
+      <<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads,
+         0, stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout),
+                      static_cast<float*>(delta), rows, a.Sq, a.Hq, D);
+  return cudaGetLastError();
+}
+
+// Every operand contiguous: (B, S, H, D) with strides (S H D, H D, D).
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const void* lse,
+                         void* delta, void* dq, void* dk, void* dv,
+                         const BwdArgs& a, cudaStream_t stream) {
+  using L = BwdLayout<D>;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  const int64_t qs = a.Hq * D, ks = a.Hk * D;
+  cudaError_t err =
+      tile_map(&tm_q, q, D, a.Hq, a.Sq, a.B, a.Sq * qs, qs, D);
+  if (err == cudaSuccess)
+    err = tile_map(&tm_do, dout, D, a.Hq, a.Sq, a.B, a.Sq * qs, qs, D);
+  if (err == cudaSuccess)
+    err = tile_map(&tm_k, k, D, a.Hk, a.Sk, a.B, a.Sk * ks, ks, D);
+  if (err == cudaSuccess)
+    err = tile_map(&tm_v, v, D, a.Hk, a.Sk, a.B, a.Sk * ks, ks, D);
+  if (err != cudaSuccess) return err;
+  err = launch_delta<__nv_bfloat16>(o, dout, delta, D, a, stream);
+  if (err != cudaSuccess) return err;
+
+  auto kv_kern = attn_bwd_dkdv_wgmma_kernel<D>;
+  static std::atomic<uint64_t> kv_done{0};
+  err = allow_smem(kv_kern, L::kSmem, kv_done);
+  if (err != cudaSuccess) return err;
+  kv_kern<<<dim3((unsigned)(a.B * a.Hk), (unsigned)((a.Sk + 63) / 64)),
+            L::kThreads, L::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto q_kern = attn_bwd_dq_wgmma_kernel<D>;
+  static std::atomic<uint64_t> q_done{0};
+  err = allow_smem(q_kern, L::kSmem, q_done);
+  if (err != cudaSuccess) return err;
+  q_kern<<<dim3((unsigned)(a.B * a.Hq), (unsigned)((a.Sq + 63) / 64)),
+           L::kThreads, L::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), a);
+  return cudaGetLastError();
+}
+
+// simt: blocks of 64 queries and 64 keys; 32 at head_dim 256, where four
+// 64-row tiles of D + 1 floats would not fit in shared memory.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const void* lse,
@@ -399,12 +874,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const BwdArgs& a, cudaStream_t stream) {
   constexpr int BQ = D <= 128 ? 64 : 32, BK = BQ;
   constexpr size_t smem = Tiles<D, BQ, BK>::kSmem;
-  const int64_t rows = a.B * a.Sq * a.Hq;
-  attn_bwd_delta_kernel<T>
-      <<<(unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads,
-         0, stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout),
-                      static_cast<float*>(delta), rows, a.Sq, a.Hq, D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<T>(o, dout, delta, D, a, stream);
   if (err != cudaSuccess) return err;
 
   auto kv_kern = attn_bwd_dkdv_kernel<T, D, BQ, BK>;
@@ -438,12 +908,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, void* delta, void* dq,
-             void* dk, void* dv, int64_t D, const BwdArgs& a, void* stream) {
+             void* dk, void* dv, int64_t D, const BwdArgs& a, int64_t form,
+             void* stream) {
   if (a.B > 65535 || a.Hq > 65535 || a.Hk < 1 || a.Hq % a.Hk != 0 ||
       a.Sk < 1 || (a.causal && a.q_offset < 0))
     return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Sq == 0 || a.Hq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (form == BWD_WGMMA) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if ((a.Sq + 63) / 64 > 65535 || (a.Sk + 63) / 64 > 65535)
+        return (int)cudaErrorInvalidValue;
+      switch (D) {
+        case 64:
+          return (int)launch_wgmma<64>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, a, st);
+        case 128:
+          return (int)launch_wgmma<128>(q, k, v, o, dout, lse, delta, dq, dk,
+                                        dv, a, st);
+        default:
+          break;
+      }
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (form != BWD_SIMT) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 16:
       return (int)launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, a,
@@ -469,8 +958,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 // q, o, dout, dq (B,Sq,Hq,D); k, v, dk, dv (B,Sk,Hk,D), all contiguous, in
 // fp32; lse (B,Hq,Sq) fp32 from the forward; delta a (B,Hq,Sq) fp32
-// scratch the call fills.  Three launches on `stream`; returns the first
-// failing launch's error (cudaErrorInvalidValue for a shape it does not
+// scratch the call fills.  `form` is 0 simt, 1 wgmma (bf16 at head_dim 64
+// and 128 only).  Three launches on `stream`; returns the first failing
+// launch's error (cudaErrorInvalidValue for a shape or form it does not
 // take), else cudaSuccess.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        const void* v, const void* o,
@@ -480,10 +970,10 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        int64_t Sk, int64_t Hq, int64_t Hk,
                                        int64_t D, int64_t causal,
                                        int64_t q_offset, float scale,
-                                       void* stream) {
+                                       int64_t form, void* stream) {
   const BwdArgs a{B, Sq, Sk, Hq, Hk, q_offset, (int)causal, scale};
   return dispatch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, D, a,
-                         stream);
+                         form, stream);
 }
 
 // The same with bf16 q, k, v, o, dout, dq, dk and dv.
@@ -495,8 +985,8 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
                                         int64_t Sk, int64_t Hq, int64_t Hk,
                                         int64_t D, int64_t causal,
                                         int64_t q_offset, float scale,
-                                        void* stream) {
+                                        int64_t form, void* stream) {
   const BwdArgs a{B, Sq, Sk, Hq, Hk, q_offset, (int)causal, scale};
   return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, D,
-                                 a, stream);
+                                 a, form, stream);
 }

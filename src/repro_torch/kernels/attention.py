@@ -33,7 +33,11 @@ The backward, `csrc/flash_attention_bwd.cu`, and its plain version
 `flash_attention_backward_plain` compute dq, dk, dv from q, k, v, the
 output, its cotangent and the lse: three launches (delta = dO . o; dk
 and dv per block of keys, summing the GQA group's heads in order; dq per
-block of queries), no atomics.
+block of queries), no atomics.  `backward_plan` picks its form:
+  * "wgmma": bf16 at a head_dim of BWD_WGMMA_DIMS -- tensor-core
+    products fed by TMA, P and dS each split into two bf16 terms as the
+    forward splits P;
+  * "simt": everything else (fp32, head_dim 16, 32 and 256): fp32 FMAs.
 """
 from __future__ import annotations
 
@@ -64,10 +68,14 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 8 + [ctypes.c_float]
              + [ctypes.c_int64] * 14 + [ctypes.c_void_p])
 _BWD_SYMBOLS = {torch.float32: "flash_attention_bwd_f32",
                 torch.bfloat16: "flash_attention_bwd_bf16"}
+BWD_FORMS = ("simt", "wgmma")    # the backward C entry's form codes
+# The wgmma form's head_dims: at 256 one warpgroup's dK and dV for 64 keys
+# alone would need 256 registers a thread.
+BWD_WGMMA_DIMS = (64, 128)
 # q, k, v, out, dout, lse, delta, dq, dk, dv; B, Sq, Sk, Hq, Hk, D, causal,
-# q_offset; scale; the stream.
+# q_offset; scale; form; the stream.
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_int64, ctypes.c_void_p])
 
 
 class AttentionPlan(NamedTuple):
@@ -97,6 +105,19 @@ def plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, Hq: int, Hk: int,
     if dtype == torch.bfloat16 and D in WGMMA_DIMS and rows >= WGMMA_ROWS:
         return AttentionPlan("wgmma", 1)
     return AttentionPlan("tile", 1)
+
+
+def backward_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, Hq: int,
+                  Hk: int, D: int) -> str:
+    """The backward kernel's form for these shapes: "wgmma" for bf16 at a
+    head_dim of BWD_WGMMA_DIMS, whatever the lengths (ragged rows and
+    keys arrive as zeros and are masked), else "simt" -- fp32 stays fp32
+    (TF32 would leave its class), head_dim 16 / 32 are narrower than the
+    form's 64-column tile panels, and 256 would not fit its registers."""
+    del B, Sq, Sk, Hq, Hk    # the rule reads the dtype and head_dim alone
+    if dtype == torch.bfloat16 and D in BWD_WGMMA_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -301,12 +322,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_backward_cuda(q, k, v, out, dout, lse, *, causal: bool,
-                                  q_offset: int):
-    """Launch `csrc/flash_attention_bwd.cu` (three kernels) on the current
-    stream -- on autograd's backward thread that is the stream the
-    forward's consumers ran on.  Every operand must be contiguous, and
-    q, k, v, out and dout of one dtype (fp32 or bf16); lse is fp32
-    (B,Hq,Sq).  Returns (dq, dk, dv) in q's dtype."""
+                                  q_offset: int, form: str):
+    """Launch `csrc/flash_attention_bwd.cu`'s `form` (from
+    `backward_plan`; three kernels) on the current stream -- on
+    autograd's backward thread that is the stream the forward's consumers
+    ran on.  Every operand must be contiguous, and q, k, v, out and dout
+    of one dtype (fp32 or bf16); lse is fp32 (B,Hq,Sq).  A form the
+    shapes do not take is refused by the kernel's entry and raises.
+    Returns (dq, dk, dv) in q's dtype."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hk, _ = k.shape
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
@@ -327,6 +350,7 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse, *, causal: bool,
                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq,
                  Hk, D, int(causal), q_offset, D ** -0.5,
+                 BWD_FORMS.index(form),
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("flash_attention_bwd", err)
     return dq, dk, dv

@@ -20,7 +20,9 @@ splits) from `tiling`, the Hopper planner.
                           `attention.plan` picks (counted in FLASH_FORMS);
                           when an operand requires grad, through
                           `FlashAttentionFn`, whose backward is
-  flash_attention_backward -> csrc/flash_attention_bwd.cu
+  flash_attention_backward -> csrc/flash_attention_bwd.cu, in the form
+                          `attention.backward_plan` picks (counted in
+                          FLASH_BWD_FORMS)
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ import torch
 
 from repro_torch.core.spec import ConvSpec, Epilogue, _pair
 from repro_torch.kernels import tiling
-from repro_torch.kernels.attention import (FORMS, HEAD_DIMS,
+from repro_torch.kernels.attention import (BWD_FORMS, FORMS, HEAD_DIMS,
+                                           backward_plan,
                                            flash_attention_backward_cuda,
                                            flash_attention_backward_plain,
                                            flash_attention_cuda,
@@ -50,12 +53,14 @@ from repro_torch.kernels.tconv_phase import (tconv_fused_cuda,
 LAUNCHES = {"dconv_forward": 0, "tconv_phase": 0, "tconv_implicit_gemm": 0,
             "conv_backward": 0, "tconv_backward": 0, "dconv_filter_grad": 0,
             "flash_attention": 0, "flash_attention_backward": 0}
-# flash_attention's launches by kernel form (they sum to its LAUNCHES).
+# flash_attention's launches by kernel form (they sum to its LAUNCHES),
+# and flash_attention_backward's calls by form (they sum to its).
 FLASH_FORMS = dict.fromkeys(FORMS, 0)
+FLASH_BWD_FORMS = dict.fromkeys(BWD_FORMS, 0)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_FORMS):
+    for counts in (LAUNCHES, FLASH_FORMS, FLASH_BWD_FORMS):
         for name in counts:
             counts[name] = 0
 
@@ -327,18 +332,23 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool,
                              q_offset: int, blk_k: int = 128):
     """(dq, dk, dv) of `flash_attention(q, k, v)` = `out` at cotangent
     `dout`, from the forward's row log-sum-exps `lse` (B,Hq,Sq).  On the
-    card the three launches of csrc/flash_attention_bwd.cu (counted once
-    here); on the CPU the plain version.  A failed launch raises."""
+    card the three launches of csrc/flash_attention_bwd.cu in the form
+    `attention.backward_plan` picks (counted once here and in
+    FLASH_BWD_FORMS); on the CPU the plain version.  A failed launch
+    raises."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, dout, lse,
                                               causal=causal,
                                               q_offset=q_offset, blk_k=blk_k)
+    form = backward_plan(q.dtype, q.shape[0], q.shape[1], k.shape[1],
+                         q.shape[2], k.shape[2], q.shape[3])
     # Autograd hands over whatever dout its consumer gave (a transpose's
     # gradient is strided): in training a copy is acceptable.
     grads = flash_attention_backward_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(), out.contiguous(),
-        dout.contiguous(), lse, causal=causal, q_offset=q_offset)
+        dout.contiguous(), lse, causal=causal, q_offset=q_offset, form=form)
     LAUNCHES["flash_attention_backward"] += 1
+    FLASH_BWD_FORMS[form] += 1
     return grads
 
 

@@ -31,7 +31,9 @@ from repro_torch.core.conv import ecoflow_conv, ecoflow_conv_transpose
 from repro_torch.core.spec import ConvSpec, Epilogue, resolve_backend
 from repro_torch.data.pipeline import ConvDataset
 from repro_torch.kernels import ops
-from repro_torch.kernels.attention import (flash_attention_backward_plain,
+from repro_torch.kernels.attention import backward_plan as attn_bwd_plan
+from repro_torch.kernels.attention import (flash_attention_backward_cuda,
+                                           flash_attention_backward_plain,
                                            flash_attention_cuda,
                                            flash_attention_plain, plan)
 from repro_torch.kernels.dconv_backward import (conv_backward_plain,
@@ -267,6 +269,7 @@ def test_each_wrapper_counts_its_launches(cuda):
                             "tconv_backward": 0, "dconv_filter_grad": 0,
                             "flash_attention": 0,
                             "flash_attention_backward": 0}
+    assert ops.FLASH_BWD_FORMS == {"simt": 0, "wgmma": 0}
     ops.dconv_forward(_rand(gen, 1, 8, 8, 3, device="cpu"),
                       _rand(gen, 3, 3, 3, 4, device="cpu"), stride=1,
                       padding=2, dilation=2)              # plain: no launch
@@ -736,12 +739,33 @@ def test_flash_attention_lse_from_the_split_and_wgmma_forms(cuda, Sq):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", ATTN_BWD_CASES)
 def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, case):
+    """On the form `backward_plan` picks: bf16 at head_dim 64 / 128 on
+    wgmma, the rest on simt."""
+    _check_backward_form(cuda, dtype, case, None, 33)
+
+
+def _check_backward_form(cuda, dtype, case, form, seed):
+    """The backward against its plain version at ATTN_TOL, and a rerun bit
+    for bit: through the wrapper on the plan's form, counted once in
+    FLASH_BWD_FORMS (`form` None), or launched in `form`."""
     q, k, v, out, lse, do, causal, off = _attention_grad_operands(
-        case, dtype, cuda, 33)
+        case, dtype, cuda, seed)
+
+    def run():
+        if form is None:
+            return ops.flash_attention_backward(q, k, v, out, do, lse,
+                                                causal=causal, q_offset=off)
+        return flash_attention_backward_cuda(q, k, v, out, do, lse,
+                                             causal=causal, q_offset=off,
+                                             form=form)
+
     ops.reset_launches()
-    got = ops.flash_attention_backward(q, k, v, out, do, lse, causal=causal,
-                                       q_offset=off)
-    assert ops.LAUNCHES["flash_attention_backward"] == 1
+    got = run()
+    if form is None:
+        want_form = attn_bwd_plan(dtype, *case[:6])
+        assert ops.LAUNCHES["flash_attention_backward"] == 1
+        assert ops.FLASH_BWD_FORMS == {f: int(f == want_form)
+                                       for f in ops.FLASH_BWD_FORMS}
     want = flash_attention_backward_plain(q, k, v, out, do, lse,
                                           causal=causal, q_offset=off)
     atol, rtol = ATTN_TOL[dtype]
@@ -749,9 +773,45 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, case):
         assert a.dtype == dtype and a.shape == b.shape
         torch.testing.assert_close(a.float(), b.float(), atol=atol,
                                    rtol=rtol)
-    again = ops.flash_attention_backward(q, k, v, out, do, lse,
-                                         causal=causal, q_offset=off)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", ATTN_BWD_CASES)
+def test_flash_attention_backward_wgmma_form_at_every_geometry(cuda, case,
+                                                                D):
+    """Every ATTN_BWD_CASES geometry in bf16 at head_dim 64 and 128 runs
+    on the tensor-core form: ragged rows and keys (63, 65, 70, 130, one
+    query), MQA, q_offset, causal or not."""
+    case = case[:5] + (D,) + case[6:]
+    assert attn_bwd_plan(torch.bfloat16, *case[:6]) == "wgmma"
+    _check_backward_form(cuda, torch.bfloat16, case, None, 35)
+
+
+def test_flash_attention_backward_simt_form_stays_tested_in_bf16(cuda):
+    """The SIMT form forced at a bf16 head_dim 128 case the plan sends to
+    wgmma."""
+    case = (1, 130, 130, 4, 2, 128, True, None)
+    assert attn_bwd_plan(torch.bfloat16, *case[:6]) == "wgmma"
+    _check_backward_form(cuda, torch.bfloat16, case, "simt", 36)
+
+
+def test_flash_attention_backward_refuses_a_form_the_shapes_do_not_take(
+        cuda):
+    """No fallback: the wgmma form refuses fp32 and head_dim 32 (the
+    kernel's entry returns cudaErrorInvalidValue and the launcher
+    raises), and an unknown form raises before any launch."""
+    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 32)):
+        q, k, v, out, lse, do, causal, off = _attention_grad_operands(
+            (1, 70, 70, 4, 2, D, True, None), dtype, cuda, 37)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            flash_attention_backward_cuda(q, k, v, out, do, lse,
+                                          causal=causal, q_offset=off,
+                                          form="wgmma")
+        with pytest.raises(ValueError):
+            flash_attention_backward_cuda(q, k, v, out, do, lse,
+                                          causal=causal, q_offset=off,
+                                          form="tile")
 
 
 def test_flash_attention_grad_launches_both_kernels(cuda):
@@ -768,6 +828,8 @@ def test_flash_attention_grad_launches_both_kernels(cuda):
     (out * do.transpose(1, 2)).float().sum().backward()
     assert ops.LAUNCHES["flash_attention"] == 1
     assert ops.LAUNCHES["flash_attention_backward"] == 1
+    assert ops.FLASH_FORMS == {"tile": 0, "wgmma": 1, "split": 0}
+    assert ops.FLASH_BWD_FORMS == {"simt": 0, "wgmma": 1}
     want = flash_attention_backward_plain(
         *(t.detach() for t in (q, k, v, out)), do.transpose(1, 2),
         flash_attention_plain(q.detach(), k.detach(), v.detach(),
@@ -802,6 +864,45 @@ def test_engine_prefills_on_wgmma_and_decodes_on_split(cuda):
     assert ops.FLASH_FORMS == {"tile": 0, "wgmma": 2 * prefills,
                                "split": 2 * decodes}
     assert ops.LAUNCHES["flash_attention"] == 2 * (prefills + decodes)
+
+
+def test_lm_trainer_run_on_a_side_stream_equals_the_default_stream(cuda):
+    """`Trainer.run` inside `torch.cuda.stream(side)`: the prefetch
+    thread's copy of each batch (`_put`) records an event on its own
+    stream, and `_take` makes the step's stream wait on it.  Losses,
+    params and optimizer state bit-equal to the same run on the default
+    stream."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_smoke_config("qwen3-0.6b")
+
+    def run():
+        ds = TokenDataset(vocab=cfg.vocab, seq_len=64, global_batch=8,
+                          seed=0)
+        out = Trainer(cfg, ds, AdamWConfig(lr=3e-3, warmup_steps=0,
+                                           total_steps=6),
+                      TrainerConfig(total_steps=6, log_every=1),
+                      device=cuda).run()
+        torch.cuda.synchronize()
+        return out
+
+    want = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = run()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert len(got["history"]) == 6
+    assert [h["loss"] for h in got["history"]] == \
+        [h["loss"] for h in want["history"]]
+    for a, b in zip(tree_leaves({"p": got["params"], "o": got["opt"]}),
+                    tree_leaves({"p": want["params"], "o": want["opt"]})):
+        assert torch.equal(a, b)
 
 
 # -- the trainer's compiled step (train/step_graph.py) ------------------------

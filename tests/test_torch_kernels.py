@@ -206,6 +206,14 @@ def test_plain_path_counts_no_launch():
                              "tconv_backward": 0, "dconv_filter_grad": 0,
                              "flash_attention": 0,
                              "flash_attention_backward": 0}
+    q = torch.zeros((1, 70, 4, 64), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 70, 2, 64), dtype=torch.bfloat16)
+    out, lse = tops._flash_forward(q, kv, kv, True, 0, 128, return_lse=True)
+    tops.flash_attention_backward(q, kv, kv, out, q, lse, causal=True,
+                                  q_offset=0)
+    assert tops.LAUNCHES["flash_attention_backward"] == 0
+    assert tops.FLASH_FORMS == {"tile": 0, "wgmma": 0, "split": 0}
+    assert tops.FLASH_BWD_FORMS == {"simt": 0, "wgmma": 0}
 
 
 _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
@@ -247,3 +255,20 @@ def test_c_entries_take_the_wrappers_argtypes(module, source, symbol,
     got = [t.__name__ for t in getattr(importlib.import_module(
         f"repro_torch.kernels.{module}"), argtypes)]
     assert got == want
+
+
+@pytest.mark.parametrize("source,enum,forms", [
+    ("flash_attention", "Form", "FORMS"),
+    ("flash_attention_bwd", "BwdForm", "BWD_FORMS"),
+])
+def test_form_codes_match_the_c_enums(source, enum, forms):
+    """The wrappers pass a form as its index in FORMS / BWD_FORMS: each C
+    enum must list the same forms in the same order."""
+    import re
+
+    from repro_torch.kernels import attention, build
+    text = (build.CSRC / f"{source}.cu").read_text()
+    body = re.search(r"enum " + enum + r" \{(.*?)\};", text, re.S).group(1)
+    codes = {name.split("_", 1)[1].lower(): int(val) for name, val in
+             re.findall(r"(\w+) = (\d+)", body)}
+    assert codes == {f: i for i, f in enumerate(getattr(attention, forms))}
