@@ -106,7 +106,22 @@ Phases (any failed check raises and ends the run non-zero):
      (`ops.FLASH_FORMS`, `ops.FLASH_BWD_FORMS`), the step-4 checkpoint on
      disk; ms per step, tokens/s, peak memory, and a torch.profiler trace
      of one more step (device ms by kernel group, busy share); then the
-     same run again, its losses bit-equal.
+     same run again, its losses bit-equal;
+  10. the int8 KV cache, the examples and the quickstart: (a) qwen3-0.6b
+     at full width, 2 layers, fp32, `kv_quant`: phase 6 (a)'s prompts and
+     8 forced decodes on the card, each call held against the same call
+     on the CPU (`int8_serve_phase`); (b) the whole model in bf16 with
+     `kv_quant` serving phase 6 (b)'s 12 requests through ServeEngine:
+     requests/s, tokens/s, ms per prefill and decode step, peak memory,
+     the cache's bytes against the bf16 cache's, the first decode's
+     softmax against the bf16 cache's, the share of greedy tokens equal
+     to phase 6's, a decode profile; (c) 3 steps each of the
+     `train_cnn_ecoflow` and `train_gan` examples on the `cuda` backend
+     against the CPU, their launches per step (EXAMPLE_LAUNCHES) and ms
+     per step, and `serve_lm` at its defaults (`examples_phase`); (d) the
+     quickstart: its dx and dW (the filter-gradient kernel's first
+     program path) against `naive`, and its kernel / `torch_zero_free` /
+     `naive` times (`quickstart_phase`).
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
 and the library.  Kernel, plain version and library all compute in fp32;
@@ -135,6 +150,12 @@ straight run: bit for bit (the kernels use no atomics and split their
 sums in a fixed order).  LM parity: atol = rtol = 1e-3 on logits and cache
 after every call (fp32 matmuls over d_model 1024 and d_ff 3072 in
 another order than the CPU's, carried through 2 layers and 8 steps).
+Phase 10: int8 KV parity as the fp32 LM's (1e-3) per call on the same
+codes, codes 1 apart at most (a tie of the fp32 quotient rounds either
+way), scales 1e-4 relative; the int8 serving's first decode against the
+bf16 cache's at 0.05 (`tests/test_models_smoke.py:164`'s bound for
+`repro`); the example steps' losses at the training 1e-3; the quickstart
+at 1e-4 (fp32 against fp32, cuDNN for `naive`).
 TF32 is turned off for cuDNN and for torch.matmul, so no side rounds its
 inputs to 10 bits.
 """
@@ -261,32 +282,39 @@ PATCH_D_MODEL = 1024
 PATCH_STEPS = 3
 VISION_TIMED = 10         # eager steps per timing
 MISS_RATIO = 1.1          # an analytical pick this much slower is a miss
-# The paper's layers whose input gradients the planner races (Table 5,
-# Table 7 and the two DeepLab ASPP layers of repro/core/dataflow_sim.py,
-# copied: name, Cin, N in, N out, K, M = Cout, S, D), at its batch 4.
-PAPER_BATCH = 4
-PAPER_LAYERS = [
-    ("alexnet-CONV1", 3, 224, 55, 11, 64, 4, 1),
-    ("alexnet-CONV2", 64, 31, 27, 5, 192, 1, 1),
-    ("resnet50-CONV3", 128, 57, 28, 3, 128, 2, 1),
-    ("shufflenet-CONV2", 58, 57, 28, 3, 58, 2, 1),
-    ("shufflenet-CONV5", 232, 7, 7, 1, 232, 1, 1),
-    ("inception-CONV3", 192, 17, 8, 3, 320, 2, 1),
-    ("xception-CONV3", 728, 29, 14, 3, 1, 2, 1),
-    ("mobilenet-CONV5", 512, 15, 7, 3, 1, 2, 1),
-    ("cyclegan-disc-CONV3", 64, 114, 56, 4, 128, 2, 1),
-    ("cyclegan-gen-TCONV1", 128, 113, 56, 3, 256, 2, 1),
-    ("pix2pix-disc-CONV6", 128, 130, 64, 4, 256, 2, 1),
-    ("pix2pix-gen-TCONV4", 128, 130, 64, 4, 512, 2, 1),
-    ("deeplab-ASPP-d2", 256, 33, 33, 3, 256, 1, 2),
-    ("deeplab-ASPP-d4", 256, 33, 33, 3, 256, 1, 4),
-]
+KV_SCALE_RTOL = 1e-4      # phase 10 (a): the int8 cache's scales
+SOFTMAX_TOL = 0.05        # phase 10 (b): tests/test_models_smoke.py:164's
+EXAMPLE_STEPS = 3         # phase 10 (c): steps held against the CPU
+EXAMPLE_TIMED = 10        # phase 10 (c): steps per timing
+# Wrapper calls per step of the two training examples (phase 10 (c)) on the
+# `cuda` backend, the transposed convs' two kernels merged as "tconv" (the
+# planner picks between them).  CNN: 3 forwards for the loss, 3 fused
+# backwards, 3 forwards of the updated model for the accuracy.  GAN: the
+# discriminator's update (3 tconv + 6 forwards, 6 backwards of its two
+# branches) then the generator's (3 tconv + 6 forwards, 3 backwards of
+# the fake branch, 3 tconv backwards).
+EXAMPLE_LAUNCHES = {
+    "train_cnn_ecoflow": {"dconv_forward": 6, "conv_backward": 3},
+    "train_gan": {"tconv": 6, "dconv_forward": 12, "conv_backward": 9,
+                  "tconv_backward": 3}}
+PAPER_BATCH = 4           # dataflow_sim.ConvLayer's batch
 # The generator's transposed convs as (name, dy side, n_out, Cin, Cout,
 # activation): K = 4, S = 2, P = 1.
 GEN_TCONVS = [("gan_t1", (4, 4), (8, 8), 64, 128, "relu"),
               ("gan_t2", (8, 8), (16, 16), 32, 64, "relu"),
               ("gan_t3", (16, 16), (32, 32), 3, 32, "tanh")]
 TCONV_KERNELS = {"phase": "tconv_phase", "implicit_gemm": "tconv_implicit_gemm"}
+
+
+def paper_layers() -> list:
+    """The paper's layers whose input gradients the planner races (Table
+    5, Table 7 and the two DeepLab ASPP layers of `core/dataflow_sim.py`):
+    (name, Cin, N in, N out, K, M = Cout, S, D), at PAPER_BATCH."""
+    from repro_torch.core import dataflow_sim as ds
+
+    return [(l.name, l.c_in, l.n_in, l.n_out, l.k, l.m, l.stride, l.dilation)
+            for l in (ds.TABLE5_LAYERS + ds.TABLE7_GAN_LAYERS
+                      + ds.DILATED_LAYERS)]
 
 
 def paper_spec(n_in, n_out, k, s, d):
@@ -402,6 +430,79 @@ def ptxas_usage(log: str) -> list[tuple[str, str, str]]:
         if used:
             rows.append((label, used.group(1), spills))
     return rows
+
+
+def lm_parity_inputs(plm):
+    """Phase 6 (a)'s params and inputs for `plm` (a config at full width
+    with PARITY_LAYERS layers), drawn from numpy seed 13: (CPU params,
+    prompt lengths, right-aligned prompts (LM_BATCH, max) int32, the
+    PARITY_DECODES forced tokens, the cache's max_len)."""
+    from repro_torch.models.layers import tree_map
+
+    pcfg = plm.cfg
+    rng = np.random.default_rng(13)
+
+    def draw(t):
+        """N(0, 1) scaled as LM.init scales it (the embedding by 1, a
+        stacked (layer, fan-in, fan-out) weight by 1/sqrt(fan-in)); the
+        norm scales by 0.1, so that 1 + scale is not 1."""
+        if t.shape == (pcfg.vocab, pcfg.d_model):
+            scale = 1.0
+        elif t.dim() == 3:
+            scale = 1.0 / math.sqrt(t.shape[1])
+        else:
+            scale = 0.1
+        return torch.from_numpy(
+            (scale * rng.standard_normal(t.shape)).astype(np.float32))
+
+    cpu_params = tree_map(draw, plm.init(torch.Generator().manual_seed(0),
+                                         device="cpu"))
+    lens = rng.integers(64, 201, LM_BATCH)
+    toks = np.zeros((LM_BATCH, int(lens.max())), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, toks.shape[1] - n:] = rng.integers(1, pcfg.vocab, n)
+    forced = rng.integers(1, pcfg.vocab, (PARITY_DECODES, LM_BATCH, 1))
+    return cpu_params, lens, toks, forced, toks.shape[1] + PARITY_DECODES
+
+
+def lm_requests(vocab: int) -> list:
+    """Phase 6 (b)'s LM_REQUESTS requests: prompts of 128-1024 tokens,
+    8-32 new tokens each, from numpy seed 0."""
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(uid=i,
+                    prompt=rng.integers(1, vocab, rng.integers(128, 1025)
+                                        ).astype(np.int32),
+                    max_new_tokens=int(rng.integers(8, 33)))
+            for i in range(LM_REQUESTS)]
+
+
+def instrumented_engine(cfg, params):
+    """A fresh ServeEngine(batch=LM_BATCH, max_len=LM_MAX_LEN) on the card
+    whose prefill and decode calls record CUDA events and a finiteness
+    flag of their logits in `eng.calls`."""
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, batch=LM_BATCH, max_len=LM_MAX_LEN,
+                      device=torch.device("cuda"))
+    eng.calls = []
+
+    def wrap(kind, fn):
+        def call(*args):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            logits, cache = fn(*args)
+            end.record()
+            eng.calls.append((kind, start, end,
+                              torch.isfinite(logits).all()))
+            return logits, cache
+        return call
+
+    eng._prefill = wrap("prefill", eng._prefill)
+    eng._decode = wrap("decode", eng._decode)
+    return eng
 
 
 def decode_profile(lm, params, dev) -> dict:
@@ -779,7 +880,7 @@ def vision_phase(card: str) -> dict:
     CPU, no NaN (a patchify step from the card's state, its AdamW on the
     card's gradients); step 1 rerun bit for bit.  (c) The planner: autotune
     into a temporary artifact at the generator's t1-t3 (B = 4 and 64) and
-    the input gradients of PAPER_LAYERS, each point's two arms beside the
+    the input gradients of paper_layers(), each point's two arms beside the
     analytical pick (a miss: the pick's arm more than MISS_RATIO slower);
     a second resolution replays with zero runner calls;
     ConvServeEngine.warmup finds every serving launch in the artifact;
@@ -927,7 +1028,7 @@ def vision_phase(card: str) -> dict:
               for name, in_hw, n_out, cin, cout, act in GEN_TCONVS]
     points += [(name, paper_spec(n, o, k, s, d), (PAPER_BATCH, n, n, cin),
                 (PAPER_BATCH, o, o, m), None)
-               for name, cin, n, o, k, m, s, d in PAPER_LAYERS]
+               for name, cin, n, o, k, m, s, d in paper_layers()]
     runner_calls = [0]
     runners = dict(tiling._RUNNERS)
 
@@ -1334,6 +1435,343 @@ def lm_train_phase(card: str) -> dict:
     return launches
 
 
+def cache_bytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size() for k, t in cache.items()
+               if k != "len")
+
+
+def int8_serve_phase(card: str, params=None, bf16_run=None) -> dict:
+    """Phase 10 (a) and (b): the int8 KV cache.  (a) qwen3-0.6b at full
+    width, PARITY_LAYERS layers, fp32, `kv_quant`: phase 6 (a)'s prompts
+    and forced tokens on the card against the CPU.  Each call's logits
+    within PARITY_TOL of the same call on the CPU from a copy of the
+    card's cache; the cache against the CPU's own run: codes at most 1
+    apart (the count that differ printed), scales within KV_SCALE_RTOL.
+    (A value at a rounding tie quantizes one way on the card and the
+    other on the CPU, and later calls read the codes, so the CPU's own
+    run is held by its cache and its logits' distance only printed.)
+    One launch per layer per call, the prefill on `tile` and every
+    decode on `split`.  (b) the
+    whole model in bf16 on `params` (phase 6's): the first decode's
+    softmax after a prefill of the first LM_BATCH requests against the
+    bf16 cache's (max abs within SOFTMAX_TOL), both caches' bytes, then
+    phase 6 (b)'s requests through ServeEngine: the serving numbers, the
+    share of greedy tokens equal to `bf16_run`'s (phase 6's first run),
+    the decode profile.  Returns (b)'s serving launches.  Alone (no
+    `params`), it draws phase 6's params and makes the bf16 run itself."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Request
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    full = get_config(LM_ARCH)
+    if params is None:
+        params = LM(full).init(torch.Generator().manual_seed(1), device=dev)
+        instrumented_engine(full, params).generate([Request(
+            uid=0, prompt=np.arange(1, 200, dtype=np.int32),
+            max_new_tokens=3)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = instrumented_engine(full, params).generate(
+            lm_requests(full.vocab))
+        bf16_run = {"res": res, "peak": torch.cuda.max_memory_allocated()}
+
+    # (a) 2 layers at full width in fp32: the card against the CPU.
+    plm = LM(full.scaled(n_layers=PARITY_LAYERS, dtype="float32",
+                         kv_quant=True))
+    cpu_params, lens, toks, forced, max_len = lm_parity_inputs(plm)
+    dev_params = tree_map(lambda t: t.to(dev), cpu_params)
+    worst = {"logits": 0.0, "logits_own_cache": 0.0, "scale_rel": 0.0}
+    ops.reset_launches()
+    with torch.no_grad():
+        out = plm.prefill(dev_params, torch.from_numpy(toks).to(dev), max_len)
+        want = plm.prefill(cpu_params, torch.from_numpy(toks), max_len)
+        same = want
+        for step in range(PARITY_DECODES + 1):
+            what = "prefill" if step == 0 else f"decode {step}"
+            got = out[0].to(cpu)
+            if not bool(torch.isfinite(got).all()) or not torch.allclose(
+                    got, same[0], atol=PARITY_TOL, rtol=PARITY_TOL):
+                raise AssertionError(
+                    f"kv parity {what}: logits max |err| "
+                    f"{(got - same[0]).abs().max().item():.3e} against "
+                    f"the same call on the CPU")
+            worst["logits"] = max(worst["logits"],
+                                  (got - same[0]).abs().max().item())
+            worst["logits_own_cache"] = max(
+                worst["logits_own_cache"], (got - want[0]).abs().max().item())
+            for k in ("k", "v"):
+                d = (out[1][k].to(cpu).int() - want[1][k].int()).abs()
+                if out[1][k].dtype != torch.int8 or d.max().item() > 1:
+                    raise AssertionError(f"kv parity {what}: cache {k} is "
+                                         f"{out[1][k].dtype}, codes up to "
+                                         f"{d.max().item()} apart")
+            for k in ("k_scale", "v_scale"):
+                g, w = out[1][k].to(cpu), want[1][k]
+                rel = ((g - w).abs() / w.abs().clamp_min(1e-30)).max().item()
+                if rel > KV_SCALE_RTOL:
+                    raise AssertionError(f"kv parity {what}: {k} relative "
+                                         f"err {rel:.3e}")
+                worst["scale_rel"] = max(worst["scale_rel"], rel)
+            if out[1]["len"] != want[1]["len"]:
+                raise AssertionError(f"kv parity {what}: cache len")
+            if step < PARITY_DECODES:
+                tok = torch.from_numpy(forced[step].astype(np.int32))
+                held = {k: v.to(cpu) if torch.is_tensor(v) else v
+                        for k, v in out[1].items()}
+                out = plm.decode_step(dev_params, out[1], tok.to(dev))
+                same = plm.decode_step(cpu_params, held, tok)
+                want = plm.decode_step(cpu_params, want[1], tok)
+    differ = sum(int((out[1][k].to(cpu) != want[1][k]).sum())
+                 for k in ("k", "v"))
+    live = 2 * PARITY_LAYERS * LM_BATCH * out[1]["len"] * \
+        full.n_kv_heads * full.head_dim
+    if ops.LAUNCHES["flash_attention"] != PARITY_LAYERS * (
+            1 + PARITY_DECODES):
+        raise AssertionError(f"kv parity: {ops.LAUNCHES['flash_attention']} "
+                             f"flash_attention launches, expected one per "
+                             f"layer per call")
+    forms = {"tile": PARITY_LAYERS, "wgmma": 0,
+             "split": PARITY_LAYERS * PARITY_DECODES}
+    if ops.FLASH_FORMS != forms:
+        raise AssertionError(f"kv parity: flash_attention forms "
+                             f"{ops.FLASH_FORMS}, expected {forms}")
+    print("kv parity " + json.dumps({
+        "arch": LM_ARCH, "n_layers": PARITY_LAYERS, "dtype": "float32",
+        "kv_quant": True, "prompt_lens": lens.tolist(),
+        "decode_steps": PARITY_DECODES,
+        "logits_max_abs_err_vs_cpu": worst["logits"], "tol": PARITY_TOL,
+        "logits_max_abs_err_vs_cpu_own_cache": worst["logits_own_cache"],
+        "scale_max_rel_err_vs_cpu": worst["scale_rel"],
+        "scale_rtol": KV_SCALE_RTOL, "codes_differing_by_1": differ,
+        "live_codes": live, "forms": dict(ops.FLASH_FORMS)}))
+    del cpu_params, dev_params, out, want
+
+    # (b) the whole model in bf16: the first decode against the bf16
+    # cache's, then the serving engine.
+    qlm, lm = LM(full.scaled(kv_quant=True)), LM(full)
+    first = lm_requests(full.vocab)[:LM_BATCH]
+    ptoks = np.zeros((LM_BATCH, max(len(r.prompt) for r in first)), np.int32)
+    for i, r in enumerate(first):
+        ptoks[i, ptoks.shape[1] - len(r.prompt):] = r.prompt
+    with torch.no_grad():
+        t = torch.from_numpy(ptoks).to(dev)
+        logits, cache = lm.prefill(params, t, LM_MAX_LEN)
+        nxt = torch.argmax(logits[:, 0], dim=-1)[:, None]
+        ref, cache = lm.decode_step(params, cache, nxt)
+        bf16_bytes = cache_bytes(cache)
+        del cache
+        _, cache = qlm.prefill(params, t, LM_MAX_LEN)
+        dec, cache = qlm.decode_step(params, cache, nxt)
+        int8_bytes = cache_bytes(cache)
+        if cache["k"].dtype != torch.int8:
+            raise AssertionError(f"kv serve: cache k is {cache['k'].dtype}")
+        del cache
+    drift = (torch.softmax(dec[:, 0].float(), -1)
+             - torch.softmax(ref[:, 0].float(), -1)).abs().max().item()
+    # LM.init's unit-scale embedding saturates the softmax at full width,
+    # so the logits' own distance is printed beside it.
+    logit_drift = (dec - ref).abs().max().item()
+    logit_max = ref.abs().max().item()
+    if not drift < SOFTMAX_TOL:
+        raise AssertionError(f"kv serve: the first decode's softmax is "
+                             f"{drift:.3e} from the bf16 cache's")
+
+    warm = instrumented_engine(qlm.cfg, params)   # one-time costs
+    warm.generate([Request(uid=0, prompt=np.arange(1, 200, dtype=np.int32),
+                           max_new_tokens=3)])
+    eng, reqs = instrumented_engine(qlm.cfg, params), lm_requests(full.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    prefills, decodes = eng.stats["prefills"], eng.stats["decode_steps"]
+    if launches != {"flash_attention": full.n_layers * (prefills + decodes)}:
+        raise AssertionError(f"kv serve: launches {launches}, expected "
+                             f"{full.n_layers} per prefill and decode step")
+    forms = {"tile": 0, "wgmma": full.n_layers * prefills,
+             "split": full.n_layers * decodes}
+    if ops.FLASH_FORMS != forms:
+        raise AssertionError(f"kv serve: flash_attention forms "
+                             f"{ops.FLASH_FORMS}, expected {forms}")
+    if not all(bool(ok) for *_, ok in eng.calls):
+        raise AssertionError("kv serve: NaN or inf in the logits")
+    if sorted(res) != list(range(LM_REQUESTS)) or any(
+            len(res[r.uid]) != r.max_new_tokens for r in reqs):
+        raise AssertionError("kv serve: not every request was answered")
+    generated = sum(len(v) for v in res.values())
+    same = sum(a == b for uid, toks in res.items()
+               for a, b in zip(toks, bf16_run["res"][uid]))
+    ms = {kind: [s.elapsed_time(e) for k, s, e, _ in eng.calls
+                 if k == kind] for kind in ("prefill", "decode")}
+    print("kv serve " + json.dumps({
+        "arch": LM_ARCH, "n_layers": full.n_layers, "dtype": full.dtype,
+        "kv_quant": True, "batch": LM_BATCH, "max_len": LM_MAX_LEN,
+        "requests": LM_REQUESTS, "generated_tokens": generated,
+        "stats": eng.stats, "launches": launches,
+        "flash_attention_forms": dict(ops.FLASH_FORMS), "wall_s": wall,
+        "requests_per_s": LM_REQUESTS / wall,
+        "generated_tokens_per_s": generated / wall,
+        "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),
+        "ms_per_decode_step": sum(ms["decode"]) / len(ms["decode"]),
+        "peak_memory_gb": peak / 1e9,
+        "bf16_cache_peak_memory_gb": bf16_run["peak"] / 1e9,
+        "cache_bytes": int8_bytes, "bf16_cache_bytes": bf16_bytes,
+        "first_decode_softmax_max_abs_diff": drift,
+        "softmax_tol": SOFTMAX_TOL,
+        "first_decode_logits_max_abs_diff": logit_drift,
+        "first_decode_logits_max_abs": logit_max,
+        "greedy_tokens_equal_to_bf16_cache": same / generated,
+        "card": card}))
+    print("kv decode profile " + json.dumps(
+        decode_profile(qlm, params, dev) | {"card": card}))
+    print(f"kv: {PARITY_LAYERS}-layer int8-KV {LM_ARCH} fp32 equals the CPU "
+          f"within {PARITY_TOL:g} ({differ} of {live} codes 1 apart); "
+          f"{LM_REQUESTS} requests served on a {int8_bytes / 1e6:.1f} MB "
+          f"cache ({bf16_bytes / 1e6:.1f} MB in bf16), first-decode softmax "
+          f"{drift:.2e} from the bf16 cache's")
+    return launches
+
+
+def examples_phase(card: str) -> dict:
+    """Phase 10 (c): `examples/train_cnn_ecoflow` and `examples/train_gan`
+    (the port's) on the `cuda` backend at their own sizes: the first
+    EXAMPLE_STEPS steps' losses within TRAIN_TOL of the same steps on the
+    CPU (plain versions), each step's launches against EXAMPLE_LAUNCHES,
+    then ms per step over EXAMPLE_TIMED more (host clock to a
+    synchronize, batches on the card); then `serve_lm` at its defaults.
+    Returns the launches of all of it (the CPU steps launch nothing)."""
+    from repro_torch.examples import serve_lm
+    from repro_torch.examples import train_cnn_ecoflow as cnn_ex
+    from repro_torch.examples import train_gan as gan_ex
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn, gan
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim.optimizer import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda")
+    ops.reset_launches()
+
+    def drive(name, state, step, batch_at, n_losses):
+        """`step(*state, *batch) -> (*state, *metrics)`, the losses first
+        among the metrics."""
+        n = len(state)
+        on_card = tuple(tree_map(lambda t: t.to(dev), s) for s in state)
+        on_cpu, losses, worst, per_step = state, [], 0.0, []
+        for i in range(EXAMPLE_STEPS):
+            batch = batch_at(i)
+            before = dict(ops.LAUNCHES)
+            out = step(*on_card, *(t.to(dev) for t in batch))
+            torch.cuda.synchronize()
+            want = step(*on_cpu, *batch)
+            on_card, on_cpu = out[:n], want[:n]
+            for got, w in zip(out[n:n + n_losses], want[n:n + n_losses]):
+                got = got.cpu()
+                if not torch.allclose(got, w, atol=TRAIN_TOL,
+                                      rtol=TRAIN_TOL):
+                    raise AssertionError(f"{name} step {i}: loss {got} "
+                                         f"against {w} on the CPU")
+                worst = max(worst, (got - w).abs().item())
+            losses.append([float(v) for v in out[n:n + n_losses]])
+            launches = {}
+            for k, v in ops.LAUNCHES.items():
+                key = "tconv" if k.startswith("tconv_") and \
+                    k != "tconv_backward" else k
+                if v - before[k]:
+                    launches[key] = launches.get(key, 0) + v - before[k]
+            if launches != EXAMPLE_LAUNCHES[name]:
+                raise AssertionError(f"{name} step {i}: launches {launches}"
+                                     f", expected {EXAMPLE_LAUNCHES[name]}")
+            per_step.append(launches)
+        batches = [[t.to(dev) for t in batch_at(EXAMPLE_STEPS + i)]
+                   for i in range(EXAMPLE_TIMED)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            on_card = step(*on_card, *batch)[:n]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / EXAMPLE_TIMED
+        print("example " + json.dumps({
+            "name": name, "backend": "cuda", "steps_vs_cpu": EXAMPLE_STEPS,
+            "losses": losses, "max_abs_err_vs_cpu": worst, "tol": TRAIN_TOL,
+            "launches_per_step": per_step[0], "ms_per_step": ms,
+            "timed_steps": EXAMPLE_TIMED, "card": card}))
+
+    ocfg = AdamWConfig(lr=2e-3, warmup_steps=20, total_steps=300,
+                       weight_decay=0.01)     # the example's defaults
+    params = cnn.simple_cnn_init(torch.Generator().manual_seed(0),
+                                 widths=cnn_ex.WIDTHS,
+                                 n_classes=cnn_ex.N_CLASSES, device="cpu")
+    drive("train_cnn_ecoflow", (params, adamw_init(params, ocfg)),
+          cnn_ex.make_step(ocfg, backend="cuda"), cnn_ex.synth_batch, 1)
+
+    gcfg, dcfg = gan_ex.adamw_configs(120)    # the example's default steps
+    gp = gan.generator_init(torch.Generator().manual_seed(0), z_dim=gan_ex.Z,
+                            base=gan_ex.BASE, device="cpu")
+    dp = gan.discriminator_init(torch.Generator().manual_seed(1),
+                                base=gan_ex.BASE, device="cpu")
+    drive("train_gan", (gp, dp, adamw_init(gp, gcfg), adamw_init(dp, dcfg)),
+          gan_ex.make_step(gcfg, dcfg, backend="cuda"),
+          lambda i: (gan_ex.noise(i), gan_ex.real_batch(i)), 2)
+
+    before = ops.LAUNCHES["flash_attention"]
+    t0 = time.perf_counter()
+    res = serve_lm.main([])
+    torch.cuda.synchronize()
+    if sorted(res) != list(range(10)) or any(len(v) != 12
+                                             for v in res.values()):
+        raise AssertionError("serve_lm: not every request was answered")
+    print("example " + json.dumps({
+        "name": "serve_lm", "arch": "qwen2-1.5b (smoke)",
+        "wall_s": time.perf_counter() - t0,
+        "flash_attention_launches": ops.LAUNCHES["flash_attention"] - before,
+        "card": card}))
+    return dict(ops.LAUNCHES)
+
+
+def quickstart_phase(card: str) -> dict:
+    """Phase 10 (d): the port's quickstart on the card.  Its dx (the
+    `cuda` backend's input_grad slot) and dW (filter_grad: the standalone
+    zero-free dW kernel, which must launch) against `naive` within TOL,
+    and its section 4: the kernel, `torch_zero_free` and `naive` timed
+    with CUDA events.  Returns its launches."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    res = quickstart.main([])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if not launches.get("dconv_filter_grad"):
+        raise AssertionError(f"quickstart: no dconv_filter_grad launch "
+                             f"({launches})")
+    g = res["grads"]
+    for name in ("dx", "dw"):
+        for other in ("_naive", "_ref"):
+            if not torch.allclose(g[name], g[name + other], atol=TOL,
+                                  rtol=TOL):
+                raise AssertionError(
+                    f"quickstart: {name} against {name + other}: max |err| "
+                    f"{(g[name] - g[name + other]).abs().max().item():.3e}")
+    if not (res["mapping_ok"] and res["drop_in"]["finite"]):
+        raise AssertionError("quickstart: the mapping or the drop-in conv")
+    print("quickstart " + json.dumps({
+        "layer": {"B": quickstart.B, "N": quickstart.N, "K": quickstart.K,
+                  "S": quickstart.S, "P": quickstart.P, "Ci": quickstart.Ci,
+                  "Co": quickstart.Co},
+        "zero_mac_fraction": res["zero_mac_fraction"],
+        "max_abs_err": res["max_abs_err"], "tol": TOL, "ms": res["ms"],
+        "iters": quickstart.ITERS, "launches": launches, "card": card}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1362,7 +1800,7 @@ def main() -> int:
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.models.lm import LM
     from repro_torch.serve.conv_engine import ConvRequest, ConvServeEngine
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.engine import Request
 
     dev = torch.device("cuda")
     card = card_line()
@@ -1682,7 +2120,7 @@ def main() -> int:
     # The input gradients the planner races in phase 8, on both of its
     # arms at their analytical plans (weights at 1/sqrt(Kh*Kw*Cout), so
     # each output is of order 1).
-    for name, cin, n, o, k, m, s, d in PAPER_LAYERS:
+    for name, cin, n, o, k, m, s, d in paper_layers():
         spec = paper_spec(n, o, k, s, d)
         picks[name] = tiling.plan_strategy(
             "input_grad", spec, x_shape=(PAPER_BATCH, n, n, cin),
@@ -2096,32 +2534,9 @@ def main() -> int:
     full = get_config(LM_ARCH)
 
     # (a) 2 layers at full width in fp32: the card against the CPU.
-    pcfg = full.scaled(n_layers=PARITY_LAYERS, dtype="float32")
-    plm = LM(pcfg)
-    rng = np.random.default_rng(13)
-
-    def draw(t):
-        """N(0, 1) scaled as LM.init scales it (the embedding by 1, a
-        stacked (layer, fan-in, fan-out) weight by 1/sqrt(fan-in)); the
-        norm scales by 0.1, so that 1 + scale is not 1."""
-        if t.shape == (pcfg.vocab, pcfg.d_model):
-            scale = 1.0
-        elif t.dim() == 3:
-            scale = 1.0 / math.sqrt(t.shape[1])
-        else:
-            scale = 0.1
-        return torch.from_numpy(
-            (scale * rng.standard_normal(t.shape)).astype(np.float32))
-
-    cpu_params = tree_map(draw, plm.init(torch.Generator().manual_seed(0),
-                                         device="cpu"))
+    plm = LM(full.scaled(n_layers=PARITY_LAYERS, dtype="float32"))
+    cpu_params, lens, toks, forced, max_len = lm_parity_inputs(plm)
     dev_params = tree_map(lambda t: t.to(dev), cpu_params)
-    lens = rng.integers(64, 201, LM_BATCH)
-    toks = np.zeros((LM_BATCH, int(lens.max())), np.int32)
-    for i, n in enumerate(lens):
-        toks[i, toks.shape[1] - n:] = rng.integers(1, pcfg.vocab, n)
-    forced = rng.integers(1, pcfg.vocab, (PARITY_DECODES, LM_BATCH, 1))
-    max_len = toks.shape[1] + PARITY_DECODES
 
     def hold(got, want, what):
         got = got.to(cpu)
@@ -2172,44 +2587,12 @@ def main() -> int:
     params = lm.init(torch.Generator().manual_seed(1), device=dev)
     init_s = time.perf_counter() - t0
 
-    def lm_requests():
-        rng = np.random.default_rng(0)
-        return [Request(uid=i,
-                        prompt=rng.integers(1, full.vocab,
-                                            rng.integers(128, 1025)
-                                            ).astype(np.int32),
-                        max_new_tokens=int(rng.integers(8, 33)))
-                for i in range(LM_REQUESTS)]
-
-    def instrumented_engine():
-        """A fresh engine whose prefill and decode calls record CUDA
-        events and a finiteness flag of their logits."""
-        eng = ServeEngine(full, params, batch=LM_BATCH, max_len=LM_MAX_LEN,
-                          device=dev)
-        eng.calls = []
-
-        def wrap(kind, fn):
-            def call(*args):
-                start, end = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(2))
-                start.record()
-                logits, cache = fn(*args)
-                end.record()
-                eng.calls.append((kind, start, end,
-                                  torch.isfinite(logits).all()))
-                return logits, cache
-            return call
-
-        eng._prefill = wrap("prefill", eng._prefill)
-        eng._decode = wrap("decode", eng._decode)
-        return eng
-
-    warm = instrumented_engine()        # one-time costs (cuBLAS, kernels)
+    warm = instrumented_engine(full, params)   # one-time costs
     warm.generate([Request(uid=0, prompt=np.arange(1, 200, dtype=np.int32),
                            max_new_tokens=3)])
     runs = []
     for run in range(2):
-        eng, reqs = instrumented_engine(), lm_requests()
+        eng, reqs = instrumented_engine(full, params), lm_requests(full.vocab)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
@@ -2286,6 +2669,11 @@ def main() -> int:
     # -- phase 9: LM training -------------------------------------------------
     lm_train_launches = lm_train_phase(card)
 
+    # -- phase 10: the int8 KV cache, the examples, the quickstart ------------
+    int8_launches = int8_serve_phase(card, params, first)
+    example_launches = examples_phase(card)
+    quickstart_launches = quickstart_phase(card)
+
     sources = {"dconv_forward": ("dconv_forward.cu",
                                  "src/repro/kernels/dconv_forward.py:104"),
                "tconv_phase": ("tconv_phase.cu",
@@ -2315,7 +2703,10 @@ def main() -> int:
                      + lm_launches.get(name, 0)
                      + trainer_launches.get(name, 0)
                      + vision_launches.get(name, 0)
-                     + lm_train_launches.get(name, 0),
+                     + lm_train_launches.get(name, 0)
+                     + int8_launches.get(name, 0)
+                     + example_launches.get(name, 0)
+                     + quickstart_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),

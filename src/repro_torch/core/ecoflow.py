@@ -216,6 +216,49 @@ def dilated_conv_filter_grad_zero_free(x: torch.Tensor, dy: torch.Tensor, *,
     return torch.stack(taps).reshape(Kh, Kw, Cin, Cout).to(x.dtype)
 
 
+def transposed_conv_input_size(out_size: int, k: int, stride: int,
+                               padding: int) -> int:
+    """Forward-conv input length N given output length O (exact fit):
+    `ConvSpec.input_size` for callers that think in scalars."""
+    spec = ConvSpec.make(stride=stride, padding=padding, filter_shape=k)
+    return spec.input_size((out_size, out_size))[0]
+
+
+# ---------------------------------------------------------------------------
+# Padding bookkeeping (paper Sec. 3.1 closed forms) -- used by the dataflow
+# simulator and the quickstart.
+# ---------------------------------------------------------------------------
+
+def tconv_inner_padding(n: int, stride: int) -> int:
+    """# of internal zeros inserted into an N x N error map at stride S."""
+    return (stride * (n - 1) + 1) ** 2 - n ** 2
+
+
+def tconv_outer_padding(n: int, k: int, stride: int) -> int:
+    """# of border zeros for an N x N error map, K x K filter, stride S."""
+    return 4 * (k - 1) * (stride * (n - 1) + 1) + 4 * (k - 1) ** 2
+
+
+def dconv_inner_padding(n: int, stride: int) -> int:
+    """# of internal zeros inserted into an N x N error map (dilated conv)."""
+    return (stride * (n - 1) + 1) ** 2 - n ** 2
+
+
+def tconv_zero_mac_fraction(n: int, k: int, stride: int) -> float:
+    """Fraction of MACs that touch an inserted zero in the naive transposed
+    conv: the zero density of the padded error map, which the K x K
+    windows tile uniformly."""
+    padded = stride * (n - 1) + 1 + 2 * (k - 1)
+    return 1.0 - (n * n) / (padded * padded)
+
+
+def dconv_zero_mac_fraction(n: int, stride: int) -> float:
+    """Fraction of zero MACs in the naive dilated conv (zero-dilated error
+    used as the filter)."""
+    dil = stride * (n - 1) + 1
+    return 1.0 - (n * n) / (dil * dil)
+
+
 def predicated_mac_fraction(spec: ConvSpec, out_size) -> float:
     """Masked-lane fraction of the implicit-GEMM input-gradient lowering:
     exactly 1 - (Oh * Ow) / (Fh * Fw), tap-independent (every tap meets

@@ -8,6 +8,8 @@ the models' params are.  The transformer layers take params as dicts of
 tensors (fp32) and compute in the input's dtype, as `repro` does.  On a
 CUDA tensor attention runs `ops.flash_attention`, the hand-written
 kernel; on a CPU tensor, the plain PyTorch mirror of `repro`'s code.
+The int8 KV cache's quantize / dequantize and its decode attention
+(`attention_decode_quant`) serve `LM` with `kv_quant`.
 """
 from __future__ import annotations
 
@@ -231,6 +233,74 @@ def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
                            cache_v.float())
     out = out.reshape(B, S, cfg.q_dim).to(x.dtype)
     return out @ params["wo"].to(x.dtype), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# int8 KV-cache quantization (serving)
+# ---------------------------------------------------------------------------
+
+def kv_quantize(k: torch.Tensor):
+    """(.., S, H, D) -> (int8 codes (.., S, H, D), fp32 scales (.., S, H)).
+    Per (position, head) max-abs scaling: scale = max(amax, 1e-6) / 127,
+    codes round(k / scale) (half to even, as `jnp.round`) clipped to
+    +-127."""
+    kf = k.float()
+    scale = torch.clamp_min(kf.abs().amax(dim=-1), 1e-6) / 127.0
+    q = torch.clamp(torch.round(kf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """codes (.., S, H, D) times their scales (.., S, H), in fp32, cast to
+    `dtype`."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def attention_decode_quant(params, x, cfg: ModelConfig, cache_k, cache_v,
+                           k_scale, v_scale, cache_len: int):
+    """`attention_decode` against an int8 KV cache: cache_k/v (B,Smax,Hk,D)
+    int8, k_scale/v_scale (B,Smax,Hk) fp32.
+
+    Quantizes the new k and v and writes codes and scales IN PLACE at
+    cache_len; returns (out, cache_k, cache_v, k_scale, v_scale).  On the
+    card the live prefix cache[:, :cache_len + S] is dequantized to fp32
+    and the attention is one kernel launch on it with q_offset =
+    cache_len (the query in fp32: `repro` does not round it to the
+    cache's dtype).  On the CPU, `repro`'s arithmetic: scores on the
+    codes cast to fp32, times k_scale; the probabilities times v_scale
+    before P.V."""
+    B, S, _ = x.shape
+    Smax = cache_k.shape[1]
+    if cache_len + S > Smax:
+        raise ValueError(f"cache of {Smax} positions cannot take positions "
+                         f"{cache_len}..{cache_len + S - 1}")
+    positions = (cache_len + torch.arange(S, device=x.device))[None, :]
+    positions = positions.expand(B, S)
+    q, k, v = _qkv(params, x, cfg, positions)
+    live = cache_len + S
+    cache_k[:, cache_len:live], k_scale[:, cache_len:live] = kv_quantize(k)
+    cache_v[:, cache_len:live], v_scale[:, cache_len:live] = kv_quantize(v)
+    if x.device.type == "cuda":
+        kd = kv_dequantize(cache_k[:, :live], k_scale[:, :live],
+                           torch.float32)
+        vd = kv_dequantize(cache_v[:, :live], v_scale[:, :live],
+                           torch.float32)
+        out = ops.flash_attention(q.float(), kd, vd, causal=True,
+                                  q_offset=cache_len)
+    else:
+        g = cfg.n_heads // cfg.n_kv_heads
+        qf = (q.float() * cfg.head_dim ** -0.5).reshape(
+            B, S, cfg.n_kv_heads, g, cfg.head_dim)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, cache_k.float())
+        s = s * k_scale.transpose(1, 2)[:, None, :, None, :]
+        k_pos = torch.arange(Smax, device=x.device)[None, :]
+        q_pos = (cache_len + torch.arange(S, device=x.device))[:, None]
+        s = torch.where((k_pos <= q_pos)[None, :, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        pv = p * v_scale.transpose(1, 2)[:, None, :, None, :]
+        out = torch.einsum("bqhgk,bkhd->bqhgd", pv, cache_v.float())
+    out = out.reshape(B, S, cfg.q_dim).to(x.dtype)
+    return out @ params["wo"].to(x.dtype), cache_k, cache_v, k_scale, v_scale
 
 
 def mlp_init(generator: torch.Generator, cfg: ModelConfig,

@@ -11,11 +11,14 @@ Training: `forward` runs the layers under `torch.utils.checkpoint` when
 `loss` is `repro`'s: the chunked cross-entropy plus 0.01 * aux.
 
 The cache is {"k", "v": (L, B, max_len, Hk, D) in the compute dtype,
-"len": the number of positions filled, a Python int}.  `decode_step`
-writes each new token's k and v into the cache's buffers IN PLACE; the
-cache it returns shares them.  The moe, ssm, hybrid, audio and vlm
-families and the int8 KV cache are not ported yet (ROADMAP.md A.14):
-`LM` refuses them.
+"len": the number of positions filled, a Python int}.  With
+`cfg.kv_quant` (`repro`'s int8 KV cache) "k" and "v" hold int8 codes and
+"k_scale", "v_scale" (L, B, max_len, Hk) their fp32 per-(position, head)
+scales; the prefill attends to the unquantized k and v and caches their
+quantization.  `decode_step` writes each new token's k and v (or codes
+and scales) into the cache's buffers IN PLACE; the cache it returns
+shares them.  The moe, ssm, hybrid, audio and vlm families are not
+ported yet (ROADMAP.md A.14): `LM` refuses them.
 """
 from __future__ import annotations
 
@@ -64,12 +67,13 @@ def _block_out(p, x, cfg: ModelConfig, positions):
     return _tf_block_apply(p, x, cfg, positions)[0]
 
 
-def _pad_cache(k, max_len: int):
-    """(B,S,H,D) -> (B,max_len,H,D) zero-padded KV cache buffer."""
-    S = k.shape[1]
+def _pad_cache(t, max_len: int):
+    """(B,S,...) -> (B,max_len,...) zero-padded cache buffer: k, v or their
+    int8 codes (B,S,H,D), or the codes' scales (B,S,H)."""
+    S = t.shape[1]
     if S == max_len:
-        return k
-    return F.pad(k, (0, 0, 0, 0, 0, max_len - S))
+        return t
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, max_len - S))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,10 +86,6 @@ class LM:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet; "
                 f"repro_torch runs the dense family (ROADMAP.md A.14)")
-        if cfg.kv_quant:
-            raise NotImplementedError(
-                f"{cfg.name}: the int8 KV cache (kv_quant) is not ported "
-                f"yet (ROADMAP.md A.14)")
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator, device=None) -> Dict[str, Any]:
@@ -142,6 +142,12 @@ class LM:
         dt = dtype or cfg.compute_dtype
         dev = resolve_device(device)
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.kv_quant:
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "k_scale": torch.zeros(shape[:-1], device=dev),
+                    "v_scale": torch.zeros(shape[:-1], device=dev),
+                    "len": 0}
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev),
                 "len": 0}
@@ -154,7 +160,7 @@ class LM:
         x = L.embed(params["embed"], inputs, cfg)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        ks, vs = [], []
+        ks, vs, kss, vss = [], [], [], []
         for p in _layers(params["blocks"], cfg.n_layers):
             h, (kk, vv) = L.attention_block(
                 p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
@@ -162,9 +168,16 @@ class LM:
             x = x + h
             x = x + L.mlp_block(p["mlp"],
                                 L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+            if cfg.kv_quant:
+                kk, k_scale = L.kv_quantize(kk)
+                vv, v_scale = L.kv_quantize(vv)
+                kss.append(_pad_cache(k_scale, max_len))
+                vss.append(_pad_cache(v_scale, max_len))
             ks.append(_pad_cache(kk, max_len))
             vs.append(_pad_cache(vv, max_len))
         cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": S}
+        if cfg.kv_quant:
+            cache.update(k_scale=torch.stack(kss), v_scale=torch.stack(vss))
         x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
         return L.logits_head(params["embed"], x, cfg), cache
 
@@ -176,9 +189,14 @@ class LM:
         x = L.embed(params["embed"], tokens, cfg)
         clen = cache["len"]
         for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
-            h, _, _ = L.attention_decode(
-                p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-                cache["k"][i], cache["v"][i], clen)
+            xin = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+            if cfg.kv_quant:
+                h = L.attention_decode_quant(
+                    p["attn"], xin, cfg, cache["k"][i], cache["v"][i],
+                    cache["k_scale"][i], cache["v_scale"][i], clen)[0]
+            else:
+                h = L.attention_decode(p["attn"], xin, cfg, cache["k"][i],
+                                       cache["v"][i], clen)[0]
             x = x + h
             x = x + L.mlp_block(p["mlp"],
                                 L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)

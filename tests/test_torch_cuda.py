@@ -46,7 +46,9 @@ from repro_torch.kernels.implicit_gemm import plan as ig_plan
 from repro_torch.kernels.implicit_gemm import tconv_implicit_gemm_plain
 from repro_torch.kernels.tconv_phase import tconv_fused_plain
 from repro_torch.models import cnn, gan
+from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import tree_map
 from repro_torch.models.lm import LM
 
 pytestmark = pytest.mark.gpu
@@ -864,6 +866,103 @@ def test_engine_prefills_on_wgmma_and_decodes_on_split(cuda):
     assert ops.FLASH_FORMS == {"tile": 0, "wgmma": 2 * prefills,
                                "split": 2 * decodes}
     assert ops.LAUNCHES["flash_attention"] == 2 * (prefills + decodes)
+
+
+def _int8_cfg():
+    """A 2-layer int8-KV LM at qwen3-0.6b's head layout (GQA g 2, head_dim
+    128, qk_norm) in fp32."""
+    return ModelConfig(name="tiny-int8", family="dense", n_layers=2,
+                       d_model=256, d_ff=512, vocab=211, n_heads=4,
+                       n_kv_heads=2, head_dim=128, qk_norm=True,
+                       kv_quant=True, dtype="float32")
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_int8_kv_decode_attention_matches_plain(cuda, S):
+    """`attention_decode_quant` on CUDA tensors (the live prefix
+    dequantized to fp32, one split-form launch) against its plain
+    version on CPU copies of the same inputs: within 1e-4, codes and
+    scales written in place at cache_len."""
+    cfg = _int8_cfg()
+    gen = torch.Generator().manual_seed(30)
+    params = L.attention_init(gen, cfg)
+    B, Smax, clen = 3, 300, 257
+    x = torch.randn((B, S, cfg.d_model), generator=gen)
+    kq, ks = L.kv_quantize(torch.randn((B, Smax, cfg.n_kv_heads,
+                                        cfg.head_dim), generator=gen))
+    vq, vs = L.kv_quantize(torch.randn((B, Smax, cfg.n_kv_heads,
+                                        cfg.head_dim), generator=gen))
+    cpu = [t.clone() for t in (kq, vq, ks, vs)]
+    dev = [t.to(cuda) for t in (kq, vq, ks, vs)]
+    want = L.attention_decode_quant(params, x, cfg, *cpu, clen)
+    ops.reset_launches()
+    got = L.attention_decode_quant(tree_map(lambda t: t.to(cuda), params),
+                                   x.to(cuda), cfg, *dev, clen)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.FLASH_FORMS["split"] == 1
+    assert all(a is b for a, b in zip(got[1:], dev))
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=TOL, rtol=TOL)
+    for g, w in zip(got[1:3], want[1:3]):
+        assert (g.cpu().int() - w.int()).abs().max() <= 1
+    for g, w in zip(got[3:], want[3:]):
+        torch.testing.assert_close(g.cpu(), w, atol=0.0, rtol=TOL)
+
+
+def test_int8_kv_lm_matches_the_cpu(cuda):
+    """Prefill and 4 decode steps of an int8-KV LM on the card against the
+    same calls on the CPU (plain versions): logits within 1e-3 (as smoke
+    phase 10 (a)), codes at most 1 apart, scales within 1e-4; one launch
+    per layer per call, the prefill on `tile` and each decode on
+    `split`."""
+    cfg = _int8_cfg()
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(31), device="cpu")
+    dparams = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(31)
+    toks = torch.from_numpy(rng.integers(1, 211, (2, 70)).astype(np.int32))
+    nxt = torch.from_numpy(rng.integers(1, 211, (4, 2, 1)).astype(np.int32))
+    ops.reset_launches()
+    with torch.no_grad():
+        out = lm.prefill(dparams, toks.to(cuda), 80)
+        want = lm.prefill(params, toks, 80)
+        for step in range(len(nxt) + 1):
+            torch.testing.assert_close(out[0].cpu(), want[0], atol=1e-3,
+                                       rtol=1e-3)
+            for k in ("k", "v"):
+                assert out[1][k].dtype == torch.int8
+                assert (out[1][k].cpu().int()
+                        - want[1][k].int()).abs().max() <= 1
+            for k in ("k_scale", "v_scale"):
+                torch.testing.assert_close(out[1][k].cpu(), want[1][k],
+                                           atol=0.0, rtol=TOL)
+            if step < len(nxt):
+                out = lm.decode_step(dparams, out[1], nxt[step].to(cuda))
+                want = lm.decode_step(params, want[1], nxt[step])
+    torch.cuda.synchronize()
+    assert ops.FLASH_FORMS == {"tile": 2, "wgmma": 0, "split": 8}
+    assert ops.LAUNCHES["flash_attention"] == 10
+
+
+def test_quickstart_filter_grad_runs_the_filter_grad_kernel(cuda):
+    """The quickstart on the card: dx through the `cuda` backend's
+    input_grad slot and dW through its filter_grad slot (the standalone
+    zero-free dW kernel, launched at least once), both within 1e-4 of
+    `naive` and of autograd of the plain conv (TF32 off)."""
+    from repro_torch.examples import quickstart
+    ops.reset_launches()
+    res = quickstart.main([])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dconv_filter_grad"] >= 1
+    assert ops.LAUNCHES["tconv_phase"] + \
+        ops.LAUNCHES["tconv_implicit_gemm"] >= 1
+    g = res["grads"]
+    for name in ("dx", "dw"):
+        for other in ("_naive", "_ref"):
+            torch.testing.assert_close(g[name], g[name + other], atol=TOL,
+                                       rtol=TOL)
+    assert res["mapping_ok"] and res["drop_in"]["finite"]
+    assert all(min(t.values()) > 0 for t in res["ms"].values())
 
 
 def test_lm_trainer_run_on_a_side_stream_equals_the_default_stream(cuda):

@@ -117,12 +117,6 @@ def test_unported_configs_refuse(arch):
         TLM(TModelConfig(**dataclasses.asdict(j_get_smoke_config(arch))))
 
 
-def test_kv_quant_refuses():
-    _, tcfg = _configs("qwen3_0_6b", kv_quant=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TLM(tcfg)
-
-
 @pytest.mark.parametrize("arch,tie", [(a, True) for a in DENSE]
                          + [("qwen2_1_5b", False)])
 def test_init_gives_repro_tree(arch, tie):
