@@ -41,7 +41,9 @@ Phases (any failed check raises and ends the run non-zero):
      each case first holds the forward kernel's lse against the plain
      lse, then dq, dk, dv against the plain backward and, timed, SDPA's
      backward (its forward + backward less its forward), reruns
-     bit-identical;
+     bit-identical; zamba2's head_dim 80 in bf16 and fp32 (B 4, 32
+     heads): prefill at S 1024 and 1000 on tile, a split decode over
+     1025 keys, the backward at S 1024 on simt, each timed;
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
@@ -121,7 +123,29 @@ Phases (any failed check raises and ends the run non-zero):
      per step, and `serve_lm` at its defaults (`examples_phase`); (d) the
      quickstart: its dx and dW (the filter-gradient kernel's first
      program path) against `naive`, and its kernel / `torch_zero_free` /
-     `naive` times (`quickstart_phase`).
+     `naive` times (`quickstart_phase`);
+  11. the moe, ssm and hybrid families (`families_phase`) at their
+     published widths, params drawn on the card from a seed: (a)
+     moonshot-v1-16b-a3b and rwkv6-7b at 2 layers, zamba2-2.7b at 12 (2
+     groups: the shared block used twice), fp32: phase 6 (a)'s prefill
+     and 8 forced decodes, logits per call within 1e-3 of the CPU, then
+     the loss and every gradient at batch 2 x seq 256 (1e-3 of each
+     leaf's max); the MoE routing of both sides compared call by call
+     and, past a call routed otherwise, its dispatch/combine held on the
+     card's routing (`family_parity`); (b) moonshot-v1-16b-a3b (the
+     deepest its bf16 params fit in FAMILY_SERVE_SHARE of the card),
+     rwkv6-7b and zamba2-2.7b whole, bf16, serving phase 6 (b)'s 12
+     requests through ServeEngine: one `flash_attention` launch per
+     attention layer per call (moonshot: wgmma prefills; zamba2: 9 a
+     call at head_dim 80, tile prefills; split decodes; rwkv6: none),
+     requests/s, tokens/s, ms per prefill and decode step, peak memory,
+     a decode profile (`family_serve`); (c) moonshot-v1-16b-a3b at 2
+     layers and zamba2-2.7b (the deepest whole groups whose training
+     state fits FAMILY_TRAIN_SHARE of the card) through `Trainer.run` at
+     seq 4096, batch 8 in 4 microbatches, 3 steps: launches and forms per
+     step (wgmma at head_dim 128; tile and simt at 80), ms per step,
+     tokens/s, peak memory, the aux loss, a rerun's losses bit-equal
+     (`family_train`).
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
 and the library.  Kernel, plain version and library all compute in fp32;
@@ -162,6 +186,7 @@ inputs to 10 bits.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import math
 import os
@@ -304,6 +329,29 @@ GEN_TCONVS = [("gan_t1", (4, 4), (8, 8), 64, 128, "relu"),
               ("gan_t2", (8, 8), (16, 16), 32, 64, "relu"),
               ("gan_t3", (16, 16), (32, 32), 3, 32, "tanh")]
 TCONV_KERNELS = {"phase": "tconv_phase", "implicit_gemm": "tconv_implicit_gemm"}
+# Phase 11: the moe, ssm and hybrid families at their published widths.
+# (a) parity against the CPU in fp32 at these depths (zamba2: 12 Mamba
+# blocks = 2 groups, so the shared block is used twice).
+FAMILY_PARITY = {"moonshot-v1-16b-a3b": 2, "rwkv6-7b": 2, "zamba2-2.7b": 12}
+# (b) serving in bf16: the whole model, or for moonshot the deepest that
+# keeps its bf16 params within this share of the card's memory.
+FAMILY_SERVE = ("moonshot-v1-16b-a3b", "rwkv6-7b", "zamba2-2.7b")
+FAMILY_SERVE_SHARE = 0.75
+# (c) training at train_4k's seq through Trainer.run: layers (None: the
+# deepest whole groups whose training state -- FAMILY_TRAIN_BYTES a param:
+# fp32 params, gradients, the microbatch accumulator, Adam's m and v, the
+# update's new copies and the bf16 precast -- takes at most
+# FAMILY_TRAIN_SHARE of the card's memory; moonshot-v1-16b-a3b at 2
+# layers peaked at 73.8 GB for 1.85 B params on an H100 80GB), and
+# whether one more step is traced: zamba2's step makes ~300 K device
+# events, whose trace took ~140 s to read back on that machine (PERF.md
+# section 5 holds one).
+FAMILY_TRAIN = {"moonshot-v1-16b-a3b": (2, True),
+                "zamba2-2.7b": (None, False)}
+FAMILY_TRAIN_BYTES = 40
+FAMILY_TRAIN_SHARE = 0.7
+FAMILY_TRAIN_STEPS = 3
+FAMILY_SEED = 41          # the card generator's seed of phase 11's params
 
 
 def paper_layers() -> list:
@@ -1244,6 +1292,151 @@ def lm_step_profile(call) -> dict:
             "top_kernels_ms": [[n[:120], ms] for n, ms in top]}
 
 
+def hold_grads(what, loss, want_loss, grads, want, tol) -> float:
+    """The loss within `tol` (relative) of `want_loss` and every gradient
+    leaf finite and within `tol` of the CPU's leaf's largest magnitude
+    (atol; rtol the same).  Returns the worst error as a share of that
+    magnitude."""
+    from repro_torch.models.layers import tree_paths
+
+    worst = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+    if worst > tol:
+        raise AssertionError(f"{what}: loss {loss.item()} vs "
+                             f"{want_loss.item()}")
+    for (path, g), (_, w) in zip(tree_paths(grads), tree_paths(want)):
+        g = g.to(w.device)
+        big = w.abs().max().item()
+        if not bool(torch.isfinite(g).all()) or not torch.allclose(
+                g, w, rtol=tol, atol=tol * big):
+            raise AssertionError(
+                f"{what}: gradient {path}: max |err| "
+                f"{(g - w).abs().max().item():.3e}, largest |grad| "
+                f"{big:.3e}")
+        worst = max(worst, (g - w).abs().max().item() / max(big, 1e-30))
+    return worst
+
+
+def train_run(what, cfg, steps: int, seed: int, traced: bool,
+              checkpoint: bool = False) -> dict:
+    """`launch/train`'s path: `Trainer.run` on the card at seq
+    LM_TRAIN_SEQ, global batch LM_TRAIN_BATCH in the config's
+    microbatches, `steps` steps (the first a warm-up), with `checkpoint` a
+    checkpoint directory that must hold the last step.  Every loss
+    finite; every step 2 x attention layers x microbatches
+    `flash_attention` launches and attention layers x microbatches
+    `flash_attention_backward` calls, all on the forms `attention.plan`
+    and `backward_plan` give the microbatch's shape; with `traced` one
+    more step traced (`lm_step_profile`); the MoE aux loss of the final
+    params on one microbatch; a rerun (no checkpoint directory) whose
+    losses must be bit-equal.  Returns the run's numbers, launches and
+    profile."""
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import backward_plan, plan
+    from repro_torch.launch.steps import precast
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    ds = TokenDataset(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                      global_batch=LM_TRAIN_BATCH, seed=0)
+
+    def trainer(ckpt_dir=None):
+        return Trainer(cfg, ds, AdamWConfig(
+            lr=3e-4, warmup_steps=1, total_steps=steps), TrainerConfig(
+            total_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=10 * steps,
+            log_every=1, keep_last=1, seed=seed), device=dev)
+
+    timed_steps = []
+    counts = (ops.LAUNCHES, ops.FLASH_FORMS, ops.FLASH_BWD_FORMS)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tr = trainer(ckpt_dir if checkpoint else None)
+        n_micro, step_fn = tr.n_micro, tr.step_fn
+
+        def timed_step(params, opt, b):
+            torch.cuda.synchronize()
+            before = [dict(c) for c in counts]
+            t0 = time.perf_counter()
+            out = step_fn(params, opt, b)
+            torch.cuda.synchronize()
+            timed_steps.append({"ms": (time.perf_counter() - t0) * 1e3} | dict(
+                zip(("launches", "forms", "backward_forms"),
+                    ({k: c[k] - was[k] for k in was if c[k] - was[k]}
+                     for c, was in zip(counts, before)))))
+            return out
+
+        tr.step_fn = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = tr.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        saved = sorted(os.listdir(ckpt_dir))
+    if checkpoint and f"step_{steps}" not in saved:
+        raise AssertionError(f"{what}: checkpoint directory holds {saved}")
+    n_attn = attention_layers(cfg)
+    per_step = {"flash_attention": 2 * n_attn * n_micro,
+                "flash_attention_backward": n_attn * n_micro}
+    shape = (cfg.compute_dtype, LM_TRAIN_BATCH // n_micro, LM_TRAIN_SEQ,
+             LM_TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    forms = ({plan(*shape).form: per_step["flash_attention"]},
+             {backward_plan(*shape): per_step["flash_attention_backward"]})
+    for i, st in enumerate(timed_steps):
+        if st["launches"] != per_step or \
+                (st["forms"], st["backward_forms"]) != forms:
+            raise AssertionError(
+                f"{what} step {i + 1}: launches {st['launches']}, forms "
+                f"{st['forms']} / {st['backward_forms']}, expected "
+                f"{per_step}, {forms}")
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    prof = None
+    if traced:
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in ds.batch(steps).items()}
+        prof = lm_step_profile(lambda: step_fn(out["params"], out["opt"], b))
+    aux = None
+    if cfg.n_experts:
+        b = ds.batch(0)
+        mb = LM_TRAIN_BATCH // n_micro
+        with torch.no_grad():
+            _, parts = LM(cfg).loss(
+                precast(out["params"], cfg.compute_dtype),
+                torch.from_numpy(b["inputs"][:mb]).to(dev),
+                torch.from_numpy(b["labels"][:mb]).to(dev))
+        aux = float(parts["aux"])
+    del out, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    rerun = [h["loss"] for h in trainer().run()["history"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rerun != losses:
+        raise AssertionError(f"{what}: a rerun's losses {rerun} differ "
+                             f"from {losses}")
+    timed = [st["ms"] for st in timed_steps[1:]]
+    ms = sum(timed) / len(timed)
+    return {"row": {
+        "n_layers": cfg.n_layers, "dtype": cfg.dtype, "seq": LM_TRAIN_SEQ,
+        "global_batch": LM_TRAIN_BATCH, "microbatches": n_micro,
+        "remat": cfg.remat, "steps": steps, "losses": losses,
+        "rerun_losses": rerun, "ms_per_step_warmup": timed_steps[0]["ms"],
+        "ms_per_step_timed": timed, "ms_per_step": ms,
+        "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / ms * 1e3,
+        "peak_memory_gb": peak / 1e9, "aux_loss": aux,
+        "launches_per_step": per_step, "forms_per_step": forms[0],
+        "backward_forms_per_step": forms[1], "run_s": run_s,
+        "checkpoint_and_loop_s": run_s - sum(
+            st["ms"] for st in timed_steps) / 1e3},
+        "launches": launches, "profile": prof}
+
+
 def lm_train_phase(card: str) -> dict:
     """Phase 9: LM training on the card.  (a) LM_ARCH at its published
     widths but PARITY_LAYERS layers, params from a numpy seed, batch x seq
@@ -1252,25 +1445,21 @@ def lm_train_phase(card: str) -> dict:
     and in bf16, each leaf within LM_TRAIN_TOL of its largest |gradient|
     (atol; rtol the same); the attention forward launched twice per layer
     (the remat recompute) and its backward once.  (b) `launch/train`'s
-    path: the whole LM_ARCH (28 layers, bf16 compute, fp32 master) through
-    `Trainer.run` at seq LM_TRAIN_SEQ, global batch LM_TRAIN_BATCH in the
-    config's 4 microbatches, LM_TRAIN_STEPS steps (the first a warm-up)
-    with a checkpoint directory: every loss finite, every step 2 x 28 x 4
-    `flash_attention` launches and 28 x 4 `flash_attention_backward`
-    calls, all on the wgmma forms; ms per step, tokens/s, peak memory,
-    then one more step traced (ms by kernel group, device-busy share),
-    and a rerun whose losses must be bit-equal.  Returns (b)'s
-    launches."""
+    path (`train_run`): the whole LM_ARCH (28 layers, bf16 compute, fp32
+    master), LM_TRAIN_STEPS steps with a checkpoint directory, in the
+    config's 4 microbatches: every step 2 x 28 x 4 `flash_attention`
+    launches and 28 x 4 `flash_attention_backward` calls, all on the
+    wgmma forms; ms per step, tokens/s, peak memory, one more step traced
+    (ms by kernel group, device-busy share), and a rerun whose losses must
+    be bit-equal.  Returns (b)'s launches."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenDataset
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models.layers import tree_map, tree_paths
     from repro_torch.models.lm import LM
-    from repro_torch.optim.optimizer import AdamWConfig
-    from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    dev = torch.device("cuda")
     full = get_config(LM_ARCH)
 
     # (a) parity of the loss and every gradient, fp32 and bf16.
@@ -1310,20 +1499,8 @@ def lm_train_phase(card: str) -> dict:
             lm, cpu_params, torch.from_numpy(batch["inputs"]),
             torch.from_numpy(labels))
         tol = LM_TRAIN_TOL[dtype]
-        worst = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
-        if worst > tol:
-            raise AssertionError(f"lm train parity {dtype}: loss "
-                                 f"{loss.item()} vs {want_loss.item()}")
-        for (path, g), (_, w) in zip(tree_paths(grads), tree_paths(want)):
-            g = g.to(cpu)
-            big = w.abs().max().item()
-            if not bool(torch.isfinite(g).all()) or not torch.allclose(
-                    g, w, rtol=tol, atol=tol * big):
-                raise AssertionError(
-                    f"lm train parity {dtype}: gradient {path}: max |err| "
-                    f"{(g - w).abs().max().item():.3e}, largest |grad| "
-                    f"{big:.3e}")
-            worst = max(worst, (g - w).abs().max().item() / max(big, 1e-30))
+        worst = hold_grads(f"lm train parity {dtype}", loss, want_loss,
+                           grads, want, tol)
         parity[dtype] = {"loss": loss.item(), "cpu_loss": want_loss.item(),
                          "max_err_of_leaf_max": worst, "tol": tol,
                          "launches": launches}
@@ -1333,97 +1510,18 @@ def lm_train_phase(card: str) -> dict:
     del cpu_params, dev_params, grads, want
 
     # (b) launch/train's path: the whole model through Trainer.run.
-    ds = TokenDataset(vocab=full.vocab, seq_len=LM_TRAIN_SEQ,
-                      global_batch=LM_TRAIN_BATCH, seed=0)
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        tcfg = TrainerConfig(total_steps=LM_TRAIN_STEPS, ckpt_dir=ckpt_dir,
-                             ckpt_every=10 * LM_TRAIN_STEPS, log_every=1,
-                             keep_last=1)
-        trainer = Trainer(full, ds, AdamWConfig(
-            lr=3e-4, warmup_steps=1, total_steps=LM_TRAIN_STEPS), tcfg,
-            device=dev)
-        if trainer.n_micro != 4:
-            raise AssertionError(f"lm train: {trainer.n_micro} microbatches "
-                                 f"at global batch {LM_TRAIN_BATCH}, "
-                                 f"expected 4")
-        steps = []
-        step_fn = trainer.step_fn
-        counts = (ops.LAUNCHES, ops.FLASH_FORMS, ops.FLASH_BWD_FORMS)
-
-        def timed_step(params, opt, b):
-            torch.cuda.synchronize()
-            before = [dict(c) for c in counts]
-            t0 = time.perf_counter()
-            out = step_fn(params, opt, b)
-            torch.cuda.synchronize()
-            launches, fwd, bwd = ({k: c[k] - was[k] for k in was
-                                  if c[k] - was[k]}
-                                 for c, was in zip(counts, before))
-            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
-                          "launches": launches, "forms": fwd,
-                          "backward_forms": bwd})
-            return out
-
-        trainer.step_fn = timed_step
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        out = trainer.run()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-        peak = torch.cuda.max_memory_allocated()
-        saved = sorted(os.listdir(ckpt_dir))
-    per_step = {"flash_attention": 2 * full.n_layers * 4,
-                "flash_attention_backward": full.n_layers * 4}
-    forms = ({"wgmma": per_step["flash_attention"]},
-             {"wgmma": per_step["flash_attention_backward"]})
-    for i, st in enumerate(steps):
-        if st["launches"] != per_step or \
-                (st["forms"], st["backward_forms"]) != forms:
-            raise AssertionError(
-                f"lm train step {i + 1}: launches {st['launches']}, forms "
-                f"{st['forms']} / {st['backward_forms']}, expected "
-                f"{per_step}, all on wgmma")
-    losses = [h["loss"] for h in out["history"]]
-    if len(losses) != LM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"lm train: losses {losses}")
-    if f"step_{LM_TRAIN_STEPS}" not in saved:
-        raise AssertionError(f"lm train: checkpoint directory holds {saved}")
-    timed = [st["ms"] for st in steps[1:]]
-    ms = sum(timed) / len(timed)
-    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    b = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(
-        LM_TRAIN_STEPS).items()}
-    prof = lm_step_profile(lambda: step_fn(out["params"], out["opt"], b))
-    # The same run again (no checkpoint directory): the losses bit for bit.
-    n_micro = trainer.n_micro
-    del out, b, trainer
-    torch.cuda.empty_cache()
-    again = Trainer(full, ds, AdamWConfig(
-        lr=3e-4, warmup_steps=1, total_steps=LM_TRAIN_STEPS),
-        TrainerConfig(total_steps=LM_TRAIN_STEPS, log_every=1),
-        device=dev).run()
-    rerun = [h["loss"] for h in again["history"]]
-    del again
-    torch.cuda.empty_cache()
-    if rerun != losses:
-        raise AssertionError(f"lm train: a rerun's losses {rerun} differ "
-                             f"from {losses}")
-    print("lm train " + json.dumps({
-        "arch": LM_ARCH, "n_layers": full.n_layers, "dtype": full.dtype,
-        "seq": LM_TRAIN_SEQ, "global_batch": LM_TRAIN_BATCH,
-        "microbatches": n_micro, "remat": full.remat,
-        "steps": LM_TRAIN_STEPS, "losses": losses,
-        "ms_per_step_warmup": steps[0]["ms"], "ms_per_step_timed": timed,
-        "rerun_losses": rerun,
-        "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
-        "peak_memory_gb": peak / 1e9, "launches_per_step": per_step,
-        "forms_per_step": forms[0], "backward_forms_per_step": forms[1],
-        "run_s": run_s, "checkpoint_and_loop_s": run_s - sum(
-            st["ms"] for st in steps) / 1e3, "card": card}))
-    print("lm train profile " + json.dumps(prof | {"card": card}))
+    run = train_run("lm train", full, LM_TRAIN_STEPS, 0, True,
+                    checkpoint=True)
+    row, per_step = run["row"], run["row"]["launches_per_step"]
+    if row["microbatches"] != 4 or set(row["forms_per_step"]) != {"wgmma"} \
+            or set(row["backward_forms_per_step"]) != {"wgmma"}:
+        raise AssertionError(f"lm train: {row['microbatches']} microbatches "
+                             f"at global batch {LM_TRAIN_BATCH}, forms "
+                             f"{row['forms_per_step']} / "
+                             f"{row['backward_forms_per_step']}, expected 4, "
+                             f"all on wgmma")
+    print("lm train " + json.dumps({"arch": LM_ARCH} | row | {"card": card}))
+    print("lm train profile " + json.dumps(run["profile"] | {"card": card}))
     print(f"lm train: {PARITY_LAYERS}-layer {LM_ARCH} loss and every "
           f"gradient equal the CPU (fp32 {LM_TRAIN_TOL['float32']:g}, bf16 "
           f"{LM_TRAIN_TOL['bfloat16']:g} of each leaf's max); the whole "
@@ -1432,7 +1530,7 @@ def lm_train_phase(card: str) -> dict:
           f"flash_attention and {per_step['flash_attention_backward']} "
           f"backward launches per step, all on wgmma, losses finite and "
           f"bit-equal in a rerun")
-    return launches
+    return run["launches"]
 
 
 def cache_bytes(cache: dict) -> int:
@@ -1770,6 +1868,415 @@ def quickstart_phase(card: str) -> dict:
         "max_abs_err": res["max_abs_err"], "tol": TOL, "ms": res["ms"],
         "iters": quickstart.ITERS, "launches": launches, "card": card}))
     return launches
+
+
+def family_params(cfg, seed: int, dtype=None):
+    """LM(cfg)'s params drawn on the card by a CUDA generator seeded
+    `seed`: `LM.init_tree`'s shapes and scales, every norm scale plus
+    0.1 N(0, 1) (so that 1 + scale is not 1), a group of layers at a time
+    (one; a hybrid group of attn_every).  With `dtype`, every leaf of
+    ndim >= 2 is cast as soon as it is drawn (`launch.steps.precast`), so
+    the fp32 copy of the whole model never exists."""
+    from repro_torch.launch.steps import precast
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.lm import LM
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    step = cfg.attn_every if cfg.family == "hybrid" else 1
+
+    def noisy(tree):
+        return {k: noisy(v) if isinstance(v, dict) else
+                v + 0.1 * torch.randn(v.shape, generator=gen, device=dev)
+                if k.endswith("scale") else v for k, v in tree.items()}
+
+    with torch.device("meta"):
+        shapes = LM(cfg).init_tree(torch.Generator())
+    params = None
+    for i in range(0, cfg.n_layers, step):
+        with torch.device(dev):
+            part = noisy(LM(cfg.scaled(n_layers=step)).init_tree(gen))
+        if dtype is not None:
+            part = precast(part, dtype)
+        if params is None:
+            params = dict(part, blocks=tree_map(
+                lambda s_, p_: torch.empty(s_.shape, dtype=p_.dtype,
+                                           device=dev),
+                shapes["blocks"], part["blocks"]))
+        for dst, src in zip(tree_leaves(params["blocks"]),
+                            tree_leaves(part["blocks"])):
+            dst[i:i + step].copy_(src)
+        del part
+    return params
+
+
+class RouteLog:
+    """Within `with`, every `models.moe.route` call is recorded as (moe
+    params, x, probs, gate values, indices): the card's and the CPU's runs
+    of one call then compare routing layer by layer."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._route = moe.route
+
+        def route(params, x, cfg):
+            out = self._route(params, x, cfg)
+            self.calls.append((params, x.detach(),
+                               *(t.detach() for t in out)))
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+        return False
+
+
+def routing_check(card_log, cpu_log, cfg, what) -> tuple:
+    """(choices routed otherwise by the card than by `route` on the CPU
+    at the same params and x, choices that differ between the card's run
+    and the CPU's own run, max |err| of dispatch/combine).  Every card
+    call's probs are held within PARITY_TOL of the CPU's on its x; a
+    choice the card routes otherwise must be a near-tie: the CPU's probs
+    of the two experts involved within PARITY_TOL of each other.  Where
+    a call's routing differs, the card's `dispatch_combine` on its own
+    routing is held within PARITY_TOL of the same call on the CPU."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import tree_map
+
+    cpu = torch.device("cpu")
+    if len(card_log.calls) != len(cpu_log.calls):
+        raise AssertionError(f"{what}: {len(card_log.calls)} route calls on "
+                             f"the card, {len(cpu_log.calls)} on the CPU")
+    flips, apart, worst = 0, 0, 0.0
+    for (p, x, probs, vals, idx), (*_, cidx) in zip(card_log.calls,
+                                                    cpu_log.calls):
+        cp, cx, idx_h = tree_map(lambda t: t.to(cpu), p), x.to(cpu), \
+            idx.to(cpu)
+        with torch.no_grad():
+            want_probs, _, want_idx = moe.route(cp, cx, cfg)
+        if not torch.allclose(probs.to(cpu), want_probs, atol=PARITY_TOL,
+                              rtol=PARITY_TOL):
+            raise AssertionError(
+                f"{what}: router probs max |err| "
+                f"{(probs.to(cpu) - want_probs).abs().max().item():.3e}")
+        moved = idx_h != want_idx
+        gap = (want_probs.gather(-1, idx_h)
+               - want_probs.gather(-1, want_idx))[moved].abs()
+        if gap.numel() and gap.max().item() > PARITY_TOL:
+            raise AssertionError(
+                f"{what}: {int(moved.sum())} choices routed otherwise, "
+                f"the CPU's probs of the two experts {gap.max().item():.3e} "
+                f"apart: not a near-tie")
+        flips += int(moved.sum())
+        n = int((idx_h != cidx).sum())
+        apart += n
+        if not n and not moved.any():
+            continue
+        with torch.no_grad():
+            got = moe.dispatch_combine(p, x, vals, idx, cfg).to(cpu).float()
+            want = moe.dispatch_combine(cp, cx, vals.to(cpu), idx_h,
+                                        cfg).float()
+        if not torch.allclose(got, want, atol=PARITY_TOL, rtol=PARITY_TOL):
+            raise AssertionError(f"{what}: dispatch/combine on the card's "
+                                 f"routing, max |err| "
+                                 f"{(got - want).abs().max().item():.3e}")
+        worst = max(worst, (got - want).abs().max().item())
+    return flips, apart, worst
+
+
+def attention_layers(cfg) -> int:
+    """Attention applications per forward: one per layer, none in RWKV,
+    one per group of the hybrid (the shared block)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def family_parity(card: str, arch: str, n_layers: int) -> dict:
+    """Phase 11 (a) for one model: `arch` at its published widths and
+    `n_layers` layers in fp32, params from `family_params`.  Prefill of
+    LM_BATCH prompts of 64-200 tokens and PARITY_DECODES teacher-forced
+    decodes, each call's logits within PARITY_TOL of the same call on the
+    CPU; then LM.loss and every gradient at batch x seq LM_TRAIN_PARITY,
+    each leaf within LM_TRAIN_TOL of its largest magnitude.  For the MoE
+    every route call is held against the CPU's on the card's own input
+    (`routing_check`: probs within PARITY_TOL, a choice routed otherwise
+    only at a near-tie); past a call whose routing differs between the two
+    runs (after which the token counts differ) the logits are no longer
+    comparable, and that call's dispatch/combine is held on the card's
+    routing instead."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.layers import tree_map, tree_paths
+    from repro_torch.models.lm import LM
+
+    t_start = time.perf_counter()
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    cfg = get_config(arch).scaled(n_layers=n_layers, dtype="float32")
+    lm = LM(cfg)
+    dev_params = family_params(cfg, FAMILY_SEED)
+    cpu_params = tree_map(lambda t: t.to(cpu), dev_params)
+    rng = np.random.default_rng(13)
+    lens = rng.integers(64, 201, LM_BATCH)
+    toks = np.zeros((LM_BATCH, int(lens.max())), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, toks.shape[1] - n:] = rng.integers(1, cfg.vocab, n)
+    forced = rng.integers(1, cfg.vocab, (PARITY_DECODES, LM_BATCH, 1))
+    max_len = toks.shape[1] + PARITY_DECODES
+
+    flips, differ, dc_err, worst, held, diverged = 0, 0, 0.0, 0.0, 0, None
+    ops.reset_launches()
+    with torch.no_grad():
+        for step in range(PARITY_DECODES + 1):
+            what = f"{arch} parity " + ("prefill" if step == 0
+                                        else f"decode {step}")
+            with RouteLog() as on_card:
+                out = lm.prefill(dev_params, torch.from_numpy(toks).to(dev),
+                                 max_len) if step == 0 else \
+                    lm.decode_step(dev_params, out[1],
+                                   torch.from_numpy(forced[step - 1]
+                                                    .astype(np.int32)).to(dev))
+            with RouteLog() as on_cpu:
+                want = lm.prefill(cpu_params, torch.from_numpy(toks),
+                                  max_len) if step == 0 else \
+                    lm.decode_step(cpu_params, want[1], torch.from_numpy(
+                        forced[step - 1].astype(np.int32)))
+            n, apart, e = routing_check(on_card, on_cpu, cfg, what)
+            flips, differ, dc_err = flips + n, differ + apart, max(dc_err, e)
+            if apart and diverged is None:
+                diverged = step
+            got = out[0].to(cpu)
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{what}: a non-finite logit")
+            err = (got - want[0]).abs().max().item()
+            if diverged is None:
+                if not torch.allclose(got, want[0], atol=PARITY_TOL,
+                                      rtol=PARITY_TOL):
+                    raise AssertionError(f"{what}: logits max |err| {err:.3e}"
+                                         f" against the CPU")
+                worst, held = max(worst, err), held + 1
+    serve_launches = dict(ops.LAUNCHES)
+    serve_forms = dict(ops.FLASH_FORMS)
+    n_attn = attention_layers(cfg)
+    want_forms = {"tile": n_attn, "wgmma": 0, "split": n_attn * PARITY_DECODES}
+    if serve_launches["flash_attention"] != n_attn * (1 + PARITY_DECODES) or \
+            serve_forms != want_forms:
+        raise AssertionError(f"{arch} parity: flash_attention launches "
+                             f"{serve_launches['flash_attention']}, forms "
+                             f"{serve_forms}, expected {want_forms}")
+
+    # The loss and every gradient.
+    B, S = LM_TRAIN_PARITY
+    batch = TokenDataset(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                         seed=21).batch(0)
+    labels = batch["labels"].copy()
+    labels[0, :7] = -1
+    ops.reset_launches()
+    with RouteLog() as on_card:
+        (loss, aux), grads = loss_and_grads(
+            lm, dev_params, torch.from_numpy(batch["inputs"]).to(dev),
+            torch.from_numpy(labels).to(dev))
+    torch.cuda.synchronize()
+    train_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    want_l = {"flash_attention": 2 * n_attn,
+              "flash_attention_backward": n_attn} if n_attn else {}
+    if train_launches != want_l:
+        raise AssertionError(f"{arch} train parity: launches "
+                             f"{train_launches}, expected {want_l}")
+    with RouteLog() as on_cpu:
+        (want_loss, want_aux), want = loss_and_grads(
+            lm, cpu_params, torch.from_numpy(batch["inputs"]),
+            torch.from_numpy(labels))
+    n, apart, e = routing_check(on_card, on_cpu, cfg, f"{arch} train parity")
+    flips, differ, dc_err = flips + n, differ + apart, max(dc_err, e)
+    tol = LM_TRAIN_TOL["float32"]
+    # A choice routed otherwise moves its token's terms: printed, not held.
+    grad_worst = None if apart else hold_grads(
+        f"{arch} train parity", loss, want_loss, grads, want, tol)
+    row = {"arch": arch, "n_layers": n_layers, "dtype": "float32",
+           "prompt_lens": lens.tolist(), "decode_steps": PARITY_DECODES,
+           "logits_max_abs_err_vs_cpu": worst, "tol": PARITY_TOL,
+           "calls_held": held, "routing_differences_same_x": flips,
+           "routing_differences_between_runs": differ,
+           "first_call_routed_otherwise": diverged,
+           "dispatch_combine_max_abs_err_on_card_routing": dc_err,
+           "serve_forms": serve_forms, "train_batch": B, "train_seq": S,
+           "loss": loss.item(), "cpu_loss": want_loss.item(),
+           "aux": float(aux["aux"]), "cpu_aux": float(want_aux["aux"]),
+           "grad_max_err_of_leaf_max": grad_worst
+           if grad_worst is not None else "not held: routing differs",
+           "grad_tol": tol,
+           "leaves": len(tree_paths(cpu_params)),
+           "train_launches": train_launches,
+           "phase_s": time.perf_counter() - t_start, "card": card}
+    print("family parity " + json.dumps(row))
+    del dev_params, cpu_params, grads, want, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def family_serve(card: str, arch: str) -> dict:
+    """Phase 11 (b) for one model: bf16 params (`family_params` cast as
+    drawn) at the published widths, whole or cut (FAMILY_SERVE_SHARE),
+    phase 6 (b)'s LM_REQUESTS requests through ServeEngine(batch=LM_BATCH,
+    max_len=LM_MAX_LEN) after a warm-up request: every request answered,
+    no NaN, one flash_attention launch per attention layer per prefill and
+    decode step -- prefills on wgmma at head_dim 128 and on tile at 80,
+    decodes on split -- and none for RWKV; requests/s, tokens/s, ms per
+    prefill and decode step, peak memory and a decode profile.  Returns
+    the run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import WGMMA_DIMS
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    full = get_config(arch)
+    cfg = full
+    if arch.startswith("moonshot"):
+        with torch.device("meta"):
+            one = LM(full.scaled(n_layers=1)).init_tree(torch.Generator())
+        layer = sum(t.numel() for t in tree_leaves(one["blocks"])) * 2
+        rest = sum(t.numel() for t in tree_leaves(one)) * 2 - layer
+        budget = FAMILY_SERVE_SHARE * torch.cuda.mem_get_info()[1]
+        cfg = full.scaled(n_layers=int(min(full.n_layers,
+                                           (budget - rest) // layer)))
+    t0 = time.perf_counter()
+    params = family_params(cfg, FAMILY_SEED + 1, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    instrumented_engine(cfg, params).generate([Request(
+        uid=0, prompt=np.arange(1, 200, dtype=np.int32), max_new_tokens=3)])
+    eng, reqs = instrumented_engine(cfg, params), lm_requests(cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    prefills, decodes = eng.stats["prefills"], eng.stats["decode_steps"]
+    n_attn = attention_layers(cfg)
+    want = {"flash_attention": n_attn * (prefills + decodes)} if n_attn \
+        else {}
+    prefill_form = "wgmma" if cfg.head_dim in WGMMA_DIMS else "tile"
+    forms = {"tile": 0, "wgmma": 0, "split": n_attn * decodes}
+    forms[prefill_form] += n_attn * prefills
+    if launches != want or ops.FLASH_FORMS != forms:
+        raise AssertionError(f"{arch} serve: launches {launches}, forms "
+                             f"{ops.FLASH_FORMS}, expected {want}, {forms}")
+    if not all(bool(ok) for *_, ok in eng.calls):
+        raise AssertionError(f"{arch} serve: NaN or inf in the logits")
+    if sorted(res) != list(range(LM_REQUESTS)) or any(
+            len(res[r.uid]) != r.max_new_tokens for r in reqs):
+        raise AssertionError(f"{arch} serve: not every request was answered")
+    generated = sum(len(v) for v in res.values())
+    ms = {kind: [s_.elapsed_time(e) for k, s_, e, _ in eng.calls
+                 if k == kind] for kind in ("prefill", "decode")}
+    row = {"arch": arch, "n_layers": cfg.n_layers,
+           "published_layers": full.n_layers, "dtype": "bfloat16",
+           "params_gb": param_bytes / 1e9, "init_s": init_s,
+           "batch": LM_BATCH, "max_len": LM_MAX_LEN,
+           "requests": LM_REQUESTS, "generated_tokens": generated,
+           "stats": eng.stats, "launches": launches,
+           "flash_attention_forms": dict(ops.FLASH_FORMS), "wall_s": wall,
+           "requests_per_s": LM_REQUESTS / wall,
+           "generated_tokens_per_s": generated / wall,
+           "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),
+           "ms_per_decode_step": sum(ms["decode"]) / len(ms["decode"]),
+           "peak_memory_gb": peak / 1e9, "card": card}
+    prof = decode_profile(LM(cfg), params, dev)
+    row["phase_s"] = time.perf_counter() - t_start
+    print("family serve " + json.dumps(row))
+    print("family decode profile " + json.dumps(
+        {"arch": arch} | prof | {"card": card}))
+    del params, eng          # the engine's wrapped calls make a cycle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_train(card: str, arch: str, n_layers, traced: bool) -> dict:
+    """Phase 11 (c) for one model: `train_run` (launch/train's path,
+    FAMILY_TRAIN_STEPS steps, params drawn on the card from FAMILY_SEED)
+    at the published widths and `n_layers` layers, or (None) the deepest
+    cut whose params, moments and gradients take FAMILY_TRAIN_SHARE of the
+    card at FAMILY_TRAIN_BYTES a param: attention on wgmma at head_dim
+    128, on tile / simt at 80.  Returns the run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.lm import LM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    full = get_config(arch)
+    if n_layers is None:
+        step = full.attn_every if full.family == "hybrid" else 1
+        with torch.device("meta"):
+            one = LM(full.scaled(n_layers=step)).init_tree(torch.Generator())
+        per = sum(t.numel() for t in tree_leaves(one["blocks"]))
+        rest = sum(t.numel() for t in tree_leaves(one)) - per
+        budget = FAMILY_TRAIN_SHARE * torch.cuda.mem_get_info()[1] \
+            / FAMILY_TRAIN_BYTES
+        n_layers = min(full.n_layers, int((budget - rest) // per) * step)
+    run = train_run(f"{arch} train", full.scaled(n_layers=n_layers),
+                    FAMILY_TRAIN_STEPS, FAMILY_SEED, traced)
+    print("family train " + json.dumps(
+        {"arch": arch, "published_layers": full.n_layers} | run["row"]
+        | {"phase_s": time.perf_counter() - t_start, "card": card}))
+    if run["profile"] is not None:
+        print("family train profile " + json.dumps(
+            {"arch": arch} | run["profile"] | {"card": card}))
+    return run["launches"]
+
+
+def families_phase(card: str) -> dict:
+    """Phase 11: the moe, ssm and hybrid LM families (moonshot-v1-16b-a3b,
+    rwkv6-7b, zamba2-2.7b): (a) parity against the CPU
+    (`family_parity`), (b) serving (`family_serve`), (c) training
+    (`family_train`).  Returns {"launches": (b) and (c)'s launches
+    summed, "d80": those of zamba2's head_dim 80 instantiations}."""
+    t0 = time.perf_counter()
+    for arch, n in FAMILY_PARITY.items():
+        family_parity(card, arch, n)
+    launches, d80 = {}, {}
+    runs = [(arch, lambda a=arch: family_serve(card, a))
+            for arch in FAMILY_SERVE]
+    runs += [(arch, lambda a=arch, n=n: family_train(card, a, *n))
+             for arch, n in FAMILY_TRAIN.items()]
+    for arch, run in runs:
+        got = run()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+            if arch.startswith("zamba2"):
+                d80[k] = d80.get(k, 0) + v
+    print(f"families: moonshot-v1-16b-a3b, rwkv6-7b and zamba2-2.7b equal "
+          f"the CPU in fp32 within {PARITY_TOL:g}, served in bf16 and "
+          f"trained at seq {LM_TRAIN_SEQ} ({time.perf_counter() - t0:.1f} s)")
+    return {"launches": launches, "d80": d80}
 
 
 def main() -> int:
@@ -2242,6 +2749,45 @@ def main() -> int:
                                         300, 1000, 16, 8, 128, dtype, False,
                                         q_offset=500))
 
+    # zamba2-2.7b's shared attention block (MHA 32 heads, head_dim 80) at
+    # the engine's batch 4: prefill at S 1024 and 1000 on the tile form, a
+    # split decode over a max_len 2048 cache, the backward at S 1024 on
+    # simt, in bf16 and fp32.
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for S in (1024, 1000):
+            cases.append(attention_case(f"d80_prefill_S{S}_{tag}", LM_BATCH,
+                                        S, S, 32, 32, 80, True, dtype, False,
+                                        timed=True))
+        cases.append(attention_case(f"d80_decode_len1024_{tag}", LM_BATCH, 1,
+                                    1025, 32, 32, 80, True, dtype, False,
+                                    timed=True, cache_len=LM_MAX_LEN))
+        cases.append(attention_bwd_case(f"d80_S1024_{tag}", LM_BATCH, 1024,
+                                        1024, 32, 32, 80, dtype, False,
+                                        timed=True))
+
+    # Phase 11's own shapes in bf16: its training microbatch of 2 at seq
+    # 4096 (zamba2's shared block on tile / simt, moonshot's MHA 16 heads
+    # at head_dim 128 on wgmma), forward and backward; its served prefills
+    # at the engine's batch 4 and decodes over a max_len 2048 cache
+    # (moonshot on wgmma / split, zamba2 on tile / split).
+    for tag, Hq, D in (("zamba2", 32, 80), ("moonshot", 16, 128)):
+        cases.append(attention_case(f"{tag}_train_S4096_bf16", 2,
+                                    LM_TRAIN_SEQ, LM_TRAIN_SEQ, Hq, Hq, D,
+                                    True, torch.bfloat16, False, timed=True))
+        cases.append(attention_bwd_case(f"{tag}_train_S4096_bf16", 2,
+                                        LM_TRAIN_SEQ, LM_TRAIN_SEQ, Hq, Hq,
+                                        D, torch.bfloat16, False,
+                                        timed=True))
+        # (zamba2's S 1024 prefill and decode are the d80 cases above.)
+        for S in (128, 256, 512) + ((1024,) if D == 128 else ()):
+            cases.append(attention_case(f"{tag}_prefill_S{S}_bf16", LM_BATCH,
+                                        S, S, Hq, Hq, D, True,
+                                        torch.bfloat16, False, timed=True))
+            cases.append(attention_case(f"{tag}_decode_len{S}_bf16",
+                                        LM_BATCH, 1, S + 1, Hq, Hq, D, True,
+                                        torch.bfloat16, False, timed=True,
+                                        cache_len=LM_MAX_LEN))
+
     # The serving path's attentions (qwen3-0.6b: Hq 16, Hk 8, head_dim
     # 128, bf16, slot batch 4): prefill at the served lengths, and decode
     # over the live prefix of a max_len 2048 cache.
@@ -2276,7 +2822,7 @@ def main() -> int:
         # The forms' edges: Sq and Sk at the 64-row / 64-key tiles, every
         # head_dim, causal with q_offset > 0 and full; decode lengths about
         # the split form's tiles over a strided cache view.
-        for D in (16, 32, 64, 128, 256):
+        for D in (16, 32, 64, 80, 128, 256):
             for Sq, Sk, causal in ((63, 63, True), (64, 64, True),
                                    (65, 130, True), (65, 65, False)):
                 cases.append(attention_case(
@@ -2674,6 +3220,9 @@ def main() -> int:
     example_launches = examples_phase(card)
     quickstart_launches = quickstart_phase(card)
 
+    # -- phase 11: the moe, ssm and hybrid families ----------------------------
+    families = families_phase(card)
+
     sources = {"dconv_forward": ("dconv_forward.cu",
                                  "src/repro/kernels/dconv_forward.py:104"),
                "tconv_phase": ("tconv_phase.cu",
@@ -2706,11 +3255,14 @@ def main() -> int:
                      + lm_train_launches.get(name, 0)
                      + int8_launches.get(name, 0)
                      + example_launches.get(name, 0)
-                     + quickstart_launches.get(name, 0),
+                     + quickstart_launches.get(name, 0)
+                     + families["launches"].get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),
                      "library_ms": k["library_ms"]})
+        if name.startswith("flash_attention"):   # zamba2's instantiations
+            rows[-1]["launches_head_dim_80"] = families["d80"].get(name, 0)
     print(json.dumps({"kernels": rows}))
     print(card)        # exactly as nvidia-smi gives name and power limit
     print(json.dumps({"ok": True, "device": {

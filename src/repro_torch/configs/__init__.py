@@ -1,10 +1,9 @@
 """Architecture registry (port of `repro/configs/__init__.py`):
 `get_config(arch_id)` / `get_smoke_config(arch_id)`.
 
-The port carries the four dense configs, which between them cover
-qk_norm, QKV bias, GeGLU, MQA and head_dim 256 on one code path.  The
-other ids of `repro`'s registry raise NotImplementedError: their
-families are still to port (ROADMAP.md A.14).
+The port carries the dense, moe, ssm and hybrid configs.  The audio and
+vlm ids of `repro`'s registry (musicgen-medium, internvl2-76b) raise
+NotImplementedError: their family is still to port (ROADMAP.md A.14.5).
 """
 from __future__ import annotations
 
@@ -24,7 +23,8 @@ ARCH_IDS = [
     "internvl2_76b",
     "zamba2_2_7b",
 ]
-PORTED = ("qwen3_0_6b", "qwen2_1_5b", "gemma_2b", "gemma_7b")
+PORTED = ("qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b", "rwkv6_7b",
+          "qwen3_0_6b", "qwen2_1_5b", "gemma_2b", "gemma_7b", "zamba2_2_7b")
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 _ALIASES.update({
@@ -47,8 +47,8 @@ def _module(arch: str):
         raise KeyError(f"unknown architecture {arch!r}")
     if arch_mod not in PORTED:
         raise NotImplementedError(
-            f"{arch_mod} is not ported yet: repro_torch runs the dense "
-            f"configs {', '.join(PORTED)} (ROADMAP.md A.14)")
+            f"{arch_mod} is not ported yet: repro_torch runs the configs "
+            f"{', '.join(PORTED)} (ROADMAP.md A.14.5)")
     return importlib.import_module(f"repro_torch.configs.{arch_mod}")
 
 

@@ -29,8 +29,9 @@
 // shapes.  "Rows" are the (query, head of the GQA group) pairs of one kv
 // head, Sq * g.
 //
-// 1. tile (fp32, head_dim 16 / 32, and bf16 rows that fill no 64-row
-//    tile): one CTA per (b, h, 16 query rows), 4 rows per warp; per kv
+// 1. tile (fp32, head_dim 16 / 32 / 80, and bf16 rows that fill no 64-row
+//    tile; 80's 160-byte bf16 rows fit none of the TMA swizzle widths of
+//    form 2): one CTA per (b, h, 16 query rows), 4 rows per warp; per kv
 //    block of 32 keys the K and V rows are staged in shared memory as
 //    fp32 (K rows padded to D + 1 floats, conflict-free), lane j scores
 //    key j, a butterfly max / sum gives every lane the same m and l, and
@@ -916,6 +917,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
       case 16: return (int)launch_split_rows<T, 16>(q, k, v, o, a, n, st);
       case 32: return (int)launch_split_rows<T, 32>(q, k, v, o, a, n, st);
       case 64: return (int)launch_split_rows<T, 64>(q, k, v, o, a, n, st);
+      case 80: return (int)launch_split_rows<T, 80>(q, k, v, o, a, n, st);
       case 128: return (int)launch_split_rows<T, 128>(q, k, v, o, a, n, st);
       case 256: return (int)launch_split_rows<T, 256>(q, k, v, o, a, n, st);
       default: return (int)cudaErrorInvalidValue;
@@ -937,6 +939,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     case 16: return (int)launch_tile<T, 16>(q, k, v, o, a, st);
     case 32: return (int)launch_tile<T, 32>(q, k, v, o, a, st);
     case 64: return (int)launch_tile<T, 64>(q, k, v, o, a, st);
+    case 80: return (int)launch_tile<T, 80>(q, k, v, o, a, st);
     case 128: return (int)launch_tile<T, 128>(q, k, v, o, a, st);
     case 256: return (int)launch_tile<T, 256>(q, k, v, o, a, st);
     default: return (int)cudaErrorInvalidValue;

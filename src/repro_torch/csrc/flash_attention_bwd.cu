@@ -67,8 +67,8 @@
 //    and (c)'s highest query blocks have the most tiles, and start first.
 //
 // 2. simt (fp32 -- "fp32 means fp32": TF32 would leave its class -- and
-//    head_dim 16, 32 and 256: 16 and 32 are narrower than form 1's
-//    64-column panels, and at 256 one warpgroup's dK and dV alone would
+//    head_dim 16, 32, 80 and 256: 16 and 32 are narrower than form 1's
+//    64-column panels, 80 is no whole number of them, and at 256 one warpgroup's dK and dV alone would
 //    take 256 registers a thread): fp32 FMAs on shared-memory tiles
 //    (K, V, Q scaled, dO, rows padded to D + 1 floats so that the 16
 //    threads of a half-warp reading 16 rows hit 16 banks), 256 threads
@@ -942,6 +942,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
                                 st);
     case 64:
       return (int)launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, a,
+                                st);
+    case 80:
+      return (int)launch<T, 80>(q, k, v, o, dout, lse, delta, dq, dk, dv, a,
                                 st);
     case 128:
       return (int)launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, a,

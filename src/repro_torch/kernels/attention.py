@@ -26,7 +26,7 @@ shapes alone:
     products, P split into two bf16 terms, p_hi = bf16(p) and p_lo =
     bf16(p - p_hi), so that P.V keeps ~16 bits of P as the fp32 P of
     this plain version does.
-  * "tile": everything else (fp32 prefill, head_dim 16 or 32): fp32
+  * "tile": everything else (fp32 prefill, head_dim 16, 32 or 80): fp32
     SIMT, one CTA per (b, h, 16 query rows).
 
 The backward, `csrc/flash_attention_bwd.cu`, and its plain version
@@ -37,7 +37,8 @@ block of queries), no atomics.  `backward_plan` picks its form:
   * "wgmma": bf16 at a head_dim of BWD_WGMMA_DIMS -- tensor-core
     products fed by TMA, P and dS each split into two bf16 terms as the
     forward splits P;
-  * "simt": everything else (fp32, head_dim 16, 32 and 256): fp32 FMAs.
+  * "simt": everything else (fp32, head_dim 16, 32, 80 and 256): fp32
+    FMAs.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the kernel's instantiations
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 FORMS = ("tile", "wgmma", "split")      # the C entry's form codes, in order
@@ -113,7 +114,8 @@ def backward_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, Hq: int,
     head_dim of BWD_WGMMA_DIMS, whatever the lengths (ragged rows and
     keys arrive as zeros and are masked), else "simt" -- fp32 stays fp32
     (TF32 would leave its class), head_dim 16 / 32 are narrower than the
-    form's 64-column tile panels, and 256 would not fit its registers."""
+    form's 64-column tile panels, 80 is no whole number of them, and 256
+    would not fit its registers."""
     del B, Sq, Sk, Hq, Hk    # the rule reads the dtype and head_dim alone
     if dtype == torch.bfloat16 and D in BWD_WGMMA_DIMS:
         return "wgmma"

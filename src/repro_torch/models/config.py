@@ -1,8 +1,7 @@
 """Model configuration (port of `repro/models/config.py`).
 
 The same fields and defaults as `repro`, so a config compares field for
-field; `compute_dtype` is a `torch.dtype`.  The port runs the dense
-family only (ROADMAP.md A.14 lists the rest).
+field; `compute_dtype` is a `torch.dtype`.
 """
 from __future__ import annotations
 
@@ -56,6 +55,11 @@ class ModelConfig:
     attn_chunk: int = 1024       # flash-attention kv chunk (plain version)
     loss_chunk: int = 512        # vocab-logit sequence chunking
 
+    # True when attention is sub-quadratic / absent => long_500k supported
+    @property
+    def subquadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
     @property
     def compute_dtype(self) -> torch.dtype:
         dt = getattr(torch, self.dtype, None)
@@ -70,6 +74,10 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     def scaled(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -45,6 +45,8 @@ class TrainerConfig:
     ckpt_every: int = 50
     keep_last: int = 3
     log_every: int = 10
+    # Fresh params are drawn by a generator on the trainer's device, so one
+    # seed gives other weights on the card than on the CPU.
     seed: int = 0
     # fault tolerance
     step_timeout_s: Optional[float] = None   # straggler watchdog
@@ -70,8 +72,10 @@ class Trainer:
 
     # -- state ---------------------------------------------------------------
     def init_state(self):
-        params = self.lm.init(torch.Generator().manual_seed(self.tcfg.seed),
-                              device=self.device)
+        """Fresh params drawn on the trainer's device from `seed` (on the
+        card by a CUDA generator: no host draw), and AdamW's state."""
+        gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+        params = self.lm.init(gen, device=self.device)
         return params, adamw_init(params, self.opt_cfg), 0
 
     def _like(self):

@@ -91,6 +91,8 @@ LAYER_CASES = [
     (1, 5, 37, 4, 1, 32, True, 8, 32),       # decode-style suffix, MQA
     (2, 1, 29, 8, 2, 16, True, 8, 28),       # one query over a cache
     (1, 9, 23, 4, 4, 16, False, 8, 0),       # non-causal
+    (2, 40, 40, 4, 4, 80, True, 16, 0),      # head_dim 80 (zamba2), ragged
+    (1, 3, 30, 4, 2, 80, True, 8, 27),       # head_dim 80, over a cache
 ]
 
 

@@ -2,7 +2,7 @@
 
   * `attention.backward_plan`, the rule that picks the backward kernel's
     form: "wgmma" for bf16 at head_dim 64 and 128, "simt" for fp32 and
-    head_dim 16, 32 and 256, whatever the lengths.
+    head_dim 16, 32, 80 and 256, whatever the lengths.
   * An emulation of the wgmma form's arithmetic in plain PyTorch
     (`csrc/flash_attention_bwd.cu`, form 1): bf16 operands whose
     products are exact in fp32 and summed in fp32; P and dS split into
@@ -50,7 +50,7 @@ BF16_TOL = 5e-2                  # of each gradient's largest magnitude
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("Sq,Sk", [(1, 40), (63, 63), (65, 130),
                                    (4096, 4096)])
 def test_backward_plan_picks_the_form(dtype, D, Sq, Sk):

@@ -57,6 +57,12 @@ PLAN_CASES = [
     ((BF16, 1, 63, 63, 1, 1, 64), ("tile", 1)),          # no whole tile
     ((BF16, 1, 32, 32, 2, 1, 64), ("wgmma", 1)),         # 32 x 2 rows
     ((BF16, 1, 9, 40, 1, 1, 64), ("tile", 1)),
+    # zamba2-2.7b's shared block (head_dim 80, MHA 32 heads) at the engine's
+    # batch 4: no wgmma form at 80, so prefill on tile; decode on split.
+    ((BF16, 4, 1024, 1024, 32, 32, 80), ("tile", 1)),
+    ((F32, 4, 1000, 1000, 32, 32, 80), ("tile", 1)),
+    ((BF16, 4, 1, 1025, 32, 32, 80), ("split", 3)),
+    ((F32, 4, 1, 129, 32, 32, 80), ("split", 3)),
 ]
 
 # ATTN_SWEEP's shapes (bq, bk are the Pallas block sizes) in both dtypes.

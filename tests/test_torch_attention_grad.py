@@ -43,6 +43,7 @@ GRAD_GRID = [
     (1, 20, 50, 4, 1, 16, True, 17),      # MQA; keys past 36 unseen
     (1, 33, 70, 4, 2, 16, False, 0),      # no mask, Sq < Sk
     (2, 65, 65, 4, 2, 16, False, 0),      # no mask, ragged
+    (1, 37, 37, 4, 4, 80, True, 0),       # head_dim 80 (zamba2), ragged
 ]
 
 

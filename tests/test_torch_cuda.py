@@ -630,7 +630,7 @@ ATTN_EDGES = [(1, 1, True), (1, 63, True), (1, 64, True), (1, 65, True),
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("Sq,Sk,causal", ATTN_EDGES)
 def test_flash_attention_forms_at_tile_edges(cuda, dtype, D, Sq, Sk, causal):
     """Each form against the plain version at the tile edges, every
@@ -688,7 +688,8 @@ ATTN_BWD_CASES = [
     (1, 64, 64, 4, 1, 64, True, None), (1, 130, 130, 4, 2, 128, True, None),
     (1, 70, 70, 2, 1, 256, True, None), (1, 33, 70, 4, 2, 16, False, None),
     (1, 100, 300, 4, 2, 128, True, 37), (2, 40, 90, 2, 2, 64, True, None),
-    (1, 65, 65, 4, 2, 128, False, None), (1, 1, 40, 4, 4, 32, True, None)]
+    (1, 65, 65, 4, 2, 128, False, None), (1, 1, 40, 4, 4, 32, True, None),
+    (1, 130, 130, 4, 2, 80, True, None), (2, 65, 100, 4, 4, 80, True, 20)]
 
 
 def _forward_with_lse(q, k, v, causal, off):
@@ -814,6 +815,51 @@ def test_flash_attention_backward_refuses_a_form_the_shapes_do_not_take(
             flash_attention_backward_cuda(q, k, v, out, do, lse,
                                           causal=causal, q_offset=off,
                                           form="tile")
+
+
+def test_wgmma_forms_refuse_head_dim_80(cuda):
+    """No wgmma form at head_dim 80 (its 160-byte rows fit no TMA swizzle
+    width): forced on it, the forward and the backward raise; the plans
+    send 80 to tile / split and simt."""
+    q, k, v, out, lse, do, causal, off = _attention_grad_operands(
+        (1, 70, 70, 4, 2, 80, True, None), torch.bfloat16, cuda, 38)
+    assert plan(torch.bfloat16, 1, 70, 70, 4, 2, 80).form == "tile"
+    assert attn_bwd_plan(torch.bfloat16, 1, 70, 70, 4, 2, 80) == "simt"
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_attention_cuda(q, k, v, causal=True, q_offset=0,
+                             form=plan(torch.bfloat16, 1, 70, 70, 4, 2, 128))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        flash_attention_backward_cuda(q, k, v, out, do, lse, causal=causal,
+                                      q_offset=off, form="wgmma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_head_dim_80_at_zamba2s_shape(cuda, dtype):
+    """zamba2-2.7b's shared block at the engine's batch 4 (MHA 32 heads,
+    head_dim 80): a prefill of 1000 on tile, a decode over a strided
+    cache on split, the backward at 1024 on simt -- each against its
+    plain version, each rerun bit for bit."""
+    q, k, v = _attention_operands((4, 1000, 1000, 32, 32, 80), dtype, cuda,
+                                  39)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=True)
+    qd, ck, cv = _attention_operands((4, 1, 2048, 32, 32, 80), dtype, cuda,
+                                     40)
+    dec = ops.flash_attention(qd, ck[:, :1025], cv[:, :1025], causal=True,
+                              q_offset=1024)
+    assert ops.FLASH_FORMS == {"tile": 1, "wgmma": 0, "split": 1}
+    atol, rtol = ATTN_TOL[dtype]
+    for a, b in ((got, flash_attention_plain(q, k, v, causal=True)),
+                 (dec, flash_attention_plain(qd, ck[:, :1025], cv[:, :1025],
+                                             causal=True, q_offset=1024))):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True))
+    assert torch.equal(dec, ops.flash_attention(
+        qd, ck[:, :1025], cv[:, :1025], causal=True, q_offset=1024))
+    _check_backward_form(cuda, dtype, (4, 1024, 1024, 32, 32, 80, True, None),
+                         None, 41)
 
 
 def test_flash_attention_grad_launches_both_kernels(cuda):
@@ -942,6 +988,95 @@ def test_int8_kv_lm_matches_the_cpu(cuda):
     torch.cuda.synchronize()
     assert ops.FLASH_FORMS == {"tile": 2, "wgmma": 0, "split": 8}
     assert ops.LAUNCHES["flash_attention"] == 10
+
+
+def test_qwen3_moe_layer_at_full_width_matches_the_cpu(cuda, monkeypatch):
+    """qwen3-moe-235b-a22b at its published widths, 1 layer, fp32 -- GQA
+    16:1, qk_norm, top-8 of 128 experts -- at B 2 x S 64: the prefill's
+    logits and the loss and every gradient on the card against the same
+    calls on the CPU (logits 1e-3; gradients 1e-3 of each leaf's largest
+    magnitude, as smoke phase 11 (a)).  The routing of both sides is
+    recorded: every card call's router probs are held within 1e-3 of
+    `route` on the CPU at the same input, and a choice the card routes
+    otherwise must be a near-tie (the CPU's probs of the two experts
+    within 1e-3).  Where the two runs route otherwise, the card's
+    dispatch/combine on its own routing is held against the same call on
+    the CPU instead of what follows it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import moe
+    from repro_torch.models.layers import tree_paths
+
+    cfg = get_config("qwen3-moe-235b-a22b").scaled(n_layers=1,
+                                                   dtype="float32")
+    lm = LM(cfg)
+    dparams = lm.init(torch.Generator(device=cuda).manual_seed(43),
+                      device=cuda)
+    params = tree_map(lambda t: t.cpu(), dparams)
+    calls = []
+    route = moe.route
+
+    def logged(p, x, c):
+        out = route(p, x, c)
+        calls.append((p, x.detach(), *(t.detach() for t in out)))
+        return out
+
+    monkeypatch.setattr(moe, "route", logged)
+    rng = np.random.default_rng(43)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 64))
+                            .astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+
+    def routed_alike(n_card):
+        """True when the card's and the CPU's calls routed alike; else
+        the card's dispatch/combine holds on its own routing."""
+        card, host = calls[:n_card], calls[n_card:]
+        assert len(card) == len(host)
+        alike = True
+        for (p, x, probs, vals, idx), (*_, cidx) in zip(card, host):
+            cp, cx, hidx = tree_map(lambda t: t.cpu(), p), x.cpu(), idx.cpu()
+            with torch.no_grad():
+                want_probs, _, want_idx = route(cp, cx, cfg)
+            torch.testing.assert_close(probs.cpu(), want_probs, atol=1e-3,
+                                       rtol=1e-3)
+            moved = hidx != want_idx
+            gap = (want_probs.gather(-1, hidx)
+                   - want_probs.gather(-1, want_idx))[moved].abs()
+            assert not gap.numel() or gap.max().item() <= 1e-3, \
+                f"{int(moved.sum())} choices routed otherwise, not near-ties"
+            if torch.equal(hidx, cidx) and not moved.any():
+                continue
+            alike = alike and torch.equal(hidx, cidx)
+            with torch.no_grad():
+                got = moe.dispatch_combine(p, x, vals, idx, cfg)
+                want = moe.dispatch_combine(cp, cx, vals.cpu(), hidx, cfg)
+            torch.testing.assert_close(got.cpu(), want, atol=1e-3,
+                                       rtol=1e-3)
+        calls.clear()
+        return alike
+
+    with torch.no_grad():
+        got = lm.prefill(dparams, toks.to(cuda), 64)[0]
+        n = len(calls)
+        want = lm.prefill(params, toks, 64)[0]
+    if routed_alike(n):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+    ops.reset_launches()
+    (loss, aux), grads = loss_and_grads(lm, dparams, toks.to(cuda),
+                                        labels.to(cuda))
+    assert ops.LAUNCHES["flash_attention"] == 2
+    assert ops.LAUNCHES["flash_attention_backward"] == 1
+    n = len(calls)
+    (want_loss, want_aux), want = loss_and_grads(lm, params, toks, labels)
+    if routed_alike(n):
+        torch.testing.assert_close(loss.cpu(), want_loss, atol=1e-3,
+                                   rtol=1e-3)
+        torch.testing.assert_close(aux["aux"].cpu(), want_aux["aux"],
+                                   atol=1e-3, rtol=1e-3)
+        for (path, g), (_, w) in zip(tree_paths(grads), tree_paths(want)):
+            big = w.abs().max().item()
+            torch.testing.assert_close(g.cpu(), w, atol=1e-3 * big,
+                                       rtol=1e-3, msg=path)
 
 
 def test_quickstart_filter_grad_runs_the_filter_grad_kernel(cuda):
