@@ -126,8 +126,8 @@ Phases (any failed check raises and ends the run non-zero):
      `naive` times (`quickstart_phase`);
   11. the moe, ssm and hybrid families (`families_phase`) at their
      published widths, params drawn on the card from a seed: (a)
-     moonshot-v1-16b-a3b and rwkv6-7b at 2 layers, zamba2-2.7b at 12 (2
-     groups: the shared block used twice), fp32: phase 6 (a)'s prefill
+     moonshot-v1-16b-a3b at 1 layer, rwkv6-7b at 2, zamba2-2.7b at 12
+     (2 groups: the shared block used twice), fp32: phase 6 (a)'s prefill
      and 8 forced decodes, logits per call within 1e-3 of the CPU, then
      the loss and every gradient at batch 2 x seq 256 (1e-3 of each
      leaf's max); the MoE routing of both sides compared call by call
@@ -140,12 +140,34 @@ Phases (any failed check raises and ends the run non-zero):
      call at head_dim 80, tile prefills; split decodes; rwkv6: none),
      requests/s, tokens/s, ms per prefill and decode step, peak memory,
      a decode profile (`family_serve`); (c) moonshot-v1-16b-a3b at 2
-     layers and zamba2-2.7b (the deepest whole groups whose training
-     state fits FAMILY_TRAIN_SHARE of the card) through `Trainer.run` at
+     layers and zamba2-2.7b at 12 (2 groups) through `Trainer.run` at
      seq 4096, batch 8 in 4 microbatches, 3 steps: launches and forms per
      step (wgmma at head_dim 128; tile and simt at 80), ms per step,
      tokens/s, peak memory, the aux loss, a rerun's losses bit-equal
-     (`family_train`).
+     (`family_train`);
+  12. (a) the audio and vlm families (`embeds_phase`), inputs that are
+     frame embeddings: musicgen-medium and internvl2-76b at 2 layers in
+     fp32 against the CPU (`family_parity` on frames: logits per call, the
+     loss and every gradient, internvl2's at batch 1); musicgen-medium
+     whole (48 layers) and internvl2-76b at the deepest cut whose bf16
+     params take FAMILY_SERVE_SHARE of the card, served in bf16 on phase 6
+     (b)'s 12 requests with frames in place of prompts (`LM.prefill` on
+     frames, greedy `decode_step`s; prefills on wgmma at head_dim 64 /
+     128, decodes on split), requests/s, ms per call, a decode profile
+     (`embed_serve`); musicgen-medium trained whole through `Trainer.run`
+     at seq 4096, batch 8 in 4 microbatches, 4 steps, traced, a rerun
+     bit-equal; (b) the conv steps on a device mesh (`mesh_phase`): MESH_RANKS
+     `gloo` ranks spawned on the one card, a (2, 2) ("data", "model")
+     mesh; gan_sgd_step, gen_sgd_step and sgd_step at phase 5's widths,
+     batch 64, on params laid out by `tree_shardings` and batches by
+     `batch_pspec`, each held against the same step on one rank (params
+     rtol 2e-4 / atol 2e-5, losses 1e-5), STEP_LAUNCHES on each rank,
+     every plan on the rank's block; ConvTrainer(gan) checkpointed at step
+     2 on the mesh, a host of 2 ranks lost, restored onto
+     `elastic_mesh(survivors(...))` (1, 2) and run to step 4, equal to one
+     rank's run; ms per step sharded and alone (`gloo` ranks sharing one
+     card: no multi-card speed).
+     Each phase prints its seconds.
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
 and the library.  Kernel, plain version and library all compute in fp32;
@@ -185,6 +207,7 @@ inputs to 10 bits.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -290,7 +313,7 @@ TRAINER_NAN_AT = 2        # the step attempt the injected nan_output poisons
 TRAINER_TIMED = 20        # steps per timing of eager steps and replays
 TRAINER_PROFILED = 5      # replays (eager steps) per timing trace
 PROFILE_PAD_S = 0.05      # idle host time on each side of a traced window
-PROFILE_LEAD_IN = 8       # spin kernels that open a traced window
+PROFILE_LEAD_IN = 32      # spin kernels that open a traced window
 
 # Phase 8: the atrous head at the serving slice's widths trained as
 # `repro_torch.examples.segment_atrous` trains it, and patchify at
@@ -332,7 +355,9 @@ TCONV_KERNELS = {"phase": "tconv_phase", "implicit_gemm": "tconv_implicit_gemm"}
 # Phase 11: the moe, ssm and hybrid families at their published widths.
 # (a) parity against the CPU in fp32 at these depths (zamba2: 12 Mamba
 # blocks = 2 groups, so the shared block is used twice).
-FAMILY_PARITY = {"moonshot-v1-16b-a3b": 2, "rwkv6-7b": 2, "zamba2-2.7b": 12}
+# moonshot-v1-16b-a3b at 1 layer since phase 12 came (its 2 layers took
+# ~52 s, most of it the CPU's side).
+FAMILY_PARITY = {"moonshot-v1-16b-a3b": 1, "rwkv6-7b": 2, "zamba2-2.7b": 12}
 # (b) serving in bf16: the whole model, or for moonshot the deepest that
 # keeps its bf16 params within this share of the card's memory.
 FAMILY_SERVE = ("moonshot-v1-16b-a3b", "rwkv6-7b", "zamba2-2.7b")
@@ -345,13 +370,33 @@ FAMILY_SERVE_SHARE = 0.75
 # layers peaked at 73.8 GB for 1.85 B params on an H100 80GB), and
 # whether one more step is traced: zamba2's step makes ~300 K device
 # events, whose trace took ~140 s to read back on that machine (PERF.md
-# section 5 holds one).
+# section 5 holds one).  zamba2 trains at 12 layers (2 groups: the shared
+# block used twice) since phase 12 came: its 30 layers took ~60 s.
 FAMILY_TRAIN = {"moonshot-v1-16b-a3b": (2, True),
-                "zamba2-2.7b": (None, False)}
+                "zamba2-2.7b": (12, False)}
 FAMILY_TRAIN_BYTES = 40
 FAMILY_TRAIN_SHARE = 0.7
 FAMILY_TRAIN_STEPS = 3
 FAMILY_SEED = 41          # the card generator's seed of phase 11's params
+# Phase 12 (a): the audio and vlm families, whose inputs are embeddings.
+# Parity at 2 layers; musicgen-medium served and trained whole;
+# internvl2-76b served at the deepest cut whose bf16 params take
+# FAMILY_SERVE_SHARE of the card (its training state would not fit).
+# (layers, the gradients' (batch, seq)): internvl2-76b's at batch 1, as
+# its CPU side (3.8 B fp32 params) takes ~1.5 min at phase 11's (2, 256).
+EMBED_PARITY = {"musicgen-medium": (2, LM_TRAIN_PARITY),
+                "internvl2-76b": (2, (1, 256))}
+EMBED_SERVE = ("musicgen-medium", "internvl2-76b")
+EMBED_TRAIN = {"musicgen-medium": 48}
+EMBED_TRAIN_STEPS = 4
+# Phase 12 (b): the conv steps on a (2, 2) ("data", "model") mesh of
+# MESH_RANKS `gloo` ranks that share the one card, at phase 5's widths and
+# batch; `repro`'s bounds (tests/test_multidevice.py:418-420).
+MESH_SHAPE = (2, 2)
+MESH_RANKS = 4
+MESH_RTOL, MESH_ATOL, MESH_LOSS_TOL = 2e-4, 2e-5, 1e-5
+MESH_TIMED = 5            # steps per timing, sharded and single-rank
+MESH_TRAINER_STEPS = 4    # the elastic run: checkpoint at 2, a host lost
 
 
 def paper_layers() -> list:
@@ -565,11 +610,13 @@ def decode_profile(lm, params, dev) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    prompt = np.random.default_rng(2).integers(
-        1, lm.cfg.vocab, (LM_BATCH, PROFILE_CACHED)).astype(np.int32)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        1, lm.cfg.vocab, (LM_BATCH, PROFILE_CACHED)).astype(np.int32))
+    if lm.cfg.embed_input:   # frames in place of the prompt's tokens
+        prompt = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (LM_BATCH, PROFILE_CACHED, lm.cfg.d_model)).astype(np.float32))
     with torch.no_grad():
-        logits, cache = lm.prefill(params, torch.from_numpy(prompt).to(dev),
-                                   LM_MAX_LEN)
+        logits, cache = lm.prefill(params, prompt.to(dev), LM_MAX_LEN)
         logits, cache = lm.decode_step(
             params, cache, torch.argmax(logits[:, 0], dim=-1)[:, None])
         torch.cuda.synchronize()
@@ -657,25 +704,32 @@ def calls_profile(call, n: int) -> dict:
     trace sometimes came back empty.  So each window opens with
     PROFILE_LEAD_IN spin kernels and a synchronize (the events lost are
     theirs; they are left out of every number here) and PROFILE_PAD_S of
-    idle host time on each side of the timed calls."""
+    idle host time on each side of the timed calls.  A trace of the
+    commit's few copies still came back empty once (with 8 spin
+    kernels), so an empty trace is taken once more before it fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD_IN):
-            torch.cuda._sleep(100)
+    for attempt in range(2):
         torch.cuda.synchronize()
-        time.sleep(PROFILE_PAD_S)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        time.sleep(PROFILE_PAD_S)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and "spin_kernel" not in e.name]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD_IN):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            time.sleep(PROFILE_PAD_S)
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in e.name]
+        if kernels:
+            break
+        print(f"profile: trace {attempt + 1} holds no device event")
     if not kernels:
         raise AssertionError("the profiler's trace holds no device event")
 
@@ -1340,7 +1394,8 @@ def train_run(what, cfg, steps: int, seed: int, traced: bool,
 
     dev = torch.device("cuda")
     ds = TokenDataset(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
-                      global_batch=LM_TRAIN_BATCH, seed=0)
+                      global_batch=LM_TRAIN_BATCH, seed=0,
+                      embed_dim=cfg.d_model if cfg.embed_input else None)
 
     def trainer(ckpt_dir=None):
         return Trainer(cfg, ds, AdamWConfig(
@@ -1894,8 +1949,12 @@ def family_params(cfg, seed: int, dtype=None):
         shapes = LM(cfg).init_tree(torch.Generator())
     params = None
     for i in range(0, cfg.n_layers, step):
+        # Only the first part's embeddings are kept: the later parts draw
+        # a table of 8 rows (a layer's params do not depend on the vocab).
+        sub = cfg.scaled(n_layers=step) if params is None else \
+            cfg.scaled(n_layers=step, vocab=8)
         with torch.device(dev):
-            part = noisy(LM(cfg.scaled(n_layers=step)).init_tree(gen))
+            part = noisy(LM(sub).init_tree(gen))
         if dtype is not None:
             part = precast(part, dtype)
         if params is None:
@@ -2002,12 +2061,13 @@ def attention_layers(cfg) -> int:
     return cfg.n_layers
 
 
-def family_parity(card: str, arch: str, n_layers: int) -> dict:
+def family_parity(card: str, arch: str, n_layers: int,
+                  train_shape=LM_TRAIN_PARITY) -> dict:
     """Phase 11 (a) for one model: `arch` at its published widths and
     `n_layers` layers in fp32, params from `family_params`.  Prefill of
     LM_BATCH prompts of 64-200 tokens and PARITY_DECODES teacher-forced
     decodes, each call's logits within PARITY_TOL of the same call on the
-    CPU; then LM.loss and every gradient at batch x seq LM_TRAIN_PARITY,
+    CPU; then LM.loss and every gradient at batch x seq `train_shape`,
     each leaf within LM_TRAIN_TOL of its largest magnitude.  For the MoE
     every route call is held against the CPU's on the card's own input
     (`routing_check`: probs within PARITY_TOL, a choice routed otherwise
@@ -2033,6 +2093,11 @@ def family_parity(card: str, arch: str, n_layers: int) -> dict:
     toks = np.zeros((LM_BATCH, int(lens.max())), np.int32)
     for i, n in enumerate(lens):
         toks[i, toks.shape[1] - n:] = rng.integers(1, cfg.vocab, n)
+    if cfg.embed_input:   # frames of the same lengths, zeros in front
+        toks = np.zeros((*toks.shape, cfg.d_model), np.float32)
+        for i, n in enumerate(lens):
+            toks[i, toks.shape[1] - n:] = rng.standard_normal(
+                (n, cfg.d_model))
     forced = rng.integers(1, cfg.vocab, (PARITY_DECODES, LM_BATCH, 1))
     max_len = toks.shape[1] + PARITY_DECODES
 
@@ -2078,9 +2143,10 @@ def family_parity(card: str, arch: str, n_layers: int) -> dict:
                              f"{serve_forms}, expected {want_forms}")
 
     # The loss and every gradient.
-    B, S = LM_TRAIN_PARITY
+    B, S = train_shape
     batch = TokenDataset(vocab=cfg.vocab, seq_len=S, global_batch=B,
-                         seed=21).batch(0)
+                         seed=21, embed_dim=cfg.d_model if cfg.embed_input
+                         else None).batch(0)
     labels = batch["labels"].copy()
     labels[0, :7] = -1
     ops.reset_launches()
@@ -2218,7 +2284,8 @@ def family_serve(card: str, arch: str) -> dict:
     return launches
 
 
-def family_train(card: str, arch: str, n_layers, traced: bool) -> dict:
+def family_train(card: str, arch: str, n_layers, traced: bool,
+                 steps: int = FAMILY_TRAIN_STEPS) -> dict:
     """Phase 11 (c) for one model: `train_run` (launch/train's path,
     FAMILY_TRAIN_STEPS steps, params drawn on the card from FAMILY_SEED)
     at the published widths and `n_layers` layers, or (None) the deepest
@@ -2243,7 +2310,7 @@ def family_train(card: str, arch: str, n_layers, traced: bool) -> dict:
             / FAMILY_TRAIN_BYTES
         n_layers = min(full.n_layers, int((budget - rest) // per) * step)
     run = train_run(f"{arch} train", full.scaled(n_layers=n_layers),
-                    FAMILY_TRAIN_STEPS, FAMILY_SEED, traced)
+                    steps, FAMILY_SEED, traced)
     print("family train " + json.dumps(
         {"arch": arch, "published_layers": full.n_layers} | run["row"]
         | {"phase_s": time.perf_counter() - t_start, "card": card}))
@@ -2279,6 +2346,425 @@ def families_phase(card: str) -> dict:
     return {"launches": launches, "d80": d80}
 
 
+def embed_serve(card: str, arch: str) -> dict:
+    """Phase 12 (a), serving: bf16 params (`family_params`) at the
+    published widths, whole or at the deepest cut that FAMILY_SERVE_SHARE
+    of the card holds, serving phase 6 (b)'s LM_REQUESTS requests with
+    frames in place of prompts: frame embeddings of each request's prompt
+    length (drawn on the card from a seed, zeros in front of the shorter
+    ones), `LM.prefill(params, frames, LM_MAX_LEN)` for each batch of
+    LM_BATCH requests in order, then greedy `LM.decode_step`s on tokens
+    until the batch's longest budget (`ServeEngine` takes token prompts
+    only, as `repro`'s does).  Every request gets its budget of tokens, no
+    NaN, one flash_attention launch per layer per call: prefills on wgmma,
+    decodes on split.  Returns the run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.attention import WGMMA_DIMS
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.lm import LM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    full = get_config(arch)
+    with torch.device("meta"):
+        one = LM(full.scaled(n_layers=1)).init_tree(torch.Generator())
+    layer = sum(t.numel() for t in tree_leaves(one["blocks"])) * 2
+    rest = sum(t.numel() for t in tree_leaves(one)) * 2 - layer
+    budget = FAMILY_SERVE_SHARE * torch.cuda.mem_get_info()[1]
+    cfg = full.scaled(n_layers=int(min(full.n_layers,
+                                       (budget - rest) // layer)))
+    t0 = time.perf_counter()
+    params = family_params(cfg, FAMILY_SEED + 2, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    lm = LM(cfg)
+    gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED + 3)
+    reqs = lm_requests(cfg.vocab)
+
+    def frames(lens):
+        x = torch.zeros((len(lens), max(lens), cfg.d_model),
+                        dtype=torch.bfloat16, device=dev)
+        for i, n in enumerate(lens):
+            x[i, x.shape[1] - n:] = torch.randn(
+                (n, cfg.d_model), generator=gen, device=dev)
+        return x
+
+    def serve(batch_reqs, calls):
+        """One batch: prefill, then greedy decodes; tokens by uid."""
+        out = {r.uid: [] for r in batch_reqs}
+        x = frames([len(r.prompt) for r in batch_reqs])
+        for step in range(max(r.max_new_tokens for r in batch_reqs) + 1):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            if step == 0:
+                logits, cache = lm.prefill(params, x, LM_MAX_LEN)
+            else:
+                logits, cache = lm.decode_step(params, cache, tok)
+            end.record()
+            calls.append(("prefill" if step == 0 else "decode", start, end,
+                          torch.isfinite(logits).all()))
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+            for r, t in zip(batch_reqs, tok[:, 0].tolist()):
+                if len(out[r.uid]) < r.max_new_tokens:
+                    out[r.uid].append(t)
+        return out
+
+    with torch.no_grad():
+        serve(reqs[:1], [])                      # one-time costs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        calls, res = [], {}
+        t0 = time.perf_counter()
+        for i in range(0, len(reqs), LM_BATCH):
+            res.update(serve(reqs[i:i + LM_BATCH], calls))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    prefills = sum(k == "prefill" for k, *_ in calls)
+    decodes = len(calls) - prefills
+    n_attn = attention_layers(cfg)
+    want = {"flash_attention": n_attn * (prefills + decodes)}
+    prefill_form = "wgmma" if cfg.head_dim in WGMMA_DIMS else "tile"
+    forms = {"tile": 0, "wgmma": 0, "split": n_attn * decodes}
+    forms[prefill_form] += n_attn * prefills
+    if launches != want or ops.FLASH_FORMS != forms:
+        raise AssertionError(f"{arch} serve: launches {launches}, forms "
+                             f"{ops.FLASH_FORMS}, expected {want}, {forms}")
+    if not all(bool(ok) for *_, ok in calls):
+        raise AssertionError(f"{arch} serve: NaN or inf in the logits")
+    if sorted(res) != list(range(LM_REQUESTS)) or any(
+            len(res[r.uid]) != r.max_new_tokens for r in reqs):
+        raise AssertionError(f"{arch} serve: not every request was answered")
+    generated = sum(len(v) for v in res.values())
+    ms = {kind: [s_.elapsed_time(e) for k, s_, e, _ in calls if k == kind]
+          for kind in ("prefill", "decode")}
+    row = {"arch": arch, "n_layers": cfg.n_layers,
+           "published_layers": full.n_layers, "dtype": "bfloat16",
+           "head_dim": cfg.head_dim, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "params_gb": param_bytes / 1e9, "init_s": init_s,
+           "batch": LM_BATCH, "max_len": LM_MAX_LEN,
+           "requests": LM_REQUESTS, "frame_positions": int(sum(
+               len(r.prompt) for r in reqs)), "generated_tokens": generated,
+           "prefills": prefills, "decode_steps": decodes,
+           "launches": launches, "flash_attention_forms": dict(
+               ops.FLASH_FORMS), "wall_s": wall,
+           "requests_per_s": LM_REQUESTS / wall,
+           "generated_tokens_per_s": generated / wall,
+           "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),
+           "ms_per_decode_step": sum(ms["decode"]) / len(ms["decode"]),
+           "peak_memory_gb": peak / 1e9, "card": card}
+    prof = decode_profile(lm, params, dev)
+    row["phase_s"] = time.perf_counter() - t_start
+    print("embed serve " + json.dumps(row))
+    print("embed decode profile " + json.dumps(
+        {"arch": arch} | prof | {"card": card}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def embeds_phase(card: str) -> dict:
+    """Phase 12 (a): the audio and vlm families (musicgen-medium,
+    internvl2-76b): parity against the CPU at 2 layers in fp32
+    (`family_parity` on frames), serving (`embed_serve`), and
+    musicgen-medium trained whole (`family_train`).  Returns (b) and
+    (c)'s launches summed."""
+    t0 = time.perf_counter()
+    for arch, (n, shape) in EMBED_PARITY.items():
+        family_parity(card, arch, n, shape)
+    launches = {}
+    runs = [lambda a=arch: embed_serve(card, a) for arch in EMBED_SERVE]
+    runs += [lambda a=arch, n=n: family_train(card, a, n, True,
+                                              EMBED_TRAIN_STEPS)
+             for arch, n in EMBED_TRAIN.items()]
+    for run in runs:
+        for k, v in run().items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"embeds: musicgen-medium and internvl2-76b equal the CPU in fp32 "
+          f"within {PARITY_TOL:g} on frames, served in bf16; musicgen-medium "
+          f"trained whole at seq {LM_TRAIN_SEQ} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def _mesh_step(name):
+    """STEP_LAUNCHES' step `name` as `(state, batch) -> (state, losses)`
+    on the `cuda` backend, and its ConvDataset kind."""
+    from repro_torch.models import cnn, gan
+
+    if name == "gan_sgd_step":
+        def step(state, b):
+            new, g_loss, d_loss = gan.gan_sgd_step(
+                state, b["z"], b["real"], lr=LR, backend="cuda")
+            return new, (g_loss, d_loss)
+        return step, "gan"
+    if name == "gen_sgd_step":
+        def step(state, b):
+            new, loss = gan.gen_sgd_step(state["g"], state["d"], b["z"],
+                                         lr=LR, backend="cuda")
+            return {"g": new, "d": state["d"]}, (loss,)
+        return step, "gan_gen"
+
+    def step(params, b):
+        new, loss = cnn.sgd_step(params, b["x"], b["labels"], lr=LR,
+                                 backend="cuda")
+        return new, (loss,)
+    return step, "cnn"
+
+
+@contextlib.contextmanager
+def planned_shapes():
+    """Within `with`, every plan `kernels/tiling.py` makes: (op, x_shape,
+    dy_shape)."""
+    from repro_torch.kernels import tiling
+
+    seen = []
+    saved = tiling.plan_tiles, tiling.plan_strategy
+
+    def spy(plan):
+        def call(op, spec, **kw):
+            seen.append((op, tuple(kw["x_shape"]), tuple(kw["dy_shape"])))
+            return plan(op, spec, **kw)
+        return call
+
+    tiling.plan_tiles, tiling.plan_strategy = map(spy, saved)
+    try:
+        yield seen
+    finally:
+        tiling.plan_tiles, tiling.plan_strategy = saved
+
+
+def mesh_checks(rank: int, tmp: str, device: str = "cuda") -> dict:
+    """One rank of phase 12 (b), on the card: a (2, 2) ("data", "model")
+    mesh of the MESH_RANKS ranks.  For each conv step (gan_sgd_step,
+    gen_sgd_step, sgd_step at phase 5's widths, batch TRAIN_BATCH): the
+    step on params laid out by `tree_shardings` and a batch laid out by
+    `batch_pspec` under `use_mesh`, against the same step on this rank
+    alone (no mesh): params within MESH_RTOL / MESH_ATOL, losses within
+    MESH_LOSS_TOL; the sharded step's launches equal STEP_LAUNCHES; every
+    plan made on the rank's block (batch / |data|; the channel the op
+    produces / |model| where it divides); ms per step of both.  Then the
+    elastic restore: ConvTrainer(gan) on the mesh to step 2 (checkpoint),
+    host 1 (ranks 2, 3) lost, `elastic_mesh(survivors(...))` a (1, 2)
+    mesh of ranks 0 and 1, restored onto it and run to
+    MESH_TRAINER_STEPS; its state against the same trainer on one rank
+    (no mesh: its CUDA-graph step).  Returns what it measured.
+    `device="cpu"` rehearses the same checks on the plain versions."""
+    from repro_torch.data.pipeline import ConvDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import cnn, gan
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import fault_tolerance as ft
+    from repro_torch.train.conv_trainer import ConvTrainer, ConvTrainerConfig
+
+    dev = torch.device(device)
+    mesh = make_debug_mesh(MESH_SHAPE, ("data", "model"), device=device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {"rank": rank, "coordinate": [mesh.get_local_rank(0),
+                                        mesh.get_local_rank(1)],
+           "steps": {}, "launches": {}}
+    gen = torch.Generator().manual_seed(2024)
+    states = {"gan_sgd_step": gan.gan_init(gen, z_dim=64, base=64, ch=3,
+                                           device=dev)}
+    states["gen_sgd_step"] = states["gan_sgd_step"]
+    states["sgd_step"] = cnn.simple_cnn_init(gen, device=dev)
+
+    def close(a, b, what):
+        if a.shape != b.shape or not torch.allclose(
+                a, b, rtol=MESH_RTOL, atol=MESH_ATOL):
+            raise AssertionError(f"rank {rank} {what}: max |err| "
+                                 f"{(a - b).abs().max().item():.3e}")
+        return (a - b).abs().max().item()
+
+    def timed(fn):
+        ms = []
+        for _ in range(MESH_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return sum(ms[1:]) / (len(ms) - 1)
+
+    for name, state in states.items():
+        step, kind = _mesh_step(name)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in ConvDataset(
+            kind=kind, batch=TRAIN_BATCH, image=32, z_dim=64,
+            seed=0).batch_at(0).items()}
+        with planned_shapes() as alone_plans:
+            want, want_losses = step(state, batch)
+        with sh.use_mesh(mesh):
+            s_state = sh.device_put(state, sh.tree_shardings(state, mesh))
+            s_batch = {k: sh.device_put(v, sh.NamedSharding(
+                mesh, sh.batch_pspec(mesh, v.dim(), 0, v.shape[0])))
+                for k, v in batch.items()}
+            sync()
+            ops.reset_launches()
+            with planned_shapes() as plans:
+                got, losses = step(s_state, s_batch)
+            sync()
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            for k, v in launches.items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            # (The CPU's plain versions count no launch.)
+            if dev.type == "cuda" and launches != STEP_LAUNCHES[name]:
+                raise AssertionError(f"rank {rank} {name}: launches "
+                                     f"{launches}, expected "
+                                     f"{STEP_LAUNCHES[name]}")
+            got = tree_map(sh.full_tensor, got)
+            err = max(close(a, b, f"{name} params") for a, b in zip(
+                tree_leaves(got), tree_leaves(want)))
+            loss_err = max(abs(float(a) - float(b))
+                           for a, b in zip(losses, want_losses))
+            if loss_err > MESH_LOSS_TOL:
+                raise AssertionError(f"rank {rank} {name}: losses "
+                                     f"{[float(v) for v in losses]} vs "
+                                     f"{[float(v) for v in want_losses]}")
+            ms = timed(lambda: step(s_state, s_batch))
+        if len(plans) != len(alone_plans):
+            raise AssertionError(f"rank {rank} {name}: {len(plans)} plans "
+                                 f"on the mesh, {len(alone_plans)} alone")
+        for (op, x, dy), (_, X, DY) in zip(plans, alone_plans):
+            cin_op = op in ("input_grad", "ct_backward")
+            want_x = (X[0] // 2, *X[1:3],
+                      X[3] // 2 if cin_op and X[3] % 2 == 0 else X[3])
+            want_dy = (DY[0] // 2, *DY[1:3],
+                       DY[3] if cin_op else DY[3] // 2)
+            if (x, dy) != (want_x, want_dy):
+                raise AssertionError(f"rank {rank} {name}: {op} planned on "
+                                     f"{x} / {dy}, expected {want_x} / "
+                                     f"{want_dy}")
+        out["steps"][name] = {
+            "params_max_abs_err": err, "loss_max_abs_err": loss_err,
+            "launches": launches, "plans": len(plans),
+            "plan_shapes": sorted({f"{op} {x} {dy}" for op, x, dy in plans}),
+            "ms_per_step_sharded": ms,
+            "ms_per_step_alone": timed(lambda: step(state, batch))}
+
+    # The elastic restore.
+    cfg = dict(workload="gan", total_steps=MESH_TRAINER_STEPS,
+               backend="cuda", batch=TRAIN_BATCH, z_dim=64, base=64)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+
+    def lose_host(step):
+        if step == MESH_TRAINER_STEPS // 2:
+            raise ft.HostFailure(step, [1])
+
+    ops.reset_launches()
+    try:
+        ConvTrainer(ConvTrainerConfig(**cfg, ckpt_dir=ckpt_dir,
+                                      ckpt_every=MESH_TRAINER_STEPS // 2),
+                    mesh=mesh, device=dev).run(fail_hook=lose_host)
+        raise AssertionError("the host failure did not stop the run")
+    except ft.HostFailure as e:
+        lost = e.hosts
+    ranks = ft.survivors(mesh, lost, devices_per_host=2)
+    small = ft.elastic_mesh(ranks, model_parallel=2, device=device)
+    if rank in ranks:
+        res = ConvTrainer(ConvTrainerConfig(**cfg, ckpt_dir=ckpt_dir,
+                                            ckpt_every=MESH_TRAINER_STEPS
+                                            // 2), mesh=small,
+                          device=dev).run()
+        for k, v in ops.LAUNCHES.items():
+            if v:
+                out["launches"][k] = out["launches"].get(k, 0) + v
+        alone = ConvTrainer(ConvTrainerConfig(**cfg), device=dev).run()
+        got = tree_map(sh.full_tensor, res["state"])
+        err = max(close(a, b, "elastic restore") for a, b in zip(
+            tree_leaves(got), tree_leaves(alone["state"])))
+        if res["start_step"] != MESH_TRAINER_STEPS // 2 or \
+                [h["step"] for h in res["history"]] != list(
+                    range(MESH_TRAINER_STEPS // 2 + 1,
+                          MESH_TRAINER_STEPS + 1)):
+            raise AssertionError(f"rank {rank} elastic: resumed at "
+                                 f"{res['start_step']}, {res['history']}")
+        out["elastic"] = {"survivors": ranks, "mesh": list(small.shape),
+                          "resumed_at": res["start_step"],
+                          "params_max_abs_err_vs_alone": err}
+    else:
+        for k, v in ops.LAUNCHES.items():
+            if v:
+                out["launches"][k] = out["launches"].get(k, 0) + v
+        out["elastic"] = "lost with host 1"
+    return out
+
+
+def mesh_rank(rank: int, tmp: str, device: str = "cuda") -> None:
+    """A spawned rank of phase 12 (b): joins the `gloo` group through a
+    `file://` store in `tmp`, runs `mesh_checks` on the card and writes
+    its results to `tmp`.  Any failure raises in the rank, and the spawn
+    raises it in the parent."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=MESH_RANKS)
+    try:
+        res = mesh_checks(rank, tmp, device)
+        with open(os.path.join(tmp, f"rank_{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(card: str, device: str = "cuda") -> dict:
+    """Phase 12 (b): MESH_RANKS `gloo` ranks spawned on the one card
+    (`mesh_checks` in each); a rank's failure ends the phase with its
+    error.  Prints each rank's results; the numbers are `gloo` ranks
+    sharing one card, not a multi-card speed.  Returns the launches of
+    the sharded steps and the elastic run, summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(mesh_rank, args=(tmp, device), nprocs=MESH_RANKS,
+                 join=True)
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank_{r}.json")) as f:
+                ranks.append(json.load(f))
+    launches = {}
+    for res in ranks:
+        for k, v in res.pop("launches").items():
+            launches[k] = launches.get(k, 0) + v
+        print("mesh rank " + json.dumps(
+            res | {"timing": f"{MESH_RANKS} gloo ranks sharing one card",
+                   "card": card}))
+    print(f"mesh: gan_sgd_step, gen_sgd_step and sgd_step on a "
+          f"{MESH_SHAPE} mesh of {MESH_RANKS} gloo ranks on the card equal "
+          f"one rank within rtol {MESH_RTOL:g} / atol {MESH_ATOL:g}, losses "
+          f"{MESH_LOSS_TOL:g}; one forward and one backward launch per conv "
+          f"layer per rank, planned on local shapes; the elastic restore "
+          f"onto (1, 2) equals one rank ({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2310,6 +2796,15 @@ def main() -> int:
     from repro_torch.serve.engine import Request
 
     dev = torch.device("cuda")
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def mark(phase):
+        """Seconds since the previous mark, as the phase's time."""
+        now = time.perf_counter()
+        phase_s[phase] = now - t_mark[0]
+        t_mark[0] = now
+        print(f"phase {phase}: {phase_s[phase]:.1f} s", flush=True)
+
     card = card_line()
     print(f"card: {card}")
     torch.backends.cudnn.allow_tf32 = False
@@ -2323,6 +2818,7 @@ def main() -> int:
     for name, log in logs.items():
         for label, regs, spills in ptxas_usage(log):
             print(f"  {name}: {label}: {regs} registers, {spills}")
+    mark("1-2")
 
     # -- phase 3: each kernel against its plain version and the library -------
     gen = torch.Generator().manual_seed(0)
@@ -2788,6 +3284,29 @@ def main() -> int:
                                         torch.bfloat16, False, timed=True,
                                         cache_len=LM_MAX_LEN))
 
+    # Phase 12's own shapes in bf16: musicgen-medium's (MHA 24 heads,
+    # head_dim 64) training microbatch of 2 at seq 4096, forward and
+    # backward (wgmma), its served prefills at batch 4 (wgmma) and decodes
+    # over a max_len 2048 cache (split); internvl2-76b's (GQA 64 / 8,
+    # head_dim 128: a decode row block of 8, the split form's most) served
+    # prefills and decodes.
+    cases.append(attention_case("musicgen_train_S4096_bf16", 2, LM_TRAIN_SEQ,
+                                LM_TRAIN_SEQ, 24, 24, 64, True,
+                                torch.bfloat16, False, timed=True))
+    cases.append(attention_bwd_case("musicgen_train_S4096_bf16", 2,
+                                    LM_TRAIN_SEQ, LM_TRAIN_SEQ, 24, 24, 64,
+                                    torch.bfloat16, False, timed=True))
+    for tag, Hq, Hk, D in (("musicgen", 24, 24, 64),
+                           ("internvl2", 64, 8, 128)):
+        for S in (128, 256, 512, 1024):
+            cases.append(attention_case(f"{tag}_prefill_S{S}_bf16", LM_BATCH,
+                                        S, S, Hq, Hk, D, True,
+                                        torch.bfloat16, False, timed=True))
+            cases.append(attention_case(f"{tag}_decode_len{S}_bf16",
+                                        LM_BATCH, 1, S + 1, Hq, Hk, D, True,
+                                        torch.bfloat16, False, timed=True,
+                                        cache_len=LM_MAX_LEN))
+
     # The serving path's attentions (qwen3-0.6b: Hq 16, Hk 8, head_dim
     # 128, bf16, slot batch 4): prefill at the served lengths, and decode
     # over the live prefix of a max_len 2048 cache.
@@ -2923,6 +3442,7 @@ def main() -> int:
           f"in bf16, (atol, rtol): {ATTN_TOL[torch.bfloat16]} against the "
           f"plain version, {ATTN_LIB_TOL[torch.bfloat16]} against the "
           f"library)")
+    mark("3")
 
     # -- phase 4: serve at the published widths --------------------------------
     gen = torch.Generator().manual_seed(1234)
@@ -2988,6 +3508,7 @@ def main() -> int:
                           "p99_us", "kernel_faults", "fallbacks",
                           "failures", "nan_events")}
         | {"requests_per_s": len(res) / wall, "card": card}))
+    mark("4")
 
     # -- phase 5: train at the published widths --------------------------------
     def gan_step(state, b):
@@ -3075,6 +3596,7 @@ def main() -> int:
         print("train profile " + json.dumps(
             {"step": step_name, "batch": B}
             | train_profile(step, state, batches) | {"card": card}))
+    mark("5")
 
     # -- phase 6: LM serving ---------------------------------------------------
     full = get_config(LM_ARCH)
@@ -3205,23 +3727,37 @@ def main() -> int:
           f"{LM_REQUESTS} requests served twice with the same tokens, "
           f"{full.n_layers} flash_attention launches per prefill and per "
           f"decode step, no NaN")
+    mark("6")
 
     # -- phase 7: the trainer, its step captured as a CUDA graph ---------------
     trainer_launches = trainer_phase(card)
+    mark("7")
 
     # -- phase 8: atrous training, patchify and the planner --------------------
     vision_launches = vision_phase(card)
+    mark("8")
 
     # -- phase 9: LM training -------------------------------------------------
     lm_train_launches = lm_train_phase(card)
+    mark("9")
 
     # -- phase 10: the int8 KV cache, the examples, the quickstart ------------
     int8_launches = int8_serve_phase(card, params, first)
     example_launches = examples_phase(card)
     quickstart_launches = quickstart_phase(card)
+    del params, first
+    mark("10")
 
     # -- phase 11: the moe, ssm and hybrid families ----------------------------
     families = families_phase(card)
+    mark("11")
+
+    # -- phase 12: the audio and vlm families; the conv steps on a mesh -------
+    embed_launches = embeds_phase(card)
+    mark("12a")
+    mesh_launches = mesh_phase(card)
+    mark("12b")
+    print("phases " + json.dumps({"seconds": phase_s, "card": card}))
 
     sources = {"dconv_forward": ("dconv_forward.cu",
                                  "src/repro/kernels/dconv_forward.py:104"),
@@ -3256,13 +3792,17 @@ def main() -> int:
                      + int8_launches.get(name, 0)
                      + example_launches.get(name, 0)
                      + quickstart_launches.get(name, 0)
-                     + families["launches"].get(name, 0),
+                     + families["launches"].get(name, 0)
+                     + embed_launches.get(name, 0)
+                     + mesh_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),
                      "library_ms": k["library_ms"]})
         if name.startswith("flash_attention"):   # zamba2's instantiations
             rows[-1]["launches_head_dim_80"] = families["d80"].get(name, 0)
+        rows[-1]["launches_phase_12"] = embed_launches.get(name, 0) \
+            + mesh_launches.get(name, 0)
     print(json.dumps({"kernels": rows}))
     print(card)        # exactly as nvidia-smi gives name and power limit
     print(json.dumps({"ok": True, "device": {

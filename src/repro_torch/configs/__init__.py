@@ -1,15 +1,15 @@
 """Architecture registry (port of `repro/configs/__init__.py`):
 `get_config(arch_id)` / `get_smoke_config(arch_id)`.
 
-The port carries the dense, moe, ssm and hybrid configs.  The audio and
-vlm ids of `repro`'s registry (musicgen-medium, internvl2-76b) raise
-NotImplementedError: their family is still to port (ROADMAP.md A.14.5).
+The port carries every id of `repro`'s registry: the dense, moe, ssm
+and hybrid configs and the audio / vlm ones (musicgen-medium,
+internvl2-76b), whose inputs are embeddings.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, SHAPES  # noqa: F401
 
 ARCH_IDS = [
     "qwen3_moe_235b_a22b",
@@ -23,8 +23,6 @@ ARCH_IDS = [
     "internvl2_76b",
     "zamba2_2_7b",
 ]
-PORTED = ("qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b", "rwkv6_7b",
-          "qwen3_0_6b", "qwen2_1_5b", "gemma_2b", "gemma_7b", "zamba2_2_7b")
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 _ALIASES.update({
@@ -45,10 +43,6 @@ def _module(arch: str):
     arch_mod = _ALIASES.get(arch, arch)
     if arch_mod not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch!r}")
-    if arch_mod not in PORTED:
-        raise NotImplementedError(
-            f"{arch_mod} is not ported yet: repro_torch runs the configs "
-            f"{', '.join(PORTED)} (ROADMAP.md A.14.5)")
     return importlib.import_module(f"repro_torch.configs.{arch_mod}")
 
 
@@ -59,3 +53,12 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
 
+
+
+def supported_shapes(cfg: ModelConfig) -> list[str]:
+    """Which assigned shape cells apply to this arch (long_500k only for
+    sub-quadratic families, per the assignment)."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        shapes.append("long_500k")
+    return shapes

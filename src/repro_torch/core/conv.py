@@ -17,6 +17,11 @@ backends compose the same math.  The Functions save what `repro` saves:
 (x, w) or (dy, w), plus the forward output when the epilogue's
 activation needs it for its mask (act' is read from the output), and
 nothing is modified in place after it is saved.
+
+The backend comes from `dispatch_backend` at every op: under a
+multi-rank `parallel.sharding.use_mesh` the operands may be DTensors,
+each op runs per shard (`core.spec.sharded_backend`), and each gradient
+is laid out as its input (`sharding.conform`).
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.spec import ConvSpec, Epilogue, resolve_backend
+from repro_torch.core.spec import ConvSpec, Epilogue, dispatch_backend
+from repro_torch.parallel.sharding import conform
 
 
 def _normalize_epilogue(epilogue, bias):
@@ -54,7 +60,7 @@ class _ConvPlain(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx, dw = ctx.be.backward(x, g, w, ctx.spec, (x.shape[1], x.shape[2]))
-        return dx, dw, None, None
+        return conform(dx, x), conform(dw, w), None, None
 
 
 class _ConvEp(torch.autograd.Function):
@@ -64,7 +70,7 @@ class _ConvEp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, spec: ConvSpec, be, ep: Epilogue):
         y = be.forward_ep(x, w, b, spec, ep)
-        ctx.spec, ctx.be, ctx.ep = spec, be, ep
+        ctx.spec, ctx.be, ctx.ep, ctx.b = spec, be, ep, b
         ctx.save_for_backward(x, w, y if ep.needs_y else None)
         return y
 
@@ -73,7 +79,8 @@ class _ConvEp(torch.autograd.Function):
         x, w, y = ctx.saved_tensors
         dx, dw, db = ctx.be.backward_ep(x, y, g, w, ctx.spec,
                                         (x.shape[1], x.shape[2]), ctx.ep)
-        return dx, dw, db, None, None, None
+        return (conform(dx, x), conform(dw, w), conform(db, ctx.b), None,
+                None, None)
 
 
 class _ConvTranspose(torch.autograd.Function):
@@ -91,7 +98,7 @@ class _ConvTranspose(torch.autograd.Function):
     def backward(ctx, g):
         dy, w = ctx.saved_tensors
         ddy, dw = ctx.be.ct_backward(g, dy, w, ctx.spec)
-        return ddy, dw, None, None, None
+        return conform(ddy, dy), conform(dw, w), None, None, None
 
 
 class _ConvTransposeEp(torch.autograd.Function):
@@ -101,7 +108,7 @@ class _ConvTransposeEp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dy, w, b, spec: ConvSpec, n_out, be, ep: Epilogue):
         z = be.input_grad_ep(dy, w, b, spec, n_out, ep)
-        ctx.spec, ctx.be, ctx.ep = spec, be, ep
+        ctx.spec, ctx.be, ctx.ep, ctx.b = spec, be, ep, b
         ctx.save_for_backward(dy, w, z if ep.needs_y else None)
         return z
 
@@ -109,7 +116,8 @@ class _ConvTransposeEp(torch.autograd.Function):
     def backward(ctx, g):
         dy, w, z = ctx.saved_tensors
         ddy, dw, db = ctx.be.ct_backward_ep(g, z, dy, w, ctx.spec, ctx.ep)
-        return ddy, dw, db, None, None, None, None
+        return (conform(ddy, dy), conform(dw, w), conform(db, ctx.b), None,
+                None, None, None)
 
 
 def ecoflow_conv(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,
@@ -124,7 +132,7 @@ def ecoflow_conv(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,
     spec = ConvSpec.make(stride=stride, padding=padding,
                          filter_shape=tuple(w.shape[:2]), dilation=dilation)
     ep = _normalize_epilogue(epilogue, bias)
-    be = resolve_backend(backend)
+    be = dispatch_backend(backend)
     if ep is None:
         return _ConvPlain.apply(x, w, spec, be)
     return _ConvEp.apply(x, w, bias if ep.bias else None, spec, be, ep)
@@ -162,7 +170,7 @@ def ecoflow_conv_transpose(dy: torch.Tensor, w: torch.Tensor, stride=1,
             f"dilation={spec.dilation}: a forward conv over n_out yields "
             f"{spec.out_size(n_out)}")
     ep = _normalize_epilogue(epilogue, bias)
-    be = resolve_backend(backend)
+    be = dispatch_backend(backend)
     if ep is None:
         return _ConvTranspose.apply(dy, w, spec, n_out, be)
     return _ConvTransposeEp.apply(dy, w, bias if ep.bias else None, spec,

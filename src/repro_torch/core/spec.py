@@ -14,9 +14,12 @@ a name:
                            launch.  On CPU tensors each kernel wrapper
                            runs its plain PyTorch version.
 
-`fallback_backend`, `dispatch_backend` and `sharded_backend` of `repro`
-are multi-device or ladder code the single-card serving and training
-paths do not use; `core/conv.py` calls `resolve_backend` directly.
+`dispatch_backend` is the mesh-aware `resolve_backend` that
+`core/conv.py` calls at every op: under `parallel.sharding.use_mesh` it
+gives `sharded_backend`'s per-shard wrapper, which runs the base backend
+on each rank's blocks.  `repro`'s `fallback_backend` (a ladder of
+backends) has no counterpart: the conv serving engine walks its own
+ladder (`serve/conv_engine.py`).
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import math
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
+
+from repro_torch.parallel.sharding import current_mesh, mesh_size
 
 BackendLike = Union[None, str, "ConvBackend"]
 
@@ -499,3 +504,219 @@ def _ensure_default_backends() -> None:
         fused_ct_backward_ep=_cuda_ct_backward_ep))
 
     _DEFAULTS_REGISTERED = True
+
+
+# ---------------------------------------------------------------------------
+# Sharding-aware dispatch: per-shard launches on a multi-rank mesh
+# ---------------------------------------------------------------------------
+
+def dispatch_backend(backend: BackendLike) -> ConvBackend:
+    """Mesh-aware `resolve_backend`.
+
+    Outside a `repro_torch.parallel.sharding.use_mesh` context (or on a
+    1-rank mesh) this IS `resolve_backend`.  Under a multi-rank mesh it
+    wraps the resolved backend so every conv op runs on each rank's
+    blocks: batch over the logical "dp" axes, channels over "tp",
+    explicit all-reduces for the reduced gradients.  The mesh is read
+    at every op."""
+    be = resolve_backend(backend)
+    mesh = current_mesh()
+    if mesh is None or mesh_size(mesh) <= 1:
+        return be
+    return sharded_backend(be, mesh)
+
+
+_SHARDED_CACHE: Dict[tuple, ConvBackend] = {}
+
+
+def sharded_backend(base: ConvBackend, mesh) -> ConvBackend:
+    """The per-shard wrapper of `base` on `mesh` (memoized per pair).
+
+    Per-op scheme -- no forward-path all-reduce is ever needed, which
+    keeps nonlinear epilogues exact (only NON-contracted dims shard):
+
+      forward / forward_ep       x:(B@dp,..)  w:(..,Cin,Cout@tp) -> y@(dp,tp)
+      input_grad / _ep (tconv)   dy:(B@dp,..) w:(..,Cin@tp,Cout) -> dx@(dp,tp)
+      backward / backward_ep     per-shard fused launch, then
+                                 psum(dx, tp) + psum(dW/db, dp)
+      ct_backward / _ep          per-shard fused launch, then
+                                 psum(ddy, tp) + psum(dW/db, dp)
+      filter_grad                psum(dW, dp)
+
+    Each axis applies only when it divides the corresponding global dim
+    (`parallel.sharding._guard`'s policy).  The operands may be DTensors
+    in any layout, or plain tensors whole on every rank; each is moved to
+    the op's layout (`sharding.local`), the base backend runs on the
+    blocks, and its outputs come back as DTensors of the out layout (a
+    plain result when no operand is a DTensor and nothing shards).  So
+    the base backend's own choices -- the fused-vs-two-launch fallback,
+    `kernels/tiling.py`'s plans, the phase / implicit-GEMM race -- see
+    LOCAL shapes: one forward and one backward launch per shard.  The
+    collectives run outside the kernel launches; the conv Functions
+    (`core/conv.py`) lay each gradient out as its input."""
+    key = (id(base), id(mesh))
+    hit = _SHARDED_CACHE.get(key)
+    if hit is not None:
+        return hit
+
+    from repro_torch.parallel import sharding as sh
+
+    la = sh.logical_axes(mesh)
+    dp_axes, tp_axes = la["dp"], la["tp"]
+
+    def _ax(axes, dim):
+        """`axes` if it is real (> 1 rank) and divides `dim`."""
+        if axes is None:
+            return None
+        n = sh._axis_size(mesh, axes)
+        return axes if n > 1 and dim % n == 0 else None
+
+    def _launch(body, in_specs, out_specs, *args):
+        """shard_map: `body` on each arg's block under its spec; the
+        outputs wrapped by `out_specs` (a list for several)."""
+        if not any(sh.is_dtensor(a) for a in args) and not any(
+                e is not None for s in in_specs for e in s):
+            return body(*args)
+        out = body(*[sh.local(a, mesh, s) for a, s in zip(args, in_specs)])
+        if isinstance(out_specs, list):
+            return tuple(sh.from_local(o, mesh, s)
+                         for o, s in zip(out, out_specs))
+        return sh.from_local(out, mesh, out_specs)
+
+    def _psum(v, axes):
+        return sh.psum(v, mesh, axes)
+
+    X = (None, None, None)
+
+    # -- forward family: shard the produced dims, contract full ones ------
+
+    def forward(x, w, spec):
+        bd, cd = _ax(dp_axes, x.shape[0]), _ax(tp_axes, w.shape[3])
+        return _launch(lambda x_, w_: base.forward(x_, w_, spec),
+                       [(bd,) + X, X + (cd,)], (bd, None, None, cd), x, w)
+
+    def forward_ep(x, w, bias, spec, ep):
+        bd, cd = _ax(dp_axes, x.shape[0]), _ax(tp_axes, w.shape[3])
+        if bias is None:
+            return _launch(
+                lambda x_, w_: base.forward_ep(x_, w_, None, spec, ep),
+                [(bd,) + X, X + (cd,)], (bd, None, None, cd), x, w)
+        return _launch(
+            lambda x_, w_, b_: base.forward_ep(x_, w_, b_, spec, ep),
+            [(bd,) + X, X + (cd,), (cd,)], (bd, None, None, cd),
+            x, w, bias)
+
+    # tconv-as-a-layer: the produced channel dim is Cin (w.shape[2]); the
+    # contracted Cout stays whole per shard, so the epilogue bias (a
+    # per-Cin vector here) applies to exact sums.
+
+    def input_grad(dy, w, spec, n_out):
+        bd, cd = _ax(dp_axes, dy.shape[0]), _ax(tp_axes, w.shape[2])
+        return _launch(
+            lambda dy_, w_: base.input_grad(dy_, w_, spec, n_out),
+            [(bd,) + X, (None, None, cd, None)], (bd, None, None, cd),
+            dy, w)
+
+    def input_grad_ep(dy, w, bias, spec, n_out, ep):
+        bd, cd = _ax(dp_axes, dy.shape[0]), _ax(tp_axes, w.shape[2])
+        if bias is None:
+            return _launch(
+                lambda dy_, w_: base.input_grad_ep(dy_, w_, None, spec,
+                                                   n_out, ep),
+                [(bd,) + X, (None, None, cd, None)], (bd, None, None, cd),
+                dy, w)
+        return _launch(
+            lambda dy_, w_, b_: base.input_grad_ep(dy_, w_, b_, spec,
+                                                   n_out, ep),
+            [(bd,) + X, (None, None, cd, None), (cd,)],
+            (bd, None, None, cd), dy, w, bias)
+
+    # -- backward family: per-shard fused launch + explicit psums ---------
+    # dx / ddy are partial over the sharded channel dim (tp); dW / db are
+    # partial over the batch shards (dp).  The psums follow the launch,
+    # so each conv layer is still one backward launch per shard.
+
+    def filter_grad(x, dy, spec):
+        bd, cd = _ax(dp_axes, x.shape[0]), _ax(tp_axes, dy.shape[3])
+        return _launch(
+            lambda x_, dy_: _psum(base.filter_grad(x_, dy_, spec), bd),
+            [(bd,) + X, (bd, None, None, cd)], X + (cd,), x, dy)
+
+    def backward(x, dy, w, spec, n_out):
+        bd, cd = _ax(dp_axes, x.shape[0]), _ax(tp_axes, w.shape[3])
+
+        def body(x_, dy_, w_):
+            dx, dw = base.backward(x_, dy_, w_, spec, n_out)
+            return _psum(dx, cd), _psum(dw, bd)
+
+        return _launch(body, [(bd,) + X, (bd, None, None, cd), X + (cd,)],
+                       [(bd,) + X, X + (cd,)], x, dy, w)
+
+    def backward_ep(x, y, dy, w, spec, n_out, ep):
+        bd, cd = _ax(dp_axes, x.shape[0]), _ax(tp_axes, w.shape[3])
+
+        def body(x_, dy_, w_, *rest):
+            y_ = rest[0] if ep.needs_y else None
+            dx, dw, db = base.backward_ep(x_, y_, dy_, w_, spec, n_out, ep)
+            dx, dw = _psum(dx, cd), _psum(dw, bd)
+            if db is None:
+                return dx, dw
+            return dx, dw, _psum(db, bd)
+
+        in_specs = [(bd,) + X, (bd, None, None, cd), X + (cd,)]
+        args = [x, dy, w]
+        if ep.needs_y:
+            in_specs.append((bd, None, None, cd))
+            args.append(y)
+        out_specs = [(bd,) + X, X + (cd,)] + ([(cd,)] if ep.bias else [])
+        out = _launch(body, in_specs, out_specs, *args)
+        return out if ep.bias else (out[0], out[1], None)
+
+    def ct_backward(g, dy, w, spec):
+        bd, cd = _ax(dp_axes, g.shape[0]), _ax(tp_axes, w.shape[2])
+
+        def body(g_, dy_, w_):
+            ddy, dw = base.ct_backward(g_, dy_, w_, spec)
+            return _psum(ddy, cd), _psum(dw, bd)
+
+        return _launch(body, [(bd, None, None, cd), (bd,) + X,
+                              (None, None, cd, None)],
+                       [(bd,) + X, (None, None, cd, None)], g, dy, w)
+
+    def ct_backward_ep(g, z, dy, w, spec, ep):
+        bd, cd = _ax(dp_axes, g.shape[0]), _ax(tp_axes, w.shape[2])
+
+        def body(g_, dy_, w_, *rest):
+            z_ = rest[0] if ep.needs_y else None
+            ddy, dw, db = base.ct_backward_ep(g_, z_, dy_, w_, spec, ep)
+            ddy, dw = _psum(ddy, cd), _psum(dw, bd)
+            if db is None:
+                return ddy, dw
+            return ddy, dw, _psum(db, bd)
+
+        in_specs = [(bd, None, None, cd), (bd,) + X, (None, None, cd, None)]
+        args = [g, dy, w]
+        if ep.needs_y:
+            in_specs.append((bd, None, None, cd))
+            args.append(z)
+        out_specs = [(bd,) + X, (None, None, cd, None)] + \
+            ([(cd,)] if ep.bias else [])
+        out = _launch(body, in_specs, out_specs, *args)
+        return out if ep.bias else (out[0], out[1], None)
+
+    wrapped = ConvBackend(
+        name=f"{base.name}@shard",
+        forward=forward,
+        input_grad=input_grad,
+        filter_grad=filter_grad,
+        # Every fused slot is filled so the ConvBackend methods always
+        # route here; the base backend's own fused-vs-two-launch choice
+        # happens on the blocks.
+        fused_backward=backward,
+        fused_ct_backward=ct_backward,
+        fused_forward_ep=forward_ep,
+        fused_input_grad_ep=input_grad_ep,
+        fused_backward_ep=backward_ep,
+        fused_ct_backward_ep=ct_backward_ep)
+    _SHARDED_CACHE[key] = wrapped
+    return wrapped

@@ -8,7 +8,7 @@ seed 0.
 Without `--device` it runs on the card (and fails without one).  The
 request stream is `repro`'s: prompts of 3-8 tokens drawn from
 `np.random.default_rng(0)`.  Multi-device serving (`--serve-sharding`) is
-ROADMAP.md A.12.
+ROADMAP.md A.12's LM half.
 """
 from __future__ import annotations
 

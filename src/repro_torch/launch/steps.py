@@ -7,7 +7,7 @@ gradients by autograd, gradient accumulation over `n_micro`
 microbatches in `repro`'s order and division, and one AdamW update.  The
 step reads nothing back to the host; its metrics stay on the device.
 
-Not ported yet (ROADMAP A.12, multi-device): `input_specs`, the sharding
+Not ported yet (ROADMAP A.12's LM half): `input_specs`, the sharding
 trees (`cache_pspecs`, `batch_shardings`), `abstract_state` and
 `lower_cell`; with no mesh `effective_microbatches` clamps by the batch
 alone.
@@ -44,12 +44,15 @@ def precast(params, dtype: torch.dtype):
 def loss_and_grads(lm: LM, params, inputs, labels):
     """((loss, {"nll", "aux"}), grads): `jax.value_and_grad(has_aux=True)`
     of `lm.loss` on the precast params, with respect to every leaf of
-    `params`; nothing of the caller's params is mutated."""
+    `params`; nothing of the caller's params is mutated.  A leaf the loss
+    does not read (the token table of an `embed_input` config, used only
+    by decode) gets zeros, as jax gives it."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
     loss, aux = lm.loss(precast(live, lm.cfg.compute_dtype), inputs, labels)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     it = iter(grads)
     aux = {k: torch.as_tensor(v, dtype=torch.float32,
                               device=loss.device).detach()

@@ -11,7 +11,7 @@ Without `--device` it runs on the card (and fails without one).  `--smoke`
 takes the reduced config.  The step accumulates the config's microbatches
 (`effective_microbatches`: qwen3-0.6b's 4 at global batch 8).  `repro`'s
 TPU XLA flags and `jax.distributed` have no counterpart here; multi-device
-training (`--multi-pod`, the production mesh) is ROADMAP A.12.
+training (`--multi-pod`, the production mesh) is ROADMAP A.12's LM half.
 """
 from __future__ import annotations
 

@@ -5,8 +5,14 @@ Every convolution routes through `ecoflow_conv`, so the backward pass
 runs the paper's zero-free transposed (input-grad) and dilated
 (filter-grad) dataflows -- on the `cuda` backend, one fused kernel launch
 per layer.  The steps are functional, as in `repro`: params in, new
-params and loss out.  `repro`'s `sharding.shard` of the batch is a no-op
-on one device and is left out here.
+params and loss out.
+
+Mesh-aware, as `repro`'s: under `parallel.sharding.use_mesh` the params
+may be DTensors laid out by `tree_pspecs` and the batch one laid out by
+`batch_pspec`; each conv then runs per shard (`core.spec.
+sharded_backend`), and the pool, the head and the loss run on the
+global batch on every rank (`sharding.unshard`), as GSPMD's replicated
+ops do.  Outside a mesh every sharding call is the identity.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from repro_torch.core.spec import Epilogue
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (sgd_grads, sgd_update,
                                        tree_all_finite, trunc_normal)
+from repro_torch.parallel.sharding import shard, unshard
 
 _RELU = Epilogue(activation="relu")
 
@@ -51,7 +58,7 @@ def simple_cnn_apply(params: dict, x: torch.Tensor, *, stride=2,
             x = ecoflow_conv(x, w, stride, 1, backend, epilogue=_RELU)
         else:
             x = torch.relu(ecoflow_conv(x, w, stride, 1, backend))
-    return torch.matmul(x.mean(dim=(1, 2)), params["head"])
+    return torch.matmul(unshard(x).mean(dim=(1, 2)), unshard(params["head"]))
 
 
 def cnn_loss(params: dict, x: torch.Tensor, labels: torch.Tensor, *,
@@ -59,13 +66,15 @@ def cnn_loss(params: dict, x: torch.Tensor, labels: torch.Tensor, *,
     logits = simple_cnn_apply(params, x, stride=stride, backend=backend,
                               fuse_epilogue=fuse_epilogue)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[:, None])[:, 0]
+    gold = logits.gather(-1, unshard(labels).long()[:, None])[:, 0]
     return (logz - gold).mean()
 
 
 def sgd_step(params: dict, x: torch.Tensor, labels: torch.Tensor, *,
              lr=0.05, stride=2, backend=None, fuse_epilogue=True):
-    """One SGD step: (new_params, loss)."""
+    """One SGD step: (new_params, loss).  Under a mesh the batch is laid
+    out over the data axes first, as `repro`'s step does."""
+    x = shard(x, "dp", None, None, None)
     loss, grads = sgd_grads(
         lambda p: cnn_loss(p, x, labels, stride=stride, backend=backend,
                            fuse_epilogue=fuse_epilogue), params)

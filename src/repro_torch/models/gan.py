@@ -7,6 +7,11 @@ discriminator downsamples with strided `ecoflow_conv`, whose backward is
 zero-free.  Each layer's relu / tanh / leaky_relu tail rides in the
 conv's epilogue slot.  The training steps are functional, as in `repro`:
 state in, new state and losses out.
+
+Mesh-aware like `models/cnn.py`: under `parallel.sharding.use_mesh` the
+convs run per shard, the latent and image batches are laid out over the
+data axes, and the dense projection, the discriminator's head and the
+losses run on the global batch on every rank (`sharding.unshard`).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from repro_torch.core.spec import ConvSpec, Epilogue
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (sgd_grads, sgd_update,
                                        tree_all_finite, trunc_normal)
+from repro_torch.parallel.sharding import shard, unshard
 
 _RELU = Epilogue(activation="relu")
 _TANH = Epilogue(activation="tanh")
@@ -62,7 +68,8 @@ def generator_apply(params: dict, z: torch.Tensor, *, backend=None,
     transposed conv's epilogue slot; False keeps separate activation ops
     for A/B comparison."""
     B = z.shape[0]
-    x = torch.relu(torch.matmul(z, params["proj"]).reshape(B, 4, 4, -1))
+    x = torch.relu(torch.matmul(unshard(z), unshard(params["proj"]))
+                   .reshape(B, 4, 4, -1))
     for name, _, out_hw, ep in GENERATOR_LAYERS:
         if fuse_epilogue:
             x = ecoflow_conv_transpose(x, params[name], 2, 1, n_out=out_hw,
@@ -119,7 +126,8 @@ def discriminator_apply(params: dict, x: torch.Tensor, *, backend=None,
         else:
             x = F.leaky_relu(ecoflow_conv(x, params[name], 2, 1, backend),
                              0.2)
-    return torch.matmul(x.reshape(x.shape[0], -1), params["head"])
+    x = unshard(x)
+    return torch.matmul(x.reshape(x.shape[0], -1), unshard(params["head"]))
 
 
 def gan_losses(g_params: dict, d_params: dict, z: torch.Tensor,
@@ -147,6 +155,7 @@ def gen_sgd_step(g_params: dict, d_params: dict, z: torch.Tensor, *,
                  lr=0.05, backend=None, fuse_epilogue=True):
     """One generator SGD step against a frozen discriminator:
     (new_g_params, g_loss) for the non-saturating loss."""
+    z = shard(z, "dp", None)
     loss, grads = sgd_grads(
         lambda gp: _g_loss(gp, d_params, z, backend, fuse_epilogue),
         g_params)
@@ -172,6 +181,8 @@ def gan_sgd_step(state: dict, z: torch.Tensor, real: torch.Tensor, *,
     forward runs on tensors that need no grad, so it launches its
     forward kernels and records no backward."""
     g_params, d_params = state["g"], state["d"]
+    z = shard(z, "dp", None)
+    real = shard(real, "dp", None, None, None)
     g_loss, g_grads = sgd_grads(
         lambda gp: _g_loss(gp, d_params, z, backend, fuse_epilogue),
         g_params)

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops
 from repro_torch.kernels.attention import NEG_INF
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import is_dtensor
 
 
 def tree_leaves(tree) -> list:
@@ -66,10 +67,26 @@ def tree_all_finite(*trees) -> torch.Tensor:
     until the caller reads it, so a step that returns it can be captured
     in a CUDA graph (as `repro`'s stays inside its jit).  A tree with no
     floating leaf gives `torch.tensor(True)`."""
-    flags = [torch.isfinite(leaf).all()
-             for tree in trees for leaf in tree_leaves(tree)
-             if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
+    leaves = [leaf for tree in trees for leaf in tree_leaves(tree)
+              if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
+    if any(is_dtensor(leaf) for leaf in leaves):
+        return _mesh_all_finite(leaves)
+    flags = [torch.isfinite(leaf).all() for leaf in leaves]
     return torch.stack(flags).all() if flags else torch.tensor(True)
+
+
+def _mesh_all_finite(leaves) -> torch.Tensor:
+    """`tree_all_finite` over DTensor leaves: each rank checks its own
+    blocks, and the count of non-finite blocks is summed over every axis
+    of each mesh, so every rank gets the same flag."""
+    from repro_torch.parallel.sharding import psum
+    bad = torch.stack([(~torch.isfinite(leaf.to_local() if is_dtensor(
+        leaf) else leaf).all()).float() for leaf in leaves]).sum()
+    meshes = {id(leaf.device_mesh): leaf.device_mesh for leaf in leaves
+              if is_dtensor(leaf)}
+    for mesh in meshes.values():
+        psum(bad, mesh, tuple(mesh.mesh_dim_names))
+    return bad == 0
 
 
 def trunc_normal(generator: torch.Generator, shape, scale: float):

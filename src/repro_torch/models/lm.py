@@ -1,8 +1,13 @@
-"""The decoder LM (port of `repro/models/lm.py`): one class for the
-dense, moe, ssm and hybrid families.
+"""The decoder LM (port of `repro/models/lm.py`): one class for every
+family of `repro`'s registry.
 
   dense / moe : a pre-norm transformer -- GQA attention and a gated (or
       plain gelu) MLP, or the MoE layer (`models/moe.py`), per block.
+  audio / vlm : the dense transformer fed embeddings: with
+      `cfg.embed_input`, `forward`, `loss` and `prefill` take (B, S, D)
+      embeddings (the stub frontends' frames or patches) cast to the
+      compute dtype, and `decode_step` embeds its tokens through
+      `params["embed"]`, as `repro`'s does.
   ssm    : RWKV6 (time-mix + channel-mix blocks, `models/ssm.py`).
   hybrid : Zamba2 -- Mamba2 blocks, with one SHARED-weight attention
       block before each group of `attn_every` Mamba blocks.
@@ -25,9 +30,7 @@ dtype}, or with `cfg.kv_quant` int8 codes and fp32 "k_scale", "v_scale"
 (L, B, H, dk, dk) fp32}; hybrid {"conv": (G, per, B, K-1, C), "state":
 (G, per, B, H, n, dh) fp32, "k", "v": (G, B, max_len, Hk, D)}; each with
 "len", the positions filled, a Python int.  `decode_step` writes every
-entry IN PLACE; the cache it returns shares the buffers.  The audio and
-vlm families (inputs are embeddings) are not ported yet (ROADMAP.md
-A.14.5): `LM` refuses them.
+entry IN PLACE; the cache it returns shares the buffers.
 """
 from __future__ import annotations
 
@@ -104,6 +107,8 @@ def _mamba_block_apply(p, x, cfg: ModelConfig, positions):
 
 _BLOCKS = {"dense": (_tf_block_init, _tf_block_apply),
            "moe": (_tf_block_init, _tf_block_apply),
+           "audio": (_tf_block_init, _tf_block_apply),
+           "vlm": (_tf_block_init, _tf_block_apply),
            "ssm": (_rwkv_block_init, _rwkv_block_apply),
            "hybrid": (_mamba_block_init, _mamba_block_apply)}
 
@@ -143,11 +148,8 @@ class LM:
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.family not in _BLOCKS or cfg.embed_input:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family (inputs that are "
-                f"embeddings) is not ported yet; repro_torch runs the dense, "
-                f"moe, ssm and hybrid families (ROADMAP.md A.14.5)")
+        if cfg.family not in _BLOCKS:
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         if cfg.family == "hybrid" and (
                 not cfg.attn_every or cfg.n_layers % cfg.attn_every):
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
@@ -184,9 +186,18 @@ class LM:
             params["shared_attn"] = _tf_block_init(generator, cfg)
         return params
 
+    def _embed_in(self, params, inputs):
+        """Tokens (B,S) through the table, or with `embed_input` the
+        (B,S,D) embeddings themselves in the compute dtype."""
+        cfg = self.cfg
+        if cfg.embed_input:
+            return inputs.to(cfg.compute_dtype)
+        return L.embed(params["embed"], inputs, cfg)
+
     # -- forward (training) --------------------------------------------------
     def forward(self, params, inputs, positions=None):
-        """inputs: tokens (B,S).  Returns (hidden (B,S,D), aux_loss).
+        """inputs: tokens (B,S) or, with `embed_input`, embeddings
+        (B,S,D).  Returns (hidden (B,S,D), aux_loss).
 
         With `remat == "full"` each block runs under
         `torch.utils.checkpoint`: only its input is kept, and the backward
@@ -195,7 +206,7 @@ class LM:
         bf16 -> f32 convert out of the layer scan; eager PyTorch hoists
         nothing, so it has no counterpart here.)"""
         cfg = self.cfg
-        x = L.embed(params["embed"], inputs, cfg)
+        x = self._embed_in(params, inputs)
         B, S_, _ = x.shape
         if positions is None:
             positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
@@ -263,10 +274,11 @@ class LM:
 
     # -- prefill ------------------------------------------------------------
     def prefill(self, params, inputs, max_len: int):
-        """Process a prompt (B,S), return (last-token logits (B,1,V), cache
-        holding positions 0..S-1)."""
+        """Process a prompt (B,S) of tokens (or (B,S,D) embeddings with
+        `embed_input`), return (last-token logits (B,1,V), cache holding
+        positions 0..S-1)."""
         cfg = self.cfg
-        x = L.embed(params["embed"], inputs, cfg)
+        x = self._embed_in(params, inputs)
         B, S_, _ = x.shape
         positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
         layers = _layers(params["blocks"], cfg.n_layers)
@@ -344,7 +356,8 @@ class LM:
     # -- decode -------------------------------------------------------------
     def decode_step(self, params, cache, tokens):
         """tokens (B,1) -> (logits (B,1,V), cache with len + 1).  Every
-        entry of `cache` is updated in place."""
+        entry of `cache` is updated in place.  Tokens go through
+        `params["embed"]` in every family, `embed_input` ones included."""
         cfg = self.cfg
         x = L.embed(params["embed"], tokens, cfg)
         clen = cache["len"]

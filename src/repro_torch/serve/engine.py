@@ -7,7 +7,7 @@ sequences hit EOS or their length budget and are refilled from the queue
 mid-flight.  Decoding is greedy (argmax, the first index on ties).  On
 the card every attention of every layer is one launch of the
 flash-attention kernel; there is no mesh (multi-device serving is
-ROADMAP.md A.12).
+ROADMAP.md A.12's LM half).
 """
 from __future__ import annotations
 
@@ -36,7 +36,15 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, batch: int,
                  max_len: int, device=None):
         """`device=None` means the card (and raises without one); the
-        params are moved there."""
+        params are moved there.  The prompts are tokens: a config whose
+        inputs are embeddings (`embed_input`, the audio and vlm families)
+        is refused, as `repro`'s engine has no embeddings path either."""
+        if cfg.embed_input:
+            raise ValueError(
+                f"{cfg.name}: ServeEngine takes token prompts, and this "
+                f"config's inputs are (B, S, D) embeddings; serve it with "
+                f"LM.prefill(params, embeddings, max_len) and "
+                f"LM.decode_step(params, cache, tokens)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = tree_map(lambda t: t.to(self.device), params)

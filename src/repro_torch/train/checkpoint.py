@@ -19,11 +19,11 @@ manifest's `treedef` is the string jax prints for the same structure, so
     place, so a snapshot taken later would be torn (`repro`'s arrays are
     immutable and never had this hazard).
   * restore: each leaf is cast to the dtype of the matching leaf of
-    `like` and placed on its device.
+    `like` and placed on its device, or with `shardings` (a tree of
+    `parallel.sharding.NamedSharding`) laid out on their mesh: leaves
+    are saved whole, so a checkpoint written on one mesh restores onto
+    any other.
   * bounded: keep_last prunes old steps, counting intact steps only.
-
-Not ported yet (ROADMAP A.12): restoring onto a mesh (`repro`'s
-`shardings` argument).
 """
 from __future__ import annotations
 
@@ -176,9 +176,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return None
 
 
-def restore(ckpt_dir: str, step: int, like: Any, *, fallback: bool = True):
-    """Restore into the structure of `like`, a tree of tensors: each leaf
-    is cast to the dtype of `like`'s leaf and placed on its device.
+def restore(ckpt_dir: str, step: int, like: Any, shardings: Any = None, *,
+            fallback: bool = True):
+    """Restore into the structure of `like`, a tree of tensors (their
+    global shapes): each leaf is cast to the dtype of `like`'s leaf and
+    placed on its device, then laid out by the matching leaf of
+    `shardings` when it is given (mesh-resharding restore: every rank
+    reads the whole leaf and keeps its block).
 
     A truncated or partially-written step_<N> is skipped with a
     `RuntimeWarning` and the newest intact EARLIER step restores instead
@@ -210,7 +214,11 @@ def restore(ckpt_dir: str, step: int, like: Any, *, fallback: bool = True):
                 f"leaf {i}: ckpt {arr.shape} vs expected {tuple(ref.shape)}")
         out.append(torch.from_numpy(arr).to(device=ref.device,
                                             dtype=ref.dtype))
-    return _unflatten(like, iter(out))
+    tree = _unflatten(like, iter(out))
+    if shardings is not None:
+        from repro_torch.parallel.sharding import device_put
+        tree = device_put(tree, shardings)
+    return tree
 
 
 class AsyncCheckpointer:

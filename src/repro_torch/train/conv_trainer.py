@@ -1,6 +1,6 @@
 """ConvTrainer: the paper's CNN-classification and GAN workloads as
-guarded, checkpointed training runs on one device (port of
-`repro/train/conv_trainer.py`).
+guarded, checkpointed training runs on one device or on a mesh of ranks
+(port of `repro/train/conv_trainer.py`).
 
   * checkpoint/resume on the atomic `train/checkpoint.py` format (the
     same files as `repro`'s) with deterministic data skip-ahead:
@@ -20,14 +20,23 @@ guarded, checkpointed training runs on one device (port of
     events raise / delay, output-class events poison the host batch so
     the real guard trips.
 
-On a CUDA device the step runs as one CUDA graph, captured once per
-trainer and replayed for every attempt (`train/step_graph.py`, the
-counterpart of `repro`'s `jax.jit`); `lr` is a device tensor, so a
+On a CUDA device with no mesh the step runs as one CUDA graph, captured
+once per trainer and replayed for every attempt (`train/step_graph.py`,
+the counterpart of `repro`'s `jax.jit`); `lr` is a device tensor, so a
 shrink-lr retry reuses the graph.  On the CPU the step function runs
 eagerly.  `build_step` gives the eager step on either device.
 
-Not ported yet (ROADMAP A.12): the `mesh` argument, and
-`train/supervisor.py`, which restarts a run on the surviving devices.
+With a `mesh` (a `DeviceMesh` of `launch/mesh.py` or
+`fault_tolerance.elastic_mesh`) every rank of the mesh runs the same
+trainer: the state is laid out by `parallel.sharding.tree_pspecs`, each
+batch by `batch_pspec`, and the model steps run under `use_mesh`, so
+every conv runs per shard.  That step runs EAGERLY: the collectives of a
+process group such as `gloo` cannot be captured in a CUDA graph.
+Checkpoints hold whole leaves (gathered, then written synchronously by
+the mesh's first rank; `async_checkpoint` applies with no mesh), so
+`maybe_restore` re-shards a checkpoint written on any mesh onto this
+one.  `train/supervisor.py`, which restarts a run on the
+surviving ranks by itself, is ROADMAP A.12's LM half.
 """
 from __future__ import annotations
 
@@ -37,12 +46,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.data.pipeline import ConvDataset
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn, gan
 from repro_torch.models.layers import sgd_grads, tree_map, tree_paths
+from repro_torch.parallel import sharding as sh
 from repro_torch.serve import faults
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import StepGuard
@@ -114,13 +125,15 @@ def _summary(metrics: Dict[str, torch.Tensor],
 
 
 class ConvTrainer:
-    """One conv training run on one device.  `device=None` means the
-    card."""
+    """One conv training run on one device, or on one (fixed) mesh: mesh
+    changes are a new trainer on the elastic mesh, restored from the
+    checkpoint.  `device=None` means the card."""
 
-    def __init__(self, tcfg: ConvTrainerConfig, *,
+    def __init__(self, tcfg: ConvTrainerConfig, *, mesh=None,
                  injector: Optional["faults.FaultInjector"] = None,
                  device=None):
         self.tcfg = tcfg
+        self.mesh = mesh
         self.injector = injector
         self.device = resolve_device(device)
         self.data = ConvDataset(
@@ -135,7 +148,7 @@ class ConvTrainer:
         self._ckptr = (ckpt.AsyncCheckpointer(tcfg.ckpt_dir,
                                               tcfg.keep_last)
                        if tcfg.ckpt_dir and tcfg.async_checkpoint
-                       else None)
+                       and mesh is None else None)
         self._site = faults.train_site(tcfg.workload)
         step = self.build_step(guarded=tcfg.guard)
 
@@ -146,7 +159,8 @@ class ConvTrainer:
         self._step = packed
         # The compiled step on the card: captured at the first attempt.
         self.graph = (StepGraph(packed, self.device)
-                      if self.device.type == "cuda" else None)
+                      if self.device.type == "cuda" and mesh is None
+                      else None)
         self.blames: List[Dict[str, Any]] = []
         # Monotonic time of this trainer's first COMPLETED step (capture
         # and restore included).
@@ -220,11 +234,16 @@ class ConvTrainer:
         t = self.tcfg
         gen = torch.Generator().manual_seed(t.seed)
         if t.workload == "cnn":
-            return cnn.simple_cnn_init(
+            state = cnn.simple_cnn_init(
                 gen, in_ch=t.channels, widths=tuple(t.widths),
                 n_classes=t.n_classes, device=self.device)
-        return gan.gan_init(gen, z_dim=t.z_dim, base=t.base, ch=t.channels,
-                            device=self.device)
+        else:
+            state = gan.gan_init(gen, z_dim=t.z_dim, base=t.base,
+                                 ch=t.channels, device=self.device)
+        if self.mesh is not None:
+            state = sh.device_put(state, sh.tree_shardings(state,
+                                                           self.mesh))
+        return state
 
     def maybe_restore(self) -> Tuple[Any, int]:
         """(state, start_step): the latest INTACT checkpoint on this
@@ -238,10 +257,22 @@ class ConvTrainer:
         step = ckpt.latest_step(d)
         if step is None:
             return state, 0
-        return ckpt.restore(d, step, state), step
+        shardings = None if self.mesh is None else \
+            sh.tree_shardings(state, self.mesh)
+        return ckpt.restore(d, step, state, shardings), step
 
     def save(self, step: int, state, *, blocking: bool = False):
         if not self.tcfg.ckpt_dir:
+            return
+        if self.mesh is not None:
+            # Whole leaves: every rank of the mesh takes part in the
+            # gathers, the first writes, and none goes on before the
+            # step is published.
+            whole = tree_map(sh.full_tensor, state)
+            if dist.get_rank() == int(self.mesh.mesh.flatten()[0]):
+                ckpt.save(self.tcfg.ckpt_dir, step, whole,
+                          keep_last=self.tcfg.keep_last)
+            sh.barrier(self.mesh)
             return
         if self._ckptr is not None and not blocking:
             self._ckptr.save_async(step, state)
@@ -260,6 +291,11 @@ class ConvTrainer:
                 for k in _BATCH_KEYS[self.tcfg.workload]]
         if self.graph is not None:
             return self.graph.put(arrs)
+        if self.mesh is not None:
+            return tuple(sh.device_put(
+                torch.from_numpy(a).to(self.device), sh.NamedSharding(
+                    self.mesh, sh.batch_pspec(self.mesh, a.ndim, 0,
+                                              a.shape[0]))) for a in arrs)
         return tuple(torch.from_numpy(a) for a in arrs)
 
     # -- blame localization (failure path only) ------------------------------
@@ -270,7 +306,8 @@ class ConvTrainer:
         (e.g. "['convs'][0]").  This runs only after the guard tripped,
         so its cost is off the hot path."""
         t = self.tcfg
-        host = tree_map(lambda a: a.detach().to("cpu", copy=True), state)
+        host = tree_map(lambda a: sh.full_tensor(a).detach().to(
+            "cpu", copy=True), state)
         ref = dict(backend="reference", fuse_epilogue=False)
 
         if t.workload == "cnn":
@@ -307,6 +344,9 @@ class ConvTrainer:
         and the losses come to the host in one copy."""
         if self.graph is not None:
             new, metrics, summary = self.graph.run(lr)
+        elif self.mesh is not None:
+            with sh.use_mesh(self.mesh):
+                new, metrics, summary = self._step(state, data, lr)
         else:
             new, metrics, summary = self._step(
                 state, data, torch.tensor(lr, dtype=torch.float32))

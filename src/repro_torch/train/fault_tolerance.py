@@ -7,12 +7,12 @@
     (rollback + retry, then skip or shrink-lr, then give up) that the
     conv trainer applies.
   * host loss    -> `HostFailure`, and `host_failure_schedule` to seed
-    when it happens.
+    when it happens; `survivors` and `elastic_mesh` build the largest
+    (data, model) mesh from the ranks that are left, onto which a
+    checkpoint restores (`train/checkpoint.py` saves whole leaves).
 
-Not ported yet (ROADMAP A.12, multi-device): `elastic_mesh`, which builds
-the largest (data, model) mesh from the surviving devices, and
-`survivors`, with `train/supervisor.py`, which restarts a run on it.
-Pure Python and numpy: no torch needed here.
+`train/supervisor.py`, which restarts a run on that mesh by itself, is
+ROADMAP A.12's LM half.
 """
 from __future__ import annotations
 
@@ -30,6 +30,47 @@ class HostFailure(RuntimeError):
         super().__init__(f"lost host(s) {sorted(hosts)} at step {step}")
         self.step = int(step)
         self.hosts = tuple(sorted(int(h) for h in hosts))
+
+
+def elastic_layout(n_ranks: int, model_parallel: int) -> tuple:
+    """(data, model) sizes for `n_ranks` survivors: the model axis halves
+    until it divides them (TP is a property of the weight layout), the
+    data axis takes the rest."""
+    if n_ranks < 1:
+        # Every host failed: surface it here, not deep inside a step.
+        raise ValueError("elastic_mesh: no surviving ranks")
+    if model_parallel < 1:
+        raise ValueError(f"model_parallel must be >= 1, "
+                         f"got {model_parallel}")
+    mp = model_parallel
+    while mp > 1 and n_ranks % mp:
+        mp //= 2
+    return n_ranks // mp, mp
+
+
+def elastic_mesh(ranks: Optional[Sequence[int]] = None, *,
+                 model_parallel: int = 16, device=None):
+    """Largest ("data", "model") mesh from the surviving ranks (default:
+    the whole group), keeping the model axis and shrinking the data axis,
+    as elastic FSDP deployments drain failed hosts.  Every rank of the
+    group calls it (creating the mesh's groups is collective); a rank
+    outside it takes no part in its steps."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    ranks = list(ranks if ranks is not None
+                 else range(dist.get_world_size()))
+    dp, mp = elastic_layout(len(ranks), model_parallel)
+    return make_mesh(ranks[:dp * mp], (dp, mp), ("data", "model"),
+                     device=device)
+
+
+def survivors(mesh, failed_host_ids: Sequence[int],
+              devices_per_host: int = 8) -> list:
+    """The mesh's ranks minus those on failed hosts (rank //
+    devices_per_host is the host), in the mesh's order."""
+    return [r for r in mesh.mesh.flatten().tolist()
+            if r // devices_per_host not in failed_host_ids]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,7 +15,12 @@ deterministic data skip-ahead and a failure hook for tests (port of
     package resumes the other's runs; `{"params", "opt"}` trees.
   * the loss is read to the host only at log steps, as `repro` does.
 
-`device=None` means the card, where `repro` takes a `mesh` (ROADMAP A.12).
+`device=None` means the card.  `repro`'s Trainer also takes a `mesh`;
+the LM on a mesh (its param and cache layouts, `Trainer` and
+`ServeEngine` with a mesh) is ROADMAP A.12's LM half, still to port.
+With an `embed_input` config (the audio and vlm families) the
+`TokenDataset` yields (B, S, D) fp32 embeddings, which `_put` moves
+through pinned memory like tokens.
 The step accumulates over the config's microbatch count, clamped to the
 batch (`effective_microbatches`); `repro`'s Trainer always jits one
 microbatch, which a config with `microbatch=1` reproduces.

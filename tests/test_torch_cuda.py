@@ -1352,3 +1352,66 @@ def test_autotune_runners_agree_with_the_analytical_plan(cuda, case):
             if b is not None:
                 torch.testing.assert_close(a, b, atol=TOL, rtol=TOL,
                                            msg=lambda m: f"{plan}: {m}")
+
+
+def test_musicgen_trainer_step_at_full_width_matches_the_cpu(cuda, tmp_path):
+    """musicgen-medium at its published widths (d 1536, 24 heads of 64,
+    ungated gelu, vocab 2048), 2 layers, fp32, inputs that are frame
+    embeddings: one `Trainer` step on the card from the same checkpoint
+    as one on the CPU -- the prefetcher moves (B, S, D) float batches --
+    with the loss within 1e-3 and every param within 1e-4 of the lr of
+    the CPU's.  AdamW's eps is 1e-3, so a step is near-linear in its
+    gradient and the comparison does not sit on the sign of gradients
+    near zero."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("musicgen-medium").scaled(n_layers=2, dtype="float32")
+    opt = AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=1, eps=1e-3)
+    params = LM(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    ckpt.save(str(tmp_path / "cpu"), 0,
+              {"params": params, "opt": adamw_init(params, opt)})
+    shutil.copytree(tmp_path / "cpu", tmp_path / "card")
+
+    def run(d, device):
+        ds = TokenDataset(vocab=cfg.vocab, seq_len=128, global_batch=4,
+                          seed=0, embed_dim=cfg.d_model)
+        return Trainer(cfg, ds, opt, TrainerConfig(
+            total_steps=1, ckpt_dir=str(d), log_every=1,
+            async_checkpoint=False), device=device).run()
+
+    ops.reset_launches()
+    got = run(tmp_path / "card", cuda)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 2 * 2 * 4     # remat, 4 micro
+    assert ops.LAUNCHES["flash_attention_backward"] == 2 * 4
+    want = run(tmp_path / "cpu", "cpu")
+    assert abs(got["history"][0]["loss"] - want["history"][0]["loss"]) \
+        <= 1e-3 * abs(want["history"][0]["loss"])
+    for a, b in zip(tree_leaves(got["params"]), tree_leaves(want["params"])):
+        assert torch.allclose(a.cpu(), b, atol=1e-4 * opt.lr, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_two_gloo_ranks_on_the_card_equal_one_rank(cuda, tmp_path, shape):
+    """The CNN `sgd_step` on a 2-rank mesh (`gloo` ranks sharing the
+    card; the batch over "data" or the channels over "model") against
+    the same step on one rank: params within rtol 2e-4 / atol 2e-5, the
+    loss within 1e-5 (`repro`'s bounds), and one forward and one backward
+    launch per conv layer on each rank."""
+    import torch.multiprocessing as mp
+
+    import _torch_mesh
+    mp.spawn(_torch_mesh.card_worker, args=(str(tmp_path), shape), nprocs=2,
+             join=True)
+    for rank in range(2):
+        res = torch.load(tmp_path / f"card_{rank}.pt", weights_only=False)
+        assert res["launches"] == {"dconv_forward": 2, "conv_backward": 2}
+        assert res["loss_err"] <= 1e-5
+        assert len(res["close"]) == 3 and all(res["close"])
