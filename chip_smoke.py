@@ -166,7 +166,35 @@ Phases (any failed check raises and ends the run non-zero):
      2 on the mesh, a host of 2 ranks lost, restored onto
      `elastic_mesh(survivors(...))` (1, 2) and run to step 4, equal to one
      rank's run; ms per step sharded and alone (`gloo` ranks sharing one
-     card: no multi-card speed).
+     card: no multi-card speed);
+  13. the dense LM on the same mesh (`lm_mesh_phase`; `lm_mesh_rank` in
+     MESH_RANKS spawned `gloo` ranks sharing the card): (a) qwen3-0.6b at
+     its published widths and PARITY_LAYERS layers in fp32, params from
+     phase 6 (a)'s numpy seed laid out by `tree_shardings`: one
+     `make_train_step` step at LM_MESH_TRAIN on a `batch_pspec` batch
+     against the same step on one rank (loss LM_MESH_LOSS_RTOL relative,
+     params LM_MESH_PARAM_TOL), the loss and every gradient in fp32
+     (LM_MESH_GRAD_TOL of each leaf's max) and bf16 (phase 9's class),
+     prefill + PARITY_DECODES forced decodes in the training and serve
+     layouts, logits and each rank's cache block per call at PARITY_TOL
+     (the cache's second sequence block first gets a key at the fifth
+     decode), the launches and forms per rank; (b) the whole model in
+     bf16 through ServeEngine(mesh=, serve_sharding="tp") on phase 6
+     (b)'s first LM_MESH_REQUESTS requests: the same tokens on every
+     rank, the share equal to one rank's engine (top-2 margins at a first
+     disagreement), requests/s, ms per prefill and decode step sharded
+     and alone, peak memory per rank, one launch per layer per prefill
+     and per decode step whose sequence block holds a key; (c)
+     Trainer(mesh=) at LM_MESH_TRAIN_LAYERS layers in fp32, phase 9's
+     seq and batch: step 2 checkpointed, host 1 lost, restored onto
+     `elastic_mesh(survivors(...))` (1, 2) and run to
+     LM_MESH_TRAIN_STEPS, held against one rank's straight run at (a)'s
+     bounds, its first segment rerun bit-equal, ms per step on each mesh
+     and alone; (d) `gpipe` over a 4-stage mesh against the stages in
+     sequence, `compressed_psum` over a (2, 2) ("pod", "data") mesh
+     against `repro`'s arithmetic reckoned here, RunSupervisor on `cnn`
+     with host 1 lost at step 3 (meshes {2, 2} then {1, 2}, the final
+     state at the conv mesh bound of the fault-free run).
      Each phase prints its seconds.
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
@@ -397,6 +425,30 @@ MESH_RANKS = 4
 MESH_RTOL, MESH_ATOL, MESH_LOSS_TOL = 2e-4, 2e-5, 1e-5
 MESH_TIMED = 5            # steps per timing, sharded and single-rank
 MESH_TRAINER_STEPS = 4    # the elastic run: checkpoint at 2, a host lost
+# Phase 13: the dense LM (LM_ARCH) on the same (2, 2) mesh of MESH_RANKS
+# `gloo` ranks sharing the card.  (a) parity at PARITY_LAYERS layers, fp32:
+# one train step at LM_MESH_TRAIN (batch, seq) against one rank (loss
+# relative, each gradient of its leaf's max, params after AdamW with
+# `repro`'s tests/test_multidevice.py:101-107 bound), the bf16 gradients
+# at phase 9's bf16 class, prefill + PARITY_DECODES decodes per call in
+# both layouts at PARITY_TOL; (b) the whole model in bf16 serving the first
+# LM_MESH_REQUESTS of phase 6 (b)'s requests in the serve layout; (c)
+# Trainer(mesh=) at LM_MESH_TRAIN_LAYERS layers, phase 9's seq and batch,
+# a host lost at step 2; (d) gpipe over GPIPE (stages, microbatches,
+# microbatch, width), compressed_psum over a (2, 2) ("pod", "data") mesh
+# on COMPRESS_N values a pod, RunSupervisor on `cnn` for SUPERVISOR_STEPS
+# steps with host 1 lost at step 3.
+LM_MESH_TRAIN = (8, 256)
+LM_MESH_LOSS_RTOL, LM_MESH_GRAD_TOL, LM_MESH_PARAM_TOL = 1e-5, 1e-3, 2e-2
+LM_MESH_REQUESTS = 12
+LM_MESH_MAX_LEN = 1280    # (b)'s cache: the longest history (1026) crosses
+                          # the sequence blocks' boundary at 640
+LM_MESH_TRAIN_LAYERS = 4
+LM_MESH_TRAIN_STEPS = 4
+LM_MESH_SEED = 7          # the card generator's seed of (b)'s and (c)'s params
+GPIPE = (4, 8, 2, 64)
+COMPRESS_N = 4096
+SUPERVISOR_STEPS = 6
 
 
 def paper_layers() -> list:
@@ -2765,6 +2817,636 @@ def mesh_phase(card: str, device: str = "cuda") -> dict:
     return launches
 
 
+def _lm_mesh_configs(small: bool):
+    """(the whole LM_ARCH config, its parity config): with `small` (a CPU
+    rehearsal) narrow widths and 2 layers instead of the published ones."""
+    from repro_torch.configs import get_config
+
+    full = get_config(LM_ARCH)
+    if small:
+        full = full.scaled(n_layers=2, d_model=128, d_ff=256, vocab=1024)
+    return full, full.scaled(n_layers=PARITY_LAYERS, dtype="float32")
+
+
+class _Counted:
+    """Every rank's launches of the main paths it drives: `run(fn)` sets
+    the kernels' counts to 0 just before `fn()`, reads them just after and
+    adds them to `total`, with the forms of that run; `begin` / `end`
+    bracket a run that an exception stops."""
+
+    def __init__(self, sync):
+        self.sync, self.total = sync, {}
+
+    def begin(self):
+        from repro_torch.kernels import ops
+        self.sync()
+        ops.reset_launches()
+
+    def end(self):
+        from repro_torch.kernels import ops
+        self.sync()
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for k, v in got.items():
+            self.total[k] = self.total.get(k, 0) + v
+        return (got, {k: v for k, v in ops.FLASH_FORMS.items() if v},
+                {k: v for k, v in ops.FLASH_BWD_FORMS.items() if v})
+
+    def run(self, fn):
+        self.begin()
+        out = fn()
+        return (out, *self.end())
+
+
+def lm_mesh_parity(mesh, rank: int, counted, small: bool) -> dict:
+    """Phase 13 (a) on one rank: LM_ARCH at its published widths and
+    PARITY_LAYERS layers in fp32, phase 6 (a)'s numpy params; every call
+    on params laid out by `tree_shardings` (the batch by `batch_pspec`)
+    against the same call on this rank with no mesh."""
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.optimizer import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding as sh
+
+    full, pcfg = _lm_mesh_configs(small)
+    plm = LM(pcfg)
+    dev = torch.device(mesh.device_type)
+    cpu_params, _, toks, forced, _ = lm_parity_inputs(plm)
+    params = tree_map(lambda t: t.to(dev), cpu_params)
+    L, m = pcfg.n_layers, mesh.get_local_rank("model")
+    out = {}
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    def worst(got, want, what, tol, of_max=False):
+        """max |got - want| over the leaves, each held at `tol` (of the
+        leaf's largest |want| with `of_max`)."""
+        err = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            a = sh.full_tensor(a).float()
+            b = b.float()
+            atol = tol * float(b.abs().max()) if of_max else tol
+            d = (a - b).abs()
+            if not bool(torch.isfinite(a).all()) or bool(
+                    (d > atol + (0 if of_max else tol) * b.abs()).any()):
+                raise AssertionError(f"rank {rank} {what} leaf {i}: max "
+                                     f"|err| {d.max().item():.3e}")
+            err = max(err, d.max().item() / (
+                float(b.abs().max()) if of_max else 1.0))
+        return err
+
+    # -- one train step, fp32 ---------------------------------------------------
+    B, S = LM_MESH_TRAIN
+    b = TokenDataset(vocab=pcfg.vocab, seq_len=S, global_batch=B,
+                     seed=0).batch(0)
+    b["labels"] = b["labels"].copy()     # a view of the inputs' tokens
+    b["labels"][0, :5] = -1
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    s_batch = {k: sh.device_put(v, sh.NamedSharding(
+        mesh, sh.batch_pspec(mesh, v.dim(), 0, B))) for k, v in batch.items()}
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=0, total_steps=10)
+    n_micro = steps.effective_microbatches(pcfg, B, mesh)
+    step = steps.make_train_step(pcfg, ocfg, n_micro)
+    want_p, _, want_m = step(params, adamw_init(params, ocfg), batch)
+    s_params = sh.device_put(params, sh.tree_shardings(params, mesh))
+    opt = adamw_init(params, ocfg)
+    s_opt = sh.device_put(opt, sh.tree_shardings(opt, mesh))
+    (got_p, _, got_m), launches, forms, bwd = counted.run(
+        lambda: step(s_params, s_opt, s_batch))
+    want_l = {"flash_attention": 2 * L * n_micro,      # remat: twice
+              "flash_attention_backward": L * n_micro}
+    if dev.type == "cuda" and launches != want_l:
+        raise AssertionError(f"rank {rank} lm mesh step: launches "
+                             f"{launches}, expected {want_l}")
+    loss_err = rel(got_m["loss"], want_m["loss"])
+    if loss_err > LM_MESH_LOSS_RTOL:
+        raise AssertionError(f"rank {rank} lm mesh step: loss "
+                             f"{float(got_m['loss'])} vs "
+                             f"{float(want_m['loss'])}")
+    out["train_step"] = {
+        "microbatches": n_micro, "launches": launches, "forms": forms,
+        "backward_forms": bwd, "loss": float(got_m["loss"]),
+        "loss_rel_err": loss_err, "loss_bound": LM_MESH_LOSS_RTOL,
+        "params_max_abs_err": worst(tree_leaves(got_p), tree_leaves(want_p),
+                                    "step params", LM_MESH_PARAM_TOL),
+        "params_bound": LM_MESH_PARAM_TOL}
+    del got_p, want_p, s_opt, opt
+
+    # -- the loss and every gradient, fp32 and bf16 -----------------------------
+    for dtype, tol in (("float32", LM_MESH_GRAD_TOL),
+                       ("bfloat16", LM_TRAIN_TOL["bfloat16"])):
+        lm = LM(pcfg.scaled(dtype=dtype))
+        (w_loss, _), w_grads = steps.loss_and_grads(
+            lm, params, batch["inputs"], batch["labels"])
+        P = tree_map(lambda t: sh.as_sharded(t, mesh), s_params)
+        ((g_loss, _), g_grads), launches, forms, bwd = counted.run(
+            lambda: steps.loss_and_grads(lm, P, batch["inputs"],
+                                         batch["labels"]))
+        got = [sh.Sharded(g, mesh, p.spec) for g, p in
+               zip(tree_leaves(g_grads), tree_leaves(P))]
+        out[f"grads_{dtype}"] = {
+            "launches": launches, "forms": forms, "backward_forms": bwd,
+            "loss_rel_err": rel(g_loss, w_loss),
+            "grads_max_err_of_leaf_max": worst(
+                got, tree_leaves(w_grads), f"{dtype} gradients", tol,
+                of_max=True), "bound": tol}
+        if dtype == "float32" and out[f"grads_{dtype}"]["loss_rel_err"] > \
+                LM_MESH_LOSS_RTOL:
+            raise AssertionError(f"rank {rank} lm mesh loss: {g_loss} vs "
+                                 f"{w_loss}")
+        del w_grads, g_grads, got
+
+    # -- prefill and decodes, both layouts ---------------------------------------
+    P_len = toks.shape[1]
+    max_len = 2 * (P_len + PARITY_DECODES // 2)   # decodes 5-8 in block 1
+    for layout in ("train", "tp"):
+        sp = sh.device_put(params, sh.tree_shardings(params, mesh,
+                                                     serve=layout == "tp"))
+        errs, calls = [], []
+        with torch.no_grad():
+            want = plm.prefill(params, torch.from_numpy(toks).to(dev),
+                               max_len)
+            got, launches, forms, _ = counted.run(lambda: plm.prefill(
+                sp, torch.from_numpy(toks).to(dev), max_len))
+            calls.append((launches, forms))
+            for i in range(PARITY_DECODES + 1):
+                ck = got[1]["k"]
+                errs.append(max(
+                    worst([got[0]], [want[0]], f"{layout} call {i} logits",
+                          PARITY_TOL),
+                    *(worst([got[1][n].local],
+                            [sh.local(want[1][n], mesh, ck.spec)],
+                            f"{layout} call {i} cache {n}", PARITY_TOL)
+                      for n in ("k", "v"))))
+                if i == PARITY_DECODES:
+                    break
+                tok = torch.from_numpy(forced[i].astype(np.int32)).to(dev)
+                want = plm.decode_step(params, want[1], tok)
+                got, launches, forms, _ = counted.run(
+                    lambda: plm.decode_step(sp, got[1], tok))
+                calls.append((launches, forms))
+        # One launch per layer per call, on the rank's heads (prefill) or
+        # its sequence block (decode: none while the block has no key).
+        live = [1] + [int(P_len + i >= m * (max_len // 2))
+                      for i in range(PARITY_DECODES)]
+        want_calls = [({"flash_attention": L} if n else {},
+                       {("tile" if i == 0 else "split"): L} if n else {})
+                      for i, n in enumerate(live)]
+        if dev.type == "cuda" and calls != want_calls:
+            raise AssertionError(f"rank {rank} lm mesh {layout}: launches "
+                                 f"{calls}, expected {want_calls}")
+        out[f"serve_parity_{layout}"] = {
+            "max_len": max_len, "cache_block": list(got[1]["k"].local.shape),
+            "cache_spec": [list(e) if isinstance(e, tuple) else e
+                           for e in got[1]["k"].spec],
+            "calls_with_launches": sum(live), "max_abs_err": max(errs),
+            "tol": PARITY_TOL}
+    return out
+
+
+def _timed_engine(eng, sync):
+    """Wrap `eng`'s prefill and decode: per call the host wall ms (synced
+    on both sides: a sharded call waits on its collectives anyway), the
+    cache length it met, and each row's argmax and top-2 margin."""
+    eng.calls = []
+
+    def wrap(kind, fn):
+        def call(*args):
+            clen = args[1]["len"] if kind == "decode" else 0
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = fn(*args)
+            sync()
+            top = logits[:, 0].float().topk(2, dim=-1)
+            eng.calls.append({"kind": kind, "len": clen,
+                              "ms": (time.perf_counter() - t0) * 1e3,
+                              "argmax": top.indices[:, 0].tolist(),
+                              "margin": (top.values[:, 0] - top.values[:, 1])
+                              .tolist(),
+                              "finite": bool(torch.isfinite(logits).all())})
+            return logits, cache
+        return call
+
+    eng._prefill = wrap("prefill", eng._prefill)
+    eng._decode = wrap("decode", eng._decode)
+    return eng
+
+
+def lm_mesh_serve(mesh, rank: int, counted, small: bool) -> dict:
+    """Phase 13 (b) on one rank: the whole LM_ARCH in bf16 (params drawn
+    by a card generator from LM_MESH_SEED, the same on every rank) through
+    ServeEngine(mesh=, serve_sharding="tp", max_len=LM_MESH_MAX_LEN) on
+    the first LM_MESH_REQUESTS of phase 6 (b)'s requests; rank 0 also
+    serves them alone (no mesh).
+    Every rank's greedy tokens must be the same; the share equal to the
+    one-rank engine's is reported, with the margins at the first call
+    whose argmax differs."""
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import ServeEngine
+
+    full, _ = _lm_mesh_configs(small)
+    dev = torch.device(mesh.device_type)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gen = torch.Generator(device=dev).manual_seed(LM_MESH_SEED)
+    params = LM(full).init(gen, device=dev)
+    n_req = LM_MESH_REQUESTS if not small else 4
+    out = {"requests": n_req}
+    alone = None
+    if rank == 0:
+        eng = _timed_engine(ServeEngine(full, params, batch=LM_BATCH,
+                                        max_len=LM_MESH_MAX_LEN, device=dev),
+                            sync)
+        eng.generate(lm_requests(full.vocab)[:1])       # one-time costs
+        eng.calls = []
+        t0 = time.perf_counter()
+        res = eng.generate(lm_requests(full.vocab)[:n_req])
+        sync()
+        alone = {"res": res, "wall": time.perf_counter() - t0,
+                 "calls": eng.calls}
+        del eng
+    eng = _timed_engine(ServeEngine(full, params, batch=LM_BATCH,
+                                    max_len=LM_MESH_MAX_LEN, device=dev,
+                                    mesh=mesh, serve_sharding="tp"), sync)
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reqs = lm_requests(full.vocab)[:n_req]
+    t0 = time.perf_counter()
+    res, launches, forms, _ = counted.run(lambda: eng.generate(reqs))
+    wall = time.perf_counter() - t0
+    calls = eng.calls
+    # One launch per layer per prefill (its heads) and per decode step
+    # in which this rank's sequence block holds a live key.
+    start = mesh.get_local_rank("model") * (LM_MESH_MAX_LEN // 2)
+    n_pre = sum(c["kind"] == "prefill" for c in calls)
+    n_live = sum(c["kind"] == "decode" and c["len"] >= start for c in calls)
+    want_l = {"flash_attention": full.n_layers * (n_pre + n_live)}
+    want_f = {k: v for k, v in (("wgmma", full.n_layers * n_pre),
+                                ("split", full.n_layers * n_live)) if v}
+    if cuda and (launches != want_l or forms != want_f):
+        raise AssertionError(f"rank {rank} lm mesh serve: launches "
+                             f"{launches} / {forms}, expected {want_l} / "
+                             f"{want_f}")
+    if not all(c["finite"] for c in calls) or sorted(res) != list(
+            range(n_req)) or any(len(res[r.uid]) != r.max_new_tokens
+                                 for r in reqs):
+        raise AssertionError(f"rank {rank} lm mesh serve: a NaN or a "
+                             f"request not answered in full")
+
+    def ms(cs, kind):
+        v = [c["ms"] for c in cs if c["kind"] == kind]
+        return sum(v) / len(v)
+
+    generated = sum(len(v) for v in res.values())
+    out.update({
+        "tokens": {str(k): v for k, v in res.items()},
+        "prefills": n_pre, "decode_steps": len(calls) - n_pre,
+        "decode_steps_with_live_keys": n_live, "launches": launches,
+        "forms": forms, "wall_s": wall, "requests_per_s": n_req / wall,
+        "generated_tokens_per_s": generated / wall,
+        "ms_per_prefill": ms(calls, "prefill"),
+        "ms_per_decode_step": ms(calls, "decode"),
+        "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if cuda else None)})
+    if alone is not None:
+        same = sum(a == b for r in range(n_req)
+                   for a, b in zip(res[r], alone["res"][r]))
+        total = sum(len(v) for v in alone["res"].values())
+        first = None
+        for i, (a, b) in enumerate(zip(calls, alone["calls"])):
+            if a["argmax"] != b["argmax"]:
+                rows = [j for j, (x, y) in enumerate(zip(a["argmax"],
+                                                         b["argmax"]))
+                        if x != y]
+                first = {"call": i, "kind": a["kind"], "rows": rows,
+                         "sharded": [(a["argmax"][j], a["margin"][j])
+                                     for j in rows],
+                         "alone": [(b["argmax"][j], b["margin"][j])
+                                   for j in rows]}
+                break
+        out["alone"] = {
+            "token_share_equal": same / total, "first_disagreement": first,
+            "wall_s": alone["wall"],
+            "requests_per_s": n_req / alone["wall"],
+            "ms_per_prefill": ms(alone["calls"], "prefill"),
+            "ms_per_decode_step": ms(alone["calls"], "decode")}
+    return out
+
+
+def lm_mesh_train(mesh, rank: int, tmp: str, counted, small: bool) -> dict:
+    """Phase 13 (c) on one rank: Trainer(mesh=) at LM_ARCH's published
+    widths and LM_MESH_TRAIN_LAYERS layers (fp32 compute, so that (a)'s
+    fp32 bounds apply; AdamW), seq LM_TRAIN_SEQ, global batch
+    LM_TRAIN_BATCH in the config's microbatches: to step 2 (checkpoint) on the (2, 2) mesh, host 1
+    (ranks 2, 3) lost there, restored onto `elastic_mesh(survivors(...))`
+    (1, 2) and run to LM_MESH_TRAIN_STEPS; the first segment again on the
+    (2, 2) mesh, its losses bit-equal; on the first survivor, the same
+    run on one rank (no mesh) straight: losses and final params at (a)'s
+    bounds."""
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import fault_tolerance as ft
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    full, _ = _lm_mesh_configs(small)
+    cfg = full.scaled(n_layers=LM_MESH_TRAIN_LAYERS if not small else 2,
+                      dtype="float32")    # (a)'s bounds are fp32 bounds
+    seq = LM_TRAIN_SEQ if not small else 64
+    dev = torch.device(mesh.device_type)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    ds = TokenDataset(vocab=cfg.vocab, seq_len=seq,
+                      global_batch=LM_TRAIN_BATCH, seed=0)
+    steps_n, half = LM_MESH_TRAIN_STEPS, LM_MESH_TRAIN_STEPS // 2
+
+    def trainer(m, ckpt_dir, total=steps_n):
+        """A trainer whose steps record their ms and loss in `.log`."""
+        tr = Trainer(cfg, ds, AdamWConfig(lr=3e-4, warmup_steps=1,
+                                          total_steps=steps_n),
+                     TrainerConfig(total_steps=total, ckpt_dir=ckpt_dir,
+                                   ckpt_every=half, log_every=1, keep_last=2,
+                                   async_checkpoint=False,
+                                   seed=LM_MESH_SEED), mesh=m, device=dev)
+        tr.log, fn = [], tr.step_fn
+
+        def step(*a):
+            sync()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            loss = float(r[2]["loss"])
+            tr.log.append(((time.perf_counter() - t0) * 1e3, loss))
+            return r
+        tr.step_fn = step
+        return tr
+
+    ckpt_dir = os.path.join(tmp, "lm_ckpt")
+    tr = trainer(mesh, ckpt_dir)
+    n_micro = tr.n_micro
+    counted.begin()
+    try:
+        tr.run(fail_at_step=half)
+        raise AssertionError("the host failure did not stop the run")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    launches, forms, bwd = counted.end()
+    per_step = {"flash_attention": 2 * cfg.n_layers * n_micro,
+                "flash_attention_backward": cfg.n_layers * n_micro}
+    if cuda and launches != {k: v * half for k, v in per_step.items()}:
+        raise AssertionError(f"rank {rank} lm mesh train: launches "
+                             f"{launches}, expected {half} x {per_step}")
+    ranks = ft.survivors(mesh, [1], devices_per_host=2)
+    small_mesh = ft.elastic_mesh(ranks, model_parallel=2, device=dev.type)
+    out = {"n_layers": cfg.n_layers, "dtype": cfg.dtype, "seq": seq,
+           "global_batch": LM_TRAIN_BATCH, "microbatches": n_micro,
+           "launches_per_step": per_step, "forms_first_segment": forms,
+           "backward_forms_first_segment": bwd,
+           "survivors": ranks, "elastic_mesh": list(small_mesh.shape),
+           "ms_per_step_mesh": [m for m, _ in tr.log],
+           "losses_mesh": [v for _, v in tr.log]}
+    got = None
+    if rank in ranks:
+        tr2 = trainer(small_mesh, ckpt_dir)
+        res, _, _, _ = counted.run(tr2.run)
+        got = tree_map(sh.full_tensor, res["params"])
+        out.update(resumed=[h["step"] for h in res["history"]],
+                   losses_elastic=[v for _, v in tr2.log],
+                   ms_per_step_elastic=[m for m, _ in tr2.log])
+        del res, tr2
+    del tr
+    gc.collect()
+    sh.barrier(mesh)
+    # The first segment again, on the (2, 2) mesh: bit-equal losses.
+    again = trainer(mesh, None, total=half)
+    counted.run(again.run)
+    out["rerun_losses"] = [v for _, v in again.log]
+    out["ms_per_step_rerun"] = [m for m, _ in again.log]
+    if out["rerun_losses"] != out["losses_mesh"]:
+        raise AssertionError(f"rank {rank} lm mesh train: a rerun's losses "
+                             f"{out['rerun_losses']} differ from "
+                             f"{out['losses_mesh']}")
+    del again
+    gc.collect()
+    if rank == ranks[0]:
+        alone_tr = trainer(None, None)
+        alone = alone_tr.run()
+        want = [v for _, v in alone_tr.log]
+        mine = out["losses_mesh"] + out["losses_elastic"]
+        errs = [abs(a - b) / abs(b) for a, b in zip(mine, want)]
+        p_err = 0.0
+        for a, b in zip(tree_leaves(got), tree_leaves(alone["params"])):
+            if not torch.allclose(a, b, rtol=LM_MESH_PARAM_TOL,
+                                  atol=LM_MESH_PARAM_TOL):
+                raise AssertionError(f"lm mesh train: params vs one rank: "
+                                     f"{(a - b).abs().max().item():.3e}")
+            p_err = max(p_err, (a - b).abs().max().item())
+        if len(errs) != steps_n or max(errs) > LM_MESH_LOSS_RTOL:
+            raise AssertionError(f"lm mesh train: losses {mine} vs one "
+                                 f"rank's {want}")
+        out.update(losses_alone=want, loss_rel_err=max(errs),
+                   loss_bound=LM_MESH_LOSS_RTOL, params_max_abs_err=p_err,
+                   params_bound=LM_MESH_PARAM_TOL,
+                   ms_per_step_alone=[m for m, _ in alone_tr.log])
+        del alone, alone_tr
+    del got
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_substrate(mesh, rank: int, tmp: str, counted) -> dict:
+    """Phase 13 (d) on one rank: `gpipe` over a GPIPE[0]-stage ("stage",)
+    mesh against the stages in sequence; `compressed_psum` over a (2, 2)
+    ("pod", "data") mesh against `repro`'s arithmetic reckoned here (each
+    pod's values plus zero error, quantized by max |x| / 127 with
+    half-to-even rounding, dequantized, their mean over the pods); then
+    (last: it re-forms the group) RunSupervisor on `cnn` with host 1
+    (ranks 2, 3) lost at step 3, its final state against the fault-free
+    run on one rank at the conv mesh bound."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.compression import compressed_psum
+    from repro_torch.parallel.pipeline import gpipe
+    from repro_torch.train.conv_trainer import ConvTrainer, ConvTrainerConfig
+    from repro_torch.train.supervisor import RunSupervisor
+
+    dev = torch.device(mesh.device_type)
+    out = {}
+    n_st, n_mb, mb, d = GPIPE
+    rng = np.random.default_rng(17)
+    ws = (rng.normal(size=(n_st, d, d)) / math.sqrt(d)).astype(np.float32)
+    x = rng.normal(size=(n_mb, mb, d)).astype(np.float32)
+    stages = make_mesh(range(MESH_RANKS), (n_st,), ("stage",),
+                       device=dev.type)
+    y = gpipe(stages, "stage", lambda w, h: torch.tanh(h @ w),
+              torch.from_numpy(ws).to(dev), torch.from_numpy(x).to(dev),
+              n_mb)
+    ref = torch.from_numpy(x).to(dev)
+    for s in range(n_st):
+        ref = torch.tanh(ref @ torch.from_numpy(ws[s]).to(dev))
+    err = (y - ref).abs().max().item()
+    if err > 1e-5:
+        raise AssertionError(f"rank {rank} gpipe: max |err| {err:.3e}")
+    out["gpipe"] = {"stages": n_st, "microbatches": n_mb,
+                    "max_abs_err_vs_sequential": err, "tol": 1e-5}
+
+    pods = make_mesh(range(MESH_RANKS), (2, 2), ("pod", "data"),
+                     device=dev.type)
+    g = rng.normal(size=(2, COMPRESS_N)).astype(np.float32)
+    deq = []
+    for p in range(2):
+        scale = np.maximum(np.abs(g[p]).max(), np.float32(1e-12)) \
+            / np.float32(127.0)
+        q = np.clip(np.round(g[p] / scale), -127, 127).astype(np.int8)
+        deq.append(q.astype(np.float32) * scale)
+    want = (deq[0] + deq[1]) / np.float32(2.0)
+    pod = pods.get_local_rank("pod")
+    red, e = compressed_psum(torch.from_numpy(g[pod]).to(dev), pods, "pod",
+                             torch.zeros(COMPRESS_N, device=dev))
+    errs = (float(np.abs(red.cpu().numpy() - want).max()),
+            float(np.abs(e.cpu().numpy() - (g[pod] - deq[pod])).max()))
+    if max(errs) > 1e-6:
+        raise AssertionError(f"rank {rank} compressed_psum: {errs}")
+    out["compressed_psum"] = {"n": COMPRESS_N, "max_abs_err": errs[0],
+                              "error_max_abs_err": errs[1], "tol": 1e-6,
+                              "mean_abs_quantization_error": float(
+                                  np.abs(want - g.mean(0)).mean())}
+
+    cfg = dict(workload="cnn", total_steps=SUPERVISOR_STEPS,
+               backend="cuda", ckpt_every=2, seed=0)
+    sup = RunSupervisor(ConvTrainerConfig(**cfg, ckpt_dir=os.path.join(
+        tmp, "sup_ckpt")), rendezvous=tmp, devices_per_host=2,
+        model_parallel=2, host_schedule={3: [1]}, device=dev)
+    t0 = time.perf_counter()
+    res, launches, _, _ = counted.run(sup.run)
+    rep = res["report"]
+    out["supervisor"] = {"lost": bool(res.get("lost")), "report": rep,
+                         "s": time.perf_counter() - t0, "launches": launches}
+    if res.get("lost"):
+        return out
+    if rep["meshes"] != [{"data": 2, "model": 2}, {"data": 1, "model": 2}] \
+            or rep["host_losses"] != 1 or rep["recompiles"] != 1 or \
+            res["history"][-1]["step"] != SUPERVISOR_STEPS:
+        raise AssertionError(f"rank {rank} supervisor: {rep}")
+    state = tree_map(sh.full_tensor, res["state"])
+    if dist.get_rank() == 0:
+        clean = ConvTrainer(ConvTrainerConfig(**cfg), device=dev).run()
+        err = 0.0
+        for a, b in zip(tree_leaves(state), tree_leaves(clean["state"])):
+            if not torch.allclose(a, b, rtol=MESH_RTOL, atol=MESH_ATOL):
+                raise AssertionError(f"supervisor: state vs the fault-free "
+                                     f"run: {(a - b).abs().max().item():.3e}")
+            err = max(err, (a - b).abs().max().item())
+        out["supervisor"]["state_max_abs_err_vs_fault_free"] = err
+    return out
+
+
+def lm_mesh_rank(rank: int, tmp: str, device: str = "cuda",
+                 small: bool = False) -> None:
+    """A spawned rank of phase 13: joins the `gloo` group through a
+    `file://` store in `tmp`, runs (a)-(d) on a MESH_SHAPE mesh and writes
+    its results to `tmp`.  Any failure raises in the rank, and the spawn
+    raises it in the parent."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=MESH_RANKS)
+    try:
+        mesh = make_debug_mesh(MESH_SHAPE, ("data", "model"), device=device)
+        counted = _Counted(torch.cuda.synchronize if device == "cuda"
+                           else (lambda: None))
+        res = {"rank": rank, "coordinate": [mesh.get_local_rank(0),
+                                            mesh.get_local_rank(1)]}
+        seconds = {}
+        for part, fn in (
+                ("a", lambda: lm_mesh_parity(mesh, rank, counted, small)),
+                ("b", lambda: lm_mesh_serve(mesh, rank, counted, small)),
+                ("c", lambda: lm_mesh_train(mesh, rank, tmp, counted,
+                                            small)),
+                ("d", lambda: lm_mesh_substrate(mesh, rank, tmp, counted))):
+            t0 = time.perf_counter()
+            res[part] = fn()
+            seconds[part] = time.perf_counter() - t0
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        res["seconds"] = seconds
+        res["launches"] = counted.total
+        with open(os.path.join(tmp, f"lm_rank_{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def lm_mesh_phase(card: str, device: str = "cuda",
+                  small: bool = False) -> dict:
+    """Phase 13: MESH_RANKS `gloo` ranks spawned on the one card
+    (`lm_mesh_rank` in each); a rank's failure ends the phase with its
+    error.  Prints each rank's results; every time is `gloo` ranks
+    sharing one card, not a multi-card speed.  Returns the launches of
+    the phase's main paths, summed over the ranks.  `small` narrows the
+    model for a rehearsal on the CPU (`device="cpu"`)."""
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(lm_mesh_rank, args=(tmp, device, small), nprocs=MESH_RANKS,
+                 join=True)
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"lm_rank_{r}.json")) as f:
+                ranks.append(json.load(f))
+    tokens = [res["b"].pop("tokens") for res in ranks]
+    if any(t != tokens[0] for t in tokens):
+        raise AssertionError("lm mesh serve: the ranks' tokens differ")
+    launches = {}
+    for res in ranks:
+        for k, v in res.pop("launches").items():
+            launches[k] = launches.get(k, 0) + v
+        print("lm mesh rank " + json.dumps(
+            res | {"timing": f"{MESH_RANKS} gloo ranks sharing one card",
+                   "card": card}))
+    a, b, c = (ranks[0][k] for k in "abc")
+    print(f"lm mesh: {LM_ARCH} on a {MESH_SHAPE} mesh of {MESH_RANKS} gloo "
+          f"ranks sharing the card: (a) a train step's loss within "
+          f"{a['train_step']['loss_rel_err']:.2e} (bound "
+          f"{LM_MESH_LOSS_RTOL:g}) and params within "
+          f"{a['train_step']['params_max_abs_err']:.2e} (bound "
+          f"{LM_MESH_PARAM_TOL:g}) of one rank, prefill + decodes in both "
+          f"layouts within {PARITY_TOL:g}; (b) {b['requests']} requests "
+          f"served in the serve layout, "
+          f"{b['alone']['token_share_equal']:.1%} of the greedy tokens equal "
+          f"one rank's; (c) Trainer restored onto (1, 2) after a host loss, "
+          f"losses within {c['loss_rel_err']:.2e} of one rank; (d) gpipe, "
+          f"compressed_psum and RunSupervisor hold "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3757,6 +4439,10 @@ def main() -> int:
     mark("12a")
     mesh_launches = mesh_phase(card)
     mark("12b")
+
+    # -- phase 13: the dense LM on a mesh ----------------------------------------
+    lm_mesh_launches = lm_mesh_phase(card)
+    mark("13")
     print("phases " + json.dumps({"seconds": phase_s, "card": card}))
 
     sources = {"dconv_forward": ("dconv_forward.cu",
@@ -3794,7 +4480,8 @@ def main() -> int:
                      + quickstart_launches.get(name, 0)
                      + families["launches"].get(name, 0)
                      + embed_launches.get(name, 0)
-                     + mesh_launches.get(name, 0),
+                     + mesh_launches.get(name, 0)
+                     + lm_mesh_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),
@@ -3803,6 +4490,7 @@ def main() -> int:
             rows[-1]["launches_head_dim_80"] = families["d80"].get(name, 0)
         rows[-1]["launches_phase_12"] = embed_launches.get(name, 0) \
             + mesh_launches.get(name, 0)
+        rows[-1]["launches_phase_13"] = lm_mesh_launches.get(name, 0)
     print(json.dumps({"kernels": rows}))
     print(card)        # exactly as nvidia-smi gives name and power limit
     print(json.dumps({"ok": True, "device": {

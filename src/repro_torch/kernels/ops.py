@@ -263,7 +263,7 @@ def dconv_filter_grad(x: torch.Tensor, dy: torch.Tensor, *, stride, padding,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int | None = None,
-                    blk_k: int = 128) -> torch.Tensor:
+                    blk_k: int = 128, return_lse: bool = False):
     """Blockwise causal GQA attention: q (B,Sq,Hq,D), k/v (B,Sk,Hk,D),
     Hq % Hk == 0 -> (B,Sq,Hq,D) in q's dtype (fp32 or bf16, the same for
     all three).  With `causal`, key j is visible to query i iff
@@ -272,12 +272,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     in place.  `blk_k` is the plain version's kv block on the CPU; the
     kernel has its own.  When autograd records and an operand requires
     grad, the call goes through `FlashAttentionFn` (on the card its
-    backward is a kernel too)."""
+    backward is a kernel too).  With `return_lse` (no gradient) the same
+    launch also gives the rows' log-sum-exps: (out, lse (B,Hq,Sq) fp32),
+    the statistics a split-sequence decode combines across ranks."""
     off = _check_attention(q, k, v, causal, q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if return_lse:
+            raise ValueError("return_lse takes no gradient")
         return FlashAttentionFn.apply(q, k, v, causal, off, blk_k)
-    return _flash_forward(q, k, v, causal, off, blk_k, return_lse=False)
+    return _flash_forward(q, k, v, causal, off, blk_k, return_lse=return_lse)
 
 
 def _check_attention(q, k, v, causal: bool, q_offset) -> int:

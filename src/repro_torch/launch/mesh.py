@@ -11,10 +11,13 @@ caller), and every rank of the group builds the same mesh, as the
 sub-groups of its axes are collective to create.  A mesh of ranks `r`
 puts rank r[i] at the i-th position of the row-major layout.  The device
 type is `resolve_device`'s: the card unless the caller asks for the CPU.
+`run_ranks` starts such a group of `gloo` ranks itself (the launchers'
+`--mesh DxM`), or joins the one `torchrun` describes.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -62,3 +65,64 @@ def make_debug_mesh(shape=(1, 1), axes=("data", "model"), *,
     if world < n:
         raise RuntimeError(f"need {n} ranks, found {world}")
     return make_mesh(range(n), shape, axes, device=device)
+
+
+def parse_mesh(text: str) -> tuple:
+    """"2x2" -> (2, 2): a ("data", "model") mesh's sizes (three sizes:
+    ("pod", "data", "model"))."""
+    shape = tuple(int(n) for n in text.lower().split("x"))
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise ValueError(f"--mesh takes DxM or PxDxM, got {text!r}")
+    return shape
+
+
+def mesh_axes(shape) -> tuple:
+    return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+
+
+def _rank_main(rank: int, world: int, init: str, fn, shape, device,
+               args, out_dir):
+    import torch.distributed as dist
+    if device is None or torch.device(device).type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:       # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_debug_mesh(shape, mesh_axes(shape), device=device)
+        out = fn(mesh, *args)
+        if out_dir is not None and rank == 0:
+            torch.save(out, f"{out_dir}/result.pt")
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, shape, *, device=None, args=()):
+    """`fn(mesh, *args)` on every rank of a `gloo` group over a `shape`
+    mesh (`mesh_axes`); rank 0's result.  Under `torchrun` (RANK and
+    WORLD_SIZE in the environment) this process is one of the ranks and
+    the group comes from the environment; otherwise prod(shape) ranks are
+    spawned here, joined through a `file://` store in a temporary
+    directory, and all of them end before this returns.  On the card rank
+    r uses card r % device_count (several ranks share one card when there
+    are fewer cards; `gloo`, as NCCL takes one rank per card).  `fn`
+    must be picklable (a module-level function)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world = math.prod(shape)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise ValueError(f"WORLD_SIZE {os.environ['WORLD_SIZE']} does "
+                             f"not fill a {shape} mesh")
+        return _rank_main(int(os.environ["RANK"]), world, "env://", fn,
+                          shape, device, args, None)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank_main, args=(world, f"file://{tmp}/store", fn, shape,
+                                   device, args, tmp), nprocs=world,
+                 join=True)
+        return torch.load(f"{tmp}/result.pt", weights_only=False)

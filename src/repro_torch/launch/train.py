@@ -9,9 +9,17 @@ random params from `--seed`.
 
 Without `--device` it runs on the card (and fails without one).  `--smoke`
 takes the reduced config.  The step accumulates the config's microbatches
-(`effective_microbatches`: qwen3-0.6b's 4 at global batch 8).  `repro`'s
-TPU XLA flags and `jax.distributed` have no counterpart here; multi-device
-training (`--multi-pod`, the production mesh) is ROADMAP A.12's LM half.
+(`effective_microbatches`: qwen3-0.6b's 4 at global batch 8).
+
+`--mesh DxM` trains on a ("data", "model") mesh of D*M `gloo` ranks
+(`launch/mesh.py::run_ranks`: spawned here, or the ranks `torchrun`
+started), the dense family alone; rank 0 prints the losses:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      --smoke --device cpu --steps 4 --mesh 2x2
+
+`repro`'s TPU XLA flags, `jax.distributed` and its production meshes
+(`--multi-pod`, 16 x 16 ranks) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -32,7 +40,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: train on a (data, model) mesh of gloo ranks")
     args = ap.parse_args(argv)
+    if args.mesh:
+        from repro_torch.launch.mesh import parse_mesh, run_ranks
+        return run_ranks(_train, parse_mesh(args.mesh), device=args.device,
+                         args=(args,))
+    return _train(None, args)
+
+
+def _train(mesh, args):
+    """Train on `mesh` (None: one device); rank 0 prints the losses."""
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.pipeline import TokenDataset
@@ -48,8 +67,13 @@ def main(argv=None):
                          ckpt_every=args.ckpt_every, seed=args.seed)
     trainer = Trainer(cfg, ds, AdamWConfig(lr=args.lr,
                                            total_steps=args.steps),
-                      tcfg, device=args.device)
+                      tcfg, mesh=mesh, device=args.device)
     out = trainer.run()
+    if mesh is not None:
+        import torch.distributed as dist
+        if dist.get_rank():
+            return None
+        out = {"history": out["history"]}
     for h in out["history"]:
         print(f"step {h['step']:5d}  loss {h['loss']:.4f}")
     return out

@@ -13,6 +13,7 @@ The int8 KV cache's quantize / dequantize and its decode attention
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional
 
@@ -23,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops
 from repro_torch.kernels.attention import NEG_INF
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import is_dtensor
 
 
@@ -178,9 +180,9 @@ def _qkv(params, x, cfg: ModelConfig, positions):
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = q.reshape(B, S, -1, cfg.head_dim)      # the heads the weights hold
+    k = k.reshape(B, S, -1, cfg.head_dim)
+    v = v.reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -201,17 +203,28 @@ def flash_attention(q, k, v, *, causal: bool = True, chunk: int = 1024,
                                blk_k=chunk)
 
 
-def attention_block(params, x, cfg: ModelConfig, positions):
-    """Training / prefill attention.  Returns (out, (k, v)) for caching."""
+def attention_block(params, x, cfg: ModelConfig, positions,
+                    plan: Optional["MeshPlan"] = None):
+    """Training / prefill attention.  Returns (out, (k, v)) for caching.
+
+    With a `plan` (the LM on a mesh: params are `Sharded`, x this rank's
+    batch block) q, k and v are this rank's heads -- Hq / |att| and
+    Hk / |att|, whole GQA groups -- and the attention is one kernel launch
+    on them; (k, v) are the rank's heads."""
+    if plan is not None:
+        params = plan.attention_weights(params)
+        x = sh.copy_to(x, plan.mesh, plan.att)
     q, k, v = _qkv(params, x, cfg, positions)
     out = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     B, S, _, _ = out.shape
-    out = out.reshape(B, S, cfg.q_dim) @ params["wo"].to(x.dtype)
-    return out, (k, v)
+    out = out.reshape(B, S, -1)
+    if plan is not None:
+        return plan.row_parallel(out, params["wo"], plan.att), (k, v)
+    return out @ params["wo"].to(x.dtype), (k, v)
 
 
 def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
-                     cache_len: int):
+                     cache_len: int, plan: Optional["MeshPlan"] = None):
     """Decode against a KV cache: x (B,S,D) are the tokens at positions
     cache_len .. cache_len + S - 1; cache_k/v (B,Smax,Hk,D).
 
@@ -221,7 +234,8 @@ def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
     cache[:, :cache_len + S], a strided view of the cache, with q_offset
     = cache_len; on the CPU, `repro`'s masked softmax over the whole
     cache (the query rounded to the cache's dtype before the scores, the
-    probabilities before the values)."""
+    probabilities before the values).  With a `plan` the cache is
+    `Sharded` in `cache_pspecs`' layout: `_attention_decode_mesh`."""
     B, S, _ = x.shape
     Smax = cache_k.shape[1]
     if cache_len + S > Smax:
@@ -229,6 +243,9 @@ def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
                          f"{cache_len}..{cache_len + S - 1}")
     positions = (cache_len + torch.arange(S, device=x.device))[None, :]
     positions = positions.expand(B, S)
+    if plan is not None:
+        return _attention_decode_mesh(params, x, cfg, cache_k, cache_v,
+                                      cache_len, positions, plan)
     q, k, v = _qkv(params, x, cfg, positions)
     cache_k[:, cache_len:cache_len + S] = k.to(cache_k.dtype)
     cache_v[:, cache_len:cache_len + S] = v.to(cache_v.dtype)
@@ -334,13 +351,22 @@ def _gelu(t):
     return F.gelu(t, approximate="tanh")
 
 
-def mlp_block(params, x, cfg: ModelConfig):
+def mlp_block(params, x, cfg: ModelConfig,
+              plan: Optional["MeshPlan"] = None):
+    """The MLP.  With a `plan`: wi / wg split by column and wo by row over
+    the plan's `mlp` axes, then one all-reduce over them."""
+    if plan is not None:
+        params = {k: plan.column(w, plan.mlp) if k != "wo" else w
+                  for k, w in params.items()}
+        x = sh.copy_to(x, plan.mesh, plan.mlp)
     dt = x.dtype
     if cfg.act == "gelu":
         h = _gelu(x @ params["wi"].to(dt))
     else:
         gate_fn = F.silu if cfg.act == "swiglu" else _gelu
         h = gate_fn(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
+    if plan is not None:
+        return plan.row_parallel(h, params["wo"], plan.mlp)
     return h @ params["wo"].to(dt)
 
 
@@ -394,3 +420,254 @@ def chunked_xent(params, x, labels, cfg: ModelConfig):
         tot = tot + nll
         cnt = cnt + n
     return tot / torch.clamp_min(cnt, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# The dense transformer on a device mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """How one LM call lays its ops out on `mesh` (`LM._mesh_plan` makes
+    it from the params' layout).  Every rank runs the same ops on its own
+    blocks; the activations between ops are this rank's block of the
+    batch over `bp`, whole over every other axis.
+
+      bp    : the batch axes of the activations (the data axes in the
+              training layout; none in the serve layout, whose weights
+              fold the data axes into tensor parallelism);
+      att   : the axes the attention heads split over (the leading axes
+              of wq's columns whose size divides the kv heads, so each
+              rank keeps whole GQA groups);
+      mlp   : the axes the MLP's hidden columns split over (wi's).
+
+    A weight is moved to the block its op needs by `sharding.fetch`
+    (all-gathers over its other axes: FSDP's gather at use), in the dtype
+    it was cast to before; its gradient is summed over `bp` (a
+    reduce-scatter).  Column-split ops take their input through
+    `sharding.copy_to` and row-split ones end in `row_parallel`'s
+    all-reduce (Megatron's f and g)."""
+    mesh: object
+    bp: tuple
+    att: tuple
+    mlp: tuple
+
+    def column(self, w, axes):
+        """w (.., d, n): every row, the columns over `axes`."""
+        return sh.fetch(w, (None,) * (w.dim() - 1) + (axes or None,),
+                        self.bp)
+
+    def row(self, w, axes):
+        """w (.., n, d): the rows over `axes`, every column."""
+        return sh.fetch(w, (None,) * (w.dim() - 2) + (axes or None, None),
+                        self.bp)
+
+    def replicated(self, w, also=()):
+        """w whole; its gradient also summed over `also` (the axes whose
+        ranks used it on other parts, e.g. other heads)."""
+        return sh.fetch(w, (None,) * w.dim(), self.bp + tuple(also))
+
+    def norm(self, p):
+        """A norm's params: the scale whole (its gradient over `bp`)."""
+        return {"scale": self.replicated(p["scale"])}
+
+    def attention_weights(self, params):
+        """This rank's heads of every attention weight: wq / wk / wv by
+        column and their biases over `att`, wo's rows (Sharded), the
+        qk-norm scales whole (their gradient over `bp` and `att`)."""
+        out = {}
+        for k, w in params.items():
+            if k in ("wq", "wk", "wv"):
+                out[k] = self.column(w, self.att)
+            elif k in ("bq", "bk", "bv"):
+                out[k] = sh.fetch(w, (self.att or None,), self.bp)
+            elif k in ("q_norm", "k_norm"):
+                out[k] = {"scale": self.replicated(w["scale"], self.att)}
+            else:
+                out[k] = w
+        return out
+
+    def row_parallel(self, h, wo, axes):
+        """h (this rank's columns) @ its rows of `wo`, summed over `axes`
+        by one all-reduce.  Where the sum is real the partial products
+        are fp32 and the sum is rounded to h's dtype once, as the one
+        matmul of a single device rounds it."""
+        w = self.row(wo, axes)
+        if not sh._real(self.mesh, axes):
+            return h @ w.to(h.dtype)
+        return sh.reduce_from(h.float() @ w.float(), self.mesh,
+                              axes).to(h.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class VocabBlock:
+    """This rank's part of the vocab matrix (the tied `tok`, or the
+    untied head transposed): rows [lo, lo + w.shape[0]) of the vocab
+    over the axes `vax`, and its columns over `dax` (none when they were
+    gathered: the training layout) -- shared by the token lookup and the
+    logits of one call."""
+    w: torch.Tensor
+    lo: int
+    vax: tuple
+    dax: tuple
+
+
+def vocab_block(w, plan: MeshPlan, *, vocab_dim: int = 0) -> VocabBlock:
+    """The vocab block of `w` (Sharded (V, d), or (d, V) with
+    `vocab_dim=1`) for `plan`: its columns gathered where their axes
+    carry other batch blocks (FSDP), else left split (the serve layout:
+    the ops then split d and all-reduce); the vocab rows stay split over
+    every axis that is not a batch axis."""
+    d_dim = 1 - vocab_dim
+    vax = tuple(a for a in sh._real(plan.mesh, w.spec[vocab_dim])
+                if a not in plan.bp)
+    dax = sh._real(plan.mesh, w.spec[d_dim])
+    if set(dax) & set(plan.bp):
+        dax = ()
+    want = [None, None]
+    want[vocab_dim], want[d_dim] = vax or None, dax or None
+    blk = sh.fetch(w, tuple(want), plan.bp)
+    if vocab_dim == 1:
+        blk = blk.t()
+    return VocabBlock(blk, sh.block_index(plan.mesh, vax) * blk.shape[0],
+                      vax, dax)
+
+
+def embed_mesh(vb: VocabBlock, tokens, cfg: ModelConfig, plan: MeshPlan):
+    """`embed` on this rank's vocab rows: each token's row where this rank
+    holds it, zeros elsewhere, summed over `vax` (one all-reduce; exact,
+    one term is not zero), then the columns gathered over `dax`."""
+    rows = tokens.long() - vb.lo
+    ok = (rows >= 0) & (rows < vb.w.shape[0])
+    e = vb.w[rows.clamp(0, vb.w.shape[0] - 1)].to(cfg.compute_dtype)
+    e = sh.reduce_from(torch.where(ok[..., None], e, 0), plan.mesh, vb.vax)
+    return sh.gather(e, plan.mesh, vb.dax, -1)
+
+
+def logits_mesh(vb: VocabBlock, x, plan: MeshPlan):
+    """The whole logits (B, S, V) in fp32, the same on every rank, for x
+    this rank's batch block (no gradient): this rank's vocab rows (with
+    `dax`, its columns of x against its columns of the block, fp32 sums
+    over `dax`, rounded to x's dtype once as one matmul rounds), then
+    gathered over `vax` and the batch over `bp`."""
+    if vb.dax:
+        xc = sh.chunk(x, plan.mesh, vb.dax, -1)
+        part = sh.psum(xc.float() @ vb.w.t().float(), plan.mesh, vb.dax)
+        part = part.to(x.dtype).float()
+    else:
+        part = (x @ vb.w.t().to(x.dtype)).float()
+    logits = sh.gather(part, plan.mesh, vb.vax, -1)
+    return sh.gather(logits, plan.mesh, plan.bp, 0)
+
+
+def _chunk_loss_mesh(w, xb, lb, lo: int, mesh, vax):
+    """`_chunk_loss` on this rank's vocab rows [lo, lo + V/|vax|): the
+    logsumexp from a MAX and a SUM all-reduce over `vax`, the gold logit
+    from the rank that holds it (a SUM)."""
+    logits = (xb @ w.t().to(xb.dtype)).float()            # (B,c,V/|vax|)
+    mx = sh.psum(logits.detach().amax(dim=-1), mesh, vax,
+                 op=torch.distributed.ReduceOp.MAX)
+    se = sh.reduce_from(torch.exp(logits - mx[..., None]).sum(dim=-1),
+                        mesh, vax)
+    logz = mx + torch.log(se)
+    rows = lb.long() - lo
+    ok = (rows >= 0) & (rows < w.shape[0])
+    gold = torch.gather(logits, -1,
+                        rows.clamp(0, w.shape[0] - 1)[..., None])[..., 0]
+    gold = sh.reduce_from(torch.where(ok, gold, 0.0), mesh, vax)
+    valid = (lb >= 0).float()
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def chunked_xent_mesh(vb: VocabBlock, x, labels, cfg: ModelConfig,
+                      plan: MeshPlan):
+    """`chunked_xent` for x / labels this rank's batch block: each chunk's
+    logits on this rank's vocab rows (under `torch.utils.checkpoint`), the
+    sums over the batch axes by one all-reduce each -- every rank returns
+    the global mean."""
+    if vb.dax:
+        raise ValueError("the loss needs the vocab block's columns whole")
+    x = sh.copy_to(x, plan.mesh, vb.vax)
+    B, S, _ = x.shape
+    c = min(cfg.loss_chunk, S)
+    nc = -(-S // c)
+    pad = nc * c - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nc):
+        nll, n = checkpoint(_chunk_loss_mesh, vb.w, x[:, i * c:(i + 1) * c],
+                            labels[:, i * c:(i + 1) * c], vb.lo, plan.mesh,
+                            vb.vax, use_reentrant=False)
+        tot = tot + nll
+        cnt = cnt + n
+    tot = sh.reduce_from(tot, plan.mesh, plan.bp)
+    cnt = sh.psum(cnt.detach().clone(), plan.mesh, plan.bp)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _combine(o, lse, mesh, axes):
+    """The flash-decoding combine over `axes`: each rank's o (B,1,Hq,D)
+    and lse (B,Hq,1) over its keys (lse -inf and o 0 on a rank with
+    none) -> the attention over all of them.  One MAX all-reduce of the
+    lse, one SUM of the weighted outputs with their weights packed
+    beside them."""
+    mx = sh.psum(lse.clone(), mesh, axes, op=torch.distributed.ReduceOp.MAX)
+    wgt = torch.exp(lse - mx).permute(0, 2, 1)[..., None]   # (B,1,Hq,1)
+    n = o.numel()
+    packed = sh.psum(torch.cat([(o.float() * wgt).flatten(),
+                                wgt.flatten()]), mesh, axes)
+    return (packed[:n].view(o.shape) / packed[n:].view(wgt.shape)) \
+        .to(o.dtype)
+
+
+def _attention_decode_mesh(params, x, cfg: ModelConfig, cache_k, cache_v,
+                           cache_len: int, positions, plan: MeshPlan):
+    """`attention_decode` of one token per sequence on a mesh.  x is this
+    rank's batch block over `bp`; cache_k / cache_v are `Sharded`
+    (B, Smax, Hk, D) in `cache_pspecs`' layout (batch over `cb`, the
+    SEQUENCE over `cs`), each rank holding all heads of its block.
+
+    q, k, v of this rank's heads, gathered over `att` (all heads), moved
+    to the cache's batch block; the new k / v written only by the rank
+    whose sequence block holds position `cache_len`; one kernel launch
+    over this rank's live keys with their lse (none on a rank with no
+    live key: the kernel takes no empty key set); the flash-decoding
+    combine over `cs`; back to the batch over `bp` and this rank's heads
+    for wo's rows (`row_parallel`)."""
+    m = plan.mesh
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"the decode on a mesh takes one token, got {S}")
+    w = plan.attention_weights(params)
+    q, k, v = _qkv(w, x, cfg, positions)
+    hq, hk = q.shape[2], k.shape[2]
+    qkv = sh.gather(torch.cat([q, k, v], dim=2), m, plan.att, 2)
+    qkv = qkv.reshape(B, 1, -1, hq + 2 * hk, cfg.head_dim)
+    q, k, v = (t.reshape(B, 1, -1, cfg.head_dim)
+               for t in qkv.split([hq, hk, hk], dim=3))
+    cb, cs = cache_k.spec[0], cache_k.spec[1]
+    bp = (plan.bp or None,) + (None,) * 3
+    q, k, v = (sh.relayout_local(t, bp, (cb, None, None, None), m)
+               for t in (q, k, v))
+    kl, vl = cache_k.local, cache_v.local
+    Sb = kl.shape[1]
+    start = sh.block_index(m, cs) * Sb
+    if start <= cache_len < start + Sb:
+        kl[:, cache_len - start] = k[:, 0].to(kl.dtype)
+        vl[:, cache_len - start] = v[:, 0].to(vl.dtype)
+    live = min(max(cache_len + 1 - start, 0), Sb)
+    if live:
+        o, lse = ops.flash_attention(q.to(kl.dtype), kl[:, :live],
+                                     vl[:, :live], causal=False,
+                                     return_lse=True)
+    else:
+        o = torch.zeros(q.shape, dtype=kl.dtype, device=q.device)
+        lse = torch.full((q.shape[0], q.shape[2], 1), float("-inf"),
+                         device=q.device)
+    o = _combine(o, lse, m, cs)
+    o = sh.relayout_local(o, (cb, None, None, None), bp, m)
+    o = sh.chunk(o, m, plan.att, 2).reshape(B, 1, -1).to(x.dtype)
+    return plan.row_parallel(o, w["wo"], plan.att), cache_k, cache_v

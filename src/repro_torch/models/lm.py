@@ -46,6 +46,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as sh
 
 
 def _tf_block_init(generator: torch.Generator, cfg: ModelConfig):
@@ -113,12 +114,20 @@ _BLOCKS = {"dense": (_tf_block_init, _tf_block_apply),
            "hybrid": (_mamba_block_init, _mamba_block_apply)}
 
 
+def _unbind(a) -> list:
+    """A stacked leaf's layers: views of a tensor, or of a `Sharded`'s
+    block (the stacked axis is never sharded) with the spec's tail."""
+    if isinstance(a, sh.Sharded):
+        return [sh.Sharded(t, a.mesh, a.spec[1:]) for t in a.local.unbind(0)]
+    return a.unbind(0)
+
+
 def _layers(blocks, n: int) -> list:
     """Every layer's params as views of the stacked leaves, taken by one
     `unbind` per leaf: the backward then stacks the layers' gradients
     once, where indexing layer by layer would scatter each into a zeroed
     copy of the whole stack."""
-    cols = [a.unbind(0) for a in L.tree_leaves(blocks)]
+    cols = [_unbind(a) for a in L.tree_leaves(blocks)]
 
     def layer(i):
         it = iter([c[i] for c in cols])
@@ -131,6 +140,16 @@ def _aux_sum(auxes: list):
     """The MoE aux losses summed over layers in order (0.0 without any)."""
     auxes = [a for a in auxes if isinstance(a, torch.Tensor)]
     return torch.stack(auxes).sum() if auxes else 0.0
+
+
+def _tf_block_mesh(p, x, cfg: ModelConfig, positions, plan):
+    """`_tf_block_apply` of a dense block on a mesh (`plan`)."""
+    h, _ = L.attention_block(p["attn"], L.rmsnorm(plan.norm(p["ln1"]), x,
+                                                  cfg.norm_eps),
+                             cfg, positions, plan)
+    x = x + h
+    return x + L.mlp_block(p["mlp"], L.rmsnorm(plan.norm(p["ln2"]), x,
+                                               cfg.norm_eps), cfg, plan)
 
 
 def _pad_cache(t, max_len: int):
@@ -197,7 +216,8 @@ class LM:
     # -- forward (training) --------------------------------------------------
     def forward(self, params, inputs, positions=None):
         """inputs: tokens (B,S) or, with `embed_input`, embeddings
-        (B,S,D).  Returns (hidden (B,S,D), aux_loss).
+        (B,S,D).  Returns (hidden (B,S,D), aux_loss); on a mesh, this
+        rank's block of the batch (`MeshPlan.bp`) of the hidden states.
 
         With `remat == "full"` each block runs under
         `torch.utils.checkpoint`: only its input is kept, and the backward
@@ -206,6 +226,11 @@ class LM:
         bf16 -> f32 convert out of the layer scan; eager PyTorch hoists
         nothing, so it has no counterpart here.)"""
         cfg = self.cfg
+        mesh = sh.tree_mesh(params)
+        if mesh is not None:
+            P, plan = self._mesh_setup(params, mesh, inputs.shape[0])
+            x, _ = self._embed_mesh(P, plan, inputs)
+            return self._body_mesh(P, plan, x), 0.0
         x = self._embed_in(params, inputs)
         B, S_, _ = x.shape
         if positions is None:
@@ -231,15 +256,38 @@ class LM:
 
     def loss(self, params, inputs, labels):
         """(nll + 0.01 * aux, {"nll", "aux"}); labels of -1 are masked."""
+        mesh = sh.tree_mesh(params)
+        if mesh is not None:
+            P, plan = self._mesh_setup(params, mesh, inputs.shape[0])
+            x, vb = self._embed_mesh(P, plan, inputs)
+            x = self._body_mesh(P, plan, x)
+            labels = sh.local(labels, mesh, (plan.bp or None, None))
+            nll = L.chunked_xent_mesh(self._head_mesh(P, plan, vb), x,
+                                      labels, self.cfg, plan)
+            return nll, {"nll": nll, "aux": 0.0}
         x, aux = self.forward(params, inputs)
         nll = L.chunked_xent(params["embed"], x, labels, self.cfg)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     # -- cache --------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
+                   mesh=None):
+        """Zeros (`device="meta"`: shapes alone); with a `mesh`, each entry
+        a `Sharded` in `cache_pspecs`' layout holding this rank's
+        block."""
         cfg = self.cfg
         dt = dtype or cfg.compute_dtype
-        dev = resolve_device(device)
+        dev = torch.device("meta") if device == "meta" else \
+            resolve_device(device)
+        if mesh is not None:
+            specs = self._cache_specs(mesh, batch, max_len)
+            shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+                     cfg.head_dim)
+            blk = tuple(n // sh._axis_size(mesh, e or None)
+                        for n, e in zip(shape, specs["k"]))
+            return {k: sh.Sharded(torch.zeros(blk, dtype=dt, device=dev),
+                                  mesh, specs[k]) for k in ("k", "v")} | \
+                {"len": 0}
         if cfg.family == "ssm":
             H = cfg.d_model // cfg.ssm_head_dim
             prev = (cfg.n_layers, batch, 1, cfg.d_model)
@@ -278,6 +326,9 @@ class LM:
         `embed_input`), return (last-token logits (B,1,V), cache holding
         positions 0..S-1)."""
         cfg = self.cfg
+        mesh = sh.tree_mesh(params)
+        if mesh is not None:
+            return self._prefill_mesh(params, inputs, max_len, mesh)
         x = self._embed_in(params, inputs)
         B, S_, _ = x.shape
         positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
@@ -359,6 +410,9 @@ class LM:
         entry of `cache` is updated in place.  Tokens go through
         `params["embed"]` in every family, `embed_input` ones included."""
         cfg = self.cfg
+        mesh = sh.tree_mesh(params)
+        if mesh is not None:
+            return self._decode_mesh(params, cache, tokens, mesh)
         x = L.embed(params["embed"], tokens, cfg)
         clen = cache["len"]
         layers = _layers(params["blocks"], cfg.n_layers)
@@ -408,3 +462,142 @@ class LM:
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return L.logits_head(params["embed"], x, cfg), dict(cache,
                                                              len=clen + 1)
+
+    # -- on a mesh ------------------------------------------------------------
+    # The params are DTensors or `Sharded`s (laid out by `tree_shardings`,
+    # training or serve layout), the inputs DTensors over the batch or
+    # plain tensors whole on every rank.  Every rank runs the same ops on
+    # its blocks (`models/layers.py::MeshPlan`); per layer a forward
+    # issues: the gathers of its weights over the axes they are stored on
+    # but not split by (the FSDP axes of the training layout; none in the
+    # serve layout), one all-reduce after wo and one after the MLP's wo
+    # (over the head / hidden axes); the backward adds one all-reduce
+    # before each (`copy_to`) and one per weight over the batch axes.  A
+    # decode step adds one gather of q, k, v over the head axes and the
+    # combine's MAX and SUM all-reduces over the cache's sequence axes.
+    # `repro`'s activation constraints hold as block layouts: its
+    # `shard(x, "dp", None, None)` (`repro/models/lm.py:78,153,270`) is the
+    # batch block `_embed_mesh` takes, its q / k / v and MLP hidden
+    # `shard(.., "dp", None, "tp", ..)` (`repro/models/layers.py:159-161,
+    # 281`) are this rank's heads and columns of that block.
+
+    def _mesh_setup(self, params, mesh, batch: int):
+        """(the params as `Sharded`s, the call's `MeshPlan`).  The dense
+        family alone runs on a mesh."""
+        cfg = self.cfg
+        if cfg.family != "dense" or cfg.kv_quant:
+            what = "the int8 KV cache (kv_quant)" if cfg.kv_quant else \
+                f"the {cfg.family} family"
+            raise NotImplementedError(
+                f"{cfg.name}: {what} does not run on a mesh yet; the dense "
+                f"family does (ROADMAP.md, A.12's queue)")
+        P = L.tree_map(lambda t: sh.as_sharded(t, mesh), params)
+        return P, self._mesh_plan(P, mesh, batch)
+
+    def _mesh_plan(self, P, mesh, batch: int) -> L.MeshPlan:
+        """The heads over the leading axes of wq's columns that divide the
+        kv heads, the MLP's hidden columns over wi's axes, the batch over
+        the data axes none of those use (and that divide `batch`)."""
+        cfg = self.cfg
+        cols = sh._real(mesh, P["blocks"]["attn"]["wq"].spec[-1])
+        att = next((cols[:i] for i in range(len(cols), 0, -1)
+                    if cfg.n_kv_heads % sh._axis_size(mesh, cols[:i]) == 0),
+                   ())
+        mlp = sh._real(mesh, P["blocks"]["mlp"]["wi"].spec[-1])
+        vocab = sh._real(mesh, P["embed"]["tok"].spec[0])
+        dp = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+        bp = tuple(a for a in sh._real(mesh, dp)
+                   if a not in att + mlp + vocab)
+        if batch % sh._axis_size(mesh, bp):
+            bp = ()
+        return L.MeshPlan(mesh, bp, att, mlp)
+
+    def _embed_mesh(self, P, plan, inputs):
+        """(this rank's batch block of the embedded tokens, the vocab
+        block they came from)."""
+        tokens = sh.local(inputs, plan.mesh, (plan.bp or None, None))
+        vb = L.vocab_block(P["embed"]["tok"], plan)
+        return L.embed_mesh(vb, tokens, self.cfg, plan), vb
+
+    def _head_mesh(self, P, plan, vb):
+        if self.cfg.tie_embeddings:
+            return vb
+        return L.vocab_block(P["embed"]["head"], plan, vocab_dim=1)
+
+    def _body_mesh(self, P, plan, x):
+        """The blocks and the final norm (each block under
+        `torch.utils.checkpoint` with `remat == "full"` in training)."""
+        cfg = self.cfg
+        B, S_, _ = x.shape
+        positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
+        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        for p in _layers(P["blocks"], cfg.n_layers):
+            if remat:
+                x = checkpoint(_tf_block_mesh, p, x, cfg, positions, plan,
+                               use_reentrant=False)
+            else:
+                x = _tf_block_mesh(p, x, cfg, positions, plan)
+        return L.rmsnorm(plan.norm(P["final_norm"]), x, cfg.norm_eps)
+
+    def _cache_specs(self, mesh, batch: int, max_len: int) -> dict:
+        from repro_torch.launch.steps import cache_pspecs
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        with torch.device("meta"):
+            like = {"k": torch.empty(shape), "v": torch.empty(shape)}
+        return cache_pspecs(like, mesh)
+
+    def _prefill_mesh(self, params, inputs, max_len: int, mesh):
+        """`prefill` on a mesh: the whole logits on every rank, the cache
+        as `Sharded` blocks in `cache_pspecs`' layout (each layer's k / v
+        gathered over the head axes, cut to the cache's batch and
+        sequence block)."""
+        cfg = self.cfg
+        P, plan = self._mesh_setup(params, mesh, inputs.shape[0])
+        x, vb = self._embed_mesh(P, plan, inputs)
+        B, S_, _ = x.shape
+        positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
+        specs = self._cache_specs(mesh, inputs.shape[0], max_len)
+        cb, cs = specs["k"][1], specs["k"][2]
+
+        def block(t):
+            t = sh.gather(t, mesh, plan.att, 2)
+            t = sh.relayout_local(t, (plan.bp or None, None, None, None),
+                                  (cb, None, None, None), mesh)
+            return sh.chunk(_pad_cache(t, max_len), mesh, cs, 1).contiguous()
+
+        ks, vs = [], []
+        for p in _layers(P["blocks"], cfg.n_layers):
+            h, (kk, vv) = L.attention_block(
+                p["attn"], L.rmsnorm(plan.norm(p["ln1"]), x, cfg.norm_eps),
+                cfg, positions, plan)
+            x = x + h
+            x = x + L.mlp_block(p["mlp"], L.rmsnorm(plan.norm(p["ln2"]), x,
+                                                    cfg.norm_eps), cfg, plan)
+            ks.append(block(kk))
+            vs.append(block(vv))
+        cache = {"k": sh.Sharded(torch.stack(ks), mesh, specs["k"]),
+                 "v": sh.Sharded(torch.stack(vs), mesh, specs["v"]),
+                 "len": S_}
+        x = L.rmsnorm(plan.norm(P["final_norm"]), x[:, -1:], cfg.norm_eps)
+        return L.logits_mesh(self._head_mesh(P, plan, vb), x, plan), cache
+
+    def _decode_mesh(self, params, cache, tokens, mesh):
+        """`decode_step` on a mesh: the cache's `Sharded` blocks written
+        in place, the whole logits on every rank."""
+        cfg = self.cfg
+        P, plan = self._mesh_setup(params, mesh, tokens.shape[0])
+        x, vb = self._embed_mesh(P, plan, tokens)
+        clen = cache["len"]
+        ck, cv = cache["k"], cache["v"]
+        for i, p in enumerate(_layers(P["blocks"], cfg.n_layers)):
+            xin = L.rmsnorm(plan.norm(p["ln1"]), x, cfg.norm_eps)
+            x = x + L.attention_decode(
+                p["attn"], xin, cfg,
+                sh.Sharded(ck.local[i], mesh, ck.spec[1:]),
+                sh.Sharded(cv.local[i], mesh, cv.spec[1:]), clen, plan)[0]
+            x = x + L.mlp_block(p["mlp"], L.rmsnorm(plan.norm(p["ln2"]), x,
+                                                    cfg.norm_eps), cfg, plan)
+        x = L.rmsnorm(plan.norm(P["final_norm"]), x, cfg.norm_eps)
+        return L.logits_mesh(self._head_mesh(P, plan, vb), x, plan), \
+            dict(cache, len=clen + 1)

@@ -52,10 +52,12 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, norm=None):
     """(grads scaled so their global norm is at most `max_norm`, the
-    norm before scaling)."""
-    gn = global_norm(grads)
+    norm before scaling).  `norm` gives the global norm when the tree
+    holds blocks of larger tensors (on a mesh: `parallel.sharding.
+    tree_sumsq` over every rank's blocks)."""
+    gn = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                     grads), gn
@@ -96,12 +98,16 @@ def cast_params_for_storage(params, cfg: AdamWConfig):
                     params)
 
 
-def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig):
+def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig, *,
+                 norm=None):
     """(new_params, new_opt_state, {"grad_norm", "lr"}).  Decoupled weight
     decay on matrices (dim >= 2) only.  With `bf16_params` the update
     reads and writes the fp32 master in opt_state["master"] (taken from
-    the bf16 params at the first step) and emits bf16 working params."""
-    grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+    the bf16 params at the first step) and emits bf16 working params.
+    Every leaf is updated on its own, so the trees may hold one rank's
+    blocks (a block has its tensor's rank); `norm` is then the
+    gradients' global norm (`clip_by_global_norm`)."""
+    grads, gn = clip_by_global_norm(grads, cfg.clip_norm, norm)
     count = opt_state["count"] + 1
     lr = cosine_schedule(cfg, count)
     b1, b2 = cfg.b1, cfg.b2

@@ -18,16 +18,29 @@ name, or a tuple of names -- exactly the entries of `repro`'s
 assignment is guarded by divisibility (`_guard`): a dim the axis size
 does not divide stays unsharded.
 
+A dim over several axes is split with the block index in the entry's
+order, outer axis first: the serve layout's ("model", "data") on a
+("data", "model") mesh puts "model" outside "data".
+
 The JAX pieces and their counterparts here:
   * a sharded `jax.Array`: a `DTensor` on a `DeviceMesh`
-    (`to_placements` turns a spec into its placements, one per mesh dim);
+    (`to_placements` turns a spec into its placements, one per mesh
+    dim), or, where a dim's axes run against the mesh's order (which
+    placements cannot say), a `Sharded`: the rank's block with its spec;
   * `jax.device_put(tree, tree_shardings(...))`: `device_put`, which
     takes each rank's block of a tensor every rank holds whole (no
     communication);
   * `shard_map`'s block layout and `psum`: `local`, `from_local` and
-    `psum` (`dist.all_reduce` on `mesh.get_group(axis)`);
-  * GSPMD's resharding between ops: `relayout_local`, `shard`,
-    `unshard` and `conform` (a gradient laid out as its input).
+    `psum` (`dist.all_reduce` on `mesh.get_group(axis)`, or on the whole
+    group when the axes are all of a mesh that spans it);
+  * GSPMD's resharding between ops: `relayout_local` (all-gathers, then
+    chunks), `shard`, `unshard` and `conform` (a gradient laid out as its
+    input) for the conv path; for the LM's ops (`models/layers.py::
+    MeshPlan`) `fetch` (a weight's block at its use: all-gathers
+    forward, an all-reduce then a chunk of its gradient backward),
+    `copy_to` (identity forward, an all-reduce of the gradient) and
+    `reduce_from` (an all-reduce forward, identity backward), Megatron's
+    f and g.
 
 torch.distributed runs one process per rank, and every rank runs the
 same step on its own blocks; so every rank issues the same collectives
@@ -258,25 +271,52 @@ def batch_pspec(mesh, rank: int, batch_dim: int = 0,
 
 
 # ---------------------------------------------------------------------------
-# Layouts: specs as DTensor placements, and moving blocks between them
+# Layouts: specs, this rank's block, and moving blocks between layouts
 # ---------------------------------------------------------------------------
 
+def _entry_axes(entry) -> tuple:
+    """A spec entry's mesh axes in block order (outer first)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _spec_axes(spec) -> dict:
+    """{tensor dim: its axes in block order} over the dims `spec` shards."""
+    return {d: _entry_axes(e) for d, e in enumerate(spec) if _entry_axes(e)}
+
+
+def spec_mesh_axes(mesh, spec) -> tuple:
+    """Every mesh axis that shards some dim of `spec`, in mesh order."""
+    used = {a for axes in _spec_axes(spec).values() for a in axes}
+    return tuple(a for a in mesh.mesh_dim_names if a in used)
+
+
+def in_mesh_order(mesh, spec) -> bool:
+    """True when each entry of `spec` names its axes in the mesh's order:
+    the layouts DTensor placements express (a DTensor splits a dim over
+    its axes in mesh-dim order)."""
+    names = mesh.mesh_dim_names
+    return all([names.index(a) for a in axes] ==
+               sorted(names.index(a) for a in axes)
+               for axes in _spec_axes(spec).values())
+
+
 def to_placements(mesh, spec: Sequence) -> tuple:
-    """One placement per mesh dim: `Shard(d)` where the axis shards
-    tensor dim d, else `Replicate()`.  A dim over several axes is split
-    in mesh-dim order (outer axis first), as `PartitionSpec` splits a
-    tuple; an entry naming its axes in another order has no placement."""
+    """One placement per mesh dim: `Shard(d)` where the axis shards tensor
+    dim d, else `Replicate()`.  A dim over several axes is split with the
+    block index in the entry's order, outer axis first, as
+    `PartitionSpec` splits a tuple.  Placements name the axes of a dim but
+    not their order, and a DTensor takes them in mesh order: an entry in
+    another order (the serve layout's ("model", "data") on a ("data",
+    "model") mesh) has the same placements as its mesh-order twin, and
+    `device_put` keeps such a leaf as a `Sharded`, whose spec carries the
+    order."""
     names = mesh.mesh_dim_names
     out = list(_replicated(mesh))
-    for d, entry in enumerate(spec):
-        axes = () if entry is None else \
-            (entry if isinstance(entry, tuple) else (entry,))
-        idx = [names.index(a) for a in axes]
-        if idx != sorted(idx):
-            raise ValueError(f"spec entry {entry!r} names its axes out of "
-                             f"the mesh's order {names}")
-        for i in idx:
-            out[i] = _dt().Shard(d)
+    for d, axes in _spec_axes(spec).items():
+        for a in axes:
+            out[names.index(a)] = _dt().Shard(d)
     return tuple(out)
 
 
@@ -284,71 +324,233 @@ def _replicated(mesh) -> tuple:
     return (_dt().Replicate(),) * len(mesh.mesh_dim_names)
 
 
-def _block(x, mesh) -> tuple:
-    """(this rank's block, its placements): a plain tensor is whole on
-    every rank."""
+def _spec_of(mesh, placements, ndim: int) -> tuple:
+    """The spec of DTensor placements: each dim's axes in mesh order."""
+    names = mesh.mesh_dim_names
+    axes = [[] for _ in range(ndim)]
+    for i, p in enumerate(placements):
+        if isinstance(p, _dt().Shard):
+            axes[p.dim].append(names[i])
+        elif not isinstance(p, _dt().Replicate):
+            raise ValueError(f"unsupported placement {p}")
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in axes)
+
+
+class Sharded:
+    """This rank's block `local` (a plain tensor) of a tensor laid out by
+    `spec` on `mesh`; the global shape is the blocks' even tiling.  The
+    container of a layout DTensor placements cannot express (a dim split
+    over its axes in another order than the mesh's), and the form in
+    which the LM's ops on a mesh read their params and KV caches: the
+    spec beside the block says which collectives an op needs."""
+
+    __slots__ = ("local", "mesh", "spec")
+
+    def __init__(self, local: torch.Tensor, mesh, spec):
+        self.local, self.mesh, self.spec = local, mesh, tuple(spec)
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(n * _axis_size(self.mesh, e or None)
+                          for n, e in zip(self.local.shape, self.spec))
+
+    def dim(self) -> int:
+        return self.local.dim()
+
+    def __repr__(self) -> str:
+        return (f"Sharded({tuple(self.shape)}, spec={self.spec}, "
+                f"local={tuple(self.local.shape)}, {self.local.dtype})")
+
+
+def is_container(x) -> bool:
+    """A DTensor or a `Sharded`."""
+    return isinstance(x, Sharded) or is_dtensor(x)
+
+
+def _block(x) -> tuple:
+    """(this rank's block, its spec): a plain tensor is whole on every
+    rank."""
+    if isinstance(x, Sharded):
+        return x.local, x.spec
     if is_dtensor(x):
-        return x.to_local(), x.placements
-    return x, _replicated(mesh)
+        return x.to_local(), _spec_of(x.device_mesh, x.placements, x.dim())
+    return x, (None,) * x.dim()
+
+
+def container_mesh(x):
+    """The mesh of a DTensor or a `Sharded`, else None."""
+    if isinstance(x, Sharded):
+        return x.mesh
+    return x.device_mesh if is_dtensor(x) else None
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def tree_mesh(tree):
+    """The mesh of `tree`'s first DTensor or `Sharded` leaf, else the
+    innermost `use_mesh`'s (None outside one)."""
+    for leaf in _leaves(tree):
+        if is_container(leaf):
+            return container_mesh(leaf)
+    return current_mesh()
+
+
+def as_sharded(x, mesh) -> Sharded:
+    """`x` (a DTensor, a `Sharded`, or a plain tensor whole on every rank)
+    as a `Sharded` of the same layout; no data moves."""
+    if isinstance(x, Sharded):
+        return x
+    t, spec = _block(x)
+    return Sharded(t, mesh, spec)
+
+
+def _group(mesh, axes: tuple):
+    """The process group of one collective over `axes` (a name, or all
+    the mesh's axes when the mesh spans the whole process group), else
+    None: the caller then runs one collective per axis."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    if set(axes) == set(mesh.mesh_dim_names) and \
+            mesh_size(mesh) == dist.get_world_size():
+        return dist.group.WORLD
+    return None
+
+
+def _block_order(mesh, axes: tuple) -> list:
+    """For the whole-group gather over `axes`: the global rank of each
+    block index (axes in block order, outer first)."""
+    names = mesh.mesh_dim_names
+    ranks = mesh.mesh.flatten().tolist()
+    order = [0] * len(ranks)
+    for pos, r in enumerate(ranks):
+        coord, rest = [], pos
+        for n in reversed(mesh.mesh.shape):
+            coord.insert(0, rest % n)
+            rest //= n
+        idx = 0
+        for a in axes:
+            i = names.index(a)
+            idx = idx * mesh.size(i) + coord[i]
+        order[idx] = r
+    return order
+
+
+def _real(mesh, axes) -> tuple:
+    """The axes of `axes` (a name, a tuple or None) with more than one
+    rank."""
+    return tuple(a for a in _entry_axes(axes) if _axis_size(mesh, a) > 1)
+
+
+def gather(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The blocks of `t` over `axes` concatenated along `dim` in block
+    order (not differentiable): one `all_gather` per axis, inner first,
+    or one over the whole group when the axes are all of it."""
+    axes = _real(mesh, axes)
+    if not axes:
+        return t
+    t = t.contiguous()
+    group = _group(mesh, axes)
+    if group is not None:
+        n = dist.get_world_size(group)
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        if len(axes) == 1:
+            return torch.cat(parts, dim)
+        return torch.cat([parts[r] for r in _block_order(mesh, axes)], dim)
+    for a in reversed(axes):
+        t = gather(t, mesh, a, dim)
+    return t
+
+
+def _chunk(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    n = _axis_size(mesh, axis)
+    if n == 1:
+        return t
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.get_local_rank(axis) * size, size)
+
+
+def block_index(mesh, axes) -> int:
+    """This rank's block index over `axes` (block order, outer first)."""
+    idx = 0
+    for a in _entry_axes(axes):
+        idx = idx * _axis_size(mesh, a) + (
+            mesh.get_local_rank(a) if _axis_size(mesh, a) > 1 else 0)
+    return idx
+
+
+def chunk(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of `t` (whole on the ranks of `axes`) along
+    `dim`."""
+    for a in _entry_axes(axes):
+        t = _chunk(t, mesh, a, dim)
+    return t
+
+
+def relayout_local(t: torch.Tensor, src, dst, mesh) -> torch.Tensor:
+    """This rank's block under spec `dst`, from its block `t` under spec
+    `src` (not differentiable).  Per tensor dim whose axes change, the
+    axes the two specs share as a leading prefix stay; the rest of
+    `src`'s are all-gathered (inner first), and only then are the dims
+    chunked for the rest of `dst`'s (outer first), so no gather ever
+    mixes blocks another dim was already cut into.  Dims that keep their
+    axes do not move."""
+    s, d = _spec_axes(src), _spec_axes(dst)
+    moves = []
+    for dim in sorted(set(s) | set(d)):
+        a, b = s.get(dim, ()), d.get(dim, ())
+        if a == b:
+            continue
+        k = 0
+        while k < min(len(a), len(b)) and a[k] == b[k]:
+            k += 1
+        moves.append((dim, a[k:], b[k:]))
+    for dim, g, _ in moves:
+        t = gather(t, mesh, g, dim)
+    for dim, _, c in moves:
+        t = chunk(t, mesh, c, dim)
+    return t.contiguous()
+
+
+def local(x, mesh, spec) -> torch.Tensor:
+    """This rank's block of `x` (a DTensor, a `Sharded`, or a plain
+    tensor whole on every rank) laid out by `spec`."""
+    t, src = _block(x)
+    return relayout_local(t, src, spec, mesh)
+
+
+def from_local(t: torch.Tensor, mesh, spec):
+    """The container whose block on this rank is `t` (`shard_map`'s
+    out_specs): a DTensor, or a `Sharded` where the spec names a dim's
+    axes out of the mesh's order."""
+    if not in_mesh_order(mesh, spec):
+        return Sharded(t, mesh, spec)
+    return _wrap(t, mesh, to_placements(mesh, spec))
 
 
 def _wrap(t: torch.Tensor, mesh, placements) -> "DTensor":
     return _dt().DTensor.from_local(t, mesh, placements, run_check=False)
 
 
-def _chunk(t: torch.Tensor, mesh, i: int, d: int) -> torch.Tensor:
-    n = mesh.size(i)
-    return t.chunk(n, d)[mesh.get_local_rank(i)] if n > 1 else t
-
-
-def _gather(t: torch.Tensor, mesh, i: int, d: int) -> torch.Tensor:
-    if mesh.size(i) == 1:
+def rewrap(like, t: torch.Tensor):
+    """`t`, a block in the layout of the container `like`, in a container
+    of the same kind (a plain `like` gives `t` itself)."""
+    if not is_container(like):
         return t
-    parts = [torch.empty_like(t) for _ in range(mesh.size(i))]
-    dist.all_gather(parts, t.contiguous(), group=mesh.get_group(i))
-    return torch.cat(parts, d)
-
-
-def _shard_dims(placements) -> dict:
-    """{tensor dim: [mesh dims sharding it, in mesh order]}."""
-    out = {}
-    for i, p in enumerate(placements):
-        if isinstance(p, _dt().Shard):
-            out.setdefault(p.dim, []).append(i)
-        elif not isinstance(p, _dt().Replicate):
-            raise ValueError(f"unsupported placement {p}")
-    return out
-
-
-def relayout_local(t: torch.Tensor, src, dst, mesh) -> torch.Tensor:
-    """This rank's block under placements `dst`, from its block `t` under
-    `src` (not differentiable).  Every tensor dim whose sharding changes
-    is first all-gathered over each mesh dim that shards it (inner
-    first); only then are the dims chunked for `dst` (outer first), so
-    no gather ever mixes blocks another dim was already cut into.  Dims
-    that keep their sharding do not move."""
-    s, d = _shard_dims(src), _shard_dims(dst)
-    moved = [dim for dim in sorted(set(s) | set(d))
-             if s.get(dim) != d.get(dim)]
-    for dim in moved:
-        for i in reversed(s.get(dim, [])):
-            t = _gather(t, mesh, i, dim)
-    for dim in moved:
-        for i in d.get(dim, []):
-            t = _chunk(t, mesh, i, dim)
-    return t.contiguous()
-
-
-def local(x, mesh, spec) -> torch.Tensor:
-    """This rank's block of `x` (a DTensor, or a plain tensor whole on
-    every rank) laid out by `spec`."""
-    return relayout_local(*_block(x, mesh), to_placements(mesh, spec), mesh)
-
-
-def from_local(t: torch.Tensor, mesh, spec) -> "DTensor":
-    """A DTensor whose block on this rank is `t` (`shard_map`'s
-    out_specs); the global shape is the blocks' even tiling."""
-    return _wrap(t, mesh, to_placements(mesh, spec))
+    mesh = container_mesh(like)
+    spec = _block(like)[1]
+    if isinstance(like, Sharded):
+        return Sharded(t, mesh, spec)
+    return _wrap(t, mesh, like.placements)
 
 
 def device_put(tree, shardings):
@@ -356,8 +558,10 @@ def device_put(tree, shardings):
     out by the matching `NamedSharding` (this rank keeps its block; no
     communication)."""
     if isinstance(shardings, NamedSharding):
-        return from_local(local(tree, shardings.mesh, shardings.spec),
-                          shardings.mesh, shardings.spec)
+        t = local(tree, shardings.mesh, shardings.spec)
+        if t.untyped_storage().nbytes() > t.numel() * t.element_size():
+            t = t.clone()     # a view would keep the whole tensor alive
+        return from_local(t, shardings.mesh, shardings.spec)
     if isinstance(tree, dict):
         return {k: device_put(v, shardings[k]) for k, v in tree.items()}
     return type(tree)(device_put(v, s) for v, s in zip(tree, shardings))
@@ -366,22 +570,30 @@ def device_put(tree, shardings):
 def full_tensor(x) -> torch.Tensor:
     """The whole of `x` as a plain tensor on every rank (not
     differentiable); a plain tensor is returned as it is."""
-    if not is_dtensor(x):
+    if not is_container(x):
         return x
-    mesh = x.device_mesh
-    return relayout_local(*_block(x, mesh), _replicated(mesh), mesh)
+    t, spec = _block(x)
+    return relayout_local(t, spec, (None,) * t.dim(), container_mesh(x))
 
 
-def psum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+def psum(t: torch.Tensor, mesh, axes, op=None) -> torch.Tensor:
     """`lax.psum` over `axes` (a name, a tuple of names or None), in
-    place on `t`."""
-    if axes is None:
+    place on `t`; `op=dist.ReduceOp.MAX` gives `lax.pmax`.  One
+    `all_reduce` per axis, or one over the whole group when the axes are
+    all of it; a bf16 / fp16 tensor is reduced in fp32."""
+    axes = _real(mesh, axes)
+    if not axes:
         return t
-    names = mesh.mesh_dim_names
-    for a in (axes if isinstance(axes, tuple) else (axes,)):
-        i = names.index(a)
-        if mesh.size(i) > 1:
-            dist.all_reduce(t, group=mesh.get_group(i))
+    if t.dtype in (torch.bfloat16, torch.float16):
+        # The sum in fp32, rounded once, as one device's matmul rounds.
+        return t.copy_(psum(t.float(), mesh, axes, op))
+    op = dist.ReduceOp.SUM if op is None else op
+    group = _group(mesh, axes)
+    if group is not None:
+        dist.all_reduce(t, op=op, group=group)
+        return t
+    for a in axes:
+        dist.all_reduce(t, op=op, group=mesh.get_group(a))
     return t
 
 
@@ -392,6 +604,29 @@ def barrier(mesh) -> None:
     psum(t, mesh, tuple(mesh.mesh_dim_names))
 
 
+def tree_sumsq(leaves) -> torch.Tensor:
+    """The sum of squares of every element of the global tensors whose
+    blocks are `leaves` (`Sharded`s), in fp32 and equal on every rank:
+    each leaf's block sums are grouped by the axes that shard it, and
+    each group is summed over those axes (a replicated axis holds copies,
+    not parts)."""
+    groups, mesh = {}, None
+    for s in leaves:
+        mesh = s.mesh
+        key = spec_mesh_axes(s.mesh, s.spec)
+        v = torch.sum(torch.square(s.local.float()))
+        groups[key] = groups[key] + v if key in groups else v
+    total = None
+    for key in sorted(groups):
+        v = psum(groups[key].clone(), mesh, key)
+        total = v if total is None else total + v
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Differentiable moves between layouts
+# ---------------------------------------------------------------------------
+
 class _Relayout(torch.autograd.Function):
     """x (a DTensor, or a plain tensor whole on every rank) laid out by
     `spec`; with `plain` the result is the whole tensor as a plain one.
@@ -400,17 +635,19 @@ class _Relayout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, spec, plain):
         ctx.mesh = mesh
-        ctx.src = x.placements if is_dtensor(x) else None
+        ctx.src = _block(x)[1] if is_dtensor(x) else None
+        ctx.dtensor = is_dtensor(x)
         t = local(x, mesh, spec)
         return t if plain else from_local(t, mesh, spec)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, src = ctx.mesh, ctx.src
-        out = relayout_local(*_block(g, mesh), src or _replicated(mesh),
-                             mesh)
-        return (out if src is None else _wrap(out, mesh, src),
-                None, None, None)
+        t, spec = _block(g)
+        src = ctx.src or (None,) * t.dim()
+        out = relayout_local(t, spec, src, ctx.mesh)
+        if ctx.dtensor:
+            out = _wrap(out, ctx.mesh, to_placements(ctx.mesh, src))
+        return out, None, None, None
 
 
 def shard(x: torch.Tensor, *logical) -> torch.Tensor:
@@ -443,5 +680,69 @@ def conform(g, like):
     if not is_dtensor(like):
         return full_tensor(g)
     mesh = like.device_mesh
-    return _wrap(relayout_local(*_block(g, mesh), like.placements, mesh),
-                 mesh, like.placements)
+    t, spec = _block(g)
+    return _wrap(relayout_local(t, spec, _block(like)[1], mesh), mesh,
+                 like.placements)
+
+
+class _Fetch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, src, dst, reduce):
+        ctx.mesh, ctx.src, ctx.dst, ctx.reduce = mesh, src, dst, reduce
+        out = relayout_local(t, src, dst, mesh)
+        return out.view_as(out) if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = psum(g.contiguous().clone(), ctx.mesh, ctx.reduce)
+        return (relayout_local(g, ctx.dst, ctx.src, ctx.mesh), None, None,
+                None, None)
+
+
+def fetch(w: Sharded, want, reduce=()) -> torch.Tensor:
+    """This rank's block of `w` under the spec `want`, moved by
+    all-gathers (FSDP's gather at a weight's use), differentiable: the
+    gradient of the block is summed over the axes `reduce` (the axes on
+    whose ranks the same block met other data: the batch axes), then
+    laid out as `w` (a chunk of the sum: a reduce-scatter)."""
+    want, reduce = tuple(want), _real(w.mesh, reduce)
+    if _spec_axes(want) == _spec_axes(w.spec) and not reduce:
+        return w.local
+    return _Fetch.apply(w.local, w.mesh, w.spec, want, reduce)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous().clone(), ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return psum(x.contiguous().clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """x, the same on every rank of `axes`, entering ops split over them
+    (Megatron's f): the identity forward, an all-reduce of the gradient
+    over `axes` backward (each rank's part of it is partial)."""
+    axes = _real(mesh, axes)
+    return _CopyTo.apply(x, mesh, axes) if axes else x
+
+
+def reduce_from(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum over `axes` of each rank's partial `x` (Megatron's g): an
+    all-reduce forward; the gradient, the same on every rank of `axes`,
+    passes through as it is."""
+    axes = _real(mesh, axes)
+    return _ReduceFrom.apply(x, mesh, axes) if axes else x

@@ -6,8 +6,18 @@ Requests are padded into fixed (batch, max_len) buffers; slots free as
 sequences hit EOS or their length budget and are refilled from the queue
 mid-flight.  Decoding is greedy (argmax, the first index on ties).  On
 the card every attention of every layer is one launch of the
-flash-attention kernel; there is no mesh (multi-device serving is
-ROADMAP.md A.12's LM half).
+flash-attention kernel.
+
+With a `mesh` every rank of it runs the same engine on the same
+requests: the params are laid out by `tree_shardings` in the training
+layout (`serve_sharding="train"`: the weights gathered over the data
+axes at every use) or the serve layout (`"tp"`: the data axes folded
+into tensor parallelism, the weights resident), the cache in
+`cache_pspecs`' (batch over the data axes, sequence over "model"), and
+the LM's ops on the mesh issue their own collectives (`models/lm.py`).
+Prompts go in whole on every rank and the logits come back whole on
+every rank, equal bit for bit, so the greedy argmax and every refill
+decision are the same on every rank.
 """
 from __future__ import annotations
 
@@ -19,8 +29,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.lm import LM
+from repro_torch.parallel import sharding as sh
 
 
 @dataclasses.dataclass
@@ -34,9 +45,12 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, batch: int,
-                 max_len: int, device=None):
+                 max_len: int, device=None, mesh=None,
+                 serve_sharding: str = "train"):
         """`device=None` means the card (and raises without one); the
-        params are moved there.  The prompts are tokens: a config whose
+        params are moved there and, with a `mesh`, laid out by
+        `serve_sharding` ("train" or "tp"; params already laid out stay
+        as they are).  The prompts are tokens: a config whose
         inputs are embeddings (`embed_input`, the audio and vlm families)
         is refused, as `repro`'s engine has no embeddings path either."""
         if cfg.embed_input:
@@ -45,9 +59,21 @@ class ServeEngine:
                 f"config's inputs are (B, S, D) embeddings; serve it with "
                 f"LM.prefill(params, embeddings, max_len) and "
                 f"LM.decode_step(params, cache, tokens)")
+        if serve_sharding not in ("train", "tp"):
+            raise ValueError(f"serve_sharding must be 'train' or 'tp', got "
+                             f"{serve_sharding!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.mesh = mesh
+        if mesh is not None and not any(
+                sh.is_container(t) for t in tree_leaves(params)):
+            params = sh.device_put(
+                tree_map(lambda t: t.to(self.device), params),
+                sh.tree_shardings(params, mesh,
+                                  serve=serve_sharding == "tp"))
+        elif mesh is None:
+            params = tree_map(lambda t: t.to(self.device), params)
+        self.params = params
         self.batch = batch
         self.max_len = max_len
         self.lm = LM(cfg)

@@ -35,8 +35,8 @@ process group such as `gloo` cannot be captured in a CUDA graph.
 Checkpoints hold whole leaves (gathered, then written synchronously by
 the mesh's first rank; `async_checkpoint` applies with no mesh), so
 `maybe_restore` re-shards a checkpoint written on any mesh onto this
-one.  `train/supervisor.py`, which restarts a run on the
-surviving ranks by itself, is ROADMAP A.12's LM half.
+one.  `train/supervisor.py::RunSupervisor` restarts a run on the
+surviving ranks by itself.
 """
 from __future__ import annotations
 

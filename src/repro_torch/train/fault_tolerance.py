@@ -11,8 +11,8 @@
     (data, model) mesh from the ranks that are left, onto which a
     checkpoint restores (`train/checkpoint.py` saves whole leaves).
 
-`train/supervisor.py`, which restarts a run on that mesh by itself, is
-ROADMAP A.12's LM half.
+`train/supervisor.py::RunSupervisor` restarts a run on that mesh by
+itself.
 """
 from __future__ import annotations
 

@@ -15,9 +15,17 @@ deterministic data skip-ahead and a failure hook for tests (port of
     package resumes the other's runs; `{"params", "opt"}` trees.
   * the loss is read to the host only at log steps, as `repro` does.
 
-`device=None` means the card.  `repro`'s Trainer also takes a `mesh`;
-the LM on a mesh (its param and cache layouts, `Trainer` and
-`ServeEngine` with a mesh) is ROADMAP A.12's LM half, still to port.
+`device=None` means the card.  With a `mesh` (a `DeviceMesh` of
+`launch/mesh.py` or `fault_tolerance.elastic_mesh`; the dense family)
+every rank of the mesh runs the same trainer: fresh params are drawn
+whole on every rank from the seed and laid out by `tree_shardings`, the
+optimizer state made from each rank's blocks in the same layout, each
+batch laid out by `batch_pspec` by the prefetch thread (no
+communication: each rank keeps its block), and the step is
+`make_train_step`'s on the blocks.  Checkpoints hold whole leaves
+(gathered over the mesh, written by its first rank), so `maybe_restore`
+lays a checkpoint of any mesh -- or of one device, or of `repro` --
+out on this one through `checkpoint.restore(..., shardings)`.
 With an `embed_input` config (the audio and vlm families) the
 `TokenDataset` yields (B, S, D) fp32 embeddings, which `_put` moves
 through pinned memory like tokens.
@@ -31,6 +39,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.data.pipeline import Prefetcher, TokenDataset
 from repro_torch.device import resolve_device
@@ -39,6 +48,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_map
 from repro_torch.models.lm import LM
 from repro_torch.optim.optimizer import AdamWConfig, adamw_init
+from repro_torch.parallel import sharding as sh
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import StepGuard
 
@@ -61,17 +71,24 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ModelConfig, dataset: TokenDataset,
                  opt_cfg: Optional[AdamWConfig] = None,
-                 tcfg: Optional[TrainerConfig] = None, *, device=None):
+                 tcfg: Optional[TrainerConfig] = None, *, mesh=None,
+                 device=None):
         self.cfg = cfg
         self.dataset = dataset
         self.opt_cfg = opt_cfg or AdamWConfig()
         self.tcfg = tcfg or TrainerConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.lm = LM(cfg)
-        self.n_micro = effective_microbatches(cfg, dataset.global_batch)
+        self.n_micro = effective_microbatches(cfg, dataset.global_batch,
+                                              mesh)
         self._ckptr = (ckpt.AsyncCheckpointer(self.tcfg.ckpt_dir,
                                               self.tcfg.keep_last)
-                       if self.tcfg.ckpt_dir else None)
+                       if self.tcfg.ckpt_dir and mesh is None else None)
+        if mesh is not None:
+            like = self._like()
+            self.p_sh = sh.tree_shardings(like["params"], mesh)
+            self.o_sh = sh.tree_shardings(like["opt"], mesh)
         self.guard = StepGuard(step_timeout_s=self.tcfg.step_timeout_s)
         self.step_fn = make_train_step(cfg, self.opt_cfg, self.n_micro)
 
@@ -81,7 +98,14 @@ class Trainer:
         card by a CUDA generator: no host draw), and AdamW's state."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = self.lm.init(gen, device=self.device)
-        return params, adamw_init(params, self.opt_cfg), 0
+        if self.mesh is None:
+            return params, adamw_init(params, self.opt_cfg), 0
+        params = sh.device_put(params, self.p_sh)
+        blocks = tree_map(lambda t: sh.as_sharded(t, self.mesh).local,
+                          params)
+        opt = tree_map(lambda t, ns: sh.from_local(t, self.mesh, ns.spec),
+                       adamw_init(blocks, self.opt_cfg), self.o_sh)
+        return params, opt, 0
 
     def _like(self):
         """The state's structure, shapes, dtypes and device, allocating
@@ -100,13 +124,24 @@ class Trainer:
         step = ckpt.latest_step(d) if d else None
         if step is None:
             return self.init_state()
-        state = ckpt.restore(d, step, self._like())
+        shardings = None if self.mesh is None else \
+            {"params": self.p_sh, "opt": self.o_sh}
+        state = ckpt.restore(d, step, self._like(), shardings)
         return state["params"], state["opt"], step
 
     def save(self, step, params, opt, blocking=False):
+        tree = {"params": params, "opt": opt}
+        if self.mesh is not None and self.tcfg.ckpt_dir:
+            # Whole leaves: every rank takes part in the gathers, the
+            # first writes, and none goes on before the step is published.
+            whole = tree_map(sh.full_tensor, tree)
+            if dist.get_rank() == int(self.mesh.mesh.flatten()[0]):
+                ckpt.save(self.tcfg.ckpt_dir, step, whole,
+                          keep_last=self.tcfg.keep_last)
+            sh.barrier(self.mesh)
+            return
         if not self._ckptr:
             return
-        tree = {"params": params, "opt": opt}
         if self.tcfg.async_checkpoint and not blocking:
             self._ckptr.save_async(step, tree)
         else:
@@ -119,12 +154,17 @@ class Trainer:
         ends at or None): on the card through pinned memory, the copy
         queued on this (the prefetch) thread's stream without waiting."""
         out = {k: torch.from_numpy(a) for k, a in batch.items()}
-        if self.device.type != "cuda":
-            return out, None
-        out = {k: t.pin_memory().to(self.device, non_blocking=True)
-               for k, t in out.items()}
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(self.device))
+        ready = None
+        if self.device.type == "cuda":
+            out = {k: t.pin_memory().to(self.device, non_blocking=True)
+                   for k, t in out.items()}
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        if self.mesh is not None:     # this rank's block; no communication
+            out = {k: sh.device_put(t, sh.NamedSharding(
+                self.mesh, sh.batch_pspec(self.mesh, t.dim(), 0,
+                                          t.shape[0])))
+                   for k, t in out.items()}
         return out, ready
 
     def _take(self, batches: Prefetcher) -> dict:
@@ -135,6 +175,8 @@ class Trainer:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ready)
             for t in batch.values():
+                if self.mesh is not None:
+                    t = sh.as_sharded(t, self.mesh).local
                 t.record_stream(stream)
         return batch
 
@@ -150,7 +192,8 @@ class Trainer:
             for step in range(start, self.tcfg.total_steps):
                 batch = self._take(batches)   # deterministic skip-ahead
                 self.guard.start_step()
-                params, opt, metrics = self.step_fn(params, opt, batch)
+                with sh.use_mesh(self.mesh):
+                    params, opt, metrics = self.step_fn(params, opt, batch)
                 if self.guard.straggled():
                     # Straggler watchdog: surface, checkpoint, continue.
                     self.save(step + 1, params, opt, blocking=True)
@@ -168,7 +211,8 @@ class Trainer:
                         f"injected failure at step {step + 1}")
         finally:
             batches.close()
-        if self._ckptr:
+        if self.tcfg.ckpt_dir:
             self.save(self.tcfg.total_steps, params, opt, blocking=True)
+        if self._ckptr:
             self._ckptr.wait()
         return {"params": params, "opt": opt, "history": history}

@@ -1415,3 +1415,28 @@ def test_two_gloo_ranks_on_the_card_equal_one_rank(cuda, tmp_path, shape):
         assert res["launches"] == {"dconv_forward": 2, "conv_backward": 2}
         assert res["loss_err"] <= 1e-5
         assert len(res["close"]) == 3 and all(res["close"])
+
+
+def test_two_gloo_ranks_serve_and_train_the_lm_on_the_card(cuda, tmp_path):
+    """qwen3's SMOKE config in fp32 on a (1, 2) mesh of `gloo` ranks
+    sharing the card (`_torch_mesh_lm.card_worker`): the prefill and 6
+    decodes in the serve layout within 1e-4 of one rank, one
+    flash-attention launch per layer per call on each rank -- none on
+    the second sequence block's rank until its first key (the 4th
+    decode: 5 + 3 positions fill the first block of 8) -- and the loss
+    (1e-5 relative) and every gradient (1e-3 of the leaf's max) in the
+    training layout, with one forward per layer twice (remat) and one
+    backward per layer."""
+    import torch.multiprocessing as mp
+
+    import _torch_mesh_lm
+    mp.spawn(_torch_mesh_lm.card_worker, args=(str(tmp_path),), nprocs=2,
+             join=True)
+    for rank in range(2):
+        res = torch.load(tmp_path / f"card_{rank}.pt", weights_only=False)
+        assert res["logits_err"] <= 1e-4, res
+        assert res["launches"] == ([2] * 7 if rank == 0
+                                   else [2, 0, 0, 0, 2, 2, 2]), res
+        assert res["loss_err"] <= 1e-5 and res["grad_err"] <= 1e-3, res
+        assert res["train_launches"] == {"flash_attention": 4,
+                                         "flash_attention_backward": 2}

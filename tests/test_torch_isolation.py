@@ -38,7 +38,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 51          # every module, optim and examples too
+    assert int(out[0]) >= 54          # every module, optim and examples too
     assert out[1].strip() == "[]"
 
 

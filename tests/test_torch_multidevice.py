@@ -191,8 +191,14 @@ def test_specs_become_placements():
         (Shard(0), Shard(0), Shard(2))
     assert sh.to_placements(mesh, (None, None, None, None)) == \
         (Replicate(),) * 3
-    with pytest.raises(ValueError, match="order"):
-        sh.to_placements(mesh, (None, ("model", "data")))
+    # The serve layout's ("model", "data"): the same placements as the
+    # mesh-order tuple (placements carry no order); the order stays in
+    # the spec, which a DTensor cannot hold, so `device_put` keeps such a
+    # leaf as a `Sharded`.
+    assert sh.to_placements(mesh, (None, ("model", "data"))) == \
+        sh.to_placements(mesh, (None, ("data", "model"))) == \
+        (Replicate(), Shard(1), Shard(1))
+    assert not sh.in_mesh_order(mesh, (None, ("model", "data")))
 
 
 # -- elastic ------------------------------------------------------------------
