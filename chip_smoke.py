@@ -43,7 +43,15 @@ Phases (any failed check raises and ends the run non-zero):
      backward (its forward + backward less its forward), reruns
      bit-identical; zamba2's head_dim 80 in bf16 and fp32 (B 4, 32
      heads): prefill at S 1024 and 1000 on tile, a split decode over
-     1025 keys, the backward at S 1024 on simt, each timed;
+     1025 keys, the backward at S 1024 on simt, each timed; and the six
+     conv kernels' `_bf16` entries at the paths' shapes (the forwards
+     and the generator's tconvs at batch 4 and 64 on both arms, the
+     backwards and the filter gradient at batch 64), their ragged cases
+     and the atrous branches at D = 1, 2, 4: each within one bf16 ulp of
+     its plain version in bf16 (rtol 2^-7, atol 2^-7 of the output's
+     largest magnitude), reruns bit-identical, printed with its plan; at
+     the timed shapes held against cuDNN in bf16 at 5e-2 of the output's
+     largest magnitude and timed (kernel, plain, cuDNN);
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
@@ -55,7 +63,13 @@ Phases (any failed check raises and ends the run non-zero):
      the CPU, step 1 repeated on the card bit for bit, the launches of
      every step against STEP_LAUNCHES, and no NaN; then a torch.profiler
      trace of 2 more steps of each: device-busy ms per step by conv
-     kernel, and the device's idle share;
+     kernel, and the device's idle share; (b) the same models with
+     every param and the batch cast to bf16: 3 `gan_sgd_step`s and 3
+     `sgd_step`s, each step's loss and every param within 5e-2 of each
+     leaf's largest magnitude of the same steps through the plain
+     versions on the CPU in bf16, step 1 repeated bit for bit, the
+     launches of every step against STEP_LAUNCHES (all on the `_bf16`
+     entries), no NaN, and ms per step beside (a)'s fp32 ms;
   6. LM serving: (a) qwen3-0.6b at full width but 2 layers in fp32,
      params from a numpy seed: prefill of 4 prompts of 64-200 tokens and
      8 teacher-forced decode steps on the card, held after each call
@@ -263,6 +277,12 @@ TRAIN_TOL = 1e-3
 TRAIN_BATCH = 64
 TRAIN_STEPS = 5
 LR = 0.05
+# Phase 3's conv kernels in bf16: one bf16 ulp of the plain version, and
+# cuDNN in bf16 (atol relative to the output's largest magnitude).
+BF16_TOL = (2.0 ** -7, 2.0 ** -7, "of max")
+BF16_LIB_TOL = (5e-2, 5e-2, "of max")
+TRAIN_STEPS_BF16 = 3      # phase 5 (b)
+TRAIN_TOL_BF16 = 5e-2     # phase 5 (b): of each leaf's largest magnitude
 # (atol, rtol) of flash attention against its plain version and against
 # the library, by dtype.
 ATTN_TOL = {torch.float32: (TOL, TOL), torch.bfloat16: (1e-4, 2.0 ** -7)}
@@ -3544,21 +3564,39 @@ def main() -> int:
             *BWD_TILES[p.dw_tile], p.dw_tiles, p.dw_splits, p.chunk)
         return dw if gather is None else f"{gather}, {dw}"
 
-    def ig_plan_name(spec, B, n_out, in_hw, cin, cout):
+    def ig_plan_name(spec, B, n_out, in_hw, cin, cout, itemsize=4):
         """The tile, Cin tile, Cout chunk, CTAs and shared memory that
         `implicit_gemm.plan` gives a launch."""
-        p = ig_plan(spec, B, n_out, in_hw, cin, cout)
+        p = ig_plan(spec, B, n_out, in_hw, cin, cout, itemsize)
         return (f"tile {p.th}x{p.tw}, Cin {p.cin_t}, chunk {p.chunk} in "
                 f"{p.stages} stage(s), {p.ctas} CTAs x {p.threads} threads, "
                 f"{p.smem} B shared")
 
-    def fwd_case(name, B, hw, cin, cout, k, s, p, d, ep, path, timed=False):
+    def cast(dtype, *ts):
+        return tuple(None if t is None else t.to(dtype) for t in ts)
+
+    def dtype_keys(dtype):
+        """A bf16 case's own keys: one bf16 ulp against the plain version,
+        5e-2 against cuDNN, both of the output's largest magnitude; the
+        bf16 tensor-core peak for its bound."""
+        if dtype == torch.float32:
+            return {}
+        return dict(dtype="bf16", tol=BF16_TOL, lib_tol=BF16_LIB_TOL,
+                    flops_per_s=BF16_FLOPS_PER_S)
+
+    def tag(name, dtype):
+        return name if dtype == torch.float32 else f"{name}_bf16"
+
+    def fwd_case(name, B, hw, cin, cout, k, s, p, d, ep, path, timed=False,
+                 dtype=torch.float32):
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
-        x, w = rand(B, *hw, cin), rand(*spec.filter_shape, cin, cout)
-        bias = rand(cout) if ep.bias else None
+        x, w = cast(dtype, rand(B, *hw, cin),
+                    rand(*spec.filter_shape, cin, cout))
+        bias = rand(cout).to(dtype) if ep.bias else None
         w_lib = w.permute(3, 2, 0, 1).contiguous()   # one-time layout
         oh_ow = spec.out_size(hw)
-        return dict(kernel="dconv_forward", case=name, path=path,
+        return dtype_keys(dtype) | dict(
+                    kernel="dconv_forward", case=tag(name, dtype), path=path,
                     timed=path or timed, rerun=True,
                     form=plan_name("dconv_forward", spec, B, hw, oh_ow, cin,
                                    cout),
@@ -3572,17 +3610,18 @@ def main() -> int:
                         padding=spec.padding,
                         dilation=spec.dilation).permute(0, 2, 3, 1), bias),
                     macs=useful_macs(spec, B, oh_ow, hw, cin, cout),
-                    nbytes=4 * (x.numel() + w.numel()
-                                + (cout if bias is not None else 0)
-                                + B * oh_ow[0] * oh_ow[1] * cout))
+                    nbytes=x.element_size() * (
+                        x.numel() + w.numel()
+                        + (cout if bias is not None else 0)
+                        + B * oh_ow[0] * oh_ow[1] * cout))
 
     def tconv_case(kernel, name, B, in_hw, n_out, cin, cout, k, s, p, d, ep,
-                   path, timed=False, w_scale=1.0):
+                   path, timed=False, w_scale=1.0, dtype=torch.float32):
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
         assert spec.out_size(n_out) == tuple(in_hw), (name, n_out)
-        dy = rand(B, *in_hw, cout)
-        w = rand(*spec.filter_shape, cin, cout) * w_scale
-        bias = rand(cin) if ep.bias else None
+        dy, w = cast(dtype, rand(B, *in_hw, cout),
+                     rand(*spec.filter_shape, cin, cout) * w_scale)
+        bias = rand(cin).to(dtype) if ep.bias else None
         w_lib = w.permute(3, 2, 0, 1).contiguous()   # one-time layout
         strategy = "implicit_gemm" if kernel == "tconv_implicit_gemm" \
             else "phase"
@@ -3590,11 +3629,13 @@ def main() -> int:
             else tconv_fused_plain
         exact = spec.input_size(in_hw)
         out_pad = tuple(n_out[a] - exact[a] for a in range(2))
-        form = ig_plan_name(spec, B, n_out, in_hw, cin, cout) \
+        form = ig_plan_name(spec, B, n_out, in_hw, cin, cout,
+                            dy.element_size()) \
             if strategy == "implicit_gemm" \
             else plan_name("tconv_phase", spec, B, n_out, in_hw, cin, cout)
-        return dict(kernel=kernel, case=name, path=path, timed=path or timed,
-                    rerun=True, form=form,
+        return dtype_keys(dtype) | dict(
+                    kernel=kernel, case=tag(name, dtype), path=path,
+                    timed=path or timed, rerun=True, form=form,
                     run=lambda: ops.tconv_phase(
                         dy, w, stride=s, padding=p, n_out=n_out, dilation=d,
                         bias=bias, epilogue=ep, strategy=strategy),
@@ -3605,17 +3646,20 @@ def main() -> int:
                         padding=spec.padding, output_padding=out_pad,
                         dilation=spec.dilation).permute(0, 2, 3, 1), bias),
                     macs=useful_macs(spec, B, in_hw, n_out, cin, cout),
-                    nbytes=4 * (dy.numel() + w.numel()
-                                + (cin if bias is not None else 0)
-                                + B * n_out[0] * n_out[1] * cin))
+                    nbytes=dy.element_size() * (
+                        dy.numel() + w.numel()
+                        + (cin if bias is not None else 0)
+                        + B * n_out[0] * n_out[1] * cin))
 
     def backward_case(name, B, hw, cin, cout, k, s, p, d, ep, path,
-                      timed=False):
+                      timed=False, dtype=torch.float32):
         """conv_backward: (dx, dW[, db]) of y = ep(conv(x, w))."""
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
         oh_ow = spec.out_size(hw)
-        x, w = rand(B, *hw, cin), rand(*spec.filter_shape, cin, cout)
-        dy, y = cotangent(B, oh_ow, cout), output(ep, B, *oh_ow, cout)
+        x, w, dy, y = cast(dtype, rand(B, *hw, cin),
+                           rand(*spec.filter_shape, cin, cout),
+                           cotangent(B, oh_ow, cout),
+                           output(ep, B, *oh_ow, cout))
         w_lib = w.permute(3, 2, 0, 1).contiguous()   # one-time layout
         geo = dict(stride=spec.stride, padding=spec.padding,
                    dilation=spec.dilation)
@@ -3629,7 +3673,8 @@ def main() -> int:
                 ((m.sum(dim=(0, 1, 2)),) if ep.bias else ())
 
         macs = useful_macs(spec, B, oh_ow, hw, cin, cout)
-        return dict(kernel="conv_backward", case=name, path=path,
+        return dtype_keys(dtype) | dict(
+                    kernel="conv_backward", case=tag(name, dtype), path=path,
                     timed=path or timed,
                     rerun=True, form=plan_name("conv_backward", spec, B, hw,
                                                oh_ow, cin, cout, ep.bias),
@@ -3638,17 +3683,20 @@ def main() -> int:
                     plain=lambda: conv_backward_plain(
                         x, dy, w, spec, n_out=hw, y=y, epilogue=ep),
                     lib=lib, macs=2 * macs,
-                    nbytes=4 * (2 * x.numel() + 2 * w.numel() + dy.numel()
-                                + (y.numel() if y is not None else 0)
-                                + (cout if ep.bias else 0)))
+                    nbytes=x.element_size() * (
+                        2 * x.numel() + 2 * w.numel() + dy.numel()
+                        + (y.numel() if y is not None else 0)
+                        + (cout if ep.bias else 0)))
 
-    def ct_backward_case(name, B, hw, cin, cout, k, s, p, d, ep, path):
+    def ct_backward_case(name, B, hw, cin, cout, k, s, p, d, ep, path,
+                         dtype=torch.float32):
         """tconv_backward: (ddy, dW[, db]) of z = ep(tconv(dy, w)), the
         cotangent g and z on the (B, *hw, cin) side."""
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
         oh_ow = spec.out_size(hw)
-        g, z = rand(B, *hw, cin), output(ep, B, *hw, cin)
-        dy, w = cotangent(B, oh_ow, cout), rand(*spec.filter_shape, cin, cout)
+        g, z, dy, w = cast(dtype, rand(B, *hw, cin), output(ep, B, *hw, cin),
+                           cotangent(B, oh_ow, cout),
+                           rand(*spec.filter_shape, cin, cout))
         w_lib = w.permute(3, 2, 0, 1).contiguous()   # one-time layout
         geo = dict(stride=spec.stride, padding=spec.padding,
                    dilation=spec.dilation)
@@ -3662,7 +3710,8 @@ def main() -> int:
                 ((m.sum(dim=(0, 1, 2)),) if ep.bias else ())
 
         macs = useful_macs(spec, B, oh_ow, hw, cin, cout)
-        return dict(kernel="tconv_backward", case=name, path=path,
+        return dtype_keys(dtype) | dict(
+                    kernel="tconv_backward", case=tag(name, dtype), path=path,
                     timed=path, rerun=True,
                     form=plan_name("tconv_backward", spec, B, hw, oh_ow, cin,
                                    cout, ep.bias),
@@ -3671,20 +3720,22 @@ def main() -> int:
                     plain=lambda: tconv_backward_plain(g, dy, w, spec, z=z,
                                                        epilogue=ep),
                     lib=lib, macs=2 * macs,
-                    nbytes=4 * (g.numel() + (z.numel() if z is not None
-                                             else 0)
-                                + 2 * dy.numel() + 2 * w.numel()
-                                + (cin if ep.bias else 0)))
+                    nbytes=g.element_size() * (
+                        g.numel() + (z.numel() if z is not None else 0)
+                        + 2 * dy.numel() + 2 * w.numel()
+                        + (cin if ep.bias else 0)))
 
-    def filter_grad_case(name, B, hw, cin, cout, k, s, p, d, path):
+    def filter_grad_case(name, B, hw, cin, cout, k, s, p, d, path,
+                         dtype=torch.float32):
         spec = ConvSpec.make(stride=s, padding=p, filter_shape=k, dilation=d)
         oh_ow = spec.out_size(hw)
-        x, dy = rand(B, *hw, cin), cotangent(B, oh_ow, cout)
+        x, dy = cast(dtype, rand(B, *hw, cin), cotangent(B, oh_ow, cout))
         w_shape = (cout, cin, *spec.filter_shape)
         geo = dict(stride=spec.stride, padding=spec.padding,
                    dilation=spec.dilation)
-        return dict(kernel="dconv_filter_grad", case=name, path=path,
-                    timed=path, rerun=True,
+        return dtype_keys(dtype) | dict(
+                    kernel="dconv_filter_grad", case=tag(name, dtype),
+                    path=path, timed=path, rerun=True,
                     form=plan_name("filter_grad", spec, B, hw, oh_ow, cin,
                                    cout),
                     run=lambda: ops.dconv_filter_grad(
@@ -3693,8 +3744,8 @@ def main() -> int:
                     lib=lambda: hwio(torch.nn.grad.conv2d_weight(
                         nchw(x), w_shape, nchw(dy), **geo)),
                     macs=useful_macs(spec, B, oh_ow, hw, cin, cout),
-                    nbytes=4 * (x.numel() + dy.numel()
-                                + math.prod(w_shape)))
+                    nbytes=x.element_size() * (x.numel() + dy.numel()
+                                               + math.prod(w_shape)))
 
     B = TRAIN_BATCH
     # The direct convs of the training path: discriminator c1-c3 (K = 4,
@@ -3710,77 +3761,91 @@ def main() -> int:
                   ("gan_t2", (16, 16), 32, 64, relu),
                   ("gan_t3", (32, 32), 3, 32, tanh)]
     cases, picks = [], {}
-    for Bs in (SLOT_BATCH, 64):
-        path = Bs == SLOT_BATCH
-        for r in (1, 2, 4):   # ASPP branches: 3x3, S=1, P=D=r, 3 -> 16
-            cases.append(fwd_case(f"aspp_rate{r}_B{Bs}", Bs, (128, 128), 3,
-                                  16, 3, 1, r, r, relu, path, timed=True))
-        # The generator's layers on both kernels of the phase /
-        # implicit-GEMM race: the arm tiling.plan_strategy picks is the
-        # path's, the other is timed for the race.  Each kernel's row sums
-        # its three layers at the slot batch.
-        for layer, in_hw, n_out, cin, cout, act in GEN_TCONVS:
-            ep = Epilogue(activation=act)
-            picks[f"{layer}_B{Bs}"] = tiling.plan_strategy(
-                "input_grad", ConvSpec.make(stride=2, padding=1,
-                                            filter_shape=4),
-                x_shape=(Bs, *n_out, cin), dy_shape=(Bs, *in_hw, cout),
-                epilogue=ep)[0]
-            for arm, kernel in TCONV_KERNELS.items():
-                cases.append(tconv_case(
-                    kernel, f"{layer}_B{Bs}_{arm}", Bs, in_hw, n_out, cin,
-                    cout, 4, 2, 1, 1, ep, path, timed=True) | {
-                        "race": f"{layer}_B{Bs}"})
-    for name, hw, cin, cout, k, ep in direct:
-        cases.append(fwd_case(f"{name}_B{B}", B, hw, cin, cout, k, 2, 1, 1,
-                              ep, False, timed=True))
-        cases.append(backward_case(f"{name}_B{B}", B, hw, cin, cout, k, 2, 1,
-                                   1, ep, True))
-        cases.append(filter_grad_case(f"{name}_B{B}", B, hw, cin, cout, k, 2,
-                                      1, 1, True))
-    for name, hw, cin, cout, ep in gen_layers:
-        cases.append(ct_backward_case(f"{name}_B{B}", B, hw, cin, cout, 4, 2,
-                                      1, 1, ep, True))
-    # Ragged geometries: bias fills, non-exact n_out, residues no tap
-    # reaches (S=3 > K=2), stride and dilation sharing a factor, channels
-    # that are not a multiple of the 32-lane reduction tile.
-    cases.append(fwd_case("ragged_fwd", 3, (37, 29), 5, 7, (3, 2), (2, 1),
-                          (1, 2), (2, 3), ragged_ep, False))
-    # The forwards' plan edges: reductions split over CTAs whose chunks
-    # do not divide them (3 x 3 taps x 72 = 648, 14 ways of 48; the
-    # tconv's longest class 4 taps x 72 = 288, 9 ways of 32), and ragged
-    # channels (Cin 130, Cout 37) on both forward kernels.
-    cases.append(fwd_case("fwd_split_k648", 2, (8, 8), 72, 24, 3, 1, 1, 1,
-                          ragged_ep, False))
-    cases.append(fwd_case("ragged_channels", 2, (9, 9), 130, 37, 3, 2, 1, 1,
-                          ragged_ep, False))
-    for kernel in ("tconv_phase", "tconv_implicit_gemm"):
-        # On the implicit GEMM: Cout over one chunk (72, 37; two stages)
-        # and Cin over one thread's register tile (24, 130).
-        cases.append(tconv_case(kernel, "tconv_split_k648", 2, (4, 4),
-                                (8, 8), 24, 72, 3, 2, 1, 1, ragged_ep, False))
-        cases.append(tconv_case(kernel, "ragged_channels", 2, (5, 5),
-                                (9, 9), 130, 37, 3, 2, 1, 1, ragged_ep,
-                                False))
-        cases.append(tconv_case(kernel, "ragged_s3k2", 3, (5, 6), (14, 12),
-                                5, 7, (2, 3), (3, 2), (1, 1), 1, ragged_ep,
-                                False))
-        cases.append(tconv_case(kernel, "ragged_s2d2", 2, (6, 5), (14, 14),
-                                4, 6, 3, 2, 1, (2, 3), ragged_ep, False))
-    # The backward plan's edges: 1183 positions, which the dW split count
-    # does not divide, and Cin = 3 at B = 16 (ragged_channels is the third).
-    ragged = [("ragged_s3k2", 3, (14, 12), 5, 7, (2, 3), (3, 2), (1, 1), 1),
-              ("ragged_s2d2", 2, (14, 14), 4, 6, 3, 2, 1, (2, 3)),
-              ("ragged_channels", 2, (9, 9), 130, 37, 3, 2, 1, 1),
-              ("positions_1183", 7, (26, 26), 8, 16, 3, 2, 1, 1),
-              ("cin3_b16", 16, (32, 32), 3, 32, 4, 2, 1, 1)]
-    for name, Bs, hw, cin, cout, k, s, p, d in ragged:
-        cases.append(backward_case(name, Bs, hw, cin, cout, k, s, p, d,
-                                   ragged_ep, False))
-        cases.append(ct_backward_case(name, Bs, hw, cin, cout, k, s, p, d,
-                                      ragged_ep, False))
-        cases.append(filter_grad_case(name, Bs, hw, cin, cout, k, s, p, d,
-                                      False))
+
+    def conv_cases(dtype):
+        """The six conv kernels' cases in `dtype`: the paths' shapes and the
+        plans' ragged edges, each race point's pick under its case name."""
+        out, kw = [], dict(dtype=dtype)
+        for Bs in (SLOT_BATCH, 64):
+            path = Bs == SLOT_BATCH
+            for r in (1, 2, 4):   # ASPP branches: 3x3, S=1, P=D=r, 3 -> 16
+                out.append(fwd_case(f"aspp_rate{r}_B{Bs}", Bs, (128, 128), 3,
+                                    16, 3, 1, r, r, relu, path, timed=True,
+                                    **kw))
+            # The generator's layers on both kernels of the phase /
+            # implicit-GEMM race: the arm tiling.plan_strategy picks is the
+            # path's, the other is timed for the race.  Each kernel's row
+            # sums its three layers at the slot batch.
+            for layer, in_hw, n_out, cin, cout, act in GEN_TCONVS:
+                ep = Epilogue(activation=act)
+                point = tag(f"{layer}_B{Bs}", dtype)
+                picks[point] = tiling.plan_strategy(
+                    "input_grad", ConvSpec.make(stride=2, padding=1,
+                                                filter_shape=4),
+                    x_shape=(Bs, *n_out, cin), dy_shape=(Bs, *in_hw, cout),
+                    epilogue=ep, dtype=dtype)[0]
+                for arm, kernel in TCONV_KERNELS.items():
+                    out.append(tconv_case(
+                        kernel, f"{layer}_B{Bs}_{arm}", Bs, in_hw, n_out, cin,
+                        cout, 4, 2, 1, 1, ep, path, timed=True, **kw)
+                        | {"race": point})
+        for name, hw, cin, cout, k, ep in direct:
+            out.append(fwd_case(f"{name}_B{B}", B, hw, cin, cout, k, 2, 1, 1,
+                                ep, False, timed=True, **kw))
+            out.append(backward_case(f"{name}_B{B}", B, hw, cin, cout, k, 2,
+                                     1, 1, ep, True, **kw))
+            out.append(filter_grad_case(f"{name}_B{B}", B, hw, cin, cout, k,
+                                        2, 1, 1, True, **kw))
+        for name, hw, cin, cout, ep in gen_layers:
+            out.append(ct_backward_case(f"{name}_B{B}", B, hw, cin, cout, 4,
+                                        2, 1, 1, ep, True, **kw))
+        # Ragged geometries: bias fills, non-exact n_out, residues no tap
+        # reaches (S=3 > K=2), stride and dilation sharing a factor,
+        # channels that are not a multiple of the 32-lane reduction tile.
+        out.append(fwd_case("ragged_fwd", 3, (37, 29), 5, 7, (3, 2), (2, 1),
+                            (1, 2), (2, 3), ragged_ep, False, **kw))
+        # The forwards' plan edges: reductions split over CTAs whose chunks
+        # do not divide them (3 x 3 taps x 72 = 648, 14 ways of 48; the
+        # tconv's longest class 4 taps x 72 = 288, 9 ways of 32), and
+        # ragged channels (Cin 130, Cout 37) on both forward kernels.
+        out.append(fwd_case("fwd_split_k648", 2, (8, 8), 72, 24, 3, 1, 1, 1,
+                            ragged_ep, False, **kw))
+        out.append(fwd_case("ragged_channels", 2, (9, 9), 130, 37, 3, 2, 1,
+                            1, ragged_ep, False, **kw))
+        for kernel in ("tconv_phase", "tconv_implicit_gemm"):
+            # On the implicit GEMM: Cout over one chunk (72, 37; two
+            # stages) and Cin over one thread's register tile (24, 130).
+            out.append(tconv_case(kernel, "tconv_split_k648", 2, (4, 4),
+                                  (8, 8), 24, 72, 3, 2, 1, 1, ragged_ep,
+                                  False, **kw))
+            out.append(tconv_case(kernel, "ragged_channels", 2, (5, 5),
+                                  (9, 9), 130, 37, 3, 2, 1, 1, ragged_ep,
+                                  False, **kw))
+            out.append(tconv_case(kernel, "ragged_s3k2", 3, (5, 6), (14, 12),
+                                  5, 7, (2, 3), (3, 2), (1, 1), 1, ragged_ep,
+                                  False, **kw))
+            out.append(tconv_case(kernel, "ragged_s2d2", 2, (6, 5), (14, 14),
+                                  4, 6, 3, 2, 1, (2, 3), ragged_ep, False,
+                                  **kw))
+        # The backward plan's edges: 1183 positions, which the dW split
+        # count does not divide, and Cin = 3 at B = 16 (ragged_channels is
+        # the third).
+        ragged = [("ragged_s3k2", 3, (14, 12), 5, 7, (2, 3), (3, 2), (1, 1),
+                   1),
+                  ("ragged_s2d2", 2, (14, 14), 4, 6, 3, 2, 1, (2, 3)),
+                  ("ragged_channels", 2, (9, 9), 130, 37, 3, 2, 1, 1),
+                  ("positions_1183", 7, (26, 26), 8, 16, 3, 2, 1, 1),
+                  ("cin3_b16", 16, (32, 32), 3, 32, 4, 2, 1, 1)]
+        for name, Bs, hw, cin, cout, k, s, p, d in ragged:
+            out.append(backward_case(name, Bs, hw, cin, cout, k, s, p, d,
+                                     ragged_ep, False, **kw))
+            out.append(ct_backward_case(name, Bs, hw, cin, cout, k, s, p, d,
+                                        ragged_ep, False, **kw))
+            out.append(filter_grad_case(name, Bs, hw, cin, cout, k, s, p, d,
+                                        False, **kw))
+        return out
+
+    cases += conv_cases(torch.float32)
     # Phase 8's geometries, held here before it trains on them: the atrous
     # head's branches (3 -> 16, D = P = 1, 2, 4, relu; the dx tile at N =
     # 3 with dilation) forward and backward, its 1x1 fuse conv's backward
@@ -3817,6 +3882,14 @@ def main() -> int:
                                     timed=True,
                                     w_scale=1.0 / math.sqrt(k * k * m))
                          | {"race": name})
+    # The same conv cases on the kernels' bf16 entries, and the atrous
+    # branches in bf16 (phase 8 trains them in fp32).
+    cases += conv_cases(torch.bfloat16)
+    for r in (1, 2, 4):
+        for make in (fwd_case, backward_case):
+            cases.append(make(f"atrous_rate{r}_B{ATROUS_BATCH}", ATROUS_BATCH,
+                              (ATROUS_SIZE, ATROUS_SIZE), 3, 16, 3, 1, r, r,
+                              relu, False, timed=True, dtype=torch.bfloat16))
 
     def attention_case(name, B, Sq, Sk, Hq, Hk, D, causal, dtype, path,
                        timed=False, cache_len=0):
@@ -4043,17 +4116,22 @@ def main() -> int:
 
     def max_err(got, want, what, tol=TOL):
         """Largest |got - want|; raises unless every pair is allclose at
-        `tol` (one number for atol and rtol, or a pair (atol, rtol))."""
-        atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
+        `tol` (one number for atol and rtol, a pair (atol, rtol), or
+        (atol, rtol, "of max"): atol times want's largest magnitude) and
+        of one dtype."""
+        atol, rtol, *rel = tol if isinstance(tol, tuple) else (tol, tol)
         got, want = as_tuple(got), as_tuple(want)
         if len(got) != len(want):
             raise AssertionError(f"{what}: {len(got)} outputs, expected "
                                  f"{len(want)}")
         err = 0.0
         for a, b in zip(got, want):
+            if rel and a.dtype != b.dtype:
+                raise AssertionError(f"{what}: dtype {a.dtype} vs {b.dtype}")
             a, b = a.float(), b.float()
-            if a.shape != b.shape or not torch.allclose(a, b, atol=atol,
-                                                        rtol=rtol):
+            scale = b.abs().max().item() if rel and b.numel() else 1.0
+            if a.shape != b.shape or not torch.allclose(
+                    a, b, atol=atol * scale, rtol=rtol):
                 raise AssertionError(
                     f"{what}: shape {tuple(a.shape)} vs {tuple(b.shape)}, "
                     f"max |err| {(a - b).abs().max().item():.3e}")
@@ -4069,8 +4147,9 @@ def main() -> int:
         torch.cuda.current_stream().cuda_stream)))
     print("launch floor " + json.dumps({"empty_kernel_ms": floor_ms,
                                         "card": card}))
-    kernels, race = {}, {}
+    kernels, race, bf16_launches = {}, {}, {}
     for c in cases:
+        before = dict(ops.LAUNCHES)
         if "check" in c:
             c["check"]()
         got = c["run"]()
@@ -4101,12 +4180,18 @@ def main() -> int:
                        bound_ms=b_ms, bound_by=b_by, macs=c["macs"],
                        nbytes=c["nbytes"])
         print("case " + json.dumps(row))
+        if c.get("dtype") == "bf16":   # every launch the case made
+            for name, n in ops.LAUNCHES.items():
+                bf16_launches[name] = bf16_launches.get(name, 0) + n \
+                    - before[name]
         if "race" in c:
             point = race.setdefault(c["race"], {"pick": picks[c["race"]]})
             point[c["kernel"]] = row["ms"]
             point["library"], point["bound"] = row["library_ms"], \
                 row["bound_ms"]
-        k = kernels.setdefault(c["kernel"], dict(
+        # A conv kernel's bf16 cases sum into a row of their own.
+        row_name = c["kernel"] + ("_bf16" if c.get("dtype") == "bf16" else "")
+        k = kernels.setdefault(row_name, dict(
             name=c["kernel"], max_abs_err=0.0, ms=0.0, plain_ms=0.0,
             library_ms=0.0, bound_ms=0.0, by={"bytes": 0.0,
                                                "operations": 0.0}))
@@ -4119,11 +4204,13 @@ def main() -> int:
         ms = {arm: point[kernel] for arm, kernel in TCONV_KERNELS.items()}
         point["miss"] = ms[point["pick"]] > MISS_RATIO * min(ms.values())
     print("race " + json.dumps(race | {"card": card}))
-    print(f"kernels: all {len(kernels)} agree with their plain versions "
-          f"and the library within {TOL:g} at every case (flash attention "
-          f"in bf16, (atol, rtol): {ATTN_TOL[torch.bfloat16]} against the "
-          f"plain version, {ATTN_LIB_TOL[torch.bfloat16]} against the "
-          f"library)")
+    print(f"kernels: all {len(kernels)} (the six conv kernels' bf16 entries "
+          f"counted apart) agree with their plain versions and the library "
+          f"within {TOL:g} at every case (flash attention in bf16, (atol, "
+          f"rtol): {ATTN_TOL[torch.bfloat16]} against the plain version, "
+          f"{ATTN_LIB_TOL[torch.bfloat16]} against the library; the conv "
+          f"kernels in bf16 {BF16_TOL} and {BF16_LIB_TOL})")
+    print("phase 3 bf16 launches " + json.dumps(bf16_launches))
     mark("3")
 
     # -- phase 4: serve at the published widths --------------------------------
@@ -4211,7 +4298,7 @@ def main() -> int:
         ("sgd_step", cnn_step, cnn.simple_cnn_init(gen, device=dev),
          ConvDataset(kind="cnn", batch=B, image=32, seed=0)),
     ]
-    train_launches, trained = {}, []
+    train_launches, trained, fp32_ms = {}, [], {}
     for step_name, step, state, ds in models:
         cpu_state = tree_map(lambda t: t.to(cpu), state)
         step_ms, worst = [], 0.0
@@ -4261,6 +4348,7 @@ def main() -> int:
                   f"{[round(float(v), 6) for v in losses]}, "
                   f"{step_ms[-1]:.3f} ms")
         steady = sum(step_ms[1:]) / (len(step_ms) - 1)
+        fp32_ms[step_name] = steady
         print("train " + json.dumps({
             "step": step_name, "batch": B, "steps": TRAIN_STEPS,
             "ms_per_step": steady, "images_per_s": B / steady * 1e3,
@@ -4278,6 +4366,91 @@ def main() -> int:
         print("train profile " + json.dumps(
             {"step": step_name, "batch": B}
             | train_profile(step, state, batches) | {"card": card}))
+
+    # (b) the same steps in bf16: every param and the batch cast to bf16
+    # (the same draws as (a)'s), held against the same bf16 steps through
+    # the plain versions on the CPU.
+    def bf16(tree):
+        return tree_map(lambda t: t.to(torch.bfloat16)
+                        if t.is_floating_point() else t, tree)
+
+    gen = torch.Generator().manual_seed(2024)
+    models = [
+        ("gan_sgd_step", gan_step,
+         bf16(gan.gan_init(gen, z_dim=64, base=64, ch=3, device=dev)),
+         ConvDataset(kind="gan", batch=B, image=32, z_dim=64, seed=0)),
+        ("sgd_step", cnn_step, bf16(cnn.simple_cnn_init(gen, device=dev)),
+         ConvDataset(kind="cnn", batch=B, image=32, seed=0)),
+    ]
+    train_launches_bf16 = {}
+    for step_name, step, state, ds in models:
+        cpu_state = tree_map(lambda t: t.to(cpu), state)
+        step_ms, worst = [], 0.0
+        for i in range(TRAIN_STEPS_BF16):
+            on_cpu = bf16({k: torch.from_numpy(v)
+                           for k, v in ds.batch_at(i).items()})
+            on_dev = {k: v.to(dev) for k, v in on_cpu.items()}
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            ops.reset_launches()
+            start.record()
+            new, losses = step(state, on_dev)
+            end.record()
+            end.synchronize()
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            if launches != STEP_LAUNCHES[step_name]:
+                raise AssertionError(f"{step_name} bf16 step {i + 1}: "
+                                     f"launches {launches}, expected "
+                                     f"{STEP_LAUNCHES[step_name]}")
+            for name, n in launches.items():
+                train_launches_bf16[name] = \
+                    train_launches_bf16.get(name, 0) + n
+            step_ms.append(start.elapsed_time(end))
+            if i == 0:   # the same step from the same state, bit for bit
+                again, again_losses = step(state, on_dev)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves((new, losses)),
+                        tree_leaves((again, again_losses)))):
+                    raise AssertionError(f"{step_name}: bf16 step 1 repeated "
+                                         f"on the card is not bit-identical")
+            cpu_new, cpu_losses = step(cpu_state, on_cpu)
+            got = [t.to(cpu) for t in tree_leaves((new, losses))]
+            want = tree_leaves((cpu_new, cpu_losses))
+            for a, b in zip(got, want):
+                a, b = a.float(), b.float()
+                big = b.abs().max().item()
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"{step_name} bf16 step {i + 1}: a "
+                                         f"non-finite value on the card")
+                if a.shape != b.shape or not torch.allclose(
+                        a, b, atol=TRAIN_TOL_BF16 * big,
+                        rtol=TRAIN_TOL_BF16):
+                    raise AssertionError(
+                        f"{step_name} bf16 step {i + 1}: max |err| "
+                        f"{(a - b).abs().max().item():.3e} against the plain "
+                        f"versions on the CPU, largest |value| {big:.3e}")
+                worst = max(worst, (a - b).abs().max().item() / max(big,
+                                                                    1e-30))
+            if not all(t.dtype == torch.bfloat16 for t in got):
+                raise AssertionError(f"{step_name} bf16 step {i + 1}: an "
+                                     f"output not in bf16")
+            state, cpu_state = new, cpu_new
+            print(f"train bf16 {step_name} step {i + 1}: losses "
+                  f"{[float(v) for v in losses]}, {step_ms[-1]:.3f} ms")
+        steady = sum(step_ms[1:]) / (len(step_ms) - 1)
+        print("train bf16 " + json.dumps({
+            "step": step_name, "batch": B, "steps": TRAIN_STEPS_BF16,
+            "ms_per_step": steady, "fp32_ms_per_step": fp32_ms[step_name],
+            "first_step_ms": step_ms[0],
+            "max_err_of_leaf_max_vs_cpu": worst,
+            "launches_per_step": STEP_LAUNCHES[step_name], "card": card}))
+    print(f"train bf16: {TRAIN_STEPS_BF16} gan_sgd_step + "
+          f"{TRAIN_STEPS_BF16} sgd_step at batch {B} in bf16 equal the "
+          f"plain versions on the CPU within {TRAIN_TOL_BF16:g} of each "
+          f"leaf's largest magnitude after every step; step 1 repeats bit "
+          f"for bit")
+    print("train bf16 launches " + json.dumps(train_launches_bf16))
     mark("5")
 
     # -- phase 6: LM serving ---------------------------------------------------
@@ -4491,6 +4664,17 @@ def main() -> int:
         rows[-1]["launches_phase_12"] = embed_launches.get(name, 0) \
             + mesh_launches.get(name, 0)
         rows[-1]["launches_phase_13"] = lm_mesh_launches.get(name, 0)
+        kb = kernels.get(name + "_bf16")
+        if kb is not None:   # the conv kernels' bf16 entries
+            rows[-1].update(
+                launches_bf16=train_launches_bf16.get(name, 0)
+                + bf16_launches.get(name, 0),
+                launches_bf16_path=train_launches_bf16.get(name, 0),
+                launches_bf16_phase_3=bf16_launches.get(name, 0),
+                max_abs_err_bf16=kb["max_abs_err"], ms_bf16=kb["ms"],
+                plain_ms_bf16=kb["plain_ms"], bound_ms_bf16=kb["bound_ms"],
+                bound_by_bf16=max(kb["by"], key=kb["by"].get),
+                library_ms_bf16=kb["library_ms"])
     print(json.dumps({"kernels": rows}))
     print(card)        # exactly as nvidia-smi gives name and power limit
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,10 @@ Each form is a `torch.autograd.Function` -- the port of `repro`'s
 backends compose the same math.  The Functions save what `repro` saves:
 (x, w) or (dy, w), plus the forward output when the epilogue's
 activation needs it for its mask (act' is read from the output), and
-nothing is modified in place after it is saved.
+nothing is modified in place after it is saved.  Each gradient comes
+back in its operand's dtype (the bias gradient in the cotangent's), as
+`repro`'s VJPs cast it: with bf16 operands the `cuda` backend's kernels
+already give bf16.
 
 The backend comes from `dispatch_backend` at every op: under a
 multi-rank `parallel.sharding.use_mesh` the operands may be DTensors,
@@ -31,6 +34,15 @@ import torch
 
 from repro_torch.core.spec import ConvSpec, Epilogue, dispatch_backend
 from repro_torch.parallel.sharding import conform
+
+
+def _grad(g, like, dtype=None):
+    """Gradient g in `dtype` (default `like`'s), laid out as the input
+    `like` it belongs to."""
+    dtype = like.dtype if dtype is None else dtype
+    if g is not None and g.dtype != dtype:
+        g = g.to(dtype)
+    return conform(g, like)
 
 
 def _normalize_epilogue(epilogue, bias):
@@ -60,7 +72,7 @@ class _ConvPlain(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx, dw = ctx.be.backward(x, g, w, ctx.spec, (x.shape[1], x.shape[2]))
-        return conform(dx, x), conform(dw, w), None, None
+        return _grad(dx, x), _grad(dw, w), None, None
 
 
 class _ConvEp(torch.autograd.Function):
@@ -79,7 +91,7 @@ class _ConvEp(torch.autograd.Function):
         x, w, y = ctx.saved_tensors
         dx, dw, db = ctx.be.backward_ep(x, y, g, w, ctx.spec,
                                         (x.shape[1], x.shape[2]), ctx.ep)
-        return (conform(dx, x), conform(dw, w), conform(db, ctx.b), None,
+        return (_grad(dx, x), _grad(dw, w), _grad(db, ctx.b, g.dtype), None,
                 None, None)
 
 
@@ -98,7 +110,7 @@ class _ConvTranspose(torch.autograd.Function):
     def backward(ctx, g):
         dy, w = ctx.saved_tensors
         ddy, dw = ctx.be.ct_backward(g, dy, w, ctx.spec)
-        return conform(ddy, dy), conform(dw, w), None, None, None
+        return _grad(ddy, dy), _grad(dw, w), None, None, None
 
 
 class _ConvTransposeEp(torch.autograd.Function):
@@ -116,8 +128,8 @@ class _ConvTransposeEp(torch.autograd.Function):
     def backward(ctx, g):
         dy, w, z = ctx.saved_tensors
         ddy, dw, db = ctx.be.ct_backward_ep(g, z, dy, w, ctx.spec, ctx.ep)
-        return (conform(ddy, dy), conform(dw, w), conform(db, ctx.b), None,
-                None, None, None)
+        return (_grad(ddy, dy), _grad(dw, w), _grad(db, ctx.b, g.dtype),
+                None, None, None, None)
 
 
 def ecoflow_conv(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,

@@ -1,28 +1,46 @@
 // Shared by the kernels of this directory: the C entry that names a CUDA
 // error for the Python wrappers, a divider by a launch's fixed divisor,
-// and the elementwise tail fused into every conv kernel,
-// y = act(scale * acc + bias), in the order of
+// the conv kernels' element types (fp32 or bf16 in device memory, always
+// fp32 in registers), and the elementwise tail fused into every conv
+// kernel, y = act(scale * acc + bias), in the order of
 // repro_torch.core.spec.Epilogue.apply -- scale, then bias, then the
 // activation -- applied to the fp32 accumulator in registers before the
 // one store of each output element.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+// An operand element widened to fp32 (exact for bf16), and an fp32 value
+// stored as an output element: bf16 rounds once, to nearest even, as
+// torch's .to(torch.bfloat16) does.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 enum EpilogueAct { ACT_NONE = 0, ACT_RELU = 1, ACT_LEAKY_RELU = 2, ACT_TANH = 3 };
 
-struct EpilogueArgs {
-  const float* bias;  // per output channel, or nullptr
+// E is the bias's element type, the launch's operand type.
+template <class E>
+struct EpilogueArgsT {
+  const E* bias;      // per output channel, or nullptr
   int act;            // EpilogueAct
   float slope;        // leaky_relu negative slope
   int has_scale;
   float scale;
 };
+using EpilogueArgs = EpilogueArgsT<float>;
 
+template <class E>
 __device__ __forceinline__ float apply_epilogue(float v, int c,
-                                                const EpilogueArgs& ep) {
+                                                const EpilogueArgsT<E>& ep) {
   if (ep.has_scale) v *= ep.scale;
-  if (ep.bias != nullptr) v += ep.bias[c];
+  if (ep.bias != nullptr) v += to_f32(ep.bias[c]);
   switch (ep.act) {
     // `v < 0 ? 0 : v` rather than fmaxf: a NaN stays NaN, as in
     // torch.clamp_min, so the serving engine's NaN guard still sees it.
@@ -34,11 +52,12 @@ __device__ __forceinline__ float apply_epilogue(float v, int c,
   return v;
 }
 
-static inline EpilogueArgs make_epilogue(const void* bias, int act,
-                                         float slope, int has_scale,
-                                         float scale) {
-  EpilogueArgs ep;
-  ep.bias = static_cast<const float*>(bias);
+template <class E = float>
+static inline EpilogueArgsT<E> make_epilogue(const void* bias, int act,
+                                             float slope, int has_scale,
+                                             float scale) {
+  EpilogueArgsT<E> ep;
+  ep.bias = static_cast<const E*>(bias);
   ep.act = act;
   ep.slope = slope;
   ep.has_scale = has_scale;

@@ -1,5 +1,7 @@
-// Fused dual-gradient backward of a direct / dilated conv, fp32: dx, dW
-// and (with a bias) db from ONE launch.
+// Fused dual-gradient backward of a direct / dilated conv, fp32 or bf16
+// (conv_backward_f32 / conv_backward_bf16: bf16 operands and outputs,
+// fp32 sums and mask, one rounding at each store -- conv_body.cuh's
+// element types): dx, dW and (with a bias) db from ONE launch.
 //
 // Replaces repro/kernels/dconv_backward.py::conv_backward_pallas (body
 // _bwd_kernel).  For the forward y = ep(conv(x, W)) with cotangent dy:
@@ -44,30 +46,31 @@
 #include "common.cuh"
 #include "conv_body.cuh"
 
+template <class E>
 struct BwdArgs {
-  Masked cot;        // scale * dy * act'(y)
-  Masked mask_only;  // dy * act'(y)
-  const float* x;
-  const float* w;
-  float* dx;
-  float* dw;
-  float* db;
+  MaskedT<E> cot;        // scale * dy * act'(y)
+  MaskedT<E> mask_only;  // dy * act'(y)
+  const E* x;
+  const E* w;
+  E* dx;
+  E* dw;
+  E* db;
   ConvGeom gx, gdx;  // the x frame and the dx frame (n_out)
   PhaseGeom t;
   GeomDiv fd;        // of gx; dx uses its Cout, which gdx shares
   RoleGrid grid;
 };
 
-template <class TD, class TW>
+template <class TD, class TW, class E>
 __global__ void __launch_bounds__(kGemmThreads)
-    conv_backward_kernel(const BwdArgs a) {
+    conv_backward_kernel(const BwdArgs<E> a) {
   extern __shared__ __align__(16) float smem[];
   int tile;
   Split sp;
   const int role = role_of<TW::BM * TW::BN, TD::BM * TD::BN>(a.grid, &tile,
                                                              &sp);
   if (role == 0)
-    dw_tile<TW>(Plain{a.x}, a.cot, a.dw, a.gx, a.fd, tile, sp, smem);
+    dw_tile<TW>(PlainT<E>{a.x}, a.cot, a.dw, a.gx, a.fd, tile, sp, smem);
   else if (role == 1)
     channel_sum(a.mask_only, a.db, a.gx.B * a.gx.Oh * a.gx.Ow, a.gx.Cout,
                 tile, sp, smem);
@@ -75,25 +78,24 @@ __global__ void __launch_bounds__(kGemmThreads)
     dx_tile<TD>(a.cot, a.w, a.dx, a.gdx, a.t, a.fd, tile, sp, smem);
 }
 
-// x (B,Nh_x,Nw_x,Cin), dy and y (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout) ->
-// dx (B,Nh,Nw,Cin), dw (Kh,Kw,Cin,Cout), db (Cout,); all fp32,
-// contiguous.  y == nullptr means no activation; db == nullptr means no
-// bias (its role is not launched).  (Nh, Nw) is the dx frame, n_out; the
-// tap-phase bookkeeping comes from ConvSpec on the host; the tiles (ids),
-// splits and dW chunk from the plan, with a workspace of ws_floats floats
-// and n_tickets ints that are 0 (and are 0 again after the launch).
-// Returns the launch's CUDA error (cudaErrorInvalidValue for a plan, a
-// workspace or a size it cannot take).
-extern "C" int conv_backward_f32(
-    const void* x, const void* dy, const void* y, const void* w, void* dx,
-    void* dw, void* db, int B, int Nh_x, int Nw_x, int Cin, int Oh, int Ow,
-    int Cout, int Kh, int Kw, int Nh, int Nw, int sh, int sw, int ph, int pw,
-    int dil_h, int dil_w, int per_h, int per_w, int step_h, int step_w,
-    int TPh, int TPw, int act, float slope, int has_scale, float scale,
-    int tile, int splits, int dw_tile, int dw_splits,
-    int chunk, void* ws, int64_t ws_floats, void* tickets, int n_tickets,
-    void* stream) {
-  BwdArgs a;
+#define BWD_PARAMS                                                           \
+  const void *x, const void *dy, const void *y, const void *w, void *dx,   \
+      void *dw, void *db, int B, int Nh_x, int Nw_x, int Cin, int Oh,      \
+      int Ow, int Cout, int Kh, int Kw, int Nh, int Nw, int sh, int sw,    \
+      int ph, int pw, int dil_h, int dil_w, int per_h, int per_w,          \
+      int step_h, int step_w, int TPh, int TPw, int act, float slope,      \
+      int has_scale, float scale, int tile, int splits, int dw_tile,       \
+      int dw_splits, int chunk, void *ws, int64_t ws_floats,               \
+      void *tickets, int n_tickets, void *stream
+#define BWD_ARGS                                                             \
+  x, dy, y, w, dx, dw, db, B, Nh_x, Nw_x, Cin, Oh, Ow, Cout, Kh, Kw, Nh,    \
+      Nw, sh, sw, ph, pw, dil_h, dil_w, per_h, per_w, step_h, step_w, TPh,  \
+      TPw, act, slope, has_scale, scale, tile, splits, dw_tile, dw_splits,  \
+      chunk, ws, ws_floats, tickets, n_tickets, stream
+
+template <class E>
+static int conv_backward(BWD_PARAMS) {
+  BwdArgs<E> a;
   a.gx = make_geom(B, Nh_x, Nw_x, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw,
                    dil_h, dil_w);
   a.gdx = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw,
@@ -106,13 +108,13 @@ extern "C" int conv_backward_f32(
       !fits_int((long long)B * Nh * Nw * Cin) ||
       !fits_int(positions * Cout) || !fits_int((long long)Kh * Kw * Cin * Cout))
     return (int)cudaErrorInvalidValue;
-  a.cot = make_masked(dy, y, act, slope, has_scale ? scale : 1.0f);
-  a.mask_only = make_masked(dy, y, act, slope, 1.0f);
-  a.x = static_cast<const float*>(x);
-  a.w = static_cast<const float*>(w);
-  a.dx = static_cast<float*>(dx);
-  a.dw = static_cast<float*>(dw);
-  a.db = static_cast<float*>(db);
+  a.cot = make_masked<E>(dy, y, act, slope, has_scale ? scale : 1.0f);
+  a.mask_only = make_masked<E>(dy, y, act, slope, 1.0f);
+  a.x = static_cast<const E*>(x);
+  a.w = static_cast<const E*>(w);
+  a.dx = static_cast<E*>(dx);
+  a.dw = static_cast<E*>(dw);
+  a.db = static_cast<E*>(db);
   int bm, bn;
   tile_extent(dw_tile, &bm, &bn);
   const long long n_dw =
@@ -142,8 +144,29 @@ extern "C" int conv_backward_f32(
       using TD = decltype(td);
       using TW = decltype(tw);
       constexpr int floats = cmax(
-          cmax(dw_smem_floats<TW, Plain, Masked>(), dx_smem_floats<TD, Masked>()), kSumSmemFloats);
-      return launch_roles<conv_backward_kernel<TD, TW>>(blocks, floats, a, s);
+          cmax(dw_smem_floats<TW, PlainT<E>, MaskedT<E>>(),
+               dx_smem_floats<TD, MaskedT<E>>()),
+          kSumSmemFloats);
+      return launch_roles<conv_backward_kernel<TD, TW, E>>(blocks, floats, a,
+                                                           s);
     });
   });
+}
+
+// x (B,Nh_x,Nw_x,Cin), dy and y (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout) ->
+// dx (B,Nh,Nw,Cin), dw (Kh,Kw,Cin,Cout), db (Cout,); all fp32 (_f32) or
+// all bf16 (_bf16), contiguous.  y == nullptr means no activation; db ==
+// nullptr means no bias (its role is not launched).  (Nh, Nw) is the dx
+// frame, n_out; the tap-phase bookkeeping comes from ConvSpec on the
+// host; the tiles (ids), splits and dW chunk from the plan, with a
+// workspace of ws_floats floats and n_tickets ints that are 0 (and are 0
+// again after the launch).  Returns the launch's CUDA error
+// (cudaErrorInvalidValue for a plan, a workspace or a size it cannot
+// take).
+extern "C" int conv_backward_f32(BWD_PARAMS) {
+  return conv_backward<float>(BWD_ARGS);
+}
+
+extern "C" int conv_backward_bf16(BWD_PARAMS) {
+  return conv_backward<__nv_bfloat16>(BWD_ARGS);
 }

@@ -16,6 +16,21 @@
 // masked cotangent is never written to device memory (the Pallas
 // backwards kept it in VMEM the same way).
 //
+// Element types.  Each reader, and so each role, is templated on the
+// element type E of the launch's operands and outputs: float, or
+// __nv_bfloat16 (every operand of one launch shares it, as in repro).
+// Shared memory, the register micro-tiles and the split workspace stay
+// fp32 whatever E is: a bf16 element is widened (exactly) as it enters
+// its stage, every sum runs in fp32, and each output is rounded to E
+// once, in its final store (store_f32) -- where repro's kernels cast
+// their fp32 accumulators back to the operand dtype.  A bias is read
+// through the epilogue in E.  A masked bf16 cotangent is formed in fp32
+// from the widened v and y (act'(y) * v * scale, one fp32 value per
+// element), not rounded to bf16 first as repro's dy * act'(y) is: the
+// plain versions form it the same way, so kernel and plain version round
+// once each from fp32 sums that differ only in order (one bf16 ulp),
+// and both stay within repro's 5e-2.
+//
 // Every sum runs in a fixed order and no output is written by atomics, so
 // the same inputs give the same bits.
 #pragma once
@@ -61,13 +76,17 @@ static inline PhaseGeom make_phase_geom(int per_h, int per_w, int step_h,
   return t;
 }
 
-struct Plain {
+template <class E>
+struct PlainT {
+  using Elem = E;
   static constexpr bool kMasked = false;
-  const float* v;
+  static constexpr int kPlanes = 1;   // stage planes (Slab::stage_floats)
+  const E* v;
   __device__ __forceinline__ float operator()(long long i) const {
-    return __ldg(v + i);
+    return to_f32(__ldg(v + i));
   }
 };
+using Plain = PlainT<float>;
 
 // v * act'(y) * scale, in Epilogue.mask_cotangent's order, where act' is
 // read from the activation OUTPUT y (Epilogue.grad_factor): relu
@@ -75,10 +94,15 @@ struct Plain {
 // is formed with selects, not branches, so the loads of an unrolled loop
 // stay independent and in flight together.  With no activation y points
 // at v and the factor is y > 0 ? 1 : 1; scale 1 means none.
-struct Masked {
+// An fp32 masked operand stages y in a second plane beside v; a bf16
+// one forms the product in registers before its stage (Stager).
+template <class E>
+struct MaskedT {
+  using Elem = E;
   static constexpr bool kMasked = true;
-  const float* v;
-  const float* y;
+  static constexpr int kPlanes = sizeof(E) == 4 ? 2 : 1;
+  const E* v;
+  const E* y;
   float below;   // act' where y <= 0 (relu 0, leaky_relu slope, none 1)
   int is_tanh;
   float scale;
@@ -87,16 +111,18 @@ struct Masked {
     return f * g * scale;
   }
   __device__ __forceinline__ float operator()(long long i) const {
-    return apply(__ldg(v + i), __ldg(y + i));
+    return apply(to_f32(__ldg(v + i)), to_f32(__ldg(y + i)));
   }
 };
+using Masked = MaskedT<float>;
 
-static inline Masked make_masked(const void* v, const void* y, int act,
-                                 float slope, float scale) {
-  Masked m;
+template <class E = float>
+static inline MaskedT<E> make_masked(const void* v, const void* y, int act,
+                                     float slope, float scale) {
+  MaskedT<E> m;
   const bool has_y = y != nullptr && act != ACT_NONE;
-  m.v = static_cast<const float*>(v);
-  m.y = static_cast<const float*>(has_y ? y : v);
+  m.v = static_cast<const E*>(v);
+  m.y = static_cast<const E*>(has_y ? y : v);
   m.below = !has_y ? 1.0f : act == ACT_RELU ? 0.0f
             : act == ACT_LEAKY_RELU ? slope : 1.0f;
   m.is_tanh = has_y && act == ACT_TANH;
@@ -122,6 +148,20 @@ static inline Masked make_masked(const void* v, const void* y, int act,
 // past the range are cp.async's zero fill, so the inner loop has no
 // branch.  Each role is this engine with its own two loaders (the
 // "gathers" of its implicit GEMM) and its own store.
+//
+// bf16 operands.  cp.async copies 4, 8 or 16 bytes, never the 2 of one
+// bf16 element, and a stage holds fp32.  Of the two ways to stage bf16
+// -- a predicated __ldg of each element, widened and stored to the
+// stage; or cp.async of channel pairs where the channel count is even
+// and the offset 4-byte aligned, with a scalar path for the rest --
+// the engine takes the first (Stager<..., __nv_bfloat16>): one path for
+// every geometry (Cin 3, Cin 130 / Cout 37, taps straddling a pair), no
+// bf16 plane in shared memory and no second fix-up pass.  Its loads keep
+// the ring's overlap all the same: the loads of slab s + kStages - 1 are
+// issued into registers before slab s's FMAs (fetch) and widened, masked
+// and stored to their stage after them (settle), the register
+// double-buffering of pre-cp.async GEMMs.  It reads half the bytes of
+// fp32 from device memory and does the same fp32 FMAs.
 
 constexpr int kGemmThreads = 256;
 constexpr int kBK = 16;         // reduction depth of one slab
@@ -186,30 +226,73 @@ struct Slab {
   __device__ static bool live(int q) { return e(q) < kElems; }
   __device__ static int at(int q) { return k_of(q) * kPitch + x_of(q); }
   // Floats of one stage of an operand read through R: v, and y after it
-  // for a masked operand.
+  // for an fp32 masked operand.
   template <class R>
   __host__ __device__ static constexpr int stage_floats() {
-    return kBK * kPitch * (R::kMasked ? 2 : 1);
+    return kBK * kPitch * R::kPlanes;
   }
-  // Copy element q, r's v (and y) at `off`, into stage s; zeros when
-  // !valid.
-  template <class R>
-  __device__ static void put(float* s, int q, const R& r, long long off,
-                             bool valid) {
-    cp_async4(s + at(q), r.v + (valid ? off : 0), valid);
+};
+
+// How a thread's elements of one operand reach a stage of Slab S through
+// reader R, by R's element type.  put(s, q, ...) starts element q's copy
+// into stage s (zeros when !valid); settle() finishes the copies after
+// the current slab's FMAs; fixup(s) finishes them once stage s has
+// landed, before the barrier that publishes it.
+template <class S, class R, class E = typename R::Elem>
+struct Stager {
+  // fp32: cp.async straight into the stage (y into the second plane of a
+  // masked operand), v * act'(y) * scale formed in place once landed.
+  __device__ __forceinline__ void put(float* s, int q, const R& r,
+                                      long long off, bool valid) {
+    cp_async4(s + S::at(q), r.v + (valid ? off : 0), valid);
     if constexpr (R::kMasked)
-      cp_async4(s + kBK * kPitch + at(q), r.y + (valid ? off : 0), valid);
+      cp_async4(s + kBK * S::kPitch + S::at(q), r.y + (valid ? off : 0),
+                valid);
   }
-  // Once this thread's copies of stage s have landed: v * act'(y) * scale
-  // in place for a masked operand.
-  template <class R>
-  __device__ static void fixup(float* s, const R& r) {
+  __device__ __forceinline__ void settle(const R&) {}
+  __device__ __forceinline__ void fixup(float* s, const R& r) const {
     if constexpr (R::kMasked) {
 #pragma unroll
-      for (int q = 0; q < kPer; ++q)
-        if (live(q)) s[at(q)] = r.apply(s[at(q)], s[kBK * kPitch + at(q)]);
+      for (int q = 0; q < S::kPer; ++q)
+        if (S::live(q))
+          s[S::at(q)] = r.apply(s[S::at(q)], s[kBK * S::kPitch + S::at(q)]);
     }
   }
+};
+
+template <class S, class R>
+struct Stager<S, R, __nv_bfloat16> {
+  // bf16: each element's bits into registers (a predicated 2-byte load),
+  // then widened -- v * act'(y) * scale for a masked operand -- and
+  // stored as fp32 to the stage.
+  unsigned short v[S::kPer];
+  unsigned short y[R::kMasked ? S::kPer : 1];
+  float* dst;
+  __device__ __forceinline__ static unsigned short bits(
+      const __nv_bfloat16* p, long long off, bool valid) {
+    return valid ? __ldg(reinterpret_cast<const unsigned short*>(p) + off)
+                 : (unsigned short)0;
+  }
+  __device__ __forceinline__ static float widen(unsigned short b) {
+    return __uint_as_float((unsigned)b << 16);
+  }
+  __device__ __forceinline__ void put(float* s, int q, const R& r,
+                                      long long off, bool valid) {
+    dst = s;
+    v[q] = bits(r.v, off, valid);
+    if constexpr (R::kMasked) y[q] = bits(r.y, off, valid);
+  }
+  __device__ __forceinline__ void settle(const R& r) {
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q) {
+      if (!S::live(q)) continue;
+      if constexpr (R::kMasked)
+        dst[S::at(q)] = r.apply(widen(v[q]), widen(y[q]));
+      else
+        dst[S::at(q)] = widen(v[q]);
+    }
+  }
+  __device__ __forceinline__ void fixup(float*, const R&) const {}
 };
 
 template <int N>
@@ -239,9 +322,10 @@ __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // acc = A[:, k_begin:k_end] . B[k_begin:k_end, :] for this CTA's tile, in
 // the fixed order k = k_begin, k_begin + 1, ...  `la` / `lb` start the
-// copies of a slab of A ([k][m]) and B ([k][n]) into a stage (`fetch`)
-// and finish a landed stage (`fixup`).  smem holds the ring
-// (ring_floats).  Every thread of the CTA calls it.
+// copies of a slab of A ([k][m]) and B ([k][n]) into a stage (`fetch`),
+// finish them after the current slab's FMAs (`settle`, bf16) and finish
+// a landed stage (`fixup`, fp32).  smem holds the ring (ring_floats).
+// Every thread of the CTA calls it.
 template <class T, class LA, class LB>
 __device__ __forceinline__ void gemm_mainloop(LA& la, LB& lb, int k_begin,
                                               int k_end,
@@ -260,6 +344,8 @@ __device__ __forceinline__ void gemm_mainloop(LA& la, LB& lb, int k_begin,
     if (s < slabs) {
       la.fetch(k_begin + s * kBK, k_end, smem + s * kStage);
       lb.fetch(k_begin + s * kBK, k_end, smem + s * kStage + LA::kStage);
+      la.settle();
+      lb.settle();
     }
     cp_async_commit();
   }
@@ -288,6 +374,12 @@ __device__ __forceinline__ void gemm_mainloop(LA& la, LB& lb, int k_begin,
 #pragma unroll
         for (int j = 0; j < T::TN; ++j)
           acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    // Stage `next` was last read at slab s - 1, before this slab's
+    // barrier; it is read again after slab next - 1's.
+    if (next < slabs) {
+      la.settle();
+      lb.settle();
     }
   }
   cp_async_wait<0>();
@@ -384,6 +476,7 @@ struct DwA {
   FastDiv fd_ow, fd_oh;
   int ci, offh, offw;
   bool mlive;
+  Stager<S, X> st;
   __device__ DwA(const X& x_, const ConvGeom& g_, FastDiv fd_cin,
                  FastDiv fd_kw, FastDiv ow, FastDiv oh, int m0)
       : x(x_), g(g_), fd_ow(ow), fd_oh(oh) {
@@ -395,7 +488,7 @@ struct DwA {
     offh = kx * g.dh - g.ph;
     offw = (tap - kx * g.Kw) * g.dw - g.pw;
   }
-  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) const {
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) {
 #pragma unroll
     for (int q = 0; q < S::kPer; ++q) {
       if (!S::live(q)) continue;
@@ -406,10 +499,11 @@ struct DwA {
       const int w = (p - bi * g.Ow) * g.sw + offw;
       const bool valid = mlive && p < k_end && h >= 0 && h < g.Nh &&
                          w >= 0 && w < g.Nw;
-      S::put(s, q, x, ((b * g.Nh + h) * g.Nw + w) * g.Cin + ci, valid);
+      st.put(s, q, x, ((b * g.Nh + h) * g.Nw + w) * g.Cin + ci, valid);
     }
   }
-  __device__ __forceinline__ void fixup(float* s) const { S::fixup(s, x); }
+  __device__ __forceinline__ void settle() { st.settle(x); }
+  __device__ __forceinline__ void fixup(float* s) const { st.fixup(s, x); }
 };
 
 // B[k][n] = V[k * N + n] of a (K, N) operand read along n: the dW
@@ -420,18 +514,20 @@ struct RowsB {
   static constexpr int kStage = S::template stage_floats<V>();
   V v;
   int N, n;
+  Stager<S, V> st;
   __device__ RowsB(const V& v_, int N_, int n0) : v(v_), N(N_) {
     n = n0 + S::x_of(0);
   }
-  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) const {
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) {
 #pragma unroll
     for (int q = 0; q < S::kPer; ++q) {
       if (!S::live(q)) continue;
       const int k = k0 + S::k_of(q);
-      S::put(s, q, v, (long long)k * N + n, n < N && k < k_end);
+      st.put(s, q, v, (long long)k * N + n, n < N && k < k_end);
     }
   }
-  __device__ __forceinline__ void fixup(float* s) const { S::fixup(s, v); }
+  __device__ __forceinline__ void settle() { st.settle(v); }
+  __device__ __forceinline__ void fixup(float* s) const { st.fixup(s, v); }
 };
 
 // Division constants of a launch's geometry, made on the host.
@@ -453,7 +549,7 @@ static inline GeomDiv make_geom_div(const ConvGeom& g) {
 // the positions of its chunk (split_range over B*Oh*Ow).
 template <class T, class X, class DY>
 __device__ __forceinline__ void dw_tile(const X& x, const DY& dy,
-                                        float* __restrict__ dw,
+                                        typename X::Elem* __restrict__ dw,
                                         const ConvGeom& g, const GeomDiv& fd,
                                         int tile, const Split& sp,
                                         float* smem) {
@@ -468,7 +564,7 @@ __device__ __forceinline__ void dw_tile(const X& x, const DY& dy,
   const int M = g.Kh * g.Kw * g.Cin;
   split_finish<T>(acc, sp, [&](int row, int col, float v) {
     const int m = m0 + row, n = n0 + col;
-    if (m < M && n < g.Cout) dw[m * g.Cout + n] = v;
+    if (m < M && n < g.Cout) store_f32(dw + m * g.Cout + n, v);
   });
 }
 
@@ -482,7 +578,8 @@ __device__ __forceinline__ void dw_tile(const X& x, const DY& dy,
 // floats each in ws) in split order.
 template <class V>
 __device__ __forceinline__ void channel_sum(const V& v,
-                                            float* __restrict__ out, int n,
+                                            typename V::Elem* __restrict__ out,
+                                            int n,
                                             int C, int tile, const Split& sp,
                                             float* smem) {
   const int ct = min(C, kGemmThreads), per = kGemmThreads / ct;
@@ -507,7 +604,7 @@ __device__ __forceinline__ void channel_sum(const V& v,
   if (threadIdx.x < ct)
     for (int q = 0; q < per; ++q) s += smem[q * ct + threadIdx.x];
   if (sp.splits == 1) {
-    if (threadIdx.x < ct && c < C) out[c] = s;
+    if (threadIdx.x < ct && c < C) store_f32(out + c, s);
     return;
   }
   if (threadIdx.x < ct)
@@ -517,7 +614,7 @@ __device__ __forceinline__ void channel_sum(const V& v,
     float t = 0.0f;
     for (int r = 0; r < sp.splits; ++r)
       t += __ldcg(sp.ws + r * kGemmThreads + threadIdx.x);
-    out[c] = t;
+    store_f32(out + c, t);
   }
   if (threadIdx.x == 0) *sp.ticket = 0;
 }
@@ -535,8 +632,9 @@ struct NoEpilogue {
   }
 };
 
-struct FusedEpilogue {
-  EpilogueArgs args;
+template <class E>
+struct FusedEpilogueT {
+  EpilogueArgsT<E> args;
   __device__ __forceinline__ float operator()(float v, int c) const {
     return apply_epilogue(v, c, args);
   }
@@ -597,7 +695,8 @@ struct DxA {
   FastDiv fd_cout, fd_nv;
   int step_h, step_w;
   const int4* rows;
-  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) const {
+  Stager<S, DY> st;
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) {
     const int k = k0 + S::k_of(0);
     const int slot = fast_div(k, fd_cout);
     const int co = k - slot * g.Cout;
@@ -608,24 +707,27 @@ struct DxA {
       if (!S::live(q)) continue;
       const int4 rt = rows[S::x_of(q)];
       const int i = rt.y - di, j = rt.z - dj;
-      S::put(s, q, dy, ((rt.x * g.Oh + i) * g.Ow + j) * g.Cout + co,
+      st.put(s, q, dy, ((rt.x * g.Oh + i) * g.Ow + j) * g.Cout + co,
              k < k_end && rt.x >= 0 && i >= 0 && i < g.Oh && j >= 0 &&
                  j < g.Ow);
     }
   }
-  __device__ __forceinline__ void fixup(float* s) const { S::fixup(s, dy); }
+  __device__ __forceinline__ void settle() { st.settle(dy); }
+  __device__ __forceinline__ void fixup(float* s) const { st.fixup(s, dy); }
 };
 
 // B[k][n] = W[kx, ky, n, co] of tap slot(k), read along co.
-template <class T>
+template <class T, class E>
 struct DxB {
   using S = Slab<T::BN, true>;
-  static constexpr int kStage = S::template stage_floats<Plain>();
-  Plain w;
+  using W = PlainT<E>;
+  static constexpr int kStage = S::template stage_floats<W>();
+  W w;
   ConvGeom g;
   FastDiv fd_cout, fd_nv;
   int a, c, per_h, per_w, n0;
-  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) const {
+  Stager<S, W> st;
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) {
     const int k = k0 + S::k_of(0);
     const int slot = fast_div(k, fd_cout);
     const int co = k - slot * g.Cout;
@@ -636,9 +738,10 @@ struct DxB {
     for (int q = 0; q < S::kPer; ++q) {
       if (!S::live(q)) continue;
       const int n = n0 + S::x_of(q);
-      S::put(s, q, w, (base + n) * g.Cout + co, k < k_end && n < g.Cin);
+      st.put(s, q, w, (base + n) * g.Cout + co, k < k_end && n < g.Cin);
     }
   }
+  __device__ __forceinline__ void settle() { st.settle(w); }
   __device__ __forceinline__ void fixup(float*) const {}
 };
 
@@ -665,8 +768,8 @@ static inline long long dx_tile_count(const ConvGeom& g, const PhaseGeom& t,
 // store ep(0), the fill of repro's assemble_phase_major.
 template <class T, class DY, class Ep = NoEpilogue>
 __device__ __forceinline__ void dx_tile(const DY& dy,
-                                        const float* __restrict__ w,
-                                        float* __restrict__ dx,
+                                        const typename DY::Elem* __restrict__ w,
+                                        typename DY::Elem* __restrict__ dx,
                                         const ConvGeom& g, const PhaseGeom& t,
                                         const GeomDiv& fd, int tile,
                                         const Split& sp, float* smem,
@@ -687,8 +790,9 @@ __device__ __forceinline__ void dx_tile(const DY& dy,
   const int n_tiles = (g.Cin + T::BN - 1) / T::BN;
   const int m0 = (tile / n_tiles) * T::BM, n0 = (tile % n_tiles) * T::BN;
   const int hw = c.Hc * c.Wc, M = g.B * hw;
+  using E = typename DY::Elem;
   int4* rows =
-      reinterpret_cast<int4*>(smem + ring_floats<DxA<T, DY>, DxB<T>>());
+      reinterpret_cast<int4*>(smem + ring_floats<DxA<T, DY>, DxB<T, E>>());
   for (int l = threadIdx.x; l < T::BM; l += kGemmThreads) {
     const int m = m0 + l;
     int4 rt = make_int4(-1, 0, 0, 0);
@@ -704,7 +808,8 @@ __device__ __forceinline__ void dx_tile(const DY& dy,
   __syncthreads();
   const FastDiv fd_nv = make_fastdiv(c.nv > 0 ? c.nv : 1);
   DxA<T, DY> la{dy, g, fd.cout, fd_nv, t.step_h, t.step_w, rows};
-  DxB<T> lb{Plain{w}, g, fd.cout, fd_nv, c.a, c.c, t.per_h, t.per_w, n0};
+  DxB<T, E> lb{PlainT<E>{w}, g, fd.cout, fd_nv, c.a, c.c, t.per_h, t.per_w,
+               n0};
   float acc[T::TM][T::TN];
   int k_begin, k_end;
   split_range(c.nu * c.nv * g.Cout, sp, &k_begin, &k_end);
@@ -712,7 +817,7 @@ __device__ __forceinline__ void dx_tile(const DY& dy,
   split_finish<T>(acc, sp, [&](int row, int col, float v) {
     const int4 rt = rows[row];
     const int n = n0 + col;
-    if (rt.x >= 0 && n < g.Cin) dx[rt.w + n] = ep(v, n);
+    if (rt.x >= 0 && n < g.Cin) store_f32(dx + rt.w + n, ep(v, n));
   });
 }
 
@@ -735,7 +840,8 @@ struct DdyA {
   ConvGeom g;
   FastDiv fd_cin, fd_kw;
   const int4* rows;
-  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) const {
+  Stager<S, G> st;
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) {
     const int k = k0 + S::k_of(0);
     const int tap = fast_div(k, fd_cin);
     const int ci = k - tap * g.Cin;
@@ -746,18 +852,19 @@ struct DdyA {
       if (!S::live(q)) continue;
       const int4 rt = rows[S::x_of(q)];
       const int h = rt.y + oh, w = rt.z + ow;
-      S::put(s, q, x, ((rt.x * g.Nh + h) * g.Nw + w) * g.Cin + ci,
+      st.put(s, q, x, ((rt.x * g.Nh + h) * g.Nw + w) * g.Cin + ci,
              k < k_end && rt.x >= 0 && h >= 0 && h < g.Nh && w >= 0 &&
                  w < g.Nw);
     }
   }
-  __device__ __forceinline__ void fixup(float* s) const { S::fixup(s, x); }
+  __device__ __forceinline__ void settle() { st.settle(x); }
+  __device__ __forceinline__ void fixup(float* s) const { st.fixup(s, x); }
 };
 
 template <class T, class G, class Ep = NoEpilogue>
 __device__ __forceinline__ void ddy_tile(const G& x,
-                                         const float* __restrict__ w,
-                                         float* __restrict__ ddy,
+                                         const typename G::Elem* __restrict__ w,
+                                         typename G::Elem* __restrict__ ddy,
                                          const ConvGeom& g,
                                          const GeomDiv& fd, int tile,
                                          const Split& sp, float* smem,
@@ -765,8 +872,9 @@ __device__ __forceinline__ void ddy_tile(const G& x,
   const int n_tiles = (g.Cout + T::BN - 1) / T::BN;
   const int m0 = (tile / n_tiles) * T::BM, n0 = (tile % n_tiles) * T::BN;
   const int M = g.B * g.Oh * g.Ow;
+  using W = PlainT<typename G::Elem>;
   int4* rows =
-      reinterpret_cast<int4*>(smem + ring_floats<DdyA<T, G>, RowsB<T, Plain>>());
+      reinterpret_cast<int4*>(smem + ring_floats<DdyA<T, G>, RowsB<T, W>>());
   for (int l = threadIdx.x; l < T::BM; l += kGemmThreads) {
     const int m = m0 + l;
     int4 rt = make_int4(-1, 0, 0, 0);
@@ -779,14 +887,14 @@ __device__ __forceinline__ void ddy_tile(const G& x,
   }
   __syncthreads();
   DdyA<T, G> la{x, g, fd.cin, fd.kw, rows};
-  RowsB<T, Plain> lb(Plain{w}, g.Cout, n0);
+  RowsB<T, W> lb(W{w}, g.Cout, n0);
   float acc[T::TM][T::TN];
   int k_begin, k_end;
   split_range(g.Kh * g.Kw * g.Cin, sp, &k_begin, &k_end);
   gemm_mainloop<T>(la, lb, k_begin, k_end, acc, smem);
   split_finish<T>(acc, sp, [&](int row, int col, float v) {
     const int m = m0 + row, n = n0 + col;
-    if (m < M && n < g.Cout) ddy[m * g.Cout + n] = ep(v, n);
+    if (m < M && n < g.Cout) store_f32(ddy + m * g.Cout + n, ep(v, n));
   });
 }
 
@@ -801,12 +909,13 @@ __host__ __device__ constexpr int dw_smem_floats() {
 
 template <class T, class DY>
 __host__ __device__ constexpr int dx_smem_floats() {
-  return ring_floats<DxA<T, DY>, DxB<T>>() + 4 * T::BM;
+  return ring_floats<DxA<T, DY>, DxB<T, typename DY::Elem>>() + 4 * T::BM;
 }
 
 template <class T, class G>
 __host__ __device__ constexpr int ddy_smem_floats() {
-  return ring_floats<DdyA<T, G>, RowsB<T, Plain>>() + 4 * T::BM;
+  return ring_floats<DdyA<T, G>, RowsB<T, PlainT<typename G::Elem>>>() +
+         4 * T::BM;
 }
 
 constexpr int kSumSmemFloats = kGemmThreads;

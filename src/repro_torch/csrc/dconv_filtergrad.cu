@@ -1,4 +1,6 @@
-// Zero-free filter gradient of a direct / dilated conv, fp32:
+// Zero-free filter gradient of a direct / dilated conv, fp32 or bf16
+// (dconv_filter_grad_f32 / dconv_filter_grad_bf16: bf16 operands and dW,
+// fp32 sums, one rounding at the store -- conv_body.cuh's element types):
 //   dW[kx,ky,ci,co] = sum_{b,i,j} x[b, i*S+kx*D-P, j*S+ky*D-P, ci]
 //                                 * dy[b,i,j,co]
 // over the K*K real taps only (the D-dilated filter never exists).
@@ -25,40 +27,41 @@
 #include "common.cuh"
 #include "conv_body.cuh"
 
+template <class E>
 struct FgArgs {
-  const float* x;
-  const float* dy;
-  float* dw;
+  const E* x;
+  const E* dy;
+  E* dw;
   ConvGeom g;
   GeomDiv fd;
   RoleGrid grid;
 };
 
-template <class TW>
+template <class TW, class E>
 __global__ void __launch_bounds__(kGemmThreads)
-    dconv_filter_grad_kernel(const FgArgs a) {
+    dconv_filter_grad_kernel(const FgArgs<E> a) {
   extern __shared__ __align__(16) float smem[];
   int tile;
   Split sp;
   role_of<TW::BM * TW::BN, 0>(a.grid, &tile, &sp);
-  dw_tile<TW>(Plain{a.x}, Plain{a.dy}, a.dw, a.g, a.fd, tile, sp, smem);
+  dw_tile<TW>(PlainT<E>{a.x}, PlainT<E>{a.dy}, a.dw, a.g, a.fd, tile, sp,
+              smem);
 }
 
-// x (B,Nh,Nw,Cin), dy (B,Oh,Ow,Cout) -> dw (Kh,Kw,Cin,Cout); all fp32,
-// contiguous.  dw_tile (a tile id), dw_splits and chunk come from the
-// plan, with a workspace of ws_floats floats and n_tickets ints that are
-// 0 (and are 0 again after the launch).  Returns the launch's CUDA error
-// (cudaErrorInvalidValue for a plan, a workspace or a size it cannot
-// take).
-extern "C" int dconv_filter_grad_f32(const void* x, const void* dy, void* dw,
-                                     int B, int Nh, int Nw, int Cin, int Oh,
-                                     int Ow, int Cout, int Kh, int Kw,
-                                     int sh, int sw, int ph, int pw,
-                                     int dil_h, int dil_w, int dw_tile,
-                                     int dw_splits, int chunk, void* ws,
-                                     int64_t ws_floats, void* tickets,
-                                     int n_tickets, void* stream) {
-  FgArgs a;
+#define FG_PARAMS                                                            \
+  const void *x, const void *dy, void *dw, int B, int Nh, int Nw, int Cin, \
+      int Oh, int Ow, int Cout, int Kh, int Kw, int sh, int sw, int ph,    \
+      int pw, int dil_h, int dil_w, int dw_tile, int dw_splits, int chunk, \
+      void *ws, int64_t ws_floats, void *tickets, int n_tickets,           \
+      void *stream
+#define FG_ARGS                                                              \
+  x, dy, dw, B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw, dil_h,   \
+      dil_w, dw_tile, dw_splits, chunk, ws, ws_floats, tickets, n_tickets,  \
+      stream
+
+template <class E>
+static int dconv_filter_grad(FG_PARAMS) {
+  FgArgs<E> a;
   a.g = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw,
                   dil_h, dil_w);
   a.fd = make_geom_div(a.g);
@@ -68,9 +71,9 @@ extern "C" int dconv_filter_grad_f32(const void* x, const void* dy, void* dw,
       !fits_int(positions * Cout) ||
       !fits_int((long long)Kh * Kw * Cin * Cout))
     return (int)cudaErrorInvalidValue;
-  a.x = static_cast<const float*>(x);
-  a.dy = static_cast<const float*>(dy);
-  a.dw = static_cast<float*>(dw);
+  a.x = static_cast<const E*>(x);
+  a.dy = static_cast<const E*>(dy);
+  a.dw = static_cast<E*>(dw);
   int bm, bn;
   tile_extent(dw_tile, &bm, &bn);
   const long long n_dw =
@@ -90,7 +93,21 @@ extern "C" int dconv_filter_grad_f32(const void* x, const void* dy, void* dw,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_dw_tile(dw_tile, [&](auto tw) {
     using TW = decltype(tw);
-    return launch_roles<dconv_filter_grad_kernel<TW>>(blocks,
-                        dw_smem_floats<TW, Plain, Plain>(), a, s);
+    return launch_roles<dconv_filter_grad_kernel<TW, E>>(
+        blocks, dw_smem_floats<TW, PlainT<E>, PlainT<E>>(), a, s);
   });
+}
+
+// x (B,Nh,Nw,Cin), dy (B,Oh,Ow,Cout) -> dw (Kh,Kw,Cin,Cout); all fp32
+// (_f32) or all bf16 (_bf16), contiguous.  dw_tile (a tile id),
+// dw_splits and chunk come from the plan, with a workspace of ws_floats
+// floats and n_tickets ints that are 0 (and are 0 again after the
+// launch).  Returns the launch's CUDA error (cudaErrorInvalidValue for a
+// plan, a workspace or a size it cannot take).
+extern "C" int dconv_filter_grad_f32(FG_PARAMS) {
+  return dconv_filter_grad<float>(FG_ARGS);
+}
+
+extern "C" int dconv_filter_grad_bf16(FG_PARAMS) {
+  return dconv_filter_grad<__nv_bfloat16>(FG_ARGS);
 }

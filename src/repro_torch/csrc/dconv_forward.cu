@@ -1,4 +1,6 @@
-// Zero-free direct / dilated (atrous) forward convolution, fp32.
+// Zero-free direct / dilated (atrous) forward convolution, fp32 or bf16
+// (dconv_forward_f32 / dconv_forward_bf16: bf16 operands and output, fp32
+// sums, one rounding at the store -- conv_body.cuh's element types).
 //
 // Replaces repro/kernels/dconv_forward.py::dconv_forward_pallas (body
 // _df_kernel):
@@ -31,19 +33,20 @@
 #include "common.cuh"
 #include "conv_body.cuh"
 
+template <class E>
 struct FwdArgs {
-  Plain x;
-  const float* w;
-  float* y;
+  PlainT<E> x;
+  const E* w;
+  E* y;
   ConvGeom g;
   GeomDiv fd;
   RoleGrid grid;
-  FusedEpilogue ep;
+  FusedEpilogueT<E> ep;
 };
 
-template <class T>
+template <class T, class E>
 __global__ void __launch_bounds__(kGemmThreads)
-    dconv_forward_kernel(const FwdArgs a) {
+    dconv_forward_kernel(const FwdArgs<E> a) {
   extern __shared__ __align__(16) float smem[];
   int tile;
   Split sp;
@@ -51,22 +54,20 @@ __global__ void __launch_bounds__(kGemmThreads)
   ddy_tile<T>(a.x, a.w, a.y, a.g, a.fd, tile, sp, smem, a.ep);
 }
 
-// x (B,Nh,Nw,Cin), w (Kh,Kw,Cin,Cout), bias (Cout,) or null ->
-// y (B,Oh,Ow,Cout); all fp32, contiguous, on the device of `stream`.
-// The tile (id) and splits come from the plan, with a workspace of
-// ws_floats floats and n_tickets ints that are 0 (and are 0 again after
-// the launch).  Returns the launch's CUDA error (cudaErrorInvalidValue
-// for a plan, a workspace or a size it cannot take).
-extern "C" int dconv_forward_f32(const void* x, const void* w,
-                                 const void* bias, void* y, int B, int Nh,
-                                 int Nw, int Cin, int Kh, int Kw, int Cout,
-                                 int Oh, int Ow, int sh, int sw, int ph,
-                                 int pw, int dh, int dw, int act,
-                                 float slope, int has_scale, float scale,
-                                 int tile, int splits, void* ws,
-                                 int64_t ws_floats, void* tickets,
-                                 int n_tickets, void* stream) {
-  FwdArgs a;
+#define FWD_PARAMS                                                           \
+  const void *x, const void *w, const void *bias, void *y, int B, int Nh,  \
+      int Nw, int Cin, int Kh, int Kw, int Cout, int Oh, int Ow, int sh,   \
+      int sw, int ph, int pw, int dh, int dw, int act, float slope,        \
+      int has_scale, float scale, int tile, int splits, void *ws,          \
+      int64_t ws_floats, void *tickets, int n_tickets, void *stream
+#define FWD_ARGS                                                             \
+  x, w, bias, y, B, Nh, Nw, Cin, Kh, Kw, Cout, Oh, Ow, sh, sw, ph, pw, dh,  \
+      dw, act, slope, has_scale, scale, tile, splits, ws, ws_floats,        \
+      tickets, n_tickets, stream
+
+template <class E>
+static int dconv_forward(FWD_PARAMS) {
+  FwdArgs<E> a;
   a.g = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw, dh,
                   dw);
   a.fd = make_geom_div(a.g);
@@ -76,10 +77,11 @@ extern "C" int dconv_forward_f32(const void* x, const void* w,
       !fits_int(positions * Cout) ||
       !fits_int((long long)Kh * Kw * Cin * Cout))
     return (int)cudaErrorInvalidValue;
-  a.x = Plain{static_cast<const float*>(x)};
-  a.w = static_cast<const float*>(w);
-  a.y = static_cast<float*>(y);
-  a.ep = FusedEpilogue{make_epilogue(bias, act, slope, has_scale, scale)};
+  a.x = PlainT<E>{static_cast<const E*>(x)};
+  a.w = static_cast<const E*>(w);
+  a.y = static_cast<E*>(y);
+  a.ep = FusedEpilogueT<E>{
+      make_epilogue<E>(bias, act, slope, has_scale, scale)};
   int bm, bn;
   tile_extent(tile, &bm, &bn);
   const long long tiles = (positions + bm - 1) / bm * ((Cout + bn - 1) / bn);
@@ -91,7 +93,22 @@ extern "C" int dconv_forward_f32(const void* x, const void* w,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_forward_tile(tile, [&](auto td) {
     using T = decltype(td);
-    return launch_roles<dconv_forward_kernel<T>>(
-        blocks, ddy_smem_floats<T, Plain>(), a, s);
+    return launch_roles<dconv_forward_kernel<T, E>>(
+        blocks, ddy_smem_floats<T, PlainT<E>>(), a, s);
   });
+}
+
+// x (B,Nh,Nw,Cin), w (Kh,Kw,Cin,Cout), bias (Cout,) or null ->
+// y (B,Oh,Ow,Cout); all fp32 (_f32) or all bf16 (_bf16), contiguous, on
+// the device of `stream`.  The tile (id) and splits come from the plan,
+// with a workspace of ws_floats floats and n_tickets ints that are 0
+// (and are 0 again after the launch).  Returns the launch's CUDA error
+// (cudaErrorInvalidValue for a plan, a workspace or a size it cannot
+// take).
+extern "C" int dconv_forward_f32(FWD_PARAMS) {
+  return dconv_forward<float>(FWD_ARGS);
+}
+
+extern "C" int dconv_forward_bf16(FWD_PARAMS) {
+  return dconv_forward<__nv_bfloat16>(FWD_ARGS);
 }

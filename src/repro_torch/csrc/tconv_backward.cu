@@ -1,5 +1,7 @@
-// Fused dual-gradient backward of a transposed conv, fp32: ddy, dW and
-// (with a bias) db from ONE launch.
+// Fused dual-gradient backward of a transposed conv, fp32 or bf16
+// (tconv_backward_f32 / tconv_backward_bf16: bf16 operands and outputs,
+// fp32 sums and mask, one rounding at each store -- conv_body.cuh's
+// element types): ddy, dW and (with a bias) db from ONE launch.
 //
 // Replaces repro/kernels/dconv_backward.py::tconv_backward_pallas (body
 // _ct_bwd_kernel).  For the forward z = ep(tconv(dy, W)) (a generator
@@ -37,29 +39,30 @@
 #include "common.cuh"
 #include "conv_body.cuh"
 
+template <class E>
 struct CtArgs {
-  Masked gs;  // scale * g * act'(z)
-  Masked gm;  // g * act'(z)
-  const float* dy;
-  const float* w;
-  float* ddy;
-  float* dw;
-  float* db;
+  MaskedT<E> gs;  // scale * g * act'(z)
+  MaskedT<E> gm;  // g * act'(z)
+  const E* dy;
+  const E* w;
+  E* ddy;
+  E* dw;
+  E* db;
   ConvGeom g;
   GeomDiv fd;
   RoleGrid grid;
 };
 
-template <class TD, class TW>
+template <class TD, class TW, class E>
 __global__ void __launch_bounds__(kGemmThreads)
-    tconv_backward_kernel(const CtArgs a) {
+    tconv_backward_kernel(const CtArgs<E> a) {
   extern __shared__ __align__(16) float smem[];
   int tile;
   Split sp;
   const int role = role_of<TW::BM * TW::BN, TD::BM * TD::BN>(a.grid, &tile,
                                                              &sp);
   if (role == 0)
-    dw_tile<TW>(a.gs, Plain{a.dy}, a.dw, a.g, a.fd, tile, sp, smem);
+    dw_tile<TW>(a.gs, PlainT<E>{a.dy}, a.dw, a.g, a.fd, tile, sp, smem);
   else if (role == 1)
     channel_sum(a.gm, a.db, a.g.B * a.g.Nh * a.g.Nw, a.g.Cin, tile, sp,
                 smem);
@@ -67,22 +70,22 @@ __global__ void __launch_bounds__(kGemmThreads)
     ddy_tile<TD>(a.gs, a.w, a.ddy, a.g, a.fd, tile, sp, smem);
 }
 
-// g and z (B,Nh,Nw,Cin), dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout) ->
-// ddy (B,Oh,Ow,Cout), dw (Kh,Kw,Cin,Cout), db (Cin,); all fp32,
-// contiguous.  z == nullptr means no activation; db == nullptr means no
-// bias.  The tiles (ids), splits and dW chunk come from the plan, with a
-// workspace of ws_floats floats and n_tickets ints that are 0 (and are 0
-// again after the launch).  Returns the launch's CUDA error
-// (cudaErrorInvalidValue for a plan, a workspace or a size it cannot
-// take).
-extern "C" int tconv_backward_f32(
-    const void* g, const void* z, const void* dy, const void* w, void* ddy,
-    void* dw, void* db, int B, int Nh, int Nw, int Cin, int Oh, int Ow,
-    int Cout, int Kh, int Kw, int sh, int sw, int ph, int pw, int dil_h,
-    int dil_w, int act, float slope, int has_scale, float scale, int tile,
-    int splits, int dw_tile, int dw_splits, int chunk, void* ws,
-    int64_t ws_floats, void* tickets, int n_tickets, void* stream) {
-  CtArgs a;
+#define CT_PARAMS                                                            \
+  const void *g, const void *z, const void *dy, const void *w, void *ddy,  \
+      void *dw, void *db, int B, int Nh, int Nw, int Cin, int Oh, int Ow,  \
+      int Cout, int Kh, int Kw, int sh, int sw, int ph, int pw, int dil_h, \
+      int dil_w, int act, float slope, int has_scale, float scale,         \
+      int tile, int splits, int dw_tile, int dw_splits, int chunk,         \
+      void *ws, int64_t ws_floats, void *tickets, int n_tickets,           \
+      void *stream
+#define CT_ARGS                                                              \
+  g, z, dy, w, ddy, dw, db, B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw,   \
+      ph, pw, dil_h, dil_w, act, slope, has_scale, scale, tile, splits,     \
+      dw_tile, dw_splits, chunk, ws, ws_floats, tickets, n_tickets, stream
+
+template <class E>
+static int tconv_backward(CT_PARAMS) {
+  CtArgs<E> a;
   a.g = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw,
                   dil_h, dil_w);
   a.fd = make_geom_div(a.g);
@@ -92,13 +95,13 @@ extern "C" int tconv_backward_f32(
       !fits_int(positions * Cout) ||
       !fits_int((long long)Kh * Kw * Cin * Cout))
     return (int)cudaErrorInvalidValue;
-  a.gs = make_masked(g, z, act, slope, has_scale ? scale : 1.0f);
-  a.gm = make_masked(g, z, act, slope, 1.0f);
-  a.dy = static_cast<const float*>(dy);
-  a.w = static_cast<const float*>(w);
-  a.ddy = static_cast<float*>(ddy);
-  a.dw = static_cast<float*>(dw);
-  a.db = static_cast<float*>(db);
+  a.gs = make_masked<E>(g, z, act, slope, has_scale ? scale : 1.0f);
+  a.gm = make_masked<E>(g, z, act, slope, 1.0f);
+  a.dy = static_cast<const E*>(dy);
+  a.w = static_cast<const E*>(w);
+  a.ddy = static_cast<E*>(ddy);
+  a.dw = static_cast<E*>(dw);
+  a.db = static_cast<E*>(db);
   int bm, bn;
   tile_extent(dw_tile, &bm, &bn);
   const long long n_dw =
@@ -128,8 +131,27 @@ extern "C" int tconv_backward_f32(
       using TD = decltype(td);
       using TW = decltype(tw);
       constexpr int floats = cmax(
-          cmax(dw_smem_floats<TW, Masked, Plain>(), ddy_smem_floats<TD, Masked>()), kSumSmemFloats);
-      return launch_roles<tconv_backward_kernel<TD, TW>>(blocks, floats, a, s);
+          cmax(dw_smem_floats<TW, MaskedT<E>, PlainT<E>>(),
+               ddy_smem_floats<TD, MaskedT<E>>()),
+          kSumSmemFloats);
+      return launch_roles<tconv_backward_kernel<TD, TW, E>>(blocks, floats,
+                                                            a, s);
     });
   });
+}
+
+// g and z (B,Nh,Nw,Cin), dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout) ->
+// ddy (B,Oh,Ow,Cout), dw (Kh,Kw,Cin,Cout), db (Cin,); all fp32 (_f32)
+// or all bf16 (_bf16), contiguous.  z == nullptr means no activation;
+// db == nullptr means no bias.  The tiles (ids), splits and dW chunk
+// come from the plan, with a workspace of ws_floats floats and n_tickets
+// ints that are 0 (and are 0 again after the launch).  Returns the
+// launch's CUDA error (cudaErrorInvalidValue for a plan, a workspace or
+// a size it cannot take).
+extern "C" int tconv_backward_f32(CT_PARAMS) {
+  return tconv_backward<float>(CT_ARGS);
+}
+
+extern "C" int tconv_backward_bf16(CT_PARAMS) {
+  return tconv_backward<__nv_bfloat16>(CT_ARGS);
 }

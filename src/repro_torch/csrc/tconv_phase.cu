@@ -1,5 +1,7 @@
 // Zero-free transposed convolution by residue class (phase), any
-// (stride S, dilation D), fp32.
+// (stride S, dilation D), fp32 or bf16 (tconv_phase_f32 /
+// tconv_phase_bf16: bf16 operands and output, fp32 sums, one rounding at
+// the store -- conv_body.cuh's element types).
 //
 // Replaces repro/kernels/tconv_phase.py::tconv_fused_pallas (body
 // _fused_tap_kernel, host helpers pack_phase_filters and
@@ -44,20 +46,21 @@
 #include "common.cuh"
 #include "conv_body.cuh"
 
+template <class E>
 struct PhaseArgs {
-  Plain dy;
-  const float* w;
-  float* dx;
+  PlainT<E> dy;
+  const E* w;
+  E* dx;
   ConvGeom g;   // the dx frame (n_out)
   PhaseGeom t;
   GeomDiv fd;
   RoleGrid grid;
-  FusedEpilogue ep;
+  FusedEpilogueT<E> ep;
 };
 
-template <class T>
+template <class T, class E>
 __global__ void __launch_bounds__(kGemmThreads)
-    tconv_phase_kernel(const PhaseArgs a) {
+    tconv_phase_kernel(const PhaseArgs<E> a) {
   extern __shared__ __align__(16) float smem[];
   int tile;
   Split sp;
@@ -65,24 +68,22 @@ __global__ void __launch_bounds__(kGemmThreads)
   dx_tile<T>(a.dy, a.w, a.dx, a.g, a.t, a.fd, tile, sp, smem, a.ep);
 }
 
-// dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout), bias (Cin,) or null ->
-// dx (B,Nh,Nw,Cin); all fp32, contiguous.  The tap-phase bookkeeping
-// (period, step, TPh/TPw) comes from ConvSpec on the host; the
-// tile (id) and splits from the plan, with a workspace of ws_floats
-// floats and n_tickets ints that are 0 (and are 0 again after the
-// launch).  Returns the launch's CUDA error (cudaErrorInvalidValue for a
-// plan, a workspace or a size it cannot take).
-extern "C" int tconv_phase_f32(const void* dy, const void* w,
-                               const void* bias, void* dx, int B, int Oh,
-                               int Ow, int Cout, int Kh, int Kw, int Cin,
-                               int Nh, int Nw, int sh, int sw, int ph,
-                               int pw, int dh, int dw, int per_h, int per_w,
-                               int step_h, int step_w, int TPh, int TPw,
-                               int act, float slope, int has_scale,
-                               float scale, int tile, int splits, void* ws,
-                               int64_t ws_floats, void* tickets,
-                               int n_tickets, void* stream) {
-  PhaseArgs a;
+#define PHASE_PARAMS                                                         \
+  const void *dy, const void *w, const void *bias, void *dx, int B, int Oh, \
+      int Ow, int Cout, int Kh, int Kw, int Cin, int Nh, int Nw, int sh,   \
+      int sw, int ph, int pw, int dh, int dw, int per_h, int per_w,        \
+      int step_h, int step_w, int TPh, int TPw, int act, float slope,      \
+      int has_scale, float scale, int tile, int splits, void *ws,          \
+      int64_t ws_floats, void *tickets, int n_tickets, void *stream
+#define PHASE_ARGS                                                           \
+  dy, w, bias, dx, B, Oh, Ow, Cout, Kh, Kw, Cin, Nh, Nw, sh, sw, ph, pw,    \
+      dh, dw, per_h, per_w, step_h, step_w, TPh, TPw, act, slope,           \
+      has_scale, scale, tile, splits, ws, ws_floats, tickets, n_tickets,    \
+      stream
+
+template <class E>
+static int tconv_phase(PHASE_PARAMS) {
+  PhaseArgs<E> a;
   a.g = make_geom(B, Nh, Nw, Cin, Oh, Ow, Cout, Kh, Kw, sh, sw, ph, pw, dh,
                   dw);
   a.t = make_phase_geom(per_h, per_w, step_h, step_w, TPh, TPw);
@@ -92,10 +93,11 @@ extern "C" int tconv_phase_f32(const void* dy, const void* w,
       !fits_int((long long)B * Oh * Ow * Cout) ||
       !fits_int((long long)Kh * Kw * Cin * Cout))
     return (int)cudaErrorInvalidValue;
-  a.dy = Plain{static_cast<const float*>(dy)};
-  a.w = static_cast<const float*>(w);
-  a.dx = static_cast<float*>(dx);
-  a.ep = FusedEpilogue{make_epilogue(bias, act, slope, has_scale, scale)};
+  a.dy = PlainT<E>{static_cast<const E*>(dy)};
+  a.w = static_cast<const E*>(w);
+  a.dx = static_cast<E*>(dx);
+  a.ep = FusedEpilogueT<E>{
+      make_epilogue<E>(bias, act, slope, has_scale, scale)};
   int bm, bn;
   tile_extent(tile, &bm, &bn);
   if (!gather_grid(&a.grid, dx_tile_count(a.g, a.t, bm, bn), bm * bn,
@@ -106,7 +108,23 @@ extern "C" int tconv_phase_f32(const void* dy, const void* w,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_forward_tile(tile, [&](auto td) {
     using T = decltype(td);
-    return launch_roles<tconv_phase_kernel<T>>(
-        blocks, dx_smem_floats<T, Plain>(), a, s);
+    return launch_roles<tconv_phase_kernel<T, E>>(
+        blocks, dx_smem_floats<T, PlainT<E>>(), a, s);
   });
+}
+
+// dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout), bias (Cin,) or null ->
+// dx (B,Nh,Nw,Cin); all fp32 (_f32) or all bf16 (_bf16), contiguous.
+// The tap-phase bookkeeping (period, step, TPh/TPw) comes from ConvSpec
+// on the host; the tile (id) and splits from the plan, with a workspace
+// of ws_floats floats and n_tickets ints that are 0 (and are 0 again
+// after the launch).  Returns the launch's CUDA error
+// (cudaErrorInvalidValue for a plan, a workspace or a size it cannot
+// take).
+extern "C" int tconv_phase_f32(PHASE_PARAMS) {
+  return tconv_phase<float>(PHASE_ARGS);
+}
+
+extern "C" int tconv_phase_bf16(PHASE_PARAMS) {
+  return tconv_phase<__nv_bfloat16>(PHASE_ARGS);
 }

@@ -1,7 +1,10 @@
 """Build the CUDA kernels of `repro_torch/csrc/` and load them with ctypes.
 
 Each `.cu` file has a plain C interface (no PyTorch headers), so `nvcc`
-builds it in seconds into `<repo>/build/`.  A library's file name carries
+builds it in seconds into `<repo>/build/`.  Each conv kernel has one C
+entry per operand dtype, `<name>_f32` and `<name>_bf16` (`symbol`), both
+built from the same source, the same templates instantiated for `float`
+and `__nv_bfloat16`.  A library's file name carries
 a hash of its sources and flags: an edited kernel is rebuilt, never
 loaded stale.  Nothing builds at import -- only on a kernel's first
 launch, or through `build()`, which starts one `nvcc` per source, all at
@@ -17,6 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("dconv_forward", "tconv_phase", "implicit_gemm", "conv_backward",
@@ -26,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# The conv kernels' operand dtypes and their C entries' suffixes.
+CONV_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _nvcc() -> str:
@@ -94,6 +101,20 @@ def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def symbol(base: str, dtype: torch.dtype) -> str:
+    """The C entry of conv kernel `base` for operands of `dtype`:
+    `<base>_f32` or `<base>_bf16`."""
+    return f"{base}_{CONV_DTYPES[dtype]}"
+
+
+def widened(*tensors):
+    """Each tensor in fp32 (None stays None): a conv kernel's operands as
+    its plain version sums them, every bf16 element widened exactly, so
+    it accumulates in fp32 as the kernel does; an fp32 tensor is returned
+    as it is."""
+    return tuple(None if t is None else t.float() for t in tensors)
 
 
 def check_launch(name: str, err: int) -> None:

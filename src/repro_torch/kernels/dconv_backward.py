@@ -16,7 +16,11 @@ PyTorch versions (port of `repro/kernels/dconv_backward.py`).
 
 act' comes from the forward OUTPUT (`Epilogue.grad_factor`).  The plain
 versions repeat the Pallas arithmetic with the port's plain tconv,
-forward and filter-grad versions.  Each kernel computes all of its
+forward and filter-grad versions.  In bf16 every output takes `repro`'s
+dtype (dx, ddy and dW the operands', db the cotangent's) and is rounded
+once: both versions widen the operands to fp32 and form the masked
+cotangent and every sum in fp32 (`csrc/conv_body.cuh` says why the mask
+is not rounded to bf16 first, as `repro`'s is).  Each kernel computes all of its
 outputs in ONE launch, as `repro` does in one `pallas_call`, and forms
 the mask as it loads the cotangent.  Public entries:
 `kernels/ops.py::conv_backward` / `tconv_backward`.
@@ -373,26 +377,35 @@ def _masked(cot: torch.Tensor, out, epilogue: Epilogue | None):
     return m, (m if epilogue.scale is None else m * epilogue.scale)
 
 
+def _rounded(dtype, *outs):
+    """The outputs in `dtype` (None stays None)."""
+    return tuple(None if t is None else t.to(dtype) for t in outs)
+
+
 def conv_backward_plain(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                         spec: ConvSpec, *, n_out, y=None,
                         epilogue: Epilogue | None = None):
     """(dx (B,Nh,Nw,Cin), dW (Kh,Kw,Cin,Cout), db (Cout,) or None)."""
+    dtype = x.dtype
+    x, dy, w, y = build.widened(x, dy, w, y)
     m, g = _masked(dy, y, epilogue)
     db = m.sum(dim=(0, 1, 2)) if epilogue is not None and epilogue.bias \
         else None
     dx = tconv_fused_plain(g, w, spec, n_out=n_out)
-    return dx, dconv_filter_grad_plain(x, g, spec), db
+    return _rounded(dtype, dx, dconv_filter_grad_plain(x, g, spec), db)
 
 
 def tconv_backward_plain(g: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                          spec: ConvSpec, *, z=None,
                          epilogue: Epilogue | None = None):
     """(ddy (B,Oh,Ow,Cout), dW (Kh,Kw,Cin,Cout), db (Cin,) or None)."""
+    dtype = g.dtype
+    g, dy, w, z = build.widened(g, dy, w, z)
     gm, gs = _masked(g, z, epilogue)
     db = gm.sum(dim=(0, 1, 2)) if epilogue is not None and epilogue.bias \
         else None
     ddy = dconv_forward_plain(gs, w, spec)
-    return ddy, dconv_filter_grad_plain(gs, dy, spec), db
+    return _rounded(dtype, ddy, dconv_filter_grad_plain(gs, dy, spec), db)
 
 
 def conv_backward_cuda(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
@@ -400,22 +413,24 @@ def conv_backward_cuda(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                        epilogue: Epilogue | None = None,
                        plan: BackwardPlan | None = None):
     """Launch the kernel on the current stream at `plan` (default: the
-    planner's).  fp32, contiguous, one device -- the wrapper in
-    `kernels/ops.py` checks all three."""
+    planner's).  fp32 or bf16, one dtype, contiguous, one device -- the
+    wrapper in `kernels/ops.py` checks all four."""
     B, nh_x, nw_x, cin = x.shape
     _, oh, ow, cout = dy.shape
     kh, kw = spec.filter_shape
     nh, nw = n_out
     dev = x.device
-    dx = torch.empty((B, nh, nw, cin), dtype=torch.float32, device=dev)
-    dw = torch.empty((kh, kw, cin, cout), dtype=torch.float32, device=dev)
+    dx = torch.empty((B, nh, nw, cin), dtype=x.dtype, device=dev)
+    dw = torch.empty((kh, kw, cin, cout), dtype=x.dtype, device=dev)
     has_db = epilogue is not None and epilogue.bias
-    db = torch.empty((cout,), dtype=torch.float32, device=dev) \
+    db = torch.empty((cout,), dtype=dy.dtype, device=dev) \
         if has_db else None
     p = plan or tiling.plan_tiles("backward", spec, x_shape=dx.shape,
-                                  dy_shape=dy.shape, epilogue=epilogue)
+                                  dy_shape=dy.shape, epilogue=epilogue,
+                                  dtype=x.dtype)
     ws, bufs = launch_buffers(p, dev)
-    fn = build.kernel_function("conv_backward", "conv_backward_f32",
+    fn = build.kernel_function("conv_backward",
+                               build.symbol("conv_backward", x.dtype),
                                _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), dy.data_ptr(),
@@ -437,21 +452,23 @@ def tconv_backward_cuda(g: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
                         epilogue: Epilogue | None = None,
                         plan: BackwardPlan | None = None):
     """Launch the kernel on the current stream at `plan` (default: the
-    planner's).  fp32, contiguous, one device -- the wrapper in
-    `kernels/ops.py` checks all three."""
+    planner's).  fp32 or bf16, one dtype, contiguous, one device -- the
+    wrapper in `kernels/ops.py` checks all four."""
     B, nh, nw, cin = g.shape
     _, oh, ow, cout = dy.shape
     kh, kw = spec.filter_shape
     dev = g.device
-    ddy = torch.empty((B, oh, ow, cout), dtype=torch.float32, device=dev)
-    dw = torch.empty((kh, kw, cin, cout), dtype=torch.float32, device=dev)
+    ddy = torch.empty((B, oh, ow, cout), dtype=g.dtype, device=dev)
+    dw = torch.empty((kh, kw, cin, cout), dtype=g.dtype, device=dev)
     has_db = epilogue is not None and epilogue.bias
-    db = torch.empty((cin,), dtype=torch.float32, device=dev) \
+    db = torch.empty((cin,), dtype=g.dtype, device=dev) \
         if has_db else None
     p = plan or tiling.plan_tiles("ct_backward", spec, x_shape=g.shape,
-                                  dy_shape=dy.shape, epilogue=epilogue)
+                                  dy_shape=dy.shape, epilogue=epilogue,
+                                  dtype=g.dtype)
     ws, bufs = launch_buffers(p, dev)
-    fn = build.kernel_function("tconv_backward", "tconv_backward_f32",
+    fn = build.kernel_function("tconv_backward",
+                               build.symbol("tconv_backward", g.dtype),
                                _CT_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(g.data_ptr(), None if z is None else z.data_ptr(),
@@ -466,11 +483,11 @@ def tconv_backward_cuda(g: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
 
 
 def _autotune_operands(spec: ConvSpec, x_shape, dy_shape, epilogue,
-                       out_shape):
-    """Fixed random inputs on the card for a backward's runner: the big
-    side, the small side at scale 1/sqrt(B*Oh*Ow) (each dW sum of order
-    1), the filter at 1/sqrt(Kh*Kw*max(Cin, Cout)), and an `out_shape`
-    output the epilogue could give."""
+                       out_shape, dtype=torch.float32):
+    """Fixed random inputs of `dtype` on the card for a backward's
+    runner: the big side, the small side at scale 1/sqrt(B*Oh*Ow) (each
+    dW sum of order 1), the filter at 1/sqrt(Kh*Kw*max(Cin, Cout)), and
+    an `out_shape` output the epilogue could give."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     kh, kw = spec.filter_shape
     big = torch.randn(x_shape, generator=gen, device="cuda")
@@ -483,19 +500,21 @@ def _autotune_operands(spec: ConvSpec, x_shape, dy_shape, epilogue,
     if epilogue is not None and epilogue.needs_y:
         act = Epilogue(activation=epilogue.activation, slope=epilogue.slope)
         out = act.apply(torch.randn(out_shape, generator=gen, device="cuda"))
-    return big, small, w, out
+    return _rounded(dtype, big, small, w, out)
 
 
-def _conv_backward_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+def _conv_backward_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None,
+                          dtype=torch.float32):
     x, dy, w, y = _autotune_operands(spec, x_shape, dy_shape, epilogue,
-                                     dy_shape)
+                                     dy_shape, dtype)
     return lambda p: conv_backward_cuda(x, dy, w, spec, n_out=x_shape[1:3],
                                         y=y, epilogue=epilogue, plan=p)
 
 
-def _tconv_backward_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+def _tconv_backward_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None,
+                           dtype=torch.float32):
     g, dy, w, z = _autotune_operands(spec, x_shape, dy_shape, epilogue,
-                                     x_shape)
+                                     x_shape, dtype)
     return lambda p: tconv_backward_cuda(g, dy, w, spec, z=z,
                                          epilogue=epilogue, plan=p)
 

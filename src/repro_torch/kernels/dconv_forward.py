@@ -9,6 +9,9 @@ over the K*K real taps; the D-dilated filter never exists.  The plain
 version repeats the reference's arithmetic -- pad once, one strided window
 per tap, one matmul per tap into an fp32 accumulator, then the epilogue --
 and is what the CPU tests run and what the card's kernel is held against.
+bf16 operands give a bf16 output, as `repro`'s kernel casts back: both
+versions widen them to fp32, sum and apply the epilogue in fp32, and
+round once.
 The kernel is the ddy role of the tiled implicit-GEMM engine
 (`csrc/conv_body.cuh`), its tiles and splits from the planner
 (`kernels/tiling.py`: `dconv_backward.plan`, or an autotuned plan), with
@@ -46,7 +49,10 @@ def _out_size(spec: ConvSpec, x: torch.Tensor) -> tuple[int, int]:
 def dconv_forward_plain(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
                         bias=None, epilogue: Epilogue | None = None
                         ) -> torch.Tensor:
-    """x (B,Nh,Nw,Cin), w (Kh,Kw,Cin,Cout) -> y (B,Oh,Ow,Cout)."""
+    """x (B,Nh,Nw,Cin), w (Kh,Kw,Cin,Cout) -> y (B,Oh,Ow,Cout), in x's
+    dtype."""
+    dtype = x.dtype
+    x, w, bias = build.widened(x, w, bias)
     oh, ow = _out_size(spec, x)
     (sh, sw), (ph, pw), (dh, dw) = spec.stride, spec.padding, spec.dilation
     kh, kw = spec.filter_shape
@@ -60,16 +66,17 @@ def dconv_forward_plain(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
                              oh=oh, ow=ow)              # (B, oh, ow, Cin)
             prod = torch.matmul(tap, w[kx, ky])
             acc = prod if acc is None else acc + prod
-    return acc if epilogue is None else epilogue.apply(acc, bias)
+    out = acc if epilogue is None else epilogue.apply(acc, bias)
+    return out.to(dtype)
 
 
 def dconv_forward_cuda(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
                        bias=None, epilogue: Epilogue | None = None,
                        plan=None) -> torch.Tensor:
     """Launch the kernel on the current stream at `plan` (a
-    `dconv_backward.BackwardPlan`; default: the planner's).  fp32,
-    contiguous, one device -- the wrapper in `kernels/ops.py` checks all
-    three."""
+    `dconv_backward.BackwardPlan`; default: the planner's).  fp32 or
+    bf16, one dtype, contiguous, one device -- the wrapper in
+    `kernels/ops.py` checks all four."""
     # dconv_backward imports this module's plain version.
     from repro_torch.kernels import dconv_backward
 
@@ -77,11 +84,13 @@ def dconv_forward_cuda(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
     B, nh, nw, cin = x.shape
     kh, kw, _, cout = w.shape
     dev = x.device
-    y = torch.empty((B, oh, ow, cout), dtype=torch.float32, device=dev)
+    y = torch.empty((B, oh, ow, cout), dtype=x.dtype, device=dev)
     p = plan or tiling.plan_tiles("forward", spec, x_shape=x.shape,
-                                  dy_shape=y.shape, epilogue=epilogue)
+                                  dy_shape=y.shape, epilogue=epilogue,
+                                  dtype=x.dtype)
     ws, bufs = dconv_backward.launch_buffers(p, dev)
-    fn = build.kernel_function("dconv_forward", "dconv_forward_f32",
+    fn = build.kernel_function("dconv_forward",
+                               build.symbol("dconv_forward", x.dtype),
                                _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), w.data_ptr(),
@@ -94,15 +103,17 @@ def dconv_forward_cuda(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
     return y
 
 
-def _autotune_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+def _autotune_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None,
+                     dtype=torch.float32):
     """The planner's runner: the kernel at a given plan on fixed random
-    inputs on the card (weights scaled so each output is of order 1)."""
+    inputs of `dtype` on the card (weights scaled so each output is of
+    order 1)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     kh, kw = spec.filter_shape
-    x = torch.randn(x_shape, generator=gen, device="cuda")
-    w = torch.randn((kh, kw, x_shape[3], dy_shape[3]), generator=gen,
-                    device="cuda") / (kh * kw * x_shape[3]) ** 0.5
-    bias = torch.randn(dy_shape[3], generator=gen, device="cuda") \
+    x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((kh, kw, x_shape[3], dy_shape[3]), generator=gen,
+                     device="cuda") / (kh * kw * x_shape[3]) ** 0.5).to(dtype)
+    bias = torch.randn(dy_shape[3], generator=gen, device="cuda").to(dtype) \
         if epilogue is not None and epilogue.bias else None
     return lambda p: dconv_forward_cuda(x, w, spec, bias=bias,
                                         epilogue=epilogue, plan=p)

@@ -11,7 +11,10 @@ h % S == 0 and h // S < Oh.  The masked fraction is exactly
 The plain version repeats the reference's arithmetic: dy zero-interleaved
 and framed by the tap reach D*(K-1), one static window and matmul per
 tap over the full frame, the epilogue, then the tail fill and padding
-crop.  The kernel skips the dead lanes instead: one CTA per tile of
+crop (bf16 operands widened to fp32 first, dx rounded to bf16 once, as
+`repro`'s kernel casts back).  The kernel's stages hold the operands in
+their own dtype, so `plan` counts shared memory at the launch's
+`itemsize`.  The kernel skips the dead lanes instead: one CTA per tile of
 TH x TW output sites and Cin_t output channels stages the tile's dy halo
 and the weights in shared memory, one Cout chunk at a time, and each
 thread sums one site over the live taps.  `plan`, a pure function of the
@@ -90,27 +93,34 @@ def halo_extent(spec: ConvSpec, th: int, tw: int) -> tuple[int, int]:
                      spec.filter_shape))
 
 
-def halo_pitch(chunk: int) -> int:
-    """Floats per halo position: the chunk padded to an odd number of
+def halo_pitch(chunk: int, itemsize: int = 4) -> int:
+    """Elements per halo position: the chunk padded to an odd number of
     16-byte words, so a quarter-warp's lanes hit distinct banks."""
-    return chunk if (chunk // 4) % 2 else chunk + 4
+    word = 16 // itemsize
+    words = _cdiv(chunk, word)
+    return (words if words % 2 else words + 1) * word
 
 
 def counted(spec: ConvSpec, batch: int, n_out, cin: int, cout: int,
-            th: int, tw: int, cin_t: int, chunk: int) -> IGPlan:
+            th: int, tw: int, cin_t: int, chunk: int,
+            itemsize: int = 4) -> IGPlan:
     """The IGPlan of this tile, Cin tile and chunk, counted as the kernel
-    counts its CTAs and shared memory."""
+    counts its CTAs and shared memory: each stage a whole number of
+    16-byte words of `itemsize`-byte elements."""
     kh, kw = spec.filter_shape
     hh, hw = halo_extent(spec, th, tw)
     stages = 2 if cout > chunk else 1
-    smem = 4 * stages * (hh * hw * halo_pitch(chunk) + kh * kw * cin_t * chunk)
+    word = 16 // itemsize
+    stage = _cdiv(hh * hw * halo_pitch(chunk, itemsize)
+                  + kh * kw * cin_t * chunk, word) * word
+    smem = itemsize * stages * stage
     tiles = batch * _cdiv(n_out[0], th) * _cdiv(n_out[1], tw)
     return IGPlan(th, tw, cin_t, chunk, tiles * _cdiv(cin, cin_t), smem,
                   th * tw, tiles, (hh, hw), stages)
 
 
 def plan(spec: ConvSpec, batch: int, n_out, in_hw, cin: int,
-         cout: int) -> IGPlan:
+         cout: int, itemsize: int = 4) -> IGPlan:
     """The kernel's tile, Cin tile and Cout chunk for one launch.
 
     A tile holds cu x cv sites of each of the S_h * S_w residue classes
@@ -119,8 +129,9 @@ def plan(spec: ConvSpec, batch: int, n_out, in_hw, cin: int,
     the frame, rounded up to a power of two, between MIN_CLASS_COLS and
     MAX_CLASS_COLS.  At most MAX_THREADS sites (cu, then cv, halve).  The
     chunk is Cout rounded up to a power of two, at least 4 and at most
-    MAX_CHUNK; it halves, then the tile, until the stages fit SMEM_BYTES.
-    Raises ValueError, naming the geometry, when nothing fits.  `batch`
+    MAX_CHUNK; it halves, then the tile, until the stages (of
+    `itemsize`-byte elements: 4 fp32, 2 bf16) fit SMEM_BYTES.  Raises
+    ValueError, naming the geometry, when nothing fits.  `batch`
     and `in_hw` (dy's size, implied by `n_out`) only count the CTAs."""
     (sh, sw) = spec.stride
     classes = sh * sw
@@ -137,7 +148,7 @@ def plan(spec: ConvSpec, batch: int, n_out, in_hw, cin: int,
     if classes * cu * cv <= MAX_THREADS:
         while True:
             p = counted(spec, batch, n_out, cin, cout, sh * cu, sw * cv,
-                        cin_t, chunk)
+                        cin_t, chunk, itemsize)
             if p.smem <= SMEM_BYTES:
                 return p
             if chunk > 4:
@@ -160,7 +171,7 @@ SWEEP_SIDES = (1, 2, 4, 8, 16)   # sites per class along an axis, swept
 
 
 def candidates(spec: ConvSpec, batch: int, n_out, in_hw, cin: int,
-               cout: int) -> list:
+               cout: int, itemsize: int = 4) -> list:
     """The plans an autotune sweep times for one launch, `plan`'s own
     first (`scripts/implicit_gemm_sweep.py --sweep` walks the same set):
     cu x cv sites per residue class for cu, cv in SWEEP_SIDES, each class
@@ -168,7 +179,7 @@ def candidates(spec: ConvSpec, batch: int, n_out, in_hw, cin: int,
     chunk up to Cout (at least 4) whose stages fit SMEM_BYTES, at
     `plan`'s Cin tile.  Raises ValueError, as `plan` does, when nothing
     fits."""
-    own = plan(spec, batch, n_out, in_hw, cin, cout)
+    own = plan(spec, batch, n_out, in_hw, cin, cout, itemsize)
     sh, sw = spec.stride
     out = [own]
     for cu in SWEEP_SIDES:
@@ -179,7 +190,7 @@ def candidates(spec: ConvSpec, batch: int, n_out, in_hw, cin: int,
                 if chunk > max(4, cout):
                     continue
                 p = counted(spec, batch, n_out, cin, cout, sh * cu, sw * cv,
-                            own.cin_t, chunk)
+                            own.cin_t, chunk, itemsize)
                 if p.smem <= SMEM_BYTES and p not in out:
                     out.append(p)
     return out
@@ -202,7 +213,10 @@ def tconv_implicit_gemm_plain(dy: torch.Tensor, w: torch.Tensor,
                               spec: ConvSpec, *, n_out, bias=None,
                               epilogue: Epilogue | None = None
                               ) -> torch.Tensor:
-    """dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout) -> dx (B,Nh,Nw,Cin)."""
+    """dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout) -> dx (B,Nh,Nw,Cin), in dy's
+    dtype."""
+    dtype = dy.dtype
+    dy, w, bias = build.widened(dy, w, bias)
     B, Oh, Ow, _ = dy.shape
     Kh, Kw, Cin, _ = w.shape
     sh, sw = spec.stride
@@ -232,7 +246,7 @@ def tconv_implicit_gemm_plain(dy: torch.Tensor, w: torch.Tensor,
             out = torch.cat([out, fv.expand(B, eh, out.shape[2], Cin)], dim=1)
         if ew:
             out = torch.cat([out, fv.expand(B, out.shape[1], ew, Cin)], dim=2)
-    return out[:, ph:ph + Nh, pw:pw + Nw, :].contiguous()
+    return out[:, ph:ph + Nh, pw:pw + Nw, :].to(dtype).contiguous()
 
 
 def tconv_implicit_gemm_cuda(dy: torch.Tensor, w: torch.Tensor,
@@ -240,16 +254,17 @@ def tconv_implicit_gemm_cuda(dy: torch.Tensor, w: torch.Tensor,
                              epilogue: Epilogue | None = None,
                              plan: IGPlan | None = None) -> torch.Tensor:
     """Launch the kernel on the current stream at `plan` (default: the
-    planner's implicit-GEMM plan).  fp32, contiguous, one device -- the
-    wrapper in `kernels/ops.py` checks all three."""
+    planner's implicit-GEMM plan).  fp32 or bf16, one dtype, contiguous,
+    one device -- the wrapper in `kernels/ops.py` checks all four."""
     B, Oh, Ow, Cout = dy.shape
     Kh, Kw, Cin, _ = w.shape
     Nh, Nw = n_out
-    dx = torch.empty((B, Nh, Nw, Cin), dtype=torch.float32, device=dy.device)
+    dx = torch.empty((B, Nh, Nw, Cin), dtype=dy.dtype, device=dy.device)
     p = plan or tiling.plan_strategy(
         "input_grad", spec, x_shape=dx.shape, dy_shape=dy.shape,
-        epilogue=epilogue, strategy="implicit_gemm")[1]
-    fn = build.kernel_function("implicit_gemm", "tconv_implicit_gemm_f32",
+        epilogue=epilogue, strategy="implicit_gemm", dtype=dy.dtype)[1]
+    fn = build.kernel_function("implicit_gemm",
+                               build.symbol("tconv_implicit_gemm", dy.dtype),
                                _ARGTYPES)
     with torch.cuda.device(dy.device):
         err = fn(dy.data_ptr(), w.data_ptr(),
@@ -262,11 +277,13 @@ def tconv_implicit_gemm_cuda(dy: torch.Tensor, w: torch.Tensor,
     return dx
 
 
-def _autotune_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
+def _autotune_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None,
+                     dtype=torch.float32):
     # tconv_phase imports nothing of this module.
     from repro_torch.kernels.tconv_phase import autotune_operands
 
-    dy, w, bias = autotune_operands(spec, x_shape, dy_shape, epilogue)
+    dy, w, bias = autotune_operands(spec, x_shape, dy_shape, epilogue,
+                                    dtype)
     return lambda p: tconv_implicit_gemm_cuda(
         dy, w, spec, n_out=x_shape[1:3], bias=bias, epilogue=epilogue,
         plan=p)

@@ -2,10 +2,14 @@
 conv wrappers are the `cuda` conv backend, `flash_attention` is the LM's
 attention.
 
-Each conv wrapper takes fp32 tensors on one device; `flash_attention`
-takes fp32 or bf16.  On a CUDA tensor a wrapper launches its hand-written
-kernel and adds one to its entry of `LAUNCHES`; on a CPU tensor it runs
-the kernel's plain PyTorch version and counts nothing.  There is no
+Each conv wrapper takes fp32 or bf16 tensors, one dtype for every
+operand, on one device, and returns `repro`'s dtypes (the operands'); a
+bf16 operand on the card launches the kernel's `_bf16` entry, which reads
+bf16 from device memory, sums in fp32 and rounds once at its store.
+`flash_attention` takes fp32 or bf16.  On a CUDA tensor a wrapper
+launches its hand-written kernel and adds one to its entry of
+`LAUNCHES`; on a CPU tensor it runs the kernel's plain PyTorch version
+and counts nothing.  There is no
 fallback: a launch that fails raises.  Each kernel takes its plan (tiles,
 splits) from `tiling`, the Hopper planner.
 
@@ -29,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.spec import ConvSpec, Epilogue, _pair
-from repro_torch.kernels import tiling
+from repro_torch.kernels import build, tiling
 from repro_torch.kernels.attention import (BWD_FORMS, FORMS, HEAD_DIMS,
                                            backward_plan,
                                            flash_attention_backward_cuda,
@@ -67,15 +71,21 @@ def reset_launches() -> None:
 
 def _on_cuda(*tensors) -> bool:
     """True when the operands lie on the card, False on the CPU; raises on
-    any other dtype than fp32, mixed devices or another device type."""
-    devices = set()
+    any other dtype than fp32 or bf16, on operands of two dtypes (the
+    kernels read every operand in one), on mixed devices or another
+    device type."""
+    devices, dtypes = set(), set()
     for t in tensors:
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"the conv kernels take float32 only, got "
-                            f"{t.dtype}")
+        if t.dtype not in build.CONV_DTYPES:
+            raise TypeError(f"the conv kernels take float32 or bfloat16, "
+                            f"got {t.dtype}")
+        dtypes.add(t.dtype)
         devices.add(t.device)
+    if len(dtypes) > 1:
+        raise TypeError("the conv kernels take one dtype for every operand, "
+                        "got " + " and ".join(sorted(map(str, dtypes))))
     if len(devices) != 1:
         raise ValueError(f"operands must share one device, got {devices}")
     dev = devices.pop()
@@ -166,7 +176,7 @@ def tconv_phase(dy: torch.Tensor, w: torch.Tensor, *, stride, padding,
     strategy, plan_ = tiling.plan_strategy(
         "input_grad", spec, x_shape=(dy.shape[0], nh, nw, w.shape[2]),
         dy_shape=tuple(dy.shape), epilogue=epilogue, strategy=strategy,
-        mode=None if on_card else "analytical")
+        mode=None if on_card else "analytical", dtype=dy.dtype)
     ig = strategy == "implicit_gemm"
     if not on_card:
         plain = tconv_implicit_gemm_plain if ig else tconv_fused_plain

@@ -16,6 +16,14 @@ def tconv_phase_ref(dy, w, *, stride, padding, n_out, dilation=(1, 1)):
         dilation=tuple(dilation))
 
 
+def dconv_filter_grad_ref(x, dy, *, stride, padding, k, dilation=(1, 1)):
+    """Oracle for the zero-free filter-gradient kernel: one strided slice
+    of x contracted with dy per tap."""
+    return ecoflow.dilated_conv_filter_grad_zero_free(
+        x, dy, stride=stride, padding=padding, k=tuple(k),
+        dilation=tuple(dilation))
+
+
 def dconv_forward_ref(x, w, *, stride, padding, dilation):
     """Oracle for the dilated-forward kernel: `F.conv2d`'s own dilated
     conv."""

@@ -13,7 +13,8 @@ no stride or dilation zero is ever multiplied.
 The plain version repeats the reference's arithmetic: packed rotated
 sub-filters (`pack_phase_filters`), one padded dy, one window and matmul
 per (phase, valid slot) into phase-major planes, the epilogue per plane,
-then `assemble_phase_major`.  The kernel is the dx role of the tiled
+then `assemble_phase_major` (bf16 operands widened to fp32 first, dx
+rounded to bf16 once, as `repro`'s kernel casts back).  The kernel is the dx role of the tiled
 implicit-GEMM engine (`csrc/conv_body.cuh`), its tiles and splits from
 the planner (`kernels/tiling.py`: `dconv_backward.plan`, or an autotuned
 plan); it folds the assembly and the epilogue into its store.  Public entry: `kernels/ops.py::tconv_phase`.
@@ -120,7 +121,10 @@ def assemble_phase_major(out: torch.Tensor, spec: ConvSpec, *, n_out,
 def tconv_fused_plain(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
                       n_out, bias=None, epilogue: Epilogue | None = None
                       ) -> torch.Tensor:
-    """dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout) -> dx (B,Nh,Nw,Cin)."""
+    """dy (B,Oh,Ow,Cout), w (Kh,Kw,Cin,Cout) -> dx (B,Nh,Nw,Cin), in dy's
+    dtype."""
+    dtype = dy.dtype
+    dy, w, bias = build.widened(dy, w, bias)
     B, Oh, Ow, _ = dy.shape
     Kh, Kw, Cin, _ = w.shape
     sh, sw = spec.stride
@@ -158,7 +162,7 @@ def tconv_fused_plain(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
         fill = epilogue.apply(dy.new_zeros((Cin,)), bias)
     return assemble_phase_major(torch.stack(planes, dim=1), spec,
                                 n_out=(Nh, Nw), full_size=(Fh, Fw),
-                                fill=fill)
+                                fill=fill).to(dtype)
 
 
 def tconv_fused_cuda(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
@@ -166,8 +170,8 @@ def tconv_fused_cuda(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
                      plan=None) -> torch.Tensor:
     """Launch the kernel on the current stream at `plan` (a
     `dconv_backward.BackwardPlan`; default: the planner's phase plan).
-    fp32, contiguous, one device -- the wrapper in `kernels/ops.py`
-    checks all three."""
+    fp32 or bf16, one dtype, contiguous, one device -- the wrapper in
+    `kernels/ops.py` checks all four."""
     # dconv_backward imports this module's plain version.
     from repro_torch.kernels import dconv_backward
 
@@ -175,11 +179,14 @@ def tconv_fused_cuda(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
     Kh, Kw, Cin, _ = w.shape
     Nh, Nw = n_out
     dev = dy.device
-    dx = torch.empty((B, Nh, Nw, Cin), dtype=torch.float32, device=dev)
+    dx = torch.empty((B, Nh, Nw, Cin), dtype=dy.dtype, device=dev)
     p = plan or tiling.plan_tiles("input_grad", spec, x_shape=dx.shape,
-                                  dy_shape=dy.shape, epilogue=epilogue)
+                                  dy_shape=dy.shape, epilogue=epilogue,
+                                  dtype=dy.dtype)
     ws, bufs = dconv_backward.launch_buffers(p, dev)
-    fn = build.kernel_function("tconv_phase", "tconv_phase_f32", _ARGTYPES)
+    fn = build.kernel_function("tconv_phase",
+                               build.symbol("tconv_phase", dy.dtype),
+                               _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(dy.data_ptr(), w.data_ptr(),
                  None if bias is None else bias.data_ptr(), dx.data_ptr(),
@@ -193,23 +200,27 @@ def tconv_fused_cuda(dy: torch.Tensor, w: torch.Tensor, spec: ConvSpec, *,
     return dx
 
 
-def autotune_operands(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
-    """(dy, w, bias) of a transposed conv's runner: fixed random inputs on
-    the card, the weights scaled so each output is of order 1 (both
-    strategies' runners take these, so the race times one function)."""
+def autotune_operands(spec: ConvSpec, x_shape, dy_shape, epilogue=None,
+                      dtype=torch.float32):
+    """(dy, w, bias) of a transposed conv's runner: fixed random inputs of
+    `dtype` on the card, the weights scaled so each output is of order 1
+    (both strategies' runners take these, so the race times one
+    function)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     kh, kw = spec.filter_shape
     taps = max(1, -(-kh // spec.stride[0]) * -(-kw // spec.stride[1]))
-    dy = torch.randn(dy_shape, generator=gen, device="cuda")
-    w = torch.randn((kh, kw, x_shape[3], dy_shape[3]), generator=gen,
-                    device="cuda") / (taps * dy_shape[3]) ** 0.5
-    bias = torch.randn(x_shape[3], generator=gen, device="cuda") \
+    dy = torch.randn(dy_shape, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((kh, kw, x_shape[3], dy_shape[3]), generator=gen,
+                     device="cuda") / (taps * dy_shape[3]) ** 0.5).to(dtype)
+    bias = torch.randn(x_shape[3], generator=gen, device="cuda").to(dtype) \
         if epilogue is not None and epilogue.bias else None
     return dy, w, bias
 
 
-def _autotune_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None):
-    dy, w, bias = autotune_operands(spec, x_shape, dy_shape, epilogue)
+def _autotune_runner(spec: ConvSpec, x_shape, dy_shape, epilogue=None,
+                     dtype=torch.float32):
+    dy, w, bias = autotune_operands(spec, x_shape, dy_shape, epilogue,
+                                    dtype)
     return lambda p: tconv_fused_cuda(dy, w, spec, n_out=x_shape[1:3],
                                       bias=bias, epilogue=epilogue, plan=p)
 

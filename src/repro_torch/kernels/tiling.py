@@ -35,10 +35,16 @@ both kernels' times at the GAN generator's layers.  A strategy whose
 plan raises is out of the race.  In autotune mode "auto" sweeps both
 arms and one `|st:auto` row records the winner and both arms' times.
 
-Cache keys are `repro`'s (`_cache_key`) field for field, except that the
-mode segment names the Hopper target (TARGET), so a TPU row is never read
-as a Hopper plan, and the budget segment holds the card's shared memory
-per CTA.  `ECOFLOW_VMEM_BUDGET` has no Hopper meaning and is not read.
+Every plan is made for one operand dtype (`dtype=`, fp32 or bf16): the
+implicit GEMM stages its operands in their own dtype, so its shared
+memory, and both arms' staged bytes in the race, count at the launch's
+itemsize, and an autotune runner times its candidates on inputs of that
+dtype.  Cache keys are `repro`'s (`_cache_key`) field for field, the
+dtype's bytes (`|w4` fp32, `|w2` bf16) included, so a bf16 plan and an
+fp32 plan never share an entry.  Two segments differ: the mode segment
+names the Hopper target (TARGET), so a TPU row is never read as a
+Hopper plan, and the budget segment holds the card's shared memory per
+CTA.  `ECOFLOW_VMEM_BUDGET` has no Hopper meaning and is not read.
 A row that does not parse as one of the port's candidate plans for its
 key follows `repro`'s torn-row policy: a RuntimeWarning, then re-plan.
 The planner never sweeps while the current stream captures a CUDA graph
@@ -66,8 +72,11 @@ MODES = ("analytical", "autotune")
 
 TARGET = "sm90"          # the key's mode segment: Hopper, compiled
 SMEM_BUDGET = 232448     # dynamic shared memory of one CTA on the H100
-ITEMSIZE = 4             # the conv kernels take fp32
-AUTOTUNE_TOL = 1e-4      # a candidate against the analytical plan's output
+ITEMSIZE = 4             # the bytes of fp32, the default operand dtype
+AUTOTUNE_TOL = 1e-4      # an fp32 candidate against the analytical plan's
+# A bf16 candidate: both round once from fp32 sums that differ in order,
+# so one bf16 ulp (rtol, and atol relative to the output's largest value).
+AUTOTUNE_TOL_BF16 = 2.0 ** -7
 AUTOTUNE_ITERS = 5       # timed launches per candidate, after one warm one
 
 # The engine's op for each of `repro`'s planner ops (the input gradient's
@@ -103,27 +112,38 @@ def _ig(op: str, strategy: str) -> bool:
     return op == "input_grad" and strategy == "implicit_gemm"
 
 
+def _itemsize(dtype: torch.dtype) -> int:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the conv kernels take float32 or bfloat16, got "
+                        f"{dtype}")
+    return dtype.itemsize
+
+
 def _analytical(op: str, spec: ConvSpec, x_shape, dy_shape,
-                ep: Optional[Epilogue], strategy: str):
+                ep: Optional[Epilogue], strategy: str,
+                dtype: torch.dtype = torch.float32):
     """The kernel module's own plan of one launch (ValueError from
     `implicit_gemm.plan` when no tile fits)."""
     from repro_torch.kernels import dconv_backward, implicit_gemm
 
     b, n_out, small, cin, cout = _geometry(x_shape, dy_shape)
     if _ig(op, strategy):
-        return implicit_gemm.plan(spec, b, n_out, small, cin, cout)
+        return implicit_gemm.plan(spec, b, n_out, small, cin, cout,
+                                  _itemsize(dtype))
     return dconv_backward.plan(_ENGINE_OPS[op], spec, b, n_out, small, cin,
                                cout, n_out=n_out,
                                bias=ep is not None and ep.bias)
 
 
 def _candidates(op: str, spec: ConvSpec, x_shape, dy_shape,
-                ep: Optional[Epilogue], strategy: str) -> list:
+                ep: Optional[Epilogue], strategy: str,
+                dtype: torch.dtype = torch.float32) -> list:
     from repro_torch.kernels import dconv_backward, implicit_gemm
 
     b, n_out, small, cin, cout = _geometry(x_shape, dy_shape)
     if _ig(op, strategy):
-        return implicit_gemm.candidates(spec, b, n_out, small, cin, cout)
+        return implicit_gemm.candidates(spec, b, n_out, small, cin, cout,
+                                        _itemsize(dtype))
     return dconv_backward.candidates(_ENGINE_OPS[op], spec, b, small, cin,
                                      cout, n_out=n_out,
                                      bias=ep is not None and ep.bias)
@@ -134,7 +154,8 @@ def _candidates(op: str, spec: ConvSpec, x_shape, dy_shape,
 # ---------------------------------------------------------------------------
 
 def race_costs_us(spec: ConvSpec, x_shape, dy_shape,
-                  ep: Optional[Epilogue] = None) -> dict:
+                  ep: Optional[Epilogue] = None,
+                  dtype: torch.dtype = torch.float32) -> dict:
     """{strategy: modeled µs} of the input gradient dy (`dy_shape`) ->
     dx (`x_shape`) on each kernel at its analytical plan; a strategy
     whose plan raises is absent.
@@ -147,23 +168,24 @@ def race_costs_us(spec: ConvSpec, x_shape, dy_shape,
     scheduled taps less `predicated_mac_fraction` -- over Cout, each
     step a halo read, Cin_t weights and Cin_t FMAs; the threads resident
     on an SM share it.  Each arm is also bounded below by the bytes its
-    CTAs stage, at L2_BYTES_US."""
+    CTAs stage, at L2_BYTES_US (`dtype`'s bytes per element)."""
     from repro_torch.kernels import dconv_backward as db
 
     b, n_out, small, cin, cout = _geometry(x_shape, dy_shape)
     out = {}
-    p = _analytical("input_grad", spec, x_shape, dy_shape, ep, "phase")
+    p = _analytical("input_grad", spec, x_shape, dy_shape, ep, "phase",
+                    dtype)
     bm, bn = db.TILES[p.tile]
     k = db.reduction("tconv_phase", spec, small, cin, cout, n_out)
     slabs = _cdiv(db.split_chunk(k, p.splits), db.GEMM_BK)
     ctas = p.tiles * p.splits
     work = slabs * db.GEMM_BK * (bm * bn + 2 * (bm + bn)) / 256
-    staged = ctas * slabs * db.GEMM_BK * (bm + bn) * ITEMSIZE
+    staged = ctas * slabs * db.GEMM_BK * (bm + bn) * _itemsize(dtype)
     out["phase"] = ENGINE_FIXED_US + max(
         ENGINE_OP_US * work * _cdiv(ctas, SM_COUNT), staged / L2_BYTES_US)
     try:
         q = _analytical("input_grad", spec, x_shape, dy_shape, ep,
-                        "implicit_gemm")
+                        "implicit_gemm", dtype)
     except ValueError:
         return out
     kh, kw = spec.filter_shape
@@ -180,21 +202,23 @@ def race_costs_us(spec: ConvSpec, x_shape, dy_shape,
 
 @functools.lru_cache(maxsize=4096)
 def _auto_strategy(op: str, spec: ConvSpec, x_shape, dy_shape,
-                   ep: Optional[Epilogue]) -> str:
+                   ep: Optional[Epilogue],
+                   dtype: torch.dtype = torch.float32) -> str:
     """Memoized analytical race (ECOFLOW_STRATEGY=auto, every call)."""
     if op != "input_grad":
         return "phase"
-    costs = race_costs_us(spec, x_shape, dy_shape, ep)
+    costs = race_costs_us(spec, x_shape, dy_shape, ep, dtype)
     return min(STRATEGIES, key=lambda s: costs.get(s, math.inf))
 
 
 @functools.lru_cache(maxsize=4096)
 def _planned(op: str, spec: ConvSpec, x_shape, dy_shape,
-             ep: Optional[Epilogue], strategy: str):
+             ep: Optional[Epilogue], strategy: str,
+             dtype: torch.dtype = torch.float32):
     """Memoized analytical plan: the wrappers resolve a plan on every
-    launch, so the steady-state cost is a lookup.  The strategy keys it,
-    so an ECOFLOW_STRATEGY flip re-plans."""
-    return _analytical(op, spec, x_shape, dy_shape, ep, strategy)
+    launch, so the steady-state cost is a lookup.  The strategy and the
+    dtype key it, so an ECOFLOW_STRATEGY flip re-plans."""
+    return _analytical(op, spec, x_shape, dy_shape, ep, strategy, dtype)
 
 
 def plan_cache_info():
@@ -207,9 +231,9 @@ def plan_cache_info():
 # ---------------------------------------------------------------------------
 
 # Runner factories by (op, strategy), registered by the kernel modules at
-# import: factory(spec, x_shape, dy_shape, epilogue=None) -> run(plan),
-# which launches the kernel at `plan` on fixed inputs and returns its
-# output(s).
+# import: factory(spec, x_shape, dy_shape, epilogue=None[, dtype]) ->
+# run(plan), which launches the kernel at `plan` on fixed inputs of
+# `dtype` (given for bf16 only) and returns its output(s).
 _RUNNERS: Dict[tuple, Callable] = {}
 # Autotuned plans by cache key, and the strategy of each |st:auto key.
 _MEM_CACHE: Dict[str, object] = {}
@@ -231,10 +255,11 @@ def cache_path() -> pathlib.Path:
 
 
 def _cache_key(op: str, spec: ConvSpec, x_shape, dy_shape,
-               ep: Optional[Epilogue] = None, strategy: str = "phase") -> str:
-    """`repro`'s key: the geometry, the dtype's bytes, the budget, the
-    mode (here the Hopper target), the strategy (`|st:`, "auto" for the
-    race's row) and the epilogue (`|ep:`)."""
+               ep: Optional[Epilogue] = None, strategy: str = "phase",
+               dtype: torch.dtype = torch.float32) -> str:
+    """`repro`'s key: the geometry, the dtype's bytes (`|w`), the budget,
+    the mode (here the Hopper target), the strategy (`|st:`, "auto" for
+    the race's row) and the epilogue (`|ep:`)."""
     sh, sw = spec.stride
     ph, pw = spec.padding
     kh, kw = spec.filter_shape
@@ -243,7 +268,7 @@ def _cache_key(op: str, spec: ConvSpec, x_shape, dy_shape,
     _, oh, ow, cout = dy_shape
     tag = "none" if ep is None else ep.tag
     return (f"{op}|b{b}|n{nh}x{nw}|o{oh}x{ow}|k{kh}x{kw}|s{sh}x{sw}"
-            f"|p{ph}x{pw}|d{dh}x{dw}|ci{cin}|co{cout}|w{ITEMSIZE}"
+            f"|p{ph}x{pw}|d{dh}x{dw}|ci{cin}|co{cout}|w{_itemsize(dtype)}"
             f"|vm{SMEM_BUDGET}|{TARGET}|st:{strategy}|ep:{tag}")
 
 
@@ -285,7 +310,8 @@ def _row(plan) -> dict:
 
 
 def _plan_from_rec(op: str, rec, spec: ConvSpec, x_shape, dy_shape,
-                   ep: Optional[Epilogue], strategy: str):
+                   ep: Optional[Epilogue], strategy: str,
+                   dtype: torch.dtype = torch.float32):
     """The plan a cache row names, or None with a RuntimeWarning when the
     row is not one of this launch's candidate plans (malformed, torn, or
     another geometry's)."""
@@ -298,7 +324,8 @@ def _plan_from_rec(op: str, rec, spec: ConvSpec, x_shape, dy_shape,
         if "halo" in fields:
             fields["halo"] = tuple(fields["halo"])
         plan = kind(**fields)
-        if plan in _candidates(op, spec, x_shape, dy_shape, ep, strategy):
+        if plan in _candidates(op, spec, x_shape, dy_shape, ep, strategy,
+                               dtype):
             return plan
     except (KeyError, TypeError, ValueError, AttributeError):
         pass
@@ -309,7 +336,8 @@ def _plan_from_rec(op: str, rec, spec: ConvSpec, x_shape, dy_shape,
 
 
 def _auto_from_rec(op: str, rec, spec: ConvSpec, x_shape, dy_shape,
-                   ep: Optional[Epilogue]):
+                   ep: Optional[Epilogue],
+                   dtype: torch.dtype = torch.float32):
     """(strategy, plan) of a `|st:auto` row, or None with a RuntimeWarning
     when the row names no strategy or no candidate plan of it."""
     st = rec.get("strategy") if isinstance(rec, dict) else None
@@ -318,7 +346,7 @@ def _auto_from_rec(op: str, rec, spec: ConvSpec, x_shape, dy_shape,
                       f"(auto): no strategy; ignoring it and re-tuning",
                       RuntimeWarning, stacklevel=2)
         return None
-    plan = _plan_from_rec(op, rec, spec, x_shape, dy_shape, ep, st)
+    plan = _plan_from_rec(op, rec, spec, x_shape, dy_shape, ep, st, dtype)
     return None if plan is None else (st, plan)
 
 
@@ -357,14 +385,25 @@ def _time_us(fn) -> float:
     return start.elapsed_time(end) * 1e3 / AUTOTUNE_ITERS
 
 
+def _agree(a, b) -> bool:
+    """One output of a candidate against the analytical plan's: within
+    AUTOTUNE_TOL in fp32, one bf16 ulp in bf16."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        return bool(torch.allclose(a, b, atol=AUTOTUNE_TOL_BF16 * scale,
+                                   rtol=AUTOTUNE_TOL_BF16))
+    return bool(torch.allclose(a, b, atol=AUTOTUNE_TOL, rtol=AUTOTUNE_TOL))
+
+
 def _close(got, want) -> bool:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     return len(got) == len(want) and all(
         (a is None and b is None) or (
-            a is not None and b is not None and a.shape == b.shape
-            and bool(torch.allclose(a, b, atol=AUTOTUNE_TOL,
-                                    rtol=AUTOTUNE_TOL)))
+            a is not None and b is not None and _agree(a, b))
         for a, b in zip(got, want))
 
 
@@ -377,12 +416,15 @@ def _refuse_capture(key: str) -> None:
 
 
 def _sweep(op: str, spec: ConvSpec, x_shape, dy_shape,
-           ep: Optional[Epilogue], strategy: str, factory: Callable):
+           ep: Optional[Epilogue], strategy: str, factory: Callable,
+           dtype: torch.dtype = torch.float32):
     """Time every candidate of one (op, strategy) that agrees with the
     analytical plan's output: (best µs, best plan), or (inf, None) when
     none ran.  Raises ValueError when the strategy has no plan."""
-    plans = _candidates(op, spec, x_shape, dy_shape, ep, strategy)
-    run = factory(spec, x_shape, dy_shape, epilogue=ep)
+    plans = _candidates(op, spec, x_shape, dy_shape, ep, strategy, dtype)
+    # A factory that times fp32 only need not take the dtype.
+    run = factory(spec, x_shape, dy_shape, epilogue=ep,
+                  **({} if dtype == torch.float32 else {"dtype": dtype}))
     want = run(plans[0])          # the analytical plan comes first
     best = (math.inf, None)
     for plan in plans:
@@ -399,24 +441,26 @@ def _sweep(op: str, spec: ConvSpec, x_shape, dy_shape,
 
 def _autotune_plan(op: str, spec: ConvSpec, x_shape, dy_shape,
                    ep: Optional[Epilogue], strategy: str,
-                   path: pathlib.Path, runner_factory: Optional[Callable]):
-    key = _cache_key(op, spec, x_shape, dy_shape, ep, strategy)
+                   path: pathlib.Path, runner_factory: Optional[Callable],
+                   dtype: torch.dtype = torch.float32):
+    key = _cache_key(op, spec, x_shape, dy_shape, ep, strategy, dtype)
     if key in _MEM_CACHE:
         return _MEM_CACHE[key]
     disk = _load_disk_cache(path)
     if key in disk:
         plan = _plan_from_rec(op, disk[key], spec, x_shape, dy_shape, ep,
-                              strategy)
+                              strategy, dtype)
         if plan is not None:
             _MEM_CACHE[key] = plan
             return plan
     factory = runner_factory or _RUNNERS.get((op, strategy))
     if factory is None:   # nothing to time: the analytical plan, unsaved
-        return _planned(op, spec, x_shape, dy_shape, ep, strategy)
+        return _planned(op, spec, x_shape, dy_shape, ep, strategy, dtype)
     _refuse_capture(key)
-    us, plan = _sweep(op, spec, x_shape, dy_shape, ep, strategy, factory)
+    us, plan = _sweep(op, spec, x_shape, dy_shape, ep, strategy, factory,
+                      dtype)
     if plan is None:      # every candidate failed: the analytical plan
-        return _planned(op, spec, x_shape, dy_shape, ep, strategy)
+        return _planned(op, spec, x_shape, dy_shape, ep, strategy, dtype)
     disk[key] = dict(_row(plan), us=round(us, 3), strategy=strategy)
     _store_disk_cache(path, disk)
     _MEM_CACHE[key] = plan
@@ -425,16 +469,17 @@ def _autotune_plan(op: str, spec: ConvSpec, x_shape, dy_shape,
 
 def _autotune_strategy(op: str, spec: ConvSpec, x_shape, dy_shape,
                        ep: Optional[Epilogue], path: pathlib.Path,
-                       runner_factory: Optional[Callable]):
+                       runner_factory: Optional[Callable],
+                       dtype: torch.dtype = torch.float32):
     """Both arms swept through their runners; ONE `|st:auto` row records
     the winner (`strategy`) and each arm's best µs (`arms_us`).  An
     explicit `runner_factory` stands in for the phase runner only."""
-    key = _cache_key(op, spec, x_shape, dy_shape, ep, "auto")
+    key = _cache_key(op, spec, x_shape, dy_shape, ep, "auto", dtype)
     if key in _MEM_STRATEGY:
         return _MEM_STRATEGY[key], _MEM_CACHE[key]
     disk = _load_disk_cache(path)
     hit = None if key not in disk else _auto_from_rec(
-        op, disk[key], spec, x_shape, dy_shape, ep)
+        op, disk[key], spec, x_shape, dy_shape, ep, dtype)
     if hit is not None:
         _MEM_STRATEGY[key], _MEM_CACHE[key] = hit
         return hit
@@ -446,14 +491,15 @@ def _autotune_strategy(op: str, spec: ConvSpec, x_shape, dy_shape,
             continue
         _refuse_capture(key)
         try:
-            us, plan = _sweep(op, spec, x_shape, dy_shape, ep, st, factory)
+            us, plan = _sweep(op, spec, x_shape, dy_shape, ep, st, factory,
+                              dtype)
         except ValueError:        # no plan for this strategy: out
             continue
         if plan is not None:
             arms[st] = (us, plan)
     if not arms:          # nothing timed: the analytical race, unsaved
-        st = _auto_strategy(op, spec, x_shape, dy_shape, ep)
-        return st, _planned(op, spec, x_shape, dy_shape, ep, st)
+        st = _auto_strategy(op, spec, x_shape, dy_shape, ep, dtype)
+        return st, _planned(op, spec, x_shape, dy_shape, ep, st, dtype)
     st = min(arms, key=lambda s: arms[s][0])
     us, plan = arms[st]
     disk[key] = dict(_row(plan), us=round(us, 3), strategy=st,
@@ -485,7 +531,8 @@ def plan_tiles(op: str, spec: ConvSpec, *, x_shape, dy_shape,
                mode: Optional[str] = None,
                runner_factory: Optional[Callable] = None,
                tile_cache_path=None,
-               epilogue: Optional[Epilogue] = None):
+               epilogue: Optional[Epilogue] = None,
+               dtype: torch.dtype = torch.float32):
     """The plan of one launch on the phase kernels: a
     `dconv_backward.BackwardPlan`.
 
@@ -498,6 +545,8 @@ def plan_tiles(op: str, spec: ConvSpec, *, x_shape, dy_shape,
     mode      -- "analytical" | "autotune"; default ECOFLOW_TILING.
     epilogue  -- the launch's fused epilogue: its bias adds the db role,
                  its tag enters the cache key.
+    dtype     -- the operands' dtype, fp32 or bf16: its bytes enter the
+                 cache key, and an autotune times inputs of it.
     """
     x_shape, dy_shape, ep, mode = _normalize(op, x_shape, dy_shape,
                                              epilogue, mode)
@@ -505,8 +554,8 @@ def plan_tiles(op: str, spec: ConvSpec, *, x_shape, dy_shape,
         path = pathlib.Path(tile_cache_path) if tile_cache_path \
             else cache_path()
         return _autotune_plan(op, spec, x_shape, dy_shape, ep, "phase",
-                              path, runner_factory)
-    return _planned(op, spec, x_shape, dy_shape, ep, "phase")
+                              path, runner_factory, dtype)
+    return _planned(op, spec, x_shape, dy_shape, ep, "phase", dtype)
 
 
 def plan_strategy(op: str, spec: ConvSpec, *, x_shape, dy_shape,
@@ -514,7 +563,8 @@ def plan_strategy(op: str, spec: ConvSpec, *, x_shape, dy_shape,
                   runner_factory: Optional[Callable] = None,
                   tile_cache_path=None,
                   epilogue: Optional[Epilogue] = None,
-                  strategy: Optional[str] = None) -> tuple:
+                  strategy: Optional[str] = None,
+                  dtype: torch.dtype = torch.float32) -> tuple:
     """The kernel family and its plan for one launch: ("phase",
     BackwardPlan) or ("implicit_gemm", IGPlan).  Parameters as
     `plan_tiles`, plus `strategy`: "phase" | "implicit_gemm" | "auto" |
@@ -536,12 +586,14 @@ def plan_strategy(op: str, spec: ConvSpec, *, x_shape, dy_shape,
             else cache_path()
         if strategy == "auto":
             return _autotune_strategy(op, spec, x_shape, dy_shape, ep, path,
-                                      runner_factory)
+                                      runner_factory, dtype)
         return strategy, _autotune_plan(op, spec, x_shape, dy_shape, ep,
-                                        strategy, path, runner_factory)
+                                        strategy, path, runner_factory,
+                                        dtype)
     if strategy == "auto":
-        strategy = _auto_strategy(op, spec, x_shape, dy_shape, ep)
-    return strategy, _planned(op, spec, x_shape, dy_shape, ep, strategy)
+        strategy = _auto_strategy(op, spec, x_shape, dy_shape, ep, dtype)
+    return strategy, _planned(op, spec, x_shape, dy_shape, ep, strategy,
+                              dtype)
 
 
 def warmup_plans(entries, *, tile_cache_path=None) -> dict:

@@ -1440,3 +1440,148 @@ def test_two_gloo_ranks_serve_and_train_the_lm_on_the_card(cuda, tmp_path):
         assert res["loss_err"] <= 1e-5 and res["grad_err"] <= 1e-3, res
         assert res["train_launches"] == {"flash_attention": 4,
                                          "flash_attention_backward": 2}
+
+
+# -- the conv kernels in bf16 ---------------------------------------------------
+
+BF16_ULP = 2.0 ** -7   # rtol, and atol times the output's largest magnitude
+# (kernel, BACKWARD_GRID case): ragged channels (Cin 29 / Cout 21, Cin 130),
+# a dilated atrous geometry and residues no tap reaches (K < S).
+BF16_CASES = [(kernel, geom) for kernel in (
+    "dconv_forward", "tconv_phase", "tconv_implicit_gemm", "conv_backward",
+    "tconv_backward", "dconv_filter_grad") for geom in (
+    "s2_ragged", "ragged_cin_gt_tile", "s1_d2_atrous", "s4_klt_s")]
+
+
+def _bf16_call(kernel, c):
+    """(kernel call, plain call) of one BACKWARD_GRID case in bf16, with
+    the leaky / bias / scale epilogue where the kernel takes one."""
+    spec = _spec(c)
+    ep = Epilogue(**EP_KW[2])
+    t = {k: v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v
+         for k, v in c.items()}
+    geo = dict(stride=spec.stride, padding=spec.padding,
+               dilation=spec.dilation)
+    y = t["y"].where(t["y"] > 0, 0.2 * t["y"])   # a leaky_relu output
+    z = t["z"].where(t["z"] > 0, 0.2 * t["z"])
+    if kernel == "dconv_forward":
+        return (lambda: ops.dconv_forward(t["x"], t["w"], bias=t["b_out"],
+                                          epilogue=ep, **geo),
+                lambda: dconv_forward_plain(t["x"], t["w"], spec,
+                                            bias=t["b_out"], epilogue=ep))
+    if kernel in ("tconv_phase", "tconv_implicit_gemm"):
+        strategy = "phase" if kernel == "tconv_phase" else "implicit_gemm"
+        plain = tconv_fused_plain if kernel == "tconv_phase" \
+            else tconv_implicit_gemm_plain
+        return (lambda: ops.tconv_phase(t["dy"], t["w"], n_out=c["n"],
+                                        bias=t["b_in"], epilogue=ep,
+                                        strategy=strategy, **geo),
+                lambda: plain(t["dy"], t["w"], spec, n_out=c["n"],
+                              bias=t["b_in"], epilogue=ep))
+    if kernel == "conv_backward":
+        return (lambda: ops.conv_backward(t["x"], t["dy"], t["w"],
+                                          n_out=c["n"], y=y, epilogue=ep,
+                                          **geo),
+                lambda: conv_backward_plain(t["x"], t["dy"], t["w"], spec,
+                                            n_out=c["n"], y=y, epilogue=ep))
+    if kernel == "tconv_backward":
+        return (lambda: ops.tconv_backward(t["g"], t["dy"], t["w"], z=z,
+                                           epilogue=ep, **geo),
+                lambda: tconv_backward_plain(t["g"], t["dy"], t["w"], spec,
+                                             z=z, epilogue=ep))
+    return (lambda: ops.dconv_filter_grad(t["x"], t["dy"],
+                                          k=spec.filter_shape, **geo),
+            lambda: dconv_filter_grad_plain(t["x"], t["dy"], spec))
+
+
+def _outputs(out):
+    return tuple(o for o in out if o is not None) \
+        if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("kernel,name", BF16_CASES,
+                         ids=[f"{k}-{g}" for k, g in BF16_CASES])
+def test_conv_kernels_in_bf16_match_plain(cuda, kernel, name):
+    """Each conv kernel's `_bf16` entry: bf16 outputs (repro's dtypes)
+    within one bf16 ulp of the plain version on the same card (both round
+    once from fp32 sums that differ only in order), one launch counted
+    in LAUNCHES, and a rerun bit-equal to the first run."""
+    geom = next(g for g in BACKWARD_GRID if g[0] == name)
+    run, plain = _bf16_call(kernel, _cuda_case(geom, 21, cuda))
+    ops.reset_launches()
+    got = _outputs(run())
+    assert ops.LAUNCHES[kernel] == 1
+    assert sum(ops.LAUNCHES.values()) == 1
+    want = _outputs(plain())
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert torch.isfinite(a.float()).all()
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=BF16_ULP,
+                                   atol=BF16_ULP * scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, _outputs(run())))
+
+
+def test_bf16_and_fp32_plans_take_separate_cache_entries(cuda, tmp_path):
+    """One geometry autotuned in fp32 and in bf16: two rows under two keys
+    (|w4, |w2), each replayed from its own row, and the bf16 sweep timed
+    on bf16 inputs (its plan's output is bf16)."""
+    from repro_torch.kernels import tiling
+
+    spec = ConvSpec.make(stride=2, padding=1, filter_shape=4)
+    xs, ds = (4, 16, 16, 32), (4, 8, 8, 64)
+    path = tmp_path / "c.json"
+    tiling._MEM_CACHE.clear()
+    plans = {dt: tiling.plan_tiles("ct_backward", spec, x_shape=xs,
+                                   dy_shape=ds, mode="autotune",
+                                   tile_cache_path=path, dtype=dt)
+             for dt in (torch.float32, torch.bfloat16)}
+    keys = {dt: tiling._cache_key("ct_backward", spec, xs, ds, None, "phase",
+                                  dt) for dt in plans}
+    assert keys[torch.float32] != keys[torch.bfloat16]
+    assert "|w4|" in keys[torch.float32] and "|w2|" in keys[torch.bfloat16]
+    import json
+    rows = json.loads(path.read_text())
+    assert set(keys.values()) <= set(rows)
+    tiling._MEM_CACHE.clear()
+    for dt, plan in plans.items():
+        assert tiling.plan_tiles("ct_backward", spec, x_shape=xs,
+                                 dy_shape=ds, mode="autotune",
+                                 tile_cache_path=path, dtype=dt) == plan
+    run = tiling._RUNNERS[("ct_backward", "phase")](
+        spec, xs, ds, epilogue=None, dtype=torch.bfloat16)
+    assert all(o.dtype == torch.bfloat16
+               for o in _outputs(run(plans[torch.bfloat16])))
+    tiling._MEM_CACHE.clear()
+
+
+@pytest.mark.parametrize("step", ["sgd_step", "gan_sgd_step"])
+def test_bf16_training_step_launches_the_bf16_kernels(cuda, step):
+    """A bf16 step at the published widths, batch 8 (every param and the
+    batch cast to bf16), launches the fp32 step's kernels, as many of
+    each, and returns bf16."""
+    gen = torch.Generator().manual_seed(3)
+    bf = lambda tree: tree_map(lambda t: t.to(torch.bfloat16), tree)
+    if step == "sgd_step":
+        p = bf(cnn.simple_cnn_init(gen, device=cuda))
+        b = ConvDataset(kind="cnn", batch=8, image=32, seed=0).batch_at(0)
+        x = torch.from_numpy(b["x"]).to(cuda, torch.bfloat16)
+        ops.reset_launches()
+        new, loss = cnn.sgd_step(p, x, torch.from_numpy(b["labels"]).to(cuda),
+                                 backend="cuda")
+        outs = [loss] + L.tree_leaves(new)
+    else:
+        st = bf(gan.gan_init(gen, device=cuda))
+        b = ConvDataset(kind="gan", batch=8, z_dim=64, seed=0).batch_at(0)
+        ops.reset_launches()
+        new, g_loss, d_loss = gan.gan_sgd_step(
+            st, torch.from_numpy(b["z"]).to(cuda, torch.bfloat16),
+            torch.from_numpy(b["real"]).to(cuda, torch.bfloat16),
+            backend="cuda")
+        outs = [g_loss, d_loss] + L.tree_leaves(new)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    assert launches == _step_launches()[step]
+    assert all(o.dtype == torch.bfloat16 and bool(torch.isfinite(o).all())
+               for o in outs)

@@ -172,10 +172,21 @@ def test_wrappers_refuse_other_dtypes_and_devices():
     w = torch.zeros((3, 3, 3, 4), dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         tops.dconv_forward(x, w, stride=1, padding=1, dilation=1)
-    with pytest.raises(TypeError, match="float32"):
+    # bf16 is taken, on the CPU through the plain version, and gives bf16.
+    dx = tops.tconv_phase(torch.ones((1, 3, 3, 4), dtype=torch.bfloat16),
+                          torch.ones((4, 4, 3, 4), dtype=torch.bfloat16),
+                          stride=2, padding=1, n_out=(6, 6))
+    assert dx.dtype == torch.bfloat16 and dx.shape == (1, 6, 6, 3)
+    assert bool((dx > 0).all())
+    # ... but not beside an fp32 operand: both dtypes are named.
+    with pytest.raises(TypeError, match="bfloat16 and torch.float32"):
         tops.tconv_phase(torch.zeros((1, 3, 3, 4), dtype=torch.bfloat16),
-                         torch.zeros((4, 4, 3, 4), dtype=torch.bfloat16),
-                         stride=2, padding=1, n_out=(6, 6))
+                         torch.zeros((4, 4, 3, 4)), stride=2, padding=1,
+                         n_out=(6, 6))
+    with pytest.raises(TypeError, match="float64"):
+        tops.conv_backward(torch.zeros((1, 6, 6, 3)),
+                           torch.zeros((1, 6, 6, 4)), w, stride=1,
+                           padding=1, n_out=(6, 6))
     with pytest.raises(ValueError, match="bias"):
         tops.dconv_forward(x.float(), w.float(), stride=1, padding=1,
                            dilation=1, epilogue=tspec.Epilogue(bias=True))
@@ -221,16 +232,19 @@ _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
 
 
 @pytest.mark.parametrize("module,source,symbol,argtypes", [
-    ("dconv_forward", "dconv_forward", "dconv_forward_f32", "_ARGTYPES"),
-    ("tconv_phase", "tconv_phase", "tconv_phase_f32", "_ARGTYPES"),
-    ("implicit_gemm", "implicit_gemm", "tconv_implicit_gemm_f32",
-     "_ARGTYPES"),
-    ("dconv_backward", "conv_backward", "conv_backward_f32",
-     "_BWD_ARGTYPES"),
-    ("dconv_backward", "tconv_backward", "tconv_backward_f32",
-     "_CT_ARGTYPES"),
-    ("dconv_filtergrad", "dconv_filtergrad", "dconv_filter_grad_f32",
-     "_ARGTYPES"),
+    (module, source, f"{base}_{suffix}", argtypes)
+    for module, source, base, argtypes in (
+        ("dconv_forward", "dconv_forward", "dconv_forward", "_ARGTYPES"),
+        ("tconv_phase", "tconv_phase", "tconv_phase", "_ARGTYPES"),
+        ("implicit_gemm", "implicit_gemm", "tconv_implicit_gemm",
+         "_ARGTYPES"),
+        ("dconv_backward", "conv_backward", "conv_backward",
+         "_BWD_ARGTYPES"),
+        ("dconv_backward", "tconv_backward", "tconv_backward",
+         "_CT_ARGTYPES"),
+        ("dconv_filtergrad", "dconv_filtergrad", "dconv_filter_grad",
+         "_ARGTYPES"))
+    for suffix in ("f32", "bf16")] + [
     ("attention", "flash_attention", "flash_attention_f32", "_ARGTYPES"),
     ("attention", "flash_attention", "flash_attention_bf16", "_ARGTYPES"),
     ("attention", "flash_attention_bwd", "flash_attention_bwd_f32",
@@ -241,7 +255,9 @@ _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
 def test_c_entries_take_the_wrappers_argtypes(module, source, symbol,
                                               argtypes):
     """ctypes passes what `argtypes` says: each C entry's parameter list
-    (no compiler here to check it) must match it type for type."""
+    (no compiler here to check it) must match it type for type.  A list
+    written as one macro (a conv kernel's `_f32` and `_bf16` entries
+    share theirs) is read from its #define."""
     import importlib
     import re
 
@@ -249,6 +265,10 @@ def test_c_entries_take_the_wrappers_argtypes(module, source, symbol,
     text = (build.CSRC / f"{source}.cu").read_text()
     sig = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", text,
                     re.S).group(1)
+    if re.fullmatch(r"\s*[A-Z_]+\s*", sig):
+        sig = re.search(r"#define " + sig.strip() + r"\s*\\\n(.*?[^\\])\n",
+                        text, re.S).group(1).replace("\\\n", " ")
+        sig = sig.replace("*", "* ").replace(" * ", "* ")
     params = [" ".join(p.split()[:-1]) for p in sig.replace("\n", " ")
               .split(",")]
     want = [_C_TYPES[p] for p in params]
