@@ -148,7 +148,7 @@ Phases (any failed check raises and ends the run non-zero):
      and, past a call routed otherwise, its dispatch/combine held on the
      card's routing (`family_parity`); (b) moonshot-v1-16b-a3b (the
      deepest its bf16 params fit in FAMILY_SERVE_SHARE of the card),
-     rwkv6-7b and zamba2-2.7b whole, bf16, serving phase 6 (b)'s 12
+     rwkv6-7b and zamba2-2.7b whole, bf16, serving phase 6 (b)'s first 8
      requests through ServeEngine: one `flash_attention` launch per
      attention layer per call (moonshot: wgmma prefills; zamba2: 9 a
      call at head_dim 80, tile prefills; split decodes; rwkv6: none),
@@ -160,16 +160,16 @@ Phases (any failed check raises and ends the run non-zero):
      tokens/s, peak memory, the aux loss, a rerun's losses bit-equal
      (`family_train`);
   12. (a) the audio and vlm families (`embeds_phase`), inputs that are
-     frame embeddings: musicgen-medium and internvl2-76b at 2 layers in
-     fp32 against the CPU (`family_parity` on frames: logits per call, the
+     frame embeddings: musicgen-medium at 2 layers and internvl2-76b at 1
+     in fp32 against the CPU (`family_parity` on frames: logits per call, the
      loss and every gradient, internvl2's at batch 1); musicgen-medium
      whole (48 layers) and internvl2-76b at the deepest cut whose bf16
      params take FAMILY_SERVE_SHARE of the card, served in bf16 on phase 6
-     (b)'s 12 requests with frames in place of prompts (`LM.prefill` on
-     frames, greedy `decode_step`s; prefills on wgmma at head_dim 64 /
+     (b)'s first 8 requests with frames in place of prompts (`LM.prefill`
+     on frames, greedy `decode_step`s; prefills on wgmma at head_dim 64 /
      128, decodes on split), requests/s, ms per call, a decode profile
-     (`embed_serve`); musicgen-medium trained whole through `Trainer.run`
-     at seq 4096, batch 8 in 4 microbatches, 4 steps, traced, a rerun
+     (`embed_serve`); musicgen-medium trained at 24 layers through
+     `Trainer.run` at seq 4096, batch 8 in 4 microbatches, 4 steps, traced, a rerun
      bit-equal; (b) the conv steps on a device mesh (`mesh_phase`): MESH_RANKS
      `gloo` ranks spawned on the one card, a (2, 2) ("data", "model")
      mesh; gan_sgd_step, gen_sgd_step and sgd_step at phase 5's widths,
@@ -208,7 +208,26 @@ Phases (any failed check raises and ends the run non-zero):
      sequence, `compressed_psum` over a (2, 2) ("pod", "data") mesh
      against `repro`'s arithmetic reckoned here, RunSupervisor on `cnn`
      with host 1 lost at step 3 (meshes {2, 2} then {1, 2}, the final
-     state at the conv mesh bound of the fault-free run).
+     state at the conv mesh bound of the fault-free run);
+  14. the moe, ssm, hybrid, audio and vlm families and the int8 KV cache
+     on the same mesh (`families_mesh_phase`; `fm_rank` in MESH_RANKS
+     spawned `gloo` ranks), each call held against one rank alone on the
+     card at phase 13's bounds: (a) FM_PARITY's configs at their
+     published widths in fp32 (moonshot-v1-16b-a3b at 1 layer in the
+     training, serve and `moe_ffn_data` layouts; rwkv6-7b at 2,
+     zamba2-2.7b at 12 (2 groups), musicgen-medium at 2 and internvl2-76b
+     at 1 in the training and serve layouts): the loss, the MoE aux and
+     every gradient in the training layout, prefill + PARITY_DECODES
+     decodes in each layout (logits and every cache entry), launches and
+     forms per rank (`fm_parity`: rank 0's own run saved to a file, each
+     rank holding its blocks); (b) moonshot, rwkv6 and zamba2 at 4 / 4 /
+     12 layers in bf16 through ServeEngine(mesh=, serve_sharding="tp") on
+     phase 6 (b)'s first FM_REQUESTS requests, the greedy tokens equal to
+     one rank's engine's up to a first difference at a bf16 tie
+     (`fm_serve`, `_first_tie`); (c) LM_ARCH at 2 layers with `kv_quant`
+     in both layouts, each decode held against one rank's from the
+     mesh's codes; (d) Trainer(mesh=) on moonshot at FM_TRAINER's size,
+     its losses and aux against one rank's (`fm_trainer`).
      Each phase prints its seconds.
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
@@ -281,6 +300,7 @@ LR = 0.05
 # cuDNN in bf16 (atol relative to the output's largest magnitude).
 BF16_TOL = (2.0 ** -7, 2.0 ** -7, "of max")
 BF16_LIB_TOL = (5e-2, 5e-2, "of max")
+PHASE3_ITERS = 10         # timed calls a case (20 before phase 14 came)
 TRAIN_STEPS_BF16 = 3      # phase 5 (b)
 TRAIN_TOL_BF16 = 5e-2     # phase 5 (b): of each leaf's largest magnitude
 # (atol, rtol) of flash attention against its plain version and against
@@ -409,6 +429,9 @@ FAMILY_PARITY = {"moonshot-v1-16b-a3b": 1, "rwkv6-7b": 2, "zamba2-2.7b": 12}
 # (b) serving in bf16: the whole model, or for moonshot the deepest that
 # keeps its bf16 params within this share of the card's memory.
 FAMILY_SERVE = ("moonshot-v1-16b-a3b", "rwkv6-7b", "zamba2-2.7b")
+# (b) and phase 12 (a)'s serving: the first FAMILY_REQUESTS of phase 6
+# (b)'s requests (all LM_REQUESTS before phase 14 came).
+FAMILY_REQUESTS = 8
 FAMILY_SERVE_SHARE = 0.75
 # (c) training at train_4k's seq through Trainer.run: layers (None: the
 # deepest whole groups whose training state -- FAMILY_TRAIN_BYTES a param:
@@ -427,15 +450,18 @@ FAMILY_TRAIN_SHARE = 0.7
 FAMILY_TRAIN_STEPS = 3
 FAMILY_SEED = 41          # the card generator's seed of phase 11's params
 # Phase 12 (a): the audio and vlm families, whose inputs are embeddings.
-# Parity at 2 layers; musicgen-medium served and trained whole;
+# Parity at EMBED_PARITY's depths; musicgen-medium served whole and
+# trained at EMBED_TRAIN's;
 # internvl2-76b served at the deepest cut whose bf16 params take
 # FAMILY_SERVE_SHARE of the card (its training state would not fit).
 # (layers, the gradients' (batch, seq)): internvl2-76b's at batch 1, as
 # its CPU side (3.8 B fp32 params) takes ~1.5 min at phase 11's (2, 256).
+# internvl2-76b at 1 layer since phase 14 came (its 2 layers took ~66 s,
+# most of it the CPU's side).
 EMBED_PARITY = {"musicgen-medium": (2, LM_TRAIN_PARITY),
-                "internvl2-76b": (2, (1, 256))}
+                "internvl2-76b": (1, (1, 256))}
 EMBED_SERVE = ("musicgen-medium", "internvl2-76b")
-EMBED_TRAIN = {"musicgen-medium": 48}
+EMBED_TRAIN = {"musicgen-medium": 24}   # 48 before phase 14 came (46 s)
 EMBED_TRAIN_STEPS = 4
 # Phase 12 (b): the conv steps on a (2, 2) ("data", "model") mesh of
 # MESH_RANKS `gloo` ranks that share the one card, at phase 5's widths and
@@ -460,15 +486,41 @@ MESH_TRAINER_STEPS = 4    # the elastic run: checkpoint at 2, a host lost
 # steps with host 1 lost at step 3.
 LM_MESH_TRAIN = (8, 256)
 LM_MESH_LOSS_RTOL, LM_MESH_GRAD_TOL, LM_MESH_PARAM_TOL = 1e-5, 1e-3, 2e-2
-LM_MESH_REQUESTS = 12
+LM_MESH_REQUESTS = 6       # 12 before phase 14 came (75 s of (b))
 LM_MESH_MAX_LEN = 1280    # (b)'s cache: the longest history (1026) crosses
                           # the sequence blocks' boundary at 640
-LM_MESH_TRAIN_LAYERS = 4
+LM_MESH_TRAIN_LAYERS = 2   # 4 before phase 14 came (74-82 s of (c))
 LM_MESH_TRAIN_STEPS = 4
 LM_MESH_SEED = 7          # the card generator's seed of (b)'s and (c)'s params
 GPIPE = (4, 8, 2, 64)
 COMPRESS_N = 4096
 SUPERVISOR_STEPS = 6
+# Phase 14: the moe, ssm, hybrid, audio and vlm families and the int8 KV
+# cache on the same (2, 2) mesh of MESH_RANKS `gloo` ranks, every bound
+# phase 13's, held against one rank alone on the card.  (a) parity in
+# fp32 at published widths: (layers, layouts); the loss and gradients at
+# LM_TRAIN_PARITY (internvl2-76b at batch 1, 1 layer: 2 layers' fp32
+# params are 15.2 GB, and four ranks drawing them beside one rank's
+# reference and its gradients would not fit the card's 80 GB);
+# prefill + PARITY_DECODES decodes in each layout.
+FM_PARITY = {"moonshot-v1-16b-a3b": (1, ("train", "tp", "ffn")),
+             "rwkv6-7b": (2, ("train", "tp")),
+             "zamba2-2.7b": (12, ("train", "tp")),
+             "musicgen-medium": (2, ("train", "tp")),
+             "internvl2-76b": (1, ("train", "tp"))}
+FM_TRAIN = {"internvl2-76b": (1, 256)}
+FM_LAYOUTS = {"train": {}, "tp": {"serve": True},
+              "ffn": {"moe_ffn_data": True}}
+# (b) ServeEngine(mesh=, serve_sharding="tp") in bf16 at these depths on
+# phase 6 (b)'s first FM_REQUESTS requests, the cache LM_MESH_MAX_LEN.
+FM_SERVE = {"moonshot-v1-16b-a3b": 4, "rwkv6-7b": 4, "zamba2-2.7b": 12}
+FM_REQUESTS = 4
+# (c) LM_ARCH with `kv_quant` at FM_KVQ_LAYERS layers, fp32, both layouts.
+FM_KVQ_LAYERS = 2
+# (d) Trainer(mesh=) on moonshot-v1-16b-a3b: (layers, seq, global batch,
+# steps), fp32, one microbatch (so the step carries the aux loss).
+FM_TRAINER = (1, 256, 4, 2)
+FM_SEED = 43              # the card generator's seed of phase 14's params
 
 
 def paper_layers() -> list:
@@ -1997,18 +2049,18 @@ def quickstart_phase(card: str) -> dict:
     return launches
 
 
-def family_params(cfg, seed: int, dtype=None):
-    """LM(cfg)'s params drawn on the card by a CUDA generator seeded
-    `seed`: `LM.init_tree`'s shapes and scales, every norm scale plus
-    0.1 N(0, 1) (so that 1 + scale is not 1), a group of layers at a time
-    (one; a hybrid group of attn_every).  With `dtype`, every leaf of
-    ndim >= 2 is cast as soon as it is drawn (`launch.steps.precast`), so
-    the fp32 copy of the whole model never exists."""
+def family_params(cfg, seed: int, dtype=None, device: str = "cuda"):
+    """LM(cfg)'s params drawn on `device` (the card) by a generator there
+    seeded `seed`: `LM.init_tree`'s shapes and scales, every norm scale
+    plus 0.1 N(0, 1) (so that 1 + scale is not 1), a group of layers at a
+    time (one; a hybrid group of attn_every).  With `dtype`, every leaf
+    of ndim >= 2 is cast as soon as it is drawn (`launch.steps.precast`),
+    so the fp32 copy of the whole model never exists."""
     from repro_torch.launch.steps import precast
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.models.lm import LM
 
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     step = cfg.attn_every if cfg.family == "hybrid" else 1
 
@@ -2269,8 +2321,9 @@ def family_parity(card: str, arch: str, n_layers: int,
 def family_serve(card: str, arch: str) -> dict:
     """Phase 11 (b) for one model: bf16 params (`family_params` cast as
     drawn) at the published widths, whole or cut (FAMILY_SERVE_SHARE),
-    phase 6 (b)'s LM_REQUESTS requests through ServeEngine(batch=LM_BATCH,
-    max_len=LM_MAX_LEN) after a warm-up request: every request answered,
+    phase 6 (b)'s first FAMILY_REQUESTS requests through
+    ServeEngine(batch=LM_BATCH, max_len=LM_MAX_LEN) after a warm-up
+    request: every request answered,
     no NaN, one flash_attention launch per attention layer per prefill and
     decode step -- prefills on wgmma at head_dim 128 and on tile at 80,
     decodes on split -- and none for RWKV; requests/s, tokens/s, ms per
@@ -2305,7 +2358,8 @@ def family_serve(card: str, arch: str) -> dict:
                       for t in tree_leaves(params))
     instrumented_engine(cfg, params).generate([Request(
         uid=0, prompt=np.arange(1, 200, dtype=np.int32), max_new_tokens=3)])
-    eng, reqs = instrumented_engine(cfg, params), lm_requests(cfg.vocab)
+    eng, reqs = instrumented_engine(cfg, params), \
+        lm_requests(cfg.vocab)[:FAMILY_REQUESTS]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -2327,7 +2381,7 @@ def family_serve(card: str, arch: str) -> dict:
                              f"{ops.FLASH_FORMS}, expected {want}, {forms}")
     if not all(bool(ok) for *_, ok in eng.calls):
         raise AssertionError(f"{arch} serve: NaN or inf in the logits")
-    if sorted(res) != list(range(LM_REQUESTS)) or any(
+    if sorted(res) != list(range(FAMILY_REQUESTS)) or any(
             len(res[r.uid]) != r.max_new_tokens for r in reqs):
         raise AssertionError(f"{arch} serve: not every request was answered")
     generated = sum(len(v) for v in res.values())
@@ -2337,10 +2391,10 @@ def family_serve(card: str, arch: str) -> dict:
            "published_layers": full.n_layers, "dtype": "bfloat16",
            "params_gb": param_bytes / 1e9, "init_s": init_s,
            "batch": LM_BATCH, "max_len": LM_MAX_LEN,
-           "requests": LM_REQUESTS, "generated_tokens": generated,
+           "requests": FAMILY_REQUESTS, "generated_tokens": generated,
            "stats": eng.stats, "launches": launches,
            "flash_attention_forms": dict(ops.FLASH_FORMS), "wall_s": wall,
-           "requests_per_s": LM_REQUESTS / wall,
+           "requests_per_s": FAMILY_REQUESTS / wall,
            "generated_tokens_per_s": generated / wall,
            "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),
            "ms_per_decode_step": sum(ms["decode"]) / len(ms["decode"]),
@@ -2421,7 +2475,8 @@ def families_phase(card: str) -> dict:
 def embed_serve(card: str, arch: str) -> dict:
     """Phase 12 (a), serving: bf16 params (`family_params`) at the
     published widths, whole or at the deepest cut that FAMILY_SERVE_SHARE
-    of the card holds, serving phase 6 (b)'s LM_REQUESTS requests with
+    of the card holds, serving phase 6 (b)'s first FAMILY_REQUESTS
+    requests with
     frames in place of prompts: frame embeddings of each request's prompt
     length (drawn on the card from a seed, zeros in front of the shorter
     ones), `LM.prefill(params, frames, LM_MAX_LEN)` for each batch of
@@ -2456,7 +2511,7 @@ def embed_serve(card: str, arch: str) -> dict:
                       for t in tree_leaves(params))
     lm = LM(cfg)
     gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED + 3)
-    reqs = lm_requests(cfg.vocab)
+    reqs = lm_requests(cfg.vocab)[:FAMILY_REQUESTS]
 
     def frames(lens):
         x = torch.zeros((len(lens), max(lens), cfg.d_model),
@@ -2513,7 +2568,7 @@ def embed_serve(card: str, arch: str) -> dict:
                              f"{ops.FLASH_FORMS}, expected {want}, {forms}")
     if not all(bool(ok) for *_, ok in calls):
         raise AssertionError(f"{arch} serve: NaN or inf in the logits")
-    if sorted(res) != list(range(LM_REQUESTS)) or any(
+    if sorted(res) != list(range(FAMILY_REQUESTS)) or any(
             len(res[r.uid]) != r.max_new_tokens for r in reqs):
         raise AssertionError(f"{arch} serve: not every request was answered")
     generated = sum(len(v) for v in res.values())
@@ -2524,12 +2579,12 @@ def embed_serve(card: str, arch: str) -> dict:
            "head_dim": cfg.head_dim, "heads": [cfg.n_heads, cfg.n_kv_heads],
            "params_gb": param_bytes / 1e9, "init_s": init_s,
            "batch": LM_BATCH, "max_len": LM_MAX_LEN,
-           "requests": LM_REQUESTS, "frame_positions": int(sum(
+           "requests": FAMILY_REQUESTS, "frame_positions": int(sum(
                len(r.prompt) for r in reqs)), "generated_tokens": generated,
            "prefills": prefills, "decode_steps": decodes,
            "launches": launches, "flash_attention_forms": dict(
                ops.FLASH_FORMS), "wall_s": wall,
-           "requests_per_s": LM_REQUESTS / wall,
+           "requests_per_s": FAMILY_REQUESTS / wall,
            "generated_tokens_per_s": generated / wall,
            "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),
            "ms_per_decode_step": sum(ms["decode"]) / len(ms["decode"]),
@@ -2547,9 +2602,10 @@ def embed_serve(card: str, arch: str) -> dict:
 
 def embeds_phase(card: str) -> dict:
     """Phase 12 (a): the audio and vlm families (musicgen-medium,
-    internvl2-76b): parity against the CPU at 2 layers in fp32
+    internvl2-76b): parity against the CPU at EMBED_PARITY's depths in fp32
     (`family_parity` on frames), serving (`embed_serve`), and
-    musicgen-medium trained whole (`family_train`).  Returns (b) and
+    musicgen-medium trained at EMBED_TRAIN's depth (`family_train`).
+    Returns (b) and
     (c)'s launches summed."""
     t0 = time.perf_counter()
     for arch, (n, shape) in EMBED_PARITY.items():
@@ -2562,9 +2618,12 @@ def embeds_phase(card: str) -> dict:
     for run in runs:
         for k, v in run().items():
             launches[k] = launches.get(k, 0) + v
-    print(f"embeds: musicgen-medium and internvl2-76b equal the CPU in fp32 "
+    print(f"embeds: musicgen-medium and internvl2-76b (at "
+          f"{EMBED_PARITY['musicgen-medium'][0]} / "
+          f"{EMBED_PARITY['internvl2-76b'][0]} layers) equal the CPU in fp32 "
           f"within {PARITY_TOL:g} on frames, served in bf16; musicgen-medium "
-          f"trained whole at seq {LM_TRAIN_SEQ} "
+          f"trained at {EMBED_TRAIN['musicgen-medium']} layers at seq "
+          f"{LM_TRAIN_SEQ} "
           f"({time.perf_counter() - t0:.1f} s)")
     return launches
 
@@ -3029,7 +3088,8 @@ def lm_mesh_parity(mesh, rank: int, counted, small: bool) -> dict:
 def _timed_engine(eng, sync):
     """Wrap `eng`'s prefill and decode: per call the host wall ms (synced
     on both sides: a sharded call waits on its collectives anyway), the
-    cache length it met, and each row's argmax and top-2 margin."""
+    cache length it met, and each row's argmax, top two tokens, top logit
+    and top-2 margin."""
     eng.calls = []
 
     def wrap(kind, fn):
@@ -3042,7 +3102,9 @@ def _timed_engine(eng, sync):
             top = logits[:, 0].float().topk(2, dim=-1)
             eng.calls.append({"kind": kind, "len": clen,
                               "ms": (time.perf_counter() - t0) * 1e3,
-                              "argmax": top.indices[:, 0].tolist(),
+                              "argmax": logits[:, 0].argmax(-1).tolist(),
+                              "top2": top.indices.tolist(),
+                              "top": top.values[:, 0].tolist(),
                               "margin": (top.values[:, 0] - top.values[:, 1])
                               .tolist(),
                               "finite": bool(torch.isfinite(logits).all())})
@@ -3463,6 +3525,593 @@ def lm_mesh_phase(card: str, device: str = "cuda",
           f"one rank's; (c) Trainer restored onto (1, 2) after a host loss, "
           f"losses within {c['loss_rel_err']:.2e} of one rank; (d) gpipe, "
           f"compressed_psum and RunSupervisor hold "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+# -- phase 14: the other LM families and the int8 cache on a mesh -----------
+
+def _fm_config(arch: str, n_layers: int, small: bool, **kw):
+    """`arch` at its published widths and `n_layers` layers, or with
+    `small` (a CPU rehearsal) its SMOKE config at the SMOKE's depth."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    if small:
+        return get_smoke_config(arch).scaled(**kw)
+    return get_config(arch).scaled(n_layers=n_layers, **kw)
+
+
+def _fm_inputs(cfg, small: bool):
+    """Phase 6 (a)'s LM_BATCH prompts of 64-200 tokens (frames of the
+    same lengths for an `embed_input` config, zeros in front), the
+    PARITY_DECODES forced tokens, and a max_len whose second sequence
+    block takes the last PARITY_DECODES // 2 decodes."""
+    rng = np.random.default_rng(13)
+    lens = rng.integers(*((4, 9) if small else (64, 201)), LM_BATCH)
+    toks = np.zeros((LM_BATCH, int(lens.max())), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, toks.shape[1] - n:] = rng.integers(1, cfg.vocab, n)
+    if cfg.embed_input:
+        toks = np.zeros((*toks.shape, cfg.d_model), np.float32)
+        for i, n in enumerate(lens):
+            toks[i, toks.shape[1] - n:] = rng.standard_normal(
+                (n, cfg.d_model))
+    forced = rng.integers(1, cfg.vocab, (PARITY_DECODES, LM_BATCH, 1))
+    return toks, forced, 2 * (toks.shape[1] + PARITY_DECODES // 2)
+
+
+def _fm_put(mesh, rank: int, draw, nbytes: int, **kw):
+    """The params (`nbytes` of them whole) laid out by
+    `tree_shardings(**kw)`: every rank draws the whole tree and keeps its
+    blocks -- all at once where MESH_RANKS whole copies take at most half
+    the card, else in turn."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import sharding as sh
+
+    ps = None
+    together = mesh.device_type != "cuda" or MESH_RANKS * nbytes <= \
+        torch.cuda.get_device_properties(0).total_memory // 2
+    for r in range(dist.get_world_size()):
+        if r == rank or together:
+            whole = draw()
+            ps = sh.device_put(whole, sh.tree_shardings(whole, mesh, **kw))
+            del whole
+            gc.collect()
+            if mesh.device_type == "cuda":
+                torch.cuda.empty_cache()
+        if together:
+            break
+        sh.barrier(mesh)
+    return ps
+
+
+def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
+              layouts, small: bool, train: bool = True, **kw) -> dict:
+    """Phase 14 (a) / (c) for one config on one rank, fp32 at published
+    widths: rank 0 first runs it alone (the loss and every gradient at
+    LM_TRAIN_PARITY, or FM_TRAIN's, with `train`; prefill and
+    PARITY_DECODES decodes) and saves the results to `tmp`; then on each
+    layout every rank runs the same calls on its blocks and holds each
+    of its blocks against the same block of rank 0's results (read from
+    the file: no collective): the loss at LM_MESH_LOSS_RTOL, every
+    gradient at LM_MESH_GRAD_TOL of its leaf's max, the MoE aux loss,
+    the logits and the cache at PARITY_TOL per call (int8: each decode's
+    logits against one rank's from the mesh's codes, the codes within 1
+    of one rank's own run, their scales at KV_SCALE_RTOL); launches and
+    forms per rank: one
+    flash_attention per attention layer per prefill (tile) and per
+    decode whose sequence block holds a key (split), twice per training
+    forward and one backward."""
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import sharding as sh
+
+    t_start = time.perf_counter()
+    dev = torch.device(mesh.device_type)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = _fm_config(arch, n_layers, small, dtype="float32", **kw)
+    lm = LM(cfg)
+    toks, forced, max_len = _fm_inputs(cfg, small)
+    prompt = torch.from_numpy(toks).to(dev)
+    n_attn = attention_layers(cfg)
+    B, S = FM_TRAIN.get(arch, LM_TRAIN_PARITY) if not small else (2, 24)
+    batch = TokenDataset(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                         seed=21, embed_dim=cfg.d_model if cfg.embed_input
+                         else None).batch(0)
+    labels = batch["labels"].copy()
+    labels[0, :7] = -1
+    inputs = torch.from_numpy(batch["inputs"]).to(dev)
+    labels = torch.from_numpy(labels).to(dev)
+    ref_path = os.path.join(tmp, "fm_reference.pt")
+    with torch.device("meta"):
+        nbytes = sum(t.numel() * 4 for t in tree_leaves(lm.init_tree(
+            torch.Generator())))
+
+    def draw():
+        return family_params(cfg, FM_SEED, device=dev.type)
+
+    def host(out):
+        """A call's logits and cache, copied to the host (the next decode
+        writes the cache in place)."""
+        return out[0].to("cpu", copy=True), {
+            k: v.to("cpu", copy=True) for k, v in out[1].items()
+            if k != "len"}
+
+    def step(n):
+        return torch.from_numpy(forced[n].astype(np.int32)).to(dev)
+
+    out = {"arch": arch, "n_layers": cfg.n_layers, "kv_quant": cfg.kv_quant,
+           "train_batch": B, "train_seq": S, "prompt_len": toks.shape[1],
+           "max_len": max_len}
+    if rank == 0:                     # one rank alone
+        p, want = draw(), {}
+        if train:
+            sync()
+            t0 = time.perf_counter()
+            (loss, aux), grads = steps.loss_and_grads(lm, p, inputs, labels)
+            sync()
+            out["grad_ms_alone"] = (time.perf_counter() - t0) * 1e3
+            print(f"phase 14: {arch}: one rank's gradients "
+                  f"{out['grad_ms_alone']:.1f} ms", flush=True)
+            want.update(loss=loss.item(), aux=float(aux["aux"]),
+                        grads=[g.cpu() for g in tree_leaves(grads)],
+                        grad_max=[g.abs().max().item()
+                                  for g in tree_leaves(grads)])
+            del grads
+        with torch.no_grad():
+            o = lm.prefill(p, prompt, max_len)
+            calls = [host(o)]
+            for i in range(PARITY_DECODES):
+                o = lm.decode_step(p, o[1], step(i))
+                calls.append(host(o))
+        want["calls"] = calls
+        t0 = time.perf_counter()
+        torch.save(want, ref_path)
+        out["save_s"] = time.perf_counter() - t0
+        del p, o, want, calls
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    sh.barrier(mesh)
+    want = torch.load(ref_path, mmap=True, weights_only=True)
+
+    def hold(got, ref, what, int8=False, rtol=PARITY_TOL, atol=PARITY_TOL):
+        """This rank's block `got` against `ref`, the same block of rank
+        0's result (on the host); the largest |err| (int8: the count of
+        codes 1 apart)."""
+        ref = ref.to(got.device)
+        if int8:
+            d = (got.int() - ref.int()).abs()
+            if d.numel() and int(d.max()) > 1:
+                raise AssertionError(f"rank {rank} {what}: int8 codes "
+                                     f"{int(d.max())} apart")
+            return float((d == 1).sum())
+        d = (got.float() - ref.float()).abs()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (d > atol + rtol * ref.float().abs()).any()):
+            raise AssertionError(f"rank {rank} {what}: max |err| "
+                                 f"{d.max().item():.3e}")
+        return d.max().item() if d.numel() else 0.0
+
+    m = mesh.get_local_rank("model")
+    # The int8 cache: a value at a rounding tie quantizes one way on the
+    # mesh and the other on one rank, and later calls read the codes; so,
+    # as phase 10 (a) does, each decode is held against one rank's decode
+    # from a copy of the mesh's cache (every rank holds the small model
+    # whole for it), and one rank's own run only by its cache.
+    alone = draw() if cfg.kv_quant else None
+    for layout in layouts:
+        t_layout = time.perf_counter()
+        name = f"{arch}{' kv_quant' if cfg.kv_quant else ''} {layout}"
+        ps = _fm_put(mesh, rank, draw, nbytes, **FM_LAYOUTS[layout])
+        row = {"put_s": time.perf_counter() - t_layout}
+        if train and layout == "train":
+            P = tree_map(lambda t: sh.as_sharded(t, mesh), ps)
+            sync()
+            t0 = time.perf_counter()
+            ((loss, aux), grads), launches, forms, bwd = counted.run(
+                lambda: steps.loss_and_grads(lm, P, inputs, labels))
+            row["grad_ms_mesh"] = (time.perf_counter() - t0) * 1e3
+            want_l = {"flash_attention": 2 * n_attn,
+                      "flash_attention_backward": n_attn} if n_attn else {}
+            if cuda and launches != want_l:
+                raise AssertionError(f"rank {rank} {name} gradients: "
+                                     f"launches {launches}, expected "
+                                     f"{want_l}")
+            g_err = 0.0
+            for i, (g, p_) in enumerate(zip(tree_leaves(grads),
+                                            tree_leaves(P))):
+                big = max(want["grad_max"][i], 1e-30)
+                g_err = max(g_err, hold(
+                    g, sh.local(want["grads"][i], mesh, p_.spec),
+                    f"{name} gradient {i}", rtol=0.0,
+                    atol=LM_MESH_GRAD_TOL * big) / big)
+            del grads, P
+            l_err = abs(loss.item() - want["loss"]) / abs(want["loss"])
+            a_err = abs(float(aux["aux"]) - want["aux"]) / max(
+                abs(want["aux"]), 1e-30)
+            if l_err > LM_MESH_LOSS_RTOL or (cfg.n_experts and
+                                             a_err > LM_MESH_LOSS_RTOL):
+                raise AssertionError(f"rank {rank} {name}: loss "
+                                     f"{loss.item()} / aux {float(aux['aux'])}"
+                                     f" vs one rank's {want['loss']} / "
+                                     f"{want['aux']}")
+            row.update(loss=loss.item(), loss_rel_err=l_err,
+                       aux=float(aux["aux"]), aux_rel_err=a_err,
+                       grads_max_err_of_leaf_max=g_err,
+                       hold_s=time.perf_counter() - t0 - row["grad_ms_mesh"]
+                       / 1e3,
+                       grad_bound=LM_MESH_GRAD_TOL, train_launches=launches,
+                       train_forms=forms, train_backward_forms=bwd,
+                       train_s=time.perf_counter() - t0)
+        errs, codes_apart, calls = [], 0.0, []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = None
+            for i in range(PARITY_DECODES + 1):
+                same = None
+                if i == 0:
+                    got, launches, forms, _ = counted.run(
+                        lambda: lm.prefill(ps, prompt, max_len))
+                else:
+                    if alone is not None:
+                        held = {k: sh.full_tensor(c).clone() if k != "len"
+                                else c for k, c in got[1].items()}
+                    got, launches, forms, _ = counted.run(
+                        lambda: lm.decode_step(ps, got[1], step(i - 1)))
+                    if alone is not None:
+                        same = lm.decode_step(alone, held, step(i - 1))[0]
+                calls.append((launches, forms))
+                logits, cache = want["calls"][i]
+                if same is not None:
+                    row["logits_max_abs_err_own_cache"] = max(
+                        row.get("logits_max_abs_err_own_cache", 0.0),
+                        (got[0].cpu() - logits).abs().max().item())
+                    logits = same
+                e = hold(got[0], logits, f"{name} call {i} logits")
+                for k, c in got[1].items():
+                    if k == "len":
+                        continue
+                    ref = sh.local(cache[k], mesh, c.spec)
+                    if c.local.dtype == torch.int8:
+                        codes_apart += hold(c.local, ref,
+                                            f"{name} call {i} {k}", int8=True)
+                    elif k.endswith("scale"):
+                        hold(c.local, ref, f"{name} call {i} {k}",
+                             rtol=KV_SCALE_RTOL, atol=0.0)
+                    else:
+                        e = max(e, hold(c.local, ref, f"{name} call {i} {k}"))
+                errs.append(e)
+        live = [1] + [int(toks.shape[1] + i >= m * (max_len // 2))
+                      for i in range(PARITY_DECODES)]
+        want_calls = [({"flash_attention": n_attn} if n and n_attn else {},
+                       {("tile" if i == 0 else "split"): n_attn}
+                       if n and n_attn else {})
+                      for i, n in enumerate(live)]
+        if cuda and calls != want_calls:
+            raise AssertionError(f"rank {rank} {name}: launches {calls}, "
+                                 f"expected {want_calls}")
+        row.update(max_abs_err=max(errs), tol=PARITY_TOL,
+                   calls_with_launches=sum(live) if n_attn else 0,
+                   int8_codes_one_apart=codes_apart,
+                   calls_s=time.perf_counter() - t0,
+                   cache_specs={k: [list(e_) if isinstance(e_, tuple) else e_
+                                    for e_ in c.spec]
+                                for k, c in got[1].items() if k != "len"})
+        out[layout] = row
+        del ps, got
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        if rank == 0:
+            print(f"phase 14: {name}: {time.perf_counter() - t_layout:.1f} s "
+                  + json.dumps({k: v for k, v in row.items()
+                                if k.endswith(("_s", "_ms_mesh"))}),
+                  flush=True)
+    del want, alone
+    sh.barrier(mesh)
+    if rank == 0:
+        os.remove(ref_path)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def _first_tie(calls, alone_calls, dtype):
+    """The first call whose argmax differs between a sharded engine and
+    one rank's (None when none does): its rows, each side's top two
+    tokens, top logit and top-2 margin, and `tie`: in every such row each
+    side's top two tokens are the two picks and lie within two roundings
+    of `dtype` (2 eps of the top logit) of each other -- both sides sum
+    the same products in another order and round each logit to `dtype`,
+    so such a pair can come out in either order; from there on the two
+    histories differ."""
+    eps = torch.finfo(dtype).eps
+    for i, (a, b) in enumerate(zip(calls, alone_calls)):
+        if a["argmax"] == b["argmax"]:
+            continue
+        rows = [j for j, (x, y) in enumerate(zip(a["argmax"], b["argmax"]))
+                if x != y]
+        return {"call": i, "kind": a["kind"], "rows": rows,
+                "sharded": [(a["top2"][j], a["top"][j], a["margin"][j])
+                            for j in rows],
+                "alone": [(b["top2"][j], b["top"][j], b["margin"][j])
+                          for j in rows],
+                "tie": all(
+                    set(c["top2"][j]) == {a["argmax"][j], b["argmax"][j]}
+                    and c["margin"][j] <= 2 * eps * abs(c["top"][j])
+                    for j in rows for c in (a, b))}
+    return None
+
+
+def fm_serve(mesh, rank: int, counted, arch: str, n_layers: int,
+             small: bool) -> dict:
+    """Phase 14 (b) for one model on one rank: `arch` at `n_layers` layers
+    in bf16 (params from FM_SEED + 1, the same on every rank) through
+    ServeEngine(mesh=, serve_sharding="tp", max_len=LM_MESH_MAX_LEN) on
+    phase 6 (b)'s first FM_REQUESTS requests; rank 0 serves them alone
+    too, and every greedy token must equal its engine's up to the first
+    call whose argmax differs, and there only at a bf16 tie
+    (`_first_tie`).  One flash_attention per attention layer per
+    prefill and per decode step whose sequence block holds a key."""
+    from repro_torch.serve.engine import ServeEngine
+
+    t_start = time.perf_counter()
+    cfg = _fm_config(arch, n_layers, small)
+    dev = torch.device(mesh.device_type)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    params = family_params(cfg, FM_SEED + 1, torch.bfloat16, dev.type)
+    reqs = lm_requests(cfg.vocab)[:FM_REQUESTS]
+    max_len = LM_MESH_MAX_LEN if not small else 1280
+    if small:   # short prompts for the CPU
+        for r in reqs:
+            r.prompt, r.max_new_tokens = r.prompt[:6], min(r.max_new_tokens,
+                                                           6)
+    out = {"arch": arch, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "requests": len(reqs)}
+
+    def ms(cs, kind):
+        v = [c["ms"] for c in cs if c["kind"] == kind]
+        return sum(v) / len(v)
+
+    alone = None
+    if rank == 0:
+        eng = _timed_engine(ServeEngine(cfg, params, batch=LM_BATCH,
+                                        max_len=max_len, device=dev), sync)
+        alone = eng.generate([type(r)(uid=r.uid, prompt=r.prompt,
+                                      max_new_tokens=r.max_new_tokens)
+                              for r in reqs])
+        alone_calls = eng.calls
+        out["alone"] = {"ms_per_prefill": ms(eng.calls, "prefill"),
+                        "ms_per_decode_step": ms(eng.calls, "decode")}
+        del eng
+    eng = _timed_engine(ServeEngine(cfg, params, batch=LM_BATCH,
+                                    max_len=max_len, device=dev, mesh=mesh,
+                                    serve_sharding="tp"), sync)
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, launches, forms, _ = counted.run(lambda: eng.generate(reqs))
+    wall = time.perf_counter() - t0
+    calls = eng.calls
+    n_attn = attention_layers(cfg)
+    start = mesh.get_local_rank("model") * (max_len // 2)
+    n_pre = sum(c["kind"] == "prefill" for c in calls)
+    n_live = sum(c["kind"] == "decode" and c["len"] >= start for c in calls)
+    want_l = {"flash_attention": n_attn * (n_pre + n_live)} if n_attn else {}
+    pre = "tile" if cfg.head_dim == 80 else "wgmma"
+    want_f = {k: v for k, v in ((pre, n_attn * n_pre),
+                                ("split", n_attn * n_live)) if v}
+    if cuda and (launches != want_l or forms != want_f):
+        raise AssertionError(f"rank {rank} {arch} mesh serve: launches "
+                             f"{launches} / {forms}, expected {want_l} / "
+                             f"{want_f}")
+    if not all(c["finite"] for c in calls) or sorted(res) != list(
+            range(len(reqs))) or any(len(res[r.uid]) != r.max_new_tokens
+                                     for r in reqs):
+        raise AssertionError(f"rank {rank} {arch} mesh serve: a NaN or a "
+                             f"request not answered in full")
+    if alone is not None:
+        same = sum(a == b for r in range(len(reqs))
+                   for a, b in zip(res[r], alone[r]))
+        out["alone"]["token_share_equal"] = same / sum(
+            len(v) for v in alone.values())
+        first = _first_tie(calls, alone_calls, cfg.compute_dtype)
+        out["alone"]["first_disagreement"] = first
+        if res != alone and (first is None or not first["tie"]):
+            raise AssertionError(
+                f"{arch} mesh serve: tokens {res} differ from one rank's "
+                f"{alone}; first differing call: {first}")
+    out.update({"tokens": {str(k): v for k, v in res.items()},
+                "prefills": n_pre, "decode_steps": len(calls) - n_pre,
+                "decode_steps_with_live_keys": n_live, "launches": launches,
+                "forms": forms, "wall_s": wall,
+                "ms_per_prefill": ms(calls, "prefill"),
+                "ms_per_decode_step": ms(calls, "decode"),
+                "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                   if cuda else None),
+                "seconds": time.perf_counter() - t_start})
+    return out
+
+
+def fm_trainer(mesh, rank: int, counted, small: bool) -> dict:
+    """Phase 14 (d) on one rank: Trainer(mesh=) on moonshot-v1-16b-a3b at
+    FM_TRAINER's (layers, seq, global batch, steps), fp32, one microbatch;
+    rank 0 then runs the same trainer alone: each step's loss and MoE
+    aux within LM_MESH_LOSS_RTOL of its."""
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_start = time.perf_counter()
+    layers, seq, gb, n_steps = FM_TRAINER
+    cfg = _fm_config("moonshot-v1-16b-a3b", layers, small, dtype="float32",
+                     microbatch=1)
+    seq = seq if not small else 24
+    dev = torch.device(mesh.device_type)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    ds = TokenDataset(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=0)
+
+    def trainer(m):
+        tr = Trainer(cfg, ds, AdamWConfig(lr=3e-4, warmup_steps=1,
+                                          total_steps=n_steps),
+                     TrainerConfig(total_steps=n_steps, log_every=1,
+                                   seed=FM_SEED), mesh=m, device=dev)
+        tr.log, fn = [], tr.step_fn
+
+        def step(*a):
+            sync()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            tr.log.append(((time.perf_counter() - t0) * 1e3,
+                           float(r[2]["loss"]), float(r[2]["aux"])))
+            return r
+        tr.step_fn = step
+        return tr
+
+    tr = trainer(mesh)
+    _, launches, forms, bwd = counted.run(tr.run)
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "flash_attention_backward": cfg.n_layers}
+    if cuda and launches != {k: v * n_steps for k, v in per_step.items()}:
+        raise AssertionError(f"rank {rank} mesh trainer: launches "
+                             f"{launches}, expected {n_steps} x {per_step}")
+    out = {"n_layers": cfg.n_layers, "seq": seq, "global_batch": gb,
+           "steps": n_steps, "launches_per_step": per_step, "forms": forms,
+           "backward_forms": bwd, "ms_per_step_mesh": [m for m, *_ in tr.log],
+           "losses_mesh": [v for _, v, _ in tr.log],
+           "aux_mesh": [a for *_, a in tr.log]}
+    del tr
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if rank == 0:
+        alone = trainer(None)
+        alone.run()
+        errs = [abs(a - b) / abs(b) for a, b in
+                zip(out["losses_mesh"] + out["aux_mesh"],
+                    [v for _, v, _ in alone.log] + [a for *_, a in alone.log])]
+        if len(errs) != 2 * n_steps or max(errs) > LM_MESH_LOSS_RTOL or \
+                min(out["aux_mesh"]) <= 0:
+            raise AssertionError(f"mesh trainer: losses / aux "
+                                 f"{out['losses_mesh']} / {out['aux_mesh']} "
+                                 f"vs one rank's {alone.log}")
+        out.update(losses_alone=[v for _, v, _ in alone.log],
+                   aux_alone=[a for *_, a in alone.log],
+                   rel_err=max(errs), bound=LM_MESH_LOSS_RTOL,
+                   ms_per_step_alone=[m for m, *_ in alone.log])
+        del alone
+        gc.collect()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def fm_rank(rank: int, tmp: str, device: str = "cuda",
+            small: bool = False) -> None:
+    """A spawned rank of phase 14: joins the `gloo` group through a
+    `file://` store in `tmp`, runs (a)-(d) on a MESH_SHAPE mesh and writes
+    its results to `tmp`."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=MESH_RANKS)
+    try:
+        mesh = make_debug_mesh(MESH_SHAPE, ("data", "model"), device=device)
+        counted = _Counted(torch.cuda.synchronize if device == "cuda"
+                           else (lambda: None))
+        res = {"rank": rank, "a": [], "b": []}
+        for arch, (n, layouts) in FM_PARITY.items():
+            res["a"].append(fm_parity(mesh, rank, tmp, counted, arch, n,
+                                      layouts, small))
+        for arch, n in FM_SERVE.items():
+            res["b"].append(fm_serve(mesh, rank, counted, arch, n, small))
+            if rank == 0:
+                print(f"phase 14: {arch} served: "
+                      f"{res['b'][-1]['seconds']:.1f} s", flush=True)
+        res["c"] = fm_parity(mesh, rank, tmp, counted, LM_ARCH,
+                             FM_KVQ_LAYERS, ("train", "tp"), small,
+                             train=False, kv_quant=True)
+        res["d"] = fm_trainer(mesh, rank, counted, small)
+        if rank == 0:
+            print(f"phase 14: trainer: {res['d']['seconds']:.1f} s",
+                  flush=True)
+        res["launches"] = counted.total
+        with open(os.path.join(tmp, f"fm_rank_{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def families_mesh_phase(card: str, device: str = "cuda",
+                        small: bool = False) -> dict:
+    """Phase 14: MESH_RANKS `gloo` ranks spawned on the one card (`fm_rank`
+    in each); a rank's failure ends the phase with its error.  Prints
+    each rank's results (every time is `gloo` ranks sharing one card,
+    not a multi-card speed) and returns the launches of the phase's main
+    paths, summed over the ranks.  `small` runs the SMOKE configs on the
+    CPU (`device="cpu"`) as a rehearsal."""
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(fm_rank, args=(tmp, device, small), nprocs=MESH_RANKS,
+                 join=True)
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"fm_rank_{r}.json")) as f:
+                ranks.append(json.load(f))
+    for i in range(len(FM_SERVE)):
+        tokens = [res["b"][i].pop("tokens") for res in ranks]
+        if any(t != tokens[0] for t in tokens):
+            raise AssertionError(f"{ranks[0]['b'][i]['arch']} mesh serve: "
+                                 f"the ranks' tokens differ")
+    launches = {}
+    for res in ranks:
+        for k, v in res.pop("launches").items():
+            launches[k] = launches.get(k, 0) + v
+        print("families mesh rank " + json.dumps(
+            res | {"timing": f"{MESH_RANKS} gloo ranks sharing one card",
+                   "card": card}))
+    a = ranks[0]["a"]
+    print("families mesh seconds " + json.dumps(
+        {"a": {r["arch"]: r["seconds"] for r in a},
+         "b": {r["arch"]: r["seconds"] for r in ranks[0]["b"]},
+         "c": ranks[0]["c"]["seconds"], "d": ranks[0]["d"]["seconds"],
+         "card": card}))
+    worst = max(r[k]["max_abs_err"] for res in ranks for r in res["a"]
+                for k in FM_LAYOUTS if k in r)
+    print(f"families mesh: {', '.join(FM_PARITY)} on a {MESH_SHAPE} mesh of "
+          f"{MESH_RANKS} gloo ranks sharing the card: (a) the loss, every "
+          f"gradient and prefill + {PARITY_DECODES} decodes in each layout "
+          f"equal one rank's (worst logits / cache "
+          f"{worst:.2e}"
+          f", atol = rtol = {PARITY_TOL:g}); (b) {', '.join(FM_SERVE)} served in the "
+          f"serve layout, greedy tokens equal to one rank's (shares "
+          f"{[r['alone']['token_share_equal'] for r in ranks[0]['b']]}: a "
+          f"first difference only at a bf16 tie); (c) {LM_ARCH} with kv_quant "
+          f"in both layouts; (d) Trainer on moonshot, losses and aux within "
+          f"{ranks[0]['d']['rel_err']:.2e} of one rank "
           f"({time.perf_counter() - t0:.1f} s)")
     return launches
 
@@ -4171,7 +4820,7 @@ def main() -> int:
                               c.get("lib_tol", tol))
             b_ms, b_by = bound_ms(c["nbytes"], c["macs"],
                                   c.get("flops_per_s", FP32_FLOPS_PER_S))
-            iters = c.get("iters", 20)
+            iters = c.get("iters", PHASE3_ITERS)
             lib_ms = timer(lib, iters)
             if "lib_forward" in c:   # a backward: less the library's forward
                 lib_ms -= timer(c["lib_forward"], iters)
@@ -4211,6 +4860,9 @@ def main() -> int:
           f"{ATTN_LIB_TOL[torch.bfloat16]} against the library; the conv "
           f"kernels in bf16 {BF16_TOL} and {BF16_LIB_TOL})")
     print("phase 3 bf16 launches " + json.dumps(bf16_launches))
+    del cases        # their closures hold every case's tensors on the card
+    gc.collect()
+    torch.cuda.empty_cache()
     mark("3")
 
     # -- phase 4: serve at the published widths --------------------------------
@@ -4616,6 +5268,10 @@ def main() -> int:
     # -- phase 13: the dense LM on a mesh ----------------------------------------
     lm_mesh_launches = lm_mesh_phase(card)
     mark("13")
+
+    # -- phase 14: the other LM families and the int8 cache on a mesh --------
+    fm_launches = families_mesh_phase(card)
+    mark("14")
     print("phases " + json.dumps({"seconds": phase_s, "card": card}))
 
     sources = {"dconv_forward": ("dconv_forward.cu",
@@ -4654,7 +5310,8 @@ def main() -> int:
                      + families["launches"].get(name, 0)
                      + embed_launches.get(name, 0)
                      + mesh_launches.get(name, 0)
-                     + lm_mesh_launches.get(name, 0),
+                     + lm_mesh_launches.get(name, 0)
+                     + fm_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),
@@ -4664,6 +5321,7 @@ def main() -> int:
         rows[-1]["launches_phase_12"] = embed_launches.get(name, 0) \
             + mesh_launches.get(name, 0)
         rows[-1]["launches_phase_13"] = lm_mesh_launches.get(name, 0)
+        rows[-1]["launches_phase_14"] = fm_launches.get(name, 0)
         kb = kernels.get(name + "_bf16")
         if kb is not None:   # the conv kernels' bf16 entries
             rows[-1].update(

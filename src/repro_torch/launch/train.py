@@ -13,7 +13,7 @@ takes the reduced config.  The step accumulates the config's microbatches
 
 `--mesh DxM` trains on a ("data", "model") mesh of D*M `gloo` ranks
 (`launch/mesh.py::run_ranks`: spawned here, or the ranks `torchrun`
-started), the dense family alone; rank 0 prints the losses:
+started), any family; rank 0 prints the losses:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
       --smoke --device cpu --steps 4 --mesh 2x2

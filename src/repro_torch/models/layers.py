@@ -291,9 +291,11 @@ def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def attention_decode_quant(params, x, cfg: ModelConfig, cache_k, cache_v,
-                           k_scale, v_scale, cache_len: int):
+                           k_scale, v_scale, cache_len: int,
+                           plan: Optional["MeshPlan"] = None):
     """`attention_decode` against an int8 KV cache: cache_k/v (B,Smax,Hk,D)
-    int8, k_scale/v_scale (B,Smax,Hk) fp32.
+    int8, k_scale/v_scale (B,Smax,Hk) fp32.  With a `plan` the four are
+    `Sharded` in `cache_pspecs`' layout: `_attention_decode_mesh`.
 
     Quantizes the new k and v and writes codes and scales IN PLACE at
     cache_len; returns (out, cache_k, cache_v, k_scale, v_scale).  On the
@@ -310,6 +312,10 @@ def attention_decode_quant(params, x, cfg: ModelConfig, cache_k, cache_v,
                          f"{cache_len}..{cache_len + S - 1}")
     positions = (cache_len + torch.arange(S, device=x.device))[None, :]
     positions = positions.expand(B, S)
+    if plan is not None:
+        return _attention_decode_mesh(params, x, cfg, cache_k, cache_v,
+                                      cache_len, positions, plan,
+                                      scales=(k_scale, v_scale))
     q, k, v = _qkv(params, x, cfg, positions)
     live = cache_len + S
     cache_k[:, cache_len:live], k_scale[:, cache_len:live] = kv_quantize(k)
@@ -423,7 +429,7 @@ def chunked_xent(params, x, labels, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# The dense transformer on a device mesh
+# The LM on a device mesh
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -439,7 +445,15 @@ class MeshPlan:
       att   : the axes the attention heads split over (the leading axes
               of wq's columns whose size divides the kv heads, so each
               rank keeps whole GQA groups);
-      mlp   : the axes the MLP's hidden columns split over (wi's).
+      mlp   : the axes the MLP's hidden columns split over (wi's; the MoE's
+              shared experts');
+      ep    : the axes the MoE's experts split over (experts_wi's E);
+      eff   : the axes each expert's hidden columns split over (experts_wi's
+              F, less the batch axes: where F shares an axis with the
+              batch, as `moe_ffn_data`'s does, F is gathered at use);
+      ssm   : the axes the SSM heads (RWKV6's, Mamba2's) split over: those
+              of wo's / out_proj's rows that `cache_pspecs` splits the
+              state's heads over, so a rank's heads meet its state block.
 
     A weight is moved to the block its op needs by `sharding.fetch`
     (all-gathers over its other axes: FSDP's gather at use), in the dtype
@@ -451,6 +465,9 @@ class MeshPlan:
     bp: tuple
     att: tuple
     mlp: tuple
+    ep: tuple = ()
+    eff: tuple = ()
+    ssm: tuple = ()
 
     def column(self, w, axes):
         """w (.., d, n): every row, the columns over `axes`."""
@@ -504,60 +521,72 @@ class VocabBlock:
     """This rank's part of the vocab matrix (the tied `tok`, or the
     untied head transposed): rows [lo, lo + w.shape[0]) of the vocab
     over the axes `vax`, and its columns over `dax` (none when they were
-    gathered: the training layout) -- shared by the token lookup and the
-    logits of one call."""
+    gathered: the training layout's gradients) -- shared by the token
+    lookup and the logits of one call.  `bx`: the batch axes among `dax`
+    (the training layout with no gradient), over which the ops gather
+    the activations rather than the block."""
     w: torch.Tensor
     lo: int
     vax: tuple
     dax: tuple
+    bx: tuple = ()
 
 
-def vocab_block(w, plan: MeshPlan, *, vocab_dim: int = 0) -> VocabBlock:
+def vocab_block(w, plan: MeshPlan, *, vocab_dim: int = 0,
+                whole_d: bool = False) -> VocabBlock:
     """The vocab block of `w` (Sharded (V, d), or (d, V) with
-    `vocab_dim=1`) for `plan`: its columns gathered where their axes
-    carry other batch blocks (FSDP), else left split (the serve layout:
-    the ops then split d and all-reduce); the vocab rows stay split over
-    every axis that is not a batch axis."""
+    `vocab_dim=1`) for `plan`: its columns gathered with `whole_d` (the
+    loss) or where their axes carry other batch blocks and a gradient
+    will flow (FSDP), else left split (the ops then split d and
+    all-reduce, gathering the few activations they need over the batch
+    axes among the columns' axes); the vocab rows stay split over every
+    axis that is not a batch axis."""
     d_dim = 1 - vocab_dim
     vax = tuple(a for a in sh._real(plan.mesh, w.spec[vocab_dim])
                 if a not in plan.bp)
     dax = sh._real(plan.mesh, w.spec[d_dim])
-    if set(dax) & set(plan.bp):
-        dax = ()
+    bx = tuple(a for a in dax if a in plan.bp)
+    if whole_d or (bx and torch.is_grad_enabled()):
+        dax = bx = ()
     want = [None, None]
     want[vocab_dim], want[d_dim] = vax or None, dax or None
     blk = sh.fetch(w, tuple(want), plan.bp)
     if vocab_dim == 1:
         blk = blk.t()
     return VocabBlock(blk, sh.block_index(plan.mesh, vax) * blk.shape[0],
-                      vax, dax)
+                      vax, dax, bx)
 
 
 def embed_mesh(vb: VocabBlock, tokens, cfg: ModelConfig, plan: MeshPlan):
     """`embed` on this rank's vocab rows: each token's row where this rank
     holds it, zeros elsewhere, summed over `vax` (one all-reduce; exact,
-    one term is not zero), then the columns gathered over `dax`."""
-    rows = tokens.long() - vb.lo
+    one term is not zero), then the columns gathered over `dax` (with
+    `bx`, for the tokens gathered over it, then cut to this rank's
+    batch block)."""
+    m = plan.mesh
+    rows = sh.gather(tokens, m, vb.bx, 0).long() - vb.lo
     ok = (rows >= 0) & (rows < vb.w.shape[0])
     e = vb.w[rows.clamp(0, vb.w.shape[0] - 1)].to(cfg.compute_dtype)
-    e = sh.reduce_from(torch.where(ok[..., None], e, 0), plan.mesh, vb.vax)
-    return sh.gather(e, plan.mesh, vb.dax, -1)
+    e = sh.reduce_from(torch.where(ok[..., None], e, 0), m, vb.vax)
+    return sh.chunk(sh.gather(e, m, vb.dax, -1), m, vb.bx, 0)
 
 
 def logits_mesh(vb: VocabBlock, x, plan: MeshPlan):
     """The whole logits (B, S, V) in fp32, the same on every rank, for x
     this rank's batch block (no gradient): this rank's vocab rows (with
-    `dax`, its columns of x against its columns of the block, fp32 sums
-    over `dax`, rounded to x's dtype once as one matmul rounds), then
-    gathered over `vax` and the batch over `bp`."""
+    `dax`, its columns of x -- gathered over `bx` first -- against its
+    columns of the block, fp32 sums over `dax`, rounded to x's dtype
+    once as one matmul rounds), then gathered over `vax` and the batch
+    over `bp`."""
+    m = plan.mesh
     if vb.dax:
-        xc = sh.chunk(x, plan.mesh, vb.dax, -1)
-        part = sh.psum(xc.float() @ vb.w.t().float(), plan.mesh, vb.dax)
-        part = part.to(x.dtype).float()
+        xc = sh.chunk(sh.gather(x, m, vb.bx, 0), m, vb.dax, -1)
+        part = sh.psum(xc.float() @ vb.w.t().float(), m, vb.dax)
+        part = sh.chunk(part.to(x.dtype).float(), m, vb.bx, 0)
     else:
         part = (x @ vb.w.t().to(x.dtype)).float()
-    logits = sh.gather(part, plan.mesh, vb.vax, -1)
-    return sh.gather(logits, plan.mesh, plan.bp, 0)
+    logits = sh.gather(part, m, vb.vax, -1)
+    return sh.gather(logits, m, plan.bp, 0)
 
 
 def _chunk_loss_mesh(w, xb, lb, lo: int, mesh, vax):
@@ -624,11 +653,16 @@ def _combine(o, lse, mesh, axes):
 
 
 def _attention_decode_mesh(params, x, cfg: ModelConfig, cache_k, cache_v,
-                           cache_len: int, positions, plan: MeshPlan):
+                           cache_len: int, positions, plan: MeshPlan,
+                           scales=None):
     """`attention_decode` of one token per sequence on a mesh.  x is this
     rank's batch block over `bp`; cache_k / cache_v are `Sharded`
     (B, Smax, Hk, D) in `cache_pspecs`' layout (batch over `cb`, the
-    SEQUENCE over `cs`), each rank holding all heads of its block.
+    SEQUENCE over `cs`), each rank holding all heads of its block.  With
+    `scales` (the int8 cache's `Sharded` k_scale, v_scale (B, Smax, Hk),
+    laid out as the codes) the owner rank quantizes the new k / v, and
+    each rank dequantizes its live block to fp32 for its launch (the
+    query in fp32), as `attention_decode_quant` does on one device.
 
     q, k, v of this rank's heads, gathered over `att` (all heads), moved
     to the cache's batch block; the new k / v written only by the rank
@@ -656,18 +690,31 @@ def _attention_decode_mesh(params, x, cfg: ModelConfig, cache_k, cache_v,
     Sb = kl.shape[1]
     start = sh.block_index(m, cs) * Sb
     if start <= cache_len < start + Sb:
-        kl[:, cache_len - start] = k[:, 0].to(kl.dtype)
-        vl[:, cache_len - start] = v[:, 0].to(vl.dtype)
+        at = cache_len - start
+        if scales is None:
+            kl[:, at] = k[:, 0].to(kl.dtype)
+            vl[:, at] = v[:, 0].to(vl.dtype)
+        else:
+            kl[:, at], scales[0].local[:, at] = kv_quantize(k[:, 0])
+            vl[:, at], scales[1].local[:, at] = kv_quantize(v[:, 0])
     live = min(max(cache_len + 1 - start, 0), Sb)
+    odt = kl.dtype if scales is None else torch.float32
     if live:
-        o, lse = ops.flash_attention(q.to(kl.dtype), kl[:, :live],
-                                     vl[:, :live], causal=False,
+        if scales is None:
+            kd, vd = kl[:, :live], vl[:, :live]
+        else:
+            kd = kv_dequantize(kl[:, :live], scales[0].local[:, :live], odt)
+            vd = kv_dequantize(vl[:, :live], scales[1].local[:, :live], odt)
+        o, lse = ops.flash_attention(q.to(odt), kd, vd, causal=False,
                                      return_lse=True)
     else:
-        o = torch.zeros(q.shape, dtype=kl.dtype, device=q.device)
+        o = torch.zeros(q.shape, dtype=odt, device=q.device)
         lse = torch.full((q.shape[0], q.shape[2], 1), float("-inf"),
                          device=q.device)
     o = _combine(o, lse, m, cs)
     o = sh.relayout_local(o, (cb, None, None, None), bp, m)
     o = sh.chunk(o, m, plan.att, 2).reshape(B, 1, -1).to(x.dtype)
-    return plan.row_parallel(o, w["wo"], plan.att), cache_k, cache_v
+    out = plan.row_parallel(o, w["wo"], plan.att)
+    if scales is None:
+        return out, cache_k, cache_v
+    return (out, cache_k, cache_v) + tuple(scales)

@@ -31,6 +31,12 @@ dtype}, or with `cfg.kv_quant` int8 codes and fp32 "k_scale", "v_scale"
 (G, per, B, H, n, dh) fp32, "k", "v": (G, B, max_len, Hk, D)}; each with
 "len", the positions filled, a Python int.  `decode_step` writes every
 entry IN PLACE; the cache it returns shares the buffers.
+
+On a mesh (params laid out by `parallel.sharding.tree_shardings`) every
+family and the int8 cache run through `MeshPlan` (`models/layers.py`),
+the MoE (`models/moe.py`) and the SSM blocks (`models/ssm.py`) on each
+rank's blocks; the cache is `Sharded` in `launch.steps.cache_pspecs`'
+layout.
 """
 from __future__ import annotations
 
@@ -142,14 +148,61 @@ def _aux_sum(auxes: list):
     return torch.stack(auxes).sum() if auxes else 0.0
 
 
+def _ffn_mesh(p, hin, cfg: ModelConfig, plan):
+    """`_ffn` on a mesh.  A decode step's B tokens are one routing group,
+    as on one device: they are gathered over the batch axes first (they
+    compete for the same slots), routed whole on every rank, and each
+    rank keeps its block of the output (no gradient)."""
+    if not cfg.n_experts:
+        return L.mlp_block(p["mlp"], hin, cfg, plan), 0.0
+    if hin.shape[1] == 1:
+        m = plan.mesh
+        tokens = sh.gather(hin, m, plan.bp, 0).transpose(0, 1)
+        h2, aux = M.moe_block(p["moe"], tokens, cfg,
+                              dataclasses.replace(plan, bp=()))
+        return sh.chunk(h2.transpose(0, 1), m, plan.bp, 0), aux
+    return M.moe_block(p["moe"], hin, cfg, plan)
+
+
 def _tf_block_mesh(p, x, cfg: ModelConfig, positions, plan):
-    """`_tf_block_apply` of a dense block on a mesh (`plan`)."""
+    """`_tf_block_apply` on a mesh (`plan`)."""
     h, _ = L.attention_block(p["attn"], L.rmsnorm(plan.norm(p["ln1"]), x,
                                                   cfg.norm_eps),
                              cfg, positions, plan)
     x = x + h
-    return x + L.mlp_block(p["mlp"], L.rmsnorm(plan.norm(p["ln2"]), x,
-                                               cfg.norm_eps), cfg, plan)
+    h2, aux = _ffn_mesh(p, L.rmsnorm(plan.norm(p["ln2"]), x, cfg.norm_eps),
+                        cfg, plan)
+    return x + h2, aux
+
+
+def _rwkv_block_mesh(p, x, cfg: ModelConfig, positions, plan):
+    del positions
+    h, _, _ = S.rwkv6_time_mix(p["mix"], L.rmsnorm(plan.norm(p["ln1"]), x,
+                                                   cfg.norm_eps), cfg,
+                               plan=plan)
+    x = x + h
+    h2, _ = S.rwkv6_channel_mix(p["mix"], L.rmsnorm(plan.norm(p["ln2"]), x,
+                                                    cfg.norm_eps), cfg,
+                                plan=plan)
+    return x + h2, 0.0
+
+
+def _mamba_block_mesh(p, x, cfg: ModelConfig, positions, plan):
+    del positions
+    return x + S.mamba2_block(p["mamba"], L.rmsnorm(plan.norm(p["ln"]), x,
+                                                    cfg.norm_eps), cfg,
+                              plan), 0.0
+
+
+_MESH_BLOCKS = {"dense": _tf_block_mesh, "moe": _tf_block_mesh,
+                "audio": _tf_block_mesh, "vlm": _tf_block_mesh,
+                "ssm": _rwkv_block_mesh, "hybrid": _mamba_block_mesh}
+
+
+def _entry(c, *index):
+    """The `Sharded` cache entry `c` at a leading index (a layer, or a
+    group and a block of it)."""
+    return sh.Sharded(c.local[index], c.mesh, c.spec[len(index):])
 
 
 def _pad_cache(t, max_len: int):
@@ -229,8 +282,8 @@ class LM:
         mesh = sh.tree_mesh(params)
         if mesh is not None:
             P, plan = self._mesh_setup(params, mesh, inputs.shape[0])
-            x, _ = self._embed_mesh(P, plan, inputs)
-            return self._body_mesh(P, plan, x), 0.0
+            x, _ = self._embed_mesh(P, plan, inputs, cfg.embed_input)
+            return self._body_mesh(P, plan, x)
         x = self._embed_in(params, inputs)
         B, S_, _ = x.shape
         if positions is None:
@@ -259,12 +312,13 @@ class LM:
         mesh = sh.tree_mesh(params)
         if mesh is not None:
             P, plan = self._mesh_setup(params, mesh, inputs.shape[0])
-            x, vb = self._embed_mesh(P, plan, inputs)
-            x = self._body_mesh(P, plan, x)
+            x, vb = self._embed_mesh(P, plan, inputs, self.cfg.embed_input,
+                                     whole_d=True)
+            x, aux = self._body_mesh(P, plan, x)
             labels = sh.local(labels, mesh, (plan.bp or None, None))
-            nll = L.chunked_xent_mesh(self._head_mesh(P, plan, vb), x,
-                                      labels, self.cfg, plan)
-            return nll, {"nll": nll, "aux": 0.0}
+            head = self._head_mesh(P, plan, vb, whole_d=True)
+            nll = L.chunked_xent_mesh(head, x, labels, self.cfg, plan)
+            return nll + 0.01 * aux, {"nll": nll, "aux": aux}
         x, aux = self.forward(params, inputs)
         nll = L.chunked_xent(params["embed"], x, labels, self.cfg)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
@@ -280,14 +334,13 @@ class LM:
         dev = torch.device("meta") if device == "meta" else \
             resolve_device(device)
         if mesh is not None:
-            specs = self._cache_specs(mesh, batch, max_len)
-            shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-                     cfg.head_dim)
-            blk = tuple(n // sh._axis_size(mesh, e or None)
-                        for n, e in zip(shape, specs["k"]))
-            return {k: sh.Sharded(torch.zeros(blk, dtype=dt, device=dev),
-                                  mesh, specs[k]) for k in ("k", "v")} | \
-                {"len": 0}
+            like = self.init_cache(batch, max_len, dtype, device="meta")
+            specs = self._cache_specs(mesh, batch, max_len, dtype)
+            return {k: sh.Sharded(torch.zeros(
+                tuple(n // sh._axis_size(mesh, e or None)
+                      for n, e in zip(t.shape, specs[k])), dtype=t.dtype,
+                device=dev), mesh, specs[k])
+                for k, t in like.items() if k != "len"} | {"len": 0}
         if cfg.family == "ssm":
             H = cfg.d_model // cfg.ssm_head_dim
             prev = (cfg.n_layers, batch, 1, cfg.d_model)
@@ -475,129 +528,304 @@ class LM:
     # before each (`copy_to`) and one per weight over the batch axes.  A
     # decode step adds one gather of q, k, v over the head axes and the
     # combine's MAX and SUM all-reduces over the cache's sequence axes.
+    # A MoE layer issues the aux loss's two all-reduces over the batch
+    # axes and its combine's over the expert axes (a decode step first
+    # gathers its tokens over the batch axes); an SSM block its gated
+    # norm's and wo's all-reduces over the head axes (a Mamba2 decode
+    # step gathers its conv window and its new conv inputs too).
     # `repro`'s activation constraints hold as block layouts: its
     # `shard(x, "dp", None, None)` (`repro/models/lm.py:78,153,270`) is the
     # batch block `_embed_mesh` takes, its q / k / v and MLP hidden
     # `shard(.., "dp", None, "tp", ..)` (`repro/models/layers.py:159-161,
-    # 281`) are this rank's heads and columns of that block.
+    # 281`) are this rank's heads and columns of that block, and its MoE
+    # `disp`, `xe` and `h` over "tp" on E (`repro/models/moe.py:84-92`)
+    # are this rank's experts.
 
     def _mesh_setup(self, params, mesh, batch: int):
-        """(the params as `Sharded`s, the call's `MeshPlan`).  The dense
-        family alone runs on a mesh."""
-        cfg = self.cfg
-        if cfg.family != "dense" or cfg.kv_quant:
-            what = "the int8 KV cache (kv_quant)" if cfg.kv_quant else \
-                f"the {cfg.family} family"
-            raise NotImplementedError(
-                f"{cfg.name}: {what} does not run on a mesh yet; the dense "
-                f"family does (ROADMAP.md, A.12's queue)")
+        """(the params as `Sharded`s, the call's `MeshPlan`)."""
         P = L.tree_map(lambda t: sh.as_sharded(t, mesh), params)
         return P, self._mesh_plan(P, mesh, batch)
 
     def _mesh_plan(self, P, mesh, batch: int) -> L.MeshPlan:
-        """The heads over the leading axes of wq's columns that divide the
-        kv heads, the MLP's hidden columns over wi's axes, the batch over
-        the data axes none of those use (and that divide `batch`)."""
+        """Read from the params' layout: the heads over the leading axes
+        of wq's columns that divide the kv heads; the MLP's (or the shared
+        experts') hidden columns over wi's axes; the experts over
+        experts_wi's E axes and their hidden columns over its F axes; the
+        SSM heads over wo's / out_proj's row axes where they are
+        `cache_pspecs`' state-head axes; the batch over the data axes none
+        of those use, nor wq's columns or wo's / out_proj's rows (the
+        serve layout folds the data axes into them: its weights stay
+        where they lie and the batch is whole), and that divide
+        `batch`."""
         cfg = self.cfg
-        cols = sh._real(mesh, P["blocks"]["attn"]["wq"].spec[-1])
-        att = next((cols[:i] for i in range(len(cols), 0, -1)
-                    if cfg.n_kv_heads % sh._axis_size(mesh, cols[:i]) == 0),
-                   ())
-        mlp = sh._real(mesh, P["blocks"]["mlp"]["wi"].spec[-1])
+        b = P["blocks"]
+        tf = P["shared_attn"] if cfg.family == "hybrid" else b
+        att = ()
+        if "attn" in tf:
+            cols = sh._real(mesh, tf["attn"]["wq"].spec[-1])
+            att = next((cols[:i] for i in range(len(cols), 0, -1)
+                        if cfg.n_kv_heads % sh._axis_size(mesh, cols[:i])
+                        == 0), ())
+        wi = tf["mlp"]["wi"] if "mlp" in tf else \
+            b.get("moe", {}).get("shared_wi")
+        mlp = sh._real(mesh, wi.spec[-1]) if wi is not None else ()
+        ep = eff = ssm = tp = ()
+        if "attn" in tf:
+            tp = sh._real(mesh, tf["attn"]["wq"].spec[-1])
+        if "moe" in b:
+            ep = sh._real(mesh, b["moe"]["experts_wi"].spec[-3])
+            eff = sh._real(mesh, b["moe"]["experts_wi"].spec[-1])
+        if cfg.family in ("ssm", "hybrid"):
+            wo, H = (b["mix"]["wo"], cfg.d_model // cfg.ssm_head_dim) \
+                if cfg.family == "ssm" else \
+                (b["mamba"]["out_proj"], cfg.d_inner // cfg.ssm_head_dim)
+            heads = sh._real(mesh, sh.logical_axes(mesh)["tp"])
+            tp += sh._real(mesh, wo.spec[-2])
+            if tp[:len(heads)] == heads and \
+                    H % sh._axis_size(mesh, heads or None) == 0:
+                ssm = heads
         vocab = sh._real(mesh, P["embed"]["tok"].spec[0])
         dp = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
         bp = tuple(a for a in sh._real(mesh, dp)
-                   if a not in att + mlp + vocab)
-        if batch % sh._axis_size(mesh, bp):
+                   if a not in tp + att + mlp + vocab + ssm)
+        if batch % sh._axis_size(mesh, bp or None):
             bp = ()
-        return L.MeshPlan(mesh, bp, att, mlp)
+        return L.MeshPlan(mesh, bp, att, mlp, ep,
+                          tuple(a for a in eff if a not in bp), ssm)
 
-    def _embed_mesh(self, P, plan, inputs):
-        """(this rank's batch block of the embedded tokens, the vocab
-        block they came from)."""
+    def _embed_mesh(self, P, plan, inputs, embeddings: bool = False,
+                    whole_d: bool = False):
+        """(this rank's batch block of the embedded tokens -- or, with
+        `embeddings`, of the (B, S, D) embeddings themselves in the
+        compute dtype (`repro`'s `shard(x, "dp", None, None)`) -- the
+        vocab block the tied head reads, or None; `whole_d`: the loss's,
+        its columns whole)."""
+        cfg = self.cfg
+        if embeddings:
+            x = sh.local(inputs, plan.mesh, (plan.bp or None, None, None))
+            vb = L.vocab_block(P["embed"]["tok"], plan, whole_d=whole_d) \
+                if cfg.tie_embeddings else None
+            return x.to(cfg.compute_dtype), vb
         tokens = sh.local(inputs, plan.mesh, (plan.bp or None, None))
-        vb = L.vocab_block(P["embed"]["tok"], plan)
-        return L.embed_mesh(vb, tokens, self.cfg, plan), vb
+        vb = L.vocab_block(P["embed"]["tok"], plan, whole_d=whole_d)
+        return L.embed_mesh(vb, tokens, cfg, plan), vb
 
-    def _head_mesh(self, P, plan, vb):
+    def _head_mesh(self, P, plan, vb, whole_d: bool = False):
         if self.cfg.tie_embeddings:
             return vb
-        return L.vocab_block(P["embed"]["head"], plan, vocab_dim=1)
+        return L.vocab_block(P["embed"]["head"], plan, vocab_dim=1,
+                             whole_d=whole_d)
 
     def _body_mesh(self, P, plan, x):
-        """The blocks and the final norm (each block under
-        `torch.utils.checkpoint` with `remat == "full"` in training)."""
+        """(the blocks and the final norm, the aux losses summed), each
+        block -- and the hybrid's shared block before each group -- under
+        `torch.utils.checkpoint` with `remat == "full"` in training."""
         cfg = self.cfg
         B, S_, _ = x.shape
         positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
         remat = cfg.remat == "full" and torch.is_grad_enabled()
-        for p in _layers(P["blocks"], cfg.n_layers):
-            if remat:
-                x = checkpoint(_tf_block_mesh, p, x, cfg, positions, plan,
-                               use_reentrant=False)
-            else:
-                x = _tf_block_mesh(p, x, cfg, positions, plan)
-        return L.rmsnorm(plan.norm(P["final_norm"]), x, cfg.norm_eps)
 
-    def _cache_specs(self, mesh, batch: int, max_len: int) -> dict:
+        def run(apply, p, x):
+            if remat:
+                return checkpoint(apply, p, x, cfg, positions, plan,
+                                  use_reentrant=False)
+            return apply(p, x, cfg, positions, plan)
+
+        apply = _MESH_BLOCKS[cfg.family]
+        auxes = []
+        for i, p in enumerate(_layers(P["blocks"], cfg.n_layers)):
+            if cfg.family == "hybrid" and i % cfg.attn_every == 0:
+                x, aux = run(_tf_block_mesh, P["shared_attn"], x)
+                auxes.append(aux)
+            x, aux = run(apply, p, x)
+            auxes.append(aux)
+        return L.rmsnorm(plan.norm(P["final_norm"]), x, cfg.norm_eps), \
+            _aux_sum(auxes)
+
+    def _cache_specs(self, mesh, batch: int, max_len: int,
+                     dtype=None) -> dict:
+        """`cache_pspecs` of the family's cache."""
         from repro_torch.launch.steps import cache_pspecs
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        with torch.device("meta"):
-            like = {"k": torch.empty(shape), "v": torch.empty(shape)}
-        return cache_pspecs(like, mesh)
+        return cache_pspecs(self.init_cache(batch, max_len, dtype,
+                                            device="meta"), mesh)
 
     def _prefill_mesh(self, params, inputs, max_len: int, mesh):
         """`prefill` on a mesh: the whole logits on every rank, the cache
-        as `Sharded` blocks in `cache_pspecs`' layout (each layer's k / v
-        gathered over the head axes, cut to the cache's batch and
-        sequence block)."""
+        as `Sharded` blocks in `cache_pspecs`' layout -- k / v (or their
+        int8 codes and scales) gathered over the head axes, cut to the
+        cache's batch and sequence block; the SSM states of this rank's
+        heads and the conv / token-shift inputs moved to the cache's
+        batch block (the conv inputs' channels gathered, then cut to the
+        cache's channel block)."""
         cfg = self.cfg
         P, plan = self._mesh_setup(params, mesh, inputs.shape[0])
-        x, vb = self._embed_mesh(P, plan, inputs)
+        x, vb = self._embed_mesh(P, plan, inputs, cfg.embed_input)
         B, S_, _ = x.shape
         positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
         specs = self._cache_specs(mesh, inputs.shape[0], max_len)
-        cb, cs = specs["k"][1], specs["k"][2]
+        bp = plan.bp or None
 
-        def block(t):
-            t = sh.gather(t, mesh, plan.att, 2)
-            t = sh.relayout_local(t, (plan.bp or None, None, None, None),
-                                  (cb, None, None, None), mesh)
-            return sh.chunk(_pad_cache(t, max_len), mesh, cs, 1).contiguous()
+        def put(name, t, src):
+            """t, this rank's block under `src` (the spec tail of one
+            layer's entry), in the cache's layout."""
+            dst = specs[name][-t.dim():]
+            return sh.relayout_local(t, src, dst, mesh)
 
-        ks, vs = [], []
-        for p in _layers(P["blocks"], cfg.n_layers):
+        def kv(name, t):
+            t = _pad_cache(sh.gather(t, mesh, plan.att, 2), max_len)
+            return put(name, t, (bp,) + (None,) * (t.dim() - 1))
+
+        def attend(p, x):
             h, (kk, vv) = L.attention_block(
                 p["attn"], L.rmsnorm(plan.norm(p["ln1"]), x, cfg.norm_eps),
                 cfg, positions, plan)
-            x = x + h
-            x = x + L.mlp_block(p["mlp"], L.rmsnorm(plan.norm(p["ln2"]), x,
-                                                    cfg.norm_eps), cfg, plan)
-            ks.append(block(kk))
-            vs.append(block(vv))
-        cache = {"k": sh.Sharded(torch.stack(ks), mesh, specs["k"]),
-                 "v": sh.Sharded(torch.stack(vs), mesh, specs["v"]),
-                 "len": S_}
+            return x + h, kk, vv
+
+        out = {k: [] for k in specs if k != "len"}
+        layers = _layers(P["blocks"], cfg.n_layers)
+        if cfg.family == "ssm":
+            for p in layers:
+                h, xt, st = S.rwkv6_time_mix(
+                    p["mix"], L.rmsnorm(plan.norm(p["ln1"]), x,
+                                        cfg.norm_eps), cfg, plan=plan)
+                x = x + h
+                h2, xc = S.rwkv6_channel_mix(
+                    p["mix"], L.rmsnorm(plan.norm(p["ln2"]), x,
+                                        cfg.norm_eps), cfg, plan=plan)
+                x = x + h2
+                out["x_prev_t"].append(put("x_prev_t", xt, (bp, None, None)))
+                out["x_prev_c"].append(put("x_prev_c", xc, (bp, None, None)))
+                out["state"].append(put("state", st, (bp, plan.ssm or None,
+                                                      None, None)))
+        elif cfg.family == "hybrid":
+            G, per = self._groups()
+            sa = P["shared_attn"]
+            for g in range(G):
+                x, kk, vv = attend(sa, x)
+                x = x + L.mlp_block(sa["mlp"], L.rmsnorm(
+                    plan.norm(sa["ln2"]), x, cfg.norm_eps), cfg, plan)
+                out["k"].append(kv("k", kk))
+                out["v"].append(kv("v", vv))
+                for p in layers[g * per:(g + 1) * per]:
+                    y, conv, st = S.mamba2_prefill(
+                        p["mamba"], L.rmsnorm(plan.norm(p["ln"]), x,
+                                              cfg.norm_eps), cfg, plan)
+                    x = x + y
+                    out["conv"].append(put("conv", S.whole_channels(
+                        conv, cfg, plan), (bp, None, None)))
+                    out["state"].append(put("state", st, (
+                        bp, plan.ssm or None, None, None)))
+        else:
+            for p in layers:
+                x, kk, vv = attend(p, x)
+                x = x + _ffn_mesh(p, L.rmsnorm(plan.norm(p["ln2"]), x,
+                                               cfg.norm_eps), cfg, plan)[0]
+                if cfg.kv_quant:
+                    kk, k_scale = L.kv_quantize(kk)
+                    vv, v_scale = L.kv_quantize(vv)
+                    out["k_scale"].append(kv("k_scale", k_scale))
+                    out["v_scale"].append(kv("v_scale", v_scale))
+                out["k"].append(kv("k", kk))
+                out["v"].append(kv("v", vv))
+        cache = {}
+        for k, ts in out.items():
+            t = torch.stack(ts)
+            if k in ("conv", "state") and cfg.family == "hybrid":
+                t = t.unflatten(0, self._groups())
+            cache[k] = sh.Sharded(t.contiguous(), mesh, specs[k])
+        cache["len"] = S_
         x = L.rmsnorm(plan.norm(P["final_norm"]), x[:, -1:], cfg.norm_eps)
         return L.logits_mesh(self._head_mesh(P, plan, vb), x, plan), cache
 
     def _decode_mesh(self, params, cache, tokens, mesh):
         """`decode_step` on a mesh: the cache's `Sharded` blocks written
-        in place, the whole logits on every rank."""
+        in place, the whole logits on every rank.  The SSM blocks run on
+        the cache's batch block (x moved there and back: a rank's heads
+        meet their state where it lies, and no state moves)."""
         cfg = self.cfg
         P, plan = self._mesh_setup(params, mesh, tokens.shape[0])
         x, vb = self._embed_mesh(P, plan, tokens)
         clen = cache["len"]
-        ck, cv = cache["k"], cache["v"]
-        for i, p in enumerate(_layers(P["blocks"], cfg.n_layers)):
-            xin = L.rmsnorm(plan.norm(p["ln1"]), x, cfg.norm_eps)
-            x = x + L.attention_decode(
-                p["attn"], xin, cfg,
-                sh.Sharded(ck.local[i], mesh, ck.spec[1:]),
-                sh.Sharded(cv.local[i], mesh, cv.spec[1:]), clen, plan)[0]
-            x = x + L.mlp_block(p["mlp"], L.rmsnorm(plan.norm(p["ln2"]), x,
-                                                    cfg.norm_eps), cfg, plan)
+        layers = _layers(P["blocks"], cfg.n_layers)
+
+        def to_cache(x, name, back=False):
+            """x between the plan's batch block and the cache entry's."""
+            specs = ((plan.bp or None, None, None),
+                     (cache[name].spec[-4], None, None))
+            return sh.relayout_local(x, *(specs[::-1] if back else specs),
+                                     mesh)
+
+        if cfg.family in ("ssm", "hybrid"):
+            # The SSM blocks' plan: x at the cache's batch block.
+            splan = dataclasses.replace(
+                plan, bp=sh._real(mesh, cache["state"].spec[-4]))
+
+        def state(c, *index):
+            """(this rank's heads of a state entry, a writer back)."""
+            e = _entry(c, *index)
+            mine = (e.spec[0], plan.ssm or None, None, None)
+            t = sh.relayout_local(e.local, e.spec, mine, mesh)
+
+            def write(new):
+                e.local.copy_(sh.relayout_local(new, mine, e.spec, mesh))
+            return t, write
+
+        if cfg.family == "ssm":
+            x = to_cache(x, "state")
+            for i, p in enumerate(layers):
+                st, write = state(cache["state"], i)
+                h, xt, st = S.rwkv6_time_mix_decode(
+                    p["mix"], L.rmsnorm(plan.norm(p["ln1"]), x,
+                                        cfg.norm_eps), cfg,
+                    cache["x_prev_t"].local[i], st, plan=splan)
+                x = x + h
+                h2, xc = S.rwkv6_channel_mix(
+                    p["mix"], L.rmsnorm(plan.norm(p["ln2"]), x,
+                                        cfg.norm_eps), cfg,
+                    cache["x_prev_c"].local[i], plan=splan)
+                x = x + h2
+                cache["x_prev_t"].local[i] = xt
+                cache["x_prev_c"].local[i] = xc
+                write(st)
+            x = to_cache(x, "state", back=True)
+        elif cfg.family == "hybrid":
+            sa = P["shared_attn"]
+            G, per = self._groups()
+            for g in range(G):
+                x = x + L.attention_decode(
+                    sa["attn"], L.rmsnorm(plan.norm(sa["ln1"]), x,
+                                          cfg.norm_eps), cfg,
+                    _entry(cache["k"], g), _entry(cache["v"], g), clen,
+                    plan)[0]
+                x = x + L.mlp_block(sa["mlp"], L.rmsnorm(
+                    plan.norm(sa["ln2"]), x, cfg.norm_eps), cfg, plan)
+                x = to_cache(x, "state")
+                for j, p in enumerate(layers[g * per:(g + 1) * per]):
+                    st, write = state(cache["state"], g, j)
+                    conv = _entry(cache["conv"], g, j)
+                    y, new, st = S.mamba2_decode(
+                        p["mamba"], L.rmsnorm(plan.norm(p["ln"]), x,
+                                              cfg.norm_eps), cfg, conv, st,
+                        splan)
+                    x = x + y
+                    conv.local.copy_(new)
+                    write(st)
+                x = to_cache(x, "state", back=True)
+        else:
+            for i, p in enumerate(layers):
+                xin = L.rmsnorm(plan.norm(p["ln1"]), x, cfg.norm_eps)
+                kv = (_entry(cache["k"], i), _entry(cache["v"], i))
+                if cfg.kv_quant:
+                    h = L.attention_decode_quant(
+                        p["attn"], xin, cfg, *kv,
+                        _entry(cache["k_scale"], i),
+                        _entry(cache["v_scale"], i), clen, plan)[0]
+                else:
+                    h = L.attention_decode(p["attn"], xin, cfg, *kv, clen,
+                                           plan)[0]
+                x = x + h
+                x = x + _ffn_mesh(p, L.rmsnorm(plan.norm(p["ln2"]), x,
+                                               cfg.norm_eps), cfg, plan)[0]
         x = L.rmsnorm(plan.norm(P["final_norm"]), x, cfg.norm_eps)
         return L.logits_mesh(self._head_mesh(P, plan, vb), x, plan), \
             dict(cache, len=clen + 1)

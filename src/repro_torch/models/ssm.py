@@ -17,6 +17,20 @@ chunks; per-step log-decay is clamped to `log_decay_min(T)`, all in fp32.
 terms do not read the carried state, so here they are computed for all
 chunks at once, and only the carry -- S = S * exp(A_last) + K_T^T V, in
 chunk order, one fused multiply-add a chunk -- is a loop.
+
+On a mesh (each block's `plan`, `models/layers.py::MeshPlan`) both blocks
+are head-parallel over `plan.ssm`, the axes `cache_pspecs` splits the
+state's heads over, with the weights in `repro`'s layout: a rank takes
+its heads' columns (RWKV6's wr / wk / wv / wg / w2 and its heads of w0,
+u, ln_scale; Mamba2's z, x and dt columns of the packed in_proj's
+product, all of B and C, their conv_w columns, its heads of A_log,
+dt_bias, D and norm_scale), its input through `copy_to` over the axes
+its columns split over, and ends in `row_parallel` over wo's /
+out_proj's rows.  The gated norms span the full width: one fp32
+sum-of-squares all-reduce over the head axes.  Weights every head uses
+(RWKV6's mu and decay LoRA w1) are whole, their gradient summed over the
+head axes too.  RWKV6's channel mix runs whole on every rank: `repro`'s
+rules replicate ck, cr and cv.
 """
 from __future__ import annotations
 
@@ -28,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm, trunc_normal
+from repro_torch.parallel import sharding as sh
 
 
 def log_decay_min(chunk: int) -> float:
@@ -171,10 +186,29 @@ def mamba2_init(generator: torch.Generator, cfg: ModelConfig):
     }
 
 
-def _mamba_parts(params, x, cfg: ModelConfig):
-    di, n = cfg.d_inner, cfg.ssm_state
-    H = di // cfg.ssm_head_dim
-    zxbcdt = x @ params["in_proj"].to(x.dtype)
+def _wide_rmsnorm(scale, y, eps: float, width: int, plan=None):
+    """`rmsnorm` over `width` channels of which y (.., c) holds this
+    rank's block over `plan.ssm` (scale: the block's): the sum of squares
+    in fp32, summed over the head axes by one all-reduce (its gradient
+    all-reduced back: every rank's channels read it)."""
+    if plan is None or not sh._real(plan.mesh, plan.ssm):
+        return rmsnorm({"scale": scale}, y, eps)
+    yf = y.float()
+    ss = sh.copy_to(sh.reduce_from((yf * yf).sum(dim=-1, keepdim=True),
+                                   plan.mesh, plan.ssm), plan.mesh, plan.ssm)
+    return y * (torch.rsqrt(ss / width + eps) * (1.0 + scale)).to(y.dtype)
+
+
+def _mamba_parts(params, x, cfg: ModelConfig, plan=None):
+    """(z, xbc, dt_raw, di, n, H) of the heads the params hold (all of
+    them on one device, this rank's on a mesh: `_in_proj_mesh`)."""
+    n = cfg.ssm_state
+    H = params["A_log"].shape[0]
+    di = H * cfg.ssm_head_dim
+    if plan is None:
+        zxbcdt = x @ params["in_proj"].to(x.dtype)
+    else:
+        zxbcdt = _in_proj_mesh(params["in_proj"], x, cfg, plan)
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, H], dim=-1)
     return z, xbc, dt_raw, di, n, H
 
@@ -193,43 +227,121 @@ def _mamba_ssm_inputs(params, xbc, dt_raw, cfg, di, n, H):
     return xs, q, k, v, log_w
 
 
-def _mamba_out(params, y, xs, z, x, cfg, di):
+def _mamba_out(params, y, xs, z, x, cfg, di, plan=None):
     """The skip term, the gated norm and the output projection."""
     y = y + params["D"].to(x.dtype)[:, None] * xs
     y = y.reshape(*xs.shape[:-2], di)
-    y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
+    y = _wide_rmsnorm(params["norm_scale"], y, cfg.norm_eps, cfg.d_inner,
+                      plan)
     y = y * F.silu(z)
+    if plan is not None:
+        return plan.row_parallel(y, params["out_proj"], plan.ssm)
     return y @ params["out_proj"].to(x.dtype)
 
 
-def mamba2_block(params, x, cfg: ModelConfig):
+def _mamba_heads(cfg: ModelConfig, plan, device):
+    """(this rank's channels of the conv input [x | B | C]: its heads' x
+    and all of B and C; its columns of the packed in_proj [z | x | B | C
+    | dt]: its heads' z, those channels, its heads' dt)."""
+    di, n, dh = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    H = di // dh
+    hl = H // sh._axis_size(plan.mesh, plan.ssm or None)
+    h0 = sh.block_index(plan.mesh, plan.ssm) * hl
+    own = torch.arange(h0 * dh, (h0 + hl) * dh, device=device)
+    conv = torch.cat([own, torch.arange(di, di + 2 * n, device=device)])
+    dts = torch.arange(2 * di + 2 * n + h0, 2 * di + 2 * n + h0 + hl,
+                       device=device)
+    return conv, torch.cat([own, di + conv, dts])
+
+
+def _in_proj_mesh(w, x, cfg: ModelConfig, plan):
+    """x @ in_proj's columns of this rank's heads (`_mamba_heads`): the
+    packed columns do not follow heads, so each rank multiplies x by the
+    column block it holds (its rows gathered over the FSDP axes) and the
+    products, not the weight, are gathered whole over the column axes;
+    their gradient is summed over the head axes (B and C's columns are
+    every rank's) and each rank keeps its column block."""
+    m = plan.mesh
+    cax = tuple(a for a in sh._real(m, w.spec[-1]) if a not in plan.bp)
+    y = sh.copy_to(x, m, cax) @ plan.column(w, cax).to(x.dtype)
+    lead = (None,) * (y.dim() - 1)
+    y = sh.fetch(sh.Sharded(y, m, lead + (cax or None,)), lead + (None,),
+                 plan.ssm)
+    return y.index_select(-1, _mamba_heads(cfg, plan, y.device)[1])
+
+
+def _mamba_weights(params, cfg: ModelConfig, plan):
+    """This rank's heads' Mamba2 weights (in_proj as it lies, for
+    `_in_proj_mesh`; `_mamba_heads`' columns of the whole conv_w, whose
+    gradient is summed over the head axes: B and C's columns are every
+    rank's) and its conv channels."""
+    conv, _ = _mamba_heads(cfg, plan, params["in_proj"].local.device)
+    w = {"in_proj": params["in_proj"],
+         "conv_w": plan.replicated(params["conv_w"],
+                                   plan.ssm).index_select(1, conv),
+         "out_proj": params["out_proj"]}
+    for k in ("A_log", "dt_bias", "D", "norm_scale"):
+        w[k] = plan.column(params[k], plan.ssm)
+    return w, conv
+
+
+def whole_channels(t, cfg: ModelConfig, plan):
+    """Conv inputs (.., this rank's channels) -> (.., every channel
+    [x | B | C]): its heads' x gathered over the head axes (not
+    differentiable)."""
+    di = t.shape[-1] - 2 * cfg.ssm_state
+    return torch.cat([sh.gather(t[..., :di], plan.mesh, plan.ssm, -1),
+                      t[..., di:]], dim=-1)
+
+
+def mamba2_block(params, x, cfg: ModelConfig, plan=None):
     """x (B,S,D) -> (B,S,D) (training / prefill)."""
-    return mamba2_prefill(params, x, cfg)[0]
+    return mamba2_prefill(params, x, cfg, plan)[0]
 
 
-def mamba2_prefill(params, x, cfg: ModelConfig):
+def mamba2_prefill(params, x, cfg: ModelConfig, plan=None):
     """x (B,S,D) -> (out (B,S,D), the conv inputs' last K-1 positions
     (B,K-1,C), the final SSM state (B,H,n,dh)): `repro`'s
-    `mamba_prefill` less its residual."""
-    z, xbc, dt_raw, di, n, H = _mamba_parts(params, x, cfg)
+    `mamba_prefill` less its residual.  With a `plan`: this rank's heads
+    (`plan.ssm`) of the conv inputs and the state."""
+    if plan is not None:
+        params, _ = _mamba_weights(params, cfg, plan)
+    z, xbc, dt_raw, di, n, H = _mamba_parts(params, x, cfg, plan)
     xbc_a = F.silu(causal_conv1d(xbc, params["conv_w"]))
     xs, q, k, v, log_w = _mamba_ssm_inputs(params, xbc_a, dt_raw, cfg, di, n,
                                            H)
     y, st = chunked_linear_attention(q, k, v, log_w, chunk=cfg.chunk_size)
-    return (_mamba_out(params, y, xs, z, x, cfg, di),
+    return (_mamba_out(params, y, xs, z, x, cfg, di, plan),
             xbc[:, -(cfg.ssm_conv - 1):], st)
 
 
-def mamba2_decode(params, x, cfg: ModelConfig, conv_state, ssm_state):
+def mamba2_decode(params, x, cfg: ModelConfig, conv_state, ssm_state,
+                  plan=None):
     """x (B,1,D); conv_state (B,K-1,C); ssm_state (B,H,n,dh) -> (out
-    (B,1,D), conv_state, ssm_state)."""
-    z, xbc, dt_raw, di, n, H = _mamba_parts(params, x[:, 0], cfg)
-    xbc, conv_state = causal_conv1d_step(xbc, conv_state, params["conv_w"])
+    (B,1,D), conv_state, ssm_state).  With a `plan`: conv_state is the
+    cache's `Sharded` block (its channels over the cache's axes) and
+    ssm_state this rank's heads; the window is gathered whole (one
+    all-gather), this rank's channels convolved, and the next window's
+    block cut from the whole new inputs (its heads' x gathered)."""
+    if plan is None:
+        z, xbc, dt_raw, di, n, H = _mamba_parts(params, x[:, 0], cfg)
+        xbc, conv_state = causal_conv1d_step(xbc, conv_state,
+                                             params["conv_w"])
+    else:
+        m, cax = plan.mesh, conv_state.spec[-1]
+        params, own = _mamba_weights(params, cfg, plan)
+        z, xbc, dt_raw, di, n, H = _mamba_parts(params, x[:, 0], cfg, plan)
+        window = sh.gather(conv_state.local, m, cax, -1)
+        new = torch.cat([window[:, 1:],
+                         whole_channels(xbc, cfg, plan)[:, None]], dim=1)
+        xbc, _ = causal_conv1d_step(xbc, window.index_select(-1, own),
+                                    params["conv_w"])
+        conv_state = sh.chunk(new, m, cax, -1)
     xbc = F.silu(xbc)
     xs, q, k, v, log_w = _mamba_ssm_inputs(params, xbc, dt_raw, cfg, di, n, H)
     y, ssm_state = linear_attention_decode(q, k, v, log_w, ssm_state)
-    return (_mamba_out(params, y, xs, z, x[:, 0], cfg, di)[:, None, :],
-            conv_state, ssm_state)
+    return (_mamba_out(params, y, xs, z, x[:, 0], cfg, di,
+                       plan)[:, None, :], conv_state, ssm_state)
 
 
 # ---------------------------------------------------------------------------
@@ -268,56 +380,82 @@ def _token_shift(x, x_prev):
 
 
 def _rwkv_qkvwg(params, x, xs, cfg):
+    """r, k, v, g and the log decay of the heads the params hold (all of
+    them on one device, this rank's on a mesh)."""
     dt = x.dtype
-    d = x.shape[-1]
     dk = cfg.ssm_head_dim
-    H = d // dk
     mu = params["mu"]
     xr, xk, xv, xw, xg = ((x + mu[i] * (xs - x)).to(dt) for i in range(5))
     lead = x.shape[:-1]
-    r = (xr @ params["wr"].to(dt)).reshape(*lead, H, dk)
-    k = (xk @ params["wk"].to(dt)).reshape(*lead, H, dk)
-    v = (xv @ params["wv"].to(dt)).reshape(*lead, H, dk)
+    r = (xr @ params["wr"].to(dt)).reshape(*lead, -1, dk)
+    k = (xk @ params["wk"].to(dt)).reshape(*lead, -1, dk)
+    v = (xv @ params["wv"].to(dt)).reshape(*lead, -1, dk)
     g = xg @ params["wg"].to(dt)
     # Data-dependent decay (the Finch contribution), in fp32:
     ww = params["w0"] + torch.tanh(
         xw.float() @ params["w1"].float()) @ params["w2"].float()
-    log_w = -torch.exp(ww).reshape(*lead, H, dk)
+    log_w = -torch.exp(ww).reshape(*lead, -1, dk)
     return r, k, v, g, log_w
 
 
-def _rwkv_out(params, y, g, x, cfg):
-    y = rmsnorm({"scale": params["ln_scale"]}, y, cfg.norm_eps)
+def _rwkv_out(params, y, g, x, cfg, plan=None):
+    y = _wide_rmsnorm(params["ln_scale"], y, cfg.norm_eps, cfg.d_model, plan)
+    if plan is not None:
+        return plan.row_parallel(y * F.silu(g), params["wo"], plan.ssm)
     return (y * F.silu(g)) @ params["wo"].to(x.dtype)
 
 
-def rwkv6_time_mix(params, x, cfg: ModelConfig, x_prev=None):
-    """Returns (out, x_last (B,1,D), state (B,H,dk,dk)) for caching."""
+def _rwkv_heads(params, x, plan):
+    """(this rank's heads of the time mix's weights, x entering them)."""
+    if plan is None:
+        return params, x
+    a = plan.ssm
+    w = {k: plan.column(params[k], a)
+         for k in ("wr", "wk", "wv", "wg", "w2", "w0", "ln_scale")}
+    w.update(mu=plan.replicated(params["mu"], a),
+             w1=plan.replicated(params["w1"], a), u=plan.row(params["u"], a),
+             wo=params["wo"])
+    return w, sh.copy_to(x, plan.mesh, a)
+
+
+def rwkv6_time_mix(params, x, cfg: ModelConfig, x_prev=None, plan=None):
+    """Returns (out, x_last (B,1,D), state (B,H,dk,dk)) for caching.
+    With a `plan`: the state of this rank's heads (`plan.ssm`)."""
     B, S, D = x.shape
     if x_prev is None:
         x_prev = x.new_zeros((B, 1, D))
-    r, k, v, g, log_w = _rwkv_qkvwg(params, x, _token_shift(x, x_prev), cfg)
+    w, xh = _rwkv_heads(params, x, plan)
+    r, k, v, g, log_w = _rwkv_qkvwg(w, xh, _token_shift(xh, x_prev), cfg)
     y, state = chunked_linear_attention(
-        r, k, v, log_w, chunk=cfg.chunk_size, u=params["u"],
+        r, k, v, log_w, chunk=cfg.chunk_size, u=w["u"],
         pre_update_read=True)
-    return _rwkv_out(params, y.reshape(B, S, D), g, x, cfg), x[:, -1:], state
-
-
-def rwkv6_time_mix_decode(params, x, cfg: ModelConfig, x_prev, state):
-    """x (B,1,D); x_prev (B,1,D); state (B,H,dk,dk)."""
-    B, _, D = x.shape
-    r, k, v, g, log_w = _rwkv_qkvwg(params, x[:, 0], x_prev[:, 0], cfg)
-    y, state = linear_attention_decode(r, k, v, log_w, state,
-                                       u=params["u"], pre_update_read=True)
-    return _rwkv_out(params, y.reshape(B, D), g, x, cfg)[:, None, :], x, \
+    return _rwkv_out(w, y.reshape(B, S, -1), g, x, cfg, plan), x[:, -1:], \
         state
 
 
-def rwkv6_channel_mix(params, x, cfg: ModelConfig, x_prev=None):
-    """Returns (out, x_last (B,1,D))."""
+def rwkv6_time_mix_decode(params, x, cfg: ModelConfig, x_prev, state,
+                          plan=None):
+    """x (B,1,D); x_prev (B,1,D); state (B,H,dk,dk) (with a `plan`, this
+    rank's heads)."""
+    B = x.shape[0]
+    w, xh = _rwkv_heads(params, x, plan)
+    r, k, v, g, log_w = _rwkv_qkvwg(w, xh[:, 0], x_prev[:, 0], cfg)
+    y, state = linear_attention_decode(r, k, v, log_w, state,
+                                       u=w["u"], pre_update_read=True)
+    return _rwkv_out(w, y.reshape(B, -1), g, x, cfg, plan)[:, None, :], x, \
+        state
+
+
+def rwkv6_channel_mix(params, x, cfg: ModelConfig, x_prev=None, plan=None):
+    """Returns (out, x_last (B,1,D)).  With a `plan` the whole channel
+    mix on this rank's batch block (its weights' gradients summed over
+    the batch axes)."""
     B, S, D = x.shape
     if x_prev is None:
         x_prev = x.new_zeros((B, 1, D))
+    if plan is not None:
+        params = {k: plan.replicated(params[k])
+                  for k in ("mu_c", "ck", "cr", "cv")}
     xs = _token_shift(x, x_prev)
     mu = params["mu_c"]
     dt = x.dtype

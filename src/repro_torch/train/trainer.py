@@ -16,7 +16,7 @@ deterministic data skip-ahead and a failure hook for tests (port of
   * the loss is read to the host only at log steps, as `repro` does.
 
 `device=None` means the card.  With a `mesh` (a `DeviceMesh` of
-`launch/mesh.py` or `fault_tolerance.elastic_mesh`; the dense family)
+`launch/mesh.py` or `fault_tolerance.elastic_mesh`; every family)
 every rank of the mesh runs the same trainer: fresh params are drawn
 whole on every rank from the seed and laid out by `tree_shardings`, the
 optimizer state made from each rank's blocks in the same layout, each

@@ -1442,6 +1442,38 @@ def test_two_gloo_ranks_serve_and_train_the_lm_on_the_card(cuda, tmp_path):
                                          "flash_attention_backward": 2}
 
 
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "zamba2_2_7b"])
+def test_two_gloo_ranks_run_a_moe_and_a_hybrid_lm_on_the_card(cuda, tmp_path,
+                                                               arch):
+    """A MoE (moonshot, shared experts) and a hybrid (zamba2, its shared
+    block before each of 2 groups) SMOKE config in fp32 on a (1, 2) mesh
+    of `gloo` ranks sharing the card (`_torch_mesh_families.card_worker`):
+    the loss and MoE aux (1e-5 relative) and every gradient (1e-3 of the
+    leaf's max) in the training layout, with one forward per attention
+    layer twice (remat) and one backward; the prefill and 6 decodes in
+    the serve layout, logits and every cache entry within 1e-4 of one
+    rank, one launch per attention layer per call on each rank -- none
+    on the second sequence block's rank until its first key (the 4th
+    decode)."""
+    import torch.multiprocessing as mp
+
+    import _torch_mesh_families
+    mp.spawn(_torch_mesh_families.card_worker, args=(str(tmp_path), arch),
+             nprocs=2, join=True)
+    n_attn = 2      # moonshot's 2 layers; zamba2's 2 groups
+    for rank in range(2):
+        res = torch.load(tmp_path / f"card_{rank}.pt", weights_only=False)
+        assert res["loss_err"] <= 1e-5 and res["aux_err"] <= 1e-5, res
+        assert res["grad_err"] <= 1e-3, res
+        assert res["train_launches"] == {
+            "flash_attention": 2 * n_attn,
+            "flash_attention_backward": n_attn}, res
+        assert res["logits_err"] <= 1e-4 and res["cache_err"] <= 1e-4, res
+        assert res["launches"] == ([n_attn] * 7 if rank == 0 else
+                                   [n_attn, 0, 0, 0, n_attn, n_attn,
+                                    n_attn]), res
+
+
 # -- the conv kernels in bf16 ---------------------------------------------------
 
 BF16_ULP = 2.0 ** -7   # rtol, and atol times the output's largest magnitude
