@@ -222,11 +222,16 @@ Phases (any failed check raises and ends the run non-zero):
      forms per rank (`fm_parity`: rank 0's own run saved to a file, each
      rank holding its blocks); (b) moonshot, rwkv6 and zamba2 at 4 / 4 /
      12 layers in bf16 through ServeEngine(mesh=, serve_sharding="tp") on
-     phase 6 (b)'s first FM_REQUESTS requests, the greedy tokens equal to
-     one rank's engine's up to a first difference at a bf16 tie
-     (`fm_serve`, `_first_tie`); (c) LM_ARCH at 2 layers with `kv_quant`
-     in both layouts, each decode held against one rank's from the
-     mesh's codes; (d) Trainer(mesh=) on moonshot at FM_TRAINER's size,
+     phase 6 (b)'s first FM_REQUESTS requests, each call held against
+     one rank's on the same inputs (its tokens, the mesh's cache) and
+     the mesh's MoE routing: logits and router logits within
+     FM_SERVE_TOL of their max, every greedy token equal to one rank's
+     but at a bf16 tie (`fm_serve`, `_routes`, `_serve_agreement`); (c)
+     LM_ARCH at 2 layers with `kv_quant` in both layouts, each decode
+     held against one rank's from the mesh's codes, the mesh's codes
+     against one rank's own run (one apart only at a rounding tie,
+     KV_TIE_TOL) and its logits too (within the int8 cache's own drift
+     from an unquantized one); (d) Trainer(mesh=) on moonshot at FM_TRAINER's size,
      its losses and aux against one rank's (`fm_trainer`).
      Each phase prints its seconds.
 
@@ -513,10 +518,35 @@ FM_LAYOUTS = {"train": {}, "tp": {"serve": True},
               "ffn": {"moe_ffn_data": True}}
 # (b) ServeEngine(mesh=, serve_sharding="tp") in bf16 at these depths on
 # phase 6 (b)'s first FM_REQUESTS requests, the cache LM_MESH_MAX_LEN.
+# After each call one rank makes it alone on the same inputs (the tokens,
+# the mesh's cache gathered whole) with the mesh's MoE routing: each
+# call's logits, and each MoE call's router logits, within FM_SERVE_TOL
+# of its largest |logit| of one rank's (BF16_LIB_TOL's bound, that of
+# bf16 math summed in another order, here over 4-12 layers); each argmax
+# equal but at a tie: on each side the two picks are its top two, within
+# 2 eps of the top logit.  Two eps, not one: eps |top| is 1-2 bf16 ulps
+# of it, and each side's logit is rounded once from a differently
+# ordered fp32 sum; one eps failed a flip two ulps apart (0.03125 at
+# 3.71875) on an H100, two eps takes 2-4 ulps.  (Expert choices held at
+# 2 eps of the k-th router logit failed on an H100 at 2.19 eps: the
+# router logits carry the noise of every layer below them, so they are
+# held as the logits are, and the choices follow from them.  One rank's
+# engine run whole, teacher-forced on the mesh's tokens, drifted from
+# the mesh on zamba2 over 28 bf16 decodes, 4.4e-3 to 7.6e-2 of the max,
+# in rows still serving: its recurrent state carries each call's
+# rounding into the next, so each call is held from the mesh's own
+# cache.)
 FM_SERVE = {"moonshot-v1-16b-a3b": 4, "rwkv6-7b": 4, "zamba2-2.7b": 12}
 FM_REQUESTS = 4
+FM_SERVE_TOL = BF16_LIB_TOL[0]
 # (c) LM_ARCH with `kv_quant` at FM_KVQ_LAYERS layers, fp32, both layouts.
+# An int8 code of the mesh may be one apart from one rank's own run only
+# where one rank's unrounded code k / scale lies within KV_TIE_TOL of a
+# half: the two sides' unrounded codes (at most 127 in size) differ by
+# 127 times the relative differences of the value and of its scale, each
+# within KV_SCALE_RTOL.
 FM_KVQ_LAYERS = 2
+KV_TIE_TOL = 2 * 127 * KV_SCALE_RTOL
 # (d) Trainer(mesh=) on moonshot-v1-16b-a3b: (layers, seq, global batch,
 # steps), fp32, one microbatch (so the step carries the aux loss).
 FM_TRAINER = (1, 256, 4, 2)
@@ -3085,11 +3115,26 @@ def lm_mesh_parity(mesh, rank: int, counted, small: bool) -> dict:
     return out
 
 
-def _timed_engine(eng, sync):
+def _logit_stats(logits, keep: bool = False) -> dict:
+    """Each row's argmax, top two tokens, top logit and top-2 margin of
+    a call's logits (B, 1, V), whether all are finite, and with `keep`
+    the logits (B, V) on the host."""
+    top = logits[:, 0].float().topk(2, dim=-1)
+    out = {"argmax": logits[:, 0].argmax(-1).tolist(),
+           "top2": top.indices.tolist(), "top": top.values[:, 0].tolist(),
+           "margin": (top.values[:, 0] - top.values[:, 1]).tolist(),
+           "finite": bool(torch.isfinite(logits).all())}
+    if keep:
+        out["logits"] = logits[:, 0].float().cpu()
+    return out
+
+
+def _timed_engine(eng, sync, keep_logits: bool = False):
     """Wrap `eng`'s prefill and decode: per call the host wall ms (synced
     on both sides: a sharded call waits on its collectives anyway), the
-    cache length it met, and each row's argmax, top two tokens, top logit
-    and top-2 margin."""
+    cache length it met, each row's argmax, top two tokens, top logit
+    and top-2 margin, and with `keep_logits` the logits (B, V) on the
+    host."""
     eng.calls = []
 
     def wrap(kind, fn):
@@ -3099,15 +3144,9 @@ def _timed_engine(eng, sync):
             t0 = time.perf_counter()
             logits, cache = fn(*args)
             sync()
-            top = logits[:, 0].float().topk(2, dim=-1)
             eng.calls.append({"kind": kind, "len": clen,
-                              "ms": (time.perf_counter() - t0) * 1e3,
-                              "argmax": logits[:, 0].argmax(-1).tolist(),
-                              "top2": top.indices.tolist(),
-                              "top": top.values[:, 0].tolist(),
-                              "margin": (top.values[:, 0] - top.values[:, 1])
-                              .tolist(),
-                              "finite": bool(torch.isfinite(logits).all())})
+                              "ms": (time.perf_counter() - t0) * 1e3}
+                             | _logit_stats(logits, keep_logits))
             return logits, cache
         return call
 
@@ -3586,6 +3625,39 @@ def _fm_put(mesh, rank: int, draw, nbytes: int, **kw):
     return ps
 
 
+@contextlib.contextmanager
+def _unrounded_codes():
+    """Record, in call order, every `kv_quantize` call's unrounded codes
+    k / scale (fp32, on the host) while the block runs."""
+    from repro_torch.models import layers
+
+    seen, real = [], layers.kv_quantize
+
+    def quantize(k):
+        q, scale = real(k)
+        seen.append((k.float() / scale[..., None]).cpu())
+        return q, scale
+    layers.kv_quantize = quantize
+    try:
+        yield seen
+    finally:
+        layers.kv_quantize = real
+
+
+def _unrounded_cache(seen, cache, prompt_len: int) -> dict:
+    """One device's unrounded codes laid out as its int8 cache's "k" and
+    "v" (L, B, max_len, Hk, D): `seen` holds a prefill's k and v of each
+    layer in turn, then each decode's, one position each."""
+    out = {k: torch.zeros(cache[k].shape) for k in ("k", "v")}
+    n = out["k"].shape[0]
+    for j, r in enumerate(seen):
+        call, rest = divmod(j, 2 * n)
+        layer, k = divmod(rest, 2)
+        at = prompt_len + call - 1 if call else 0
+        out["kv"[k]][layer, :, at:at + r.shape[1]] = r
+    return out
+
+
 def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
               layouts, small: bool, train: bool = True, **kw) -> dict:
     """Phase 14 (a) / (c) for one config on one rank, fp32 at published
@@ -3597,9 +3669,12 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
     the file: no collective): the loss at LM_MESH_LOSS_RTOL, every
     gradient at LM_MESH_GRAD_TOL of its leaf's max, the MoE aux loss,
     the logits and the cache at PARITY_TOL per call (int8: each decode's
-    logits against one rank's from the mesh's codes, the codes within 1
-    of one rank's own run, their scales at KV_SCALE_RTOL); launches and
-    forms per rank: one
+    logits against one rank's from the mesh's codes, and against one
+    rank's own run within the int8 cache's own drift (that call's
+    largest |difference| from an unquantized cache's); the codes equal to
+    one rank's own run's or one apart where its unrounded code lies
+    within KV_TIE_TOL of a half, their scales at KV_SCALE_RTOL); launches
+    and forms per rank: one
     flash_attention per attention layer per prefill (tile) and per
     decode whose sequence block holds a key (split), twice per training
     forward and one backward."""
@@ -3662,13 +3737,25 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
                         grad_max=[g.abs().max().item()
                                   for g in tree_leaves(grads)])
             del grads
-        with torch.no_grad():
+        with torch.no_grad(), _unrounded_codes() as seen:
             o = lm.prefill(p, prompt, max_len)
             calls = [host(o)]
             for i in range(PARITY_DECODES):
                 o = lm.decode_step(p, o[1], step(i))
                 calls.append(host(o))
         want["calls"] = calls
+        if cfg.kv_quant:
+            want["unrounded"] = _unrounded_cache(seen, o[1], toks.shape[1])
+            # The int8 cache's own drift: each decode's logits against
+            # the same model's with an unquantized cache.
+            plain = LM(cfg.scaled(kv_quant=False))
+            with torch.no_grad():
+                o = plain.prefill(p, prompt, max_len)
+                want["drift"] = [0.0]
+                for i in range(PARITY_DECODES):
+                    o = plain.decode_step(p, o[1], step(i))
+                    want["drift"].append(
+                        (o[0].cpu() - calls[i + 1][0]).abs().max().item())
         t0 = time.perf_counter()
         torch.save(want, ref_path)
         out["save_s"] = time.perf_counter() - t0
@@ -3679,17 +3766,26 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
     sh.barrier(mesh)
     want = torch.load(ref_path, mmap=True, weights_only=True)
 
-    def hold(got, ref, what, int8=False, rtol=PARITY_TOL, atol=PARITY_TOL):
+    def hold(got, ref, what, unrounded=None, rtol=PARITY_TOL,
+             atol=PARITY_TOL):
         """This rank's block `got` against `ref`, the same block of rank
         0's result (on the host); the largest |err| (int8: the count of
-        codes 1 apart)."""
+        codes 1 apart, each only where rank 0's `unrounded` code lies
+        within KV_TIE_TOL of the half between them)."""
         ref = ref.to(got.device)
-        if int8:
+        if unrounded is not None:
             d = (got.int() - ref.int()).abs()
-            if d.numel() and int(d.max()) > 1:
-                raise AssertionError(f"rank {rank} {what}: int8 codes "
-                                     f"{int(d.max())} apart")
-            return float((d == 1).sum())
+            off = d == 1
+            gap = (unrounded.to(got.device) - 0.5
+                   - torch.minimum(got, ref).float()).abs()
+            if d.numel() and (int(d.max()) > 1 or bool(
+                    (gap[off] > KV_TIE_TOL).any())):
+                raise AssertionError(
+                    f"rank {rank} {what}: int8 codes {int(d.max())} apart, "
+                    f"{int(off.sum())} one apart, the farthest of them "
+                    f"{float(gap[off].max()) if off.any() else 0.0:.3e} "
+                    f"from a tie")
+            return float(off.sum())
         d = (got.float() - ref.float()).abs()
         if not bool(torch.isfinite(got).all()) or bool(
                 (d > atol + rtol * ref.float().abs()).any()):
@@ -3770,7 +3866,11 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
                 if same is not None:
                     row["logits_max_abs_err_own_cache"] = max(
                         row.get("logits_max_abs_err_own_cache", 0.0),
-                        (got[0].cpu() - logits).abs().max().item())
+                        hold(got[0], logits, f"{name} call {i} logits "
+                             f"against one rank's own run", rtol=0.0,
+                             atol=want["drift"][i]))
+                    row["own_cache_bound_min"] = min(row.get(
+                        "own_cache_bound_min", math.inf), want["drift"][i])
                     logits = same
                 e = hold(got[0], logits, f"{name} call {i} logits")
                 for k, c in got[1].items():
@@ -3778,8 +3878,10 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
                         continue
                     ref = sh.local(cache[k], mesh, c.spec)
                     if c.local.dtype == torch.int8:
-                        codes_apart += hold(c.local, ref,
-                                            f"{name} call {i} {k}", int8=True)
+                        codes_apart += hold(
+                            c.local, ref, f"{name} call {i} {k}",
+                            unrounded=sh.local(want["unrounded"][k], mesh,
+                                               c.spec))
                     elif k.endswith("scale"):
                         hold(c.local, ref, f"{name} call {i} {k}",
                              rtol=KV_SCALE_RTOL, atol=0.0)
@@ -3798,6 +3900,7 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
         row.update(max_abs_err=max(errs), tol=PARITY_TOL,
                    calls_with_launches=sum(live) if n_attn else 0,
                    int8_codes_one_apart=codes_apart,
+                   int8_tie_tol=KV_TIE_TOL if cfg.kv_quant else None,
                    calls_s=time.perf_counter() - t0,
                    cache_specs={k: [list(e_) if isinstance(e_, tuple) else e_
                                     for e_ in c.spec]
@@ -3820,31 +3923,102 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
     return out
 
 
-def _first_tie(calls, alone_calls, dtype):
-    """The first call whose argmax differs between a sharded engine and
-    one rank's (None when none does): its rows, each side's top two
-    tokens, top logit and top-2 margin, and `tie`: in every such row each
-    side's top two tokens are the two picks and lie within two roundings
-    of `dtype` (2 eps of the top logit) of each other -- both sides sum
-    the same products in another order and round each logit to `dtype`,
-    so such a pair can come out in either order; from there on the two
-    histories differ."""
+def _uncounted(fn):
+    """fn(), its kernel launches left out of the counts (a reference call
+    made inside a counted main path)."""
+    from repro_torch.kernels import ops
+
+    counts = (ops.LAUNCHES, ops.FLASH_FORMS, ops.FLASH_BWD_FORMS)
+    saved = [dict(c) for c in counts]
+    try:
+        return fn()
+    finally:
+        for c, v in zip(counts, saved):
+            c.update(v)
+
+
+@contextlib.contextmanager
+def _routes(force=None):
+    """Within the block, every `models.moe.route` call's router logits
+    and expert indices are recorded in `log["logits"]`, `log["idx"]` (on
+    the host).  With `force` (another run's log) each call takes that
+    run's choices instead, its gate values its own probs of them,
+    renormalized, and its router logits are held against that run's:
+    the largest |difference| as a share of its own largest |router
+    logit| in `log["worst"]` (FM_SERVE_TOL bounds it, as it bounds the
+    logits); the tokens whose choices so moved in `log["moved"]`, and
+    the widest such move, its k-th router logit less the lowest forced
+    one, in eps of the k-th (`log["gap_eps"]`)."""
+    from repro_torch.models import moe
+
+    real = moe.route
+    log = {"idx": [], "logits": [], "moved": 0, "worst": 0.0,
+           "gap_eps": 0.0}
+
+    def route(params, x, cfg):
+        probs, vals, idx = real(params, x, cfg)
+        logits = (x @ params["router"].to(x.dtype)).float()
+        if force is not None:
+            i = len(log["idx"])
+            want = force["idx"][i].to(idx.device)
+            if want.shape != idx.shape:
+                raise AssertionError(f"route call {i}: {tuple(idx.shape)} "
+                                     f"here, {tuple(want.shape)} to force")
+            log["worst"] = max(log["worst"], float(
+                (force["logits"][i].to(logits.device) - logits).abs().max()
+                / logits.abs().max()))
+            kth = logits.gather(-1, idx[..., -1:])
+            gap = (kth - logits.gather(-1, want).amin(-1, keepdim=True)
+                   ).clamp_min(0)
+            log["moved"] += int((gap > 0).sum())
+            log["gap_eps"] = max(log["gap_eps"], float(
+                (gap / (torch.finfo(x.dtype).eps * kth.abs())).max()))
+            idx = want
+            vals = probs.gather(-1, idx)
+            vals = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+        log["idx"].append(idx.cpu())
+        if force is None:
+            log["logits"].append(logits.cpu())
+        return probs, vals, idx
+
+    moe.route = route
+    try:
+        yield log
+    finally:
+        moe.route = real
+
+
+def _serve_agreement(calls, alone_calls, dtype, tol: float) -> dict:
+    """A sharded engine's `calls` held call by call against one rank's
+    `alone_calls`, each made on the same inputs: each call's largest
+    |logit error| as a share of one rank's largest |logit| (within
+    `tol`), and every row whose argmax differs, with each side's top two
+    tokens, top logit and top-2 margin; it passes only at a tie: on each
+    side the two picks are its top two and lie within 2 eps of `dtype`
+    of the top logit (FM_SERVE's note)."""
     eps = torch.finfo(dtype).eps
+    errs, flips = [], []
+    kinds = [c["kind"] for c in calls] == [c["kind"] for c in alone_calls]
     for i, (a, b) in enumerate(zip(calls, alone_calls)):
-        if a["argmax"] == b["argmax"]:
-            continue
-        rows = [j for j, (x, y) in enumerate(zip(a["argmax"], b["argmax"]))
-                if x != y]
-        return {"call": i, "kind": a["kind"], "rows": rows,
-                "sharded": [(a["top2"][j], a["top"][j], a["margin"][j])
-                            for j in rows],
-                "alone": [(b["top2"][j], b["top"][j], b["margin"][j])
-                          for j in rows],
-                "tie": all(
-                    set(c["top2"][j]) == {a["argmax"][j], b["argmax"][j]}
-                    and c["margin"][j] <= 2 * eps * abs(c["top"][j])
-                    for j in rows for c in (a, b))}
-    return None
+        errs.append((a["logits"] - b["logits"]).abs().max().item()
+                    / b["logits"].abs().max().item())
+        for j, (x, y) in enumerate(zip(a["argmax"], b["argmax"])):
+            if x != y:
+                flips.append({
+                    "call": i, "kind": a["kind"], "row": j,
+                    "sharded": (a["top2"][j], a["top"][j], a["margin"][j]),
+                    "alone": (b["top2"][j], b["top"][j], b["margin"][j]),
+                    "tie": all(set(c["top2"][j]) == {x, y} and
+                               c["margin"][j] <= 2 * eps * abs(c["top"][j])
+                               for c in (a, b))})
+    return {"calls": len(calls), "same_calls": kinds,
+            "rows": sum(len(c["argmax"]) for c in calls),
+            "argmax_equal_share": 1 - len(flips) / max(
+                sum(len(c["argmax"]) for c in calls), 1),
+            "logits_max_err_of_max": max(errs), "bound": tol,
+            "logits_err_of_max_per_call": errs, "flips": flips,
+            "ok": kinds and len(calls) == len(alone_calls) and
+            max(errs) <= tol and all(f["tie"] for f in flips)}
 
 
 def fm_serve(mesh, rank: int, counted, arch: str, n_layers: int,
@@ -3852,11 +4026,15 @@ def fm_serve(mesh, rank: int, counted, arch: str, n_layers: int,
     """Phase 14 (b) for one model on one rank: `arch` at `n_layers` layers
     in bf16 (params from FM_SEED + 1, the same on every rank) through
     ServeEngine(mesh=, serve_sharding="tp", max_len=LM_MESH_MAX_LEN) on
-    phase 6 (b)'s first FM_REQUESTS requests; rank 0 serves them alone
-    too, and every greedy token must equal its engine's up to the first
-    call whose argmax differs, and there only at a bf16 tie
-    (`_first_tie`).  One flash_attention per attention layer per
-    prefill and per decode step whose sequence block holds a key."""
+    phase 6 (b)'s first FM_REQUESTS requests.  After each of the
+    engine's calls rank 0 makes the same call alone on the same inputs
+    -- its tokens and, for a decode, the mesh's cache gathered whole --
+    with the mesh's MoE routing (`_routes`), and every call is held
+    against it (`_serve_agreement`; its launches are not counted).  One
+    flash_attention per attention layer per prefill and per decode step
+    whose sequence block holds a key."""
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel import sharding as sh
     from repro_torch.serve.engine import ServeEngine
 
     t_start = time.perf_counter()
@@ -3865,8 +4043,8 @@ def fm_serve(mesh, rank: int, counted, arch: str, n_layers: int,
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     params = family_params(cfg, FM_SEED + 1, torch.bfloat16, dev.type)
-    reqs = lm_requests(cfg.vocab)[:FM_REQUESTS]
     max_len = LM_MESH_MAX_LEN if not small else 1280
+    reqs = lm_requests(cfg.vocab)[:FM_REQUESTS]
     if small:   # short prompts for the CPU
         for r in reqs:
             r.prompt, r.max_new_tokens = r.prompt[:6], min(r.max_new_tokens,
@@ -3878,29 +4056,60 @@ def fm_serve(mesh, rank: int, counted, arch: str, n_layers: int,
         v = [c["ms"] for c in cs if c["kind"] == kind]
         return sum(v) / len(v)
 
-    alone = None
-    if rank == 0:
-        eng = _timed_engine(ServeEngine(cfg, params, batch=LM_BATCH,
-                                        max_len=max_len, device=dev), sync)
-        alone = eng.generate([type(r)(uid=r.uid, prompt=r.prompt,
-                                      max_new_tokens=r.max_new_tokens)
-                              for r in reqs])
-        alone_calls = eng.calls
-        out["alone"] = {"ms_per_prefill": ms(eng.calls, "prefill"),
-                        "ms_per_decode_step": ms(eng.calls, "decode")}
-        del eng
     eng = _timed_engine(ServeEngine(cfg, params, batch=LM_BATCH,
                                     max_len=max_len, device=dev, mesh=mesh,
-                                    serve_sharding="tp"), sync)
-    del params
+                                    serve_sharding="tp"), sync,
+                        keep_logits=rank == 0)
+    if rank != 0:
+        params = None           # the mesh engine holds its blocks
+    lm, alone_calls = LM(cfg), []
+    routing = {"calls": 0, "worst": 0.0, "moved": 0, "gap_eps": 0.0}
+
+    def held(kind, fn):
+        def call(*args):
+            cache = None
+            if kind == "decode":      # every rank joins the gathers
+                cache = {k: v if k == "len" else sh.full_tensor(v).clone()
+                         for k, v in args[1].items()}
+            with _routes() as rec:
+                got = fn(*args)
+            if rank != 0:
+                return got
+
+            def alone():
+                sync()
+                t0 = time.perf_counter()
+                with torch.no_grad(), _routes(force=rec) as forced:
+                    o = lm.prefill(params, args[1], max_len) \
+                        if kind == "prefill" else \
+                        lm.decode_step(params, cache, args[2])
+                sync()
+                return {"kind": kind,
+                        "ms": (time.perf_counter() - t0) * 1e3} | \
+                    _logit_stats(o[0], keep=True), forced
+            row, forced = _uncounted(alone)
+            alone_calls.append(row)
+            routing["calls"] += len(forced["idx"])
+            routing["moved"] += forced["moved"]
+            for k in ("worst", "gap_eps"):
+                routing[k] = max(routing[k], forced[k])
+            if len(forced["idx"]) != len(rec["idx"]):
+                raise AssertionError(f"{arch}: {len(rec['idx'])} route "
+                                     f"calls on the mesh, "
+                                     f"{len(forced['idx'])} alone")
+            return got
+        return call
+
+    eng._prefill = held("prefill", eng._prefill)
+    eng._decode = held("decode", eng._decode)
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res, launches, forms, _ = counted.run(lambda: eng.generate(reqs))
     wall = time.perf_counter() - t0
     calls = eng.calls
+    del eng, params
     n_attn = attention_layers(cfg)
     start = mesh.get_local_rank("model") * (max_len // 2)
     n_pre = sum(c["kind"] == "prefill" for c in calls)
@@ -3918,26 +4127,26 @@ def fm_serve(mesh, rank: int, counted, arch: str, n_layers: int,
                                      for r in reqs):
         raise AssertionError(f"rank {rank} {arch} mesh serve: a NaN or a "
                              f"request not answered in full")
-    if alone is not None:
-        same = sum(a == b for r in range(len(reqs))
-                   for a, b in zip(res[r], alone[r]))
-        out["alone"]["token_share_equal"] = same / sum(
-            len(v) for v in alone.values())
-        first = _first_tie(calls, alone_calls, cfg.compute_dtype)
-        out["alone"]["first_disagreement"] = first
-        if res != alone and (first is None or not first["tie"]):
-            raise AssertionError(
-                f"{arch} mesh serve: tokens {res} differ from one rank's "
-                f"{alone}; first differing call: {first}")
     out.update({"tokens": {str(k): v for k, v in res.items()},
                 "prefills": n_pre, "decode_steps": len(calls) - n_pre,
                 "decode_steps_with_live_keys": n_live, "launches": launches,
                 "forms": forms, "wall_s": wall,
                 "ms_per_prefill": ms(calls, "prefill"),
-                "ms_per_decode_step": ms(calls, "decode"),
-                "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
-                                   if cuda else None),
-                "seconds": time.perf_counter() - t_start})
+                "ms_per_decode_step": ms(calls, "decode")})
+    if rank == 0:
+        agree = _serve_agreement(calls, alone_calls, cfg.compute_dtype,
+                                 FM_SERVE_TOL)
+        agree.update(route_calls=routing["calls"],
+                     router_logits_err_of_max=routing["worst"],
+                     route_tokens_moved=routing["moved"],
+                     route_widest_move_eps=routing["gap_eps"])
+        out["alone"] = {"ms_per_prefill": ms(alone_calls, "prefill"),
+                        "ms_per_decode_step": ms(alone_calls, "decode"),
+                        "per_call": agree}
+        if not agree["ok"] or routing["worst"] > FM_SERVE_TOL:
+            raise AssertionError(f"{arch} mesh serve against one rank's "
+                                 f"calls on the same inputs: {agree}")
+    out["seconds"] = time.perf_counter() - t_start
     return out
 
 
@@ -4036,19 +4245,29 @@ def fm_rank(rank: int, tmp: str, device: str = "cuda",
         mesh = make_debug_mesh(MESH_SHAPE, ("data", "model"), device=device)
         counted = _Counted(torch.cuda.synchronize if device == "cuda"
                            else (lambda: None))
+
+        def part(fn, *args, **kw):
+            """fn's result, with this rank's peak of allocated card
+            memory in it (GB)."""
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            r = fn(mesh, rank, *args, **kw)
+            r["peak_memory_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                                   if device == "cuda" else None)
+            return r
+
         res = {"rank": rank, "a": [], "b": []}
         for arch, (n, layouts) in FM_PARITY.items():
-            res["a"].append(fm_parity(mesh, rank, tmp, counted, arch, n,
-                                      layouts, small))
+            res["a"].append(part(fm_parity, tmp, counted, arch, n, layouts,
+                                 small))
         for arch, n in FM_SERVE.items():
-            res["b"].append(fm_serve(mesh, rank, counted, arch, n, small))
+            res["b"].append(part(fm_serve, counted, arch, n, small))
             if rank == 0:
                 print(f"phase 14: {arch} served: "
                       f"{res['b'][-1]['seconds']:.1f} s", flush=True)
-        res["c"] = fm_parity(mesh, rank, tmp, counted, LM_ARCH,
-                             FM_KVQ_LAYERS, ("train", "tp"), small,
-                             train=False, kv_quant=True)
-        res["d"] = fm_trainer(mesh, rank, counted, small)
+        res["c"] = part(fm_parity, tmp, counted, LM_ARCH, FM_KVQ_LAYERS,
+                        ("train", "tp"), small, train=False, kv_quant=True)
+        res["d"] = part(fm_trainer, counted, small)
         if rank == 0:
             print(f"phase 14: trainer: {res['d']['seconds']:.1f} s",
                   flush=True)
@@ -4094,6 +4313,21 @@ def families_mesh_phase(card: str, device: str = "cuda",
             res | {"timing": f"{MESH_RANKS} gloo ranks sharing one card",
                    "card": card}))
     a = ranks[0]["a"]
+    if device == "cuda":
+        # Every rank's peak of allocated memory, summed per part: above
+        # what the four ranks held at once, below the card less what this
+        # process and the five CUDA contexts hold.
+        peak = {}
+        for p in "abcd":
+            for i in range(len(ranks[0][p]) if p in "ab" else 1):
+                rows = [res[p][i] if p in "ab" else res[p] for res in ranks]
+                peak[f"{p} {rows[0].get('arch', '')}".strip()] = sum(
+                    r["peak_memory_gb"] for r in rows)
+        print("families mesh memory " + json.dumps(
+            {"sum_of_rank_peaks_gb": peak,
+             "this_process_reserved_gb": torch.cuda.memory_reserved() / 1e9,
+             "card_gb": torch.cuda.get_device_properties(0).total_memory
+             / 1e9, "card": card}))
     print("families mesh seconds " + json.dumps(
         {"a": {r["arch"]: r["seconds"] for r in a},
          "b": {r["arch"]: r["seconds"] for r in ranks[0]["b"]},
@@ -4107,9 +4341,12 @@ def families_mesh_phase(card: str, device: str = "cuda",
           f"equal one rank's (worst logits / cache "
           f"{worst:.2e}"
           f", atol = rtol = {PARITY_TOL:g}); (b) {', '.join(FM_SERVE)} served in the "
-          f"serve layout, greedy tokens equal to one rank's (shares "
-          f"{[r['alone']['token_share_equal'] for r in ranks[0]['b']]}: a "
-          f"first difference only at a bf16 tie); (c) {LM_ARCH} with kv_quant "
+          f"serve layout, each call against one rank's on its inputs "
+          f"(logits within "
+          f"{[r['alone']['per_call']['logits_max_err_of_max'] for r in ranks[0]['b']]}"
+          f" of their max, bound {FM_SERVE_TOL:g}; argmax equal shares "
+          f"{[r['alone']['per_call']['argmax_equal_share'] for r in ranks[0]['b']]}"
+          f", the rest at bf16 ties); (c) {LM_ARCH} with kv_quant "
           f"in both layouts; (d) Trainer on moonshot, losses and aux within "
           f"{ranks[0]['d']['rel_err']:.2e} of one rank "
           f"({time.perf_counter() - t0:.1f} s)")

@@ -40,6 +40,7 @@ layout.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Dict
 
@@ -66,22 +67,36 @@ def _tf_block_init(generator: torch.Generator, cfg: ModelConfig):
     return p
 
 
-def _ffn(p, hin, cfg: ModelConfig):
+def _norm(p, x, cfg: ModelConfig, plan=None):
+    """rmsnorm by the block's scale (on a mesh, `plan.norm`'s whole
+    scale)."""
+    return L.rmsnorm(plan.norm(p) if plan else p, x, cfg.norm_eps)
+
+
+def _ffn(p, hin, cfg: ModelConfig, plan=None):
     """The block's MLP or MoE on normed input -> (out, aux).  A decode
-    step (S == 1) routes over the batch: its B tokens are one group."""
+    step (S == 1) routes over the batch: its B tokens are one group (on a
+    mesh gathered over the batch axes first, since they compete for the
+    same slots, routed whole on every rank, each rank keeping its block
+    of the output; no gradient)."""
     if not cfg.n_experts:
-        return L.mlp_block(p["mlp"], hin, cfg), 0.0
-    if hin.shape[1] == 1:
+        return L.mlp_block(p["mlp"], hin, cfg, plan), 0.0
+    if hin.shape[1] != 1:
+        return M.moe_block(p["moe"], hin, cfg, plan)
+    if plan is None:
         h2, aux = M.moe_block(p["moe"], hin.transpose(0, 1), cfg)
         return h2.transpose(0, 1), aux
-    return M.moe_block(p["moe"], hin, cfg)
+    tokens = sh.gather(hin, plan.mesh, plan.bp, 0).transpose(0, 1)
+    h2, aux = M.moe_block(p["moe"], tokens, cfg,
+                          dataclasses.replace(plan, bp=()))
+    return sh.chunk(h2.transpose(0, 1), plan.mesh, plan.bp, 0), aux
 
 
-def _tf_block_apply(p, x, cfg: ModelConfig, positions):
-    h, _ = L.attention_block(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                             cfg, positions)
+def _tf_block_apply(p, x, cfg: ModelConfig, positions, plan=None):
+    h, _ = L.attention_block(p["attn"], _norm(p["ln1"], x, cfg, plan), cfg,
+                             positions, plan)
     x = x + h
-    h2, aux = _ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    h2, aux = _ffn(p, _norm(p["ln2"], x, cfg, plan), cfg, plan)
     return x + h2, aux
 
 
@@ -91,13 +106,13 @@ def _rwkv_block_init(generator: torch.Generator, cfg: ModelConfig):
             "mix": S.rwkv6_init(generator, cfg)}
 
 
-def _rwkv_block_apply(p, x, cfg: ModelConfig, positions):
+def _rwkv_block_apply(p, x, cfg: ModelConfig, positions, plan=None):
     del positions
-    h, _, _ = S.rwkv6_time_mix(p["mix"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                               cfg)
+    h, _, _ = S.rwkv6_time_mix(p["mix"], _norm(p["ln1"], x, cfg, plan), cfg,
+                               plan=plan)
     x = x + h
-    h2, _ = S.rwkv6_channel_mix(p["mix"],
-                                L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    h2, _ = S.rwkv6_channel_mix(p["mix"], _norm(p["ln2"], x, cfg, plan), cfg,
+                                plan=plan)
     return x + h2, 0.0
 
 
@@ -106,10 +121,10 @@ def _mamba_block_init(generator: torch.Generator, cfg: ModelConfig):
             "mamba": S.mamba2_init(generator, cfg)}
 
 
-def _mamba_block_apply(p, x, cfg: ModelConfig, positions):
+def _mamba_block_apply(p, x, cfg: ModelConfig, positions, plan=None):
     del positions
-    return x + S.mamba2_block(p["mamba"], L.rmsnorm(p["ln"], x, cfg.norm_eps),
-                              cfg), 0.0
+    return x + S.mamba2_block(p["mamba"], _norm(p["ln"], x, cfg, plan), cfg,
+                              plan), 0.0
 
 
 _BLOCKS = {"dense": (_tf_block_init, _tf_block_apply),
@@ -148,61 +163,18 @@ def _aux_sum(auxes: list):
     return torch.stack(auxes).sum() if auxes else 0.0
 
 
-def _ffn_mesh(p, hin, cfg: ModelConfig, plan):
-    """`_ffn` on a mesh.  A decode step's B tokens are one routing group,
-    as on one device: they are gathered over the batch axes first (they
-    compete for the same slots), routed whole on every rank, and each
-    rank keeps its block of the output (no gradient)."""
-    if not cfg.n_experts:
-        return L.mlp_block(p["mlp"], hin, cfg, plan), 0.0
-    if hin.shape[1] == 1:
-        m = plan.mesh
-        tokens = sh.gather(hin, m, plan.bp, 0).transpose(0, 1)
-        h2, aux = M.moe_block(p["moe"], tokens, cfg,
-                              dataclasses.replace(plan, bp=()))
-        return sh.chunk(h2.transpose(0, 1), m, plan.bp, 0), aux
-    return M.moe_block(p["moe"], hin, cfg, plan)
-
-
-def _tf_block_mesh(p, x, cfg: ModelConfig, positions, plan):
-    """`_tf_block_apply` on a mesh (`plan`)."""
-    h, _ = L.attention_block(p["attn"], L.rmsnorm(plan.norm(p["ln1"]), x,
-                                                  cfg.norm_eps),
-                             cfg, positions, plan)
-    x = x + h
-    h2, aux = _ffn_mesh(p, L.rmsnorm(plan.norm(p["ln2"]), x, cfg.norm_eps),
-                        cfg, plan)
-    return x + h2, aux
-
-
-def _rwkv_block_mesh(p, x, cfg: ModelConfig, positions, plan):
-    del positions
-    h, _, _ = S.rwkv6_time_mix(p["mix"], L.rmsnorm(plan.norm(p["ln1"]), x,
-                                                   cfg.norm_eps), cfg,
-                               plan=plan)
-    x = x + h
-    h2, _ = S.rwkv6_channel_mix(p["mix"], L.rmsnorm(plan.norm(p["ln2"]), x,
-                                                    cfg.norm_eps), cfg,
-                                plan=plan)
-    return x + h2, 0.0
-
-
-def _mamba_block_mesh(p, x, cfg: ModelConfig, positions, plan):
-    del positions
-    return x + S.mamba2_block(p["mamba"], L.rmsnorm(plan.norm(p["ln"]), x,
-                                                    cfg.norm_eps), cfg,
-                              plan), 0.0
-
-
-_MESH_BLOCKS = {"dense": _tf_block_mesh, "moe": _tf_block_mesh,
-                "audio": _tf_block_mesh, "vlm": _tf_block_mesh,
-                "ssm": _rwkv_block_mesh, "hybrid": _mamba_block_mesh}
-
-
 def _entry(c, *index):
-    """The `Sharded` cache entry `c` at a leading index (a layer, or a
-    group and a block of it)."""
-    return sh.Sharded(c.local[index], c.mesh, c.spec[len(index):])
+    """The cache entry `c` (a tensor, or a `Sharded`) at a leading index
+    (a layer, or a group and a block of it)."""
+    if isinstance(c, sh.Sharded):
+        return sh.Sharded(c.local[index], c.mesh, c.spec[len(index):])
+    return c[index]
+
+
+def _local(c):
+    """This rank's block of a cache entry (the tensor itself off a
+    mesh)."""
+    return c.local if isinstance(c, sh.Sharded) else c
 
 
 def _pad_cache(t, max_len: int):
@@ -258,69 +230,90 @@ class LM:
             params["shared_attn"] = _tf_block_init(generator, cfg)
         return params
 
-    def _embed_in(self, params, inputs):
-        """Tokens (B,S) through the table, or with `embed_input` the
-        (B,S,D) embeddings themselves in the compute dtype."""
+    def _setup(self, params, batch: int):
+        """(the params, the call's `MeshPlan`): off a mesh the params
+        themselves and None."""
+        mesh = sh.tree_mesh(params)
+        if mesh is None:
+            return params, None
+        return self._mesh_setup(params, mesh, batch)
+
+    def _embed(self, P, plan, inputs, embeddings: bool,
+               whole_d: bool = False):
+        """(tokens (B,S) through the table, or with `embeddings` the
+        (B,S,D) embeddings themselves in the compute dtype -- on a mesh
+        this rank's batch block --, the vocab block the head reads: None
+        off a mesh)."""
         cfg = self.cfg
-        if cfg.embed_input:
-            return inputs.to(cfg.compute_dtype)
-        return L.embed(params["embed"], inputs, cfg)
+        if plan is not None:
+            return self._embed_mesh(P, plan, inputs, embeddings, whole_d)
+        if embeddings:
+            return inputs.to(cfg.compute_dtype), None
+        return L.embed(P["embed"], inputs, cfg), None
+
+    def _logits(self, P, plan, vb, x):
+        """The final norm and the head (fp32); on a mesh the whole logits
+        on every rank."""
+        x = _norm(P["final_norm"], x, self.cfg, plan)
+        if plan is None:
+            return L.logits_head(P["embed"], x, self.cfg)
+        return L.logits_mesh(self._head_mesh(P, plan, vb), x, plan)
 
     # -- forward (training) --------------------------------------------------
     def forward(self, params, inputs, positions=None):
         """inputs: tokens (B,S) or, with `embed_input`, embeddings
         (B,S,D).  Returns (hidden (B,S,D), aux_loss); on a mesh, this
-        rank's block of the batch (`MeshPlan.bp`) of the hidden states.
+        rank's block of the batch (`MeshPlan.bp`) of the hidden states."""
+        P, plan = self._setup(params, inputs.shape[0])
+        x, _ = self._embed(P, plan, inputs, self.cfg.embed_input)
+        return self._body(P, plan, x, positions)
 
-        With `remat == "full"` each block runs under
-        `torch.utils.checkpoint`: only its input is kept, and the backward
-        runs the block again.  (`repro` also fences the stashed input with
-        `_diff_barrier`, an XLA optimization barrier against hoisting its
-        bf16 -> f32 convert out of the layer scan; eager PyTorch hoists
-        nothing, so it has no counterpart here.)"""
+    def _body(self, P, plan, x, positions=None):
+        """(the blocks and the final norm, the aux losses summed).
+
+        With `remat == "full"` each block -- and the hybrid's shared block
+        before each group -- runs under `torch.utils.checkpoint`: only its
+        input is kept, and the backward runs the block again.  (`repro`
+        also fences the stashed input with `_diff_barrier`, an XLA
+        optimization barrier against hoisting its bf16 -> f32 convert out
+        of the layer scan; eager PyTorch hoists nothing, so it has no
+        counterpart here.)"""
         cfg = self.cfg
-        mesh = sh.tree_mesh(params)
-        if mesh is not None:
-            P, plan = self._mesh_setup(params, mesh, inputs.shape[0])
-            x, _ = self._embed_mesh(P, plan, inputs, cfg.embed_input)
-            return self._body_mesh(P, plan, x)
-        x = self._embed_in(params, inputs)
         B, S_, _ = x.shape
         if positions is None:
             positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
+        elif plan is not None:
+            positions = sh.local(positions, plan.mesh, (plan.bp or None, None))
         remat = cfg.remat == "full" and torch.is_grad_enabled()
 
         def run(apply, p, x):
             if remat:
-                return checkpoint(apply, p, x, cfg, positions,
+                return checkpoint(apply, p, x, cfg, positions, plan,
                                   use_reentrant=False)
-            return apply(p, x, cfg, positions)
+            return apply(p, x, cfg, positions, plan)
 
         apply = _BLOCKS[cfg.family][1]
         auxes = []
-        for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        for i, p in enumerate(_layers(P["blocks"], cfg.n_layers)):
             if cfg.family == "hybrid" and i % cfg.attn_every == 0:
-                x, aux = run(_tf_block_apply, params["shared_attn"], x)
+                x, aux = run(_tf_block_apply, P["shared_attn"], x)
                 auxes.append(aux)
             x, aux = run(apply, p, x)
             auxes.append(aux)
-        return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), \
-            _aux_sum(auxes)
+        return _norm(P["final_norm"], x, cfg, plan), _aux_sum(auxes)
 
     def loss(self, params, inputs, labels):
         """(nll + 0.01 * aux, {"nll", "aux"}); labels of -1 are masked."""
-        mesh = sh.tree_mesh(params)
-        if mesh is not None:
-            P, plan = self._mesh_setup(params, mesh, inputs.shape[0])
-            x, vb = self._embed_mesh(P, plan, inputs, self.cfg.embed_input,
-                                     whole_d=True)
-            x, aux = self._body_mesh(P, plan, x)
-            labels = sh.local(labels, mesh, (plan.bp or None, None))
+        cfg = self.cfg
+        P, plan = self._setup(params, inputs.shape[0])
+        x, vb = self._embed(P, plan, inputs, cfg.embed_input, whole_d=True)
+        x, aux = self._body(P, plan, x)
+        if plan is None:
+            nll = L.chunked_xent(P["embed"], x, labels, cfg)
+        else:
+            labels = sh.local(labels, plan.mesh, (plan.bp or None, None))
             head = self._head_mesh(P, plan, vb, whole_d=True)
-            nll = L.chunked_xent_mesh(head, x, labels, self.cfg, plan)
-            return nll + 0.01 * aux, {"nll": nll, "aux": aux}
-        x, aux = self.forward(params, inputs)
-        nll = L.chunked_xent(params["embed"], x, labels, self.cfg)
+            nll = L.chunked_xent_mesh(head, x, labels, cfg, plan)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     # -- cache --------------------------------------------------------------
@@ -377,144 +370,191 @@ class LM:
     def prefill(self, params, inputs, max_len: int):
         """Process a prompt (B,S) of tokens (or (B,S,D) embeddings with
         `embed_input`), return (last-token logits (B,1,V), cache holding
-        positions 0..S-1)."""
+        positions 0..S-1).
+
+        On a mesh every rank gets the whole logits, and the cache is
+        `Sharded` blocks in `cache_pspecs`' layout: k / v (or their int8
+        codes and scales) gathered over the head axes, cut to the cache's
+        batch and sequence block; the SSM states of this rank's heads and
+        the conv / token-shift inputs moved to the cache's batch block
+        (the conv inputs' channels gathered, then cut to the cache's
+        channel block)."""
         cfg = self.cfg
-        mesh = sh.tree_mesh(params)
-        if mesh is not None:
-            return self._prefill_mesh(params, inputs, max_len, mesh)
-        x = self._embed_in(params, inputs)
+        P, plan = self._setup(params, inputs.shape[0])
+        x, vb = self._embed(P, plan, inputs, cfg.embed_input)
         B, S_, _ = x.shape
         positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
-        layers = _layers(params["blocks"], cfg.n_layers)
+        if plan is not None:
+            specs = self._cache_specs(plan.mesh, inputs.shape[0], max_len)
+        ssm_heads = (plan.ssm or None) if plan is not None else None
+
+        def put(name, t, heads=None):
+            """t -- this rank's batch block, and `heads` on dim 1 -- in the
+            cache entry's layout (itself off a mesh)."""
+            if plan is None:
+                return t
+            src = (plan.bp or None, heads) + (None,) * (t.dim() - 2)
+            return sh.relayout_local(t, src, specs[name][-t.dim():],
+                                     plan.mesh)
+
+        def kv(name, t):
+            if plan is not None:
+                t = sh.gather(t, plan.mesh, plan.att, 2)
+            return put(name, _pad_cache(t, max_len))
+
+        def tf(p, x):
+            """A transformer block -> (x, its k, v)."""
+            h, (kk, vv) = L.attention_block(
+                p["attn"], _norm(p["ln1"], x, cfg, plan), cfg, positions,
+                plan)
+            x = x + h
+            return x + _ffn(p, _norm(p["ln2"], x, cfg, plan), cfg,
+                            plan)[0], kk, vv
+
+        out = collections.defaultdict(list)
+        layers = _layers(P["blocks"], cfg.n_layers)
         if cfg.family == "ssm":
-            x, cache = self._prefill_rwkv(layers, x)
+            for p in layers:
+                h, xt, st = S.rwkv6_time_mix(
+                    p["mix"], _norm(p["ln1"], x, cfg, plan), cfg, plan=plan)
+                x = x + h
+                h2, xc = S.rwkv6_channel_mix(
+                    p["mix"], _norm(p["ln2"], x, cfg, plan), cfg, plan=plan)
+                x = x + h2
+                out["x_prev_t"].append(put("x_prev_t", xt))
+                out["x_prev_c"].append(put("x_prev_c", xc))
+                out["state"].append(put("state", st, ssm_heads))
         elif cfg.family == "hybrid":
-            x, cache = self._prefill_hybrid(params["shared_attn"], layers, x,
-                                            positions, max_len)
+            G, per = self._groups()
+            for g in range(G):
+                x, kk, vv = tf(P["shared_attn"], x)
+                out["k"].append(kv("k", kk))
+                out["v"].append(kv("v", vv))
+                for p in layers[g * per:(g + 1) * per]:
+                    y, conv, st = S.mamba2_prefill(
+                        p["mamba"], _norm(p["ln"], x, cfg, plan), cfg, plan)
+                    x = x + y
+                    out["conv"].append(put("conv", S.whole_channels(
+                        conv, cfg, plan)))
+                    out["state"].append(put("state", st, ssm_heads))
         else:
-            x, cache = self._prefill_tf(layers, x, positions, max_len)
+            for p in layers:
+                x, kk, vv = tf(p, x)
+                if cfg.kv_quant:
+                    kk, k_scale = L.kv_quantize(kk)
+                    vv, v_scale = L.kv_quantize(vv)
+                out["k"].append(kv("k", kk))
+                out["v"].append(kv("v", vv))
+                if cfg.kv_quant:
+                    out["k_scale"].append(kv("k_scale", k_scale))
+                    out["v_scale"].append(kv("v_scale", v_scale))
+        cache = {}
+        for k, ts in out.items():
+            t = torch.stack(ts)
+            if k in ("conv", "state") and cfg.family == "hybrid":
+                t = t.unflatten(0, self._groups())
+            cache[k] = t if plan is None else \
+                sh.Sharded(t.contiguous(), plan.mesh, specs[k])
         cache["len"] = S_
-        x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-        return L.logits_head(params["embed"], x, cfg), cache
-
-    def _prefill_tf(self, layers, x, positions, max_len):
-        cfg = self.cfg
-        ks, vs, kss, vss = [], [], [], []
-        for p in layers:
-            h, (kk, vv) = L.attention_block(
-                p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-                positions)
-            x = x + h
-            x = x + _ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)[0]
-            if cfg.kv_quant:
-                kk, k_scale = L.kv_quantize(kk)
-                vv, v_scale = L.kv_quantize(vv)
-                kss.append(_pad_cache(k_scale, max_len))
-                vss.append(_pad_cache(v_scale, max_len))
-            ks.append(_pad_cache(kk, max_len))
-            vs.append(_pad_cache(vv, max_len))
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
-        if cfg.kv_quant:
-            cache.update(k_scale=torch.stack(kss), v_scale=torch.stack(vss))
-        return x, cache
-
-    def _prefill_rwkv(self, layers, x):
-        cfg = self.cfg
-        xts, xcs, sts = [], [], []
-        for p in layers:
-            h, xt, st = S.rwkv6_time_mix(
-                p["mix"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg)
-            x = x + h
-            h2, xc = S.rwkv6_channel_mix(
-                p["mix"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
-            x = x + h2
-            xts.append(xt)
-            xcs.append(xc)
-            sts.append(st)
-        return x, {"x_prev_t": torch.stack(xts), "x_prev_c": torch.stack(xcs),
-                   "state": torch.stack(sts)}
-
-    def _prefill_hybrid(self, sa, layers, x, positions, max_len):
-        cfg = self.cfg
-        G, per = self._groups()
-        convs, sts, ks, vs = [], [], [], []
-        for g in range(G):
-            h, (kk, vv) = L.attention_block(
-                sa["attn"], L.rmsnorm(sa["ln1"], x, cfg.norm_eps), cfg,
-                positions)
-            x = x + h
-            x = x + L.mlp_block(sa["mlp"],
-                                L.rmsnorm(sa["ln2"], x, cfg.norm_eps), cfg)
-            ks.append(_pad_cache(kk, max_len))
-            vs.append(_pad_cache(vv, max_len))
-            for p in layers[g * per:(g + 1) * per]:
-                y, conv, st = S.mamba2_prefill(
-                    p["mamba"], L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg)
-                x = x + y
-                convs.append(conv)
-                sts.append(st)
-        return x, {"conv": torch.stack(convs).unflatten(0, (G, per)),
-                   "state": torch.stack(sts).unflatten(0, (G, per)),
-                   "k": torch.stack(ks), "v": torch.stack(vs)}
+        return self._logits(P, plan, vb, x[:, -1:]), cache
 
     # -- decode -------------------------------------------------------------
     def decode_step(self, params, cache, tokens):
         """tokens (B,1) -> (logits (B,1,V), cache with len + 1).  Every
         entry of `cache` is updated in place.  Tokens go through
-        `params["embed"]` in every family, `embed_input` ones included."""
+        `params["embed"]` in every family, `embed_input` ones included.
+
+        On a mesh the cache's `Sharded` blocks are written in place and
+        every rank gets the whole logits.  The SSM blocks run on the
+        cache's batch block (x moved there and back: a rank's heads meet
+        their state where it lies, and no state moves)."""
         cfg = self.cfg
-        mesh = sh.tree_mesh(params)
-        if mesh is not None:
-            return self._decode_mesh(params, cache, tokens, mesh)
-        x = L.embed(params["embed"], tokens, cfg)
+        P, plan = self._setup(params, tokens.shape[0])
+        x, vb = self._embed(P, plan, tokens, False)
         clen = cache["len"]
-        layers = _layers(params["blocks"], cfg.n_layers)
+        layers = _layers(P["blocks"], cfg.n_layers)
+        splan = None
+        if plan is not None and cfg.family in ("ssm", "hybrid"):
+            # The SSM blocks' plan: x at the cache's batch block.
+            splan = dataclasses.replace(
+                plan, bp=sh._real(plan.mesh, cache["state"].spec[-4]))
+
+        def to_cache(x, back=False):
+            """x between the plan's batch block and the SSM cache's."""
+            if plan is None:
+                return x
+            specs = ((plan.bp or None, None, None),
+                     (cache["state"].spec[-4], None, None))
+            return sh.relayout_local(x, *(specs[::-1] if back else specs),
+                                     plan.mesh)
+
+        def state(*index):
+            """(this rank's heads of the state entry at `index`, a writer
+            back)."""
+            e = _entry(cache["state"], *index)
+            if plan is None:
+                return e, e.copy_
+            mine = (e.spec[0], plan.ssm or None, None, None)
+
+            def write(new):
+                e.local.copy_(sh.relayout_local(new, mine, e.spec,
+                                                plan.mesh))
+            return sh.relayout_local(e.local, e.spec, mine, plan.mesh), write
+
         if cfg.family == "ssm":
+            x = to_cache(x)
+            xt_prev, xc_prev = _local(cache["x_prev_t"]), \
+                _local(cache["x_prev_c"])
             for i, p in enumerate(layers):
+                st, write = state(i)
                 h, xt, st = S.rwkv6_time_mix_decode(
-                    p["mix"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-                    cache["x_prev_t"][i], cache["state"][i])
+                    p["mix"], _norm(p["ln1"], x, cfg, plan), cfg,
+                    xt_prev[i], st, plan=splan)
                 x = x + h
                 h2, xc = S.rwkv6_channel_mix(
-                    p["mix"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg,
-                    cache["x_prev_c"][i])
+                    p["mix"], _norm(p["ln2"], x, cfg, plan), cfg,
+                    xc_prev[i], plan=splan)
                 x = x + h2
-                cache["x_prev_t"][i] = xt
-                cache["x_prev_c"][i] = xc
-                cache["state"][i] = st
+                xt_prev[i] = xt
+                xc_prev[i] = xc
+                write(st)
+            x = to_cache(x, back=True)
         elif cfg.family == "hybrid":
-            sa = params["shared_attn"]
+            sa = P["shared_attn"]
             G, per = self._groups()
             for g in range(G):
                 x = x + L.attention_decode(
-                    sa["attn"], L.rmsnorm(sa["ln1"], x, cfg.norm_eps), cfg,
-                    cache["k"][g], cache["v"][g], clen)[0]
-                x = x + L.mlp_block(sa["mlp"],
-                                    L.rmsnorm(sa["ln2"], x, cfg.norm_eps),
-                                    cfg)
+                    sa["attn"], _norm(sa["ln1"], x, cfg, plan), cfg,
+                    _entry(cache["k"], g), _entry(cache["v"], g), clen,
+                    plan)[0]
+                x = x + _ffn(sa, _norm(sa["ln2"], x, cfg, plan), cfg,
+                             plan)[0]
+                x = to_cache(x)
                 for j, p in enumerate(layers[g * per:(g + 1) * per]):
-                    y, conv, st = S.mamba2_decode(
-                        p["mamba"], L.rmsnorm(p["ln"], x, cfg.norm_eps), cfg,
-                        cache["conv"][g, j], cache["state"][g, j])
+                    st, write = state(g, j)
+                    conv = _entry(cache["conv"], g, j)
+                    y, new, st = S.mamba2_decode(
+                        p["mamba"], _norm(p["ln"], x, cfg, plan), cfg, conv,
+                        st, splan)
                     x = x + y
-                    cache["conv"][g, j] = conv
-                    cache["state"][g, j] = st
+                    _local(conv).copy_(new)
+                    write(st)
+                x = to_cache(x, back=True)
         else:
             for i, p in enumerate(layers):
-                xin = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+                xin = _norm(p["ln1"], x, cfg, plan)
+                kv = (_entry(cache["k"], i), _entry(cache["v"], i))
                 if cfg.kv_quant:
                     h = L.attention_decode_quant(
-                        p["attn"], xin, cfg, cache["k"][i], cache["v"][i],
-                        cache["k_scale"][i], cache["v_scale"][i], clen)[0]
+                        p["attn"], xin, cfg, *kv,
+                        _entry(cache["k_scale"], i),
+                        _entry(cache["v_scale"], i), clen, plan)[0]
                 else:
-                    h = L.attention_decode(p["attn"], xin, cfg,
-                                           cache["k"][i], cache["v"][i],
-                                           clen)[0]
+                    h = L.attention_decode(p["attn"], xin, cfg, *kv, clen,
+                                           plan)[0]
                 x = x + h
-                x = x + _ffn(p, L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)[0]
-        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return L.logits_head(params["embed"], x, cfg), dict(cache,
-                                                             len=clen + 1)
+                x = x + _ffn(p, _norm(p["ln2"], x, cfg, plan), cfg, plan)[0]
+        return self._logits(P, plan, vb, x), dict(cache, len=clen + 1)
 
     # -- on a mesh ------------------------------------------------------------
     # The params are DTensors or `Sharded`s (laid out by `tree_shardings`,
@@ -616,216 +656,9 @@ class LM:
         return L.vocab_block(P["embed"]["head"], plan, vocab_dim=1,
                              whole_d=whole_d)
 
-    def _body_mesh(self, P, plan, x):
-        """(the blocks and the final norm, the aux losses summed), each
-        block -- and the hybrid's shared block before each group -- under
-        `torch.utils.checkpoint` with `remat == "full"` in training."""
-        cfg = self.cfg
-        B, S_, _ = x.shape
-        positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
-        remat = cfg.remat == "full" and torch.is_grad_enabled()
-
-        def run(apply, p, x):
-            if remat:
-                return checkpoint(apply, p, x, cfg, positions, plan,
-                                  use_reentrant=False)
-            return apply(p, x, cfg, positions, plan)
-
-        apply = _MESH_BLOCKS[cfg.family]
-        auxes = []
-        for i, p in enumerate(_layers(P["blocks"], cfg.n_layers)):
-            if cfg.family == "hybrid" and i % cfg.attn_every == 0:
-                x, aux = run(_tf_block_mesh, P["shared_attn"], x)
-                auxes.append(aux)
-            x, aux = run(apply, p, x)
-            auxes.append(aux)
-        return L.rmsnorm(plan.norm(P["final_norm"]), x, cfg.norm_eps), \
-            _aux_sum(auxes)
-
     def _cache_specs(self, mesh, batch: int, max_len: int,
                      dtype=None) -> dict:
         """`cache_pspecs` of the family's cache."""
         from repro_torch.launch.steps import cache_pspecs
         return cache_pspecs(self.init_cache(batch, max_len, dtype,
                                             device="meta"), mesh)
-
-    def _prefill_mesh(self, params, inputs, max_len: int, mesh):
-        """`prefill` on a mesh: the whole logits on every rank, the cache
-        as `Sharded` blocks in `cache_pspecs`' layout -- k / v (or their
-        int8 codes and scales) gathered over the head axes, cut to the
-        cache's batch and sequence block; the SSM states of this rank's
-        heads and the conv / token-shift inputs moved to the cache's
-        batch block (the conv inputs' channels gathered, then cut to the
-        cache's channel block)."""
-        cfg = self.cfg
-        P, plan = self._mesh_setup(params, mesh, inputs.shape[0])
-        x, vb = self._embed_mesh(P, plan, inputs, cfg.embed_input)
-        B, S_, _ = x.shape
-        positions = torch.arange(S_, device=x.device)[None].expand(B, S_)
-        specs = self._cache_specs(mesh, inputs.shape[0], max_len)
-        bp = plan.bp or None
-
-        def put(name, t, src):
-            """t, this rank's block under `src` (the spec tail of one
-            layer's entry), in the cache's layout."""
-            dst = specs[name][-t.dim():]
-            return sh.relayout_local(t, src, dst, mesh)
-
-        def kv(name, t):
-            t = _pad_cache(sh.gather(t, mesh, plan.att, 2), max_len)
-            return put(name, t, (bp,) + (None,) * (t.dim() - 1))
-
-        def attend(p, x):
-            h, (kk, vv) = L.attention_block(
-                p["attn"], L.rmsnorm(plan.norm(p["ln1"]), x, cfg.norm_eps),
-                cfg, positions, plan)
-            return x + h, kk, vv
-
-        out = {k: [] for k in specs if k != "len"}
-        layers = _layers(P["blocks"], cfg.n_layers)
-        if cfg.family == "ssm":
-            for p in layers:
-                h, xt, st = S.rwkv6_time_mix(
-                    p["mix"], L.rmsnorm(plan.norm(p["ln1"]), x,
-                                        cfg.norm_eps), cfg, plan=plan)
-                x = x + h
-                h2, xc = S.rwkv6_channel_mix(
-                    p["mix"], L.rmsnorm(plan.norm(p["ln2"]), x,
-                                        cfg.norm_eps), cfg, plan=plan)
-                x = x + h2
-                out["x_prev_t"].append(put("x_prev_t", xt, (bp, None, None)))
-                out["x_prev_c"].append(put("x_prev_c", xc, (bp, None, None)))
-                out["state"].append(put("state", st, (bp, plan.ssm or None,
-                                                      None, None)))
-        elif cfg.family == "hybrid":
-            G, per = self._groups()
-            sa = P["shared_attn"]
-            for g in range(G):
-                x, kk, vv = attend(sa, x)
-                x = x + L.mlp_block(sa["mlp"], L.rmsnorm(
-                    plan.norm(sa["ln2"]), x, cfg.norm_eps), cfg, plan)
-                out["k"].append(kv("k", kk))
-                out["v"].append(kv("v", vv))
-                for p in layers[g * per:(g + 1) * per]:
-                    y, conv, st = S.mamba2_prefill(
-                        p["mamba"], L.rmsnorm(plan.norm(p["ln"]), x,
-                                              cfg.norm_eps), cfg, plan)
-                    x = x + y
-                    out["conv"].append(put("conv", S.whole_channels(
-                        conv, cfg, plan), (bp, None, None)))
-                    out["state"].append(put("state", st, (
-                        bp, plan.ssm or None, None, None)))
-        else:
-            for p in layers:
-                x, kk, vv = attend(p, x)
-                x = x + _ffn_mesh(p, L.rmsnorm(plan.norm(p["ln2"]), x,
-                                               cfg.norm_eps), cfg, plan)[0]
-                if cfg.kv_quant:
-                    kk, k_scale = L.kv_quantize(kk)
-                    vv, v_scale = L.kv_quantize(vv)
-                    out["k_scale"].append(kv("k_scale", k_scale))
-                    out["v_scale"].append(kv("v_scale", v_scale))
-                out["k"].append(kv("k", kk))
-                out["v"].append(kv("v", vv))
-        cache = {}
-        for k, ts in out.items():
-            t = torch.stack(ts)
-            if k in ("conv", "state") and cfg.family == "hybrid":
-                t = t.unflatten(0, self._groups())
-            cache[k] = sh.Sharded(t.contiguous(), mesh, specs[k])
-        cache["len"] = S_
-        x = L.rmsnorm(plan.norm(P["final_norm"]), x[:, -1:], cfg.norm_eps)
-        return L.logits_mesh(self._head_mesh(P, plan, vb), x, plan), cache
-
-    def _decode_mesh(self, params, cache, tokens, mesh):
-        """`decode_step` on a mesh: the cache's `Sharded` blocks written
-        in place, the whole logits on every rank.  The SSM blocks run on
-        the cache's batch block (x moved there and back: a rank's heads
-        meet their state where it lies, and no state moves)."""
-        cfg = self.cfg
-        P, plan = self._mesh_setup(params, mesh, tokens.shape[0])
-        x, vb = self._embed_mesh(P, plan, tokens)
-        clen = cache["len"]
-        layers = _layers(P["blocks"], cfg.n_layers)
-
-        def to_cache(x, name, back=False):
-            """x between the plan's batch block and the cache entry's."""
-            specs = ((plan.bp or None, None, None),
-                     (cache[name].spec[-4], None, None))
-            return sh.relayout_local(x, *(specs[::-1] if back else specs),
-                                     mesh)
-
-        if cfg.family in ("ssm", "hybrid"):
-            # The SSM blocks' plan: x at the cache's batch block.
-            splan = dataclasses.replace(
-                plan, bp=sh._real(mesh, cache["state"].spec[-4]))
-
-        def state(c, *index):
-            """(this rank's heads of a state entry, a writer back)."""
-            e = _entry(c, *index)
-            mine = (e.spec[0], plan.ssm or None, None, None)
-            t = sh.relayout_local(e.local, e.spec, mine, mesh)
-
-            def write(new):
-                e.local.copy_(sh.relayout_local(new, mine, e.spec, mesh))
-            return t, write
-
-        if cfg.family == "ssm":
-            x = to_cache(x, "state")
-            for i, p in enumerate(layers):
-                st, write = state(cache["state"], i)
-                h, xt, st = S.rwkv6_time_mix_decode(
-                    p["mix"], L.rmsnorm(plan.norm(p["ln1"]), x,
-                                        cfg.norm_eps), cfg,
-                    cache["x_prev_t"].local[i], st, plan=splan)
-                x = x + h
-                h2, xc = S.rwkv6_channel_mix(
-                    p["mix"], L.rmsnorm(plan.norm(p["ln2"]), x,
-                                        cfg.norm_eps), cfg,
-                    cache["x_prev_c"].local[i], plan=splan)
-                x = x + h2
-                cache["x_prev_t"].local[i] = xt
-                cache["x_prev_c"].local[i] = xc
-                write(st)
-            x = to_cache(x, "state", back=True)
-        elif cfg.family == "hybrid":
-            sa = P["shared_attn"]
-            G, per = self._groups()
-            for g in range(G):
-                x = x + L.attention_decode(
-                    sa["attn"], L.rmsnorm(plan.norm(sa["ln1"]), x,
-                                          cfg.norm_eps), cfg,
-                    _entry(cache["k"], g), _entry(cache["v"], g), clen,
-                    plan)[0]
-                x = x + L.mlp_block(sa["mlp"], L.rmsnorm(
-                    plan.norm(sa["ln2"]), x, cfg.norm_eps), cfg, plan)
-                x = to_cache(x, "state")
-                for j, p in enumerate(layers[g * per:(g + 1) * per]):
-                    st, write = state(cache["state"], g, j)
-                    conv = _entry(cache["conv"], g, j)
-                    y, new, st = S.mamba2_decode(
-                        p["mamba"], L.rmsnorm(plan.norm(p["ln"]), x,
-                                              cfg.norm_eps), cfg, conv, st,
-                        splan)
-                    x = x + y
-                    conv.local.copy_(new)
-                    write(st)
-                x = to_cache(x, "state", back=True)
-        else:
-            for i, p in enumerate(layers):
-                xin = L.rmsnorm(plan.norm(p["ln1"]), x, cfg.norm_eps)
-                kv = (_entry(cache["k"], i), _entry(cache["v"], i))
-                if cfg.kv_quant:
-                    h = L.attention_decode_quant(
-                        p["attn"], xin, cfg, *kv,
-                        _entry(cache["k_scale"], i),
-                        _entry(cache["v_scale"], i), clen, plan)[0]
-                else:
-                    h = L.attention_decode(p["attn"], xin, cfg, *kv, clen,
-                                           plan)[0]
-                x = x + h
-                x = x + _ffn_mesh(p, L.rmsnorm(plan.norm(p["ln2"]), x,
-                                               cfg.norm_eps), cfg, plan)[0]
-        x = L.rmsnorm(plan.norm(P["final_norm"]), x, cfg.norm_eps)
-        return L.logits_mesh(self._head_mesh(P, plan, vb), x, plan), \
-            dict(cache, len=clen + 1)

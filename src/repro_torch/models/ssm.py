@@ -289,6 +289,8 @@ def whole_channels(t, cfg: ModelConfig, plan):
     """Conv inputs (.., this rank's channels) -> (.., every channel
     [x | B | C]): its heads' x gathered over the head axes (not
     differentiable)."""
+    if plan is None:
+        return t
     di = t.shape[-1] - 2 * cfg.ssm_state
     return torch.cat([sh.gather(t[..., :di], plan.mesh, plan.ssm, -1),
                       t[..., di:]], dim=-1)
