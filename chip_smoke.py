@@ -148,7 +148,7 @@ Phases (any failed check raises and ends the run non-zero):
      and, past a call routed otherwise, its dispatch/combine held on the
      card's routing (`family_parity`); (b) moonshot-v1-16b-a3b (the
      deepest its bf16 params fit in FAMILY_SERVE_SHARE of the card),
-     rwkv6-7b and zamba2-2.7b whole, bf16, serving phase 6 (b)'s first 8
+     rwkv6-7b and zamba2-2.7b whole, bf16, serving phase 6 (b)'s first 6
      requests through ServeEngine: one `flash_attention` launch per
      attention layer per call (moonshot: wgmma prefills; zamba2: 9 a
      call at head_dim 80, tile prefills; split decodes; rwkv6: none),
@@ -165,7 +165,7 @@ Phases (any failed check raises and ends the run non-zero):
      loss and every gradient, internvl2's at batch 1); musicgen-medium
      whole (48 layers) and internvl2-76b at the deepest cut whose bf16
      params take FAMILY_SERVE_SHARE of the card, served in bf16 on phase 6
-     (b)'s first 8 requests with frames in place of prompts (`LM.prefill`
+     (b)'s first 6 requests with frames in place of prompts (`LM.prefill`
      on frames, greedy `decode_step`s; prefills on wgmma at head_dim 64 /
      128, decodes on split), requests/s, ms per call, a decode profile
      (`embed_serve`); musicgen-medium trained at 24 layers through
@@ -189,9 +189,9 @@ Phases (any failed check raises and ends the run non-zero):
      against the same step on one rank (loss LM_MESH_LOSS_RTOL relative,
      params LM_MESH_PARAM_TOL), the loss and every gradient in fp32
      (LM_MESH_GRAD_TOL of each leaf's max) and bf16 (phase 9's class),
-     prefill + PARITY_DECODES forced decodes in the training and serve
+     prefill + MESH_DECODES forced decodes in the training and serve
      layouts, logits and each rank's cache block per call at PARITY_TOL
-     (the cache's second sequence block first gets a key at the fifth
+     (the cache's second sequence block first gets a key at the third
      decode), the launches and forms per rank; (b) the whole model in
      bf16 through ServeEngine(mesh=, serve_sharding="tp") on phase 6
      (b)'s first LM_MESH_REQUESTS requests: the same tokens on every
@@ -200,7 +200,7 @@ Phases (any failed check raises and ends the run non-zero):
      and alone, peak memory per rank, one launch per layer per prefill
      and per decode step whose sequence block holds a key; (c)
      Trainer(mesh=) at LM_MESH_TRAIN_LAYERS layers in fp32, phase 9's
-     seq and batch: step 2 checkpointed, host 1 lost, restored onto
+     seq and batch: step 1 checkpointed, host 1 lost, restored onto
      `elastic_mesh(survivors(...))` (1, 2) and run to
      LM_MESH_TRAIN_STEPS, held against one rank's straight run at (a)'s
      bounds, its first segment rerun bit-equal, ms per step on each mesh
@@ -217,7 +217,7 @@ Phases (any failed check raises and ends the run non-zero):
      training, serve and `moe_ffn_data` layouts; rwkv6-7b at 2,
      zamba2-2.7b at 12 (2 groups), musicgen-medium at 2 and internvl2-76b
      at 1 in the training and serve layouts): the loss, the MoE aux and
-     every gradient in the training layout, prefill + PARITY_DECODES
+     every gradient in the training layout, prefill + MESH_DECODES
      decodes in each layout (logits and every cache entry), launches and
      forms per rank (`fm_parity`: rank 0's own run saved to a file, each
      rank holding its blocks); (b) moonshot, rwkv6 and zamba2 at 4 / 4 /
@@ -232,7 +232,24 @@ Phases (any failed check raises and ends the run non-zero):
      against one rank's own run (one apart only at a rounding tie,
      KV_TIE_TOL) and its logits too (within the int8 cache's own drift
      from an unquantized one); (d) Trainer(mesh=) on moonshot at FM_TRAINER's size,
-     its losses and aux against one rank's (`fm_trainer`).
+     its losses and aux against one rank's (`fm_trainer`);
+  15. the dry-run (`dryrun_phase`; three spawned processes at once, as
+     the fake process group is process-global): (a) each form of the
+     attention kernels (tile, wgmma and split forward, simt and wgmma
+     backward) at one shape, launched on the card and run as its fake
+     form (`launch/dryrun.py`'s trace runs those in place of launches):
+     the fake outputs' shapes, dtypes and strides equal the launch's, and
+     the bytes the fake form allocates (rounded as the allocator rounds)
+     equal the allocator's peak during the launch; (b) DRYRUN_TRACED's
+     production cells traced as rank 0 of the 16 x 16 mesh (a fake world
+     of 256 ranks) on fake tensors, each printed beside
+     `benchmarks/roofline.py`'s analytic terms under the H100; (c)
+     DRYRUN_REAL's cell traced so, then its rank 0 run for real on the
+     card in the fake world from zeros: the arguments' bytes on the card
+     equal to the trace's, the allocator's rise from a reset to
+     `torch.cuda.max_memory_allocated()` equal to the trace's temp, that
+     peak within DRYRUN_MEM_TOL of the trace's arguments plus temp, the
+     launches of each kernel form equal to the trace's fake forms'.
      Each phase prints its seconds.
 
 Tolerance: atol = rtol = 1e-4 for each kernel against its plain version
@@ -318,6 +335,9 @@ LM_MAX_LEN = 2048
 LM_REQUESTS = 12
 PARITY_LAYERS = 2
 PARITY_DECODES = 8
+# Phases 13 (a) and 14 (a): forced decodes per layout on the mesh (8, as
+# PARITY_DECODES, before phase 15 came).
+MESH_DECODES = 4
 PARITY_TOL = 1e-3
 PROFILE_CACHED = 512      # positions in the cache when decode is traced
 PROFILE_STEPS = 4
@@ -435,8 +455,9 @@ FAMILY_PARITY = {"moonshot-v1-16b-a3b": 1, "rwkv6-7b": 2, "zamba2-2.7b": 12}
 # keeps its bf16 params within this share of the card's memory.
 FAMILY_SERVE = ("moonshot-v1-16b-a3b", "rwkv6-7b", "zamba2-2.7b")
 # (b) and phase 12 (a)'s serving: the first FAMILY_REQUESTS of phase 6
-# (b)'s requests (all LM_REQUESTS before phase 14 came).
-FAMILY_REQUESTS = 8
+# (b)'s requests (all LM_REQUESTS before phase 14 came, 8 before phase 15:
+# 6 still refill a slot of the batch of 4 mid-flight).
+FAMILY_REQUESTS = 6
 FAMILY_SERVE_SHARE = 0.75
 # (c) training at train_4k's seq through Trainer.run: layers (None: the
 # deepest whole groups whose training state -- FAMILY_TRAIN_BYTES a param:
@@ -481,7 +502,7 @@ MESH_TRAINER_STEPS = 4    # the elastic run: checkpoint at 2, a host lost
 # one train step at LM_MESH_TRAIN (batch, seq) against one rank (loss
 # relative, each gradient of its leaf's max, params after AdamW with
 # `repro`'s tests/test_multidevice.py:101-107 bound), the bf16 gradients
-# at phase 9's bf16 class, prefill + PARITY_DECODES decodes per call in
+# at phase 9's bf16 class, prefill + MESH_DECODES decodes per call in
 # both layouts at PARITY_TOL; (b) the whole model in bf16 serving the first
 # LM_MESH_REQUESTS of phase 6 (b)'s requests in the serve layout; (c)
 # Trainer(mesh=) at LM_MESH_TRAIN_LAYERS layers, phase 9's seq and batch,
@@ -491,11 +512,11 @@ MESH_TRAINER_STEPS = 4    # the elastic run: checkpoint at 2, a host lost
 # steps with host 1 lost at step 3.
 LM_MESH_TRAIN = (8, 256)
 LM_MESH_LOSS_RTOL, LM_MESH_GRAD_TOL, LM_MESH_PARAM_TOL = 1e-5, 1e-3, 2e-2
-LM_MESH_REQUESTS = 6       # 12 before phase 14 came (75 s of (b))
+LM_MESH_REQUESTS = 5       # 12 before phase 14, 6 before phase 15 (5 refill)
 LM_MESH_MAX_LEN = 1280    # (b)'s cache: the longest history (1026) crosses
                           # the sequence blocks' boundary at 640
 LM_MESH_TRAIN_LAYERS = 2   # 4 before phase 14 came (74-82 s of (c))
-LM_MESH_TRAIN_STEPS = 4
+LM_MESH_TRAIN_STEPS = 2   # 4 before phase 15 came: one step a segment
 LM_MESH_SEED = 7          # the card generator's seed of (b)'s and (c)'s params
 GPIPE = (4, 8, 2, 64)
 COMPRESS_N = 4096
@@ -507,7 +528,7 @@ SUPERVISOR_STEPS = 6
 # LM_TRAIN_PARITY (internvl2-76b at batch 1, 1 layer: 2 layers' fp32
 # params are 15.2 GB, and four ranks drawing them beside one rank's
 # reference and its gradients would not fit the card's 80 GB);
-# prefill + PARITY_DECODES decodes in each layout.
+# prefill + MESH_DECODES decodes in each layout.
 FM_PARITY = {"moonshot-v1-16b-a3b": (1, ("train", "tp", "ffn")),
              "rwkv6-7b": (2, ("train", "tp")),
              "zamba2-2.7b": (12, ("train", "tp")),
@@ -551,6 +572,27 @@ KV_TIE_TOL = 2 * 127 * KV_SCALE_RTOL
 # steps), fp32, one microbatch (so the step carries the aux loss).
 FM_TRAINER = (1, 256, 4, 2)
 FM_SEED = 43              # the card generator's seed of phase 14's params
+# Phase 15, the dry-run.  (b) production cells traced as rank 0 of the
+# 16 x 16 mesh, each in a process of its own; (c) the cell whose rank 0
+# also runs for real on the card: a decode (its per-rank cache is 1.9 GB
+# of bf16).  The fake group moves no data, so a gathered buffer holds
+# whatever the allocator left there: this cell gathers one integer tensor,
+# its token ids over "data", which `models/layers.py::embed_mesh` clamps
+# into the rank's vocab rows before the lookup, so every index stays in
+# range; no other integer is gathered.
+DRYRUN_TRACED = (("qwen3-0.6b", "train_4k"),
+                 ("qwen3-moe-235b-a22b", "decode_32k"))
+DRYRUN_REAL = ("qwen3-0.6b", "decode_32k")
+DRYRUN_MEM_TOL = 0.10
+# (a) one shape per form of rows 7-8, every tensor under 1 MB (the
+# allocator's small pool splits its blocks to the 512-byte granule):
+# (form, dtype, B, Sq, Sk, Hq, Hk, D, q_offset, the forward's lse).
+DRYRUN_FORMS = (("tile", torch.float32, 2, 256, 256, 4, 4, 64, 0, True),
+                ("wgmma", torch.bfloat16, 1, 256, 256, 8, 2, 128, 0, True),
+                ("split", torch.bfloat16, 4, 1, 1025, 16, 8, 128, 1024,
+                 False),
+                ("simt", torch.float32, 1, 256, 256, 4, 2, 64, 0, None),
+                ("wgmma", torch.bfloat16, 1, 256, 256, 8, 2, 128, 0, None))
 
 
 def paper_layers() -> list:
@@ -1504,7 +1546,9 @@ def hold_grads(what, loss, want_loss, grads, want, tol) -> float:
     """The loss within `tol` (relative) of `want_loss` and every gradient
     leaf finite and within `tol` of the CPU's leaf's largest magnitude
     (atol; rtol the same).  Returns the worst error as a share of that
-    magnitude."""
+    magnitude.  Each CPU leaf is copied to the gradient's device and held
+    there: on the host of an H100 machine these passes took 6.8-33.0 s a
+    model at phases 11 and 12's sizes (PERF.md)."""
     from repro_torch.models.layers import tree_paths
 
     worst = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
@@ -1512,7 +1556,7 @@ def hold_grads(what, loss, want_loss, grads, want, tol) -> float:
         raise AssertionError(f"{what}: loss {loss.item()} vs "
                              f"{want_loss.item()}")
     for (path, g), (_, w) in zip(tree_paths(grads), tree_paths(want)):
-        g = g.to(w.device)
+        w = w.to(g.device)
         big = w.abs().max().item()
         if not bool(torch.isfinite(g).all()) or not torch.allclose(
                 g, w, rtol=tol, atol=tol * big):
@@ -2171,10 +2215,10 @@ def routing_check(card_log, cpu_log, cfg, what) -> tuple:
     flips, apart, worst = 0, 0, 0.0
     for (p, x, probs, vals, idx), (*_, cidx) in zip(card_log.calls,
                                                     cpu_log.calls):
-        cp, cx, idx_h = tree_map(lambda t: t.to(cpu), p), x.to(cpu), \
-            idx.to(cpu)
-        with torch.no_grad():
-            want_probs, _, want_idx = moe.route(cp, cx, cfg)
+        cx, idx_h = x.to(cpu), idx.to(cpu)
+        with torch.no_grad():       # `route` reads the router alone
+            want_probs, _, want_idx = moe.route(
+                {"router": p["router"].to(cpu)}, cx, cfg)
         if not torch.allclose(probs.to(cpu), want_probs, atol=PARITY_TOL,
                               rtol=PARITY_TOL):
             raise AssertionError(
@@ -2193,6 +2237,7 @@ def routing_check(card_log, cpu_log, cfg, what) -> tuple:
         apart += n
         if not n and not moved.any():
             continue
+        cp = tree_map(lambda t: t.to(cpu), p)
         with torch.no_grad():
             got = moe.dispatch_combine(p, x, vals, idx, cfg).to(cpu).float()
             want = moe.dispatch_combine(cp, cx, vals.to(cpu), idx_h,
@@ -2256,6 +2301,7 @@ def family_parity(card: str, arch: str, n_layers: int,
     max_len = toks.shape[1] + PARITY_DECODES
 
     flips, differ, dc_err, worst, held, diverged = 0, 0, 0.0, 0.0, 0, None
+    cpu_s = {"prefill_and_decodes": 0.0, "loss_and_grads": 0.0}
     ops.reset_launches()
     with torch.no_grad():
         for step in range(PARITY_DECODES + 1):
@@ -2267,11 +2313,13 @@ def family_parity(card: str, arch: str, n_layers: int,
                     lm.decode_step(dev_params, out[1],
                                    torch.from_numpy(forced[step - 1]
                                                     .astype(np.int32)).to(dev))
+            t_cpu = time.perf_counter()
             with RouteLog() as on_cpu:
                 want = lm.prefill(cpu_params, torch.from_numpy(toks),
                                   max_len) if step == 0 else \
                     lm.decode_step(cpu_params, want[1], torch.from_numpy(
                         forced[step - 1].astype(np.int32)))
+            cpu_s["prefill_and_decodes"] += time.perf_counter() - t_cpu
             n, apart, e = routing_check(on_card, on_cpu, cfg, what)
             flips, differ, dc_err = flips + n, differ + apart, max(dc_err, e)
             if apart and diverged is None:
@@ -2315,10 +2363,12 @@ def family_parity(card: str, arch: str, n_layers: int,
     if train_launches != want_l:
         raise AssertionError(f"{arch} train parity: launches "
                              f"{train_launches}, expected {want_l}")
+    t_cpu = time.perf_counter()
     with RouteLog() as on_cpu:
         (want_loss, want_aux), want = loss_and_grads(
             lm, cpu_params, torch.from_numpy(batch["inputs"]),
             torch.from_numpy(labels))
+    cpu_s["loss_and_grads"] = time.perf_counter() - t_cpu
     n, apart, e = routing_check(on_card, on_cpu, cfg, f"{arch} train parity")
     flips, differ, dc_err = flips + n, differ + apart, max(dc_err, e)
     tol = LM_TRAIN_TOL["float32"]
@@ -2340,6 +2390,7 @@ def family_parity(card: str, arch: str, n_layers: int,
            "grad_tol": tol,
            "leaves": len(tree_paths(cpu_params)),
            "train_launches": train_launches,
+           "cpu_s": cpu_s,
            "phase_s": time.perf_counter() - t_start, "card": card}
     print("family parity " + json.dumps(row))
     del dev_params, cpu_params, grads, want, out
@@ -3069,7 +3120,7 @@ def lm_mesh_parity(mesh, rank: int, counted, small: bool) -> dict:
 
     # -- prefill and decodes, both layouts ---------------------------------------
     P_len = toks.shape[1]
-    max_len = 2 * (P_len + PARITY_DECODES // 2)   # decodes 5-8 in block 1
+    max_len = 2 * (P_len + MESH_DECODES // 2)   # the last half in block 1
     for layout in ("train", "tp"):
         sp = sh.device_put(params, sh.tree_shardings(params, mesh,
                                                      serve=layout == "tp"))
@@ -3080,7 +3131,7 @@ def lm_mesh_parity(mesh, rank: int, counted, small: bool) -> dict:
             got, launches, forms, _ = counted.run(lambda: plm.prefill(
                 sp, torch.from_numpy(toks).to(dev), max_len))
             calls.append((launches, forms))
-            for i in range(PARITY_DECODES + 1):
+            for i in range(MESH_DECODES + 1):
                 ck = got[1]["k"]
                 errs.append(max(
                     worst([got[0]], [want[0]], f"{layout} call {i} logits",
@@ -3089,7 +3140,7 @@ def lm_mesh_parity(mesh, rank: int, counted, small: bool) -> dict:
                             [sh.local(want[1][n], mesh, ck.spec)],
                             f"{layout} call {i} cache {n}", PARITY_TOL)
                       for n in ("k", "v"))))
-                if i == PARITY_DECODES:
+                if i == MESH_DECODES:
                     break
                 tok = torch.from_numpy(forced[i].astype(np.int32)).to(dev)
                 want = plm.decode_step(params, want[1], tok)
@@ -3099,7 +3150,7 @@ def lm_mesh_parity(mesh, rank: int, counted, small: bool) -> dict:
         # One launch per layer per call, on the rank's heads (prefill) or
         # its sequence block (decode: none while the block has no key).
         live = [1] + [int(P_len + i >= m * (max_len // 2))
-                      for i in range(PARITY_DECODES)]
+                      for i in range(MESH_DECODES)]
         want_calls = [({"flash_attention": L} if n else {},
                        {("tile" if i == 0 else "split"): L} if n else {})
                       for i, n in enumerate(live)]
@@ -3263,7 +3314,8 @@ def lm_mesh_train(mesh, rank: int, tmp: str, counted, small: bool) -> dict:
     """Phase 13 (c) on one rank: Trainer(mesh=) at LM_ARCH's published
     widths and LM_MESH_TRAIN_LAYERS layers (fp32 compute, so that (a)'s
     fp32 bounds apply; AdamW), seq LM_TRAIN_SEQ, global batch
-    LM_TRAIN_BATCH in the config's microbatches: to step 2 (checkpoint) on the (2, 2) mesh, host 1
+    LM_TRAIN_BATCH in the config's microbatches: to step
+    LM_MESH_TRAIN_STEPS // 2 (checkpoint) on the (2, 2) mesh, host 1
     (ranks 2, 3) lost there, restored onto `elastic_mesh(survivors(...))`
     (1, 2) and run to LM_MESH_TRAIN_STEPS; the first segment again on the
     (2, 2) mesh, its losses bit-equal; on the first survivor, the same
@@ -3583,8 +3635,8 @@ def _fm_config(arch: str, n_layers: int, small: bool, **kw):
 def _fm_inputs(cfg, small: bool):
     """Phase 6 (a)'s LM_BATCH prompts of 64-200 tokens (frames of the
     same lengths for an `embed_input` config, zeros in front), the
-    PARITY_DECODES forced tokens, and a max_len whose second sequence
-    block takes the last PARITY_DECODES // 2 decodes."""
+    MESH_DECODES forced tokens, and a max_len whose second sequence
+    block takes the last MESH_DECODES // 2 decodes."""
     rng = np.random.default_rng(13)
     lens = rng.integers(*((4, 9) if small else (64, 201)), LM_BATCH)
     toks = np.zeros((LM_BATCH, int(lens.max())), np.int32)
@@ -3595,8 +3647,8 @@ def _fm_inputs(cfg, small: bool):
         for i, n in enumerate(lens):
             toks[i, toks.shape[1] - n:] = rng.standard_normal(
                 (n, cfg.d_model))
-    forced = rng.integers(1, cfg.vocab, (PARITY_DECODES, LM_BATCH, 1))
-    return toks, forced, 2 * (toks.shape[1] + PARITY_DECODES // 2)
+    forced = rng.integers(1, cfg.vocab, (MESH_DECODES, LM_BATCH, 1))
+    return toks, forced, 2 * (toks.shape[1] + MESH_DECODES // 2)
 
 
 def _fm_put(mesh, rank: int, draw, nbytes: int, **kw):
@@ -3663,7 +3715,7 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
     """Phase 14 (a) / (c) for one config on one rank, fp32 at published
     widths: rank 0 first runs it alone (the loss and every gradient at
     LM_TRAIN_PARITY, or FM_TRAIN's, with `train`; prefill and
-    PARITY_DECODES decodes) and saves the results to `tmp`; then on each
+    MESH_DECODES decodes) and saves the results to `tmp`; then on each
     layout every rank runs the same calls on its blocks and holds each
     of its blocks against the same block of rank 0's results (read from
     the file: no collective): the loss at LM_MESH_LOSS_RTOL, every
@@ -3740,7 +3792,7 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
         with torch.no_grad(), _unrounded_codes() as seen:
             o = lm.prefill(p, prompt, max_len)
             calls = [host(o)]
-            for i in range(PARITY_DECODES):
+            for i in range(MESH_DECODES):
                 o = lm.decode_step(p, o[1], step(i))
                 calls.append(host(o))
         want["calls"] = calls
@@ -3752,7 +3804,7 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
             with torch.no_grad():
                 o = plain.prefill(p, prompt, max_len)
                 want["drift"] = [0.0]
-                for i in range(PARITY_DECODES):
+                for i in range(MESH_DECODES):
                     o = plain.decode_step(p, o[1], step(i))
                     want["drift"].append(
                         (o[0].cpu() - calls[i + 1][0]).abs().max().item())
@@ -3848,7 +3900,7 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
         t0 = time.perf_counter()
         with torch.no_grad():
             got = None
-            for i in range(PARITY_DECODES + 1):
+            for i in range(MESH_DECODES + 1):
                 same = None
                 if i == 0:
                     got, launches, forms, _ = counted.run(
@@ -3889,7 +3941,7 @@ def fm_parity(mesh, rank: int, tmp: str, counted, arch: str, n_layers: int,
                         e = max(e, hold(c.local, ref, f"{name} call {i} {k}"))
                 errs.append(e)
         live = [1] + [int(toks.shape[1] + i >= m * (max_len // 2))
-                      for i in range(PARITY_DECODES)]
+                      for i in range(MESH_DECODES)]
         want_calls = [({"flash_attention": n_attn} if n and n_attn else {},
                        {("tile" if i == 0 else "split"): n_attn}
                        if n and n_attn else {})
@@ -4187,7 +4239,9 @@ def fm_trainer(mesh, rank: int, counted, small: bool) -> dict:
         return tr
 
     tr = trainer(mesh)
-    _, launches, forms, bwd = counted.run(tr.run)
+    # The run's final params and optimizer state are dropped here: kept,
+    # every rank would hold its blocks through rank 0's run alone below.
+    launches, forms, bwd = counted.run(tr.run)[1:]
     per_step = {"flash_attention": 2 * cfg.n_layers,
                 "flash_attention_backward": cfg.n_layers}
     if cuda and launches != {k: v * n_steps for k, v in per_step.items()}:
@@ -4337,7 +4391,7 @@ def families_mesh_phase(card: str, device: str = "cuda",
                 for k in FM_LAYOUTS if k in r)
     print(f"families mesh: {', '.join(FM_PARITY)} on a {MESH_SHAPE} mesh of "
           f"{MESH_RANKS} gloo ranks sharing the card: (a) the loss, every "
-          f"gradient and prefill + {PARITY_DECODES} decodes in each layout "
+          f"gradient and prefill + {MESH_DECODES} decodes in each layout "
           f"equal one rank's (worst logits / cache "
           f"{worst:.2e}"
           f", atol = rtol = {PARITY_TOL:g}); (b) {', '.join(FM_SERVE)} served in the "
@@ -4351,6 +4405,231 @@ def families_mesh_phase(card: str, device: str = "cuda",
           f"{ranks[0]['d']['rel_err']:.2e} of one rank "
           f"({time.perf_counter() - t0:.1f} s)")
     return launches
+
+
+# -- phase 15: the dry-run ------------------------------------------------------
+
+def dryrun_forms() -> list:
+    """Phase 15 (a): each of DRYRUN_FORMS launched on the card (its
+    kernel called directly: a comparison, counted nowhere) and run as its
+    fake form on fake copies of the same operands.  The fake outputs'
+    shapes, dtypes, strides and device type must equal the launch's, and
+    the bytes the fake form allocates, each rounded to the allocator's
+    512-byte granule, the allocator's peak during the launch (the pool
+    emptied first, so every block is carved fresh)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import attention
+    from repro_torch.launch.steps import TraceCounters
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for form, dt, B, Sq, Sk, Hq, Hk, D, off, lse in DRYRUN_FORMS:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                   for shape in ((B, Sq, Hq, D), (B, Sk, Hk, D),
+                                 (B, Sk, Hk, D)))
+        plan = attention.plan(dt, B, Sq, Sk, Hq, Hk, D)
+        if lse is None:
+            what = f"backward {form}"
+            if attention.backward_plan(dt, B, Sq, Sk, Hq, Hk, D) != form:
+                raise AssertionError(f"phase 15 (a) {what}: the plan picks "
+                                     f"another form")
+            out, l = attention.flash_attention_cuda(
+                q, k, v, causal=True, q_offset=off, form=plan,
+                return_lse=True)
+            operands = (q, k, v, out, torch.randn_like(out), l)
+
+            def call(*ts):
+                return attention.flash_attention_backward_cuda(
+                    *ts, causal=True, q_offset=off, form=form)
+        else:
+            what = f"forward {form}" + (" with lse" if lse else "")
+            if plan.form != form:
+                raise AssertionError(f"phase 15 (a) {what}: the plan picks "
+                                     f"{plan.form}")
+            operands = (q, k, v)
+
+            def call(*ts):
+                return attention.flash_attention_cuda(
+                    *ts, causal=True, q_offset=off, form=plan,
+                    return_lse=lse)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        real = call(*operands)
+        torch.cuda.synchronize()
+        real_bytes = torch.cuda.max_memory_allocated() - before
+        counters = TraceCounters(granule=512)
+        with FakeTensorMode() as mode:
+            fakes = [mode.from_tensor(t) for t in operands]
+            with counters:
+                fake = call(*fakes)
+        real, fake = ((t,) if isinstance(t, torch.Tensor) else tuple(t)
+                      for t in (real, fake))
+        got = [(tuple(t.shape), t.dtype, t.stride(), t.device.type)
+               for t in fake]
+        want = [(tuple(t.shape), t.dtype, t.stride(), t.device.type)
+                for t in real]
+        if got != want or counters.peak != real_bytes:
+            raise AssertionError(f"phase 15 (a) {what}: fake {got}, "
+                                 f"{counters.peak} B; launch {want}, "
+                                 f"{real_bytes} B")
+        rows.append({"form": what, "dtype": str(dt), "shape": [B, Sq, Sk, Hq,
+                                                               Hk, D],
+                     "outputs": [list(t.shape) for t in real],
+                     "allocated_bytes": real_bytes})
+        del real, fake, operands, fakes
+    return rows
+
+
+def dryrun_trace(_, arch: str, shape: str, tmp: str) -> None:
+    """Phase 15 (b), a spawned process: `arch` x `shape` traced as rank 0
+    of the 16 x 16 mesh (`launch/dryrun.py::run_cell`, a fake world of 256
+    ranks) on fake tensors; the record written into `tmp`."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+
+    dryrun.run_cell(arch, shape, False, tmp)
+
+
+def dryrun_card(_, tmp: str) -> None:
+    """Phase 15 (a) and (c), a spawned process on the card: the fake forms
+    against launches, then DRYRUN_REAL traced as rank 0 of the 16 x 16
+    mesh in the fake world (each storage rounded to the allocator's
+    512-byte granule) and its rank 0 run for real (zeros) there.  The
+    bytes the real arguments take on the card must equal the trace's
+    arguments, the allocator's rise from a reset to its peak the trace's
+    temp, the peak the trace's arguments plus temp within
+    DRYRUN_MEM_TOL (the cuBLAS workspace, which belongs to the process,
+    made before the reset), and the launches by form the trace's fake
+    forms' calls.  Writes {"forms", "trace", "real"} into `tmp`."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import lower_cell
+    from repro_torch.models.config import SHAPES
+
+    forms = dryrun_forms()
+    arch, shape = DRYRUN_REAL
+    cfg, shp = get_config(arch), SHAPES[shape]
+    dryrun.fake_world(256)
+    t0 = time.perf_counter()
+    want = lower_cell(cfg, shp, make_production_mesh(device="cpu")).trace(
+        granule=512)
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before_args = torch.cuda.memory_allocated()
+    cell = lower_cell(cfg, shp, make_production_mesh(), fake=False)
+    torch.cuda.synchronize()
+    args_bytes = torch.cuda.memory_allocated() - before_args
+    for dt in (torch.float32, torch.bfloat16):
+        torch.ones(64, 64, device="cuda", dtype=dt) @ \
+            torch.ones(64, 64, device="cuda", dtype=dt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_reset = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    real = cell.trace()
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    predicted = want["argument_size_in_bytes"] + want["temp_size_in_bytes"]
+    off = peak / predicted - 1.0
+    if args_bytes != want["argument_size_in_bytes"]:
+        raise AssertionError(f"phase 15 (c): the arguments take {args_bytes}"
+                             f" B on the card, "
+                             f"{want['argument_size_in_bytes']} B in the "
+                             f"trace")
+    if peak - at_reset != want["temp_size_in_bytes"]:
+        raise AssertionError(f"phase 15 (c): the card rose {peak - at_reset}"
+                             f" B from the reset, the trace's temp is "
+                             f"{want['temp_size_in_bytes']} B")
+    if abs(off) > DRYRUN_MEM_TOL:
+        raise AssertionError(f"phase 15 (c): the card's peak {peak} B is "
+                             f"{off:+.2%} from the trace's {predicted} B")
+    if (real["launches"], real["attention_forms"]) != (
+            want["launches"], want["attention_forms"]):
+        raise AssertionError(f"phase 15 (c): launches {real['launches']} "
+                             f"{real['attention_forms']}, the trace's "
+                             f"{want['launches']} {want['attention_forms']}")
+    res = {"forms": forms, "trace": want, "real": {
+        "max_memory_allocated": peak, "allocated_at_reset": at_reset,
+        "arguments_on_card": args_bytes,
+        "cublas_workspace": at_reset - before_args - args_bytes,
+        "rise_from_reset": peak - at_reset,
+        "trace_arguments": want["argument_size_in_bytes"],
+        "trace_temp": want["temp_size_in_bytes"],
+        "trace_arguments_plus_temp": predicted, "off": off,
+        "launches": real["launches"],
+        "attention_forms": real["attention_forms"],
+        "collectives": real["collectives"], "trace_s": trace_s,
+        "step_s": real_s}}
+    with open(os.path.join(tmp, "card.json"), "w") as f:
+        json.dump(res, f)
+
+
+def dryrun_phase(card: str) -> dict:
+    """Phase 15: DRYRUN_TRACED's traces and the card's checks
+    (`dryrun_card`), three spawned processes at once; any failure raises.
+    Prints each traced record beside `benchmarks/roofline.py`'s terms for
+    the cell under the H100, and (a)'s and (c)'s results.  Returns the
+    launches of (c)'s real run."""
+    import torch.multiprocessing as mp
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.benchmarks import flops, roofline
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=dryrun_trace, args=(0, a, s, tmp))
+                 for a, s in DRYRUN_TRACED]
+        procs.append(ctx.Process(target=dryrun_card, args=(0, tmp)))
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join()
+        failed = [p.exitcode for p in procs if p.exitcode]
+        if failed:
+            raise AssertionError(f"phase 15: a process exited with {failed}")
+        recs = []
+        for a, s in DRYRUN_TRACED:
+            with open(os.path.join(tmp, f"{a}.{s}.16x16.json")) as f:
+                recs.append(json.load(f))
+        with open(os.path.join(tmp, "card.json")) as f:
+            res = json.load(f)
+    hw = flops.H100_SXM
+    for rec in recs:
+        r = roofline.cell_roofline(rec["arch"], rec["shape"], hw)
+        ranks = rec["n_devices"]
+        coll = sum(v["bytes"] for k, v in rec["collectives"].items()
+                   if k != "group_sizes")
+        print("dryrun cell " + json.dumps(rec | {"card": card, "roofline": {
+            k: r[k] for k in ("model_flops", "impl_flops", "compute_s",
+                              "memory_s", "collective_s", "dominant")}
+            | {"hardware": hw.name}, "trace_x_ranks": {
+                "flops": rec["cost"]["flops"] * ranks,
+                "collective_bytes": coll * ranks,
+                "compute_s": rec["cost"]["flops"] / hw.peak_flops,
+                "collective_s": coll / hw.link_bw}}))
+    for row in res["forms"]:
+        print("dryrun form " + json.dumps(row | {"card": card}))
+    print("dryrun real " + json.dumps(res["real"] | {
+        "cell": list(DRYRUN_REAL), "mesh": "16x16", "rank": 0,
+        "card": card}))
+    print(f"dryrun: {len(res['forms'])} fake forms equal their launches; "
+          f"{len(recs)} production cells traced; {'/'.join(DRYRUN_REAL)}'s "
+          f"rank 0 on the card took the trace's argument bytes and rose by "
+          f"its temp bytes, peaking {res['real']['off']:+.2%} from it "
+          f"(bound {DRYRUN_MEM_TOL:.0%}), its launches by form equal "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return res["real"]["launches"]
 
 
 def main() -> int:
@@ -5509,6 +5788,10 @@ def main() -> int:
     # -- phase 14: the other LM families and the int8 cache on a mesh --------
     fm_launches = families_mesh_phase(card)
     mark("14")
+
+    # -- phase 15: the dry-run ----------------------------------------------
+    dryrun_launches = dryrun_phase(card)
+    mark("15")
     print("phases " + json.dumps({"seconds": phase_s, "card": card}))
 
     sources = {"dconv_forward": ("dconv_forward.cu",
@@ -5548,7 +5831,8 @@ def main() -> int:
                      + embed_launches.get(name, 0)
                      + mesh_launches.get(name, 0)
                      + lm_mesh_launches.get(name, 0)
-                     + fm_launches.get(name, 0),
+                     + fm_launches.get(name, 0)
+                     + dryrun_launches.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),
@@ -5559,6 +5843,7 @@ def main() -> int:
             + mesh_launches.get(name, 0)
         rows[-1]["launches_phase_13"] = lm_mesh_launches.get(name, 0)
         rows[-1]["launches_phase_14"] = fm_launches.get(name, 0)
+        rows[-1]["launches_phase_15"] = dryrun_launches.get(name, 0)
         kb = kernels.get(name + "_bf16")
         if kb is not None:   # the conv kernels' bf16 entries
             rows[-1].update(

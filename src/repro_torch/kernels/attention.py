@@ -29,6 +29,20 @@ shapes alone:
   * "tile": everything else (fp32 prefill, head_dim 16, 32 or 80): fp32
     SIMT, one CTA per (b, h, 16 query rows).
 
+The dry-run traces the LM on fake tensors (`torch._subclasses.
+fake_tensor`), which hold shapes and no data.  On a fake operand
+`flash_attention_cuda` and `flash_attention_backward_cuda` run their
+shape-only forms: the same checks and the same output allocations as a
+launch, then a return before anything is built or launched; each adds
+its operations to FAKE_FLOPS (4 D a visible (query, key) pair forward,
+10 D backward: the two and five products of D multiply-adds).  Neither
+kernel allocates device memory besides those outputs (the split form
+combines its partials in the cluster's shared memory), so the fake
+forms allocate every byte a launch does.  They count their calls by
+kernel and form in FAKE_CALLS and FAKE_FORMS, which the dry-run reports
+as the launches the card would make; `ops.LAUNCHES` and its form counts
+stay those of real launches.  A real tensor never takes them.
+
 The backward, `csrc/flash_attention_bwd.cu`, and its plain version
 `flash_attention_backward_plain` compute dq, dk, dv from q, k, v, the
 output, its cotangent and the lse: three launches (delta = dO . o; dk
@@ -77,6 +91,30 @@ BWD_WGMMA_DIMS = (64, 128)
 # q_offset; scale; form; the stream.
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8
                  + [ctypes.c_float, ctypes.c_int64, ctypes.c_void_p])
+
+
+# The fake forms' calls since the last reset (`ops.reset_launches`), by
+# kernel and by form, and their operations: the dry-run's count of the
+# launches the card would make and of the work the kernels would do.
+FAKE_CALLS = {"flash_attention": 0, "flash_attention_backward": 0}
+FAKE_FORMS = {"forward": dict.fromkeys(FORMS, 0),
+              "backward": dict.fromkeys(BWD_FORMS, 0)}
+FAKE_FLOPS = dict.fromkeys(FAKE_CALLS, 0)
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """True for a fake tensor (shapes, no data)."""
+    from torch._subclasses.fake_tensor import is_fake as fake
+    return fake(t)
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs one head computes: query i sees keys
+    0 .. q_offset + i when causal (at most Sk of them), else all Sk."""
+    if not causal:
+        return Sq * Sk
+    full = max(0, min(Sq, Sk - q_offset))   # queries seeing fewer than Sk
+    return full * (2 * q_offset + full + 1) // 2 + (Sq - full) * Sk
 
 
 class AttentionPlan(NamedTuple):
@@ -284,7 +322,7 @@ def check_operand(name: str, t: torch.Tensor) -> None:
     strides = [s for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
     if t.stride(-1) != 1:
         why = "needs a unit stride along D"
-    elif t.data_ptr() % 16:
+    elif not is_fake(t) and t.data_ptr() % 16:     # a fake one has none
         why = "needs a 16-byte aligned start"
     elif any(s % vec for s in strides):
         why = f"needs strides that are multiples of {vec} elements"
@@ -310,6 +348,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if is_fake(q):
+        FAKE_CALLS["flash_attention"] += 1
+        FAKE_FORMS["forward"][form.form] += 1
+        FAKE_FLOPS["flash_attention"] += \
+            4 * D * B * Hq * visible_pairs(Sq, Sk, causal, q_offset)
+        return (out, lse) if return_lse else out
     symbol = _SYMBOLS[q.dtype]
     fn = build.kernel_function("flash_attention", symbol, _ARGTYPES)
     with torch.cuda.device(q.device):
@@ -345,6 +389,12 @@ def flash_attention_backward_cuda(q, k, v, out, dout, lse, *, causal: bool,
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if is_fake(q):
+        FAKE_CALLS["flash_attention_backward"] += 1
+        FAKE_FORMS["backward"][form] += 1
+        FAKE_FLOPS["flash_attention_backward"] += \
+            10 * D * B * Hq * visible_pairs(Sq, Sk, causal, q_offset)
+        return dq, dk, dv
     fn = build.kernel_function("flash_attention_bwd", _BWD_SYMBOLS[q.dtype],
                                _BWD_ARGTYPES)
     with torch.cuda.device(q.device):

@@ -13,6 +13,15 @@ and counts nothing.  There is no
 fallback: a launch that fails raises.  Each kernel takes its plan (tiles,
 splits) from `tiling`, the Hopper planner.
 
+The dry-run (`launch/dryrun.py`) traces the LM on fake tensors, which
+have shapes and no data.  A fake operand, on the CPU as on `cuda`, takes
+the card's branch of `flash_attention` and `flash_attention_backward`:
+the form `attention.plan` / `backward_plan` picks, run as the kernel's
+shape-only fake form (`attention.flash_attention_cuda`), which builds
+and launches nothing and counts its call in `attention.FAKE_CALLS` /
+FAKE_FORMS.  LAUNCHES and its form counts hold real launches only.  A
+real tensor's branch is its device's.
+
   dconv_forward        -> csrc/dconv_forward.cu
   tconv_phase          -> csrc/tconv_phase.cu or, when the planner's
                           strategy race picks it, csrc/implicit_gemm.cu
@@ -33,13 +42,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.spec import ConvSpec, Epilogue, _pair
-from repro_torch.kernels import build, tiling
+from repro_torch.kernels import attention, build, tiling
 from repro_torch.kernels.attention import (BWD_FORMS, FORMS, HEAD_DIMS,
                                            backward_plan,
                                            flash_attention_backward_cuda,
                                            flash_attention_backward_plain,
                                            flash_attention_cuda,
-                                           flash_attention_plain, plan)
+                                           flash_attention_plain,
+                                           is_fake, plan)
 from repro_torch.kernels.dconv_backward import (conv_backward_cuda,
                                                 conv_backward_plain,
                                                 tconv_backward_cuda,
@@ -64,9 +74,18 @@ FLASH_BWD_FORMS = dict.fromkeys(BWD_FORMS, 0)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_FORMS, FLASH_BWD_FORMS):
+    """Zero LAUNCHES, the form counts and the fake forms' counts."""
+    for counts in (LAUNCHES, FLASH_FORMS, FLASH_BWD_FORMS,
+                   attention.FAKE_CALLS, attention.FAKE_FLOPS,
+                   *attention.FAKE_FORMS.values()):
         for name in counts:
             counts[name] = 0
+
+
+def _plain(t: torch.Tensor) -> bool:
+    """True where the attention wrappers run the plain version: a real
+    CPU tensor (a fake one takes the card's branch, as a fake form)."""
+    return t.device.type == "cpu" and not is_fake(t)
 
 
 def _on_cuda(*tensors) -> bool:
@@ -329,16 +348,17 @@ def _check_attention(q, k, v, causal: bool, q_offset) -> int:
 def _flash_forward(q, k, v, causal: bool, off: int, blk_k: int, *,
                    return_lse: bool):
     """The forward on checked operands: the plain version on the CPU, one
-    kernel launch on the card."""
-    if q.device.type == "cpu":
+    kernel launch on the card (a fake operand: the kernel's fake form)."""
+    if _plain(q):
         return flash_attention_plain(q, k, v, causal=causal, q_offset=off,
                                      blk_k=blk_k, return_lse=return_lse)
     form = plan(q.dtype, q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                 k.shape[2], q.shape[3])
     out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
                                form=form, return_lse=return_lse)
-    LAUNCHES["flash_attention"] += 1
-    FLASH_FORMS[form.form] += 1
+    if not is_fake(q):          # a fake form counts itself (FAKE_CALLS)
+        LAUNCHES["flash_attention"] += 1
+        FLASH_FORMS[form.form] += 1
     return out
 
 
@@ -348,9 +368,10 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool,
     `dout`, from the forward's row log-sum-exps `lse` (B,Hq,Sq).  On the
     card the three launches of csrc/flash_attention_bwd.cu in the form
     `attention.backward_plan` picks (counted once here and in
-    FLASH_BWD_FORMS); on the CPU the plain version.  A failed launch
+    FLASH_BWD_FORMS; a fake operand: its fake form, counted there); on
+    the CPU the plain version.  A failed launch
     raises."""
-    if q.device.type == "cpu":
+    if _plain(q):
         return flash_attention_backward_plain(q, k, v, out, dout, lse,
                                               causal=causal,
                                               q_offset=q_offset, blk_k=blk_k)
@@ -361,8 +382,9 @@ def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool,
     grads = flash_attention_backward_cuda(
         q.contiguous(), k.contiguous(), v.contiguous(), out.contiguous(),
         dout.contiguous(), lse, causal=causal, q_offset=q_offset, form=form)
-    LAUNCHES["flash_attention_backward"] += 1
-    FLASH_BWD_FORMS[form] += 1
+    if not is_fake(q):
+        LAUNCHES["flash_attention_backward"] += 1
+        FLASH_BWD_FORMS[form] += 1
     return grads
 
 

@@ -594,6 +594,51 @@ def test_flash_attention_refuses_an_operand_it_cannot_read_in_place(cuda):
     assert ops.LAUNCHES["flash_attention"] == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_dryrun_fake_forms_launch_nothing_and_real_tensors_launch(
+        cuda, dtype, monkeypatch):
+    """The dry-run's fake forms on the card: fake `cuda` operands run the
+    kernels' shape-only forms through autograd -- nothing built or
+    launched, each call counted among the fake forms' calls in the form
+    the plan picks and none in LAUNCHES -- and a real operand launches
+    the kernel."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import attention, build
+    B, Sq, Sk, Hq, Hk, D = 1, 128, 128, 8, 2, 128
+    q, k, v = _attention_operands((B, Sq, Sk, Hq, Hk, D), dtype, cuda, 14)
+    want = ops.flash_attention(q, k, v)         # builds / loads the kernel
+    ops.reset_launches()
+
+    def refuse(*a, **kw):
+        raise AssertionError("a fake form reached the kernel")
+    with monkeypatch.context() as m:
+        m.setattr(build, "kernel_function", refuse)
+        m.setattr(build, "build", refuse)
+        with FakeTensorMode() as mode:
+            fq, fk, fv = (mode.from_tensor(t).requires_grad_()
+                          for t in (q, k, v))
+            out = ops.flash_attention(fq, fk, fv)
+            grads = torch.autograd.grad(out.float().sum(), (fq, fk, fv))
+    assert out.device.type == "cuda" and out.shape == q.shape
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert not any(ops.LAUNCHES.values())
+    assert attention.FAKE_CALLS == {"flash_attention": 1,
+                                    "flash_attention_backward": 1}
+    form = plan(dtype, B, Sq, Sk, Hq, Hk, D).form
+    assert attention.FAKE_FORMS["forward"][form] == 1
+    assert attention.FAKE_FORMS["backward"][
+        attn_bwd_plan(dtype, B, Sq, Sk, Hq, Hk, D)] == 1
+    assert attention.FAKE_FLOPS["flash_attention"] == \
+        4 * D * B * Hq * attention.visible_pairs(Sq, Sk, True, 0)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert attention.FAKE_CALLS["flash_attention"] == 0
+    assert torch.equal(got, want)
+
+
 def test_flash_attention_refuses_mixed_devices(cuda):
     q = torch.zeros((1, 4, 4, 32), device=cuda)
     with pytest.raises(ValueError, match="one device"):
