@@ -56,7 +56,14 @@ Phases (any failed check raises and ends the run non-zero):
      widths through ConvServeEngine(ladder=("cuda",)): every result held
      against the same request through the plain versions, the kernels'
      launch counts against the launches the path makes, and no fault,
-     fallback or NaN allowed;
+     fallback or NaN allowed; (b) `fault_serve_phase`: the same params
+     through ConvServeEngine(ladder=DEFAULT_LADDER) under a seeded storm
+     of injected kernel exceptions and NaN outputs (8 requests of each
+     kind): all answered within TOL of the plain versions, the stats,
+     breaker transitions and fired events equal to the same engine's on
+     the CPU, each kernel's launches equal to the `cuda` attempts past
+     the injector times its launches per batch; then full degradation
+     to the `reference` rung on the card, launching no kernel;
   5. train: 5 `gan_sgd_step`s and 5 `sgd_step`s at the models' published
      widths on ConvDataset batches of 64, each step's loss and every
      parameter held against the same steps through the plain versions on
@@ -314,6 +321,17 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 peak outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 SLOT_BATCH = 4
 N_REQUESTS = 32
+# Phase 4 (b): a seeded storm on the fast rungs of both buckets, served
+# through the default ladder, FAULT_REQUESTS requests of each kind.  The
+# seed is one whose storm (on the CPU, where the accounting is the same)
+# fires kernel exceptions and NaN outputs on the `cuda` rung, degrades
+# cohorts and quarantines a rung.
+FAULT_SEED = 25
+FAULT_RATE = 0.4
+FAULT_REQUESTS = 8
+FAULT_SITES = ("gan_gen:cuda", "aspp:cuda", "gan_gen:torch_zero_free",
+               "aspp:torch_zero_free")
+FAULT_REF_RTOL = 1e-5     # the reference rung against its own rerun (cuDNN)
 TRAIN_TOL = 1e-3
 TRAIN_BATCH = 64
 TRAIN_STEPS = 5
@@ -945,6 +963,198 @@ def calls_profile(call, n: int) -> dict:
                 name: sum(e.time_range.elapsed_us() for e in conv(sym))
                 / 1e3 / n for name, sym in CONV_SYMBOLS.items()
                 if launches[name]}}
+
+
+def fault_serve_phase(card: str, gp: dict, ap: dict) -> dict:
+    """Phase 4 (b): ConvServeEngine on the card under injected faults,
+    with phase 4 (a)'s params and ladder=DEFAULT_LADDER (named, so plain
+    rungs may serve; on the card they degrade only on an injected fault
+    or a non-finite output).
+
+    (1) The storm: FaultSchedule.seeded(FAULT_SEED) at FAULT_RATE over
+    FAULT_SITES, kernel exceptions and NaN outputs, serving
+    FAULT_REQUESTS `gan_gen` and `aspp` requests at slot batch
+    SLOT_BATCH.  Every request completes, finite, within TOL of the
+    plain versions; the stats, the breakers' transitions and the fired
+    events equal the same engine's on the CPU; and each kernel's
+    launches equal the `cuda` attempts that got past `raise_or_delay`
+    times its launches per batch of that bucket (measured by the
+    warm-up batch): an injected exception launched nothing, a poisoned
+    attempt did launch.  (2) Full degradation: `cuda` and
+    `torch_zero_free` always raise, SLOT_BATCH - 1 requests of each kind
+    (a zero-padded batch) are served by the `reference` rung on the
+    card, within FAULT_REF_RTOL of that rung's own call on the same
+    batch and within TOL of the plain versions, launching no
+    hand-written kernel.  Returns the phase's launches by kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import gan, vision
+    from repro_torch.serve.conv_engine import (DEFAULT_LADDER, ConvRequest,
+                                               ConvServeEngine)
+    from repro_torch.serve.faults import FaultInjector, FaultSchedule
+
+    t0 = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    img = (128, 128, 3)
+    shapes = {"gan_gen": (64,), "aspp": img}
+    rng = np.random.default_rng(29)
+    payloads = []
+    for _ in range(FAULT_REQUESTS):
+        payloads += [("gan_gen", rng.standard_normal(64).astype(np.float32)),
+                     ("aspp", rng.standard_normal(img).astype(np.float32))]
+    plain_fn = {"gan_gen": (gan.generator_apply, gp),
+                "aspp": (vision.atrous_head_apply, ap)}
+
+    def schedule(rate, kinds, sites=FAULT_SITES):
+        return FaultInjector(FaultSchedule.seeded(
+            FAULT_SEED, sites=list(sites), rate=rate, horizon=64,
+            kinds=kinds))
+
+    def engine(device, injector):
+        on = lambda p: {k: v.to(device) for k, v in p.items()}  # noqa: E731
+        return ConvServeEngine(gan_params=on(gp), aspp_params=on(ap),
+                               slot_batch=SLOT_BATCH,
+                               queue_limit=4 * FAULT_REQUESTS,
+                               ladder=DEFAULT_LADDER, injector=injector,
+                               device=device)
+
+    def serve(eng, picked):
+        reqs = [ConvRequest(None, kind, p) for kind, p in picked]
+        return reqs, eng.serve(reqs)
+
+    def hold_plain(reqs, res, what):
+        """Every request answered, finite, within TOL of the plain
+        versions of its batch on the CPU."""
+        if len(res) != len(reqs):
+            raise AssertionError(f"{what}: {len(res)} of {len(reqs)} "
+                                 f"requests answered")
+        worst = 0.0
+        with torch.no_grad():
+            for kind, (fn, params) in plain_fn.items():
+                sel = [r for r in reqs if r.kind == kind]
+                if not sel:
+                    continue
+                plain = fn({k: v.to(cpu) for k, v in params.items()},
+                           torch.from_numpy(np.stack([r.payload
+                                                      for r in sel])),
+                           backend="cuda").numpy()
+                for r, want in zip(sel, plain):
+                    got = res[r.uid]
+                    if not (got.shape == want.shape
+                            and np.all(np.isfinite(got))
+                            and np.allclose(got, want, atol=TOL, rtol=TOL)):
+                        raise AssertionError(
+                            f"{what}: {kind} request {r.uid}: max |err| "
+                            f"{np.abs(got - want).max():.3e} against the "
+                            f"plain versions")
+                    worst = max(worst, float(np.abs(got - want).max()))
+        return worst
+
+    def accounting(eng, inj):
+        h = eng.health()
+        return ({k: h[k] for k in ("submitted", "completed", "failures",
+                                   "retries", "fallbacks", "nan_events",
+                                   "kernel_faults", "quarantines",
+                                   "reprobes", "launches")},
+                h["transitions"],
+                [(e.site, e.index, e.kind) for e in inj.fired])
+
+    # -- (1) the storm -------------------------------------------------------
+    inj = schedule(FAULT_RATE, ("kernel_exception", "nan_output"))
+    eng = engine(dev, inj)
+    per_batch = {}
+    for kind, shape in shapes.items():     # the warm-up batch, counted
+        ops.reset_launches()
+        eng.warmup([(kind, shape)], compile=True)
+        torch.cuda.synchronize()
+        per_batch[kind] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    tconvs = sum(per_batch["gan_gen"].get(k, 0)
+                 for k in TCONV_KERNELS.values())
+    if tconvs != len(GEN_TCONVS) or per_batch["aspp"] != {
+            "dconv_forward": 3}:
+        raise AssertionError(f"launches per batch {per_batch}")
+    ops.reset_launches()
+    reqs, res = serve(eng, payloads)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    storm_err = hold_plain(reqs, res, "storm")
+    expect, attempts = {}, {}
+    for kind in shapes:
+        site = f"{kind}:cuda"
+        raised = sum(1 for e in inj.fired
+                     if e.site == site and e.kind == "kernel_exception")
+        attempts[kind] = inj.calls(site) - raised
+        for k, n in per_batch[kind].items():
+            expect[k] = expect.get(k, 0) + attempts[kind] * n
+    if launches != expect:
+        raise AssertionError(f"storm launches {launches}, expected {expect} "
+                             f"({attempts} cuda attempts past the "
+                             f"injector)")
+    card_acc = accounting(eng, inj)
+    stats = card_acc[0]
+    fired_cuda = {(s.split(":")[0], k) for s, _, k in card_acc[2]
+                  if s.endswith(":cuda")}
+    if ({k for _, k in fired_cuda} != {"kernel_exception", "nan_output"}
+            or not stats["fallbacks"]
+            or stats["completed"] != stats["submitted"]):
+        raise AssertionError(f"the storm did not fire both kinds on the "
+                             f"cuda rung and degrade a cohort: {stats}, "
+                             f"{sorted(fired_cuda)}")
+    cpu_inj = schedule(FAULT_RATE, ("kernel_exception", "nan_output"))
+    cpu_eng = engine(cpu, cpu_inj)
+    cpu_reqs, cpu_res = serve(cpu_eng, payloads)
+    cpu_acc = accounting(cpu_eng, cpu_inj)
+    if cpu_acc != card_acc:
+        raise AssertionError(f"the accounting depends on the device: card "
+                             f"{card_acc}, CPU {cpu_acc}")
+    cpu_err = max(float(np.abs(res[a.uid] - cpu_res[b.uid]).max())
+                  for a, b in zip(reqs, cpu_reqs))
+
+    # -- (2) full degradation ------------------------------------------------
+    picked = [p for p in payloads if p[0] == "gan_gen"][:SLOT_BATCH - 1] + \
+        [p for p in payloads if p[0] == "aspp"][:SLOT_BATCH - 1]
+    always = schedule(1.0, ("kernel_exception",))
+    deg = engine(dev, always)
+    ops.reset_launches()
+    deg_reqs, deg_res = serve(deg, picked)
+    torch.cuda.synchronize()
+    deg_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if deg_launches:
+        raise AssertionError(f"the reference rung launched {deg_launches}")
+    deg_err = hold_plain(deg_reqs, deg_res, "full degradation")
+    # The reference rung's own call on the same zero-padded batches: an
+    # engine whose ladder is that rung alone, serving the same requests.
+    ref = ConvServeEngine(gan_params=deg.gan_params,
+                          aspp_params=deg.aspp_params, slot_batch=SLOT_BATCH,
+                          ladder=("reference",), device=dev)
+    ref_reqs, ref_res = serve(ref, picked)
+    ref_rel = 0.0
+    for kind in shapes:
+        got = np.stack([deg_res[r.uid] for r in deg_reqs if r.kind == kind])
+        want = np.stack([ref_res[r.uid] for r in ref_reqs if r.kind == kind])
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        if not rel <= FAULT_REF_RTOL:
+            raise AssertionError(f"full degradation {kind}: {rel:.3e} "
+                                 f"relative from the reference rung's own "
+                                 f"call")
+        ref_rel = max(ref_rel, rel)
+    dh = deg.health()
+    if (dh["fallbacks"] != 2 or dh["kernel_faults"] != 4
+            or dh["completed"] != len(picked)):
+        raise AssertionError(f"full degradation: {dh}")
+    seconds = time.perf_counter() - t0
+    print("serve faults " + json.dumps({
+        "storm": stats, "fired": len(card_acc[2]),
+        "fired_cuda": sorted(fired_cuda), "cuda_attempts_past": attempts,
+        "launches": launches, "launches_per_batch": per_batch,
+        "max_abs_err_plain": storm_err, "max_abs_err_cpu_engine": cpu_err,
+        "transitions": {k: v for k, v in card_acc[1].items() if v},
+        "full_degradation": {
+            k: dh[k] for k in ("completed", "kernel_faults", "fallbacks",
+                               "quarantines", "launches")}
+        | {"max_abs_err_plain": deg_err, "reference_rel": ref_rel,
+           "kernel_launches": 0},
+        "seconds": seconds, "card": card}))
+    return launches
 
 
 def trainer_phase(card: str) -> dict:
@@ -5446,6 +5656,8 @@ def main() -> int:
                           "failures", "nan_events")}
         | {"requests_per_s": len(res) / wall, "card": card}))
     mark("4")
+    fault_launches = fault_serve_phase(card, gp, ap)
+    mark("4b")
 
     # -- phase 5: train at the published widths --------------------------------
     def gan_step(state, b):
@@ -5819,6 +6031,7 @@ def main() -> int:
                      "source": f"src/repro_torch/csrc/{source}",
                      "replaces": replaces,
                      "launches": serve_launches.get(name, 0)
+                     + fault_launches.get(name, 0)
                      + train_launches.get(name, 0)
                      + lm_launches.get(name, 0)
                      + trainer_launches.get(name, 0)
@@ -5839,6 +6052,7 @@ def main() -> int:
                      "library_ms": k["library_ms"]})
         if name.startswith("flash_attention"):   # zamba2's instantiations
             rows[-1]["launches_head_dim_80"] = families["d80"].get(name, 0)
+        rows[-1]["launches_phase_4b"] = fault_launches.get(name, 0)
         rows[-1]["launches_phase_12"] = embed_launches.get(name, 0) \
             + mesh_launches.get(name, 0)
         rows[-1]["launches_phase_13"] = lm_mesh_launches.get(name, 0)

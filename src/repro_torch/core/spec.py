@@ -17,21 +17,32 @@ a name:
 `dispatch_backend` is the mesh-aware `resolve_backend` that
 `core/conv.py` calls at every op: under `parallel.sharding.use_mesh` it
 gives `sharded_backend`'s per-shard wrapper, which runs the base backend
-on each rank's blocks.  `repro`'s `fallback_backend` (a ladder of
-backends) has no counterpart: the conv serving engine walks its own
-ladder (`serve/conv_engine.py`).
+on each rank's blocks.
+
+`resolve_backend` also takes `repro`'s legacy bool (True -> cuda, False
+-> torch_zero_free) and a tuple or list of designators, which resolves
+through `fallback_backend`: a degradation ladder trying each rung in
+order.  On CPU operands any exception of a rung degrades, as in
+`repro`; on CUDA operands only an injected fault does (`may_degrade`):
+a plain rung never stands in for a kernel that failed to build or
+launch, and no rung runs after an error that may have broken the CUDA
+context.  The conv serving engine walks its own ladder under the same
+rule (`serve/conv_engine.py`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.parallel.sharding import current_mesh, mesh_size
 
-BackendLike = Union[None, str, "ConvBackend"]
+# A backend designator: None (default), the legacy bool, a name, a
+# ConvBackend, or a sequence of designators (a `fallback_backend` ladder).
+BackendLike = Union[None, bool, str, "ConvBackend",
+                    Sequence[Union[None, bool, str, "ConvBackend"]]]
 
 DEFAULT_BACKEND = "torch_zero_free"
 
@@ -340,6 +351,20 @@ class ConvBackend:
         return ddy, dw, db
 
 
+# The nine ops of a backend, by method name: the first three are its
+# plain slots, the rest its `fused_<op>` slots.
+OPS = ("forward", "input_grad", "filter_grad", "backward", "ct_backward",
+       "forward_ep", "input_grad_ep", "backward_ep", "ct_backward_ep")
+
+
+def backend_of_ops(name: str, make: Callable) -> ConvBackend:
+    """A `ConvBackend` named `name` whose op `op` is `make(op)`, for every
+    op of OPS (the wrappers `fallback_backend` and
+    `serve.faults.inject_backend` build)."""
+    return ConvBackend(name, **{
+        op if op in OPS[:3] else f"fused_{op}": make(op) for op in OPS})
+
+
 _BACKENDS: Dict[str, ConvBackend] = {}
 
 
@@ -354,20 +379,107 @@ def available_backends() -> tuple[str, ...]:
 
 
 def resolve_backend(backend: BackendLike) -> ConvBackend:
-    """Name / None / ConvBackend -> ConvBackend."""
+    """Name / bool / None / ConvBackend / sequence-of-those ->
+    ConvBackend.  A tuple or list resolves through `fallback_backend`."""
     _ensure_default_backends()
     if isinstance(backend, ConvBackend):
         return backend
-    name = DEFAULT_BACKEND if backend is None else backend
+    if isinstance(backend, (tuple, list)):
+        return fallback_backend(tuple(backend))
+    if isinstance(backend, bool):     # `repro`'s legacy use_pallas flag
+        name = "cuda" if backend else "torch_zero_free"
+    else:
+        name = DEFAULT_BACKEND if backend is None else backend
     if not isinstance(name, str):
-        raise TypeError(f"backend must be a name, None or a ConvBackend, "
-                        f"got {type(backend).__name__}")
+        raise TypeError(f"backend must be a name, a bool, None, a "
+                        f"ConvBackend or a sequence of those, got "
+                        f"{type(backend).__name__}")
     try:
         return _BACKENDS[name]
     except KeyError:
         raise ValueError(
             f"unknown conv backend {name!r}; available: "
             f"{', '.join(available_backends())}") from None
+
+
+# ---------------------------------------------------------------------------
+# Graceful degradation: a fallback ladder over backends.  `ConvServeEngine`
+# drives its per-bucket ladder itself (it keeps breaker state around each
+# rung); this is the same seam for every other call site.
+# ---------------------------------------------------------------------------
+
+def may_degrade(exc: BaseException, on_card: bool) -> bool:
+    """May a ladder degrade past a rung that raised `exc`?  On the CPU
+    always.  On the card only for an `InjectedFault`, which is raised
+    before anything is launched: any other exception (a kernel fault, a
+    failed build, a CUDA error, a plan or dtype refusal) must surface
+    from the rung that raised it, as a plain rung must not stand in for a
+    kernel that failed and nothing may run on a context it may have
+    broken.  An injected exception is marked by its class's `injected`
+    attribute (`serve.faults.InjectedFault` sets it), so this layer
+    needs nothing of the serving layer."""
+    return not on_card or bool(getattr(type(exc), "injected", False))
+
+
+_FALLBACK_CACHE: Dict[tuple, ConvBackend] = {}
+
+
+def fallback_backend(chain: Sequence[BackendLike], *,
+                     on_fallback: Optional[Callable] = None) -> ConvBackend:
+    """A `ConvBackend` that tries each backend in `chain` in order.
+
+    Every op (plain, fused, and epilogue-fused) attempts the rungs left
+    to right; an exception from rung i that `may_degrade` allows -- on
+    the operands' device -- invokes ``on_fallback(backend_name, op_name,
+    exc)`` (when given) and falls through to rung i+1.  Any other
+    exception propagates at once.  When every rung fails the LAST
+    exception propagates: the ladder never swallows a total failure.
+
+    Ladders of names (and bools / None) without an `on_fallback`
+    observer are memoized per chain, so repeated
+    `resolve_backend(("cuda", "reference"))` calls return the SAME object
+    and `dispatch_backend`'s `_SHARDED_CACHE` (keyed on `id(base)`) stays
+    effective under a mesh.  A chain holding a `ConvBackend` object is
+    built afresh each time: the memo never keeps such objects alive."""
+    entries: Tuple[BackendLike, ...] = tuple(chain)
+    if not entries:
+        raise ValueError("fallback chain must name at least one backend")
+
+    cache_key = None
+    if on_fallback is None and all(isinstance(e, (str, bool, type(None)))
+                                   for e in entries):
+        cache_key = entries
+        hit = _FALLBACK_CACHE.get(cache_key)
+        if hit is not None:
+            return hit
+
+    backends = tuple(resolve_backend(b) for b in entries)
+
+    # Each op calls the rung's own METHOD (not its raw fused slot): a rung
+    # without a fused kernel contributes its two-launch composition
+    # instead of being skipped.
+    def rung_by_rung(op_name):
+        def op(*args):
+            on_card = any(isinstance(a, torch.Tensor) and a.is_cuda
+                          for a in args)
+            last_exc = None
+            for be in backends:
+                try:
+                    return getattr(be, op_name)(*args)
+                except Exception as exc:  # noqa: BLE001 - the ladder's rule
+                    if not may_degrade(exc, on_card):
+                        raise
+                    last_exc = exc
+                    if on_fallback is not None:
+                        on_fallback(be.name, op_name, exc)
+            raise last_exc
+        return op
+
+    ladder = backend_of_ops(">".join(be.name for be in backends),
+                            rung_by_rung)
+    if cache_key is not None:
+        _FALLBACK_CACHE[cache_key] = ladder
+    return ladder
 
 
 # ---------------------------------------------------------------------------

@@ -81,11 +81,13 @@ def generator_apply(params: dict, z: torch.Tensor, *, backend=None,
     return x
 
 
-def generator_plan_requests(params: dict, batch: int) -> list:
+def generator_plan_requests(params: dict, batch: int, *,
+                            fuse_epilogue=True) -> list:
     """One `("input_grad", spec, x_shape, dy_shape, epilogue)` entry per
-    transposed-conv layer of one serving bucket.  `x_shape` is the
-    upsampled OUTPUT side and `dy_shape` the tconv input, matching the
-    input-gradient formulation the filters are stored in."""
+    transposed-conv layer of one serving bucket (epilogue None without
+    `fuse_epilogue`).  `x_shape` is the upsampled OUTPUT side and
+    `dy_shape` the tconv input, matching the input-gradient formulation
+    the filters are stored in."""
     entries = []
     for name, in_hw, out_hw, ep in GENERATOR_LAYERS:
         w = params[name]
@@ -93,7 +95,8 @@ def generator_plan_requests(params: dict, batch: int) -> list:
                              filter_shape=tuple(w.shape[:2]))
         entries.append(("input_grad", spec,
                         (batch, out_hw[0], out_hw[1], int(w.shape[2])),
-                        (batch, in_hw[0], in_hw[1], int(w.shape[3])), ep))
+                        (batch, in_hw[0], in_hw[1], int(w.shape[3])),
+                        ep if fuse_epilogue else None))
     return entries
 
 

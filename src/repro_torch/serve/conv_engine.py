@@ -15,14 +15,20 @@ segmentation (`aspp`) on one card.
     per-(bucket, rung) circuit breaker: enough consecutive failures
     quarantine the rung (OPEN); after a cooldown it half-opens and the
     next launch re-probes it.
-  * **No fallback on the card.**  On a CUDA device the ladder is the
-    single rung ``("cuda",)``, and an exception from it propagates: a
-    plain PyTorch rung would hide a kernel fault, and a fault that
-    poisons the CUDA context would take every rung down with it anyway.
+  * **The ladder on the card.**  On a CUDA device the default ladder is
+    the single rung ``("cuda",)``; a longer one serves only when the
+    caller names it.  There a rung degrades only on an injected fault
+    (raised before anything is launched) or an output that an injected
+    event poisoned (or whose inputs were non-finite); any other
+    exception propagates from the rung that raised it
+    (`core.spec.may_degrade`), and so does, as a `RuntimeError`, a
+    non-finite output of finite inputs that nothing injected: a plain
+    rung must not hide a kernel that failed to build, launch or compute,
+    and no rung may run on a CUDA context that error may have broken.
   * **Deadlines, retries, NaN guard.**  Expired requests are dropped at
     dequeue and withheld at completion.  Failed attempts back off
     exponentially (bounded); a non-finite output is retried once on the
-    same rung, then degrades.
+    same rung, then degrades (on the card, as above, only where it may).
 
   * **Warmup.**  `warmup` resolves every bucket's launch plans from the
     shipped tile-cache artifact (`tiling.warmup_plans`: never an autotune
@@ -30,9 +36,11 @@ segmentation (`aspp`) on one card.
     planner) and, with `compile`, builds the kernels and runs one dummy
     batch through the primary rung.
 
-Fault injection into the engine's launches (`repro`'s
-`serve/faults.py::inject_backend`) is not ported: `injector` must be
-None.
+Fault injection (`serve/faults.py`) hooks each attempt at site
+``f"{kind}:{backend}"``: launch-class events fire before the forward
+pass, output-class events poison the host result.  With no injector
+attached the fast path is the plain forward through the rung: no extra
+launch, no extra sync.
 """
 from __future__ import annotations
 
@@ -44,9 +52,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.spec import may_degrade
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, tiling
 from repro_torch.models import gan, vision
+from repro_torch.serve.faults import OUTPUT_KINDS, FaultInjector
 
 DEFAULT_LADDER = ("cuda", "torch_zero_free", "reference")   # CPU engines
 CARD_LADDER = ("cuda",)
@@ -138,27 +148,20 @@ class ConvServeEngine:
     def __init__(self, *, gan_params=None, aspp_params=None,
                  slot_batch: int = 4, queue_limit: int = 32,
                  ladder: Optional[Sequence[str]] = None,
-                 injector=None, fail_threshold: int = 2, cooldown: int = 3,
+                 injector: Optional[FaultInjector] = None,
+                 fail_threshold: int = 2, cooldown: int = 3,
                  retry_backoff_s: float = 0.0, max_backoff_s: float = 0.05,
-                 rates: Tuple[int, ...] = (1, 2, 4), device=None,
+                 rates: Tuple[int, ...] = (1, 2, 4),
+                 fuse_epilogue: bool = True, device=None,
                  tile_cache_path=None):
         if slot_batch < 1 or queue_limit < 1:
             raise ValueError("slot_batch and queue_limit must be >= 1")
-        if injector is not None:
-            raise NotImplementedError("the engine's fault injection "
-                                      "(serve/faults.py::inject_backend) "
-                                      "is not ported yet; injector must "
-                                      "be None")
         self.device = resolve_device(device)
-        on_card = self.device.type == "cuda"
         if ladder is None:
-            ladder = CARD_LADDER if on_card else DEFAULT_LADDER
+            ladder = CARD_LADDER if self.device.type == "cuda" \
+                else DEFAULT_LADDER
         if not ladder:
             raise ValueError("ladder must name at least one backend")
-        if on_card and tuple(ladder) != CARD_LADDER:
-            raise ValueError(f"on a CUDA device the engine serves through "
-                             f"the kernels alone, ladder {CARD_LADDER}; "
-                             f"got {tuple(ladder)}")
         self.gan_params = None if gan_params is None else \
             {k: v.to(self.device) for k, v in gan_params.items()}
         self.aspp_params = None if aspp_params is None else \
@@ -166,11 +169,13 @@ class ConvServeEngine:
         self.slot_batch = int(slot_batch)
         self.queue_limit = int(queue_limit)
         self.ladder = tuple(ladder)
+        self.injector = injector
         self.fail_threshold = int(fail_threshold)
         self.cooldown = int(cooldown)
         self.retry_backoff_s = float(retry_backoff_s)
         self.max_backoff_s = float(max_backoff_s)
         self.rates = tuple(rates)
+        self.fuse_epilogue = bool(fuse_epilogue)
         self.tile_cache_path = tile_cache_path
 
         self._queue: deque = deque()
@@ -207,14 +212,15 @@ class ConvServeEngine:
         if kind == "gan_gen":
             if self.gan_params is None:
                 raise ValueError("no gan_params: cannot serve gan_gen")
-            return gan.generator_plan_requests(self.gan_params,
-                                               self.slot_batch)
+            return gan.generator_plan_requests(
+                self.gan_params, self.slot_batch,
+                fuse_epilogue=self.fuse_epilogue)
         if kind == "aspp":
             if self.aspp_params is None:
                 raise ValueError("no aspp_params: cannot serve aspp")
             return vision.atrous_plan_requests(
                 self.aspp_params, (self.slot_batch,) + payload_shape,
-                rates=self.rates)
+                rates=self.rates, fuse_epilogue=self.fuse_epilogue)
         raise ValueError(f"unknown request kind {kind!r}; "
                          f"expected one of {KINDS}")
 
@@ -223,10 +229,12 @@ class ConvServeEngine:
         the engine's device in, the output batch out."""
         if kind == "gan_gen":
             return lambda batch: gan.generator_apply(
-                self.gan_params, batch, backend=backend)
+                self.gan_params, batch, backend=backend,
+                fuse_epilogue=self.fuse_epilogue)
         if kind == "aspp":
             return lambda batch: vision.atrous_head_apply(
-                self.aspp_params, batch, rates=self.rates, backend=backend)
+                self.aspp_params, batch, rates=self.rates, backend=backend,
+                fuse_epilogue=self.fuse_epilogue)
         raise ValueError(f"unknown request kind {kind!r}")
 
     def _forward(self, bucket: _Bucket, backend: str,
@@ -370,6 +378,7 @@ class ConvServeEngine:
             batch[i] = r.payload
         self.stats["launches"] += 1
         n = len(cohort)
+        on_card = self.device.type == "cuda"
         attempt = 0
         rungs = self._rungs(bucket)
         for ri, backend in enumerate(rungs):
@@ -383,15 +392,31 @@ class ConvServeEngine:
                     self._backoff(attempt)
                 attempt += 1
                 try:
+                    ev = None
+                    if self.injector is not None:
+                        ev = self.injector.raise_or_delay(
+                            f"{bucket.kind}:{backend}")
                     out = self._forward(bucket, backend, batch)
-                except Exception:  # noqa: BLE001 - the CPU ladder absorbs faults
+                    if ev is not None:
+                        out = self.injector.poison(ev, out)
+                except Exception as exc:  # noqa: BLE001 - the ladder's rule
                     self.stats["kernel_faults"] += 1
                     self._fail(breaker)
-                    if self.device.type == "cuda":
-                        raise     # no fallback on the card
+                    if not may_degrade(exc, on_card):
+                        raise     # on the card: surfaces where it arose
                     break         # degrade: next rung serves this cohort
                 if not np.all(np.isfinite(out[:n])):
                     self.stats["nan_events"] += 1
+                    if (on_card and (ev is None or ev.kind not in OUTPUT_KINDS)
+                            and np.all(np.isfinite(batch[:n]))):
+                        # On the card a non-finite output of finite inputs
+                        # that no injected event poisoned is a kernel
+                        # fault: it surfaces, no rung stands in for it.
+                        self._fail(breaker)
+                        raise RuntimeError(
+                            f"non-finite output of the {backend!r} rung "
+                            f"for bucket {bucket.key} on the card, with "
+                            f"finite inputs and no fault injected")
                     if nan_budget > 0:
                         nan_budget -= 1
                         continue  # transient? one retry on the same rung
@@ -418,7 +443,8 @@ class ConvServeEngine:
     # -- health -----------------------------------------------------------
 
     def health(self) -> dict:
-        """Stats snapshot plus latency percentiles and breaker states."""
+        """Stats snapshot plus latency percentiles, breaker states and
+        each breaker's transitions."""
         lat = np.asarray(self._latencies_us, np.float64)
         out = dict(self.stats)
         out["p50_us"] = float(np.percentile(lat, 50)) if lat.size else None
@@ -426,6 +452,10 @@ class ConvServeEngine:
         out["queue_depth"] = len(self._queue)
         out["breakers"] = {
             f"{k[0]}:{name}": br.state
+            for k, b in self._buckets.items()
+            for name, br in b.breakers.items()}
+        out["transitions"] = {
+            f"{k[0]}:{name}": list(br.transitions)
             for k, b in self._buckets.items()
             for name, br in b.breakers.items()}
         return out

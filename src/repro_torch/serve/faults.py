@@ -17,13 +17,18 @@ disappears, a step straggles, or an output comes back NaN/Inf.
     trainer's seam: one site per workload, stepped once per step
     attempt, with output-class events stamped into the host batch so
     the trainer's real guard trips.
+  * `inject_backend` wraps a `core.spec.ConvBackend` so every conv op
+    consults the injector first -- the hook `core/spec.py::
+    fallback_backend`'s ladder is tested against with real kernel paths
+    underneath.  Output-class events poison the op's tensors where they
+    lie (`poison_tensor`): no host round trip, no sync.
   * `corrupt_tile_cache` mangles the planner's tile-cache artifact
     (`kernels/tiling.py`) the three ways deployments see it break.
 
-Not ported yet (ROADMAP A.10): `inject_backend` (the serving engine's
-per-op injection and `fallback_backend`'s tests): a rung that degrades to
-the next backend, where the port on the card has no fallback.  Pure
-numpy: no torch needed here.
+Every injected exception is an `InjectedFault`, raised before anything
+is launched: on the card it is the one exception a ladder may degrade
+on (`core.spec.may_degrade`).  Pure numpy at import: `inject_backend`
+imports `core.spec` when called.
 """
 from __future__ import annotations
 
@@ -43,7 +48,10 @@ FAULT_KINDS = LAUNCH_KINDS + OUTPUT_KINDS
 
 
 class InjectedFault(RuntimeError):
-    """Base class of every injected failure (site/index/kind attached)."""
+    """Base class of every injected failure (site/index/kind attached).
+    `injected` marks the class for `core.spec.may_degrade`."""
+
+    injected = True
 
     def __init__(self, site: str, index: int, kind: str):
         super().__init__(f"injected {kind} at {site}#{index}")
@@ -137,6 +145,10 @@ class FaultInjector:
             self.fired.append(ev)
         return ev
 
+    def calls(self, site: str) -> int:
+        """How many invocations of `site` the injector has consumed."""
+        return self._counters.get(site, 0)
+
     def raise_or_delay(self, site: str) -> Optional[FaultEvent]:
         """Consume one invocation of `site` and act on launch-class
         events: kernel exceptions and device losses raise, latency
@@ -209,6 +221,46 @@ def poison_batch(injector: FaultInjector, ev: Optional[FaultEvent],
             out[key] = injector.poison(ev, v)
             break
     return out
+
+
+def poison_tensor(ev: Optional[FaultEvent], t):
+    """`FaultInjector.poison` for a tensor, on its own device and in its
+    dtype: a copy with NaN/Inf in the first element of every batch row
+    (of the only row for a 1-D tensor, which keeps its shape).  No-op
+    for None, launch-class events and None tensors."""
+    if ev is None or ev.kind not in OUTPUT_KINDS or t is None:
+        return t
+    out = t.contiguous().clone()
+    rows = out.view(out.shape[0], -1) if out.dim() > 1 else out.view(1, -1)
+    rows[:, 0] = float("nan") if ev.kind == "nan_output" else float("inf")
+    return out
+
+
+def inject_backend(base, injector: FaultInjector, *, prefix=None):
+    """Wrap a `ConvBackend` so every op consults `injector` first.
+
+    Site names are `<prefix>.<op>` (prefix defaults to the backend
+    name) for the nine ops.  Launch-class events fire before the base op
+    runs, so an injected exception launches nothing; output-class events
+    poison every tensor the op returns (`poison_tensor`).  The name is
+    `<base>@inject`."""
+    from repro_torch.core.spec import backend_of_ops, resolve_backend
+
+    be = resolve_backend(base)
+    pre = prefix if prefix is not None else be.name
+
+    def injected(op_name):
+        call = getattr(be, op_name)
+
+        def op(*args):
+            ev = injector.raise_or_delay(f"{pre}.{op_name}")
+            out = call(*args)
+            if isinstance(out, tuple):
+                return tuple(poison_tensor(ev, o) for o in out)
+            return poison_tensor(ev, out)
+        return op
+
+    return backend_of_ops(f"{be.name}@inject", injected)
 
 
 def corrupt_tile_cache(path, mode: str = "truncate", seed: int = 0) -> None:

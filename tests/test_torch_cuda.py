@@ -528,10 +528,117 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 def test_engine_on_the_card_has_no_plain_rung(cuda):
+    """The default ladder on the card is the kernels' single rung; a
+    ladder with plain rungs is taken when the caller names it."""
     from repro_torch.serve.conv_engine import DEFAULT_LADDER, ConvServeEngine
     assert ConvServeEngine(device=cuda).ladder == ("cuda",)
-    with pytest.raises(ValueError, match="kernels alone"):
-        ConvServeEngine(device=cuda, ladder=DEFAULT_LADDER)
+    assert ConvServeEngine(device=cuda, ladder=DEFAULT_LADDER).ladder == \
+        DEFAULT_LADDER
+
+
+def _card_engine(cuda, schedule=()):
+    from repro_torch.serve.conv_engine import DEFAULT_LADDER, ConvServeEngine
+    from repro_torch.serve.faults import FaultInjector, FaultSchedule
+    gp = gan.generator_init(torch.Generator().manual_seed(16), z_dim=8,
+                            base=8, device=cuda)
+    return ConvServeEngine(gan_params=gp, slot_batch=2, device=cuda,
+                           ladder=DEFAULT_LADDER,
+                           injector=FaultInjector(FaultSchedule(schedule)))
+
+
+def _latents(n):
+    from repro_torch.serve.conv_engine import ConvRequest
+    rng = np.random.default_rng(17)
+    return [ConvRequest(None, "gan_gen",
+                        rng.standard_normal(8).astype(np.float32))
+            for _ in range(n)]
+
+
+def test_engine_on_the_card_degrades_on_an_injected_fault(cuda,
+                                                          monkeypatch):
+    """`cuda` always fails by injection: `torch_zero_free` serves on the
+    card, equal to its own call on the CPU within TOL (cuDNN in fp32, no
+    TF32), and no hand-written kernel is launched."""
+    from repro_torch.serve.faults import FaultSchedule
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    eng = _card_engine(cuda, FaultSchedule.seeded(
+        0, sites=["gan_gen:cuda"], rate=1.0, horizon=64,
+        kinds=("kernel_exception",)).events)
+    reqs = _latents(3)
+    ops.reset_launches()
+    res = eng.serve(reqs)
+    torch.cuda.synchronize()
+    assert len(res) == 3 and not any(ops.LAUNCHES.values())
+    h = eng.health()
+    assert h["kernel_faults"] == 2 and h["fallbacks"] == 2
+    cpu = {k: v.cpu() for k, v in eng.gan_params.items()}
+    with torch.no_grad():
+        want = gan.generator_apply(
+            cpu, torch.from_numpy(np.stack([r.payload for r in reqs])),
+            backend="torch_zero_free").numpy()
+    for r, w in zip(reqs, want):
+        np.testing.assert_allclose(res[r.uid], w, rtol=TOL, atol=TOL)
+
+
+def test_engine_on_the_card_propagates_an_error_it_did_not_inject(
+        cuda, monkeypatch):
+    def failed(*a, **k):
+        raise RuntimeError("CUDA error: unspecified launch failure")
+
+    monkeypatch.setattr(ops, "tconv_phase", failed)
+    eng = _card_engine(cuda)
+    with pytest.raises(RuntimeError, match="launch failure"):
+        eng.serve(_latents(1))
+    assert eng.stats["fallbacks"] == 0 and eng.stats["kernel_faults"] == 1
+
+
+def test_engine_on_the_card_raises_a_nan_it_did_not_inject(cuda,
+                                                           monkeypatch):
+    """A kernel that writes NaN with nothing injected (a race, shared
+    memory left unwritten) surfaces as an error: no plain rung serves
+    the cohort in its place."""
+    real = ops.tconv_phase
+    monkeypatch.setattr(ops, "tconv_phase",
+                        lambda *a, **k: real(*a, **k).fill_(float("nan")))
+    eng = _card_engine(cuda)
+    with pytest.raises(RuntimeError, match="non-finite output of the "
+                                           "'cuda' rung"):
+        eng.serve(_latents(1))
+    assert eng.stats["fallbacks"] == 0 and eng.stats["nan_events"] == 1
+
+
+def test_fallback_backend_on_cuda_operands(cuda, monkeypatch):
+    """Over `inject_backend("cuda", ...)` an injected fault degrades to
+    `torch_zero_free` on the card, launching nothing; a kernel wrapper's
+    own refusal (fp64 operands) propagates from the `cuda` rung, where on
+    the CPU it would degrade."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from repro_torch.core.spec import fallback_backend
+    from repro_torch.serve.faults import (FaultInjector, FaultSchedule,
+                                          inject_backend)
+    spec = ConvSpec.make(stride=2, padding=1, filter_shape=4)
+    gen = torch.Generator().manual_seed(18)
+    x = _rand(gen, 2, 8, 8, 3, device=cuda)
+    w = _rand(gen, 4, 4, 3, 5, device=cuda)
+    inj = FaultInjector(FaultSchedule.seeded(
+        0, sites=["cuda.forward"], rate=1.0, horizon=8,
+        kinds=("kernel_exception",)))
+    seen = []
+    ladder = fallback_backend(
+        (inject_backend("cuda", inj), "torch_zero_free"),
+        on_fallback=lambda n, op, e: seen.append((n, op)))
+    ops.reset_launches()
+    y = ladder.forward(x, w, spec)
+    assert not any(ops.LAUNCHES.values())
+    assert seen == [("cuda@inject", "forward")] and y.is_cuda
+    torch.testing.assert_close(
+        y, resolve_backend("torch_zero_free").forward(x, w, spec),
+        rtol=TOL, atol=TOL)
+    ladder = fallback_backend(("cuda", "torch_zero_free"),
+                              on_fallback=lambda n, op, e: seen.append(n))
+    with pytest.raises(TypeError):
+        ladder.forward(x.double(), w.double(), spec)
+    assert len(seen) == 1
 
 
 # (atol, rtol) of flash attention against its plain version.

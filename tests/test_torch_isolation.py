@@ -65,3 +65,16 @@ def test_chip_smoke_without_a_card_fails_and_reports_nothing(tmp_path):
                               text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_the_backend_registry_loads_nothing_of_the_serving_layer():
+    """`core.spec.may_degrade` reads the injected mark off the exception's
+    class, so the conv stack's lowest layer needs nothing of `serve`."""
+    code = ("import sys, repro_torch.core.spec as s; "
+            "s.available_backends(); "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('repro_torch.serve')))")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"

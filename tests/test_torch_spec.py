@@ -143,8 +143,13 @@ def test_registry_resolves_names_and_refuses_unknown():
     assert tspec.resolve_backend(be) is be
     with pytest.raises(ValueError, match="unknown conv backend"):
         tspec.resolve_backend("pallas")
+    # A tuple, refused before the ladder was ported, is `fallback_backend`'s
+    # ladder (memoized); what designates no backend still raises.
+    ladder = tspec.resolve_backend(("cuda", "reference"))
+    assert ladder.name == "cuda>reference"
+    assert tspec.resolve_backend(["cuda", "reference"]) is ladder
     with pytest.raises(TypeError):
-        tspec.resolve_backend(("cuda", "reference"))
+        tspec.resolve_backend(1.5)
 
 
 @pytest.mark.parametrize("name", ["reference", "torch_zero_free", "cuda"])
