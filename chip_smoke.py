@@ -42,8 +42,10 @@ Phases (any failed check raises and ends the run non-zero):
      lse, then dq, dk, dv against the plain backward and, timed, SDPA's
      backward (its forward + backward less its forward), reruns
      bit-identical; zamba2's head_dim 80 in bf16 and fp32 (B 4, 32
-     heads): prefill at S 1024 and 1000 on tile, a split decode over
-     1025 keys, the backward at S 1024 on simt, each timed; and the six
+     heads): prefill at S 1024 and 1000 and the backward at S 1024 on the
+     forms the plans pick (bf16: wgmma, fp32: tile / simt) and, in bf16
+     at S 1024, on tile and simt forced as well, a split decode over 1025
+     keys, each timed; and the six
      conv kernels' `_bf16` entries at the paths' shapes (the forwards
      and the generator's tconvs at batch 4 and 64 on both arms, the
      backwards and the filter gradient at batch 64), their ragged cases
@@ -158,12 +160,12 @@ Phases (any failed check raises and ends the run non-zero):
      rwkv6-7b and zamba2-2.7b whole, bf16, serving phase 6 (b)'s first 6
      requests through ServeEngine: one `flash_attention` launch per
      attention layer per call (moonshot: wgmma prefills; zamba2: 9 a
-     call at head_dim 80, tile prefills; split decodes; rwkv6: none),
+     call at head_dim 80, wgmma prefills; split decodes; rwkv6: none),
      requests/s, tokens/s, ms per prefill and decode step, peak memory,
      a decode profile (`family_serve`); (c) moonshot-v1-16b-a3b at 2
      layers and zamba2-2.7b at 12 (2 groups) through `Trainer.run` at
      seq 4096, batch 8 in 4 microbatches, 3 steps: launches and forms per
-     step (wgmma at head_dim 128; tile and simt at 80), ms per step,
+     step (wgmma at head_dim 128 and 80), ms per step,
      tokens/s, peak memory, the aux loss, a rerun's losses bit-equal
      (`family_train`);
   12. (a) the audio and vlm families (`embeds_phase`), inputs that are
@@ -2616,8 +2618,8 @@ def family_serve(card: str, arch: str) -> dict:
     ServeEngine(batch=LM_BATCH, max_len=LM_MAX_LEN) after a warm-up
     request: every request answered,
     no NaN, one flash_attention launch per attention layer per prefill and
-    decode step -- prefills on wgmma at head_dim 128 and on tile at 80,
-    decodes on split -- and none for RWKV; requests/s, tokens/s, ms per
+    decode step -- prefills on wgmma (head_dim 128 and 80), decodes on
+    split -- and none for RWKV; requests/s, tokens/s, ms per
     prefill and decode step, peak memory and a decode profile.  Returns
     the run's launches."""
     from repro_torch.configs import get_config
@@ -2708,7 +2710,7 @@ def family_train(card: str, arch: str, n_layers, traced: bool,
     at the published widths and `n_layers` layers, or (None) the deepest
     cut whose params, moments and gradients take FAMILY_TRAIN_SHARE of the
     card at FAMILY_TRAIN_BYTES a param: attention on wgmma at head_dim
-    128, on tile / simt at 80.  Returns the run's launches."""
+    128 and 80.  Returns the run's launches."""
     from repro_torch.configs import get_config
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.lm import LM
@@ -4295,6 +4297,7 @@ def fm_serve(mesh, rank: int, counted, arch: str, n_layers: int,
     against it (`_serve_agreement`; its launches are not counted).  One
     flash_attention per attention layer per prefill and per decode step
     whose sequence block holds a key."""
+    from repro_torch.kernels.attention import plan as attn_plan
     from repro_torch.models.lm import LM
     from repro_torch.parallel import sharding as sh
     from repro_torch.serve.engine import ServeEngine
@@ -4377,7 +4380,10 @@ def fm_serve(mesh, rank: int, counted, arch: str, n_layers: int,
     n_pre = sum(c["kind"] == "prefill" for c in calls)
     n_live = sum(c["kind"] == "decode" and c["len"] >= start for c in calls)
     want_l = {"flash_attention": n_attn * (n_pre + n_live)} if n_attn else {}
-    pre = "tile" if cfg.head_dim == 80 else "wgmma"
+    # Every prefill holds at least the shortest prompt's rows.
+    short = min(len(r.prompt) for r in reqs)
+    pre = attn_plan(cfg.compute_dtype, LM_BATCH, short, short, cfg.n_heads,
+                    cfg.n_kv_heads, cfg.head_dim).form if n_attn else None
     want_f = {k: v for k, v in ((pre, n_attn * n_pre),
                                 ("split", n_attn * n_live)) if v}
     if cuda and (launches != want_l or forms != want_f):
@@ -4853,8 +4859,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, tiling
     from repro_torch.kernels.attention import (
-        flash_attention_backward_cuda, flash_attention_backward_plain,
-        flash_attention_cuda, flash_attention_plain)
+        AttentionPlan, flash_attention_backward_cuda,
+        flash_attention_backward_plain, flash_attention_cuda,
+        flash_attention_plain)
     from repro_torch.kernels.attention import backward_plan as attn_bwd_plan
     from repro_torch.kernels.attention import plan as attn_plan
     from repro_torch.kernels.dconv_backward import TILES as BWD_TILES
@@ -5267,8 +5274,9 @@ def main() -> int:
                               relu, False, timed=True, dtype=torch.bfloat16))
 
     def attention_case(name, B, Sq, Sk, Hq, Hk, D, causal, dtype, path,
-                       timed=False, cache_len=0):
-        """flash_attention on (B,Sq,Hq,D) queries.  With `cache_len`, k and
+                       timed=False, cache_len=0, form=None):
+        """flash_attention on (B,Sq,Hq,D) queries, in `form` (None:
+        `attention.plan`'s, through the wrapper).  With `cache_len`, k and
         v are the live prefix [:, :Sk] of (B, cache_len, Hk, D) buffers,
         as a decode step passes its KV cache."""
         q = rand(B, Sq, Hq, D).to(dtype)
@@ -5282,7 +5290,16 @@ def main() -> int:
         # function at Sq = Sk, or with no mask where every key is visible.
         assert not timed or not causal or Sq in (1, Sk), name
         pairs = B * Hq * visible_pairs(Sq, Sk, causal)
-        form = attn_plan(dtype, B, Sq, Sk, Hq, Hk, D)
+        forced = form is not None
+        form = AttentionPlan(form, 1) if forced else attn_plan(
+            dtype, B, Sq, Sk, Hq, Hk, D)
+
+        def run():
+            if not forced:
+                return ops.flash_attention(q, k, v, causal=causal)
+            return flash_attention_cuda(q, k, v, causal=causal,
+                                        q_offset=Sk - Sq, form=form)
+
         return dict(kernel="flash_attention", case=name, path=path,
                     form=form.form if form.splits == 1
                     else f"{form.form} x{form.splits}",
@@ -5290,7 +5307,7 @@ def main() -> int:
                     lib_tol=ATTN_LIB_TOL[dtype],
                     flops_per_s=BF16_FLOPS_PER_S if dtype == torch.bfloat16
                     else FP32_FLOPS_PER_S,
-                    run=lambda: ops.flash_attention(q, k, v, causal=causal),
+                    run=run,
                     plain=lambda: flash_attention_plain(q, k, v,
                                                         causal=causal),
                     lib=lambda: F.scaled_dot_product_attention(
@@ -5376,9 +5393,10 @@ def main() -> int:
                                         q_offset=500))
 
     # zamba2-2.7b's shared attention block (MHA 32 heads, head_dim 80) at
-    # the engine's batch 4: prefill at S 1024 and 1000 on the tile form, a
-    # split decode over a max_len 2048 cache, the backward at S 1024 on
-    # simt, in bf16 and fp32.
+    # the engine's batch 4: prefill at S 1024 and 1000, a split decode over
+    # a max_len 2048 cache, the backward at S 1024, in bf16 and fp32, on
+    # the plans' forms (bf16: wgmma; fp32: tile / simt); in bf16 at S 1024
+    # the tile and simt forms forced on the same shapes, timed beside them.
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for S in (1024, 1000):
             cases.append(attention_case(f"d80_prefill_S{S}_{tag}", LM_BATCH,
@@ -5390,12 +5408,18 @@ def main() -> int:
         cases.append(attention_bwd_case(f"d80_S1024_{tag}", LM_BATCH, 1024,
                                         1024, 32, 32, 80, dtype, False,
                                         timed=True))
+    cases.append(attention_case("d80_prefill_S1024_bf16_tile", LM_BATCH,
+                                1024, 1024, 32, 32, 80, True, torch.bfloat16,
+                                False, timed=True, form="tile"))
+    cases.append(attention_bwd_case("d80_S1024_bf16_simt", LM_BATCH, 1024,
+                                    1024, 32, 32, 80, torch.bfloat16, False,
+                                    timed=True, form="simt"))
 
     # Phase 11's own shapes in bf16: its training microbatch of 2 at seq
-    # 4096 (zamba2's shared block on tile / simt, moonshot's MHA 16 heads
-    # at head_dim 128 on wgmma), forward and backward; its served prefills
-    # at the engine's batch 4 and decodes over a max_len 2048 cache
-    # (moonshot on wgmma / split, zamba2 on tile / split).
+    # 4096 (zamba2's shared block at head_dim 80 and moonshot's MHA 16
+    # heads at head_dim 128, both on wgmma), forward and backward; its
+    # served prefills at the engine's batch 4 and decodes over a max_len
+    # 2048 cache (wgmma / split).
     for tag, Hq, D in (("zamba2", 32, 80), ("moonshot", 16, 128)):
         cases.append(attention_case(f"{tag}_train_S4096_bf16", 2,
                                     LM_TRAIN_SEQ, LM_TRAIN_SEQ, Hq, Hq, D,

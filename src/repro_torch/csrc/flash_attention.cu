@@ -29,35 +29,42 @@
 // shapes.  "Rows" are the (query, head of the GQA group) pairs of one kv
 // head, Sq * g.
 //
-// 1. tile (fp32, head_dim 16 / 32 / 80, and bf16 rows that fill no 64-row
-//    tile; 80's 160-byte bf16 rows fit none of the TMA swizzle widths of
-//    form 2): one CTA per (b, h, 16 query rows), 4 rows per warp; per kv
-//    block of 32 keys the K and V rows are staged in shared memory as
+// 1. tile (fp32; bf16 at head_dim 16 / 32, or with rows that fill no
+//    64-row tile): one CTA per (b, h, 16 query rows), 4 rows per warp; per
+//    kv block of 32 keys the K and V rows are staged in shared memory as
 //    fp32 (K rows padded to D + 1 floats, conflict-free), lane j scores
 //    key j, a butterfly max / sum gives every lane the same m and l, and
 //    lane t owns dims t, t + 32, ... of acc.  fp32 SIMT FMAs: TF32 would
 //    leave the fp32 class, and in fp32 this form already beats SDPA.
 //    Bound: operations (4 D flops per visible pair).
 //
-// 2. wgmma (bf16 prefill, head_dim 64 / 128 / 256): a CTA owns (b, kv
+// 2. wgmma (bf16 prefill, head_dim 64 / 80 / 128 / 256): a CTA owns (b, kv
 //    head, 64 rows) -- the g query heads of a group share every K/V tile,
 //    so K/V cross device memory once per group and row tile.  Warps 0-3
 //    are one consumer warpgroup, warp 4 the producer: one thread issues
 //    TMA loads of 64-key K and V tiles (128-byte swizzle, 64-column
-//    panels) into a ring of 2 stages under full / empty mbarriers; the
-//    tensor map comes from cuTensorMapEncodeTiled reached through
-//    cudaGetDriverEntryPoint, so the library needs no -lcuda (these
-//    helpers, the wgmma products and the hi/lo split are hopper.cuh's,
-//    shared with the backward's wgmma form).  Rows past
-//    Sk arrive as zeros and are masked.  The consumers load q into the
-//    same swizzled layout by hand and issue
-//      S = Q K^T   wgmma m64n64k16, A and B K-major from shared memory;
+//    panels, hopper.cuh) into a ring of 2 stages under full / empty
+//    mbarriers; the tensor map comes from cuTensorMapEncodeTiled reached
+//    through cudaGetDriverEntryPoint, so the library needs no -lcuda
+//    (these helpers, the wgmma products and the hi/lo split are
+//    hopper.cuh's, shared with the backward's wgmma form).  Rows past Sk
+//    arrive as zeros and are masked.  The consumers load q into the same
+//    swizzled layout by hand and issue
+//      S = Q K^T   wgmma m64n64k16, A and B K-major from shared memory,
+//                  D / 16 k16 steps;
 //    S is scaled by D**-0.5 log2(e) in fp32 after the product (the bf16
 //    products are exact in fp32), masked where a tile is not visible
 //    whole, and the online softmax runs in base 2 (exp2f) on the
 //    accumulator fragment (each row lives in one quad: two shuffles).
 //      O += P V    wgmma m64nDk16, P from registers, V MN-major (the
 //                  transpose bit) from shared memory.
+//    Head_dim 80 is two panels, the second holding columns 64-79 (TMA
+//    zero-fills the box past D; q's hand load writes only those 16
+//    columns): S takes 5 k16 steps, 4 in panel 0 and 1 in panel 1, and
+//    P V is m64n80k16, its 80 columns running on into panel 1.  No
+//    tensor-core work falls on the padding, which costs 16 KB of shared
+//    memory a tile (82 KB a CTA, so two still share an SM) -- less code
+//    than a second, 32-byte-swizzled tensor map for the last 16 columns.
 //    Numerics, the trap: the reference keeps P in fp32, and one bf16 P
 //    would leave the one-bf16-ulp class the kernel is held to.  So P is
 //    split, p_hi = bf16(p), p_lo = bf16(p - p_hi), and both products go
@@ -596,7 +603,7 @@ struct WgLayout {
   static constexpr int kConsumers = 128;
   static constexpr int kThreads = kConsumers + 32;
   static constexpr int kRows = 64;                     // rows per CTA
-  static constexpr int kTile = D / 64 * kPanelBytes;   // Q, K or V tile
+  static constexpr int kTile = panels<D>() * kPanelBytes;   // Q, K or V
   static constexpr int kStage = 2 * kTile;             // K, then V
   static constexpr int kBars = kTile + kStages * kStage;
   // 1024 bytes of slack to align the swizzled panels.
@@ -652,7 +659,7 @@ __global__ void __launch_bounds__(WgLayout<D>::kThreads, D <= 128 ? 2 : 1)
         mbar_expect_tx(&full[s], L::kStage);
         unsigned char* ks = kv + s * L::kStage;
 #pragma unroll
-        for (int p = 0; p < D / 64; ++p) {
+        for (int p = 0; p < panels<D>(); ++p) {
           tma_load(ks + p * kPanelBytes, &tm_k, &full[s], 64 * p, hk,
                    t * kWgKeys, b);
           tma_load(ks + L::kTile + p * kPanelBytes, &tm_v, &full[s], 64 * p,
@@ -665,6 +672,8 @@ __global__ void __launch_bounds__(WgLayout<D>::kThreads, D <= 128 ? 2 : 1)
 
   // The consumer warpgroup.  q rows into the swizzled panels: chunk c of
   // row r (16 bytes) lands at chunk c ^ (r % 8), as TMA lays out K and V.
+  // At D = 80 columns 80-127 of panel 1 stay unwritten: no k16 step
+  // reads them.
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   for (int idx = tid; idx < 64 * (D / 8); idx += 128) {
     const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
@@ -927,6 +936,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       switch (D) {
         case 64: return (int)launch_wgmma<64>(q, k, v, o, a, st);
+        case 80: return (int)launch_wgmma<80>(q, k, v, o, a, st);
         case 128: return (int)launch_wgmma<128>(q, k, v, o, a, st);
         case 256: return (int)launch_wgmma<256>(q, k, v, o, a, st);
         default: break;

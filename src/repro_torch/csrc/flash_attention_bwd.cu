@@ -29,11 +29,16 @@
 // each) at 989 TFLOP/s in bf16 on the tensor cores, 67 in fp32.
 // kernels/attention.py::backward_plan picks one of two forms per call.
 //
-// 1. wgmma (bf16 at head_dim 64 and 128): the tensor cores.  Warps 0-3
-//    are one consumer warpgroup, warp 4 the producer; every operand tile
-//    (64 rows of D bf16, 64-column panels, 128-byte swizzle) comes in by
-//    TMA under mbarriers, from one 4-d tensor map per operand
-//    (hopper.cuh::tile_map; rows past Sq or Sk arrive as zeros).
+// 1. wgmma (bf16 at head_dim 64, 80 and 128): the tensor cores.  Warps
+//    0-3 are one consumer warpgroup, warp 4 the producer; every operand
+//    tile (64 rows of D bf16, 64-column panels, 128-byte swizzle) comes in
+//    by TMA under mbarriers, from one 4-d tensor map per operand
+//    (hopper.cuh::tile_map; rows past Sq or Sk arrive as zeros).  At
+//    head_dim 80 a tile is two panels, the second holding columns 64-79
+//    and TMA's zeros past them: the score products take 5 k16 steps (4 in
+//    panel 0, 1 in panel 1) and the m64n80k16 products run their last 16
+//    columns on into panel 1, so no tensor-core work falls on the
+//    padding.
 //    (b) keeps its K and V tiles (64 keys) resident and streams the Q and
 //    dO tiles of 64 queries through a ring of 2 stages (full / empty
 //    mbarriers), head by head and block by block; the producer warp also
@@ -62,13 +67,16 @@
 //    training shape (B 2, S 4096, Hq 16 / Hk 8, D 128, causal) against
 //    the bound's 0.3475.  Registers: (b) holds dK and dV (D / 2 fp32 a
 //    thread each) beside S^T and dP^T (32 each), about 192 values at D
-//    128, so one CTA an SM there (two at D 64); (c) holds dQ, S and dP,
-//    two CTAs an SM.  Causal work is a triangle: (b)'s lowest key blocks
-//    and (c)'s highest query blocks have the most tiles, and start first.
+//    128, so one CTA an SM there, two at D 64, and one at D 80: 211
+//    registers there, and bounded to two CTAs 168 with 232 bytes of
+//    spills, 9-13 % slower (`scripts/attention_bwd_occupancy.py`); (c)
+//    holds dQ, S and dP, two CTAs an SM.  Causal work is a triangle:
+//    (b)'s lowest key blocks and (c)'s highest query blocks have the most
+//    tiles, and start first.
 //
 // 2. simt (fp32 -- "fp32 means fp32": TF32 would leave its class -- and
-//    head_dim 16, 32, 80 and 256: 16 and 32 are narrower than form 1's
-//    64-column panels, 80 is no whole number of them, and at 256 one warpgroup's dK and dV alone would
+//    head_dim 16, 32 and 256: 16 and 32 are narrower than form 1's
+//    64-column panels, and at 256 one warpgroup's dK and dV alone would
 //    take 256 registers a thread): fp32 FMAs on shared-memory tiles
 //    (K, V, Q scaled, dO, rows padded to D + 1 floats so that the 16
 //    threads of a half-warp reading 16 rows hit 16 banks), 256 threads
@@ -415,7 +423,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Form 1: wgmma (bf16, head_dim 64 and 128).
+// Form 1: wgmma (bf16, head_dim 64, 80 and 128).
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -430,7 +438,7 @@ struct BwdLayout {
   static constexpr int kStages = 2;
   static constexpr int kConsumers = 128;
   static constexpr int kThreads = kConsumers + 32;
-  static constexpr int kTile = D / 64 * kPanelBytes;
+  static constexpr int kTile = panels<D>() * kPanelBytes;
   static constexpr int kStage = 2 * kTile;
   static constexpr int kStats = 2 * kTile + kStages * kStage;
   static constexpr int kBars = kStats + kStages * 128 * (int)sizeof(float);
@@ -444,7 +452,8 @@ __device__ __forceinline__ int clamp64(int64_t x) {
 }
 
 // acc (64 x D) += A . B over 64 rows of B (four k16 steps), A the hi and
-// then the lo fragments, B a tile's panels MN-major.
+// then the lo fragments, B a tile's panels MN-major (N = D columns, the
+// next panel LBO away).
 template <int D>
 __device__ __forceinline__ void wgmma_hi_lo(float* acc, const uint32_t* hi,
                                             const uint32_t* lo,
@@ -483,7 +492,7 @@ __device__ __forceinline__ void load_pair(unsigned char* dst,
                                           int b) {
   mbar_expect_tx(bar, 2 * BwdLayout<D>::kTile);
 #pragma unroll
-  for (int p = 0; p < D / 64; ++p) {
+  for (int p = 0; p < panels<D>(); ++p) {
     tma_load(dst + p * kPanelBytes, m0, bar, 64 * p, h, (int)row, b);
     tma_load(dst + BwdLayout<D>::kTile + p * kPanelBytes, m1, bar, 64 * p,
              h, (int)row, b);
@@ -923,6 +932,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
         case 64:
           return (int)launch_wgmma<64>(q, k, v, o, dout, lse, delta, dq, dk,
                                        dv, a, st);
+        case 80:
+          return (int)launch_wgmma<80>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, a, st);
         case 128:
           return (int)launch_wgmma<128>(q, k, v, o, dout, lse, delta, dq, dk,
                                         dv, a, st);
@@ -961,8 +973,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 // q, o, dout, dq (B,Sq,Hq,D); k, v, dk, dv (B,Sk,Hk,D), all contiguous, in
 // fp32; lse (B,Hq,Sq) fp32 from the forward; delta a (B,Hq,Sq) fp32
-// scratch the call fills.  `form` is 0 simt, 1 wgmma (bf16 at head_dim 64
-// and 128 only).  Three launches on `stream`; returns the first failing
+// scratch the call fills.  `form` is 0 simt, 1 wgmma (bf16 at head_dim
+// 64, 80 and 128 only).  Three launches on `stream`; returns the first failing
 // launch's error (cudaErrorInvalidValue for a shape or form it does not
 // take), else cudaSuccess.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k,

@@ -6,9 +6,14 @@
 //
 // Tiles: rows of 64 bf16 (128 bytes) in 64-row panels of kPanelBytes,
 // 1024-byte aligned, 16-byte chunk c of row r at chunk c ^ (r % 8) -- the
-// layout TMA writes under CU_TENSOR_MAP_SWIZZLE_128B.  One such tile
-// serves as a K-major operand (the reduction along its columns) and as an
-// MN-major one (the reduction along its rows, the transpose bit set).
+// layout TMA writes under CU_TENSOR_MAP_SWIZZLE_128B.  A head_dim D takes
+// panels<D>() panels, column c in panel c / 64; at D = 80 the second
+// panel holds columns 64-79 in its first 16 columns, and TMA fills the
+// rest with zeros that no product reads.  One such tile serves as a
+// K-major operand (the reduction along its columns: D / 16 k16 steps, 4 a
+// panel) and as an MN-major one (the reduction along its rows, the
+// transpose bit set; the product's N = D columns run on into the next
+// panel, LBO away).
 #pragma once
 
 #include <cuda.h>           // CUtensorMap and its enums; no -lcuda
@@ -25,6 +30,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 constexpr int kPanelBytes = 64 * 128;           // 64 rows of 64 bf16
+
+// 64-column panels of a D-wide tile.
+template <int D>
+__host__ __device__ constexpr int panels() {
+  return (D + 63) / 64;
+}
 
 // S (64 x 64, fp32) (+)= A . B^T, A and B K-major bf16 in shared memory.
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
@@ -68,6 +79,32 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc (64 x 80, fp32) += A . B, A (64 x 16 bf16) in registers, B
+// (16 x 80) MN-major bf16 in shared memory (transpose bit set): columns
+// 0-63 in one panel, 64-79 in the first 16 columns of the next (LBO).
+__device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -165,6 +202,7 @@ template <int D>
 __device__ __forceinline__ void wgmma_rs(float* acc, const uint32_t* a,
                                          uint64_t db) {
   if constexpr (D == 64) wgmma_rs_n64(acc, a, db);
+  else if constexpr (D == 80) wgmma_rs_n80(acc, a, db);
   else if constexpr (D == 128) wgmma_rs_n128(acc, a, db);
   else wgmma_rs_n256(acc, a, db);
 }
@@ -321,7 +359,9 @@ EncodeTiled encode_tiled() {
 
 // A bf16 (B, S, H, D) tensor with strides (s_b, s_s, s_h, 1) elements as
 // the 4-d tensor (D, H, S, B) with boxes of 64 x 1 x 64 x 1 (a 64-column
-// panel of 64 rows), 128-byte swizzle; reads past S fill zeros.  The
+// panel of 64 rows), 128-byte swizzle; reads past S, and past D in a
+// box that starts below it (D = 80: columns 80-127 of the box at 64),
+// fill zeros, and count towards the box's bytes all the same.  The
 // stride of an axis of extent 1 is never followed, so it gets a legal
 // value.
 cudaError_t tile_map(CUtensorMap* map, const void* base, int64_t D,

@@ -25,9 +25,12 @@ shapes alone:
     64-row tile of (query, head-of-group) rows -- prefill.  Tensor-core
     products, P split into two bf16 terms, p_hi = bf16(p) and p_lo =
     bf16(p - p_hi), so that P.V keeps ~16 bits of P as the fp32 P of
-    this plain version does.
-  * "tile": everything else (fp32 prefill, head_dim 16, 32 or 80): fp32
-    SIMT, one CTA per (b, h, 16 query rows).
+    this plain version does.  Operand tiles are 64-column panels; head_dim
+    80 takes two, the second holding columns 64-79 and zeros past them
+    that no product reads.
+  * "tile": everything else (fp32 prefill, bf16 head_dim 16 or 32, bf16
+    with fewer than 64 rows): fp32 SIMT, one CTA per (b, h, 16 query
+    rows).
 
 The dry-run traces the LM on fake tensors (`torch._subclasses.
 fake_tensor`), which hold shapes and no data.  On a fake operand
@@ -49,10 +52,9 @@ output, its cotangent and the lse: three launches (delta = dO . o; dk
 and dv per block of keys, summing the GQA group's heads in order; dq per
 block of queries), no atomics.  `backward_plan` picks its form:
   * "wgmma": bf16 at a head_dim of BWD_WGMMA_DIMS -- tensor-core
-    products fed by TMA, P and dS each split into two bf16 terms as the
-    forward splits P;
-  * "simt": everything else (fp32, head_dim 16, 32, 80 and 256): fp32
-    FMAs.
+    products fed by TMA on the forward's 64-column panels (two at head_dim
+    80), P and dS each split into two bf16 terms as the forward splits P;
+  * "simt": everything else (fp32, head_dim 16, 32 and 256): fp32 FMAs.
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the kernel's instantiations
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 FORMS = ("tile", "wgmma", "split")      # the C entry's form codes, in order
-WGMMA_DIMS = (64, 128, 256)
+WGMMA_DIMS = (64, 80, 128, 256)
 WGMMA_ROWS = 64          # rows of one wgmma tile
 SPLIT_MAX_ROWS = 8       # rows a split-form CTA holds
 SPLIT_TILE = 64          # keys per kv tile of the split form
@@ -86,7 +88,7 @@ _BWD_SYMBOLS = {torch.float32: "flash_attention_bwd_f32",
 BWD_FORMS = ("simt", "wgmma")    # the backward C entry's form codes
 # The wgmma form's head_dims: at 256 one warpgroup's dK and dV for 64 keys
 # alone would need 256 registers a thread.
-BWD_WGMMA_DIMS = (64, 128)
+BWD_WGMMA_DIMS = (64, 80, 128)
 # q, k, v, out, dout, lse, delta, dq, dk, dv; B, Sq, Sk, Hq, Hk, D, causal,
 # q_offset; scale; form; the stream.
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8
@@ -152,8 +154,8 @@ def backward_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, Hq: int,
     head_dim of BWD_WGMMA_DIMS, whatever the lengths (ragged rows and
     keys arrive as zeros and are masked), else "simt" -- fp32 stays fp32
     (TF32 would leave its class), head_dim 16 / 32 are narrower than the
-    form's 64-column tile panels, 80 is no whole number of them, and 256
-    would not fit its registers."""
+    form's 64-column tile panels (80 fills one and 16 columns of a second),
+    and 256 would not fit its registers."""
     del B, Sq, Sk, Hq, Hk    # the rule reads the dtype and head_dim alone
     if dtype == torch.bfloat16 and D in BWD_WGMMA_DIMS:
         return "wgmma"

@@ -1,8 +1,8 @@
 """The forms of the port's attention backward, on the CPU.
 
   * `attention.backward_plan`, the rule that picks the backward kernel's
-    form: "wgmma" for bf16 at head_dim 64 and 128, "simt" for fp32 and
-    head_dim 16, 32, 80 and 256, whatever the lengths.
+    form: "wgmma" for bf16 at head_dim 64, 80 and 128, "simt" for fp32 and
+    head_dim 16, 32 and 256, whatever the lengths.
   * An emulation of the wgmma form's arithmetic in plain PyTorch
     (`csrc/flash_attention_bwd.cu`, form 1): bf16 operands whose
     products are exact in fp32 and summed in fp32; P and dS split into
@@ -13,7 +13,11 @@
     delta by column), and (c) -- dQ per 64-query block -- the 64-key
     blocks in order.  Rows past Sq or Sk are zero tiles, as TMA fills
     them; a query past Sq gets lse = +inf.  Tiles the kernel skips under
-    the causal mask add exact zeros here.
+    the causal mask add exact zeros here.  D lies in 64-column panels,
+    zero-filled past D as TMA fills them (head_dim 80: two panels, the
+    second holding columns 64-79); the score products take D / 16 k16
+    steps over the real columns, and the products with N = D run over the
+    panels, their columns past D dropped.
 
 The emulation is held against `jax.vjp` of `repro.models.layers.
 flash_attention` and against `flash_attention_backward_plain`, on the
@@ -56,12 +60,13 @@ BF16_TOL = 5e-2                  # of each gradient's largest magnitude
 def test_backward_plan_picks_the_form(dtype, D, Sq, Sk):
     form = backward_plan(dtype, 2, Sq, Sk, 16, 8, D)
     assert form in BWD_FORMS
-    assert form == ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
+    assert form == ("wgmma" if dtype == torch.bfloat16 and D in (64, 80,
+                                                                  128)
                     else "simt")
 
 
 def test_backward_plan_rows_and_heads_do_not_move_the_form():
-    assert BWD_WGMMA_DIMS == (64, 128)
+    assert BWD_WGMMA_DIMS == (64, 80, 128)
     for B, Hq, Hk in ((1, 1, 1), (2, 16, 8), (1, 8, 1), (3, 12, 4)):
         assert backward_plan(torch.bfloat16, B, 70, 70, Hq, Hk, 128) == \
             "wgmma"
@@ -70,15 +75,30 @@ def test_backward_plan_rows_and_heads_do_not_move_the_form():
 
 
 def _tiles(x: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, S, H, D) bf16 -> (B, H, n, 64, D) fp32, rows past S zero."""
+    """(B, S, H, D) bf16 -> (B, H, n, 64, 64 * panels) fp32, as TMA
+    fills a tile's 64-column panels: rows past S and columns past D
+    zero."""
     B, S, H, D = x.shape
-    pad = torch.zeros((B, n * TILE, H, D), dtype=torch.float32)
-    pad[:, :S] = x.float()
-    return pad.permute(0, 2, 1, 3).reshape(B, H, n, TILE, D)
+    width = -(-D // TILE) * TILE
+    pad = torch.zeros((B, n * TILE, H, width), dtype=torch.float32)
+    pad[:, :S, :, :D] = x.float()
+    return pad.permute(0, 2, 1, 3).reshape(B, H, n, TILE, width)
+
+
+def k16_scores(a: torch.Tensor, b: torch.Tensor, D: int) -> torch.Tensor:
+    """a @ b^T over the first D columns of two panel tiles, as the
+    kernel's D / 16 k16 steps (4 a panel) sum them in fp32: the padding
+    past D is never read."""
+    out = 0.0
+    for kk in range(D // 16):
+        cols = slice(16 * kk, 16 * kk + 16)
+        out = out + a[..., cols] @ b[..., cols].transpose(-1, -2)
+    return out
 
 
 def _split_product(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x (fp32) @ b as the kernel's two wgmma passes: hi, then lo."""
+    """x (fp32) @ b as the kernel's two wgmma passes: hi, then lo; b's
+    columns run over its panels (N = D, then the zeros past D)."""
     hi, lo = split_hi_lo(x)
     return hi.float() @ b + lo.float() @ b
 
@@ -111,8 +131,8 @@ def wgmma_backward_emulated(q, k, v, out, dout, lse, *, causal: bool,
         for qb in range(nq):
             Qt, dOt = Q[:, h, qb, None], dO[:, h, qb, None]   # (B,Hk,1,64,D)
             cols = slice(qb * TILE, (qb + 1) * TILE)
-            St = K @ Qt.transpose(-1, -2)                      # keys x queries
-            dPt = V @ dOt.transpose(-1, -2)
+            St = k16_scores(K, Qt, D)                          # keys x queries
+            dPt = k16_scores(V, dOt, D)
             Pt = torch.exp2(St * scale2 - lse2[:, h, None, None, cols])
             if causal:
                 live = kpos[:, :, None] <= q_offset + qpos[qb][None, None, :]
@@ -126,8 +146,8 @@ def wgmma_backward_emulated(q, k, v, out, dout, lse, *, causal: bool,
     dQ = torch.zeros_like(Q)
     for kb in range(nk):
         Kt, Vt = K[:, hk, kb, None], V[:, hk, kb, None]       # (B,Hq,1,64,D)
-        S = Q @ Kt.transpose(-1, -2)                          # queries x keys
-        dP = dO @ Vt.transpose(-1, -2)
+        S = k16_scores(Q, Kt, D)                              # queries x keys
+        dP = k16_scores(dO, Vt, D)
         P = torch.exp2(S * scale2 - lse2.reshape(B, Hq, nq, TILE, 1))
         live = kpos[kb][None, None, :] < Sk
         if causal:
@@ -138,8 +158,9 @@ def wgmma_backward_emulated(q, k, v, out, dout, lse, *, causal: bool,
         dQ = dQ + _split_product(dS, Kt)
 
     def untile(x, S):
-        B_, H, n, _, D_ = x.shape
-        return x.reshape(B_, H, n * TILE, D_)[:, :, :S].permute(0, 2, 1, 3)
+        B_, H, n, _, width = x.shape
+        return x.reshape(B_, H, n * TILE, width)[:, :, :S, :D].permute(
+            0, 2, 1, 3)
 
     return ((untile(dQ, Sq) * scale).to(torch.bfloat16),
             (untile(dK, Sk) * scale).to(torch.bfloat16),
@@ -148,7 +169,8 @@ def wgmma_backward_emulated(q, k, v, out, dout, lse, *, causal: bool,
 
 # (B, Sq, Sk, Hq, Hk, D, causal, q_offset): GQA g = 1, 2 and 8, causal and
 # not, q_offset = Sk - Sq and below it (keys no query sees), Sq and Sk
-# ragged about the 64-row tiles, one query.
+# ragged about the 64-row tiles, one query; head_dim 64, 80 (two panels,
+# the second 16 columns wide) and 128.
 EMU_CASES = [
     (1, 70, 70, 2, 2, 64, True, 0),
     (2, 65, 130, 4, 2, 64, True, 65),
@@ -156,6 +178,10 @@ EMU_CASES = [
     (1, 33, 70, 4, 2, 64, False, 0),
     (1, 130, 130, 4, 2, 128, True, 0),
     (1, 1, 40, 4, 4, 64, True, 39),
+    (1, 70, 70, 2, 2, 80, True, 0),
+    (2, 65, 130, 4, 2, 80, True, 65),
+    (1, 33, 70, 4, 2, 80, False, 0),
+    (1, 130, 130, 2, 2, 80, True, 0),
 ]
 
 

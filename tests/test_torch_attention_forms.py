@@ -11,9 +11,16 @@
   * the wgmma form's P split into two bf16 terms (`split_hi_lo`, its
     arithmetic in plain PyTorch): P.V from the two stays within 2^-15
     relative of the fp32 P.V.
+  * the wgmma form at head_dim 80, emulated (`wgmma_forward_emulated`):
+    64-row tiles of (query, head-of-group) rows, D in two zero-filled
+    64-column panels as TMA fills them, S from 5 k16 steps, the online
+    softmax in base 2, O += P_hi V + P_lo V over 80 columns -- against
+    `repro`'s Pallas kernel in interpret mode and its chunked layer.
 
 Inputs come from numpy seeds.  Tolerance: rtol = atol = 2e-5 against
-`repro`, the bound of `repro`'s own sweep (`test_kernels.py`).
+`repro`, the bound of `repro`'s own sweep (`test_kernels.py`); the
+emulated wgmma form, whose output is bf16, one bf16 ulp (atol 1e-4, rtol
+2^-7, the card tests' `ATTN_TOL`), and its lse 2e-5.
 """
 from __future__ import annotations
 
@@ -26,8 +33,10 @@ from _torch_cases import ATTN_SWEEP, attention_case
 from conftest import assert_allclose
 from repro.kernels.attention import flash_attention_pallas
 from repro.models import layers as jlayers
-from repro_torch.kernels.attention import (MAX_SPLITS, SPLIT_MAX_ROWS,
-                                          SPLIT_TILE, AttentionPlan, plan,
+from repro_torch.kernels.attention import (MAX_SPLITS, NEG_INF,
+                                          SPLIT_MAX_ROWS, SPLIT_TILE,
+                                          WGMMA_ROWS, AttentionPlan,
+                                          flash_attention_plain, plan,
                                           split_kv_plain)
 
 TOL = 2e-5
@@ -58,8 +67,11 @@ PLAN_CASES = [
     ((BF16, 1, 32, 32, 2, 1, 64), ("wgmma", 1)),         # 32 x 2 rows
     ((BF16, 1, 9, 40, 1, 1, 64), ("tile", 1)),
     # zamba2-2.7b's shared block (head_dim 80, MHA 32 heads) at the engine's
-    # batch 4: no wgmma form at 80, so prefill on tile; decode on split.
-    ((BF16, 4, 1024, 1024, 32, 32, 80), ("tile", 1)),
+    # batch 4: a bf16 prefill on wgmma (two 64-column panels), fp32 and a
+    # bf16 call with fewer than 64 rows on tile; decode on split.
+    ((BF16, 4, 1024, 1024, 32, 32, 80), ("wgmma", 1)),
+    ((BF16, 2, 4096, 4096, 32, 32, 80), ("wgmma", 1)),   # its training
+    ((BF16, 4, 63, 63, 32, 32, 80), ("tile", 1)),
     ((F32, 4, 1000, 1000, 32, 32, 80), ("tile", 1)),
     ((BF16, 4, 1, 1025, 32, 32, 80), ("split", 3)),
     ((F32, 4, 1, 129, 32, 32, 80), ("split", 3)),
@@ -209,3 +221,95 @@ def test_hi_lo_split_keeps_p_v_within_2_to_the_minus_15(seed, keys):
     # p_hi + p_lo itself within 2^-16 of p, elementwise.
     assert ((hi.double() + lo.double() - p.double()).abs()
             <= 2.0 ** -16 * p.double().abs()).all()
+
+
+def wgmma_forward_emulated(q, k, v, *, causal: bool, q_offset: int):
+    """(out bf16, lse fp32 (B,Hq,Sq)) through the wgmma form's arithmetic
+    (`csrc/flash_attention.cu`, form 2) on bf16 q, k, v.  A CTA's 64 rows
+    are (query, head of the group) pairs of one kv head, row r query r / g
+    of head hk * g + r % g; its keys come in tiles of 64.  D lies in
+    64-column panels, zero past D; S sums D / 16 k16 steps (exact bf16
+    products in fp32), is scaled by D**-0.5 log2(e), masked to -1e30, and
+    the online softmax runs in base 2; P is split into p_hi + p_lo and
+    both go through P V over the panels.  Every CTA here walks every key
+    tile: a tile the kernel skips is wholly masked, adding p = 0 and
+    scaling by 2^0 = 1, exact no-ops."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hk, _ = k.shape
+    g = Hq // Hk
+    width = -(-D // 64) * 64
+    rows = Sq * g
+    nt, nk = -(-rows // WGMMA_ROWS), -(-Sk // 64)
+
+    def panels(x, n, S):       # (B, S, H, D) -> (B, H, n * 64, width) fp32
+        out = torch.zeros((B, x.shape[2], n * 64, width))
+        out[:, :, :S, :D] = x.float().permute(0, 2, 1, 3)
+        return out
+
+    # (B, Hk, rows): row r of kv head hk is query r // g of head hk g + r % g.
+    Q = torch.zeros((B, Hk, nt * WGMMA_ROWS, width))
+    Q[:, :, :rows, :D] = q.float().reshape(B, Sq, Hk, g, D).permute(
+        0, 2, 1, 3, 4).reshape(B, Hk, rows, D)
+    K, V = panels(k, nk, Sk), panels(v, nk, Sk)
+    qpos = q_offset + torch.arange(nt * WGMMA_ROWS) // g
+    scale2 = torch.tensor(D ** -0.5, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    m = torch.full((B, Hk, nt * WGMMA_ROWS), NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(Q)
+    for t in range(nk):
+        keys = slice(64 * t, 64 * t + 64)
+        s = 0.0
+        for kk in range(D // 16):
+            cols = slice(16 * kk, 16 * kk + 16)
+            s = s + Q[..., cols] @ K[:, :, keys, cols].transpose(-1, -2)
+        kpos = 64 * t + torch.arange(64)
+        live = (kpos < Sk)[None, :].expand(len(qpos), 64)
+        if causal:
+            live = live & (kpos[None, :] <= qpos[:, None])
+        s = torch.where(live, s * scale2, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        m = m_new
+        hi, lo = split_hi_lo(p)
+        acc = acc * corr[..., None] + hi.float() @ V[:, :, keys] \
+            + lo.float() @ V[:, :, keys]
+    out = acc[:, :, :rows, :D] / torch.clamp_min(l[:, :, :rows], 1e-30)[
+        ..., None]
+    out = out.reshape(B, Hk, Sq, g, D).permute(0, 2, 1, 3, 4).reshape(
+        B, Sq, Hq, D).to(torch.bfloat16)
+    lse = m[:, :, :rows] * 0.6931471805599453 + torch.log(
+        torch.clamp_min(l[:, :, :rows], 1e-30))
+    lse = lse.reshape(B, Hk, Sq, g).permute(0, 1, 3, 2).reshape(B, Hq, Sq)
+    return out, lse
+
+
+# (B, Sq, Sk, Hq, Hk, D, causal, q_offset, bq, bk) at head_dim 80: MHA and
+# GQA g = 2, rows ragged about the 64-row tile, Sq < Sk with a q_offset,
+# and full attention.
+D80_CASES = [
+    (1, 70, 70, 2, 2, 80, True, 0, 32, 32),
+    (2, 65, 130, 4, 2, 80, True, 65, 32, 64),
+    (1, 40, 100, 4, 2, 80, True, 37, 16, 32),
+    (1, 33, 70, 4, 2, 80, False, 0, 32, 32),
+    (1, 128, 200, 2, 2, 80, True, 72, 64, 64),
+]
+
+
+@pytest.mark.parametrize("case", D80_CASES,
+                         ids=["-".join(map(str, c[:8])) for c in D80_CASES])
+def test_emulated_wgmma_forward_at_head_dim_80_matches_repro(case):
+    B, Sq, Sk, Hq, Hk, D, causal, off, bq, bk = case
+    q, k, v = attention_case(B, Sq, Sk, Hq, Hk, D, seed=sum(case[:6]))
+    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16) for a in (q, k, v))
+    out, lse = wgmma_forward_emulated(tq, tk, tv, causal=causal, q_offset=off)
+    pallas, layer = _repro_pair(*(t.float().numpy() for t in (tq, tk, tv)),
+                                causal, off, bq, bk)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, Sq, Hq, D)
+    for want in (pallas, layer):
+        assert_allclose(out.float(), want, rtol=2.0 ** -7, atol=1e-4)
+    _, plain_lse = flash_attention_plain(tq, tk, tv, causal=causal,
+                                         q_offset=off, return_lse=True)
+    assert_allclose(lse, plain_lse, rtol=TOL, atol=TOL)

@@ -32,7 +32,8 @@ from repro_torch.core.spec import ConvSpec, Epilogue, resolve_backend
 from repro_torch.data.pipeline import ConvDataset
 from repro_torch.kernels import ops
 from repro_torch.kernels.attention import backward_plan as attn_bwd_plan
-from repro_torch.kernels.attention import (flash_attention_backward_cuda,
+from repro_torch.kernels.attention import (AttentionPlan,
+                                           flash_attention_backward_cuda,
                                            flash_attention_backward_plain,
                                            flash_attention_cuda,
                                            flash_attention_plain, plan)
@@ -894,8 +895,8 @@ def test_flash_attention_lse_from_the_split_and_wgmma_forms(cuda, Sq):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", ATTN_BWD_CASES)
 def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, case):
-    """On the form `backward_plan` picks: bf16 at head_dim 64 / 128 on
-    wgmma, the rest on simt."""
+    """On the form `backward_plan` picks: bf16 at head_dim 64 / 80 / 128
+    on wgmma, the rest on simt."""
     _check_backward_form(cuda, dtype, case, None, 33)
 
 
@@ -931,13 +932,13 @@ def _check_backward_form(cuda, dtype, case, form, seed):
     assert all(torch.equal(a, b) for a, b in zip(got, run()))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 @pytest.mark.parametrize("case", ATTN_BWD_CASES)
 def test_flash_attention_backward_wgmma_form_at_every_geometry(cuda, case,
                                                                 D):
-    """Every ATTN_BWD_CASES geometry in bf16 at head_dim 64 and 128 runs
-    on the tensor-core form: ragged rows and keys (63, 65, 70, 130, one
-    query), MQA, q_offset, causal or not."""
+    """Every ATTN_BWD_CASES geometry in bf16 at head_dim 64, 80 and 128
+    runs on the tensor-core form: ragged rows and keys (63, 65, 70, 130,
+    one query), MQA, q_offset, causal or not."""
     case = case[:5] + (D,) + case[6:]
     assert attn_bwd_plan(torch.bfloat16, *case[:6]) == "wgmma"
     _check_backward_form(cuda, torch.bfloat16, case, None, 35)
@@ -969,29 +970,73 @@ def test_flash_attention_backward_refuses_a_form_the_shapes_do_not_take(
                                           form="tile")
 
 
-def test_wgmma_forms_refuse_head_dim_80(cuda):
-    """No wgmma form at head_dim 80 (its 160-byte rows fit no TMA swizzle
-    width): forced on it, the forward and the backward raise; the plans
-    send 80 to tile / split and simt."""
+# (B, Sq, Sk, Hq, Hk, D, causal, q_offset) at head_dim 80 in bf16: rows
+# and keys ragged about the 64-row and 64-key tiles (Sq 70, Sk 130), GQA
+# g = 2, a q_offset of Sk - Sq and one below it (keys no query sees), and
+# full attention.
+D80_WGMMA_CASES = [(1, 70, 130, 4, 2, 80, True, 60),
+                   (2, 70, 130, 4, 2, 80, True, 20),
+                   (1, 70, 130, 4, 2, 80, False, 0),
+                   (1, 130, 130, 2, 2, 80, True, None)]
+
+
+@pytest.mark.parametrize("case", D80_WGMMA_CASES)
+def test_wgmma_forms_at_head_dim_80_match_plain(cuda, case):
+    """The tensor-core forms at head_dim 80 (two 64-column panels, the
+    second 16 columns wide): the forward's output and lse and the
+    backward's dq, dk, dv against their plain versions at one bf16 ulp,
+    each rerun bit for bit; the plans send bf16 at 80 to them."""
     q, k, v, out, lse, do, causal, off = _attention_grad_operands(
-        (1, 70, 70, 4, 2, 80, True, None), torch.bfloat16, cuda, 38)
-    assert plan(torch.bfloat16, 1, 70, 70, 4, 2, 80).form == "tile"
-    assert attn_bwd_plan(torch.bfloat16, 1, 70, 70, 4, 2, 80) == "simt"
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        flash_attention_cuda(q, k, v, causal=True, q_offset=0,
-                             form=plan(torch.bfloat16, 1, 70, 70, 4, 2, 128))
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        flash_attention_backward_cuda(q, k, v, out, do, lse, causal=causal,
-                                      q_offset=off, form="wgmma")
+        case, torch.bfloat16, cuda, 42)
+    form = plan(torch.bfloat16, *case[:6])
+    assert form.form == "wgmma"
+    assert attn_bwd_plan(torch.bfloat16, *case[:6]) == "wgmma"
+    want_out, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                               q_offset=off, return_lse=True)
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
+    again = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
+                                 form=form, return_lse=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    _check_backward_form(cuda, torch.bfloat16, case, None, 42)
+
+
+def test_tile_and_simt_forms_forced_at_bf16_head_dim_80(cuda):
+    """The SIMT forms stay held at bf16 / 80, where the plans now send the
+    call to wgmma: forced, each matches its plain version and reruns bit
+    for bit.  No fallback: the wgmma forms refuse fp32 and head_dim 32
+    (cudaErrorInvalidValue, and the launcher raises)."""
+    case = (1, 70, 130, 4, 2, 80, True, 60)
+    q, k, v, out, lse, do, causal, off = _attention_grad_operands(
+        case, torch.bfloat16, cuda, 43)
+    tile = AttentionPlan("tile", 1)
+    got = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
+                               form=tile)
+    want = flash_attention_plain(q, k, v, causal=causal, q_offset=off)
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, flash_attention_cuda(
+        q, k, v, causal=causal, q_offset=off, form=tile))
+    _check_backward_form(cuda, torch.bfloat16, case, "simt", 43)
+    wgmma = AttentionPlan("wgmma", 1)
+    for dtype, D in ((torch.float32, 80), (torch.bfloat16, 32)):
+        q, k, v = _attention_operands((1, 70, 70, 4, 2, D), dtype, cuda, 44)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            flash_attention_cuda(q, k, v, causal=True, q_offset=0,
+                                 form=wgmma)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_head_dim_80_at_zamba2s_shape(cuda, dtype):
     """zamba2-2.7b's shared block at the engine's batch 4 (MHA 32 heads,
-    head_dim 80): a prefill of 1000 on tile, a decode over a strided
-    cache on split, the backward at 1024 on simt -- each against its
-    plain version, each rerun bit for bit."""
+    head_dim 80): a prefill of 1000 (bf16 on wgmma, fp32 on tile), a
+    decode over a strided cache on split, the backward at 1024 (bf16 on
+    wgmma, fp32 on simt) -- each against its plain version, each rerun
+    bit for bit."""
     q, k, v = _attention_operands((4, 1000, 1000, 32, 32, 80), dtype, cuda,
                                   39)
     ops.reset_launches()
@@ -1000,7 +1045,9 @@ def test_head_dim_80_at_zamba2s_shape(cuda, dtype):
                                      40)
     dec = ops.flash_attention(qd, ck[:, :1025], cv[:, :1025], causal=True,
                               q_offset=1024)
-    assert ops.FLASH_FORMS == {"tile": 1, "wgmma": 0, "split": 1}
+    bf16 = dtype == torch.bfloat16
+    assert ops.FLASH_FORMS == {"tile": int(not bf16), "wgmma": int(bf16),
+                               "split": 1}
     atol, rtol = ATTN_TOL[dtype]
     for a, b in ((got, flash_attention_plain(q, k, v, causal=True)),
                  (dec, flash_attention_plain(qd, ck[:, :1025], cv[:, :1025],
