@@ -31,8 +31,12 @@ Phases (any failed check raises and ends the run non-zero):
      on both kernels, the one `tiling.plan_strategy` picks and the other;
      phase 8's geometries (the atrous branches at D = 1, 2, 4 and the 1x1
      fuse conv at batch 16, 128x128, forward and backward; patchify's
-     S = K = 14 conv at batch 8, 448x448, 3 -> 1024, forward and
-     backward) and the paper's 14 input gradients on both kernels; the
+     S = K = 14 conv at batch 8, 448x448, 3 -> 1024, forward, and
+     backward on the patch roles in fp32 and bf16, one `patchify` line:
+     kernel / plain / cuDNN / bound and the plan's roles and tiles) and
+     the paper's 14 input gradients on both kernels; a ragged
+     non-overlapping conv (S = K = 4 on a 15 x 14 frame) in fp32 and
+     bf16; the
      attention backward (csrc/flash_attention_bwd.cu) at qwen3's head_dim
      128, GQA g = 2, causal, bf16 and fp32, S = 1024, 1000 and the
      training path's 4096, and Sq 300 / Sk 1000 at q_offset 500, each on
@@ -177,7 +181,7 @@ Phases (any failed check raises and ends the run non-zero):
      (b)'s first 6 requests with frames in place of prompts (`LM.prefill`
      on frames, greedy `decode_step`s; prefills on wgmma at head_dim 64 /
      128, decodes on split), requests/s, ms per call, a decode profile
-     (`embed_serve`); musicgen-medium trained at 24 layers through
+     (`embed_serve`); musicgen-medium trained at 12 layers through
      `Trainer.run` at seq 4096, batch 8 in 4 microbatches, 4 steps, traced, a rerun
      bit-equal; (b) the conv steps on a device mesh (`mesh_phase`): MESH_RANKS
      `gloo` ranks spawned on the one card, a (2, 2) ("data", "model")
@@ -342,7 +346,8 @@ LR = 0.05
 # cuDNN in bf16 (atol relative to the output's largest magnitude).
 BF16_TOL = (2.0 ** -7, 2.0 ** -7, "of max")
 BF16_LIB_TOL = (5e-2, 5e-2, "of max")
-PHASE3_ITERS = 10         # timed calls a case (20 before phase 14 came)
+PHASE3_ITERS = 5          # timed calls a case (20 before phase 14 came,
+                          # 10 before the patch roles' cases)
 TRAIN_STEPS_BF16 = 3      # phase 5 (b)
 TRAIN_TOL_BF16 = 5e-2     # phase 5 (b): of each leaf's largest magnitude
 # (atol, rtol) of flash attention against its plain version and against
@@ -376,11 +381,13 @@ LM_TRAIN_STEPS = 4                # 1 warm-up + 3 timed
 ATTN_BWD_SYMBOLS = ("attn_bwd_delta_kernel", "attn_bwd_dkdv_kernel",
                     "attn_bwd_dq_kernel", "attn_bwd_dkdv_wgmma_kernel",
                     "attn_bwd_dq_wgmma_kernel")
-# The conv wrappers' kernel symbols (csrc/*.cu), to sort a trace by.
+# The conv wrappers' kernel symbols (csrc/*.cu), to sort a trace by: a
+# pattern of the profiler's kernel names (conv_backward launches its
+# patch roles' kernel at a non-overlapping conv).
 CONV_SYMBOLS = {"dconv_forward": "dconv_forward_kernel",
                 "tconv_phase": "tconv_phase_kernel",
                 "tconv_implicit_gemm": "tconv_implicit_gemm_kernel",
-                "conv_backward": "conv_backward_kernel",
+                "conv_backward": "conv_backward(?:_patch)?_kernel",
                 "tconv_backward": "tconv_backward_kernel",
                 "dconv_filter_grad": "dconv_filter_grad_kernel"}
 ATTN_FORMS = ("tile", "wgmma", "split")   # csrc/flash_attention.cu's kernels
@@ -507,7 +514,8 @@ FAMILY_SEED = 41          # the card generator's seed of phase 11's params
 EMBED_PARITY = {"musicgen-medium": (2, LM_TRAIN_PARITY),
                 "internvl2-76b": (1, (1, 256))}
 EMBED_SERVE = ("musicgen-medium", "internvl2-76b")
-EMBED_TRAIN = {"musicgen-medium": 24}   # 48 before phase 14 came (46 s)
+EMBED_TRAIN = {"musicgen-medium": 12}   # 48 before phase 14 came (46 s),
+                                        # 24 before the patch roles' cases
 EMBED_TRAIN_STEPS = 4
 # Phase 12 (b): the conv steps on a (2, 2) ("data", "model") mesh of
 # MESH_RANKS `gloo` ranks that share the one card, at phase 5's widths and
@@ -4864,6 +4872,7 @@ def main() -> int:
         flash_attention_plain)
     from repro_torch.kernels.attention import backward_plan as attn_bwd_plan
     from repro_torch.kernels.attention import plan as attn_plan
+    from repro_torch.kernels.dconv_backward import PATCH as PATCH_TILE
     from repro_torch.kernels.dconv_backward import TILES as BWD_TILES
     from repro_torch.kernels.dconv_backward import plan as backward_plan
     from repro_torch.kernels.dconv_backward import (conv_backward_plain,
@@ -4932,18 +4941,20 @@ def main() -> int:
 
     def plan_name(op, spec, B, hw, oh_ow, cin, cout, bias=False):
         """The tiles and splits `dconv_backward.plan` gives a launch: each
-        role's tile (BM x BN), tiles and CTAs per tile.  `hw` is the big
-        side (x, or the tconv's output n_out)."""
+        role's tile (BM x BN), tiles and CTAs per tile, "patch" before the
+        patch roles'.  `hw` is the big side (x, or the tconv's output
+        n_out)."""
         p = backward_plan(op, spec, B, hw, oh_ow, cin, cout, n_out=hw,
                           bias=bias)
-        gather = None if p.tile < 0 else "{} {}x{} {} x{}".format(
-            "dx" if op in ("conv_backward", "tconv_phase") else
+        roles = "patch " if p.tile == PATCH_TILE else ""
+        gather = None if p.tile < 0 else "{}{} {}x{} {} x{}".format(
+            roles, "dx" if op in ("conv_backward", "tconv_phase") else
             "y" if op == "dconv_forward" else "ddy", *BWD_TILES[p.tile],
             p.tiles, p.splits)
         if p.dw_tile < 0:
             return gather
-        dw = "dW {}x{} {} x{} (chunk {})".format(
-            *BWD_TILES[p.dw_tile], p.dw_tiles, p.dw_splits, p.chunk)
+        dw = "{}dW {}x{} {} x{} (chunk {})".format(
+            roles, *BWD_TILES[p.dw_tile], p.dw_tiles, p.dw_splits, p.chunk)
         return dw if gather is None else f"{gather}, {dw}"
 
     def ig_plan_name(spec, B, n_out, in_hw, cin, cout, itemsize=4):
@@ -5225,6 +5236,11 @@ def main() -> int:
                                         ragged_ep, False, **kw))
             out.append(filter_grad_case(name, Bs, hw, cin, cout, k, s, p, d,
                                         False, **kw))
+        # The patch roles at a ragged non-overlapping conv: S = K = 4 on a
+        # 15 x 14 frame (dx = 0 on the last 3 rows and 2 columns), ragged
+        # channels, a dW run of Kw*Cin = 20 rows.
+        out.append(backward_case("ragged_patch_s4", 3, (15, 14), 5, 37, 4,
+                                 4, 0, 1, ragged_ep, False, **kw))
         return out
 
     cases += conv_cases(torch.float32)
@@ -5242,13 +5258,19 @@ def main() -> int:
             f"atrous_rate{r}_B{ATROUS_BATCH}", ATROUS_BATCH,
             (ATROUS_SIZE, ATROUS_SIZE), 3, 16, 3, 1, r, r, relu, False,
             timed=True))
-    cases.append(backward_case(f"atrous_fuse_B{ATROUS_BATCH}", ATROUS_BATCH,
-                               (ATROUS_SIZE, ATROUS_SIZE), 48, 4, 1, 1, 0, 1,
-                               plain_ep, False, timed=True))
-    for make in (fwd_case, backward_case):
-        cases.append(make(f"patchify_B{PATCH_BATCH}", PATCH_BATCH,
-                          (PATCH_SIZE, PATCH_SIZE), 3, PATCH_D_MODEL, PATCH,
-                          PATCH, 0, 1, plain_ep, False, timed=True))
+    fuse = f"atrous_fuse_B{ATROUS_BATCH}"
+    cases.append(backward_case(fuse, ATROUS_BATCH, (ATROUS_SIZE, ATROUS_SIZE),
+                               48, 4, 1, 1, 0, 1, plain_ep, False,
+                               timed=True))
+    patchify = f"patchify_B{PATCH_BATCH}"
+    # The cases the `patchify` line prints (and the fuse's backward).
+    vision_cases = {patchify, f"{patchify}_bf16", fuse}
+    for make, dtype in ((fwd_case, torch.float32),
+                        (backward_case, torch.float32),
+                        (backward_case, torch.bfloat16)):
+        cases.append(make(patchify, PATCH_BATCH, (PATCH_SIZE, PATCH_SIZE), 3,
+                          PATCH_D_MODEL, PATCH, PATCH, 0, 1, plain_ep, False,
+                          timed=True, dtype=dtype))
     # The input gradients the planner races in phase 8, on both of its
     # arms at their analytical plans (weights at 1/sqrt(Kh*Kw*Cout), so
     # each output is of order 1).
@@ -5546,7 +5568,7 @@ def main() -> int:
         torch.cuda.current_stream().cuda_stream)))
     print("launch floor " + json.dumps({"empty_kernel_ms": floor_ms,
                                         "card": card}))
-    kernels, race, bf16_launches = {}, {}, {}
+    kernels, race, bf16_launches, patchify_rows = {}, {}, {}, {}
     for c in cases:
         before = dict(ops.LAUNCHES)
         if "check" in c:
@@ -5579,6 +5601,11 @@ def main() -> int:
                        bound_ms=b_ms, bound_by=b_by, macs=c["macs"],
                        nbytes=c["nbytes"])
         print("case " + json.dumps(row))
+        if c["case"] in vision_cases:
+            patchify_rows[f"{c['kernel']} {c['case']}"] = {
+                k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by", "max_abs_err",
+                                    "form")}
         if c.get("dtype") == "bf16":   # every launch the case made
             for name, n in ops.LAUNCHES.items():
                 bf16_launches[name] = bf16_launches.get(name, 0) + n \
@@ -5603,6 +5630,7 @@ def main() -> int:
         ms = {arm: point[kernel] for arm, kernel in TCONV_KERNELS.items()}
         point["miss"] = ms[point["pick"]] > MISS_RATIO * min(ms.values())
     print("race " + json.dumps(race | {"card": card}))
+    print("patchify " + json.dumps(patchify_rows | {"card": card}))
     print(f"kernels: all {len(kernels)} (the six conv kernels' bf16 entries "
           f"counted apart) agree with their plain versions and the library "
           f"within {TOL:g} at every case (flash attention in bf16, (atol, "

@@ -4,10 +4,13 @@ the main-path layers, for each tile and split count the kernels take: the
 sweep that `kernels/dconv_backward.py::plan`'s constants come from.
 
     python3 scripts/backward_plan_sweep.py [--ops all|backward|forward]
+                                           [--layers all|main|vision]
                                            [--out FILE]
 
 Needs one CUDA card and `nvcc`.  The backwards at the nine layers of
-conv training (batch 64), and the forwards (`tconv_phase`,
+conv training (batch 64) and at the vision layers (patchify, the atrous
+head's 1x1 fuse; `backward_roles.VISION_LAYERS`, where the candidates
+include the patch roles at every split pair), and the forwards (`tconv_phase`,
 `dconv_forward`) at the generator's t1 and t2 and the ASPP branches at
 the serving slot batch 4 and at t1, t2, discriminator c1-c3 and CNN l1-l3
 at batch 64, each launched at every plan of `dconv_backward.candidates`
@@ -35,7 +38,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-from backward_roles import BATCH, LAYERS  # noqa: E402
+from backward_roles import layer_rows  # noqa: E402
 
 # The forwards' layers: (op, name, batch, input side (H, W) -- dy for
 # tconv_phase, x for dconv_forward -- Cin, Cout, K, S, P = D for the ASPP
@@ -111,6 +114,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ops", choices=("all", "backward", "forward"),
                     default="all", help="which kernels to sweep")
+    ap.add_argument("--layers", choices=("all", "main", "vision"),
+                    default="all", help="which backward layers to sweep")
     ap.add_argument("--out", default=None, help="also write the lines here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -130,18 +135,19 @@ def main() -> int:
         lines.append(line)
         print(line, flush=True)
 
-    for kernel, name, hw, cin, cout, k, act in (
-            LAYERS if args.ops != "forward" else []):
-        spec = ConvSpec.make(stride=2, padding=1, filter_shape=k)
-        ep = Epilogue(activation=act, slope=0.2)
+    for kernel, name, batch, hw, cin, cout, k, s, p, act in (
+            layer_rows(args.layers) if args.ops != "forward" else []):
+        spec = ConvSpec.make(stride=s, padding=p, filter_shape=k)
+        ep = Epilogue(activation=act or "none", slope=0.2)
         oh_ow = spec.out_size(hw)
         w = torch.randn((k, k, cin, cout), generator=gen).to(dev)
-        big = torch.randn((BATCH, *hw, cin), generator=gen).to(dev)
-        small = torch.randn((BATCH, *oh_ow, cout), generator=gen).to(dev) \
-            / (BATCH * oh_ow[0] * oh_ow[1]) ** 0.5
+        big = torch.randn((batch, *hw, cin), generator=gen).to(dev)
+        small = torch.randn((batch, *oh_ow, cout), generator=gen).to(dev) \
+            / (batch * oh_ow[0] * oh_ow[1]) ** 0.5
         out = torch.randn(small.shape if kernel == "conv_backward"
                           else big.shape, generator=gen).to(dev)
-        out = torch.tanh(out) if act == "tanh" else out
+        out = None if act is None else torch.tanh(out) if act == "tanh" \
+            else out
         if kernel == "conv_backward":
             def run(plan=None):
                 return db.conv_backward_cuda(big, small, w, spec, n_out=hw,
@@ -150,7 +156,7 @@ def main() -> int:
             def run(plan=None):
                 return db.tconv_backward_cuda(big, small, w, spec, z=out,
                                               epilogue=ep, plan=plan)
-        plans = db.candidates(kernel, spec, BATCH, oh_ow, cin, cout,
+        plans = db.candidates(kernel, spec, batch, oh_ow, cin, cout,
                               n_out=hw)
         own = plans[0]
         want = run(own)

@@ -33,15 +33,33 @@
 // The mask is applied as dy is loaded (the `Masked` reader), on its way
 // to shared memory, never stored: dy and y are read, m is not written.
 //
-// Bound.  At the training path's shapes (B = 64, K = 4 or 3, S = 2) the
-// unique bytes (x, dy, y, W, dx, dW) and the useful MACs of the two
-// products give bounds of 2-7 microseconds.  The tiles reuse each
+// Non-overlapping convs (S = K, P = 0, D = 1 on both axes: patchify's
+// S = K = 14, a 1x1 conv at S = 1) take the patch roles instead
+// (conv_body.cuh: patch_dw_tile, patch_dx_tile), in a kernel of their
+// own on the same RoleGrid, when the plan names tile 5 for both: dx is
+// one GEMM m . W^T over (B*Oh*Ow) x (Kh*Kw*Cin), each row stored into
+// dx's frame as Kh runs of Kw*Cin values, and dW one GEMM over the patch
+// rows of x, on 128 x 128 tiles with 8 x 8 register micro-tiles, two
+// CTAs an SM.  By residue class the dx role would run Kh*Kw one-tap
+// classes of N = Cin columns, each reading the whole cotangent (196 at
+// patchify).  A cotangent with no activation and no scale (patchify's)
+// is read as it lies, not through the Masked reader.
+//
+// Bound.  At patchify's layer (B 8, 448x448, 3 -> 1024) the two
+// products' 9.87e9 MACs bound the launch at 0.295 ms (fp32 FMA peak);
+// the bytes at 0.023 ms.  The patch roles' 640 equal CTAs (320 dx tiles,
+// 40 dW tiles split 8 ways) fill 2.4 waves of two CTAs an SM.  At the
+// training path's shapes (B = 64, K = 4 or 3, S = 2) the unique bytes
+// (x, dy, y, W, dx, dW) and the useful MACs of the two products give
+// bounds of 2-7 microseconds.  The tiles reuse each
 // operand element from registers TM or TN times and from shared memory
 // BN or BM times; what is left is the gathers' index arithmetic, the
 // re-reads of dy by the taps of one class (through L1 / L2), the split
 // partials' round trip through L2, and, at Cin = 3, one dW tile whose
 // 16384-position sum only the split spreads over the card.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "conv_body.cuh"
@@ -78,6 +96,34 @@ __global__ void __launch_bounds__(kGemmThreads)
     dx_tile<TD>(a.cot, a.w, a.dx, a.gdx, a.t, a.fd, tile, sp, smem);
 }
 
+// The patch roles' launch, two CTAs an SM.  A cotangent with no
+// activation and no scale is read as it lies (kPlain: PlainT, one stage
+// plane and no fix-up pass), else through the Masked reader: at
+// patchify the Masked reader's second plane and fix-up pass take 21 %
+// more time in fp32 and 13 % in bf16 (scripts/backward_roles.py).
+template <class E, bool kPlain>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    conv_backward_patch_kernel(const BwdArgs<E> a) {
+  extern __shared__ __align__(16) float smem[];
+  using T = TilePatch;
+  using C = std::conditional_t<kPlain, PlainT<E>, MaskedT<E>>;
+  const C cot = [&] {
+    if constexpr (kPlain) return PlainT<E>{a.cot.v};
+    else return a.cot;
+  }();
+  int tile;
+  Split sp;
+  const int role = role_of<T::BM * T::BN, T::BM * T::BN>(a.grid, &tile, &sp);
+  if (role == 0)
+    patch_dw_tile<T>(PlainT<E>{a.x}, cot, a.dw, a.gx, a.fd, tile, sp, smem);
+  else if (role == 1)
+    channel_sum(a.mask_only, a.db, a.gx.B * a.gx.Oh * a.gx.Ow, a.gx.Cout,
+                tile, sp, smem);
+  else
+    patch_dx_tile<T>(cot, a.w, a.dx, a.gdx, tile, sp, smem,
+                     tile * sp.splits + sp.split, a.grid.n_dx * sp.splits);
+}
+
 #define BWD_PARAMS                                                           \
   const void *x, const void *dy, const void *y, const void *w, void *dx,   \
       void *dw, void *db, int B, int Nh_x, int Nw_x, int Cin, int Oh,      \
@@ -103,7 +149,15 @@ static int conv_backward(BWD_PARAMS) {
   a.t = make_phase_geom(per_h, per_w, step_h, step_w, TPh, TPw);
   a.fd = make_geom_div(a.gx);
   const long long positions = (long long)B * Oh * Ow;
-  if (!gather_tile_ok(tile) || !dw_tile_ok(dw_tile) || Cin < 1 || Cout < 1 ||
+  // A patch plan names tile 5 for both roles, and only for a
+  // non-overlapping conv whose patches lie in both frames.
+  const bool patch = tile == kPatchTile;
+  const bool tiles_ok = patch
+      ? dw_tile == kPatchTile && non_overlapping(a.gx) &&
+            Oh * Kh <= Nh && Ow * Kw <= Nw && Oh * Kh <= Nh_x &&
+            Ow * Kw <= Nw_x
+      : gather_tile_ok(tile) && dw_tile_ok(dw_tile);
+  if (!tiles_ok || Cin < 1 || Cout < 1 ||
       !fits_int((long long)B * Nh_x * Nw_x * Cin) ||
       !fits_int((long long)B * Nh * Nw * Cin) ||
       !fits_int(positions * Cout) || !fits_int((long long)Kh * Kw * Cin * Cout))
@@ -118,11 +172,14 @@ static int conv_backward(BWD_PARAMS) {
   int bm, bn;
   tile_extent(dw_tile, &bm, &bn);
   const long long n_dw =
-      (long long)((Kh * Kw * Cin + bm - 1) / bm) * ((Cout + bn - 1) / bn);
+      (patch ? (long long)patch_m_tiles(Kh, Kw * Cin, bm)
+             : (long long)((Kh * Kw * Cin + bm - 1) / bm)) *
+      ((Cout + bn - 1) / bn);
   const int ct = Cout < kGemmThreads ? Cout : kGemmThreads;
   const long long n_db = db != nullptr ? (Cout + ct - 1) / ct : 0;
   tile_extent(tile, &bm, &bn);
-  const long long n_dx = dx_tile_count(a.gdx, a.t, bm, bn);
+  const long long n_dx = patch ? patch_dx_tiles(a.gdx, bm, bn)
+                               : dx_tile_count(a.gdx, a.t, bm, bn);
   RoleGrid& grid = a.grid;
   grid.n_dw = (int)n_dw;
   grid.n_db = (int)n_db;
@@ -139,6 +196,13 @@ static int conv_backward(BWD_PARAMS) {
   const long long blocks = role_grid_blocks(grid);
   if (blocks == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (patch && (y == nullptr || act == ACT_NONE) &&
+      (!has_scale || scale == 1.0f))
+    return (int)launch_roles<conv_backward_patch_kernel<E, true>>(
+        blocks, patch_smem_floats<E, PlainT<E>>(), a, s);
+  if (patch)
+    return (int)launch_roles<conv_backward_patch_kernel<E, false>>(
+        blocks, patch_smem_floats<E, MaskedT<E>>(), a, s);
   return (int)with_tile(tile, [&](auto td) {
     return with_dw_tile(dw_tile, [&](auto tw) {
       using TD = decltype(td);
@@ -158,7 +222,8 @@ static int conv_backward(BWD_PARAMS) {
 // all bf16 (_bf16), contiguous.  y == nullptr means no activation; db ==
 // nullptr means no bias (its role is not launched).  (Nh, Nw) is the dx
 // frame, n_out; the tap-phase bookkeeping comes from ConvSpec on the
-// host; the tiles (ids), splits and dW chunk from the plan, with a
+// host; the tiles (ids: 5 for both, the patch roles of a non-overlapping
+// conv), splits and dW chunk from the plan, with a
 // workspace of ws_floats floats and n_tickets ints that are 0 (and are 0
 // again after the launch).  Returns the launch's CUDA error
 // (cudaErrorInvalidValue for a plan, a workspace or a size it cannot

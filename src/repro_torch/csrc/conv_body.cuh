@@ -7,6 +7,9 @@
 //                        dconv_forward.cu,
 //     dw_tile            a tile of dW (the backwards, dconv_filtergrad.cu),
 //     channel_sum        the bias gradient,
+//     patch_dx_tile,     conv_backward.cu's dx and dW of a non-overlapping
+//     patch_dw_tile      conv (S = K, P = 0, D = 1): two GEMMs over the
+//                        patch matrix,
 //   each with its reduction split over several CTAs whose partials are
 //   added in split order (split_finish).  The forwards apply their
 //   epilogue in the gather role's store, to the final sum.
@@ -169,22 +172,37 @@ constexpr int kStages = 3;      // slabs in the shared-memory ring
 constexpr int kMaxSplits = 64;  // CTAs one tile's reduction may take
 
 // The tile shapes a role may take, by the id the host's plan names
-// (kernels/dconv_backward.py::TILES).
-template <int BM_, int BN_, int TM_, int TN_>
+// (kernels/dconv_backward.py::TILES).  A thread's TM x TN micro-tile lies
+// in P x P parts of (TM / P) x (TN / P), BM / P rows and BN / P columns
+// apart, so that the lanes of a warp read consecutive 16-byte words of a
+// slab row (P = 2 on the 128 x 128 tile; one part, the contiguous
+// micro-tile, elsewhere).
+template <int BM_, int BN_, int TM_, int TN_, int P_ = 1>
 struct Tile {
-  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, P = P_;
+  static constexpr int PM = TM / P, PN = TN / P;  // one part's extent
   static constexpr int TX = BN / TN;            // threads along n
   static constexpr int AS = BM + 4, BS = BN + 4;  // padded slab rows
   static_assert((BM / TM) * (BN / TN) == kGemmThreads,
                 "one micro-tile per thread");
   static_assert(kGemmThreads % BM == 0 || BM % kGemmThreads == 0, "");
   static_assert(kGemmThreads % BN == 0, "");
+  static_assert(TM % P == 0 && TN % P == 0, "whole parts");
+  // The tile row of element i of the micro-tile of thread row ty, and the
+  // tile column of element j of thread column tx.
+  __device__ static int row(int ty, int i) {
+    return (i / PM) * (BM / P) + ty * PM + i % PM;
+  }
+  __device__ static int col(int tx, int j) {
+    return (j / PN) * (BN / P) + tx * PN + j % PN;
+  }
 };
 using TileThin = Tile<256, 4, 4, 1>;     // 0: dx / ddy, N <= 4
 using TileTall = Tile<128, 32, 4, 4>;    // 1: dx / ddy, the rest
 using TileSquare = Tile<64, 64, 4, 4>;   // 2: dW, Cout > 32
 using TileSmall = Tile<64, 32, 4, 2>;    // 3: dW, Cout <= 32
 using TileHalf = Tile<256, 16, 4, 4>;    // 4: the forwards, 4 < N <= 16
+using TilePatch = Tile<128, 128, 8, 8, 2>;  // 5: the patch roles
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -296,7 +314,7 @@ struct Stager<S, R, __nv_bfloat16> {
 };
 
 template <int N>
-__device__ __forceinline__ void load_row(float (&v)[N], const float* p) {
+__device__ __forceinline__ void load_row(float* v, const float* p) {
   if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < N; i += 4) {
@@ -362,13 +380,16 @@ __device__ __forceinline__ void gemm_mainloop(LA& la, LB& lb, int k_begin,
       lb.fetch(k_begin + next * kBK, k_end, nx + LA::kStage);
     }
     cp_async_commit();
-    const float* a = st + ty * T::TM;
-    const float* b = st + LA::kStage + tx * T::TN;
+    const float* a = st + ty * T::PM;
+    const float* b = st + LA::kStage + tx * T::PN;
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
       float av[T::TM], bv[T::TN];
-      load_row<T::TM>(av, a + kk * T::AS);
-      load_row<T::TN>(bv, b + kk * T::BS);
+#pragma unroll
+      for (int h = 0; h < T::P; ++h) {
+        load_row<T::PM>(av + h * T::PM, a + kk * T::AS + h * (T::BM / T::P));
+        load_row<T::PN>(bv + h * T::PN, b + kk * T::BS + h * (T::BN / T::P));
+      }
 #pragma unroll
       for (int i = 0; i < T::TM; ++i)
 #pragma unroll
@@ -395,7 +416,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[T::TM][T::TN],
   for (int i = 0; i < T::TM; ++i)
 #pragma unroll
     for (int j = 0; j < T::TN; ++j)
-      out(ty * T::TM + i, tx * T::TN + j, acc[i][j]);
+      out(T::row(ty, i), T::col(tx, j), acc[i][j]);
 }
 
 // One CTA's share of a tile's reduction: split `split` of `splits`, over
@@ -428,8 +449,14 @@ __device__ __forceinline__ bool last_split(const Split& sp) {
 // else each split stores its partial tile (row-major BM x BN) to ws and
 // the last one adds the `splits` partials of each element in split order
 // 0, 1, ..., so the same inputs give the same bits whatever order the
-// CTAs ran in.  Every thread of the CTA calls it.
-template <class T, class Out>
+// CTAs ran in.  With kVec4 (the patch roles) the last one reads four
+// consecutive elements a thread (one 16-byte load a partial), so four
+// sums and the loads of several partials are in flight at once.  The
+// other roles keep one element a thread: at the nine main-path layers
+// the vector form made every dW role faster but the dx role of the two
+// 3-channel layers slower, and their launches with it
+// (scripts/backward_roles.py).  Every thread of the CTA calls it.
+template <class T, bool kVec4 = false, class Out>
 __device__ __forceinline__ void split_finish(
     const float (&acc)[T::TM][T::TN], const Split& sp, const Out& out) {
   if (sp.splits == 1) {
@@ -442,10 +469,30 @@ __device__ __forceinline__ void split_finish(
     __stcg(mine + row * T::BN + col, v);
   });
   if (!last_split(sp)) return;
-  for (int e = threadIdx.x; e < kTile; e += kGemmThreads) {
-    float s = 0.0f;
-    for (int r = 0; r < sp.splits; ++r) s += __ldcg(sp.ws + r * kTile + e);
-    out(e / T::BN, e % T::BN, s);
+  if constexpr (kVec4) {
+    static_assert(kTile % (4 * kGemmThreads) == 0, "whole float4 a thread");
+    for (int e = 4 * threadIdx.x; e < kTile; e += 4 * kGemmThreads) {
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+      for (int r = 0; r < sp.splits; ++r) {
+        const float4 v =
+            __ldcg(reinterpret_cast<const float4*>(sp.ws + r * kTile + e));
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      out(e / T::BN, e % T::BN, s.x);
+      out((e + 1) / T::BN, (e + 1) % T::BN, s.y);
+      out((e + 2) / T::BN, (e + 2) % T::BN, s.z);
+      out((e + 3) / T::BN, (e + 3) % T::BN, s.w);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTile; e += kGemmThreads) {
+      float s = 0.0f;
+      for (int r = 0; r < sp.splits; ++r) s += __ldcg(sp.ws + r * kTile + e);
+      out(e / T::BN, e % T::BN, s);
+    }
   }
   if (threadIdx.x == 0) *sp.ticket = 0;
 }
@@ -508,22 +555,31 @@ struct DwA {
 
 // B[k][n] = V[k * N + n] of a (K, N) operand read along n: the dW
 // role's dy (k = p, N = Cout) and the ddy role's W (k = (tap, ci)).
-template <class T, class V>
+// With kStepped (the patch dW role) a thread keeps its first element's
+// offset and the step to the next (its n is fixed and its k lie
+// kGemmThreads / BN apart, Slab::k_of) in place of a 64-bit product an
+// element: with the product the bf16 patch kernel's dW role, at 128
+// registers a thread, took 1.8x as long.  The other roles keep the
+// product: in their kernels the step slowed the tconv dW roles
+// (scripts/backward_roles.py).
+template <class T, class V, bool kStepped = false>
 struct RowsB {
   using S = Slab<T::BN, false>;
   static constexpr int kStage = S::template stage_floats<V>();
   V v;
-  int N, n;
+  int N, n, step;
   Stager<S, V> st;
-  __device__ RowsB(const V& v_, int N_, int n0) : v(v_), N(N_) {
-    n = n0 + S::x_of(0);
-  }
+  __device__ RowsB(const V& v_, int N_, int n0)
+      : v(v_), N(N_), n(n0 + S::x_of(0)), step(kGemmThreads / T::BN * N_) {}
   __device__ __forceinline__ void fetch(int k0, int k_end, float* s) {
+    const long long at = (long long)(k0 + S::k_of(0)) * N + n;
 #pragma unroll
     for (int q = 0; q < S::kPer; ++q) {
       if (!S::live(q)) continue;
       const int k = k0 + S::k_of(q);
-      st.put(s, q, v, (long long)k * N + n, n < N && k < k_end);
+      const long long off =
+          kStepped ? at + (long long)q * step : (long long)k * N + n;
+      st.put(s, q, v, off, n < N && k < k_end);
     }
   }
   __device__ __forceinline__ void settle() { st.settle(v); }
@@ -898,6 +954,219 @@ __device__ __forceinline__ void ddy_tile(const G& x,
   });
 }
 
+// -- the patch roles: conv_backward's dx and dW of a non-overlapping conv --------
+//
+// With S = K, P = 0 and D = 1 on both axes each pixel of x lies under one
+// tap of one patch, and the conv is a pair of dense GEMMs over the patch
+// matrix Pm: one row per output position p = (b, i, j), one column per
+// n = (kh*Kw + kw)*Cin + c = kh*R + r, R = Kw*Cin, so that
+//     Pm[p, kh*R + r] = X[b, i*Kh + kh, j*Kw*Cin + r]     (w and c flat)
+// and row p is Kh runs of R contiguous values.  W is the row-major
+// (Kh*Kw*Cin, Cout) matrix HWIO already is, and with m the masked
+// cotangent (B*Oh*Ow, Cout):
+//     dx role  m . W^T   M = B*Oh*Ow, N = Kh*Kw*Cin, k = co, each row
+//              stored into dx's frame as Kh runs of R values;
+//     dW role  Pm^T . m  M = Kh*Kw*Cin in tiles of whole runs, N = Cout,
+//              k = p.
+// dx pixels no patch covers (rows past Oh*Kh, columns past Ow*Kw of the
+// frame) get 0, written by the dx role's CTAs.
+
+__host__ __device__ inline bool non_overlapping(const ConvGeom& g) {
+  return g.sh == g.Kh && g.sw == g.Kw && g.ph == 0 && g.pw == 0 &&
+         g.dh == 1 && g.dw == 1;
+}
+
+// M tiles of the dW role: BM / R whole runs a tile when a run fits one,
+// else ceil(R / BM) tiles a run.
+__host__ __device__ inline int patch_m_tiles(int Kh, int R, int BM) {
+  return R <= BM ? (Kh + BM / R - 1) / (BM / R) : Kh * ((R + BM - 1) / BM);
+}
+
+// Row l of dW M tile mt as its run kh and place r in the run; kh = -1
+// for a row past the runs the tile holds.
+__device__ __forceinline__ void patch_m_row(int mt, int l, int Kh, int R,
+                                            int BM, int* kh, int* r) {
+  if (R <= BM) {
+    const int per = BM / R, u = l / R;
+    *kh = u < per && mt * per + u < Kh ? mt * per + u : -1;
+    *r = l - u * R;
+  } else {
+    const int tpr = (R + BM - 1) / BM;
+    *kh = mt / tpr;
+    *r = (mt % tpr) * BM + l;
+    if (*r >= R) *kh = -1;
+  }
+}
+
+// A[k][x] = V[(x0 + x) * ld + k] for x0 + x < rows, k < k_end: an
+// (rows, ld) operand read along its contiguous k -- the dx role's
+// cotangent (x = p, ld = Cout) and its W (x = n, ld = Cout).  A thread's
+// rows lie kGemmThreads / kBK apart (Slab::x_of), so it keeps its first
+// row's offset, the step between rows and which rows are live.
+template <int X, class V>
+struct KRows {
+  using S = Slab<X, true>;
+  static constexpr int kStage = S::template stage_floats<V>();
+  V v;
+  long long off;    // (x0 + S::x_of(0)) * ld
+  int step;         // (kGemmThreads / kBK) * ld
+  unsigned live;    // bit q: row x0 + S::x_of(q) < rows
+  Stager<S, V> st;
+  __device__ KRows(const V& v_, int rows, int ld, int x0)
+      : v(v_), off((long long)(x0 + S::x_of(0)) * ld),
+        step(kGemmThreads / kBK * ld), live(0) {
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q)
+      if (x0 + S::x_of(q) < rows) live |= 1u << q;
+  }
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) {
+    const int k = k0 + S::k_of(0);
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q) {
+      if (!S::live(q)) continue;
+      st.put(s, q, v, off + (long long)q * step + k,
+             k < k_end && (live >> q & 1u));
+    }
+  }
+  __device__ __forceinline__ void settle() { st.settle(v); }
+  __device__ __forceinline__ void fixup(float* s) const { st.fixup(s, v); }
+};
+
+// A[p][m] = Pm[p, m] of the dW role's M tile `mt`, read along m (a
+// thread's m, so its run and place, is fixed); no bounds: a patch lies in
+// the frame.  Patch p = (b*Oh + i)*Ow + j starts at
+//     ((b*Nh + i*Kh)*Nw + j*Kw)*Cin = p*sj + bi*c1 + b*c2,
+// bi = p / Ow, b = bi / Oh (two fast divisions), sj = Kw*Cin,
+// c1 = Kh*Nw*Cin - Ow*sj, c2 = (Nh - Oh*Kh)*Nw*Cin.
+template <class T, class X>
+struct PatchDwA {
+  using S = Slab<T::BM, false>;
+  static constexpr int kStage = S::template stage_floats<X>();
+  X x;
+  FastDiv fd_ow, fd_oh;
+  int sj, c1, c2;
+  int off;    // the thread's kh*Nw*Cin + r in a patch; -1 past the runs
+  Stager<S, X> st;
+  __device__ PatchDwA(const X& x_, const ConvGeom& g, FastDiv ow, FastDiv oh,
+                      int mt)
+      : x(x_), fd_ow(ow), fd_oh(oh), sj(g.Kw * g.Cin),
+        c1(g.Kh * g.Nw * g.Cin - g.Ow * g.Kw * g.Cin),
+        c2((g.Nh - g.Oh * g.Kh) * g.Nw * g.Cin) {
+    int kh, r;
+    patch_m_row(mt, S::x_of(0), g.Kh, g.Kw * g.Cin, T::BM, &kh, &r);
+    off = kh < 0 ? -1 : kh * g.Nw * g.Cin + r;
+  }
+  __device__ __forceinline__ void fetch(int k0, int k_end, float* s) {
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q) {
+      if (!S::live(q)) continue;
+      const int p = k0 + S::k_of(q);
+      const int bi = fast_div(p, fd_ow);
+      const int base = p * sj + bi * c1 + fast_div(bi, fd_oh) * c2;
+      st.put(s, q, x, base + off, off >= 0 && p < k_end);
+    }
+  }
+  __device__ __forceinline__ void settle() { st.settle(x); }
+  __device__ __forceinline__ void fixup(float* s) const { st.fixup(s, x); }
+};
+
+// One dW tile (`tile` over (M tiles, N tiles), n fastest); split sp sums
+// the positions of its chunk (split_range over B*Oh*Ow), as dw_tile.
+template <class T, class X, class DY>
+__device__ __forceinline__ void patch_dw_tile(
+    const X& x, const DY& dy, typename X::Elem* __restrict__ dw,
+    const ConvGeom& g, const GeomDiv& fd, int tile, const Split& sp,
+    float* smem) {
+  const int n_tiles = (g.Cout + T::BN - 1) / T::BN;
+  const int mt = tile / n_tiles, n0 = (tile % n_tiles) * T::BN;
+  int k_begin, k_end;
+  split_range(g.B * g.Oh * g.Ow, sp, &k_begin, &k_end);
+  PatchDwA<T, X> la(x, g, fd.ow, fd.oh, mt);
+  RowsB<T, DY, true> lb(dy, g.Cout, n0);
+  float acc[T::TM][T::TN];
+  gemm_mainloop<T>(la, lb, k_begin, k_end, acc, smem);
+  const int R = g.Kw * g.Cin;
+  split_finish<T, true>(acc, sp, [&](int row, int col, float v) {
+    int kh, r;
+    patch_m_row(mt, row, g.Kh, R, T::BM, &kh, &r);
+    const int n = n0 + col;
+    if (kh >= 0 && n < g.Cout) store_f32(dw + (kh * R + r) * g.Cout + n, v);
+  });
+}
+
+// dx = 0 at the frame's pixels no patch covers, over CTA `cta` of the dx
+// role's `ctas`: per image the rows from Oh*Kh on (one contiguous block),
+// then the columns from Ow*Kw on of each row above (a run each).
+template <class E>
+__device__ __forceinline__ void patch_fill(E* __restrict__ dx,
+                                           const ConvGeom& g, int cta,
+                                           int ctas) {
+  const int hc = g.Oh * g.Kh, wc = g.Ow * g.Kw;
+  const long long bottom = (long long)(g.Nh - hc) * g.Nw * g.Cin;
+  const long long side = (long long)(g.Nw - wc) * g.Cin;
+  const long long image = bottom + hc * side;
+  const long long total = g.B * image;
+  for (long long e = (long long)cta * kGemmThreads + threadIdx.x; e < total;
+       e += (long long)ctas * kGemmThreads) {
+    const long long b = e / image, u = e - b * image;
+    long long at;
+    if (u < bottom) {
+      at = (b * g.Nh + hc) * g.Nw * g.Cin + u;
+    } else {
+      const long long h = (u - bottom) / side;
+      at = ((b * g.Nh + h) * g.Nw + wc) * g.Cin + (u - bottom - h * side);
+    }
+    store_f32(dx + at, 0.0f);
+  }
+}
+
+__host__ __device__ inline long long patch_dx_tiles(const ConvGeom& g, int BM,
+                                                    int BN) {
+  return ((long long)g.B * g.Oh * g.Ow + BM - 1) / BM *
+         ((g.Kh * g.Kw * g.Cin + BN - 1) / BN);
+}
+
+// One dx tile (`tile` over (M tiles, N tiles), n fastest) of the dx frame
+// g (n_out); split sp sums its chunk of Cout.  CTA `cta` of the role's
+// `ctas` first writes its share of the uncovered pixels' zeros.  The
+// tile's rows (each patch's corner in dx) and columns (each n's place in
+// a patch) come from two tables in shared memory after the ring.
+template <class T, class DY>
+__device__ __forceinline__ void patch_dx_tile(
+    const DY& dy, const typename DY::Elem* __restrict__ w,
+    typename DY::Elem* __restrict__ dx, const ConvGeom& g, int tile,
+    const Split& sp, float* smem, int cta, int ctas) {
+  using W = PlainT<typename DY::Elem>;
+  patch_fill(dx, g, cta, ctas);
+  const int M = g.B * g.Oh * g.Ow, N = g.Kh * g.Kw * g.Cin, R = g.Kw * g.Cin;
+  const int n_tiles = (N + T::BN - 1) / T::BN;
+  const int m0 = (tile / n_tiles) * T::BM, n0 = (tile % n_tiles) * T::BN;
+  int* rows = reinterpret_cast<int*>(
+      smem + ring_floats<KRows<T::BM, DY>, KRows<T::BN, W>>());
+  int* cols = rows + T::BM;
+  for (int l = threadIdx.x; l < T::BM; l += kGemmThreads) {
+    const int m = m0 + l, bi = m / g.Ow, b = bi / g.Oh;
+    rows[l] = m < M ? ((b * g.Nh + (bi - b * g.Oh) * g.Kh) * g.Nw +
+                       (m - bi * g.Ow) * g.Kw) * g.Cin
+                    : -1;
+  }
+  for (int l = threadIdx.x; l < T::BN; l += kGemmThreads) {
+    const int n = n0 + l, kh = n / R;
+    cols[l] = n < N ? kh * g.Nw * g.Cin + (n - kh * R) : -1;
+  }
+  __syncthreads();
+  KRows<T::BM, DY> la(dy, M, g.Cout, m0);
+  KRows<T::BN, W> lb(W{w}, N, g.Cout, n0);
+  float acc[T::TM][T::TN];
+  int k_begin, k_end;
+  split_range(g.Cout, sp, &k_begin, &k_end);
+  gemm_mainloop<T>(la, lb, k_begin, k_end, acc, smem);
+  split_finish<T, true>(acc, sp, [&](int row, int col, float v) {
+    const int r = rows[row], c = cols[col];
+    if (r >= 0 && c >= 0) store_f32(dx + r + c, v);
+  });
+}
+
 // -- launching -------------------------------------------------------------------
 
 // Dynamic shared-memory floats of each role: the ring, and a gather
@@ -916,6 +1185,17 @@ template <class T, class G>
 __host__ __device__ constexpr int ddy_smem_floats() {
   return ring_floats<DdyA<T, G>, RowsB<T, PlainT<typename G::Elem>>>() +
          4 * T::BM;
+}
+
+// The patch roles' with the cotangent read through C: dx's ring and its
+// two tables, dW's ring, the bias gradient's partials.
+template <class E, class C>
+__host__ __device__ constexpr int patch_smem_floats() {
+  using T = TilePatch;
+  return cmax(cmax(ring_floats<KRows<T::BM, C>, KRows<T::BN, PlainT<E>>>() +
+                       T::BM + T::BN,
+                   ring_floats<PatchDwA<T, PlainT<E>>, RowsB<T, C>>()),
+              kGemmThreads);
 }
 
 constexpr int kSumSmemFloats = kGemmThreads;
@@ -975,10 +1255,12 @@ static inline bool forward_tile_ok(int id) {
 
 static inline bool dw_tile_ok(int id) { return id == 2 || id == 3; }
 
+constexpr int kPatchTile = 5;   // both roles' tile in a patch plan
+
 // Tile extents by id, for the host's counts.
 static inline void tile_extent(int id, int* bm, int* bn) {
-  static const int kBM[5] = {256, 128, 64, 64, 256};
-  static const int kBN[5] = {4, 32, 64, 32, 16};
+  static const int kBM[6] = {256, 128, 64, 64, 256, 128};
+  static const int kBN[6] = {4, 32, 64, 32, 16, 128};
   *bm = kBM[id];
   *bn = kBN[id];
 }

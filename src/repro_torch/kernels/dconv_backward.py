@@ -31,11 +31,14 @@ Every role of the kernels is a tiled implicit GEMM
 pure function of the shapes, picks each launch's tiles and how many CTAs
 split each tile's reduction, for the backwards and the forwards alike:
 the splits write partial tiles to a workspace and the last of them adds
-the partials in split order.  The launchers take their plan from
-`kernels/tiling.py`, which gives `plan`'s (analytical mode) or the
-fastest of `candidates` on the card (autotune).  `split_filter_grad_plain`
-and `split_forward_plain` are the split arithmetic for the dW role and
-for the forwards in plain PyTorch.
+the partials in split order.  A non-overlapping conv (S = K, P = 0, D = 1
+on both axes) takes `conv_backward`'s patch roles: dx and dW as two GEMMs
+over the patch matrix on the 128 x 128 tile (PATCH for both roles).  The
+launchers take their plan from `kernels/tiling.py`, which gives `plan`'s
+(analytical mode) or the fastest of `candidates` on the card (autotune).
+`split_filter_grad_plain`, `split_forward_plain` and
+`split_conv_backward_plain` are the split arithmetic for the dW role, for
+the forwards and for a whole backward in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -62,9 +65,9 @@ _CT_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + _EP_ARGS
 
 # (BM, BN) of the kernels' tile shapes, by the C entries' tile id
 # (csrc/conv_body.cuh: TileThin, TileTall, TileSquare, TileSmall,
-# TileHalf).
-TILES = ((256, 4), (128, 32), (64, 64), (64, 32), (256, 16))
-THIN, TALL, SQUARE, SMALL, HALF = range(5)
+# TileHalf, TilePatch).
+TILES = ((256, 4), (128, 32), (64, 64), (64, 32), (256, 16), (128, 128))
+THIN, TALL, SQUARE, SMALL, HALF, PATCH = range(6)
 # The ops a plan is made for: the backwards and the standalone filter
 # gradient, and the forwards, which launch one gather role alone.
 FORWARD_OPS = ("tconv_phase", "dconv_forward")
@@ -76,6 +79,7 @@ MIN_K_CHUNK = 32      # reduction length a dx / ddy split takes at the least
 SM_COUNT = 132        # H100 SXM
 DW_CTAS = 128         # CTAs the dW role aims at
 CHANNEL_TILE = 256    # channels of one db tile (the CTA's threads)
+PATCH_MIN_COUT = 16   # the least Cout of a conv on the patch roles
 
 
 class BackwardPlan(NamedTuple):
@@ -124,6 +128,20 @@ def phase_classes(spec: ConvSpec, n_out) -> list[tuple[int, int, int]]:
             out.append((_residue_rows(n_out[0], sh, ph, p)[1],
                         _residue_rows(n_out[1], sw, pw, q)[1], taps))
     return out
+
+
+def non_overlapping(spec: ConvSpec) -> bool:
+    """S = K, P = 0 and D = 1 on both axes: every input pixel lies under
+    one tap of one patch (patchify; a 1x1 conv at S = 1)."""
+    return (spec.stride == spec.filter_shape and spec.padding == (0, 0)
+            and spec.dilation == (1, 1))
+
+
+def patch_m_tiles(kh: int, run: int, bm: int) -> int:
+    """The patch dW role's M tiles (csrc/conv_body.cuh::patch_m_tiles):
+    bm // run whole runs of Kw*Cin rows a tile, or ceil(run / bm) tiles a
+    run when a run is longer than a tile."""
+    return _cdiv(kh, bm // run) if run <= bm else kh * _cdiv(run, bm)
 
 
 def split_chunk(k: int, splits: int) -> int:
@@ -176,9 +194,24 @@ def plan(op: str, spec: ConvSpec, batch: int, big_hw, small_hw, cin: int,
     the dW split.  A forward has no dW or db tiles (dw_tile -1, one
     dW split of chunk 0).  The constants are the best of
     `scripts/backward_plan_sweep.py` at the main-path layers on the
-    H100."""
+    H100.
+
+    A conv_backward of a non-overlapping conv with Cout >= PATCH_MIN_COUT
+    takes the patch roles (`patch_plan`; below it the 128 x 128 tile is
+    mostly empty, the dx reduction and the dW columns being Cout).  The
+    constant lies between the atrous head's 1x1 fuse (Cout 4, faster on
+    the residue classes) and patchify (Cout 1024) on the H100."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}")
+    if op == "conv_backward" and non_overlapping(spec) \
+            and cout >= PATCH_MIN_COUT:
+        return patch_plan(spec, batch, small_hw, cin, cout, bias)
+    return _class_plan(op, spec, batch, small_hw, cin, cout, n_out, bias)
+
+
+def _class_plan(op: str, spec: ConvSpec, batch: int, small_hw, cin: int,
+                cout: int, n_out, bias: bool) -> BackwardPlan:
+    """`plan`'s rule for every launch but the patch roles'."""
     n = cin if op in ("conv_backward", "tconv_phase") else cout
     tile = -1 if op == "filter_grad" else _gather_tile(op, n)
     dw_tile = -1 if op in FORWARD_OPS else SMALL if cout <= 32 else SQUARE
@@ -194,6 +227,25 @@ def plan(op: str, spec: ConvSpec, batch: int, big_hw, small_hw, cin: int,
                    dw_tile, dw_splits, n_out=n_out, bias=bias)
 
 
+def patch_plan(spec: ConvSpec, batch: int, small_hw, cin: int, cout: int,
+               bias: bool = False) -> BackwardPlan:
+    """The patch roles' plan of a conv_backward of the non-overlapping
+    conv `spec`, whatever its Cout (`plan` gives it from PATCH_MIN_COUT
+    on): 128 x 128 tiles for both roles; dx's reduction over Cout split
+    as `plan` splits a gather role's; dW's positions split into the
+    power of two nearest below positions / Cout, so that a dW CTA sums
+    about as many terms as a dx CTA."""
+    one = counted("conv_backward", spec, batch, small_hw, cin, cout, PATCH,
+                  1, PATCH, 1, bias=bias)
+    positions = batch * small_hw[0] * small_hw[1]
+    splits = 1 if 2 * one.tiles >= SM_COUNT else _splits(
+        cout, _pow2_floor(2 * SM_COUNT // max(one.tiles, 1)), MIN_K_CHUNK)
+    dw_splits = _splits(positions, _pow2_floor(max(1, positions // cout)),
+                        MIN_CHUNK)
+    return counted("conv_backward", spec, batch, small_hw, cin, cout, PATCH,
+                   splits, PATCH, dw_splits, bias=bias)
+
+
 def counted(op: str, spec: ConvSpec, batch: int, small_hw, cin: int,
             cout: int, tile: int, splits: int, dw_tile: int = -1,
             dw_splits: int = 1, n_out=None, bias: bool = False
@@ -201,11 +253,19 @@ def counted(op: str, spec: ConvSpec, batch: int, small_hw, cin: int,
     """The BackwardPlan of these tiles and splits for one launch of `op`,
     counted as `plan` counts its tiles, chunk and workspace (`plan` picks
     the four choices; a planner's candidate or a cache row names them).
-    A forward takes no dW or db role: dw_tile -1, one dW split."""
+    A forward takes no dW or db role: dw_tile -1, one dW split.  PATCH
+    (both tiles) counts the patch roles: dx tiles over (B*Oh*Ow) x
+    (Kh*Kw*Cin), dW tiles of whole runs (`patch_m_tiles`) x Cout."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}")
     kh, kw = spec.filter_shape
-    if op in ("conv_backward", "tconv_phase"):
+    if tile == PATCH:
+        if op != "conv_backward" or dw_tile != PATCH \
+                or not non_overlapping(spec):
+            raise ValueError("the patch roles take a conv_backward of a "
+                             "non-overlapping conv, PATCH for both tiles")
+        n, rows = kh * kw * cin, [batch * small_hw[0] * small_hw[1]]
+    elif op in ("conv_backward", "tconv_phase"):
         n = cin
         rows = [batch * hc * wc for hc, wc, _ in phase_classes(spec, n_out)]
     elif op in ("tconv_backward", "dconv_forward"):
@@ -219,7 +279,8 @@ def counted(op: str, spec: ConvSpec, batch: int, small_hw, cin: int,
     if op in FORWARD_OPS:
         return BackwardPlan(tile, splits, -1, 1, 0, tiles, 0, 0, workspace)
     bm, bn = TILES[dw_tile]
-    dw_tiles = _cdiv(kh * kw * cin, bm) * _cdiv(cout, bn)
+    dw_tiles = (patch_m_tiles(kh, kw * cin, bm) if dw_tile == PATCH
+                else _cdiv(kh * kw * cin, bm)) * _cdiv(cout, bn)
     positions = batch * small_hw[0] * small_hw[1]
     channels = cin if op == "tconv_backward" else cout
     db_tiles = _cdiv(channels, min(channels, CHANNEL_TILE)) \
@@ -251,31 +312,43 @@ def candidates(op: str, spec: ConvSpec, batch: int, small_hw, cin: int,
                cout: int, n_out=None, bias: bool = False) -> list:
     """The plans an autotune sweep times for one launch of `op`, `plan`'s
     own first (`scripts/backward_plan_sweep.py` walks the same set): the
-    dx / ddy role at `plan`'s tile (a forward also at 256 x 16 or 128 x
-    32, whichever `plan` did not take, when N > 4), split over
+    dx / ddy role at the residue-class rule's tile (a forward also at 256
+    x 16 or 128 x 32, whichever it did not take, when N > 4), split over
     SWEEP_SPLITS; the dW role at 64 x 32 and, at Cout > 32, 64 x 64,
-    split over SWEEP_DW_SPLITS.  No reduction is split so far that a
-    split is left empty."""
+    split over SWEEP_DW_SPLITS.  A conv_backward of a non-overlapping
+    conv also takes the patch roles at every split pair of SWEEP_SPLITS x
+    SWEEP_DW_SPLITS, whichever roles `plan` picks.  No reduction is split
+    so far that a split is left empty."""
     own = plan(op, spec, batch, None, small_hw, cin, cout, n_out=n_out,
                bias=bias)
-    k = reduction(op, spec, small_hw, cin, cout, n_out)
     positions = batch * small_hw[0] * small_hw[1]
 
     def fills(length, splits):
         return splits == 1 or (splits - 1) * split_chunk(length,
                                                          splits) < length
 
-    tiles = [own.tile]
-    if op in FORWARD_OPS and own.tile != THIN:   # 128 x 32 or 256 x 16
-        tiles.append(HALF if own.tile == TALL else TALL)
-    splits = [1] if own.tile < 0 else [s for s in SWEEP_SPLITS
+    out = [own]
+    if op == "conv_backward" and non_overlapping(spec):
+        for s in SWEEP_SPLITS:
+            for ds in SWEEP_DW_SPLITS:
+                p = counted(op, spec, batch, small_hw, cin, cout, PATCH, s,
+                            PATCH, ds, bias=bias)
+                if fills(cout, s) and fills(positions, ds) and p not in out:
+                    out.append(p)
+    cls = _class_plan(op, spec, batch, small_hw, cin, cout, n_out, bias)
+    if cls not in out:
+        out.append(cls)
+    k = reduction(op, spec, small_hw, cin, cout, n_out)
+    tiles = [cls.tile]
+    if op in FORWARD_OPS and cls.tile != THIN:   # 128 x 32 or 256 x 16
+        tiles.append(HALF if cls.tile == TALL else TALL)
+    splits = [1] if cls.tile < 0 else [s for s in SWEEP_SPLITS
                                        if fills(k, s)]
     if op in FORWARD_OPS:
         dw = [(-1, 1)]
     else:
         dw = [(t, s) for t in ((SMALL,) if cout <= 32 else (SQUARE, SMALL))
               for s in SWEEP_DW_SPLITS if fills(positions, s)]
-    out = [own]
     for t in tiles:
         for s in splits:
             for dt, ds in dw:
@@ -367,6 +440,25 @@ def split_forward_plain(op: str, a: torch.Tensor, w: torch.Tensor,
             else tconv_fused_plain(a, part_w, spec, n_out=n_out)
         total = part if total is None else total + part
     return total if epilogue is None else epilogue.apply(total, bias)
+
+
+def split_conv_backward_plain(x: torch.Tensor, dy: torch.Tensor,
+                              w: torch.Tensor, spec: ConvSpec,
+                              p: BackwardPlan, *, n_out, y=None,
+                              epilogue: Epilogue | None = None):
+    """`conv_backward_plain` with its two reductions split as plan `p`
+    splits them: dx's in p.splits chunks of its k (`split_forward_plain`'s
+    "tconv_phase" order; for the patch roles, chunks of Cout), dW's
+    positions in p.dw_splits chunks of p.chunk (`split_filter_grad_plain`),
+    the partials added in split order.  (dx, dW, db or None)."""
+    dtype = x.dtype
+    x, dy, w, y = build.widened(x, dy, w, y)
+    m, g = _masked(dy, y, epilogue)
+    db = m.sum(dim=(0, 1, 2)) if epilogue is not None and epilogue.bias \
+        else None
+    dx = split_forward_plain("tconv_phase", g, w, spec, p.splits,
+                             n_out=n_out)
+    return _rounded(dtype, dx, split_filter_grad_plain(x, g, spec, p), db)
 
 
 def _masked(cot: torch.Tensor, out, epilogue: Epilogue | None):

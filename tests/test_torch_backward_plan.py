@@ -12,27 +12,44 @@
     (partials per chunk of positions, added in split order), against
     `repro`'s `reference` filter gradient over `BACKWARD_GRID`, at the
     plan's split and at an eight-way split.
+  * The patch roles of conv_backward: `plan` sends exactly the
+    non-overlapping convs (S = K, P = 0, D = 1; at S = K = 14, 4, 2 and
+    1x1 at S = 1) with Cout >= PATCH_MIN_COUT to them and keeps every
+    other geometry and op on its roles; their tile counts; and
+    `split_conv_backward_plain` at their splits (dx over chunks of Cout,
+    dW over chunks of positions) against `repro`'s `reference` backward
+    (and `xla_zero_free`'s) under a bias and each epilogue of
+    `test_epilogue.py`'s grid -- frames that S does not divide (dx 0
+    past the last patch), Cin 3, Cout 8 and 32.
 
 Inputs come from numpy seeds.  Tolerance: rtol = atol = 2e-4, as in
-`test_torch_backward.py` (dW sums over B*O*O products in another order).
+`test_torch_backward.py` (dW sums over B*O*O products in another order);
+the patch roles' emulation at rtol = atol = 1e-4 (fp32, sums of at most
+a few hundred terms).
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 from _torch_cases import BACKWARD_GRID, backward_case
 from conftest import assert_allclose
 from repro.core import spec as jspec
-from repro_torch.core.spec import ConvSpec
+from repro_torch.core.spec import ConvSpec, Epilogue
 from repro_torch.kernels.dconv_backward import (CHANNEL_TILE, GEMM_BK,
-                                                MAX_SPLITS, SMALL, SQUARE,
-                                                TALL, THIN, TILES,
-                                                BackwardPlan,
+                                                MAX_SPLITS, PATCH,
+                                                PATCH_MIN_COUT, SMALL,
+                                                SQUARE, TALL, THIN, TILES,
+                                                BackwardPlan, candidates,
+                                                counted, non_overlapping,
+                                                patch_m_tiles, patch_plan,
                                                 phase_classes, plan,
                                                 split_chunk,
+                                                split_conv_backward_plain,
                                                 split_filter_grad_plain)
+from test_epilogue import EPILOGUES
 
 TOL = 2e-4
 OPS = ("conv_backward", "tconv_backward", "filter_grad")
@@ -199,3 +216,187 @@ def test_split_filter_grad_matches_reference(geom, split):
         assert p.dw_splits > 1
     got = split_filter_grad_plain(x, dy, spec, p)
     assert_allclose(got, _reference_filter_grad(c), rtol=TOL, atol=TOL)
+
+
+# -- the patch roles ----------------------------------------------------------
+
+# (name, B, (H, W), Cin, Cout, K) at S = K, P = 0, D = 1 that `plan` sends
+# to the patch roles: patchify's layer, S = K = 4 on a 15 x 15 frame, S =
+# K = 2 with ragged channels, a 1x1 conv at S = 1.
+PATCH_ROUTED = [("patchify", 8, (448, 448), 3, 1024, 14),
+                ("s4_frame15", 2, (15, 15), 3, 32, 4),
+                ("s2_ragged", 3, (17, 16), 5, 37, 2),
+                ("conv1x1_s1", 4, (20, 20), 48, 64, 1)]
+# (name, B, (H, W), Cin, Cout, K, S, P, D) that keep the residue-class
+# roles: S != K, P > 0, D > 1, and the atrous head's 1x1 fuse (Cout 4 <
+# PATCH_MIN_COUT).
+PATCH_KEPT = [("s2_k4", 2, (16, 16), 3, 32, 4, 2, 0, 1),
+              ("s4_k2", 2, (16, 16), 3, 32, 2, 4, 0, 1),
+              ("s2_k2_p1", 2, (16, 16), 3, 32, 2, 2, 1, 1),
+              ("s2_k2_d2", 2, (16, 16), 3, 32, 2, 2, 0, 2),
+              ("atrous_fuse", 16, (128, 128), 48, 4, 1, 1, 0, 1)]
+
+
+@pytest.mark.parametrize("case", PATCH_ROUTED, ids=lambda c: c[0])
+def test_plan_routes_non_overlapping_convs_to_the_patch_roles(case):
+    _, B, hw, cin, cout, k = case
+    spec = _spec(k, k, 0, 1)
+    oh, ow = spec.out_size(hw)
+    assert non_overlapping(spec) and cout >= PATCH_MIN_COUT
+    for bias in (False, True):
+        p = _plan("conv_backward", B, hw, cin, cout, spec, bias)
+        assert (p.tile, p.dw_tile) == (PATCH, PATCH)
+        assert p == patch_plan(spec, B, (oh, ow), cin, cout, bias)
+        # dx: (B*Oh*Ow) x (K*K*Cin) in 128 x 128 tiles; dW: tiles of whole
+        # runs of K*Cin rows x Cout.
+        assert p.tiles == -(-B * oh * ow // 128) * -(-k * k * cin // 128)
+        run = k * cin
+        per = 128 // run
+        assert p.dw_tiles == (-(-k // per) if per else k * -(-run // 128)) \
+            * -(-cout // 128)
+        assert p.tickets == p.tiles + p.dw_tiles + p.db_tiles
+        _check_split(cout, p.splits)
+        _check_split(B * oh * ow, p.dw_splits, p.chunk)
+        assert p.workspace == (p.tiles * p.splits * 128 * 128
+                               if p.splits > 1 else 0) \
+            + ((p.dw_tiles * 128 * 128 + p.db_tiles * CHANNEL_TILE)
+               * p.dw_splits if p.dw_splits > 1 else 0)
+        # The other ops keep their roles at the same geometry.
+        for op in ("tconv_backward", "filter_grad"):
+            q = _plan(op, B, hw, cin, cout, spec, bias)
+            assert PATCH not in (q.tile, q.dw_tile)
+
+
+def test_the_patchify_plan():
+    """320 dx tiles (64 x 5) of K = 1024 unsplit; 40 dW tiles (5 x 8, 3
+    runs of 42 rows a tile) over 8192 positions in 8 chunks of 1024."""
+    spec = _spec(14, 14, 0, 1)
+    assert _plan("conv_backward", 8, (448, 448), 3, 1024, spec) == \
+        BackwardPlan(PATCH, 1, PATCH, 8, 1024, 320, 40, 0, 5242880)
+    assert patch_m_tiles(14, 42, 128) == 5 and patch_m_tiles(3, 390, 128) \
+        == 12
+
+
+@pytest.mark.parametrize("case", PATCH_KEPT, ids=lambda c: c[0])
+def test_plan_keeps_other_geometries_on_their_roles(case):
+    _, B, hw, cin, cout, k, s, p, d = case
+    spec = _spec(k, s, p, d)
+    for op in OPS:
+        for bias in (False, True):
+            q = _plan(op, B, hw, cin, cout, spec, bias)
+            assert PATCH not in (q.tile, q.dw_tile)
+            _check_plan(op, q, B, hw, cin, cout, spec, bias)
+
+
+def test_candidates_hold_both_roles_at_a_non_overlapping_conv():
+    """Patchify's candidates: the plan's own first, the patch roles at
+    every split pair, then every residue-class candidate (the tile cache's
+    older rows stay candidates); other geometries' sets are unchanged."""
+    spec = _spec(14, 14, 0, 1)
+    got = candidates("conv_backward", spec, 8, (32, 32), 3, 1024,
+                     n_out=(448, 448))
+    assert got[0] == _plan("conv_backward", 8, (448, 448), 3, 1024, spec)
+    patch = [c for c in got if c.tile == PATCH]
+    assert {(c.splits, c.dw_splits) for c in patch} == {
+        (s, d) for s in (1, 2, 4, 8, 16) for d in (4, 8, 16, 32, 64)}
+    rest = [c for c in got if c.tile != PATCH]
+    assert rest and all(c.tile == THIN and c.dw_tile in (SMALL, SQUARE)
+                        for c in rest)
+    fuse = _spec(1, 1, 0, 1)
+    got = candidates("conv_backward", fuse, 16, (128, 128), 48, 4,
+                     n_out=(128, 128))
+    assert got[0].tile == TALL and any(c.tile == PATCH for c in got)
+
+
+def test_counted_refuses_patch_tiles_the_kernel_refuses():
+    for spec, op, dw in ((_spec(4, 2, 1, 1), "conv_backward", PATCH),
+                         (_spec(4, 4, 0, 1), "tconv_backward", PATCH),
+                         (_spec(4, 4, 0, 1), "conv_backward", SQUARE)):
+        with pytest.raises(ValueError, match="patch roles"):
+            counted(op, spec, 2, (4, 4), 3, 32, PATCH, 1, dw)
+
+
+# (name, B, (H, W), Cin, Cout, K) of the emulation: frames S does not
+# divide (15 at S = K = 4: dx 0 on the last 3 rows and columns; 9 at
+# S = K = 2), patchify's S = K = 14 at two patches a side, a 1x1 conv.
+PATCH_EMULATED = [("s4_frame15_cout32", 2, (15, 15), 3, 32, 4),
+                  ("s4_frame15_cout8", 2, (15, 15), 3, 8, 4),
+                  ("s14_frame30", 1, (30, 29), 3, 8, 14),
+                  ("s2_frame9", 2, (9, 9), 3, 32, 2),
+                  ("conv1x1_s1", 2, (6, 6), 5, 32, 1)]
+
+
+def _patch_operands(case, seed):
+    _, B, (H, W), cin, cout, k = case
+    oh, ow = H // k, W // k
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return (_spec(k, k, 0, 1), (oh, ow), r(B, H, W, cin), r(k, k, cin, cout),
+            r(B, oh, ow, cout), r(B, oh, ow, cout))
+
+
+def _patch_plans(spec, B, oh_ow, cin, cout, bias):
+    """`patch_plan`'s and one with both reductions split as far as
+    their lengths let every split hold a slab."""
+    positions = B * oh_ow[0] * oh_ow[1]
+    splits = 2 if cout > split_chunk(cout, 2) else 1
+    dw = next(d for d in (4, 2, 1)
+              if d == 1 or (d - 1) * split_chunk(positions, d) < positions)
+    return [patch_plan(spec, B, oh_ow, cin, cout, bias),
+            counted("conv_backward", spec, B, oh_ow, cin, cout, PATCH,
+                    splits, PATCH, dw, bias=bias)]
+
+
+def _repro_backward(backend, x, y, dy, w, spec_k, n_out, ep):
+    js = jspec.ConvSpec.make(stride=spec_k, padding=0, filter_shape=spec_k)
+    be = jspec.resolve_backend(backend)
+    if ep is None:
+        return be.backward(jnp.asarray(x), jnp.asarray(dy), jnp.asarray(w),
+                           js, n_out) + (None,)
+    return be.backward_ep(jnp.asarray(x), jnp.asarray(y), jnp.asarray(dy),
+                          jnp.asarray(w), js, n_out, ep)
+
+
+def _check_emulation(case, backend, je, seed):
+    spec, oh_ow, x, w, dy, y = _patch_operands(case, seed)
+    _, B, hw, cin, cout, k = case
+    if je is not None and je.activation == "tanh":
+        y = np.tanh(y)
+    te = None if je is None else Epilogue(activation=je.activation,
+                                          bias=je.bias, slope=je.slope,
+                                          scale=je.scale)
+    want = _repro_backward(backend, x, y, dy, w, k, hw, je)
+    tx, tdy, tw, ty = (torch.tensor(a) for a in (x, dy, w, y))
+    for p in _patch_plans(spec, B, oh_ow, cin, cout, te is not None
+                          and te.bias):
+        got = split_conv_backward_plain(
+            tx, tdy, tw, spec, p, n_out=hw,
+            y=ty if te is not None and te.needs_y else None, epilogue=te)
+        for a, b, name in zip(got, want, ("dx", "dW", "db")):
+            if b is None:
+                assert a is None, name
+                continue
+            assert tuple(a.shape) == tuple(b.shape), name
+            assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
+        dx = got[0]
+        assert not dx[:, oh_ow[0] * k:].any()
+        assert not dx[:, :, oh_ow[1] * k:].any()
+
+
+@pytest.mark.parametrize("kind", [None] + [k for k, _ in EPILOGUES])
+@pytest.mark.parametrize("case", PATCH_EMULATED, ids=lambda c: c[0])
+def test_patch_split_order_matches_reference(case, kind):
+    """The patch roles' split sums under no epilogue and each of
+    test_epilogue.py's six (bias, activations, slope, scale) against
+    repro's `reference` backward."""
+    je = None if kind is None else dict(EPILOGUES)[kind]
+    _check_emulation(case, "reference", je, 31)
+
+
+@pytest.mark.parametrize("case", PATCH_EMULATED, ids=lambda c: c[0])
+def test_patch_split_order_matches_xla_zero_free(case):
+    _check_emulation(case, "xla_zero_free", dict(EPILOGUES)["bias_leaky02"],
+                     32)

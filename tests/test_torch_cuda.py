@@ -37,9 +37,12 @@ from repro_torch.kernels.attention import (AttentionPlan,
                                            flash_attention_backward_plain,
                                            flash_attention_cuda,
                                            flash_attention_plain, plan)
-from repro_torch.kernels.dconv_backward import (conv_backward_plain,
-                                                phase_classes,
+from repro_torch.kernels.dconv_backward import (PATCH, BackwardPlan,
+                                                conv_backward_cuda,
+                                                conv_backward_plain, counted,
+                                                patch_plan, phase_classes,
                                                 plan as backward_plan,
+                                                split_chunk,
                                                 tconv_backward_plain)
 from repro_torch.kernels.dconv_filtergrad import dconv_filter_grad_plain
 from repro_torch.kernels.dconv_forward import dconv_forward_plain
@@ -1671,6 +1674,112 @@ def test_two_gloo_ranks_run_a_moe_and_a_hybrid_lm_on_the_card(cuda, tmp_path,
         assert res["launches"] == ([n_attn] * 7 if rank == 0 else
                                    [n_attn, 0, 0, 0, n_attn, n_attn,
                                     n_attn]), res
+
+
+# -- conv_backward's patch roles (non-overlapping convs) -------------------------
+
+# (name, B, (H, W), Cin, Cout, K) at S = K, P = 0, D = 1: patchify's layer
+# at batch 2 (3 -> 1024, S = K = 14); a 15 x 15 frame that S = K = 4 does
+# not divide (dx = 0 on its last 3 rows and columns) at Cout 32 and 8
+# (below PATCH_MIN_COUT: the patch plan is forced there); S = K = 2 on a
+# 17 x 16 frame with ragged channels; a 1x1 conv at S = 1; a run of
+# Kw*Cin = 390 values, longer than the 128-row tile.
+PATCH_CASES = [
+    ("patchify_b2", 2, (448, 448), 3, 1024, 14),
+    ("s4_frame15_cout32", 2, (15, 15), 3, 32, 4),
+    ("s4_frame15_cout8", 2, (15, 15), 3, 8, 4),
+    ("s2_ragged", 3, (17, 16), 5, 37, 2),
+    ("conv1x1_s1", 4, (20, 20), 48, 64, 1),
+    ("s3_run390", 2, (10, 9), 130, 37, 3),
+]
+
+
+def _patch_split_plan(spec, B, oh_ow, cin, cout, bias):
+    """The patch plan with both reductions split, as far as each length
+    leaves no split empty: dx over Cout in two, dW's positions in four."""
+    positions = B * oh_ow[0] * oh_ow[1]
+    splits = 2 if cout > split_chunk(cout, 2) else 1
+    dw = next(d for d in (4, 2, 1)
+              if d == 1 or (d - 1) * split_chunk(positions, d) < positions)
+    return counted("conv_backward", spec, B, oh_ow, cin, cout, PATCH, splits,
+                   PATCH, dw, bias=bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", PATCH_CASES, ids=lambda c: c[0])
+def test_conv_backward_patch_roles_match_plain(cuda, case, dtype):
+    """The patch roles against conv_backward_plain under each epilogue of
+    EP_KW, at `plan`'s patch plan (forced below PATCH_MIN_COUT) and with
+    both reductions split: fp32 within TOL, bf16 within one bf16 ulp
+    (rtol 2^-7, atol 2^-7 of the largest magnitude).  Through the wrapper
+    one launch a call; reruns bit-equal; dx exactly 0 where no patch
+    covers the frame."""
+    name, B, (H, W), cin, cout, k = case
+    spec = ConvSpec.make(stride=k, padding=0, filter_shape=k)
+    oh, ow = spec.out_size((H, W))
+    gen = torch.Generator().manual_seed(len(name))
+    x = _rand(gen, B, H, W, cin, device=cuda).to(dtype)
+    w = _rand(gen, k, k, cin, cout, device=cuda).to(dtype)
+    dy = (_rand(gen, B, oh, ow, cout, device=cuda)
+          / (B * oh * ow) ** 0.5).to(dtype)
+    for kw in EP_KW:
+        ep = Epilogue(**(kw or {}))
+        y = _rand(gen, B, oh, ow, cout, device=cuda)
+        y = (torch.tanh(y) if ep.activation == "tanh" else y).to(dtype)
+        y = y if ep.needs_y else None
+        want = conv_backward_plain(x, dy, w, spec, n_out=(H, W), y=y,
+                                   epilogue=ep)
+        planned = backward_plan("conv_backward", spec, B, (H, W), (oh, ow),
+                                cin, cout, n_out=(H, W), bias=ep.bias)
+        assert (planned.tile == PATCH) == (cout >= 16)
+        plans = [patch_plan(spec, B, (oh, ow), cin, cout, ep.bias),
+                 _patch_split_plan(spec, B, (oh, ow), cin, cout, ep.bias)]
+        for p in plans:
+            runs = [conv_backward_cuda(x, dy, w, spec, n_out=(H, W), y=y,
+                                       epilogue=ep, plan=p)
+                    for _ in range(2)]
+            for a, b in zip(runs[0], want):
+                if b is None:
+                    assert a is None
+                    continue
+                assert a.dtype == b.dtype and a.shape == b.shape
+                if dtype == torch.float32:
+                    torch.testing.assert_close(a, b, atol=TOL, rtol=TOL)
+                else:
+                    scale = float(b.float().abs().max())
+                    torch.testing.assert_close(
+                        a.float(), b.float(), rtol=BF16_ULP,
+                        atol=BF16_ULP * scale)
+            dx = runs[0][0]
+            assert not dx[:, oh * k:].any() and not dx[:, :, ow * k:].any()
+            assert all(torch.equal(a, b) for a, b in zip(*runs)
+                       if a is not None)
+        if planned.tile == PATCH:
+            ops.reset_launches()
+            ops.conv_backward(x, dy, w, stride=k, padding=0, n_out=(H, W),
+                              y=y, epilogue=ep)
+            assert ops.LAUNCHES["conv_backward"] == 1
+            assert sum(ops.LAUNCHES.values()) == 1
+
+
+def test_conv_backward_refuses_a_patch_plan_of_an_overlapping_conv(cuda):
+    """The C entry takes tile 5 only for S = K, P = 0, D = 1 and for both
+    roles at once: an S = 2, K = 4 conv, or a patch plan mixing tiles, is
+    refused before anything runs."""
+    gen = torch.Generator().manual_seed(5)
+    spec = ConvSpec.make(stride=2, padding=1, filter_shape=4)
+    x = _rand(gen, 2, 8, 8, 3, device=cuda)
+    w = _rand(gen, 4, 4, 3, 32, device=cuda)
+    dy = _rand(gen, 2, 4, 4, 32, device=cuda)
+    bad = BackwardPlan(PATCH, 1, PATCH, 1, 32, 1, 1, 0, 0)
+    with pytest.raises(RuntimeError, match="conv_backward kernel launch"):
+        conv_backward_cuda(x, dy, w, spec, n_out=(8, 8), plan=bad)
+    patch = ConvSpec.make(stride=4, padding=0, filter_shape=4)
+    mixed = BackwardPlan(PATCH, 1, 2, 1, 16, 1, 1, 0, 0)
+    with pytest.raises(RuntimeError, match="conv_backward kernel launch"):
+        conv_backward_cuda(x, _rand(gen, 2, 2, 2, 32, device=cuda), w,
+                           patch, n_out=(8, 8), plan=mixed)
 
 
 # -- the conv kernels in bf16 ---------------------------------------------------
