@@ -49,7 +49,16 @@ Phases (any failed check raises and ends the run non-zero):
      heads): prefill at S 1024 and 1000 and the backward at S 1024 on the
      forms the plans pick (bf16: wgmma, fp32: tile / simt) and, in bf16
      at S 1024, on tile and simt forced as well, a split decode over 1025
-     keys, each timed; and the six
+     keys, each timed; the split form reading the cache length from the
+     card (the graphed decode step's attention) at qwen3-0.6b's decode
+     shape in bf16 and fp32 and zamba2's head_dim 80 in bf16, over bucket
+     views of 64, 512, 1024 and 2048 keys at each bucket's first, middle
+     and last length and a short cache in the longest (whole splits
+     empty), and at moonshot's heads (16 / 16) in bf16 at its served
+     buckets' first and last lengths (DEVICE_LEN_SHAPES), each held
+     against the plain version over the live prefix, reruns
+     bit-identical, timed beside the int form at the same live length and
+     SDPA over the live prefix; and the six
      conv kernels' `_bf16` entries at the paths' shapes (the forwards
      and the generator's tconvs at batch 4 and 64 on both arms, the
      backwards and the filter gradient at batch 64), their ragged cases
@@ -89,13 +98,21 @@ Phases (any failed check raises and ends the run non-zero):
      (logits and the whole KV cache) against the same calls through the
      plain versions on the CPU; (b) the whole qwen3-0.6b (28 layers,
      bf16) serving 12 requests (prompts of 128-1024 tokens, 8-32 new
-     tokens each, so slots refill mid-flight) through
-     ServeEngine(batch=4, max_len=2048): one flash-attention launch per
-     layer per prefill and per decode step -- every prefill on the wgmma
-     form, every decode step on the split form -- no NaN in any logits,
-     every request answered, and the same tokens from a second run; then
-     a torch.profiler trace of 4 decode steps: the device's busy time, the
-     flash-attention kernels' part of it, against the step's wall time;
+     tokens each, so slots refill mid-flight) twice through
+     ServeEngine(batch=4, max_len=2048), whose decode step is one CUDA
+     graph per cache-length bucket (`serve_checked`): in run 1 every
+     decode step's logits bit-equal to the same graph-form step run
+     eagerly on a copy of the cache, at `int_form_step`'s sample its
+     argmax equal to the eager int form's but at a bf16 tie, one capture
+     per bucket touched; run 2 timed, no capture, the same tokens; one
+     flash-attention launch per layer per prefill (wgmma), two split
+     launches reading the device length per layer per capture, and one
+     per layer per replay counted from the capture's
+     (`graph.replay_launches`); no NaN, every request answered; then
+     torch.profiler traces of 4 decode steps at 512 cached positions,
+     eager (int form) and replayed: the device's busy time, the
+     flash-attention kernels' part of it, kernels a step, one split launch
+     per layer a replay, against the step's wall time;
   7. the trainer: ConvTrainer (train/conv_trainer.py) for `gan`, `gan_gen`
      and `cnn` at the published widths, batch 64, 8 steps, its step
      captured once as a CUDA graph and replayed (train/step_graph.py):
@@ -140,7 +157,8 @@ Phases (any failed check raises and ends the run non-zero):
      at full width, 2 layers, fp32, `kv_quant`: phase 6 (a)'s prompts and
      8 forced decodes on the card, each call held against the same call
      on the CPU (`int8_serve_phase`); (b) the whole model in bf16 with
-     `kv_quant` serving phase 6 (b)'s 12 requests through ServeEngine:
+     `kv_quant` serving phase 6 (b)'s 12 requests through the graphed
+     ServeEngine as phase 6 (b) serves them (`serve_checked`):
      requests/s, tokens/s, ms per prefill and decode step, peak memory,
      the cache's bytes against the bf16 cache's, the first decode's
      softmax against the bf16 cache's, the share of greedy tokens equal
@@ -162,9 +180,10 @@ Phases (any failed check raises and ends the run non-zero):
      card's routing (`family_parity`); (b) moonshot-v1-16b-a3b (the
      deepest its bf16 params fit in FAMILY_SERVE_SHARE of the card),
      rwkv6-7b and zamba2-2.7b whole, bf16, serving phase 6 (b)'s first 6
-     requests through ServeEngine: one `flash_attention` launch per
-     attention layer per call (moonshot: wgmma prefills; zamba2: 9 a
-     call at head_dim 80, wgmma prefills; split decodes; rwkv6: none),
+     requests through the graphed ServeEngine as phase 6 (b) serves them
+     (`serve_checked`; moonshot: wgmma prefills; zamba2: 9 attention
+     layers at head_dim 80, wgmma prefills; rwkv6: no attention, one
+     graph),
      requests/s, tokens/s, ms per prefill and decode step, peak memory,
      a decode profile (`family_serve`); (c) moonshot-v1-16b-a3b at 2
      layers and zamba2-2.7b at 12 (2 groups) through `Trainer.run` at
@@ -365,7 +384,33 @@ PARITY_DECODES = 8
 MESH_DECODES = 4
 PARITY_TOL = 1e-3
 PROFILE_CACHED = 512      # positions in the cache when decode is traced
+# Phase 3's split form with a device length: (bucket extent, cache
+# length) -- each bucket's first, middle and last length, and a short
+# cache in the longest bucket; the path's shapes among them.  Moonshot's
+# heads (16 / 16) at the first and last length of the buckets its served
+# steps touch.  Every bucket a served run touches must be held here at
+# its model's shape (`DEVICE_LEN_SERVED`, checked after phase 11).
+DEVICE_LEN_CASES = ((64, 0), (64, 31), (64, 63), (512, 256), (512, 511),
+                    (1024, 512), (1024, 767), (1024, 1023), (2048, 1024),
+                    (2048, 1535), (2048, 2047), (2048, 100))
+DEVICE_LEN_MOONSHOT = ((512, 256), (512, 511), (1024, 512), (1024, 1023))
+DEVICE_LEN_PATH = ((1024, 512), (2048, 1024))
+# Phase 11 (b)'s models by their phase 3 tag (phases 6 (b) and 10 (b)
+# serve qwen3 in bf16 and, dequantized, fp32).
+DEVICE_LEN_SERVED = {"zamba2_bf16": "zamba2-2.7b",
+                     "moonshot_bf16": "moonshot-v1-16b-a3b"}
+# (tag, Hq, Hk, head_dim, dtype name, cases) of phase 3's device-length
+# cases; the int8 cache's attention is qwen3's in fp32 (dequantized).
+DEVICE_LEN_SHAPES = (("qwen3_bf16", 16, 8, 128, "bfloat16", DEVICE_LEN_CASES),
+                     ("qwen3_fp32", 16, 8, 128, "float32", DEVICE_LEN_CASES),
+                     ("zamba2_bf16", 32, 32, 80, "bfloat16", DEVICE_LEN_CASES),
+                     ("moonshot_bf16", 16, 16, 128, "bfloat16",
+                      DEVICE_LEN_MOONSHOT))
 PROFILE_STEPS = 4
+# The served decode steps held against the eager int form as well as the
+# eager graph form (`int_form_step`): a bucket visit's first step, the
+# step at a bucket's last position, and every INT_FORM_EVERY-th step.
+INT_FORM_EVERY = 16
 PROFILE_TRAIN_STEPS = 2   # training steps traced per model
 # Phase 9, LM training: (a) PARITY_LAYERS layers at the published widths,
 # batch 2 x seq 256, loss and gradients against the CPU; (b) the whole
@@ -797,65 +842,299 @@ def lm_requests(vocab: int) -> list:
 
 def instrumented_engine(cfg, params):
     """A fresh ServeEngine(batch=LM_BATCH, max_len=LM_MAX_LEN) on the card
-    whose prefill and decode calls record CUDA events and a finiteness
-    flag of their logits in `eng.calls`."""
+    whose prefills and decode steps (its decode graph's replays, and each
+    bucket's eager first step and capture) record CUDA events and a
+    finiteness flag of their logits in `eng.calls`.  With `eng.check`
+    set, each decode step is also held, uncounted, by `hold_decode`: the
+    eager int form too at `int_form_step`'s."""
     from repro_torch.serve.engine import ServeEngine
 
     eng = ServeEngine(cfg, params, batch=LM_BATCH, max_len=LM_MAX_LEN,
                       device=torch.device("cuda"))
-    eng.calls = []
+    eng.calls, eng.check = [], False
+    eng.held = {"calls": 0, "bit_equal": 0, "graph": [], "int": [],
+                "extents": set(), "last": None}
+    graph = eng.graph
 
     def wrap(kind, fn):
         def call(*args):
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
-            logits, cache = fn(*args)
+            out = fn(*args)
             end.record()
             eng.calls.append((kind, start, end,
-                              torch.isfinite(logits).all()))
-            return logits, cache
+                              torch.isfinite(out[0]).all()))
+            return out
         return call
 
     eng._prefill = wrap("prefill", eng._prefill)
-    eng._decode = wrap("decode", eng._decode)
+    step = wrap("decode", graph.step)
+
+    def decode(tokens):
+        if not eng.check:
+            return step(tokens)
+        n, extent = graph.host_len, graph.extent()
+        held = eng.held
+        int_form = int_form_step(n, extent, held["last"], held["calls"])
+        held["last"] = (n, extent)
+        tok = tokens.reshape(-1, 1).clone()
+        snap = {k: t.clone() for k, t in graph.cache.items()}
+        out = step(tokens)
+        _uncounted(lambda: hold_decode(eng, snap, n, extent, tok, out[0],
+                                       int_form))
+        return out
+
+    graph.step = decode
     return eng
 
 
-def decode_profile(lm, params, dev) -> dict:
-    """Where a decode step's time goes: a torch.profiler trace of
+def int_form_step(n: int, extent: int, last, calls: int) -> bool:
+    """Whether `hold_decode` holds a served decode step at cache length n
+    in bucket `extent` against the eager int form too: the first step of
+    a bucket visit (`last`, the previous held step's (n, extent), is not
+    (n - 1, extent)), the step at the bucket's last position, and every
+    INT_FORM_EVERY-th held step (`calls` held before it)."""
+    return last != (n - 1, extent) or n + 1 == extent or \
+        calls % INT_FORM_EVERY == 0
+
+
+def hold_decode(eng, snap, n, extent, tok, logits, int_form: bool) -> None:
+    """One graphed decode step of `eng` held on the card's own values:
+    its logits bit-equal to the same graph-form step run eagerly on a
+    copy of the cache it met (`snap`, length n) on the graph's stream.
+    With `int_form` its MoE routes are recorded there too (`_routes`; the
+    replay's, as the two are bit-equal), and the eager int form's logits
+    on `snap` itself, on those routes, are kept beside the graph's for
+    `_serve_agreement`."""
+    graph, lm, params = eng.graph, eng.lm, eng.params
+    copy = {k: t.clone() for k, t in snap.items()} if int_form else snap
+    graph.stream.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(graph.stream), \
+            _routes() if int_form else contextlib.nullcontext() as rec:
+        want = lm.decode_step(params, copy, tok, extent=extent)[0]
+    torch.cuda.current_stream().wait_stream(graph.stream)
+    held = eng.held
+    held["calls"] += 1
+    held["bit_equal"] += bool(torch.equal(logits, want))
+    held["extents"].add(extent)
+    if not int_form:
+        return
+    with torch.no_grad(), _routes(force=rec) as forced:
+        ref = lm.decode_step(params, dict(snap, len=n), tok)[0]
+    held["routes"] = held.get("routes", 0) + len(forced["idx"])
+    held["routes_moved"] = held.get("routes_moved", 0) + forced["moved"]
+    held["router_err_of_max"] = max(held.get("router_err_of_max", 0.0),
+                                    forced["worst"])
+    held["graph"].append({"kind": "decode"}      # the buffer is reused
+                         | _logit_stats(logits.clone(), True))
+    held["int"].append({"kind": "decode"} | _logit_stats(ref, True))
+
+
+def serve_checked(what: str, cfg, params, requests, n_attn: int,
+                  prefill_form: str) -> dict:
+    """`requests()` served twice by one graphed ServeEngine: run 1 with
+    every decode step held (`hold_decode`: bit-equal to its eager graph
+    form; at `int_form_step`'s steps against the eager int form on the
+    same MoE routes, the argmax equal but at a bf16 tie, the logits' and
+    router logits' distance printed: the two split the live keys over
+    other split counts, and a deep bf16 model carries that rounding on),
+    run 2 unchecked and timed.  Every request answered in full, no NaN;
+    run 1 captures one graph per bucket it touches, run 2 none, and
+    gives run 1's tokens.  Wrapper launches (`ops.LAUNCHES`): one
+    flash_attention per attention layer per prefill (`prefill_form`) and
+    two split launches reading the device length per attention layer per
+    capture (the bucket's eager first step, the capture); the replays'
+    (`graph.replay_launches`, from each capture's own count): one split
+    launch per attention layer per replayed step, every decode step but
+    the captures' first steps.  `decode_profile`'s trace sees them on the
+    card."""
+    from repro_torch.kernels import ops
+
+    eng = instrumented_engine(cfg, params)
+    graph, runs = eng.graph, []
+    for run in (1, 2):
+        eng.calls, eng.check = [], run == 1
+        stats0, captures0 = dict(eng.stats), graph.captures
+        replayed0 = dict(graph.replay_launches)
+        reqs = requests()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = {k: eng.stats[k] - stats0[k] for k in stats0}
+        new = graph.captures - captures0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        replayed = {k: v - replayed0.get(k, 0)
+                    for k, v in graph.replay_launches.items()
+                    if v != replayed0.get(k, 0)}
+        want = {"flash_attention": n_attn * (stats["prefills"] + 2 * new)} \
+            if n_attn else {}
+        want_replayed = {"flash_attention": n_attn * (
+            stats["decode_steps"] - new)} if n_attn else {}
+        forms = {"tile": 0, "wgmma": 0, "split": 2 * n_attn * new}
+        forms[prefill_form] += n_attn * stats["prefills"]
+        if launches != want or ops.FLASH_FORMS != forms or \
+                ops.FLASH_DEVICE_LEN != {"split": 2 * n_attn * new} or \
+                replayed != want_replayed:
+            raise AssertionError(
+                f"{what} run {run}: launches {launches}, forms "
+                f"{ops.FLASH_FORMS}, device length "
+                f"{ops.FLASH_DEVICE_LEN}, replayed {replayed}, expected "
+                f"{want}, {forms}, {want_replayed} ({new} captures)")
+        if not all(bool(ok) for *_, ok in eng.calls):
+            raise AssertionError(f"{what} run {run}: NaN or inf in logits")
+        if sorted(res) != sorted(r.uid for r in reqs) or any(
+                len(res[r.uid]) != r.max_new_tokens for r in reqs):
+            raise AssertionError(f"{what} run {run}: not every request was "
+                                 f"answered in full")
+        ms = {kind: [s_.elapsed_time(e) for k, s_, e, _ in eng.calls
+                     if k == kind] for kind in ("prefill", "decode")}
+        runs.append(dict(res=res, wall=wall, stats=stats, captures=new,
+                         launches=launches, replayed=replayed,
+                         forms=dict(ops.FLASH_FORMS),
+                         ms=ms, peak=torch.cuda.max_memory_allocated(),
+                         reqs=reqs))
+    first, second = runs
+    held = eng.held
+    agree = _serve_agreement(held["graph"], held["int"], cfg.compute_dtype,
+                             FM_SERVE_TOL)
+    if held["calls"] != first["stats"]["decode_steps"] or \
+            held["bit_equal"] != held["calls"]:
+        raise AssertionError(f"{what}: {held['bit_equal']} of "
+                             f"{held['calls']} graphed decode steps bit-equal "
+                             f"to the eager graph form")
+    if not agree["same_calls"] or not all(f["tie"] for f in agree["flips"]):
+        raise AssertionError(f"{what}: the graphed steps' tokens against "
+                             f"the eager int form's: {agree['flips']}")
+    if first["captures"] != len(held["extents"]) or second["captures"] or \
+            second["res"] != first["res"] or \
+            second["stats"] != first["stats"]:
+        raise AssertionError(
+            f"{what}: captures {first['captures']} / {second['captures']} "
+            f"for buckets {sorted(held['extents'])}; run 2 tokens equal: "
+            f"{second['res'] == first['res']}")
+    decode_ms = sorted(second["ms"]["decode"])
+    summary = {
+        "captures": first["captures"], "buckets": sorted(held["extents"]),
+        "graph_bit_equal_steps": held["bit_equal"],
+        "int_form_steps": len(held["int"]),
+        "replayed_launches": [first["replayed"], second["replayed"]],
+        "int_form_argmax_equal_share": agree["argmax_equal_share"],
+        "int_form_logits_max_err_of_max": agree["logits_max_err_of_max"],
+        "int_form_flips": agree["flips"],
+        "int_form_route_calls": held.get("routes", 0),
+        "int_form_route_tokens_moved": held.get("routes_moved", 0),
+        "int_form_router_logits_err_of_max": held.get("router_err_of_max",
+                                                      0.0),
+        "wall_s": [first["wall"], second["wall"]],
+        "ms_per_decode_step_run_1": sum(first["ms"]["decode"])
+        / len(first["ms"]["decode"]),
+        "ms_per_prefill": sum(second["ms"]["prefill"])
+        / len(second["ms"]["prefill"]),
+        "ms_per_decode_step": sum(decode_ms) / len(decode_ms),
+        "decode_ms_min_median_max": [decode_ms[0],
+                                     decode_ms[len(decode_ms) // 2],
+                                     decode_ms[-1]]}
+    launches = dict(first["launches"])
+    for k, v in second["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    del eng, graph           # the wrapped calls make a cycle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(first=first, second=second, summary=summary,
+                launches=launches, device_len={
+                    "launches": 2 * n_attn * first["captures"],
+                    "replayed": sum(r["replayed"].get("flash_attention", 0)
+                                    for r in runs),
+                    "buckets": summary["buckets"]})
+
+
+def decode_profile(lm, params, dev, graphed: bool = True) -> dict:
+    """Where a decode step's time goes: torch.profiler traces of
     PROFILE_STEPS decode steps at slot batch LM_BATCH over PROFILE_CACHED
-    cached positions.  Per step: the device's busy time (all kernels), of
-    which the flash-attention kernel's (this repo's own symbol), against
-    the step's wall time under the profiler, which adds host time of its
-    own; "not measured" if the trace holds no kernel.  Attention is every
-    kernel of `csrc/flash_attention.cu` (one symbol per form), summed and
-    by form."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    cached positions -- the eager int-form step (`lm.decode_step`), and
+    with `graphed` the same steps replayed by a DecodeGraph (its bucket
+    captured first), in the same call (`_decode_trace`).  Per step: the
+    device's busy time (all kernels), of which the flash-attention
+    kernel's (this repo's own symbol, summed and by form), the kernels a
+    step, against the step's wall time under the profiler, which adds
+    host time of its own; "not measured" if a trace holds no kernel.  A
+    graphed trace must show one split launch per attention layer a
+    step."""
+    from repro_torch.serve.decode_graph import DecodeGraph
 
     prompt = torch.from_numpy(np.random.default_rng(2).integers(
         1, lm.cfg.vocab, (LM_BATCH, PROFILE_CACHED)).astype(np.int32))
     if lm.cfg.embed_input:   # frames in place of the prompt's tokens
         prompt = torch.from_numpy(np.random.default_rng(2).standard_normal(
             (LM_BATCH, PROFILE_CACHED, lm.cfg.d_model)).astype(np.float32))
+    out = {"steps": PROFILE_STEPS, "batch": LM_BATCH,
+           "cached_positions": PROFILE_CACHED}
     with torch.no_grad():
         logits, cache = lm.prefill(params, prompt.to(dev), LM_MAX_LEN)
-        logits, cache = lm.decode_step(
-            params, cache, torch.argmax(logits[:, 0], dim=-1)[:, None])
+        first = torch.argmax(logits[:, 0], dim=-1)
+        if graphed:
+            graph = DecodeGraph(lm, params, LM_BATCH, LM_MAX_LEN, dev)
+            graph.load(cache)
+        state = {"logits": logits, "cache": cache}
+
+        def eager():
+            state["logits"], state["cache"] = lm.decode_step(
+                params, state["cache"],
+                torch.argmax(state["logits"][:, 0], dim=-1)[:, None])
+
+        eager()
+        out["eager"] = _decode_trace(eager, host_ops=False)
+        del state
+        if graphed:
+            del cache
+            graph.step(first)                  # the capture
+            graph.step(graph.next)             # the first replay
+            trace = _decode_trace(lambda: graph.step(graph.next),
+                                  host_ops=True)
+            n_attn = attention_layers(lm.cfg)
+            split = trace.get("split_launches_per_step")
+            if split != n_attn:
+                raise AssertionError(f"{lm.cfg.name}: {split} split "
+                                     f"launches a replayed step, expected "
+                                     f"{n_attn}")
+            out["graphed"] = trace | {"captures": graph.captures}
+            del graph
+    return out
+
+
+def _decode_trace(step, host_ops: bool) -> dict:
+    """`decode_profile`'s numbers for PROFILE_STEPS calls of `step`.  The
+    window opens as `calls_profile`'s does (PROFILE_LEAD_IN spin kernels,
+    a synchronize and PROFILE_PAD_S of idle host time, the spin kernels
+    left out: a trace late in a long process loses its first device
+    events).  With `host_ops` the trace records the host's op events too;
+    an eager step has thousands, which double its wall time and take
+    seconds to collect, so the eager trace records the card's activity
+    alone (its launches are not counted; a replay's are)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if host_ops else [])) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            torch.cuda._sleep(100)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_STEPS):
-                logits, cache = lm.decode_step(
-                    params, cache, torch.argmax(logits[:, 0], dim=-1)[:, None])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    out = {"steps": PROFILE_STEPS, "batch": LM_BATCH,
-           "cached_positions": PROFILE_CACHED,
-           "wall_ms_per_step_under_profiler": wall_ms}
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+        time.sleep(PROFILE_PAD_S)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.name]
+    out = {"wall_ms_per_step_under_profiler": wall_ms}
     if not kernels:
         return out | {"device_busy_ms_per_step": "not measured"}
 
@@ -863,14 +1142,17 @@ def decode_profile(lm, params, dev) -> dict:
         return sum(e.time_range.elapsed_us() for e in events) / 1e3 \
             / PROFILE_STEPS
 
+    def form(f):
+        return [e for e in kernels if f"flash_attention_{f}_kernel<" in e.name]
+
     busy = ms_per_step(kernels)
-    by_form = {form: ms_per_step(e for e in kernels
-                                 if f"flash_attention_{form}_kernel<" in e.name)
-               for form in ATTN_FORMS}
+    by_form = {f: ms_per_step(form(f)) for f in ATTN_FORMS}
     attention = sum(by_form.values())
     return out | {"device_busy_ms_per_step": busy,
                   "attention_ms_per_step": attention,
                   "attention_ms_per_step_by_form": by_form,
+                  "split_launches_per_step": len(form("split"))
+                  / PROFILE_STEPS,
                   "other_device_ms_per_step": busy - attention,
                   "device_idle_share": 1.0 - busy / wall_ms,
                   "kernels_per_step": len(kernels) / PROFILE_STEPS}
@@ -2034,20 +2316,14 @@ def int8_serve_phase(card: str, params=None, bf16_run=None) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models.layers import tree_map
     from repro_torch.models.lm import LM
-    from repro_torch.serve.engine import Request
 
     dev, cpu = torch.device("cuda"), torch.device("cpu")
     full = get_config(LM_ARCH)
     if params is None:
         params = LM(full).init(torch.Generator().manual_seed(1), device=dev)
-        instrumented_engine(full, params).generate([Request(
-            uid=0, prompt=np.arange(1, 200, dtype=np.int32),
-            max_new_tokens=3)])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        res = instrumented_engine(full, params).generate(
-            lm_requests(full.vocab))
-        bf16_run = {"res": res, "peak": torch.cuda.max_memory_allocated()}
+        bf16_run = serve_checked("lm serve", full, params,
+                                 lambda: lm_requests(full.vocab),
+                                 full.n_layers, "wgmma")["second"]
 
     # (a) 2 layers at full width in fp32: the card against the CPU.
     plm = LM(full.scaled(n_layers=PARITY_LAYERS, dtype="float32",
@@ -2150,49 +2426,23 @@ def int8_serve_phase(card: str, params=None, bf16_run=None) -> dict:
         raise AssertionError(f"kv serve: the first decode's softmax is "
                              f"{drift:.3e} from the bf16 cache's")
 
-    warm = instrumented_engine(qlm.cfg, params)   # one-time costs
-    warm.generate([Request(uid=0, prompt=np.arange(1, 200, dtype=np.int32),
-                           max_new_tokens=3)])
-    eng, reqs = instrumented_engine(qlm.cfg, params), lm_requests(full.vocab)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    res = eng.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-    prefills, decodes = eng.stats["prefills"], eng.stats["decode_steps"]
-    if launches != {"flash_attention": full.n_layers * (prefills + decodes)}:
-        raise AssertionError(f"kv serve: launches {launches}, expected "
-                             f"{full.n_layers} per prefill and decode step")
-    forms = {"tile": 0, "wgmma": full.n_layers * prefills,
-             "split": full.n_layers * decodes}
-    if ops.FLASH_FORMS != forms:
-        raise AssertionError(f"kv serve: flash_attention forms "
-                             f"{ops.FLASH_FORMS}, expected {forms}")
-    if not all(bool(ok) for *_, ok in eng.calls):
-        raise AssertionError("kv serve: NaN or inf in the logits")
-    if sorted(res) != list(range(LM_REQUESTS)) or any(
-            len(res[r.uid]) != r.max_new_tokens for r in reqs):
-        raise AssertionError("kv serve: not every request was answered")
+    served = serve_checked("kv serve", qlm.cfg, params,
+                           lambda: lm_requests(full.vocab), full.n_layers,
+                           "wgmma")
+    res, second = served["first"]["res"], served["second"]
+    wall, launches = second["wall"], served["launches"]
     generated = sum(len(v) for v in res.values())
     same = sum(a == b for uid, toks in res.items()
                for a, b in zip(toks, bf16_run["res"][uid]))
-    ms = {kind: [s.elapsed_time(e) for k, s, e, _ in eng.calls
-                 if k == kind] for kind in ("prefill", "decode")}
     print("kv serve " + json.dumps({
         "arch": LM_ARCH, "n_layers": full.n_layers, "dtype": full.dtype,
         "kv_quant": True, "batch": LM_BATCH, "max_len": LM_MAX_LEN,
         "requests": LM_REQUESTS, "generated_tokens": generated,
-        "stats": eng.stats, "launches": launches,
-        "flash_attention_forms": dict(ops.FLASH_FORMS), "wall_s": wall,
+        "stats": second["stats"], "launches": launches,
+        "flash_attention_forms": served["first"]["forms"],
         "requests_per_s": LM_REQUESTS / wall,
         "generated_tokens_per_s": generated / wall,
-        "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),
-        "ms_per_decode_step": sum(ms["decode"]) / len(ms["decode"]),
-        "peak_memory_gb": peak / 1e9,
+        "peak_memory_gb": second["peak"] / 1e9,
         "bf16_cache_peak_memory_gb": bf16_run["peak"] / 1e9,
         "cache_bytes": int8_bytes, "bf16_cache_bytes": bf16_bytes,
         "first_decode_softmax_max_abs_diff": drift,
@@ -2200,7 +2450,7 @@ def int8_serve_phase(card: str, params=None, bf16_run=None) -> dict:
         "first_decode_logits_max_abs_diff": logit_drift,
         "first_decode_logits_max_abs": logit_max,
         "greedy_tokens_equal_to_bf16_cache": same / generated,
-        "card": card}))
+        "card": card} | served["summary"]))
     print("kv decode profile " + json.dumps(
         decode_profile(qlm, params, dev) | {"card": card}))
     print(f"kv: {PARITY_LAYERS}-layer int8-KV {LM_ARCH} fp32 equals the CPU "
@@ -2208,7 +2458,7 @@ def int8_serve_phase(card: str, params=None, bf16_run=None) -> dict:
           f"{LM_REQUESTS} requests served on a {int8_bytes / 1e6:.1f} MB "
           f"cache ({bf16_bytes / 1e6:.1f} MB in bf16), first-decode softmax "
           f"{drift:.2e} from the bf16 cache's")
-    return launches
+    return launches, served["device_len"]
 
 
 def examples_phase(card: str) -> dict:
@@ -2622,20 +2872,18 @@ def family_parity(card: str, arch: str, n_layers: int,
 def family_serve(card: str, arch: str) -> dict:
     """Phase 11 (b) for one model: bf16 params (`family_params` cast as
     drawn) at the published widths, whole or cut (FAMILY_SERVE_SHARE),
-    phase 6 (b)'s first FAMILY_REQUESTS requests through
-    ServeEngine(batch=LM_BATCH, max_len=LM_MAX_LEN) after a warm-up
-    request: every request answered,
-    no NaN, one flash_attention launch per attention layer per prefill and
-    decode step -- prefills on wgmma (head_dim 128 and 80), decodes on
-    split -- and none for RWKV; requests/s, tokens/s, ms per
-    prefill and decode step, peak memory and a decode profile.  Returns
-    the run's launches."""
+    phase 6 (b)'s first FAMILY_REQUESTS requests twice through the
+    graphed ServeEngine(batch=LM_BATCH, max_len=LM_MAX_LEN)
+    (`serve_checked`: every decode step of run 1 held against its eager
+    graph form and the eager int form; prefills on wgmma at head_dim 128
+    and 80, the captures' split launches, none for RWKV); requests/s,
+    tokens/s, ms per prefill and decode step and peak memory of run 2, a
+    decode profile (eager and replayed).  Returns (the runs' launches,
+    their device-length launches)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.kernels.attention import WGMMA_DIMS
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.lm import LM
-    from repro_torch.serve.engine import Request
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2657,58 +2905,33 @@ def family_serve(card: str, arch: str) -> dict:
     init_s = time.perf_counter() - t0
     param_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(params))
-    instrumented_engine(cfg, params).generate([Request(
-        uid=0, prompt=np.arange(1, 200, dtype=np.int32), max_new_tokens=3)])
-    eng, reqs = instrumented_engine(cfg, params), \
-        lm_requests(cfg.vocab)[:FAMILY_REQUESTS]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    res = eng.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-    prefills, decodes = eng.stats["prefills"], eng.stats["decode_steps"]
     n_attn = attention_layers(cfg)
-    want = {"flash_attention": n_attn * (prefills + decodes)} if n_attn \
-        else {}
-    prefill_form = "wgmma" if cfg.head_dim in WGMMA_DIMS else "tile"
-    forms = {"tile": 0, "wgmma": 0, "split": n_attn * decodes}
-    forms[prefill_form] += n_attn * prefills
-    if launches != want or ops.FLASH_FORMS != forms:
-        raise AssertionError(f"{arch} serve: launches {launches}, forms "
-                             f"{ops.FLASH_FORMS}, expected {want}, {forms}")
-    if not all(bool(ok) for *_, ok in eng.calls):
-        raise AssertionError(f"{arch} serve: NaN or inf in the logits")
-    if sorted(res) != list(range(FAMILY_REQUESTS)) or any(
-            len(res[r.uid]) != r.max_new_tokens for r in reqs):
-        raise AssertionError(f"{arch} serve: not every request was answered")
-    generated = sum(len(v) for v in res.values())
-    ms = {kind: [s_.elapsed_time(e) for k, s_, e, _ in eng.calls
-                 if k == kind] for kind in ("prefill", "decode")}
+    served = serve_checked(
+        f"{arch} serve", cfg, params,
+        lambda: lm_requests(cfg.vocab)[:FAMILY_REQUESTS], n_attn,
+        "wgmma" if cfg.head_dim in WGMMA_DIMS else "tile")
+    second = served["second"]
+    generated = sum(len(v) for v in second["res"].values())
     row = {"arch": arch, "n_layers": cfg.n_layers,
            "published_layers": full.n_layers, "dtype": "bfloat16",
            "params_gb": param_bytes / 1e9, "init_s": init_s,
            "batch": LM_BATCH, "max_len": LM_MAX_LEN,
            "requests": FAMILY_REQUESTS, "generated_tokens": generated,
-           "stats": eng.stats, "launches": launches,
-           "flash_attention_forms": dict(ops.FLASH_FORMS), "wall_s": wall,
-           "requests_per_s": FAMILY_REQUESTS / wall,
-           "generated_tokens_per_s": generated / wall,
-           "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),
-           "ms_per_decode_step": sum(ms["decode"]) / len(ms["decode"]),
-           "peak_memory_gb": peak / 1e9, "card": card}
+           "stats": second["stats"], "launches": served["launches"],
+           "flash_attention_forms": served["first"]["forms"],
+           "requests_per_s": FAMILY_REQUESTS / second["wall"],
+           "generated_tokens_per_s": generated / second["wall"],
+           "peak_memory_gb": second["peak"] / 1e9, "card": card} \
+        | served["summary"]
     prof = decode_profile(LM(cfg), params, dev)
     row["phase_s"] = time.perf_counter() - t_start
     print("family serve " + json.dumps(row))
     print("family decode profile " + json.dumps(
         {"arch": arch} | prof | {"card": card}))
-    del params, eng          # the engine's wrapped calls make a cycle
+    del params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return served["launches"], served["device_len"]
 
 
 def family_train(card: str, arch: str, n_layers, traced: bool,
@@ -2752,17 +2975,24 @@ def families_phase(card: str) -> dict:
     rwkv6-7b, zamba2-2.7b): (a) parity against the CPU
     (`family_parity`), (b) serving (`family_serve`), (c) training
     (`family_train`).  Returns {"launches": (b) and (c)'s launches
-    summed, "d80": those of zamba2's head_dim 80 instantiations}."""
+    summed, "d80": those of zamba2's head_dim 80 instantiations,
+    "device_len": (b)'s split launches that read the device length --
+    wrapper launches and replayed ones -- and each model's buckets}."""
     t0 = time.perf_counter()
     for arch, n in FAMILY_PARITY.items():
         family_parity(card, arch, n)
     launches, d80 = {}, {}
+    device_len = {"launches": 0, "replayed": 0, "buckets": {}}
     runs = [(arch, lambda a=arch: family_serve(card, a))
             for arch in FAMILY_SERVE]
-    runs += [(arch, lambda a=arch, n=n: family_train(card, a, *n))
+    runs += [(arch, lambda a=arch, n=n: (family_train(card, a, *n), None))
              for arch, n in FAMILY_TRAIN.items()]
     for arch, run in runs:
-        got = run()
+        got, served = run()
+        if served is not None:
+            device_len["launches"] += served["launches"]
+            device_len["replayed"] += served["replayed"]
+            device_len["buckets"][arch] = served["buckets"]
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
             if arch.startswith("zamba2"):
@@ -2770,7 +3000,7 @@ def families_phase(card: str) -> dict:
     print(f"families: moonshot-v1-16b-a3b, rwkv6-7b and zamba2-2.7b equal "
           f"the CPU in fp32 within {PARITY_TOL:g}, served in bf16 and "
           f"trained at seq {LM_TRAIN_SEQ} ({time.perf_counter() - t0:.1f} s)")
-    return {"launches": launches, "d80": d80}
+    return {"launches": launches, "d80": d80, "device_len": device_len}
 
 
 def embed_serve(card: str, arch: str) -> dict:
@@ -2890,7 +3120,7 @@ def embed_serve(card: str, arch: str) -> dict:
            "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),
            "ms_per_decode_step": sum(ms["decode"]) / len(ms["decode"]),
            "peak_memory_gb": peak / 1e9, "card": card}
-    prof = decode_profile(lm, params, dev)
+    prof = decode_profile(lm, params, dev, graphed=False)
     row["phase_s"] = time.perf_counter() - t_start
     print("embed serve " + json.dumps(row))
     print("embed decode profile " + json.dumps(
@@ -3401,8 +3631,9 @@ def _logit_stats(logits, keep: bool = False) -> dict:
 
 
 def _timed_engine(eng, sync, keep_logits: bool = False):
-    """Wrap `eng`'s prefill and decode: per call the host wall ms (synced
-    on both sides: a sharded call waits on its collectives anyway), the
+    """Wrap `eng`'s prefill and decode (an engine on the card without a
+    mesh: its decode graph's steps): per call the host wall ms (synced on
+    both sides: a sharded call waits on its collectives anyway), the
     cache length it met, each row's argmax, top two tokens, top logit
     and top-2 margin, and with `keep_logits` the logits (B, V) on the
     host."""
@@ -3410,19 +3641,23 @@ def _timed_engine(eng, sync, keep_logits: bool = False):
 
     def wrap(kind, fn):
         def call(*args):
-            clen = args[1]["len"] if kind == "decode" else 0
+            clen = 0 if kind == "prefill" else eng.graph.host_len \
+                if eng.graph is not None else args[1]["len"]
             sync()
             t0 = time.perf_counter()
-            logits, cache = fn(*args)
+            out = fn(*args)
             sync()
             eng.calls.append({"kind": kind, "len": clen,
                               "ms": (time.perf_counter() - t0) * 1e3}
-                             | _logit_stats(logits, keep_logits))
-            return logits, cache
+                             | _logit_stats(out[0], keep_logits))
+            return out
         return call
 
     eng._prefill = wrap("prefill", eng._prefill)
-    eng._decode = wrap("decode", eng._decode)
+    if eng.graph is not None:
+        eng.graph.step = wrap("decode", eng.graph.step)
+    else:
+        eng._decode = wrap("decode", eng._decode)
     return eng
 
 
@@ -4200,7 +4435,8 @@ def _uncounted(fn):
     made inside a counted main path)."""
     from repro_torch.kernels import ops
 
-    counts = (ops.LAUNCHES, ops.FLASH_FORMS, ops.FLASH_BWD_FORMS)
+    counts = (ops.LAUNCHES, ops.FLASH_FORMS, ops.FLASH_BWD_FORMS,
+              ops.FLASH_DEVICE_LEN)
     saved = [dict(c) for c in counts]
     try:
         return fn()
@@ -4886,7 +5122,6 @@ def main() -> int:
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.models.lm import LM
     from repro_torch.serve.conv_engine import ConvRequest, ConvServeEngine
-    from repro_torch.serve.engine import Request
 
     dev = torch.device("cuda")
     phase_s, t_mark = {}, [time.perf_counter()]
@@ -5492,6 +5727,53 @@ def main() -> int:
         cases.append(attention_case(f"decode_len{S}_bf16", LM_BATCH, 1, S + 1,
                                     16, 8, 128, True, torch.bfloat16, True,
                                     cache_len=LM_MAX_LEN))
+    def device_len_case(tag, Hq, Hk, D, dtype, extent, n, path):
+        """The split form reading the cache length n from the card, over
+        the bucket view cache[:, :extent] of an (LM_BATCH, LM_MAX_LEN)
+        cache -- a graphed decode step's attention -- held against the
+        plain version over the live prefix, timed beside the int form
+        at the same live length and SDPA over the live prefix.  Bound:
+        the live keys and values read once."""
+        q = rand(LM_BATCH, 1, Hq, D).to(dtype)
+        k = rand(LM_BATCH, LM_MAX_LEN, Hk, D).to(dtype)
+        v = rand(LM_BATCH, LM_MAX_LEN, Hk, D).to(dtype)
+        length = torch.tensor(n, dtype=torch.int32, device=dev)
+        kb, vb, kl, vl = k[:, :extent], v[:, :extent], k[:, :n + 1], \
+            v[:, :n + 1]
+        form = attn_plan(dtype, LM_BATCH, 1, extent, Hq, Hk, D)
+        return dict(kernel="flash_attention_device_len",
+                    case=f"{tag}_ext{extent}_len{n}", path=path,
+                    form=f"split x{form.splits}", rerun=True, timed=True,
+                    tol=ATTN_TOL[dtype], lib_tol=ATTN_LIB_TOL[dtype],
+                    flops_per_s=BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                    else FP32_FLOPS_PER_S,
+                    run=lambda: ops.flash_attention(q, kb, vb, causal=True,
+                                                    length=length),
+                    plain=lambda: flash_attention_plain(q, kl, vl,
+                                                        causal=True),
+                    int_form=lambda: ops.flash_attention(q, kl, vl,
+                                                         causal=True),
+                    lib=lambda: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), kl.transpose(1, 2),
+                        vl.transpose(1, 2), enable_gqa=True).transpose(1, 2),
+                    macs=2 * D * LM_BATCH * Hq * (n + 1),
+                    nbytes=q.element_size() * (2 * q.numel() + 2 * LM_BATCH
+                                               * (n + 1) * Hk * D))
+
+    # The graphed decode step's attention: the split form with the device
+    # length at qwen3-0.6b's decode (Hq 16, Hk 8, head_dim 128) in bf16
+    # and fp32 (the int8 cache's), zamba2-2.7b's (32 / 32, 80) in bf16,
+    # over buckets of 64, 512, 1024 and 2048 keys at each bucket's first,
+    # middle and last length, and a short cache in the longest bucket
+    # (whole splits empty); moonshot's (16 / 16, 128) in bf16 at its
+    # served buckets (DEVICE_LEN_SHAPES).  The path's shapes: qwen3 bf16
+    # at the first length of the two long buckets.
+    for tag, Hq, Hk, D, dtype, lens in DEVICE_LEN_SHAPES:
+        for extent, n in lens:
+            cases.append(device_len_case(
+                tag, Hq, Hk, D, getattr(torch, dtype), extent, n,
+                tag == "qwen3_bf16" and (extent, n) in DEVICE_LEN_PATH))
+
     # The parity run's dtype, and MQA at head_dim 256.
     cases.append(attention_case("prefill_S1024_fp32", LM_BATCH, 1024, 1024,
                                 16, 8, 128, True, torch.float32, False,
@@ -5600,6 +5882,8 @@ def main() -> int:
                        plain_ms=timer(c["plain"], iters), library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by, macs=c["macs"],
                        nbytes=c["nbytes"])
+            if "int_form" in c:   # the int form at the same live length
+                row["int_form_ms"] = timer(c["int_form"], iters)
         print("case " + json.dumps(row))
         if c["case"] in vision_cases:
             patchify_rows[f"{c['kernel']} {c['case']}"] = {
@@ -5625,6 +5909,9 @@ def main() -> int:
         if c["path"]:   # one launch at each of its path shapes, summed
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 k[key] += row[key]
+            if "int_form_ms" in row:
+                k["int_form_ms"] = k.get("int_form_ms", 0.0) \
+                    + row["int_form_ms"]
             k["by"][row["bound_by"]] += row["bound_ms"]
     for point in race.values():   # a miss: the pick's arm 10 % slower
         ms = {arm: point[kernel] for arm, kernel in TCONV_KERNELS.items()}
@@ -5942,78 +6229,31 @@ def main() -> int:
     params = lm.init(torch.Generator().manual_seed(1), device=dev)
     init_s = time.perf_counter() - t0
 
-    warm = instrumented_engine(full, params)   # one-time costs
-    warm.generate([Request(uid=0, prompt=np.arange(1, 200, dtype=np.int32),
-                           max_new_tokens=3)])
-    runs = []
-    for run in range(2):
-        eng, reqs = instrumented_engine(full, params), lm_requests(full.vocab)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        res = eng.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-        calls = eng.stats["prefills"] + eng.stats["decode_steps"]
-        if launches != {"flash_attention": full.n_layers * calls}:
-            raise AssertionError(f"lm serve run {run + 1}: launches "
-                                 f"{launches}, expected "
-                                 f"{full.n_layers} x {calls} flash_attention")
-        # Every prefill on the tensor-core form, every decode step on the
-        # split-kv form.
-        forms = {"tile": 0,
-                 "wgmma": full.n_layers * eng.stats["prefills"],
-                 "split": full.n_layers * eng.stats["decode_steps"]}
-        if ops.FLASH_FORMS != forms:
-            raise AssertionError(f"lm serve run {run + 1}: flash_attention "
-                                 f"forms {ops.FLASH_FORMS}, expected {forms}")
-        forms_run = dict(ops.FLASH_FORMS)
-        if not all(bool(ok) for *_, ok in eng.calls):
-            raise AssertionError(f"lm serve run {run + 1}: NaN or inf in the "
-                                 f"logits")
-        if sorted(res) != list(range(LM_REQUESTS)) or any(
-                len(res[r.uid]) != r.max_new_tokens for r in reqs):
-            raise AssertionError(f"lm serve run {run + 1}: not every request "
-                                 f"was answered in full")
-        runs.append(dict(res=res, wall=wall, launches=launches,
-                         forms=forms_run,
-                         stats=dict(eng.stats), calls=eng.calls, reqs=reqs,
-                         peak=torch.cuda.max_memory_allocated()))
-    if runs[1]["res"] != runs[0]["res"] or runs[1]["stats"] != \
-            runs[0]["stats"]:
-        raise AssertionError("lm serve: a second run gave other tokens")
-    first = runs[0]
-    lm_launches = first["launches"]
-    ms = {kind: [s.elapsed_time(e) for k, s, e, _ in first["calls"]
-                 if k == kind] for kind in ("prefill", "decode")}
+    served = serve_checked("lm serve", full, params,
+                           lambda: lm_requests(full.vocab), full.n_layers,
+                           "wgmma")
+    first, second = served["first"], served["second"]
+    lm_launches, lm_device_len = served["launches"], served["device_len"]
     generated = sum(len(v) for v in first["res"].values())
-    decode_ms = sorted(ms["decode"])
     print("lm serve " + json.dumps({
         "arch": LM_ARCH, "n_layers": full.n_layers, "dtype": full.dtype,
         "batch": LM_BATCH, "max_len": LM_MAX_LEN, "requests": LM_REQUESTS,
         "prompt_tokens": int(sum(len(r.prompt) for r in first["reqs"])),
         "generated_tokens": generated, "stats": first["stats"],
         "launches": lm_launches, "flash_attention_forms": first["forms"],
-        "wall_s": [r["wall"] for r in runs],
-        "requests_per_s": LM_REQUESTS / first["wall"],
-        "generated_tokens_per_s": generated / first["wall"],
-        "ms_per_prefill": sum(ms["prefill"]) / len(ms["prefill"]),
-        "ms_per_decode_step": sum(ms["decode"]) / len(ms["decode"]),
-        "prefill_ms": ms["prefill"],
-        "decode_ms_min_median_max": [decode_ms[0],
-                                     decode_ms[len(decode_ms) // 2],
-                                     decode_ms[-1]],
-        "peak_memory_gb": first["peak"] / 1e9, "init_s": init_s,
-        "card": card}))
+        "requests_per_s": LM_REQUESTS / second["wall"],
+        "generated_tokens_per_s": generated / second["wall"],
+        "prefill_ms": second["ms"]["prefill"],
+        "peak_memory_gb": second["peak"] / 1e9, "init_s": init_s,
+        "card": card} | served["summary"]))
     print("lm decode profile " + json.dumps(
         decode_profile(lm, params, dev) | {"card": card}))
     print(f"lm: {PARITY_LAYERS}-layer {LM_ARCH} fp32 equals the CPU within "
           f"{PARITY_TOL:g} over prefill and {PARITY_DECODES} decode steps; "
           f"{LM_REQUESTS} requests served twice with the same tokens, "
-          f"{full.n_layers} flash_attention launches per prefill and per "
-          f"decode step, no NaN")
+          f"{full.n_layers} flash_attention launches per prefill, the decode "
+          f"steps replayed from {served['summary']['captures']} graphs, each "
+          f"bit-equal to its eager graph form, no NaN")
     mark("6")
 
     # -- phase 7: the trainer, its step captured as a CUDA graph ---------------
@@ -6029,14 +6269,23 @@ def main() -> int:
     mark("9")
 
     # -- phase 10: the int8 KV cache, the examples, the quickstart ------------
-    int8_launches = int8_serve_phase(card, params, first)
+    int8_launches, int8_device_len = int8_serve_phase(card, params, second)
     example_launches = examples_phase(card)
     quickstart_launches = quickstart_phase(card)
-    del params, first
+    del params, first, second
     mark("10")
 
     # -- phase 11: the moe, ssm and hybrid families ----------------------------
     families = families_phase(card)
+    served_buckets = {"qwen3_bf16": lm_device_len["buckets"],
+                      "qwen3_fp32": int8_device_len["buckets"]} | {
+        tag: families["device_len"]["buckets"][arch]
+        for tag, arch in DEVICE_LEN_SERVED.items()}
+    for tag, _, _, _, _, lens in DEVICE_LEN_SHAPES:
+        missing = set(served_buckets[tag]) - {e for e, _ in lens}
+        if missing:
+            raise AssertionError(f"served buckets {sorted(missing)} at "
+                                 f"{tag}'s shape are not held in phase 3")
     mark("11")
 
     # -- phase 12: the audio and vlm families; the conv steps on a mesh -------
@@ -6073,9 +6322,22 @@ def main() -> int:
                    "src/repro/kernels/dconv_filtergrad.py:114"),
                "flash_attention": ("flash_attention.cu",
                                    "src/repro/kernels/attention.py:83"),
+               "flash_attention_device_len": (
+                   "flash_attention.cu",
+                   "src/repro/kernels/attention.py:83"),
                "flash_attention_backward": (
                    "flash_attention_bwd.cu",
                    "jax.grad of src/repro/models/layers.py:108")}
+    # The split form reading the device length: a form of flash_attention
+    # (its launches are in that row too), the graphed decode steps' only
+    # attention.  Its wrappers count each bucket's eager first step and
+    # capture; the replays' launches, from each capture's count, stand
+    # beside them as "launches_replayed".
+    served_len = (lm_device_len, int8_device_len, families["device_len"])
+    device_len = {"flash_attention_device_len":
+                  sum(d["launches"] for d in served_len)}
+    replayed_len = {"flash_attention_device_len":
+                    sum(d["replayed"] for d in served_len)}
     rows = []
     for name, (source, replaces) in sources.items():
         k = kernels[name]
@@ -6097,13 +6359,18 @@ def main() -> int:
                      + mesh_launches.get(name, 0)
                      + lm_mesh_launches.get(name, 0)
                      + fm_launches.get(name, 0)
-                     + dryrun_launches.get(name, 0),
+                     + dryrun_launches.get(name, 0)
+                     + device_len.get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": max(k["by"], key=k["by"].get),
                      "library_ms": k["library_ms"]})
         if name.startswith("flash_attention"):   # zamba2's instantiations
             rows[-1]["launches_head_dim_80"] = families["d80"].get(name, 0)
+        if "int_form_ms" in k:   # the int form at the same live lengths
+            rows[-1]["int_form_ms"] = k["int_form_ms"]
+        if name in replayed_len:
+            rows[-1]["launches_replayed"] = replayed_len[name]
         rows[-1]["launches_phase_4b"] = fault_launches.get(name, 0)
         rows[-1]["launches_phase_12"] = embed_launches.get(name, 0) \
             + mesh_launches.get(name, 0)

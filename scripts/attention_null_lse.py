@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The flash-attention forward with and without an lse buffer, bit for
-bit against another tree's kernel (a parent commit's).
+bit against another tree's kernel (a parent commit's), and with a null
+device length.
 
     python3 scripts/attention_null_lse.py --parent build/parent/src
 
@@ -12,8 +13,10 @@ through its own C entry, with a null lse and with an lse buffer.  For
 every form (tile, wgmma, split), both dtypes and each head_dim the form
 takes, the serving launch (`ops.flash_attention`, lse null) and the
 training launch (the same kernel writing the lse) must equal the other
-tree's output bit for bit, and the two trees' lse must be equal.  Prints
-one JSON line per case and exits non-zero on any difference.
+tree's output bit for bit, and the two trees' lse must be equal.  A
+tree whose C entry takes a device length (the split form's `len`) is
+called with a null one there: the int form, which must not have moved.
+Prints one JSON line per case and exits non-zero on any difference.
 """
 from __future__ import annotations
 
@@ -37,19 +40,23 @@ CASES = [(2, 300, 300, 16, 8, 128, True), (1, 65, 130, 4, 2, 64, True),
          (2, 1, 40, 4, 4, 32, True), (2, 4096, 4096, 16, 8, 128, True)]
 
 
-def build_parent(parent_src: Path) -> ctypes.CDLL:
+def build_parent(parent_src: Path):
+    """(the other tree's library, whether its C entry takes a device
+    length after the lse)."""
     from repro_torch.kernels import build
     src = parent_src / "repro_torch" / "csrc" / "flash_attention.cu"
     out = build.BUILD_DIR / "libflash_attention-parent.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(out))
+    entry = src.read_text().split('extern "C" int flash_attention_f32(')[1]
+    return ctypes.CDLL(str(out)), "const void* len" in entry.split(")")[0]
 
 
-def parent_forward(lib, q, k, v, causal, off, form, with_lse):
+def parent_forward(parent, q, k, v, causal, off, form, with_lse):
     """The other tree's (out, lse), lse None for a serving launch."""
     from repro_torch.kernels.attention import _ARGTYPES, FORMS
+    lib, takes_len = parent
     B, Sq, Hq, D = q.shape
     _, Sk, Hk, _ = k.shape
     out = torch.empty_like(q)
@@ -57,12 +64,15 @@ def parent_forward(lib, q, k, v, causal, off, form, with_lse):
            if with_lse else None)
     fn = getattr(lib, "flash_attention_f32" if q.dtype == torch.float32
                  else "flash_attention_bf16")
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn.argtypes = _ARGTYPES if takes_len else _ARGTYPES[:5] + _ARGTYPES[6:]
+    fn.restype = ctypes.c_int
+    length = (None,) if takes_len else ()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hk, D,
-             int(causal), off, D ** -0.5, *q.stride()[:3], *k.stride()[:3],
-             *v.stride()[:3], *out.stride()[:3], FORMS.index(form.form),
-             form.splits, torch.cuda.current_stream().cuda_stream)
+             None if lse is None else lse.data_ptr(), *length, B, Sq, Sk,
+             Hq, Hk, D, int(causal), off, D ** -0.5, *q.stride()[:3],
+             *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+             FORMS.index(form.form), form.splits,
+             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"the parent's kernel failed: CUDA error {err}")
     return out, lse
@@ -79,7 +89,8 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels.attention import flash_attention_cuda, plan
 
-    lib = build_parent(Path(args.parent))
+    parent = build_parent(Path(args.parent))
+    print(f"the other tree's entry takes a device length: {parent[1]}")
     gen = torch.Generator().manual_seed(0)
     bad = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -89,10 +100,10 @@ def main() -> int:
             v = torch.randn((B, Sk, Hk, D), generator=gen).to("cuda", dtype)
             off = Sk - Sq
             form = plan(dtype, B, Sq, Sk, Hq, Hk, D)
-            want = parent_forward(lib, q, k, v, causal, off, form,
+            want = parent_forward(parent, q, k, v, causal, off, form,
                                   False)[0]
-            want_train, want_lse = parent_forward(lib, q, k, v, causal, off,
-                                                  form, True)
+            want_train, want_lse = parent_forward(parent, q, k, v, causal,
+                                                  off, form, True)
             serve = ops.flash_attention(q, k, v, causal=causal)
             train, lse = flash_attention_cuda(q, k, v, causal=causal,
                                               q_offset=off, form=form,

@@ -90,6 +90,21 @@
 //    warp) -- one launch, no scratch, no atomics, nothing encoded on the
 //    host: a decode step's time is the host's.  Bound: bytes (the live
 //    cache read once).
+//
+//    The device length.  A decode step captured in a CUDA graph
+//    (serve/decode_graph.py) cannot pass the cache length by value: the
+//    graph would freeze it.  So the split form also takes `len`, a
+//    pointer to the length as a 0-d int32 on the card, as `repro`'s
+//    jitted step reads its traced scalar.  k and v are then a fixed
+//    bucket view cache[:, :Sk] (Sk the bucket's extent), q_offset is
+//    *len and the live keys are [0, *len + Sq).  The grid is the split
+//    count `plan` gives at the extent; each split takes its share of the
+//    LIVE tiles, computed in the kernel, so a short cache in a long
+//    bucket spreads over the splits as the int form spreads it.  A split
+//    whose share starts past the live end sees no key and leaves an
+//    empty partial (m = -1e30, l = 0), which the combine skips in its
+//    fixed (split, warp) order: reruns at one length stay bit-equal.  A
+//    null `len` is the int form, bit for bit as before.
 #include <cooperative_groups.h>
 #include <cuda.h>           // CUtensorMap and its enums; no -lcuda
 #include <cuda_bf16.h>
@@ -117,6 +132,7 @@ struct AttnArgs {
   float scale;
   int64_t q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
   float* lse;   // (B, Hq, Sq) row log-sum-exps, or null
+  const int32_t* len;   // the split form's device cache length, or null
 };
 
 // Row (b, h, i)'s log-sum-exp, from its max m and normaliser l in natural
@@ -427,8 +443,13 @@ __global__ void __launch_bounds__(kSplitThreads)
     for (int e = 0; e < N; ++e) qs[r * D + c + e] = buf[e];
   }
 
-  const int64_t kv_end = a.causal ? min64(a.Sk, a.q_offset + a.Sq) : a.Sk;
-  const int64_t tiles = (a.Sk + kSplitTile - 1) / kSplitTile;
+  // With a device length the keys past *len + Sq are not live, and the
+  // live tiles (not the extent's) are shared out over the splits.
+  const int64_t q_off = a.len != nullptr ? (int64_t)*a.len : a.q_offset;
+  const int64_t n_live =
+      a.len != nullptr ? min64(a.Sk, q_off + a.Sq) : a.Sk;
+  const int64_t kv_end = a.causal ? min64(n_live, q_off + a.Sq) : n_live;
+  const int64_t tiles = (n_live + kSplitTile - 1) / kSplitTile;
   const int64_t chunk = (tiles + splits - 1) / splits * kSplitTile;
   const int64_t k_begin = split * chunk;
   const int64_t k_stop = min64(k_begin + chunk, kv_end);
@@ -501,7 +522,7 @@ __global__ void __launch_bounds__(kSplitThreads)
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const bool live = r < rows && key < k_stop &&
-                        (!a.causal || key <= a.q_offset + r / g);
+                        (!a.causal || key <= q_off + r / g);
       const float sr = live ? s[r] : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(sr));
       const float p = live ? expf(sr - m_new) : 0.0f;
@@ -547,7 +568,9 @@ __global__ void __launch_bounds__(kSplitThreads)
   cluster.sync();
 
   // Warp w of split s combines rows s * 2 + w, + 2 * splits, ... over
-  // every (split, warp) partial, in that order.
+  // every (split, warp) partial, in that order; a partial that saw no key
+  // (l = 0: a split past the live end, or a warp past the last key) adds
+  // nothing and is skipped.
   for (int r = split * kSplitWarps + warp; r < rows;
        r += splits * kSplitWarps) {
     float M = kNegInf;
@@ -565,6 +588,7 @@ __global__ void __launch_bounds__(kSplitThreads)
       const float* pa = cluster.map_shared_rank(part_acc, s);
 #pragma unroll
       for (int w = 0; w < kSplitWarps; ++w) {
+        if (pl[w * R + r] == 0.0f) continue;
         const float wgt = expf(pm[w * R + r] - M);
         lsum = fmaf(wgt, pl[w * R + r], lsum);
 #pragma unroll
@@ -913,7 +937,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
              int64_t D, const AttnArgs& a, int64_t form, int64_t splits,
              void* stream) {
   if (a.B > 65535 || a.Hq > 65535 || a.Hk < 1 || a.Hq % a.Hk != 0 ||
-      a.Sk < 1 || (a.causal && a.q_offset < 0))
+      a.Sk < 1 || (a.causal && a.q_offset < 0) ||
+      (a.len != nullptr && form != FORM_SPLIT))
     return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Sq == 0 || a.Hq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -956,28 +981,33 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-AttnArgs make_args(void* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t Hq,
-                   int64_t Hk, int64_t causal, int64_t q_offset, float scale,
+AttnArgs make_args(void* lse, const void* len, int64_t B, int64_t Sq,
+                   int64_t Sk, int64_t Hq, int64_t Hk, int64_t causal,
+                   int64_t q_offset, float scale,
                    int64_t q_b, int64_t q_s, int64_t q_h, int64_t k_b,
                    int64_t k_s, int64_t k_h, int64_t v_b, int64_t v_s,
                    int64_t v_h, int64_t o_b, int64_t o_s, int64_t o_h) {
   return AttnArgs{B,   Sq,  Sk,  Hq,  Hk,  q_offset, (int)causal, scale,
                   q_b, q_s, q_h, k_b, k_s, k_h,      v_b,         v_s,
-                  v_h, o_b, o_s, o_h, static_cast<float*>(lse)};
+                  v_h, o_b, o_s, o_h, static_cast<float*>(lse),
+                  static_cast<const int32_t*>(len)};
 }
 
 }  // namespace
 
 // q (B,Sq,Hq,D), k/v (B,Sk,Hk,D) -> o (B,Sq,Hq,D), fp32; strides in
 // elements, unit along D, 16-byte aligned.  `lse` is null or a contiguous
-// fp32 (B,Hq,Sq) buffer for the rows' log-sum-exps.  `form` is 0 tile,
+// fp32 (B,Hq,Sq) buffer for the rows' log-sum-exps.  `len` is null or,
+// for the split form only, a 0-d int32 on the card holding the cache
+// length: then q_offset is *len and the keys past *len + Sq are not live
+// (q_offset by value is ignored).  `form` is 0 tile,
 // 1 wgmma (bf16 only), 2 split (with `splits` CTAs per (b, kv head),
 // 1..8).  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a shape or form it does not take).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
-                                   int64_t B, int64_t Sq, int64_t Sk,
-                                   int64_t Hq,
+                                   const void* len, int64_t B, int64_t Sq,
+                                   int64_t Sk, int64_t Hq,
                                    int64_t Hk, int64_t D, int64_t causal,
                                    int64_t q_offset, float scale,
                                    int64_t q_b, int64_t q_s, int64_t q_h,
@@ -986,17 +1016,17 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int64_t o_b, int64_t o_s, int64_t o_h,
                                    int64_t form, int64_t splits,
                                    void* stream) {
-  const AttnArgs a = make_args(lse, B, Sq, Sk, Hq, Hk, causal, q_offset,
-                               scale, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s,
-                               v_h, o_b, o_s, o_h);
+  const AttnArgs a = make_args(lse, len, B, Sq, Sk, Hq, Hk, causal,
+                               q_offset, scale, q_b, q_s, q_h, k_b, k_s,
+                               k_h, v_b, v_s, v_h, o_b, o_s, o_h);
   return dispatch<float>(q, k, v, o, D, a, form, splits, stream);
 }
 
 // The same with bf16 q, k, v and o.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, void* lse,
-                                    int64_t B, int64_t Sq, int64_t Sk,
-                                    int64_t Hq,
+                                    const void* len, int64_t B, int64_t Sq,
+                                    int64_t Sk, int64_t Hq,
                                     int64_t Hk, int64_t D, int64_t causal,
                                     int64_t q_offset, float scale,
                                     int64_t q_b, int64_t q_s, int64_t q_h,
@@ -1005,8 +1035,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int64_t o_b, int64_t o_s, int64_t o_h,
                                     int64_t form, int64_t splits,
                                     void* stream) {
-  const AttnArgs a = make_args(lse, B, Sq, Sk, Hq, Hk, causal, q_offset,
-                               scale, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s,
-                               v_h, o_b, o_s, o_h);
+  const AttnArgs a = make_args(lse, len, B, Sq, Sk, Hq, Hk, causal,
+                               q_offset, scale, q_b, q_s, q_h, k_b, k_s,
+                               k_h, v_b, v_s, v_h, o_b, o_s, o_h);
   return dispatch<__nv_bfloat16>(q, k, v, o, D, a, form, splits, stream);
 }

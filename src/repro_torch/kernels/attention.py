@@ -21,6 +21,12 @@ shapes alone:
     thread-block cluster of `splits` CTAs per (batch, kv head), each
     over a slice of the keys; the partial (m, l, acc) are combined in
     the cluster in a fixed order (`split_kv_plain` is that arithmetic).
+    With a device `length` (a 0-d int32 on the card: the cache length
+    of a decode step captured in a CUDA graph) k and v are a fixed
+    bucket view of the cache, the queries sit at positions length ..
+    length + Sq - 1, and the keys past length + Sq are not live; the
+    kernel reads the length itself and shares the live tiles out over
+    the splits `plan` gives at the bucket's extent.
   * "wgmma": bf16 with a head_dim of WGMMA_DIMS and at least one
     64-row tile of (query, head-of-group) rows -- prefill.  Tensor-core
     products, P split into two bf16 terms, p_hi = bf16(p) and p_lo =
@@ -78,10 +84,10 @@ SPLIT_WARP_KEYS = 32     # keys of a tile each of its two warps takes
 MAX_SPLITS = 8           # the portable thread-block cluster size
 SM_COUNT = 132           # H100 SXM
 
-# q, k, v, out, lse (or None); B, Sq, Sk, Hq, Hk, D, causal, q_offset;
-# scale; the (batch, sequence, head) strides of q, k, v and out; form,
-# splits; the stream.
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 8 + [ctypes.c_float]
+# q, k, v, out, lse (or None), the device length (or None); B, Sq, Sk,
+# Hq, Hk, D, causal, q_offset; scale; the (batch, sequence, head) strides
+# of q, k, v and out; form, splits; the stream.
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8 + [ctypes.c_float]
              + [ctypes.c_int64] * 14 + [ctypes.c_void_p])
 _BWD_SYMBOLS = {torch.float32: "flash_attention_bwd_f32",
                 torch.bfloat16: "flash_attention_bwd_bf16"}
@@ -164,31 +170,45 @@ def backward_plan(dtype: torch.dtype, B: int, Sq: int, Sk: int, Hq: int,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, q_offset: int | None = None,
-                          blk_k: int = 128, return_lse: bool = False):
+                          blk_k: int = 128, return_lse: bool = False,
+                          length: torch.Tensor | None = None):
     """q (B,Sq,Hq,D), k/v (B,Sk,Hk,D), Hq % Hk == 0 -> (B,Sq,Hq,D), and
     with `return_lse` also the rows' log-sum-exps (B,Hq,Sq) in fp32.
 
     The recurrence over kv blocks of `blk_k` keys, on whole tensors; with
     `causal` it stops after the last block a query can see (the blocks
-    past it would add p = 0 and scale by exp(0) = 1, changing nothing)."""
+    past it would add p = 0 and scale by exp(0) = 1, changing nothing).
+    With a device `length` (0-d int: the split form's, over a bucket view
+    k, v of a cache) q_offset is `length`, the keys at or past length +
+    Sq are masked, and every block of the view is walked, the mask made
+    on the tensors' device (nothing comes back to the host); key 0 is
+    always live, so a masked block adds p = 0 as above."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hk, _ = k.shape
     g = Hq // Hk
-    off = Sk - Sq if q_offset is None else q_offset
+    if length is not None:
+        off = length.to(torch.int64)
+    else:
+        off = Sk - Sq if q_offset is None else q_offset
     qf = (q.float() * D ** -0.5).reshape(B, Sq, Hk, g, D)
     q_pos = off + torch.arange(Sq, device=q.device)
     acc = torch.zeros((B, Sq, Hk, g, D), dtype=torch.float32, device=q.device)
     m = torch.full((B, Sq, Hk, g), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, Sq, Hk, g), dtype=torch.float32, device=q.device)
-    kv_end = min(Sk, off + Sq) if causal else Sk
+    kv_end = Sk if length is not None or not causal else min(Sk, off + Sq)
     for kv0 in range(0, kv_end, blk_k):
         kb = k[:, kv0:kv0 + blk_k].float()
         vb = v[:, kv0:kv0 + blk_k].float()
         s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kb)
+        k_pos = kv0 + torch.arange(kb.shape[1], device=q.device)
+        mask = None
+        if length is not None:
+            mask = (k_pos < off + Sq)[None, :].expand(Sq, -1)
         if causal:
-            k_pos = kv0 + torch.arange(kb.shape[1], device=q.device)
-            mask = k_pos[None, :] <= q_pos[:, None]
+            seen = k_pos[None, :] <= q_pos[:, None]
+            mask = seen if mask is None else mask & seen
+        if mask is not None:
             s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -252,25 +272,34 @@ def flash_attention_backward_plain(q, k, v, out, dout, lse, *,
 
 def split_kv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, q_offset: int | None = None,
-                   splits: int = 1) -> torch.Tensor:
+                   splits: int = 1,
+                   length: int | None = None) -> torch.Tensor:
     """The split form's arithmetic on whole tensors.  Split s takes the
     keys [s * chunk, (s + 1) * chunk), chunk a whole number of SPLIT_TILE
     tiles; warp w of its CTA the keys whose place in their tile lies in
     [32 w, 32 w + 32).  Each (split, warp) runs the recurrence over its
     32-key blocks alone -- a masked key adds p = 0, and a partial that
     sees no key keeps m = -1e30, l = 0 -- and the partials are combined
-    in the order (split, warp): with M = max m_p and w_p = exp(m_p - M),
+    in the order (split, warp), the empty ones (l = 0) skipped: with
+    M = max m_p and w_p = exp(m_p - M),
         out = sum w_p acc_p / max(sum w_p l_p, 1e-30).
-    Split 0 holds key 0, which every row sees, so M is finite and an
-    empty partial weighs exp(-1e30 - M) = 0."""
+    Split 0 holds key 0, which every row sees, so M is finite.
+
+    `length` is the device length's value (k, v a bucket view of Sk
+    keys): q_offset is `length`, the live keys are [0, length + Sq), and
+    chunk shares out the live tiles, not the view's, so the splits past
+    the live end are empty."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hk, _ = k.shape
     g = Hq // Hk
     off = Sk - Sq if q_offset is None else q_offset
+    live = Sk
+    if length is not None:
+        off, live = length, min(Sk, length + Sq)
     qf = (q.float() * D ** -0.5).reshape(B, Sq, Hk, g, D)
     q_pos = off + torch.arange(Sq, device=q.device)
-    kv_end = min(Sk, off + Sq) if causal else Sk
-    tiles = -(-Sk // SPLIT_TILE)
+    kv_end = min(live, off + Sq) if causal else live
+    tiles = -(-live // SPLIT_TILE)
     chunk = -(-tiles // splits) * SPLIT_TILE
     shape = (B, Sq, Hk, g)
     parts = []
@@ -306,7 +335,7 @@ def split_kv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l_sum = torch.zeros(shape, device=q.device)
     acc_sum = torch.zeros(shape + (D,), device=q.device)
     for m, l, acc in parts:
-        wgt = torch.exp(m - M)
+        wgt = torch.where(l > 0, torch.exp(m - M), 0.0)
         l_sum = l_sum + wgt * l
         acc_sum = acc_sum + wgt[..., None] * acc
     out = acc_sum / torch.clamp_min(l_sum, 1e-30)[..., None]
@@ -337,14 +366,25 @@ def check_operand(name: str, t: torch.Tensor) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, q_offset: int,
-                         form: AttentionPlan, return_lse: bool = False):
+                         form: AttentionPlan, return_lse: bool = False,
+                         length: torch.Tensor | None = None):
     """Launch the kernel's `form` (from `plan`) on the current stream.
     One device, one dtype (fp32 or bf16), a head_dim of HEAD_DIMS -- the
     wrapper in `kernels/ops.py` checks all three.  With `return_lse` the
     kernel also writes the rows' log-sum-exps: (out, lse (B,Hq,Sq) fp32);
-    without, it writes none, bit for bit the launch serving makes."""
+    without, it writes none, bit for bit the launch serving makes.  With
+    `length` (the split form only: a 0-d int32 on q's device) the kernel
+    reads q_offset from it and `q_offset` is not passed; without, the
+    launch is the int form's, bit for bit."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_operand(name, t)
+    if length is not None and (
+            form.form != "split" or length.dtype != torch.int32
+            or length.dim() != 0 or length.device != q.device):
+        raise ValueError(f"a device length is a 0-d int32 on {q.device} "
+                         f"for the split form; got {length.dtype} "
+                         f"{tuple(length.shape)} on {length.device} for "
+                         f"{form.form}")
     B, Sq, Hq, D = q.shape
     _, Sk, Hk, _ = k.shape
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
@@ -356,11 +396,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         FAKE_FLOPS["flash_attention"] += \
             4 * D * B * Hq * visible_pairs(Sq, Sk, causal, q_offset)
         return (out, lse) if return_lse else out
+    if length is not None:
+        q_offset = 0
     symbol = _SYMBOLS[q.dtype]
     fn = build.kernel_function("flash_attention", symbol, _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
+                 None if length is None else length.data_ptr(),
                  B, Sq, Sk, Hq, Hk, D, int(causal), q_offset, D ** -0.5,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], FORMS.index(form.form), form.splits,

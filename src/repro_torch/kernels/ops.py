@@ -30,7 +30,9 @@ real tensor's branch is its device's.
   tconv_backward       -> csrc/tconv_backward.cu  (ddy, dW, db of a tconv)
   dconv_filter_grad    -> csrc/dconv_filtergrad.cu
   flash_attention      -> csrc/flash_attention.cu, in the form
-                          `attention.plan` picks (counted in FLASH_FORMS);
+                          `attention.plan` picks (counted in FLASH_FORMS;
+                          with a device `length`, the split form that
+                          reads it, counted in FLASH_DEVICE_LEN too);
                           when an operand requires grad, through
                           `FlashAttentionFn`, whose backward is
   flash_attention_backward -> csrc/flash_attention_bwd.cu, in the form
@@ -71,11 +73,14 @@ LAUNCHES = {"dconv_forward": 0, "tconv_phase": 0, "tconv_implicit_gemm": 0,
 # and flash_attention_backward's calls by form (they sum to its).
 FLASH_FORMS = dict.fromkeys(FORMS, 0)
 FLASH_BWD_FORMS = dict.fromkeys(BWD_FORMS, 0)
+# flash_attention's launches that read the cache length from the device
+# (a part of FLASH_FORMS["split"]).
+FLASH_DEVICE_LEN = {"split": 0}
 
 
 def reset_launches() -> None:
     """Zero LAUNCHES, the form counts and the fake forms' counts."""
-    for counts in (LAUNCHES, FLASH_FORMS, FLASH_BWD_FORMS,
+    for counts in (LAUNCHES, FLASH_FORMS, FLASH_BWD_FORMS, FLASH_DEVICE_LEN,
                    attention.FAKE_CALLS, attention.FAKE_FLOPS,
                    *attention.FAKE_FORMS.values()):
         for name in counts:
@@ -292,7 +297,8 @@ def dconv_filter_grad(x: torch.Tensor, dy: torch.Tensor, *, stride, padding,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int | None = None,
-                    blk_k: int = 128, return_lse: bool = False):
+                    blk_k: int = 128, return_lse: bool = False,
+                    length: torch.Tensor | None = None):
     """Blockwise causal GQA attention: q (B,Sq,Hq,D), k/v (B,Sk,Hk,D),
     Hq % Hk == 0 -> (B,Sq,Hq,D) in q's dtype (fp32 or bf16, the same for
     all three).  With `causal`, key j is visible to query i iff
@@ -303,14 +309,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     grad, the call goes through `FlashAttentionFn` (on the card its
     backward is a kernel too).  With `return_lse` (no gradient) the same
     launch also gives the rows' log-sum-exps: (out, lse (B,Hq,Sq) fp32),
-    the statistics a split-sequence decode combines across ranks."""
+    the statistics a split-sequence decode combines across ranks.
+
+    `length`, a 0-d int32 on the operands' device, is a decode step's
+    cache length read where it lies (the graph form of `LM.decode_step`,
+    whose CUDA graph cannot take it by value): k, v are a bucket view
+    cache[:, :extent], the queries sit at positions length ..
+    length + Sq - 1, and the keys at or past length + Sq are not live.
+    It takes the split form (`plan` at the extent must give it), no
+    q_offset and no gradient."""
     off = _check_attention(q, k, v, causal, q_offset)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if length is not None:
+        _check_length(q, k, length, q_offset, grad)
+    if grad:
         if return_lse:
             raise ValueError("return_lse takes no gradient")
         return FlashAttentionFn.apply(q, k, v, causal, off, blk_k)
-    return _flash_forward(q, k, v, causal, off, blk_k, return_lse=return_lse)
+    return _flash_forward(q, k, v, causal, off, blk_k, return_lse=return_lse,
+                          length=length)
+
+
+def _check_length(q, k, length, q_offset, grad: bool) -> None:
+    """Raise on a device length the split form cannot take."""
+    if q_offset is not None or grad:
+        raise ValueError("a device length takes no q_offset and no "
+                         "gradient")
+    if not isinstance(length, torch.Tensor) or length.dim() != 0 or \
+            length.dtype != torch.int32 or length.device != q.device:
+        raise ValueError(f"length must be a 0-d int32 tensor on {q.device}")
+    form = plan(q.dtype, q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                k.shape[2], q.shape[3])
+    if form.form != "split":
+        raise ValueError(f"a device length takes the split form; these "
+                         f"shapes take {form.form}")
 
 
 def _check_attention(q, k, v, causal: bool, q_offset) -> int:
@@ -346,19 +379,23 @@ def _check_attention(q, k, v, causal: bool, q_offset) -> int:
 
 
 def _flash_forward(q, k, v, causal: bool, off: int, blk_k: int, *,
-                   return_lse: bool):
+                   return_lse: bool, length=None):
     """The forward on checked operands: the plain version on the CPU, one
     kernel launch on the card (a fake operand: the kernel's fake form)."""
     if _plain(q):
         return flash_attention_plain(q, k, v, causal=causal, q_offset=off,
-                                     blk_k=blk_k, return_lse=return_lse)
+                                     blk_k=blk_k, return_lse=return_lse,
+                                     length=length)
     form = plan(q.dtype, q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                 k.shape[2], q.shape[3])
     out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
-                               form=form, return_lse=return_lse)
+                               form=form, return_lse=return_lse,
+                               length=length)
     if not is_fake(q):          # a fake form counts itself (FAKE_CALLS)
         LAUNCHES["flash_attention"] += 1
         FLASH_FORMS[form.form] += 1
+        if length is not None:
+            FLASH_DEVICE_LEN[form.form] += 1
     return out
 
 

@@ -9,7 +9,11 @@ tensors (fp32) and compute in the input's dtype, as `repro` does.  On a
 CUDA tensor attention runs `ops.flash_attention`, the hand-written
 kernel; on a CPU tensor, the plain PyTorch mirror of `repro`'s code.
 The int8 KV cache's quantize / dequantize and its decode attention
-(`attention_decode_quant`) serve `LM` with `kv_quant`.
+(`attention_decode_quant`) serve `LM` with `kv_quant`.  Both decode
+attentions take the cache length as a Python int; `attention_decode_len`
+is their graph form, which takes it as a 0-d int32 tensor on the cache's
+device and reads nothing back to the host (`serve/decode_graph.py`
+captures it in a CUDA graph).
 """
 from __future__ import annotations
 
@@ -241,19 +245,15 @@ def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
     if cache_len + S > Smax:
         raise ValueError(f"cache of {Smax} positions cannot take positions "
                          f"{cache_len}..{cache_len + S - 1}")
-    positions = (cache_len + torch.arange(S, device=x.device))[None, :]
-    positions = positions.expand(B, S)
+    at = cache_len + torch.arange(S, device=x.device)
     if plan is not None:
         return _attention_decode_mesh(params, x, cfg, cache_k, cache_v,
-                                      cache_len, positions, plan)
-    q, k, v = _qkv(params, x, cfg, positions)
-    cache_k[:, cache_len:cache_len + S] = k.to(cache_k.dtype)
-    cache_v[:, cache_len:cache_len + S] = v.to(cache_v.dtype)
+                                      cache_len, at[None, :].expand(B, S),
+                                      plan)
+    q = _decode_write(params, x, cfg, cache_k, cache_v, None, at)
     if x.device.type == "cuda":
-        out = ops.flash_attention(q.to(cache_k.dtype),
-                                  cache_k[:, :cache_len + S],
-                                  cache_v[:, :cache_len + S], causal=True,
-                                  q_offset=cache_len)
+        out = _decode_attend(q, cache_k, cache_v, None, cache_len + S,
+                             q_offset=cache_len)
     else:
         g = cfg.n_heads // cfg.n_kv_heads
         qf = (q.float() * cfg.head_dim ** -0.5).to(cache_k.dtype)
@@ -267,6 +267,69 @@ def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
                            cache_v.float())
     out = out.reshape(B, S, cfg.q_dim).to(x.dtype)
     return out @ params["wo"].to(x.dtype), cache_k, cache_v
+
+
+def attention_decode_len(params, x, cfg: ModelConfig, cache_k, cache_v,
+                         cache_len: torch.Tensor, extent: int, scales=None):
+    """The graph form of `attention_decode` (and, with `scales` =
+    (k_scale, v_scale), of `attention_decode_quant`): `cache_len` is a
+    0-d int32 tensor on the cache's device -- `repro`'s traced scalar --
+    and `extent` a static bucket of at least cache_len + S positions.
+
+    RoPE positions come from the tensor, the cache is written at them
+    (`_decode_write`: `index_copy_`, `repro`'s `dynamic_update_slice`),
+    and the attention reads the device length over the fixed view
+    cache[:, :extent] (`_decode_attend`).  Every shape is fixed by
+    `extent`, and nothing is read back to the host, so the same call can
+    be captured once and replayed at every length of its bucket.
+    `cache_len` is not advanced here (`LM.decode_step` does it once per
+    step).  Returns the output projection (B, S, D)."""
+    B, S, _ = x.shape
+    if extent > cache_k.shape[1]:
+        raise ValueError(f"extent {extent} past the cache's "
+                         f"{cache_k.shape[1]} positions")
+    at = cache_len.to(torch.int64) + torch.arange(S, device=x.device)
+    q = _decode_write(params, x, cfg, cache_k, cache_v, scales, at)
+    out = _decode_attend(q, cache_k, cache_v, scales, extent,
+                         length=cache_len)
+    out = out.reshape(B, S, cfg.q_dim).to(x.dtype)
+    return out @ params["wo"].to(x.dtype)
+
+
+def _decode_write(params, x, cfg: ModelConfig, cache_k, cache_v, scales,
+                  at: torch.Tensor) -> torch.Tensor:
+    """The decode's q, k and v of x (B, S, D) at the positions `at` (S,)
+    on x's device; k and v -- or, with `scales` = (k_scale, v_scale),
+    their int8 codes and scales -- written into the cache IN PLACE at
+    `at` by `index_copy_`.  Returns q."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(params, x, cfg, at[None, :].expand(B, S))
+    if scales is None:
+        cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+    else:
+        for codes, scale, new in ((cache_k, scales[0], k),
+                                  (cache_v, scales[1], v)):
+            new_codes, new_scale = kv_quantize(new)
+            codes.index_copy_(1, at, new_codes)
+            scale.index_copy_(1, at, new_scale)
+    return q
+
+
+def _decode_attend(q, cache_k, cache_v, scales, extent: int, **where):
+    """The card's decode attention of q over the view cache[:, :extent]:
+    q rounded to the cache's dtype, or, for an int8 cache (`scales`), the
+    view dequantized to fp32 and q in fp32 (`repro` does not round it).
+    `where` is the kernel's query position: `q_offset=` an int, or
+    `length=` the device length."""
+    if scales is None:
+        q, kb, vb = q.to(cache_k.dtype), cache_k[:, :extent], \
+            cache_v[:, :extent]
+    else:
+        q = q.float()
+        kb, vb = (kv_dequantize(c[:, :extent], sc[:, :extent], torch.float32)
+                  for c, sc in ((cache_k, scales[0]), (cache_v, scales[1])))
+    return ops.flash_attention(q, kb, vb, causal=True, **where)
 
 
 # ---------------------------------------------------------------------------
@@ -310,23 +373,16 @@ def attention_decode_quant(params, x, cfg: ModelConfig, cache_k, cache_v,
     if cache_len + S > Smax:
         raise ValueError(f"cache of {Smax} positions cannot take positions "
                          f"{cache_len}..{cache_len + S - 1}")
-    positions = (cache_len + torch.arange(S, device=x.device))[None, :]
-    positions = positions.expand(B, S)
+    at = cache_len + torch.arange(S, device=x.device)
+    scales = (k_scale, v_scale)
     if plan is not None:
         return _attention_decode_mesh(params, x, cfg, cache_k, cache_v,
-                                      cache_len, positions, plan,
-                                      scales=(k_scale, v_scale))
-    q, k, v = _qkv(params, x, cfg, positions)
-    live = cache_len + S
-    cache_k[:, cache_len:live], k_scale[:, cache_len:live] = kv_quantize(k)
-    cache_v[:, cache_len:live], v_scale[:, cache_len:live] = kv_quantize(v)
+                                      cache_len, at[None, :].expand(B, S),
+                                      plan, scales=scales)
+    q = _decode_write(params, x, cfg, cache_k, cache_v, scales, at)
     if x.device.type == "cuda":
-        kd = kv_dequantize(cache_k[:, :live], k_scale[:, :live],
-                           torch.float32)
-        vd = kv_dequantize(cache_v[:, :live], v_scale[:, :live],
-                           torch.float32)
-        out = ops.flash_attention(q.float(), kd, vd, causal=True,
-                                  q_offset=cache_len)
+        out = _decode_attend(q, cache_k, cache_v, scales, cache_len + S,
+                             q_offset=cache_len)
     else:
         g = cfg.n_heads // cfg.n_kv_heads
         qf = (q.float() * cfg.head_dim ** -0.5).reshape(

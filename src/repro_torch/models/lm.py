@@ -32,6 +32,15 @@ dtype}, or with `cfg.kv_quant` int8 codes and fp32 "k_scale", "v_scale"
 "len", the positions filled, a Python int.  `decode_step` writes every
 entry IN PLACE; the cache it returns shares the buffers.
 
+The graph form of the decode step: "len" may instead be a 0-d int32
+tensor on the cache's device (`repro`'s own type), with a static
+`extent` (a bucket of positions) given to `decode_step`.  The step then
+reads the length on the device only -- RoPE positions, `index_copy_`
+writes, the split attention over cache[:, :extent]
+(`layers.attention_decode_len`) -- and advances it in place, so one
+CUDA graph per bucket replays every step of it
+(`serve/decode_graph.py`).  Off a mesh only.
+
 On a mesh (params laid out by `parallel.sharding.tree_shardings`) every
 family and the int8 cache run through `MeshPlan` (`models/layers.py`),
 the MoE (`models/moe.py`) and the SSM blocks (`models/ssm.py`) on each
@@ -459,7 +468,7 @@ class LM:
         return self._logits(P, plan, vb, x[:, -1:]), cache
 
     # -- decode -------------------------------------------------------------
-    def decode_step(self, params, cache, tokens):
+    def decode_step(self, params, cache, tokens, extent: int | None = None):
         """tokens (B,1) -> (logits (B,1,V), cache with len + 1).  Every
         entry of `cache` is updated in place.  Tokens go through
         `params["embed"]` in every family, `embed_input` ones included.
@@ -467,12 +476,38 @@ class LM:
         On a mesh the cache's `Sharded` blocks are written in place and
         every rank gets the whole logits.  The SSM blocks run on the
         cache's batch block (x moved there and back: a rank's heads meet
-        their state where it lies, and no state moves)."""
+        their state where it lies, and no state moves).
+
+        The graph form: with `cache["len"]` a 0-d int32 tensor, the
+        attention reads the bucket cache[:, :extent] (`extent`, at least
+        len + 1, defaults to the cache's max_len) and the length is
+        advanced in place; the returned cache holds the same tensor."""
         cfg = self.cfg
         P, plan = self._setup(params, tokens.shape[0])
-        x, vb = self._embed(P, plan, tokens, False)
         clen = cache["len"]
+        graph = isinstance(clen, torch.Tensor)
+        if graph and plan is not None:
+            raise ValueError("a device cache length runs off a mesh only "
+                             "(the mesh's collectives are not captured)")
+        if graph and extent is None and "k" in cache:
+            extent = cache["k"].shape[-3]
+        x, vb = self._embed(P, plan, tokens, False)
         layers = _layers(P["blocks"], cfg.n_layers)
+
+        def attend(p, xin, *index):
+            """The attention block's output for the cache entries at
+            `index` (a layer, or a hybrid group)."""
+            kv = (_entry(cache["k"], *index), _entry(cache["v"], *index))
+            scales = (_entry(cache["k_scale"], *index),
+                      _entry(cache["v_scale"], *index)) \
+                if cfg.kv_quant and cfg.family != "hybrid" else None
+            if graph:
+                return L.attention_decode_len(p, xin, cfg, *kv, clen,
+                                              extent, scales)
+            if scales is not None:
+                return L.attention_decode_quant(p, xin, cfg, *kv, *scales,
+                                                clen, plan)[0]
+            return L.attention_decode(p, xin, cfg, *kv, clen, plan)[0]
         splan = None
         if plan is not None and cfg.family in ("ssm", "hybrid"):
             # The SSM blocks' plan: x at the cache's batch block.
@@ -523,10 +558,7 @@ class LM:
             sa = P["shared_attn"]
             G, per = self._groups()
             for g in range(G):
-                x = x + L.attention_decode(
-                    sa["attn"], _norm(sa["ln1"], x, cfg, plan), cfg,
-                    _entry(cache["k"], g), _entry(cache["v"], g), clen,
-                    plan)[0]
+                x = x + attend(sa["attn"], _norm(sa["ln1"], x, cfg, plan), g)
                 x = x + _ffn(sa, _norm(sa["ln2"], x, cfg, plan), cfg,
                              plan)[0]
                 x = to_cache(x)
@@ -542,19 +574,12 @@ class LM:
                 x = to_cache(x, back=True)
         else:
             for i, p in enumerate(layers):
-                xin = _norm(p["ln1"], x, cfg, plan)
-                kv = (_entry(cache["k"], i), _entry(cache["v"], i))
-                if cfg.kv_quant:
-                    h = L.attention_decode_quant(
-                        p["attn"], xin, cfg, *kv,
-                        _entry(cache["k_scale"], i),
-                        _entry(cache["v_scale"], i), clen, plan)[0]
-                else:
-                    h = L.attention_decode(p["attn"], xin, cfg, *kv, clen,
-                                           plan)[0]
-                x = x + h
+                x = x + attend(p["attn"], _norm(p["ln1"], x, cfg, plan), i)
                 x = x + _ffn(p, _norm(p["ln2"], x, cfg, plan), cfg, plan)[0]
-        return self._logits(P, plan, vb, x), dict(cache, len=clen + 1)
+        if graph:
+            clen.add_(1)
+        return self._logits(P, plan, vb, x), \
+            dict(cache, len=clen if graph else clen + 1)
 
     # -- on a mesh ------------------------------------------------------------
     # The params are DTensors or `Sharded`s (laid out by `tree_shardings`,

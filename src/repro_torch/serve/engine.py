@@ -8,6 +8,16 @@ mid-flight.  Decoding is greedy (argmax, the first index on ties).  On
 the card every attention of every layer is one launch of the
 flash-attention kernel.
 
+On the card (without a mesh) the decode step is compiled once, as
+`repro` jits it: `serve/decode_graph.py`'s DecodeGraph holds one cache
+of (batch, max_len) buffers for the engine's life, takes each
+(re)prefill's cache into them, and replays one CUDA graph per
+cache-length bucket (`graph.captures` counts the captures).  Three cases
+stay eager, by rule: the prefill (its shapes change with every refill,
+and its `wgmma` attention encodes TMA maps on the host), an engine with
+a `mesh` (`gloo`'s collectives cannot be captured) and an engine on the
+CPU.
+
 With a `mesh` every rank of it runs the same engine on the same
 requests: the params are laid out by `tree_shardings` in the training
 layout (`serve_sharding="train"`: the weights gathered over the data
@@ -32,6 +42,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.lm import LM
 from repro_torch.parallel import sharding as sh
+from repro_torch.serve.decode_graph import DecodeGraph
 
 
 @dataclasses.dataclass
@@ -79,6 +90,9 @@ class ServeEngine:
         self.lm = LM(cfg)
         self._prefill = lambda p, t: self.lm.prefill(p, t, max_len)
         self._decode = self.lm.decode_step
+        self.graph = DecodeGraph(self.lm, self.params, batch, max_len,
+                                 self.device) \
+            if self.device.type == "cuda" and mesh is None else None
         # generate() statistics: "refills" counts requests pulled into a
         # slot freed MID-FLIGHT; "prefills" counts batch (re)prefills.
         self.stats: Dict[str, int] = {"refills": 0, "prefills": 0,
@@ -138,10 +152,17 @@ class ServeEngine:
                 logits, cache = self._prefill(
                     self.params, torch.from_numpy(toks).to(self.device))
                 self.stats["prefills"] += 1
+                if self.graph is not None:
+                    self.graph.load(cache)
+                    cache = None
+                last = torch.argmax(logits[:, 0], dim=-1)
+            elif self.graph is not None:
+                last = self.graph.step(last)[1]
+                self.stats["decode_steps"] += 1
             else:
                 logits, cache = self._decode(self.params, cache,
                                              last[:, None])
                 self.stats["decode_steps"] += 1
-            last = torch.argmax(logits[:, 0], dim=-1)
+                last = torch.argmax(logits[:, 0], dim=-1)
             absorb(last.cpu().numpy())
         return results

@@ -54,6 +54,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_map
 from repro_torch.models.lm import LM
+from repro_torch.serve.decode_graph import DecodeGraph, buckets
 
 pytestmark = pytest.mark.gpu
 
@@ -1094,8 +1095,12 @@ def test_flash_attention_grad_launches_both_kernels(cuda):
 
 def test_engine_prefills_on_wgmma_and_decodes_on_split(cuda):
     """A bf16 LM (head_dim 64) through ServeEngine: every prefill
-    attention runs on the tensor-core form and every decode attention on
-    the split-kv form, one launch per layer per call."""
+    attention runs on the tensor-core form, one launch per layer per
+    prefill; the decode steps replay one CUDA graph per cache-length
+    bucket, whose wrappers run (and count) only at each bucket's eager
+    first step and its capture: two split-form launches per layer per
+    capture, each reading the device length; every other decode step is
+    a replay, counted by the graph from its capture's launches."""
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=128,
                       d_ff=256, vocab=97, n_heads=4, n_kv_heads=2,
@@ -1110,10 +1115,15 @@ def test_engine_prefills_on_wgmma_and_decodes_on_split(cuda):
     eng.generate(reqs)
     torch.cuda.synchronize()
     prefills, decodes = eng.stats["prefills"], eng.stats["decode_steps"]
-    assert prefills >= 2 and decodes >= 1
+    captures = eng.graph.captures
+    assert prefills >= 2 and decodes > captures >= 1
+    assert captures == len(eng.graph.graphs) <= len(buckets(128))
     assert ops.FLASH_FORMS == {"tile": 0, "wgmma": 2 * prefills,
-                               "split": 2 * decodes}
-    assert ops.LAUNCHES["flash_attention"] == 2 * (prefills + decodes)
+                               "split": 2 * 2 * captures}
+    assert ops.FLASH_DEVICE_LEN == {"split": 2 * 2 * captures}
+    assert ops.LAUNCHES["flash_attention"] == 2 * (prefills + 2 * captures)
+    assert eng.graph.replay_launches == {
+        "flash_attention": 2 * (decodes - captures)}
 
 
 def _int8_cfg():
@@ -1925,3 +1935,154 @@ def test_bf16_training_step_launches_the_bf16_kernels(cuda, step):
     assert launches == _step_launches()[step]
     assert all(o.dtype == torch.bfloat16 and bool(torch.isfinite(o).all())
                for o in outs)
+
+
+# -- the decode step compiled once (serve/decode_graph.py) ---------------------
+
+# (extent, cache length) of the split form with a device length: a
+# bucket's first, middle and last positions, and lengths that leave
+# whole splits empty in a long bucket.
+DEVICE_LEN_CASES = [(64, 0), (64, 31), (64, 63), (1024, 512), (1024, 1023),
+                    (2048, 1024), (2048, 2047), (2048, 5), (1024, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("Hq,Hk,D", [(16, 8, 128), (32, 32, 80)])
+@pytest.mark.parametrize("extent,n", DEVICE_LEN_CASES)
+def test_split_form_with_a_device_length_matches_plain(cuda, dtype, Hq, Hk,
+                                                       D, extent, n):
+    """The split form reading the cache length from the card, over the
+    bucket view cache[:, :extent] of a (4, 2048) cache, against the
+    plain version over the live prefix (and over the view with the same
+    device length); one launch counted as a device-length launch;
+    reruns bit-equal; the int form at the same live length agrees."""
+    gen = torch.Generator().manual_seed(extent + n)
+    q = _rand(gen, 4, 1, Hq, D, device=cuda).to(dtype)
+    k = _rand(gen, 4, 2048, Hk, D, device=cuda).to(dtype)
+    v = _rand(gen, 4, 2048, Hk, D, device=cuda).to(dtype)
+    length = torch.tensor(n, dtype=torch.int32, device=cuda)
+    kb, vb = k[:, :extent], v[:, :extent]
+    ops.reset_launches()
+    got = ops.flash_attention(q, kb, vb, causal=True, length=length)
+    torch.cuda.synchronize()
+    assert ops.FLASH_DEVICE_LEN == {"split": 1}
+    assert ops.FLASH_FORMS == {"tile": 0, "wgmma": 0, "split": 1}
+    atol, rtol = ATTN_TOL[dtype]
+    want = flash_attention_plain(q, k[:, :n + 1], v[:, :n + 1], causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    view = flash_attention_plain(q, kb, vb, causal=True, length=length)
+    torch.testing.assert_close(got.float(), view.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, ops.flash_attention(q, kb, vb, causal=True,
+                                                length=length))
+    int_form = ops.flash_attention(q, k[:, :n + 1], v[:, :n + 1],
+                                   causal=True)
+    torch.testing.assert_close(got.float(), int_form.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_split_form_refuses_a_device_length_elsewhere(cuda):
+    """The C entry takes a device length for the split form only."""
+    q = torch.zeros((1, 64, 4, 64), device=cuda, dtype=torch.bfloat16)
+    length = torch.tensor(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="split form"):
+        flash_attention_cuda(q, q, q, causal=True, q_offset=0,
+                             form=AttentionPlan("wgmma", 1), length=length)
+    with pytest.raises(ValueError, match="split form"):
+        ops.flash_attention(q, q, q, length=length)
+
+
+DECODE_FAMILIES = [("qwen3_0_6b", {}), ("qwen3_0_6b", {"kv_quant": True}),
+                   ("moonshot_v1_16b_a3b", {}), ("rwkv6_7b", {}),
+                   ("zamba2_2_7b", {})]
+
+
+def _clone(cache):
+    return {k: t.clone() if isinstance(t, torch.Tensor) else t
+            for k, t in cache.items()}
+
+
+@pytest.mark.parametrize("arch,kw", DECODE_FAMILIES,
+                         ids=["dense", "int8", "moe", "ssm", "hybrid"])
+def test_decode_graph_replays_equal_the_eager_graph_form(cuda, arch, kw):
+    """Each family's SMOKE config (fp32) through DecodeGraph over steps
+    that cross a bucket edge (prompt 60, max_len 160: extents 64, 128):
+    every step's logits bit-equal to the same graph-form step run eagerly
+    on a copy of the cache on the graph's stream, and within 1e-4 of the
+    int form (its own split count; the int8 codes 1 apart at a tie);
+    one capture per bucket touched (rwkv6, with no attention: one graph),
+    none more on a rerun from the same prefill; each replay counted as an
+    eager step's launches in `replay_launches`."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(arch).scaled(dtype="float32", **kw)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(40), device=cuda)
+    rng = np.random.default_rng(40)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 60))
+                              .astype(np.int32)).to(cuda)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (6, 2))).to(cuda)
+    graph = DecodeGraph(lm, params, 2, 160, cuda)
+    with torch.no_grad():
+        _, cache = lm.prefill(params, prompt, 160)
+        touched = set()
+        for run in range(2):
+            graph.load(cache)
+            icache = _clone(cache)
+            for t in toks:
+                n, extent = graph.host_len, graph.extent()
+                touched.add(extent)
+                copy = _clone(graph.cache)
+                got = graph.step(t)[0].clone()
+                graph.stream.wait_stream(torch.cuda.current_stream())
+                before = ops.LAUNCHES["flash_attention"]
+                with torch.cuda.stream(graph.stream):
+                    want, copy = lm.decode_step(params, copy, t[:, None],
+                                                extent=extent)
+                per_step = ops.LAUNCHES["flash_attention"] - before
+                torch.cuda.current_stream().wait_stream(graph.stream)
+                assert torch.equal(got, want), (run, n)
+                assert int(graph.cache["len"]) == int(copy["len"]) == n + 1
+                ilog, icache = lm.decode_step(params, icache, t[:, None])
+                torch.testing.assert_close(got, ilog, atol=TOL, rtol=TOL)
+            assert touched == ({64, 128} if "k" in cache else {160})
+            assert graph.captures == len(touched) == len(graph.graphs)
+    replays = 2 * len(toks) - graph.captures
+    assert graph.replay_launches == (
+        {"flash_attention": per_step * replays} if per_step else {})
+    for name in (k for k in icache if k != "len"):
+        if icache[name].dtype == torch.int8:
+            assert (icache[name].int() - graph.cache[name].int()).abs() \
+                .max() <= 1
+        else:
+            torch.testing.assert_close(graph.cache[name], icache[name],
+                                       atol=TOL, rtol=TOL)
+
+
+def test_decode_graph_capture_that_syncs_with_the_host_raises(cuda,
+                                                              monkeypatch):
+    """A step that reads a device value back to the host runs eagerly
+    (the bucket's first step) but cannot be captured: the capture raises,
+    and no graph is kept."""
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=1, d_model=64,
+                      d_ff=128, vocab=97, n_heads=4, n_kv_heads=2,
+                      head_dim=16, dtype="float32")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(41), device=cuda)
+    graph = DecodeGraph(lm, params, 2, 64, cuda)
+    with torch.no_grad():
+        graph.load(lm.prefill(params, torch.ones((2, 5), dtype=torch.int32,
+                                                 device=cuda), 64)[1])
+        real = L.rmsnorm
+
+        def syncing(p, x, eps=1e-6):
+            if float(x.float().abs().max()) < 0:     # a host read
+                raise AssertionError
+            return real(p, x, eps)
+
+        monkeypatch.setattr(L, "rmsnorm", syncing)
+        with pytest.raises(RuntimeError):
+            graph.step(torch.ones(2, dtype=torch.int64, device=cuda))
+    assert graph.captures == 0 and not graph.graphs
+    torch.cuda.synchronize()
