@@ -68,17 +68,31 @@ Phases (any failed check raises and ends the run non-zero):
      the timed shapes held against cuDNN in bf16 at 5e-2 of the output's
      largest magnitude and timed (kernel, plain, cuDNN);
   4. serve 32 `gan_gen` and 32 `aspp` requests at the models' published
-     widths through ConvServeEngine(ladder=("cuda",)): every result held
-     against the same request through the plain versions, the kernels'
-     launch counts against the launches the path makes, and no fault,
-     fallback or NaN allowed; (b) `fault_serve_phase`: the same params
-     through ConvServeEngine(ladder=DEFAULT_LADDER) under a seeded storm
-     of injected kernel exceptions and NaN outputs (8 requests of each
-     kind): all answered within TOL of the plain versions, the stats,
-     breaker transitions and fired events equal to the same engine's on
-     the CPU, each kernel's launches equal to the `cuda` attempts past
-     the injector times its launches per batch; then full degradation
-     to the `reference` rung on the card, launching no kernel;
+     widths through ConvServeEngine(ladder=("cuda",)), each bucket's
+     launch one CUDA graph (`serve/conv_graph.py`) captured at the
+     warm-up batch, every served batch a replay: every result held
+     against the same request through the plain versions, each bucket's
+     first replay bit-equal to an eager `forward_fn` of its batch, one
+     capture per bucket, the wrappers' launches (warm-up: eager launch
+     and capture) and the replayed ones (`replay_launches`, from each
+     capture's count) against the launches the path makes, no fault,
+     fallback or NaN allowed; the same requests served again, with no
+     capture and the same results; one replay of each bucket traced,
+     its conv kernels' events equal to the capture's count; the same
+     requests through an eager `cuda` rung (`cuda@inject`, not
+     graphable) with the same results; requests/s of each engine's first
+     serve, and of SERVE_ROUNDS alternating windows of at least
+     SERVE_WINDOW_S per engine, the wrappers launching only in the eager
+     engine's; (b)
+     `fault_serve_phase`: the same params through
+     ConvServeEngine(ladder=DEFAULT_LADDER), every rung graphed, under a
+     seeded storm of injected kernel exceptions and NaN outputs (8
+     requests of each kind): all answered within TOL of the plain
+     versions, the stats, breaker transitions and fired events equal to
+     the same engine's on the CPU, each kernel's replayed launches equal
+     to the `cuda` attempts past the injector times its launches per
+     batch (the capture's); then full degradation to the `reference`
+     rung on the card, launching and replaying no kernel;
   5. train: 5 `gan_sgd_step`s and 5 `sgd_step`s at the models' published
      widths on ConvDataset batches of 64, each step's loss and every
      parameter held against the same steps through the plain versions on
@@ -146,13 +160,23 @@ Phases (any failed check raises and ends the run non-zero):
      qwen3-0.6b (28 layers, bf16 compute, fp32 master weights, AdamW)
      through `Trainer.run` -- `launch/train`'s path -- at train_4k's
      seq 4096, global batch 8 (train_4k's 256 cut to one card) in 4
-     microbatches, 1 warm-up and 3 timed steps with a checkpoint
-     directory: every loss finite, each step 224 `flash_attention` and
-     112 `flash_attention_backward` calls, all on their wgmma forms
-     (`ops.FLASH_FORMS`, `ops.FLASH_BWD_FORMS`), the step-4 checkpoint on
-     disk; ms per step, tokens/s, peak memory, and a torch.profiler trace
-     of one more step (device ms by kernel group, busy share); then the
-     same run again, its losses bit-equal;
+     microbatches, 4 steps with a checkpoint directory, the step one CUDA
+     graph (`train/step_graph.py`): step 1 eager, step 2 its capture,
+     steps 2-4 replays; every loss finite, each step 224
+     `flash_attention` and 112 `flash_attention_backward` launches, all
+     on their wgmma forms (`ops.FLASH_FORMS`, `ops.FLASH_BWD_FORMS`),
+     counted by the wrappers at step 1 and the capture and from the
+     capture's count at each replay (`graph.replay_launches`), one
+     capture, the step-4 checkpoint on disk; ms per step replayed,
+     tokens/s, peak memory, the card's free memory after the capture and
+     its headroom over the run's peak reserved memory (at least
+     TRAIN_HEADROOM_GB, with no allocation retried after a cache flush),
+     and a torch.profiler trace of the last two replays (device ms by
+     kernel group, busy share, the attention kernels' events a step
+     equal to the capture's launches); then the same 4
+     steps run eagerly (`step_fn`), their losses and final state
+     bit-equal to the graphed run's, ms per step, peak memory and the
+     last step traced;
   10. the int8 KV cache, the examples and the quickstart: (a) qwen3-0.6b
      at full width, 2 layers, fp32, `kv_quant`: phase 6 (a)'s prompts and
      8 forced decodes on the card, each call held against the same call
@@ -187,10 +211,11 @@ Phases (any failed check raises and ends the run non-zero):
      requests/s, tokens/s, ms per prefill and decode step, peak memory,
      a decode profile (`family_serve`); (c) moonshot-v1-16b-a3b at 2
      layers and zamba2-2.7b at 12 (2 groups) through `Trainer.run` at
-     seq 4096, batch 8 in 4 microbatches, 3 steps: launches and forms per
-     step (wgmma at head_dim 128 and 80), ms per step,
-     tokens/s, peak memory, the aux loss, a rerun's losses bit-equal
-     (`family_train`);
+     seq 4096, batch 8 in 4 microbatches, its step one CUDA graph as in
+     phase 9 (b), 4 and 3 steps: launches and forms per step (wgmma at
+     head_dim 128 and 80), ms per step replayed and eager, tokens/s, peak
+     memory, the aux loss, the same steps run eagerly bit-equal, moonshot's
+     last two replays and last eager step traced (`family_train`);
   12. (a) the audio and vlm families (`embeds_phase`), inputs that are
      frame embeddings: musicgen-medium at 2 layers and internvl2-76b at 1
      in fp32 against the CPU (`family_parity` on frames: logits per call, the
@@ -201,8 +226,8 @@ Phases (any failed check raises and ends the run non-zero):
      on frames, greedy `decode_step`s; prefills on wgmma at head_dim 64 /
      128, decodes on split), requests/s, ms per call, a decode profile
      (`embed_serve`); musicgen-medium trained at 12 layers through
-     `Trainer.run` at seq 4096, batch 8 in 4 microbatches, 4 steps, traced, a rerun
-     bit-equal; (b) the conv steps on a device mesh (`mesh_phase`): MESH_RANKS
+     `Trainer.run` at seq 4096, batch 8 in 4 microbatches, 4 steps, its
+     step one CUDA graph, traced, the same steps run eagerly bit-equal; (b) the conv steps on a device mesh (`mesh_phase`): MESH_RANKS
      `gloo` ranks spawned on the one card, a (2, 2) ("data", "model")
      mesh; gan_sgd_step, gen_sgd_step and sgd_step at phase 5's widths,
      batch 64, on params laid out by `tree_shardings` and batches by
@@ -346,6 +371,12 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 peak outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 SLOT_BATCH = 4
 N_REQUESTS = 32
+# Phase 4 (a)'s requests/s: SERVE_ROUNDS alternating windows per engine
+# (graphed, eager), each the N_REQUESTS requests of each kind served
+# over and over for at least SERVE_WINDOW_S: one serve takes 20-40 ms,
+# too short a window to tell two engines apart.
+SERVE_WINDOW_S = 1.0
+SERVE_ROUNDS = 2
 # Phase 4 (b): a seeded storm on the fast rungs of both buckets, served
 # through the default ladder, FAULT_REQUESTS requests of each kind.  The
 # seed is one whose storm (on the CPU, where the accounting is the same)
@@ -419,7 +450,12 @@ LM_TRAIN_PARITY = (2, 256)        # (batch, seq) of (a)
 LM_TRAIN_TOL = {"float32": 1e-3, "bfloat16": 5e-2}   # of each leaf's max
 LM_TRAIN_SEQ = 4096               # SHAPES["train_4k"].seq_len
 LM_TRAIN_BATCH = 8                # train_4k's 256, cut to one card
-LM_TRAIN_STEPS = 4                # 1 warm-up + 3 timed
+LM_TRAIN_STEPS = 4                # 1 eager, 1 capture, 2 replays (traced)
+# A graphed training run keeps the step's memory pool beside the
+# allocator's cache: the card's memory less the run's peak reserved must
+# be at least this, and no allocation may have needed the allocator to
+# flush its cache and retry.
+TRAIN_HEADROOM_GB = 4.0
 # The attention backward's kernels (csrc/flash_attention_bwd.cu), three
 # launches per wrapper call: delta, then dk/dv and dq of the simt or the
 # wgmma form.
@@ -546,6 +582,7 @@ FAMILY_TRAIN = {"moonshot-v1-16b-a3b": (2, True),
 FAMILY_TRAIN_BYTES = 40
 FAMILY_TRAIN_SHARE = 0.7
 FAMILY_TRAIN_STEPS = 3
+TRACED_TRAIN_STEPS = 4    # a traced run's steps at least: 2 replays traced
 FAMILY_SEED = 41          # the card generator's seed of phase 11's params
 # Phase 12 (a): the audio and vlm families, whose inputs are embeddings.
 # Parity at EMBED_PARITY's depths; musicgen-medium served whole and
@@ -1272,12 +1309,18 @@ def fault_serve_phase(card: str, gp: dict, ap: dict) -> dict:
     launches equal the `cuda` attempts that got past `raise_or_delay`
     times its launches per batch of that bucket (measured by the
     warm-up batch): an injected exception launched nothing, a poisoned
-    attempt did launch.  (2) Full degradation: `cuda` and
-    `torch_zero_free` always raise, SLOT_BATCH - 1 requests of each kind
-    (a zero-padded batch) are served by the `reference` rung on the
-    card, within FAULT_REF_RTOL of that rung's own call on the same
-    batch and within TOL of the plain versions, launching no
-    hand-written kernel.  Returns the phase's launches by kernel."""
+    attempt did launch.  Every rung launches through its (bucket, rung)
+    CUDA graph: `cuda`'s captured at the warm-up batch (its eager launch
+    and capture counted by the wrappers, each twice the capture's own
+    count), so each kernel's launches in the storm are replays, counted
+    from the capture (`replay_launches`), and no wrapper runs.  (2) Full
+    degradation: `cuda` and `torch_zero_free` always raise, SLOT_BATCH -
+    1 requests of each kind (a zero-padded batch) are served by the
+    `reference` rung's graph on the card, within FAULT_REF_RTOL of that
+    rung's own call on the same batch and within TOL of the plain
+    versions, launching and replaying no hand-written kernel.  Returns
+    the wrappers' launches by kernel (the warm-up's); the replayed ones
+    go to REPLAYED."""
     from repro_torch.kernels import ops
     from repro_torch.models import gan, vision
     from repro_torch.serve.conv_engine import (DEFAULT_LADDER, ConvRequest,
@@ -1353,21 +1396,33 @@ def fault_serve_phase(card: str, gp: dict, ap: dict) -> dict:
     # -- (1) the storm -------------------------------------------------------
     inj = schedule(FAULT_RATE, ("kernel_exception", "nan_output"))
     eng = engine(dev, inj)
-    per_batch = {}
-    for kind, shape in shapes.items():     # the warm-up batch, counted
+    per_batch, warm = {}, {}
+    for kind, shape in shapes.items():     # the warm-up batch, captured
         ops.reset_launches()
         eng.warmup([(kind, shape)], compile=True)
         torch.cuda.synchronize()
-        per_batch[kind] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        warm[kind] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        per_batch[kind] = eng.graphs[(eng._bucket(kind, shape).key,
+                                      "cuda")].launches
     tconvs = sum(per_batch["gan_gen"].get(k, 0)
                  for k in TCONV_KERNELS.values())
     if tconvs != len(GEN_TCONVS) or per_batch["aspp"] != {
-            "dconv_forward": 3}:
-        raise AssertionError(f"launches per batch {per_batch}")
+            "dconv_forward": 3} or any(
+                warm[k] != {n: 2 * v for n, v in per_batch[k].items()}
+                for k in shapes):
+        raise AssertionError(f"launches per batch {per_batch}, at the "
+                             f"eager warm-up batch and its capture {warm}")
     ops.reset_launches()
     reqs, res = serve(eng, payloads)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    # Every rung's graph: `cuda`'s captured at warm-up, the plain rungs'
+    # at their first launch (no hand-written kernel in them).
+    counted = {k: v for k, v in ops.LAUNCHES.items() if v}
+    launches = eng.replay_launches
+    if counted:
+        raise AssertionError(f"storm: wrappers launched {counted} past the "
+                             f"warm-up captures")
+    note_replayed(launches)
     storm_err = hold_plain(reqs, res, "storm")
     expect, attempts = {}, {}
     for kind in shapes:
@@ -1410,8 +1465,9 @@ def fault_serve_phase(card: str, gp: dict, ap: dict) -> dict:
     deg_reqs, deg_res = serve(deg, picked)
     torch.cuda.synchronize()
     deg_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-    if deg_launches:
-        raise AssertionError(f"the reference rung launched {deg_launches}")
+    if deg_launches or deg.replay_launches:
+        raise AssertionError(f"the reference rung launched {deg_launches}, "
+                             f"replayed {deg.replay_launches}")
     deg_err = hold_plain(deg_reqs, deg_res, "full degradation")
     # The reference rung's own call on the same zero-padded batches: an
     # engine whose ladder is that rung alone, serving the same requests.
@@ -1438,6 +1494,8 @@ def fault_serve_phase(card: str, gp: dict, ap: dict) -> dict:
         "storm": stats, "fired": len(card_acc[2]),
         "fired_cuda": sorted(fired_cuda), "cuda_attempts_past": attempts,
         "launches": launches, "launches_per_batch": per_batch,
+        "captures": eng.captures, "rungs_graphed": sorted(
+            {rung for _, rung in eng.graphs}),
         "max_abs_err_plain": storm_err, "max_abs_err_cpu_engine": cpu_err,
         "transitions": {k: v for k, v in card_acc[1].items() if v},
         "full_degradation": {
@@ -1446,7 +1504,11 @@ def fault_serve_phase(card: str, gp: dict, ap: dict) -> dict:
         | {"max_abs_err_plain": deg_err, "reference_rel": ref_rel,
            "kernel_launches": 0},
         "seconds": seconds, "card": card}))
-    return launches
+    wrappers = {}
+    for counted in warm.values():
+        for k, n in counted.items():
+            wrappers[k] = wrappers.get(k, 0) + n
+    return wrappers
 
 
 def trainer_phase(card: str) -> dict:
@@ -1990,58 +2052,120 @@ def vision_phase(card: str) -> dict:
     return launches
 
 
-def lm_step_profile(call) -> dict:
-    """Where one LM training step's device time goes: a torch.profiler
-    trace of one `call()` (opened as `calls_profile` opens its windows).
-    Device ms by group -- the attention forward by form, the attention
-    backward's three kernels, cuBLAS / CUTLASS matrix products, the rest
-    -- the ten costliest kernel names, and the device's busy share of
-    the step's wall time under the profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+class StepTrace:
+    """A torch.profiler window over LM training steps, opened as
+    `calls_profile` opens its windows (PROFILE_LEAD_IN spin kernels, then
+    PROFILE_PAD_S of idle host time).  `open()` before the first step,
+    `close(steps)` after the last: device ms by group -- the attention
+    forward by form, the attention backward's three kernels, cuBLAS /
+    CUTLASS matrix products, the rest -- the ten costliest kernel names,
+    the device's busy share of the window's wall time under the
+    profiler, which holds whatever the host does between the steps, and
+    the attention kernels' events a step (`attention_events_per_step`:
+    the forward's, and each of the backward's three kernels').  `first`
+    is the index of the first step a caller traces."""
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def __init__(self, first: int = 0):
+        self.first, self.result = first, None
+
+    def open(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.__enter__()
         for _ in range(PROFILE_LEAD_IN):
             torch.cuda._sleep(100)
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
-        t0 = time.perf_counter()
-        call()
+        self.t0 = time.perf_counter()
+
+    def close(self, steps: int = 1) -> dict:
+        from torch.autograd import DeviceType
+
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - self.t0) * 1e3
         time.sleep(PROFILE_PAD_S)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and "spin_kernel" not in e.name]
-    if not kernels:
-        raise AssertionError("the profiler's trace holds no device event")
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            e.time_range.elapsed_us() / 1e3
+        self.prof.__exit__(None, None, None)
+        kernels = [e for e in self.prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in e.name]
+        if not kernels:
+            raise AssertionError("the profiler's trace holds no device "
+                                 "event")
+        by_name: dict = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
 
-    def group(name):
-        for form in ATTN_FORMS:
-            if f"flash_attention_{form}_kernel<" in name:
-                return f"attention_forward_{form}"
-        for sym in ATTN_BWD_SYMBOLS:
-            if sym in name:
-                return sym
-        if re.search(r"gemm|nvjet|xmma|cutlass|sm90_", name):
-            return "matmul"
-        return "other"
+        def group(name):
+            for form in ATTN_FORMS:
+                if f"flash_attention_{form}_kernel<" in name:
+                    return f"attention_forward_{form}"
+            for sym in ATTN_BWD_SYMBOLS:
+                if sym in name:
+                    return sym
+            if re.search(r"gemm|nvjet|xmma|cutlass|sm90_", name):
+                return "matmul"
+            return "other"
 
-    groups: dict = {}
-    for name, ms in by_name.items():
-        groups[group(name)] = groups.get(group(name), 0.0) + ms
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"wall_ms_under_profiler": wall_ms, "device_busy_ms": busy,
-            "device_busy_share": busy / wall_ms,
-            "device_idle_share": 1.0 - busy / wall_ms,
-            "device_events": len(kernels), "ms_by_group": groups,
-            "top_kernels_ms": [[n[:120], ms] for n, ms in top]}
+        groups: dict = {}
+        for name, ms in by_name.items():
+            groups[group(name)] = groups.get(group(name), 0.0) + ms
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        forms = "|".join(ATTN_FORMS)
+        events = {part: sum(1 for e in kernels if re.search(pat, e.name))
+                  / steps for part, pat in (
+                      ("forward", rf"flash_attention_(?:{forms})_kernel<"),
+                      ("delta", r"attn_bwd_delta_kernel\b"),
+                      ("dkdv", r"attn_bwd_dkdv(?:_wgmma)?_kernel\b"),
+                      ("dq", r"attn_bwd_dq(?:_wgmma)?_kernel\b"))}
+        return {"steps": steps, "wall_ms_under_profiler": wall_ms,
+                "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+                "device_idle_share": 1.0 - busy / wall_ms,
+                "device_events": len(kernels),
+                "device_events_per_step": len(kernels) / steps,
+                "ms_by_group": groups,
+                "attention_events_per_step": events,
+                "top_kernels_ms": [[n[:120], ms] for n, ms in top]}
+
+
+# Kernel launches made by CUDA-graph replays (phases 4 and 4 (b)'s serving
+# graphs, the LM trainers' steps in phases 9, 11 and 12 (a)), by kernel:
+# each replay adds its capture's own count.  The kernels line carries them
+# beside the wrappers' counts as "launches_replayed".
+REPLAYED: dict = {}
+
+
+def note_replayed(launches: dict) -> None:
+    for k, n in launches.items():
+        REPLAYED[k] = REPLAYED.get(k, 0) + n
+
+
+def state_digest(tree) -> list:
+    """Per leaf of `tree`, an int64 digest of its bits (the words as
+    integers, weighted by position mod 65521, summed), computed on the
+    leaf's device in chunks: two trees whose digests are equal are taken
+    as bit-equal without both being held at once."""
+    out = []
+    for t in _tree_leaves(tree):
+        w = t.detach().reshape(-1)
+        w = w.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                    8: torch.int64}[w.element_size()])
+        total = torch.zeros((), dtype=torch.int64, device=w.device)
+        for s in range(0, w.numel(), 1 << 26):
+            c = w[s:s + (1 << 26)].to(torch.int64)
+            pos = torch.arange(s, s + c.numel(), device=w.device) % 65521
+            total += (c * (pos + 1)).sum()
+        out.append(int(total))
+    return out
+
+
+def _tree_leaves(tree):
+    from repro_torch.models.layers import tree_leaves
+    return tree_leaves(tree)
 
 
 def hold_grads(what, loss, want_loss, grads, want, tol) -> float:
@@ -2074,16 +2198,32 @@ def train_run(what, cfg, steps: int, seed: int, traced: bool,
               checkpoint: bool = False) -> dict:
     """`launch/train`'s path: `Trainer.run` on the card at seq
     LM_TRAIN_SEQ, global batch LM_TRAIN_BATCH in the config's
-    microbatches, `steps` steps (the first a warm-up), with `checkpoint` a
-    checkpoint directory that must hold the last step.  Every loss
-    finite; every step 2 x attention layers x microbatches
-    `flash_attention` launches and attention layers x microbatches
-    `flash_attention_backward` calls, all on the forms `attention.plan`
-    and `backward_plan` give the microbatch's shape; with `traced` one
-    more step traced (`lm_step_profile`); the MoE aux loss of the final
-    params on one microbatch; a rerun (no checkpoint directory) whose
-    losses must be bit-equal.  Returns the run's numbers, launches and
-    profile."""
+    microbatches, `steps` steps, with `checkpoint` a checkpoint directory
+    that must hold the last step.  The step is the trainer's CUDA graph:
+    step 1 runs eagerly, step 2 captures and replays, every later step
+    replays.  Each step is timed (host clock to a synchronize) with the
+    wrappers' launches (`ops.LAUNCHES`, the forms) and the replayed ones
+    (`graph.replay_launches`): one capture; the capture's own launches
+    2 x attention layers x microbatches `flash_attention` and attention
+    layers x microbatches `flash_attention_backward`, all on the forms
+    `attention.plan` and `backward_plan` give the microbatch's shape;
+    step 1 counted by the wrappers, step 2 by the wrappers (the capture)
+    and the replay, later steps by the replay alone.  With `traced`
+    (steps >= 4) the last two steps, replays, are traced as the loop runs
+    them (`StepTrace`), and the trace must show, a step, as many
+    attention forward kernels and as many of each of the backward's three
+    kernels as the capture counted wrapper launches.  Every loss finite;
+    peak memory; the card's free memory after the capture; the card's
+    memory less the run's peak reserved at least TRAIN_HEADROOM_GB, and
+    no allocation retried after a cache flush; the MoE aux loss of the
+    final params on one microbatch.  Then the same steps run eagerly --
+    `trainer.step_fn` from the trainer's seeded init on the same batches,
+    the last one traced with `traced` (its attention kernels held to the
+    wrappers' count as the replays' are) -- must give bit-equal losses
+    at every step and a final state of equal digests (`state_digest`),
+    the wrappers launching the capture's count every step.  The graph is released before the eager steps, so the two
+    never hold memory at once.  Returns the run's numbers, its wrapper
+    and replayed launches and both profiles."""
     from repro_torch.data.pipeline import TokenDataset
     from repro_torch.kernels import ops
     from repro_torch.kernels.attention import backward_plan, plan
@@ -2092,38 +2232,53 @@ def train_run(what, cfg, steps: int, seed: int, traced: bool,
     from repro_torch.optim.optimizer import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
+    if traced and steps < 4:
+        raise ValueError("a traced run needs two replays after the capture")
     dev = torch.device("cuda")
     ds = TokenDataset(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
                       global_batch=LM_TRAIN_BATCH, seed=0,
                       embed_dim=cfg.d_model if cfg.embed_input else None)
-
-    def trainer(ckpt_dir=None):
-        return Trainer(cfg, ds, AdamWConfig(
-            lr=3e-4, warmup_steps=1, total_steps=steps), TrainerConfig(
-            total_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=10 * steps,
-            log_every=1, keep_last=1, seed=seed), device=dev)
-
-    timed_steps = []
     counts = (ops.LAUNCHES, ops.FLASH_FORMS, ops.FLASH_BWD_FORMS)
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        tr = trainer(ckpt_dir if checkpoint else None)
-        n_micro, step_fn = tr.n_micro, tr.step_fn
 
-        def timed_step(params, opt, b):
-            torch.cuda.synchronize()
-            before = [dict(c) for c in counts]
-            t0 = time.perf_counter()
-            out = step_fn(params, opt, b)
-            torch.cuda.synchronize()
-            timed_steps.append({"ms": (time.perf_counter() - t0) * 1e3} | dict(
-                zip(("launches", "forms", "backward_forms"),
-                    ({k: c[k] - was[k] for k in was if c[k] - was[k]}
-                     for c, was in zip(counts, before)))))
+    def timed(call, log, trace, i):
+        """`call()` as step i of `steps`, timed, its launches in `log`."""
+        if trace is not None and i == trace.first:
+            trace.open()
+        torch.cuda.synchronize()
+        before = [dict(c) for c in counts] + [dict(g.replay_launches)]
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        log.append({"ms": (time.perf_counter() - t0) * 1e3} | dict(
+            zip(("launches", "forms", "backward_forms", "replayed"),
+                ({k: c[k] - was.get(k, 0) for k in c if c[k] - was.get(k, 0)}
+                 for c, was in zip(counts + (g.replay_launches,), before)))))
+        if trace is not None and i == steps - 1:
+            trace.result = trace.close(steps - trace.first)
+        return out
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tr = Trainer(cfg, ds, AdamWConfig(
+            lr=3e-4, warmup_steps=1, total_steps=steps), TrainerConfig(
+            total_steps=steps, ckpt_dir=ckpt_dir if checkpoint else None,
+            ckpt_every=10 * steps, log_every=1, keep_last=1, seed=seed),
+            device=dev)
+        n_micro, step_fn, g = tr.n_micro, tr.step_fn, tr.graph
+        graphed, replay, free_after_capture = [], g.run, []
+        trace = StepTrace(first=steps - 2) if traced else None
+
+        def run_graphed():
+            out = timed(replay, graphed, trace, len(graphed))
+            if len(graphed) == 2:         # the capture's step
+                free_after_capture.append(torch.cuda.mem_get_info()[0])
             return out
 
-        tr.step_fn = timed_step
+        g.run = run_graphed
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         ops.reset_launches()
         t0 = time.perf_counter()
         out = tr.run()
@@ -2131,6 +2286,10 @@ def train_run(what, cfg, steps: int, seed: int, traced: bool,
         run_s = time.perf_counter() - t0
         launches = {k: v for k, v in ops.LAUNCHES.items() if v}
         peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) \
+            - retries
+        headroom = torch.cuda.mem_get_info()[1] - reserved
         saved = sorted(os.listdir(ckpt_dir))
     if checkpoint and f"step_{steps}" not in saved:
         raise AssertionError(f"{what}: checkpoint directory holds {saved}")
@@ -2141,21 +2300,39 @@ def train_run(what, cfg, steps: int, seed: int, traced: bool,
              LM_TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     forms = ({plan(*shape).form: per_step["flash_attention"]},
              {backward_plan(*shape): per_step["flash_attention_backward"]})
-    for i, st in enumerate(timed_steps):
-        if st["launches"] != per_step or \
-                (st["forms"], st["backward_forms"]) != forms:
+    if tr.captures != 1 or g.launches != per_step:
+        raise AssertionError(f"{what}: {tr.captures} captures, the capture "
+                             f"launched {g.launches}, expected {per_step}")
+    if retries or headroom < TRAIN_HEADROOM_GB * 1e9:
+        raise AssertionError(
+            f"{what}: the graphed run reserved {reserved / 1e9:.2f} GB at "
+            f"its peak, {headroom / 1e9:.2f} GB short of the card's memory "
+            f"(at least {TRAIN_HEADROOM_GB} wanted), with {retries} "
+            f"allocations retried after a cache flush")
+    events = {"forward": per_step["flash_attention"]} | {
+        part: per_step["flash_attention_backward"]
+        for part in ("delta", "dkdv", "dq")}
+
+    def hold_events(t, run, counted):
+        if t is not None and t.result["attention_events_per_step"] != events:
             raise AssertionError(
-                f"{what} step {i + 1}: launches {st['launches']}, forms "
-                f"{st['forms']} / {st['backward_forms']}, expected "
-                f"{per_step}, {forms}")
+                f"{what}: the traced {run} steps' attention kernel events a "
+                f"step {t.result['attention_events_per_step']}, expected "
+                f"{events} ({counted})")
+
+    hold_events(trace, "replayed", "the capture's launches")
+    for i, st in enumerate(graphed):
+        want = (per_step if i < 2 else {}, per_step if i else {})
+        if (st["launches"], st["replayed"]) != want or \
+                (i < 2 and (st["forms"], st["backward_forms"]) != forms):
+            raise AssertionError(
+                f"{what} step {i + 1}: wrappers {st['launches']}, replayed "
+                f"{st['replayed']}, forms {st['forms']} / "
+                f"{st['backward_forms']}, expected {want}, {forms}")
+    replayed = dict(g.replay_launches)
     losses = [h["loss"] for h in out["history"]]
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{what}: losses {losses}")
-    prof = None
-    if traced:
-        b = {k: torch.from_numpy(v).to(dev)
-             for k, v in ds.batch(steps).items()}
-        prof = lm_step_profile(lambda: step_fn(out["params"], out["opt"], b))
     aux = None
     if cfg.n_experts:
         b = ds.batch(0)
@@ -2166,30 +2343,68 @@ def train_run(what, cfg, steps: int, seed: int, traced: bool,
                 torch.from_numpy(b["inputs"][:mb]).to(dev),
                 torch.from_numpy(b["labels"][:mb]).to(dev))
         aux = float(parts["aux"])
-    del out, tr
+    digest = state_digest({"params": out["params"], "opt": out["opt"]})
+    del out
     gc.collect()
     torch.cuda.empty_cache()
-    rerun = [h["loss"] for h in trainer().run()["history"]]
+
+    # The same steps eagerly, from the same init on the same batches.
+    eager, etrace = [], StepTrace(first=steps - 1) if traced else None
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, _ = tr.init_state()
+    eager_losses = []
+    for i in range(steps):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(i).items()}
+        params, opt, m = timed(lambda: step_fn(params, opt, b), eager,
+                               etrace, i)
+        eager_losses.append(float(m["loss"]))
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_reserved = torch.cuda.max_memory_reserved()
+    same_state = state_digest({"params": params, "opt": opt}) == digest
+    del params, opt, m, tr, g
     gc.collect()
     torch.cuda.empty_cache()
-    if rerun != losses:
-        raise AssertionError(f"{what}: a rerun's losses {rerun} differ "
-                             f"from {losses}")
-    timed = [st["ms"] for st in timed_steps[1:]]
-    ms = sum(timed) / len(timed)
+    if eager_losses != losses or not same_state:
+        raise AssertionError(f"{what}: the eager steps' losses "
+                             f"{eager_losses} (state digests equal: "
+                             f"{same_state}) differ from the graphed run's "
+                             f"{losses}")
+    for i, st in enumerate(eager):
+        if st["launches"] != per_step or \
+                (st["forms"], st["backward_forms"]) != forms:
+            raise AssertionError(f"{what} eager step {i + 1}: launches "
+                                 f"{st['launches']}, expected {per_step}")
+    hold_events(etrace, "eager", "the wrappers' launches")
+    replays = [st["ms"] for st in graphed[2:]]
+    untraced = replays[:-2] if traced and len(replays) > 2 else replays
+    eager_ms = [st["ms"] for st in eager[1:]]
+    eager_ms = eager_ms[:-1] if traced and len(eager_ms) > 1 else eager_ms
+    ms = sum(untraced) / len(untraced)
     return {"row": {
         "n_layers": cfg.n_layers, "dtype": cfg.dtype, "seq": LM_TRAIN_SEQ,
         "global_batch": LM_TRAIN_BATCH, "microbatches": n_micro,
         "remat": cfg.remat, "steps": steps, "losses": losses,
-        "rerun_losses": rerun, "ms_per_step_warmup": timed_steps[0]["ms"],
-        "ms_per_step_timed": timed, "ms_per_step": ms,
+        "eager_losses": eager_losses, "state_digests_equal": same_state,
+        "captures": 1, "ms_first_step_eager": graphed[0]["ms"],
+        "ms_capture_step": graphed[1]["ms"],
+        "ms_per_step_replayed": replays, "ms_per_step": ms,
+        "ms_per_step_eager_steps": [st["ms"] for st in eager],
+        "ms_per_step_eager": sum(eager_ms) / len(eager_ms),
+        "ms_per_step_from_traced_steps": traced and len(replays) <= 2,
         "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / ms * 1e3,
-        "peak_memory_gb": peak / 1e9, "aux_loss": aux,
-        "launches_per_step": per_step, "forms_per_step": forms[0],
-        "backward_forms_per_step": forms[1], "run_s": run_s,
-        "checkpoint_and_loop_s": run_s - sum(
-            st["ms"] for st in timed_steps) / 1e3},
-        "launches": launches, "profile": prof}
+        "peak_memory_gb": peak / 1e9, "peak_reserved_gb": reserved / 1e9,
+        "peak_memory_gb_eager": eager_peak / 1e9,
+        "peak_reserved_gb_eager": eager_reserved / 1e9,
+        "free_gb_after_capture": free_after_capture[0] / 1e9,
+        "headroom_gb": headroom / 1e9, "alloc_retries": retries,
+        "attention_events_per_step": events, "aux_loss": aux,
+        "launches_per_step": per_step, "replayed_launches": replayed,
+        "forms_per_step": forms[0], "backward_forms_per_step": forms[1],
+        "run_s": run_s, "checkpoint_and_loop_s": run_s - sum(
+            st["ms"] for st in graphed) / 1e3},
+        "launches": launches, "replayed": replayed,
+        "profile": None if trace is None else trace.result,
+        "eager_profile": None if etrace is None else etrace.result}
 
 
 def lm_train_phase(card: str) -> dict:
@@ -2202,11 +2417,15 @@ def lm_train_phase(card: str) -> dict:
     (the remat recompute) and its backward once.  (b) `launch/train`'s
     path (`train_run`): the whole LM_ARCH (28 layers, bf16 compute, fp32
     master), LM_TRAIN_STEPS steps with a checkpoint directory, in the
-    config's 4 microbatches: every step 2 x 28 x 4 `flash_attention`
-    launches and 28 x 4 `flash_attention_backward` calls, all on the
-    wgmma forms; ms per step, tokens/s, peak memory, one more step traced
-    (ms by kernel group, device-busy share), and a rerun whose losses must
-    be bit-equal.  Returns (b)'s launches."""
+    config's 4 microbatches, the step one CUDA graph: step 1 eager, step
+    2 its capture, then replays, 2 x 28 x 4 `flash_attention` launches and
+    28 x 4 `flash_attention_backward` calls a step, counted by the
+    wrappers or from the capture, all on the wgmma forms; ms per step
+    replayed and eager, tokens/s, peak memory graphed and eager, the last
+    two replays traced and the last eager step (ms by kernel group,
+    device-busy share), and the same steps run eagerly with bit-equal
+    losses and state.  Returns (b)'s wrapper launches; its replayed ones
+    go to REPLAYED."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenDataset
     from repro_torch.kernels import ops
@@ -2277,14 +2496,18 @@ def lm_train_phase(card: str) -> dict:
                              f"all on wgmma")
     print("lm train " + json.dumps({"arch": LM_ARCH} | row | {"card": card}))
     print("lm train profile " + json.dumps(run["profile"] | {"card": card}))
+    print("lm train eager profile " + json.dumps(run["eager_profile"]
+                                                 | {"card": card}))
+    note_replayed(run["replayed"])
     print(f"lm train: {PARITY_LAYERS}-layer {LM_ARCH} loss and every "
           f"gradient equal the CPU (fp32 {LM_TRAIN_TOL['float32']:g}, bf16 "
           f"{LM_TRAIN_TOL['bfloat16']:g} of each leaf's max); the whole "
           f"model trained {LM_TRAIN_STEPS} steps at seq {LM_TRAIN_SEQ}, "
           f"batch {LM_TRAIN_BATCH}, {per_step['flash_attention']} "
           f"flash_attention and {per_step['flash_attention_backward']} "
-          f"backward launches per step, all on wgmma, losses finite and "
-          f"bit-equal in a rerun")
+          f"backward launches per step, all on wgmma, the step one CUDA "
+          f"graph replayed from step 2, losses and state bit-equal to the "
+          f"same steps run eagerly")
     return run["launches"]
 
 
@@ -2936,12 +3159,15 @@ def family_serve(card: str, arch: str) -> dict:
 
 def family_train(card: str, arch: str, n_layers, traced: bool,
                  steps: int = FAMILY_TRAIN_STEPS) -> dict:
-    """Phase 11 (c) for one model: `train_run` (launch/train's path,
-    FAMILY_TRAIN_STEPS steps, params drawn on the card from FAMILY_SEED)
-    at the published widths and `n_layers` layers, or (None) the deepest
-    cut whose params, moments and gradients take FAMILY_TRAIN_SHARE of the
+    """Phase 11 (c) for one model: `train_run` (launch/train's path, its
+    step one CUDA graph; FAMILY_TRAIN_STEPS steps, TRACED_TRAIN_STEPS at
+    least when `traced`, params drawn on the card from FAMILY_SEED) at
+    the published widths and `n_layers` layers, or (None) the deepest cut
+    whose params, moments and gradients take FAMILY_TRAIN_SHARE of the
     card at FAMILY_TRAIN_BYTES a param: attention on wgmma at head_dim
-    128 and 80.  Returns the run's launches."""
+    128 and 80.  The graph is released before the eager comparison
+    steps, so the depth needs no room for both.  Returns the run's
+    wrapper launches; its replayed ones go to REPLAYED."""
     from repro_torch.configs import get_config
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.lm import LM
@@ -2959,14 +3185,19 @@ def family_train(card: str, arch: str, n_layers, traced: bool,
         budget = FAMILY_TRAIN_SHARE * torch.cuda.mem_get_info()[1] \
             / FAMILY_TRAIN_BYTES
         n_layers = min(full.n_layers, int((budget - rest) // per) * step)
+    if traced:
+        steps = max(steps, TRACED_TRAIN_STEPS)
     run = train_run(f"{arch} train", full.scaled(n_layers=n_layers),
                     steps, FAMILY_SEED, traced)
+    note_replayed(run["replayed"])
     print("family train " + json.dumps(
         {"arch": arch, "published_layers": full.n_layers} | run["row"]
         | {"phase_s": time.perf_counter() - t_start, "card": card}))
     if run["profile"] is not None:
         print("family train profile " + json.dumps(
             {"arch": arch} | run["profile"] | {"card": card}))
+        print("family train eager profile " + json.dumps(
+            {"arch": arch} | run["eager_profile"] | {"card": card}))
     return run["launches"]
 
 
@@ -3765,6 +3996,31 @@ def lm_mesh_serve(mesh, rank: int, counted, small: bool) -> dict:
     return out
 
 
+def log_steps(tr, sync, keys: tuple):
+    """`tr` (a `Trainer`) with each step's ms and metrics `keys` recorded
+    in `tr.log` as (ms, *values): around `tr.step_fn` on a mesh, or
+    around its step graph's `run` (which returns the metrics) on the card
+    with no mesh."""
+    tr.log = []
+
+    def timed(fn, metrics_of):
+        def call(*a):
+            sync()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            m = metrics_of(r)
+            tr.log.append(((time.perf_counter() - t0) * 1e3,)
+                          + tuple(float(m[k]) for k in keys))
+            return r
+        return call
+
+    if tr.graph is not None:
+        tr.graph.run = timed(tr.graph.run, lambda r: r)
+    else:
+        tr.step_fn = timed(tr.step_fn, lambda r: r[2])
+    return tr
+
+
 def lm_mesh_train(mesh, rank: int, tmp: str, counted, small: bool) -> dict:
     """Phase 13 (c) on one rank: Trainer(mesh=) at LM_ARCH's published
     widths and LM_MESH_TRAIN_LAYERS layers (fp32 compute, so that (a)'s
@@ -3802,17 +4058,7 @@ def lm_mesh_train(mesh, rank: int, tmp: str, counted, small: bool) -> dict:
                                    ckpt_every=half, log_every=1, keep_last=2,
                                    async_checkpoint=False,
                                    seed=LM_MESH_SEED), mesh=m, device=dev)
-        tr.log, fn = [], tr.step_fn
-
-        def step(*a):
-            sync()
-            t0 = time.perf_counter()
-            r = fn(*a)
-            loss = float(r[2]["loss"])
-            tr.log.append(((time.perf_counter() - t0) * 1e3, loss))
-            return r
-        tr.step_fn = step
-        return tr
+        return log_steps(tr, sync, ("loss",))
 
     ckpt_dir = os.path.join(tmp, "lm_ckpt")
     tr = trainer(mesh, ckpt_dir)
@@ -4686,17 +4932,7 @@ def fm_trainer(mesh, rank: int, counted, small: bool) -> dict:
                                           total_steps=n_steps),
                      TrainerConfig(total_steps=n_steps, log_every=1,
                                    seed=FM_SEED), mesh=m, device=dev)
-        tr.log, fn = [], tr.step_fn
-
-        def step(*a):
-            sync()
-            t0 = time.perf_counter()
-            r = fn(*a)
-            tr.log.append(((time.perf_counter() - t0) * 1e3,
-                           float(r[2]["loss"]), float(r[2]["aux"])))
-            return r
-        tr.step_fn = step
-        return tr
+        return log_steps(tr, sync, ("loss", "aux"))
 
     tr = trainer(mesh)
     # The run's final params and optimizer state are dropped here: kept,
@@ -5098,7 +5334,7 @@ def main() -> int:
               "runs only on a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.spec import ConvSpec, Epilogue
+    from repro_torch.core.spec import ConvSpec, Epilogue, register_backend
     from repro_torch.data.pipeline import ConvDataset
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, tiling
@@ -5122,6 +5358,8 @@ def main() -> int:
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.models.lm import LM
     from repro_torch.serve.conv_engine import ConvRequest, ConvServeEngine
+    from repro_torch.serve.faults import (FaultInjector, FaultSchedule,
+                                          inject_backend)
 
     dev = torch.device("cuda")
     phase_s, t_mark = {}, [time.perf_counter()]
@@ -5938,7 +6176,10 @@ def main() -> int:
                           slot_batch=SLOT_BATCH, queue_limit=2 * N_REQUESTS,
                           ladder=("cuda",), device=dev)
     img = (128, 128, 3)
+    ops.reset_launches()         # each bucket's eager launch and capture
     eng.warmup([("gan_gen", (64,)), ("aspp", img)], compile=True)
+    torch.cuda.synchronize()
+    serve_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     rng = np.random.default_rng(7)
     reqs = []
     for _ in range(N_REQUESTS):
@@ -5946,20 +6187,137 @@ def main() -> int:
                                 rng.standard_normal(64).astype(np.float32)))
         reqs.append(ConvRequest(None, "aspp",
                                 rng.standard_normal(img).astype(np.float32)))
+    # Each bucket's first replay, held below against an eager forward_fn
+    # of the same batch.
+    first_replay, forward = {}, eng._forward
+
+    def recorded(bucket, backend, batch):
+        out = forward(bucket, backend, batch)
+        first_replay.setdefault(bucket.kind, (batch.copy(), out))
+        return out
+
+    eng._forward = recorded
     ops.reset_launches()
     t0 = time.perf_counter()
     res = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    serve_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    eng._forward = forward
+    serve_replayed = eng.replay_launches
     batches = -(-N_REQUESTS // SLOT_BATCH)
     expect = {"dconv_forward": 3 * batches}
     for layer, *_ in GEN_TCONVS:      # each layer on the arm the race picks
         kernel = TCONV_KERNELS[picks[f"{layer}_B{SLOT_BATCH}"]]
         expect[kernel] = expect.get(kernel, 0) + batches
-    if serve_launches != expect:
-        raise AssertionError(f"serve launches {serve_launches}, expected "
-                             f"{expect}")
+    captured = {}
+    for graph in eng.graphs.values():
+        for k, n in graph.launches.items():
+            captured[k] = captured.get(k, 0) + n
+    if eng.captures != 2 or any(ops.LAUNCHES.values()) or \
+            serve_replayed != expect or \
+            serve_launches != {k: 2 * n for k, n in captured.items()} or \
+            {k: batches * n for k, n in captured.items()} != expect:
+        raise AssertionError(
+            f"serve: {eng.captures} captures, wrapper launches "
+            f"{serve_launches} at warm-up and "
+            f"{ {k: v for k, v in ops.LAUNCHES.items() if v} } serving, "
+            f"replayed {serve_replayed}, expected {expect} replayed")
+    for kind, (batch, got) in first_replay.items():
+        graph = eng.graphs[(eng._bucket(kind, batch.shape[1:]).key, "cuda")]
+        graph.stream.wait_stream(torch.cuda.current_stream())
+        with torch.no_grad(), torch.cuda.stream(graph.stream):
+            want = eng.forward_fn(kind, "cuda")(
+                torch.from_numpy(batch).to(dev))
+        torch.cuda.current_stream().wait_stream(graph.stream)
+        if not np.array_equal(got, want.cpu().numpy()):
+            raise AssertionError(f"serve: {kind}'s first replay differs from "
+                                 f"its eager forward")
+    ops.reset_launches()         # the eager forwards above do not count
+    t0 = time.perf_counter()     # the same requests again: no capture
+    again = eng.serve([ConvRequest(None, r.kind, r.payload) for r in reqs])
+    torch.cuda.synchronize()
+    wall_again = time.perf_counter() - t0
+    same = len(again) == len(res) and all(
+        np.array_equal(res[a], again[b])
+        for a, b in zip(sorted(res), sorted(again)))
+    if eng.captures != 2 or any(ops.LAUNCHES.values()) or not same:
+        raise AssertionError(
+            f"serve, the same requests again: {eng.captures} captures, "
+            f"wrapper launches "
+            f"{ {k: v for k, v in ops.LAUNCHES.items() if v} }, "
+            f"the same results: {same}")
+    # One replay of each bucket traced: its conv kernels' events are the
+    # capture's count, and its output the first replay's.
+    traced = {}
+    for kind, (batch, got) in first_replay.items():
+        graph = eng.graphs[(eng._bucket(kind, batch.shape[1:]).key, "cuda")]
+        replayed = []
+        traced[kind] = calls_profile(lambda: replayed.append(graph(batch)), 1)
+        if traced[kind]["conv_launches_per_call"] != graph.launches or \
+                not np.array_equal(replayed[0], got):
+            raise AssertionError(
+                f"serve: a traced {kind} replay shows the conv kernels "
+                f"{traced[kind]['conv_launches_per_call']}, the capture "
+                f"counted {graph.launches}; the same output as the first "
+                f"replay: {np.array_equal(replayed[0], got)}")
+    # The same requests through an eager `cuda` rung, for requests/s in
+    # the same run: `inject_backend` over `cuda` with an empty schedule
+    # (not graphable); its results bit-equal.
+    register_backend(inject_backend("cuda", FaultInjector(FaultSchedule())))
+    eager_eng = ConvServeEngine(gan_params=gp, aspp_params=ap,
+                                slot_batch=SLOT_BATCH,
+                                queue_limit=2 * N_REQUESTS,
+                                ladder=("cuda@inject",), device=dev)
+    eager_eng.warmup([("gan_gen", (64,)), ("aspp", img)], compile=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eager_res = eager_eng.serve([ConvRequest(None, r.kind, r.payload)
+                                 for r in reqs])
+    torch.cuda.synchronize()
+    wall_eager = time.perf_counter() - t0
+    if eager_eng.captures or \
+            {k: v for k, v in ops.LAUNCHES.items() if v} != expect or \
+            not all(np.array_equal(res[a], eager_res[b])
+                    for a, b in zip(sorted(res), sorted(eager_res))):
+        raise AssertionError(f"serve through the eager `cuda@inject` rung: "
+                             f"{eager_eng.captures} captures, launches "
+                             f"{dict(ops.LAUNCHES)}, expected {expect}, or "
+                             f"other results than the replays'")
+
+    # requests/s past each engine's first serve: SERVE_ROUNDS windows of
+    # at least SERVE_WINDOW_S per engine, alternating, each serve of the
+    # same requests answering as the first did.
+    def window(engine):
+        served, spent, n = 0, 0.0, 0
+        while spent < SERVE_WINDOW_S:
+            batch = [ConvRequest(None, r.kind, r.payload) for r in reqs]
+            t0 = time.perf_counter()
+            out = engine.serve(batch)
+            torch.cuda.synchronize()
+            spent += time.perf_counter() - t0
+            served, n = served + len(out), n + 1
+            if not all(np.array_equal(res[a], out[b])
+                       for a, b in zip(sorted(res), sorted(out))):
+                raise AssertionError("serve: a window's results differ "
+                                     "from the first serve's")
+        return {"requests_per_s": served / spent, "serves": n, "s": spent}
+
+    ops.reset_launches()
+    windows = {"graphed": [], "eager": []}
+    for _ in range(SERVE_ROUNDS):
+        for name, engine in (("graphed", eng), ("eager", eager_eng)):
+            windows[name].append(window(engine))
+    eager_serves = sum(w["serves"] for w in windows["eager"])
+    if eng.captures != 2 or eager_eng.captures or \
+            {k: v for k, v in ops.LAUNCHES.items() if v} != \
+            {k: eager_serves * n for k, n in expect.items()}:
+        raise AssertionError(
+            f"serve windows: {eng.captures} / {eager_eng.captures} captures, "
+            f"wrapper launches {dict(ops.LAUNCHES)}, expected the eager "
+            f"engine's {eager_serves} serves x {expect} alone")
+    note_replayed(eng.replay_launches)
+    rate = {name: sum(w["requests_per_s"] for w in ws) / len(ws)
+            for name, ws in windows.items()}
     h = eng.health()
     bad = {k: h[k] for k in ("kernel_faults", "fallbacks", "failures",
                              "nan_events", "sheds", "deadline_misses")
@@ -5987,13 +6345,23 @@ def main() -> int:
     print(f"serve: {len(res)} requests ({N_REQUESTS} gan_gen 32x32x3, "
           f"{N_REQUESTS} aspp 128x128x3 -> 4 classes), slot batch "
           f"{SLOT_BATCH}, ladder ('cuda',): all equal the plain versions "
-          f"within {TOL:g}")
+          f"within {TOL:g}, one CUDA graph per bucket, every batch a "
+          f"replay, each bucket's first bit-equal to its eager forward")
     print("serve launches " + json.dumps(serve_launches))
+    print("serve replayed " + json.dumps(serve_replayed))
     print("health " + json.dumps({
         k: h[k] for k in ("submitted", "completed", "launches", "p50_us",
                           "p99_us", "kernel_faults", "fallbacks",
-                          "failures", "nan_events")}
-        | {"requests_per_s": len(res) / wall, "card": card}))
+                          "failures", "nan_events", "captures")}
+        | {"requests_per_s_first_serve": len(res) / wall,
+           "requests_per_s_second_serve": len(again) / wall_again,
+           "requests_per_s_first_serve_eager_rung":
+               len(eager_res) / wall_eager,
+           "requests_per_s": rate["graphed"],
+           "requests_per_s_eager_rung": rate["eager"],
+           "graphed_over_eager": rate["graphed"] / rate["eager"],
+           "windows": windows, "card": card}))
+    print("serve traced replays " + json.dumps(traced | {"card": card}))
     mark("4")
     fault_launches = fault_serve_phase(card, gp, ap)
     mark("4b")
@@ -6332,7 +6700,8 @@ def main() -> int:
     # (its launches are in that row too), the graphed decode steps' only
     # attention.  Its wrappers count each bucket's eager first step and
     # capture; the replays' launches, from each capture's count, stand
-    # beside them as "launches_replayed".
+    # beside them as "launches_replayed", with those of the conv serving
+    # graphs and the LM trainers' graphs (REPLAYED).
     served_len = (lm_device_len, int8_device_len, families["device_len"])
     device_len = {"flash_attention_device_len":
                   sum(d["launches"] for d in served_len)}
@@ -6369,8 +6738,9 @@ def main() -> int:
             rows[-1]["launches_head_dim_80"] = families["d80"].get(name, 0)
         if "int_form_ms" in k:   # the int form at the same live lengths
             rows[-1]["int_form_ms"] = k["int_form_ms"]
-        if name in replayed_len:
-            rows[-1]["launches_replayed"] = replayed_len[name]
+        replayed = REPLAYED.get(name, 0) + replayed_len.get(name, 0)
+        if replayed:
+            rows[-1]["launches_replayed"] = replayed
         rows[-1]["launches_phase_4b"] = fault_launches.get(name, 0)
         rows[-1]["launches_phase_12"] = embed_launches.get(name, 0) \
             + mesh_launches.get(name, 0)

@@ -295,6 +295,10 @@ class ConvBackend:
     fused_backward_ep: Union[Callable, None] = None
     # (g, z, dy, w, spec, ep) -> (ddy, dw, db|None)
     fused_ct_backward_ep: Union[Callable, None] = None
+    # False where the ops do host-side work on every call that a CUDA
+    # graph's replay would skip (`serve.faults.inject_backend`'s events):
+    # such a rung is served eagerly.
+    graphable: bool = True
 
     def backward(self, x, dy, w, spec: ConvSpec, n_out):
         """Both gradients of direct_conv(x, w, spec): (dx, dw)."""
@@ -357,11 +361,12 @@ OPS = ("forward", "input_grad", "filter_grad", "backward", "ct_backward",
        "forward_ep", "input_grad_ep", "backward_ep", "ct_backward_ep")
 
 
-def backend_of_ops(name: str, make: Callable) -> ConvBackend:
+def backend_of_ops(name: str, make: Callable, *,
+                   graphable: bool = True) -> ConvBackend:
     """A `ConvBackend` named `name` whose op `op` is `make(op)`, for every
     op of OPS (the wrappers `fallback_backend` and
     `serve.faults.inject_backend` build)."""
-    return ConvBackend(name, **{
+    return ConvBackend(name, graphable=graphable, **{
         op if op in OPS[:3] else f"fused_{op}": make(op) for op in OPS})
 
 
@@ -476,7 +481,8 @@ def fallback_backend(chain: Sequence[BackendLike], *,
         return op
 
     ladder = backend_of_ops(">".join(be.name for be in backends),
-                            rung_by_rung)
+                            rung_by_rung,
+                            graphable=all(be.graphable for be in backends))
     if cache_key is not None:
         _FALLBACK_CACHE[cache_key] = ladder
     return ladder
@@ -829,6 +835,7 @@ def sharded_backend(base: ConvBackend, mesh) -> ConvBackend:
         fused_forward_ep=forward_ep,
         fused_input_grad_ep=input_grad_ep,
         fused_backward_ep=backward_ep,
-        fused_ct_backward_ep=ct_backward_ep)
+        fused_ct_backward_ep=ct_backward_ep,
+        graphable=base.graphable)
     _SHARDED_CACHE[key] = wrapped
     return wrapped

@@ -87,6 +87,13 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def launches_since(before: dict) -> dict:
+    """LAUNCHES less `before` (an earlier copy of it), for the wrappers
+    that launched since: what a CUDA-graph capture recorded."""
+    return {k: n - before.get(k, 0) for k, n in LAUNCHES.items()
+            if n != before.get(k, 0)}
+
+
 def _plain(t: torch.Tensor) -> bool:
     """True where the attention wrappers run the plain version: a real
     CPU tensor (a fake one takes the card's branch, as a fake form)."""

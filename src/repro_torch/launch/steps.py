@@ -192,8 +192,13 @@ def loss_and_grads(lm: LM, params, inputs, labels):
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
     it = iter(grads)
+    # A constant (a model without MoE layers has aux 0.0) is a fill on the
+    # loss's device, not a host-to-device copy: a CUDA-graph capture of
+    # the step cannot take a copy from pageable host memory.
     aux = {k: torch.as_tensor(v, dtype=torch.float32,
                               device=loss.device).detach()
+           if isinstance(v, torch.Tensor) else
+           torch.full((), v, dtype=torch.float32, device=loss.device)
            for k, v in aux.items()}
     return (loss.detach(), aux), tree_map(lambda _: next(it), params)
 

@@ -30,32 +30,48 @@ segmentation (`aspp`) on one card.
     exponentially (bounded); a non-finite output is retried once on the
     same rung, then degrades (on the card, as above, only where it may).
 
+  * **Compile once.**  On the card each (bucket, rung) launch is one
+    CUDA graph (`serve/conv_graph.py`, the counterpart of `repro`'s
+    `jax.jit` per (bucket, backend)): its first launch runs the forward
+    eagerly and is served, the capture follows, and every later launch
+    -- a NaN retry too -- is a copy into the graph's input buffer, one
+    replay and one copy out.  `health()["captures"]` counts the
+    captures, `replay_launches` the kernel launches the replays made
+    (each capture's own count, once per replay; `ops.LAUNCHES` counts
+    only the eager launches and the captures).  A rung whose backend
+    does host-side work on every op that a replay would skip
+    (`ConvBackend.graphable` false, as `serve.faults.inject_backend`
+    makes it for its events) stays eager.  On the CPU
+    every launch is eager and no graph exists.
   * **Warmup.**  `warmup` resolves every bucket's launch plans from the
     shipped tile-cache artifact (`tiling.warmup_plans`: never an autotune
     sweep; a corrupt artifact warns and falls back to the analytical
     planner) and, with `compile`, builds the kernels and runs one dummy
-    batch through the primary rung.
+    batch through the primary rung (on the card: its eager launch and
+    its capture).
 
 Fault injection (`serve/faults.py`) hooks each attempt at site
-``f"{kind}:{backend}"``: launch-class events fire before the forward
-pass, output-class events poison the host result.  With no injector
-attached the fast path is the plain forward through the rung: no extra
-launch, no extra sync.
+``f"{kind}:{backend}"``, outside the graph as `repro`'s is outside
+`jit`: launch-class events fire before the forward pass (or replay),
+output-class events poison the host result.  With no injector attached
+the fast path is the forward through the rung: no extra launch, no
+extra sync.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from collections import deque
+from collections import Counter, deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.spec import may_degrade
+from repro_torch.core.spec import may_degrade, resolve_backend
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, tiling
 from repro_torch.models import gan, vision
+from repro_torch.serve.conv_graph import ConvGraph
 from repro_torch.serve.faults import OUTPUT_KINDS, FaultInjector
 
 DEFAULT_LADDER = ("cuda", "torch_zero_free", "reference")   # CPU engines
@@ -180,6 +196,9 @@ class ConvServeEngine:
 
         self._queue: deque = deque()
         self._buckets: Dict[tuple, _Bucket] = {}
+        # (bucket key, rung) -> its compiled launch on the card.
+        self.graphs: Dict[tuple, ConvGraph] = {}
+        self._pool = None     # the graphs' shared memory pool
         self._next_uid = 0
         self._latencies_us: List[float] = []
         self.stats: Dict[str, object] = {
@@ -226,23 +245,55 @@ class ConvServeEngine:
 
     def forward_fn(self, kind: str, backend: str):
         """The bucket's launch callable for `backend`: a batch tensor on
-        the engine's device in, the output batch out."""
+        the engine's device in, the output batch out.  It holds the
+        params, not the engine: a graph of it held by the engine makes no
+        reference cycle."""
+        fuse, rates = self.fuse_epilogue, self.rates
         if kind == "gan_gen":
+            params = self.gan_params
             return lambda batch: gan.generator_apply(
-                self.gan_params, batch, backend=backend,
-                fuse_epilogue=self.fuse_epilogue)
+                params, batch, backend=backend, fuse_epilogue=fuse)
         if kind == "aspp":
+            params = self.aspp_params
             return lambda batch: vision.atrous_head_apply(
-                self.aspp_params, batch, rates=self.rates, backend=backend,
-                fuse_epilogue=self.fuse_epilogue)
+                params, batch, rates=rates, backend=backend,
+                fuse_epilogue=fuse)
         raise ValueError(f"unknown request kind {kind!r}")
+
+    def graphed(self, backend: str) -> bool:
+        """Does `backend`'s rung launch through a CUDA graph?  On the card,
+        unless its backend does host-side work on every op that a replay
+        would skip (`ConvBackend.graphable`, false for `inject_backend`)."""
+        return self.device.type == "cuda" and \
+            resolve_backend(backend).graphable
 
     def _forward(self, bucket: _Bucket, backend: str,
                  batch: np.ndarray) -> np.ndarray:
+        if self.graphed(backend):
+            key = (bucket.key, backend)
+            graph = self.graphs.get(key)
+            if graph is None:
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                graph = self.graphs[key] = ConvGraph(
+                    self.forward_fn(bucket.kind, backend), batch.shape,
+                    self.device, self._pool)
+            return graph(batch)
         with torch.no_grad():
             out = self.forward_fn(bucket.kind, backend)(
                 torch.from_numpy(batch).to(self.device))
         return out.cpu().numpy()
+
+    @property
+    def captures(self) -> int:
+        """CUDA-graph captures of this engine's launches (0 on the CPU)."""
+        return sum(g.captures for g in self.graphs.values())
+
+    @property
+    def replay_launches(self) -> Counter:
+        """Kernel launches made by the graphs' replays, by kernel."""
+        return sum((g.replay_launches for g in self.graphs.values()),
+                   Counter())
 
     # -- warmup -----------------------------------------------------------
 
@@ -252,8 +303,9 @@ class ConvServeEngine:
         (`tile_cache_path`, default ECOFLOW_TILE_CACHE; never an autotune
         sweep, a corrupt artifact warns and falls back to the analytical
         planner) and, with `compile`, build the CUDA kernels (all sources
-        at once) and run one dummy batch through the primary rung.
-        `shapes` lists ``(kind, payload_shape)`` pairs."""
+        at once) and run one dummy batch through the primary rung (on the
+        card its first launch: eager, then captured).  `shapes` lists
+        ``(kind, payload_shape)`` pairs."""
         entries = []
         for kind, payload_shape in shapes:
             bucket = self._bucket(kind, tuple(payload_shape))
@@ -443,13 +495,14 @@ class ConvServeEngine:
     # -- health -----------------------------------------------------------
 
     def health(self) -> dict:
-        """Stats snapshot plus latency percentiles, breaker states and
-        each breaker's transitions."""
+        """Stats snapshot plus latency percentiles, breaker states, each
+        breaker's transitions and the CUDA-graph captures."""
         lat = np.asarray(self._latencies_us, np.float64)
         out = dict(self.stats)
         out["p50_us"] = float(np.percentile(lat, 50)) if lat.size else None
         out["p99_us"] = float(np.percentile(lat, 99)) if lat.size else None
         out["queue_depth"] = len(self._queue)
+        out["captures"] = self.captures
         out["breakers"] = {
             f"{k[0]}:{name}": br.state
             for k, b in self._buckets.items()

@@ -43,9 +43,11 @@ raises: there is no eager fallback on the card.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.device import eager_then_capture
 from repro_torch.kernels.attention import SPLIT_TILE
 
 
@@ -93,7 +95,7 @@ class DecodeGraph:
         self.graphs = {}
         self.captures = 0
         self.launches = {}           # extent -> a capture's launches
-        self.replay_launches = {}    # kernel -> launches replayed
+        self.replay_launches = Counter()   # kernel -> launches replayed
 
     def load(self, cache) -> None:
         """Copy a prefill's cache (its "len" a Python int) into the cache
@@ -129,9 +131,7 @@ class DecodeGraph:
             self._capture(extent)
         else:
             graph.replay()
-            for name, n in self.launches[extent].items():
-                self.replay_launches[name] = \
-                    self.replay_launches.get(name, 0) + n
+            self.replay_launches.update(self.launches[extent])
         self.host_len += 1
         return self.logits, self.next
 
@@ -144,17 +144,8 @@ class DecodeGraph:
     def _capture(self, extent: int) -> None:
         """The bucket's first step, run eagerly on the capture stream,
         then its capture (which records and runs nothing)."""
-        caller = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(caller)
-        with torch.cuda.stream(self.stream):
-            self._step(extent)
-        caller.wait_stream(self.stream)
-        graph = torch.cuda.CUDAGraph()
-        before = dict(ops.LAUNCHES)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            self._step(extent)
-        self.launches[extent] = {
-            k: n - before.get(k, 0) for k, n in ops.LAUNCHES.items()
-            if n != before.get(k, 0)}
+        _, graph, _, launches = eager_then_capture(
+            lambda: self._step(extent), self.stream, self.pool)
+        self.launches[extent] = launches
         self.graphs[extent] = graph
         self.captures += 1

@@ -243,7 +243,8 @@ def inject_backend(base, injector: FaultInjector, *, prefix=None):
     name) for the nine ops.  Launch-class events fire before the base op
     runs, so an injected exception launches nothing; output-class events
     poison every tensor the op returns (`poison_tensor`).  The name is
-    `<base>@inject`."""
+    `<base>@inject`; it is not `graphable`: a replay would skip its
+    events."""
     from repro_torch.core.spec import backend_of_ops, resolve_backend
 
     be = resolve_backend(base)
@@ -260,7 +261,7 @@ def inject_backend(base, injector: FaultInjector, *, prefix=None):
             return poison_tensor(ev, out)
         return op
 
-    return backend_of_ops(f"{be.name}@inject", injected)
+    return backend_of_ops(f"{be.name}@inject", injected, graphable=False)
 
 
 def corrupt_tile_cache(path, mode: str = "truncate", seed: int = 0) -> None:

@@ -7,13 +7,27 @@ deterministic data skip-ahead and a failure hook for tests (port of
     data; a `Prefetcher` thread draws them ahead, and its `put` hook moves
     each to pinned memory and copies it to the card with
     `non_blocking=True`.
-  * the step:    `launch/steps.py::make_train_step` (AdamW), run eagerly:
-    its gradients come from autograd through the hand-written attention
-    kernels, forward and backward.  (Its capture as one CUDA graph, as
-    `ConvTrainer`'s is, is ROADMAP A.17.)
+  * the step:    `launch/steps.py::make_train_step` (AdamW): its
+    gradients come from autograd through the hand-written attention
+    kernels, forward and backward.  On a CUDA device with no mesh it runs
+    as one CUDA graph per run (`train/step_graph.py`, the counterpart of
+    `repro`'s `jax.jit` of the step with both trees donated): the state
+    lives in fixed buffers, each batch is copied into the graph's batch
+    buffers on the step's stream, and the step ends with one
+    multi-tensor copy of the new state into the state buffers inside the
+    graph (`committing_step`), so the graph needs no more memory than the
+    eager step.  The first step runs eagerly on the graph's stream and is
+    the real, committed step; the second captures the graph and replays
+    it, and every later step is a replay.  A capture that fails raises.
+    On the CPU and on a mesh the step runs eagerly (`gloo`'s collectives
+    cannot be captured).
   * checkpoints: `train/checkpoint.py`, `repro`'s on-disk format, so each
     package resumes the other's runs; `{"params", "opt"}` trees.
-  * the loss is read to the host only at log steps, as `repro` does.
+  * the loss is read to the host only at log steps, as `repro` does;
+    under the graph it is read from the graph's output before the next
+    replay.  A checkpoint copies the state buffers to the host before it
+    returns, and the trees `run` returns are the buffers, which the
+    graph hands over (`StepGraph.release`): no later replay writes them.
 
 `device=None` means the card.  With a `mesh` (a `DeviceMesh` of
 `launch/mesh.py` or `fault_tolerance.elastic_mesh`; every family)
@@ -45,12 +59,30 @@ from repro_torch.data.pipeline import Prefetcher, TokenDataset
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import effective_microbatches, make_train_step
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.lm import LM
 from repro_torch.optim.optimizer import AdamWConfig, adamw_init
 from repro_torch.parallel import sharding as sh
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import StepGuard
+from repro_torch.train.step_graph import StepGraph
+
+BATCH_KEYS = ("inputs", "labels")
+
+
+def committing_step(step_fn):
+    """`step(state, data) -> metrics`: the LM's `step_fn(params, opt,
+    batch)` as its graph runs it, on the state buffers `state`
+    ({"params", "opt"}) and the batch buffers `data` (BATCH_KEYS' order),
+    ending with one multi-tensor copy of the new state into `state`'s
+    tensors: `repro`'s donation of both trees, inside the graph."""
+    def step(state, data):
+        params, opt, metrics = step_fn(state["params"], state["opt"],
+                                       dict(zip(BATCH_KEYS, data)))
+        torch._foreach_copy_(tree_leaves(state),
+                             tree_leaves({"params": params, "opt": opt}))
+        return metrics
+    return step
 
 
 @dataclasses.dataclass
@@ -91,6 +123,16 @@ class Trainer:
             self.o_sh = sh.tree_shardings(like["opt"], mesh)
         self.guard = StepGuard(step_timeout_s=self.tcfg.step_timeout_s)
         self.step_fn = make_train_step(cfg, self.opt_cfg, self.n_micro)
+        # The compiled step on the card: captured at each run's second step.
+        self.graph = (StepGraph(committing_step(self.step_fn), self.device,
+                                lr=False, eager_first=True)
+                      if self.device.type == "cuda" and mesh is None
+                      else None)
+
+    @property
+    def captures(self) -> int:
+        """CUDA-graph captures of this trainer's step (0 on the CPU)."""
+        return 0 if self.graph is None else self.graph.captures
 
     # -- state ---------------------------------------------------------------
     def init_state(self):
@@ -186,14 +228,23 @@ class Trainer:
         `fail_at_step` raises after that step completes -- used by the
         fault-tolerance tests to simulate a node failure."""
         params, opt, start = self.maybe_restore()
+        graph = self.graph
+        if graph is not None:
+            graph.load({"params": params, "opt": opt})
+            params, opt = graph.state["params"], graph.state["opt"]
         history = []
         batches = Prefetcher(self.dataset, start_step=start, put=self._put)
         try:
             for step in range(start, self.tcfg.total_steps):
                 batch = self._take(batches)   # deterministic skip-ahead
                 self.guard.start_step()
-                with sh.use_mesh(self.mesh):
-                    params, opt, metrics = self.step_fn(params, opt, batch)
+                if graph is not None:
+                    graph.put([batch[k] for k in BATCH_KEYS])
+                    metrics = graph.run()
+                else:
+                    with sh.use_mesh(self.mesh):
+                        params, opt, metrics = self.step_fn(params, opt,
+                                                            batch)
                 if self.guard.straggled():
                     # Straggler watchdog: surface, checkpoint, continue.
                     self.save(step + 1, params, opt, blocking=True)
@@ -215,4 +266,6 @@ class Trainer:
             self.save(self.tcfg.total_steps, params, opt, blocking=True)
         if self._ckptr:
             self._ckptr.wait()
+        if graph is not None:   # the buffers are the caller's from here
+            graph.release()
         return {"params": params, "opt": opt, "history": history}
